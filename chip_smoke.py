@@ -5,17 +5,33 @@
 
 Phases, each fatal on failure (exit code 1, no result line):
 
-1. the card's name and power limit, and the kernels of the main path;
-2. build ``csrc/knn_tiled.cu`` with nvcc into ``build/``;
+1. the card's name and power limit, and the kernels of the main paths;
+2. build ``csrc/knn_tiled.cu`` and ``csrc/knn_bf.cu`` with nvcc into
+   ``build/``, both compilers started together;
 3. the traversal kernel against its plain PyTorch version on the card,
    bit for bit (d2, ids and visit counts), on ~32K seeded uniform and
    clustered points: k in {1, 8, 100, 200}, a finite ``-r``, ``skip_self``
    with point group 2, and buckets wider than one staged tile;
+3b. the brute-force kernel against its plain version, bit for bit (d2 and
+   ids), on ~32K seeded points: uniform and clustered, k in {1, 8, 100,
+   200}, a finite ``-r``, sentinel-padded points and queries, ids with an
+   offset, two incremental calls against one, a point count that is not a
+   multiple of the staged tile, and other tiles giving the same bits;
 4. the main path through the CLI: 1,000,000 seeded uniform points at
    k=100 and at k=8, each with ``--selfcheck 1000 --timings``;
 5. the same k=8 run over 4 virtual shards, byte-equal to the 1-shard file;
-6. the kernel's time at the main path's shapes (the one fold of a 1-shard
-   run) against its plain version and its bound.
+6. the traversal kernel's time at the main path's shapes (the one fold of
+   a 1-shard run) against its plain version and its bound;
+7. the flat engine through the unordered CLI (``--engine pallas -k 8``),
+   byte-equal to phase 4's k=8 file;
+8. the pre-partitioned pipeline: phase 4's file cut into 4 Morton parts,
+   then ``prepartitioned_main`` with ``--engine auto -k 8``, ``--engine
+   pallas -k 8`` and ``--engine auto -k 100``: the two k=8 runs byte-equal
+   to each other and to the unordered CLI on the joined parts; then 1M
+   clustered points in 8 parts (where the early exit prunes);
+9. the brute-force kernel's time at the flat path's shape (1M x 1M, k=8
+   and k=100) against its bound, and its plain version's on the first
+   16,384 queries.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -29,6 +45,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -41,6 +58,10 @@ PEAK_F32 = 67e12
 OPS_PER_PAIR = 9   # 3 sub, 3 mul, 2 add, 1 compare
 SOURCE = "mpi_cuda_largescaleknn_torch/csrc/knn_tiled.cu"
 REPLACES = "mpi_cuda_largescaleknn_tpu/ops/pallas/knn_tiled.py:54"
+BF_SOURCE = "mpi_cuda_largescaleknn_torch/csrc/knn_bf.cu"
+BF_REPLACES = "mpi_cuda_largescaleknn_tpu/ops/pallas/knn_bf.py:173"
+KERNELS = ("knn_tiled", "knn_bf")
+PLAIN_QUERIES = 16_384  # the brute-force plain version's reduced shape
 
 
 def fail(msg: str) -> None:
@@ -109,46 +130,139 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
     return err
 
 
-def run_cli(args, timeout=900):
+def run_cli(args, timeout=900, module="unordered_main"):
     """One CLI run in a fresh process; returns (timings dict, stdout)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    cmd = [sys.executable, "-m", "mpi_cuda_largescaleknn_torch.cli."
-           "unordered_main", *args, "--timings"]
+    cmd = [sys.executable, "-m", f"mpi_cuda_largescaleknn_torch.cli.{module}",
+           *args, "--timings"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=timeout, check=False)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        fail(f"CLI {' '.join(args)} exited {proc.returncode}:\n"
+        fail(f"CLI {module} {' '.join(args)} exited {proc.returncode}:\n"
              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     timings = json.loads(proc.stderr.strip().splitlines()[-1])
     timings["process_seconds"] = wall
     return timings, proc.stdout
 
 
-def main_path_run(label, pts_path, out_path, k, shards, n):
+def report_run(label, t, kernel_key):
+    """Print a CLI run's timings: run time, launches, memory and every
+    timed stage in the order it ran."""
+    say(f"  {label}: run {t['run_seconds']:.3f} s, "
+        f"{t['queries_per_second']:.0f} queries/s, knn_tiled launches "
+        f"{t['knn_tiled_launches']}, knn_bf launches {t['knn_bf_launches']}, "
+        f"peak device memory {t['peak_device_bytes'] / 2**20:.1f} MiB, "
+        f"process {t['process_seconds']:.1f} s, selfcheck OK")
+    say("    stages: " + ", ".join(
+        f"{name} {v['seconds']:.4f} s" for name, v in t.items()
+        if isinstance(v, dict) and "seconds" in v))
+    if t[kernel_key] < 1:
+        fail(f"{label}: {kernel_key} is 0: the kernel was never launched")
+
+
+def main_path_run(label, pts_path, out_path, k, shards, n, engine="auto"):
     import numpy as np
 
     t, out = run_cli([str(pts_path), "-o", str(out_path), "-k", str(k),
-                      "--shards", str(shards), "--selfcheck", "1000"])
+                      "--shards", str(shards), "--engine", engine,
+                      "--selfcheck", "1000"])
     if "selfcheck OK (1000 samples)" not in out:
         fail(f"{label}: no selfcheck line in\n{out}")
-    if t["knn_tiled_launches"] < 1:
-        fail(f"{label}: the traversal kernel was never launched")
     d = np.fromfile(out_path, dtype=np.float32)
     if d.shape != (n,) or not np.all(np.isfinite(d)) or np.any(d <= 0):
         fail(f"{label}: output has shape {d.shape} or non-finite/zero values")
-    say(f"  {label}: run {t['run_seconds']:.3f} s, "
-        f"{t['queries_per_second']:.0f} queries/s, knn_tiled launches "
-        f"{t['knn_tiled_launches']}, peak device memory "
-        f"{t['peak_device_bytes'] / 2**20:.1f} MiB, pair_evals "
-        f"{t['pair_evals']}, process {t['process_seconds']:.1f} s, "
-        f"selfcheck OK")
-    say("    stages: " + ", ".join(
-        f"{name} {t[name]['seconds']:.4f} s" for name in
-        ("shard_and_pad", "partition", "warm_start", "traverse", "extract",
-         "trim")))
+    report_run(label, t, "knn_bf_launches" if engine == "pallas"
+               else "knn_tiled_launches")
+    say(f"    pair_evals {t['pair_evals']}")
     return t
+
+
+def prepartitioned_run(label, list_path, prefix, k, engine, num_parts):
+    """``prepartitioned_main`` over the parts of ``list_path``; returns
+    (timings, the rank files' bytes joined in rank order)."""
+    import numpy as np
+
+    t, out = run_cli([str(list_path), "-o", str(prefix), "-k", str(k),
+                      "--engine", engine, "--selfcheck", "1000"],
+                     module="prepartitioned_main")
+    if "selfcheck OK (1000 samples)" not in out:
+        fail(f"{label}: no selfcheck line in\n{out}")
+    files = [Path(f"{prefix}_{r:06d}.float") for r in range(num_parts)]
+    joined = b"".join(f.read_bytes() for f in files)
+    d = np.frombuffer(joined, dtype=np.float32)
+    if not np.all(np.isfinite(d)) or np.any(d <= 0):
+        fail(f"{label}: output has non-finite/zero values")
+    if not 1 <= t["rounds"] <= num_parts // 2 + 1:
+        fail(f"{label}: {t['rounds']} rounds, not in 1..{num_parts // 2 + 1}")
+    report_run(label, t, "knn_bf_launches" if engine == "pallas"
+               else "knn_tiled_launches")
+    say(f"    rounds {t['rounds']}, kernels_run {t['kernels_run']}, "
+        f"rotations_run {t['rotations_run']}")
+    return t, joined
+
+
+def partition_file(pts_path, num_parts, prefix):
+    """The port's partition tool on ``pts_path``; returns the list file."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpi_cuda_largescaleknn_torch.cli."
+         "partition_main", str(pts_path), "-n", str(num_parts), "-o",
+         str(prefix)], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300, check=False)
+    if proc.returncode != 0:
+        fail(f"partition_main exited {proc.returncode}:\n{proc.stderr}")
+    say("  " + " ".join(line.split(" ->")[0] for line in
+                        proc.stdout.splitlines() if line.startswith("#")))
+    return Path(f"{prefix}.txt")
+
+
+def compare_bf_case(name, q_np, p_np, k, *, radius=float("inf"), id_base=0,
+                    split=None, tiles=(2048, 2048)):
+    """Brute-force kernel vs its plain version on the card for one input;
+    returns the max abs difference of the finite d2 entries (0.0 when
+    bitwise equal). ``split`` folds the points in two calls; ``tiles`` are
+    the kernel's (query_tile, point_tile); the plain version keeps its
+    defaults, so a pass also shows the tiles do not change the result."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.core.types import PAD_SENTINEL
+    from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
+    from mpi_cuda_largescaleknn_torch.ops.knn_bf import (
+        knn_update_bf_cuda,
+        knn_update_bf_plain,
+        launch_geometry,
+    )
+
+    q = torch.from_numpy(q_np).cuda()
+    p = torch.from_numpy(p_np).cuda()
+    ids = torch.arange(id_base, id_base + len(p), dtype=torch.int32,
+                       device=p.device)
+    ids = torch.where(p[:, 0] < PAD_SENTINEL / 2, ids, -1)
+    state = init_candidates(len(q), k, radius, device=q.device)
+    want = knn_update_bf_plain(state, q, p, ids)
+    qt, pt = tiles
+    if split is None:
+        got = knn_update_bf_cuda(state, q, p, ids, query_tile=qt,
+                                 point_tile=pt)
+    else:
+        got = knn_update_bf_cuda(state, q, p[:split], ids[:split],
+                                 query_tile=qt, point_tile=pt)
+        got = knn_update_bf_cuda(got, q, p[split:], ids[split:],
+                                 query_tile=qt, point_tile=pt)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want.dist2) & torch.isfinite(got.dist2)
+    err = float((got.dist2[fin] - want.dist2[fin]).abs().max()) \
+        if bool(fin.any()) else 0.0
+    ok = torch.equal(got.dist2, want.dist2) and torch.equal(got.idx, want.idx)
+    rows, lanes = launch_geometry(qt, pt, k)
+    say(f"  {name}: Q={len(q)} N={len(p)} k={k} rows/block={rows} "
+        f"lanes/tile={lanes} max_abs_err={err} "
+        f"{'bit-equal' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"knn_bf disagrees with its plain version in case {name}")
+    return err
 
 
 def time_kernel(k, pts, reps=5):
@@ -222,6 +336,73 @@ def time_kernel(k, pts, reps=5):
             "Bq": bq, "S": s, "Bp": bp, "T": t}
 
 
+def time_bf_kernel(k, pts, reps=3):
+    """The flat path's one fold at 1M points (R=1: every query against
+    every point): kernel time by CUDA events over ``reps`` launches on
+    fresh rows, the plain version's time on the first PLAIN_QUERIES
+    queries (all the points; it cannot run all 10^12 pairs in time), the
+    rows of both compared, and the bound."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.core.types import CandidateState
+    from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
+    from mpi_cuda_largescaleknn_torch.ops.knn_bf import (
+        knn_update_bf_plain,
+        launch_geometry,
+        launch_knn_bf,
+    )
+
+    n = pts.shape[0]
+    ids = torch.arange(n, dtype=torch.int32, device=pts.device)
+    init = init_candidates(n, k, device=pts.device)
+    # no warm-up launch: phase 3b has loaded the kernel, and one launch
+    # here takes 0.5-4 s
+    rows = CandidateState(init.dist2.clone(), init.idx.clone())
+    total_ms = 0.0
+    for _ in range(reps):
+        rows.dist2.copy_(init.dist2)
+        rows.idx.copy_(init.idx)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch_knn_bf(pts, pts, ids, rows)
+        end.record()
+        end.synchronize()
+        total_ms += start.elapsed_time(end)
+    ms = total_ms / reps
+    nq = PLAIN_QUERIES
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = knn_update_bf_plain(
+        CandidateState(init.dist2[:nq], init.idx[:nq]), pts[:nq], pts, ids)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    if not (torch.equal(plain.dist2, rows.dist2[:nq])
+            and torch.equal(plain.idx, rows.idx[:nq])):
+        fail(f"knn_bf k={k}: kernel and plain differ at the flat shape")
+    fin = torch.isfinite(plain.dist2)
+    err = float((plain.dist2[fin] - rows.dist2[:nq][fin]).abs().max())
+
+    threads, lanes = launch_geometry(2048, 2048, k)
+    blocks = -(-n // threads)
+    pairs = n * n
+    ops = pairs * OPS_PER_PAIR
+    nbytes = (blocks * n * 16             # the staged point set per block
+              + n * 12                    # query coordinates
+              + 2 * n * k * 8)            # candidate rows in and out
+    bound_ops_ms = ops / PEAK_F32 * 1e3
+    bound_bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return {"k": k, "ms": ms, "plain_ms": plain_ms,
+            "plain_shape": f"{nq} queries x {n} points", "max_abs_err": err,
+            "pairs": pairs, "ops": ops, "bytes": nbytes,
+            "bound_ms": max(bound_ops_ms, bound_bytes_ms),
+            "bound_by": ("operations" if bound_ops_ms >= bound_bytes_ms
+                         else "bytes"),
+            "rows_per_block": threads, "lanes": lanes}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -244,7 +425,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=False).stdout.strip()
     say(smi)
-    say(json.dumps({"kernels": ["knn_tiled"]}))
+    say(json.dumps({"kernels": list(KERNELS)}))
     details["nvidia_smi"] = smi
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
@@ -252,12 +433,17 @@ def main() -> int:
     # -- phase 2 ------------------------------------------------------------
     say("[phase 2] build")
     t0 = time.perf_counter()
-    lib, log, secs = build_library("knn_tiled")
-    say(f"  built {lib.name} in {secs:.1f} s (wall {time.perf_counter() - t0:.1f} s)")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            say(f"  ptxas: {line.strip()}")
-    details["build_seconds"] = secs
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(build_library, KERNELS))
+    say(f"  wall {time.perf_counter() - t0:.1f} s")
+    details["build_seconds"] = {}
+    for name, (lib, log, secs) in zip(KERNELS, built):
+        say(f"  built {lib.name} in {secs:.1f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                say(f"  ptxas: {line.strip()}")
+        details["build_seconds"][name] = secs
 
     # -- phase 3 ------------------------------------------------------------
     say("[phase 3] kernel vs plain on the card, bit for bit")
@@ -277,6 +463,35 @@ def main() -> int:
                      bucket_size=1024),
     ]
     details["phase3_max_abs_err"] = max(errs)
+
+    # -- phase 3b -----------------------------------------------------------
+    say("[phase 3b] brute-force kernel vs plain on the card, bit for bit")
+    from mpi_cuda_largescaleknn_torch.core.types import PAD_SENTINEL
+
+    padded = np.concatenate([uni, np.full((1000, 3), PAD_SENTINEL,
+                                          np.float32)])
+    odd = seeded_points("uniform", 32_777, SEED + 3)
+    bf_errs = [
+        compare_bf_case("uniform k=1", uni, uni, 1),
+        compare_bf_case("uniform k=8", uni, uni, 8),
+        compare_bf_case("uniform k=100", uni, uni, 100),
+        compare_bf_case("uniform k=200", uni, uni, 200),
+        compare_bf_case("uniform k=8 -r 0.02", uni, uni, 8, radius=0.02),
+        compare_bf_case("clustered k=8", clu, clu, 8),
+        compare_bf_case("clustered k=100 -r 1.5", clu, clu, 100,
+                        radius=1.5),
+        compare_bf_case("uniform k=8, 1000 sentinel points and queries",
+                        padded, padded, 8),
+        compare_bf_case("uniform k=8 ids from 1,000,000", uni, uni, 8,
+                        id_base=1_000_000),
+        compare_bf_case("uniform k=8 in two calls (12,345 + rest)", uni, uni,
+                        8, split=12_345),
+        compare_bf_case("uniform k=8 N=32,777 (partial staged tile)", odd,
+                        odd, 8),
+        compare_bf_case("uniform k=100 query_tile=96 point_tile=300", uni,
+                        uni, 100, tiles=(96, 300)),
+    ]
+    details["phase3b_max_abs_err"] = max(bf_errs)
 
     # -- phase 4 ------------------------------------------------------------
     say(f"[phase 4] main path: {N_MAIN} uniform points through the CLI")
@@ -311,18 +526,90 @@ def main() -> int:
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
             f"({r['bound_by']}), max_abs_err {r['max_abs_err']}")
     details["kernel_timing"] = timed
+    del pts
 
-    launches = sum(r["knn_tiled_launches"] for r in runs.values())
-    head = timed[8]
+    # -- phase 7 ------------------------------------------------------------
+    say("[phase 7] the flat engine through the unordered CLI")
+    runs["pallas_k8"] = main_path_run("--engine pallas k=8 R=1", pts_path,
+                                      WORK / "pallas_k8.float", 8, 1, N_MAIN,
+                                      engine="pallas")
+    if (WORK / "pallas_k8.float").read_bytes() != \
+            (WORK / "k8.float").read_bytes():
+        fail("--engine pallas distances differ from --engine auto")
+    say("  --engine pallas output is byte-equal to --engine auto")
+
+    # -- phase 8 ------------------------------------------------------------
+    say("[phase 8] the pre-partitioned pipeline")
+    parts = WORK / "parts"
+    parts.mkdir(exist_ok=True)
+    lst = partition_file(pts_path, 4, parts / "u4")
+    pre = {}
+    pre["auto_k8"], auto8 = prepartitioned_run(
+        "R=4 --engine auto k=8", lst, parts / "auto_k8", 8, "auto", 4)
+    pre["pallas_k8"], pallas8 = prepartitioned_run(
+        "R=4 --engine pallas k=8", lst, parts / "pallas_k8", 8, "pallas", 4)
+    pre["auto_k100"], _ = prepartitioned_run(
+        "R=4 --engine auto k=100", lst, parts / "auto_k100", 100, "auto", 4)
+    if auto8 != pallas8:
+        fail("pre-partitioned k=8: --engine pallas differs from auto")
+    joined = parts / "u4_joined.float3"
+    joined.write_bytes(b"".join(
+        Path(f).read_bytes() for f in lst.read_text().split()))
+    pre["unordered_joined_k8"] = main_path_run(
+        "unordered CLI on the joined parts, k=8", joined,
+        parts / "joined_k8.float", 8, 1, N_MAIN)
+    if (parts / "joined_k8.float").read_bytes() != auto8:
+        fail("pre-partitioned rank files differ from the unordered CLI "
+             "on the joined parts")
+    say("  k=8 rank files: auto == pallas == unordered CLI on the joined "
+        "parts, byte for byte")
+    clu_path = WORK / "clustered.float3"
+    seeded_points("clustered", N_MAIN, SEED + 4).tofile(clu_path)
+    lst8 = partition_file(clu_path, 8, parts / "c8")
+    pre["clustered_auto_k8"], _ = prepartitioned_run(
+        "clustered R=8 --engine auto k=8", lst8, parts / "c8_k8", 8, "auto",
+        8)
+    details["prepartitioned"] = pre
+
+    # -- phase 9 ------------------------------------------------------------
+    say("[phase 9] brute-force kernel time at the flat path's shape")
+    pts = torch.from_numpy(pts_np).cuda()
+    bf_timed = {}
+    for k in (8, 100):
+        r = time_bf_kernel(k, pts)
+        bf_timed[k] = r
+        say(f"  k={k}: {N_MAIN} x {N_MAIN} rows/block={r['rows_per_block']} "
+            f"lanes={r['lanes']} kernel {r['ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.3f} ms on {r['plain_shape']}, max_abs_err "
+            f"{r['max_abs_err']}")
+    details["bf_kernel_timing"] = bf_timed
+
+    main_runs = list(runs.values()) + list(pre.values())
+    head, bf_head = timed[8], bf_timed[8]
     kernels = {"kernels": [{
         "name": "knn_tiled", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
+        "replaces": REPLACES,
+        "launches": sum(r["knn_tiled_launches"] for r in main_runs),
         "max_abs_err": max(details["phase3_max_abs_err"],
                            timed[8]["max_abs_err"],
                            timed[100]["max_abs_err"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None}, {
+        "name": "knn_bf", "route": "cuda", "source": BF_SOURCE,
+        "replaces": BF_REPLACES,
+        "launches": sum(r["knn_bf_launches"] for r in main_runs),
+        "max_abs_err": max(details["phase3b_max_abs_err"],
+                           bf_timed[8]["max_abs_err"],
+                           bf_timed[100]["max_abs_err"]),
+        "ms": bf_head["ms"], "plain_ms": bf_head["plain_ms"],
+        "bound_ms": bf_head["bound_ms"], "bound_by": bf_head["bound_by"],
         "library_ms": None}]}
+    for kern in kernels["kernels"]:
+        if kern["launches"] < 1 or kern["max_abs_err"] != 0.0:
+            fail(f"{kern['name']}: {kern['launches']} launches on the main "
+                 f"paths, max_abs_err {kern['max_abs_err']}")
     details["kernels"] = kernels
     details["seconds"] = time.perf_counter() - t_start
     (WORK / "chip_smoke.json").write_text(json.dumps(details, indent=1))

@@ -6,8 +6,13 @@ neighbor, by the unordered pipeline of the reference MPI+CUDA system
 (``cudaMpiKNN_unorderedData pts.float3 -o out.float -k K``): slab split,
 median-split bucketing, a warm start of each query's own bucket, then per
 ring round the nearest-first traversal kernel (``csrc/knn_tiled.cu``),
-then extraction in global point order. The JAX package stays the
-reference; this package imports neither it nor JAX.
+then extraction in global point order; ``engine="pallas"`` folds whole
+shards with the flat brute-force kernel (``csrc/knn_bf.cu``) instead. The
+pre-partitioned pipeline (``cudaMpiKNN_prePartitionedData``) is
+``models/prepartitioned.py`` over the bounds-pruned early-exit ring
+``parallel/demand.py``, with ``cli/partition_main.py`` to cut a file into
+spatially coherent parts. The JAX package stays the reference; this
+package imports neither it nor JAX.
 
 Entry points run on the card unless the caller passes ``device="cpu"``,
 which runs the kernels' plain PyTorch versions.

@@ -18,8 +18,14 @@ PORT_FLAGS = """
 Port options (no reference analogue):
   --device D        cuda (default) | cpu (the kernels' plain PyTorch
                     versions; for tests and small inputs)
-  --shards N        virtual ring shards on the one card (default 1)
-  --engine E        auto | pallas_tiled (the nearest-first traversal)
+  --shards N        virtual shards on the one card (default 1; the
+                    pre-partitioned CLI: one per listed file)
+  --engine E        auto | pallas_tiled (the nearest-first traversal) |
+                    pallas (the flat brute force)
+  --query-tile N    flat engine: queries per tile, the kernel's rows per
+                    block (default 2048, clamped; results do not change)
+  --point-tile N    flat engine: points per tile, the kernel's staged
+                    lanes (default 2048, clamped; results do not change)
   --bucket-size N   points per spatial bucket (default auto: 256)
   --point-group N   coarsen the resident point side by this power-of-two
                     factor (default auto: 2; 1 disables)
@@ -33,8 +39,6 @@ Port options (no reference analogue):
 
 # JAX-package flags not ported yet: flag -> (takes a value, ROADMAP item)
 _NOT_PORTED = {
-    "--query-tile": (True, "Queue 1, the tiled twin and flat engines"),
-    "--point-tile": (True, "Queue 1, the tiled twin and flat engines"),
     "--query-chunk": (True, "Queue 1, ring_knn_chunked / ring_knn_stepwise"),
     "--merge": (True, "Queue 1, ring_knn_chunked / ring_knn_stepwise"),
     "--checkpoint-dir": (True,
@@ -56,13 +60,16 @@ def usage(program: str, error: str) -> "NoReturn":  # noqa: F821
 
 
 def parse_args(program: str, argv: list[str]):
-    """Returns (config, in_path, out_path, extras dict)."""
+    """Returns (config, in_path, out_path, extras dict). Without
+    ``--shards`` the config's ``num_shards`` is 0: one shard for the
+    unordered pipeline, one per file for the pre-partitioned one."""
     k = 0
     max_radius = math.inf
     affinity = 0
     in_path = ""
     out_path = ""
-    extras = {"device": None, "shards": 1, "engine": "auto", "bucket_size": 0,
+    extras = {"device": None, "shards": None, "engine": "auto",
+              "query_tile": 2048, "point_tile": 2048, "bucket_size": 0,
               "point_group": 0, "score_dtype": "f32", "timings": False,
               "selfcheck": 0, "write_indices": None}
     i = 0
@@ -85,6 +92,10 @@ def parse_args(program: str, argv: list[str]):
                 i += 1; extras["shards"] = int(argv[i])
             elif arg == "--engine":
                 i += 1; extras["engine"] = argv[i]
+            elif arg == "--query-tile":
+                i += 1; extras["query_tile"] = int(argv[i])
+            elif arg == "--point-tile":
+                i += 1; extras["point_tile"] = int(argv[i])
             elif arg == "--bucket-size":
                 i += 1; extras["bucket_size"] = int(argv[i])
             elif arg == "--point-group":
@@ -114,8 +125,10 @@ def parse_args(program: str, argv: list[str]):
 
     cfg = KnnConfig(k=k, max_radius=max_radius, device_affinity=affinity,
                     device=extras["device"], engine=extras["engine"],
+                    query_tile=extras["query_tile"],
+                    point_tile=extras["point_tile"],
                     bucket_size=extras["bucket_size"],
                     point_group=extras["point_group"],
-                    num_shards=extras["shards"],
+                    num_shards=extras["shards"] or 0,
                     score_dtype=extras["score_dtype"])
     return cfg, in_path, out_path, extras

@@ -5,8 +5,9 @@
 
 Byte-compatible ``.float3`` in / ``.float`` out, output in global point
 order. ``--timings`` writes one JSON object to stderr: the phase times,
-queries/s over the ring, the traversal kernel's launch count and the peak
-device memory.
+queries/s over the ring, the kernels' launch counts and the peak device
+memory. ``--engine pallas`` folds whole shards with the flat brute-force
+kernel instead of the traversal.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from mpi_cuda_largescaleknn_torch.io.writer import (
     write_indices,
 )
 from mpi_cuda_largescaleknn_torch.models.unordered import UnorderedKNN
+from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
 from mpi_cuda_largescaleknn_torch.ops.knn_tiled import knn_update_tiled_cuda
 
 
@@ -41,7 +43,7 @@ def main(argv: list[str] | None = None) -> int:
         # set-up outside the timed run: the CUDA context starts here
         torch.zeros(1, device=model.device)
         torch.cuda.reset_peak_memory_stats(model.device)
-    launches0 = knn_update_tiled_cuda.launches
+    launches0 = knn_update_tiled_cuda.launches, knn_update_bf_cuda.launches
     t0 = time.perf_counter()
     got = model.run(points, return_neighbors=want_idx)
     wall = time.perf_counter() - t0
@@ -63,7 +65,9 @@ def main(argv: list[str] | None = None) -> int:
             "device": str(model.device),
             "run_seconds": wall,
             "queries_per_second": n_total / wall if wall else 0.0,
-            "knn_tiled_launches": knn_update_tiled_cuda.launches - launches0,
+            "knn_tiled_launches": knn_update_tiled_cuda.launches
+            - launches0[0],
+            "knn_bf_launches": knn_update_bf_cuda.launches - launches0[1],
             "peak_device_bytes": (torch.cuda.max_memory_allocated(model.device)
                                   if model.device.type == "cuda" else 0),
             **(model.last_stats or {})})

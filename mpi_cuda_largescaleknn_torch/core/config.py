@@ -15,8 +15,9 @@ import math
 import torch
 
 #: engines the port runs: ``auto`` resolves to ``pallas_tiled``, the
-#: nearest-first traversal whose kernel is ``csrc/knn_tiled.cu``
-ENGINES = ("auto", "pallas_tiled")
+#: nearest-first traversal whose kernel is ``csrc/knn_tiled.cu``;
+#: ``pallas`` is the flat brute force of ``csrc/knn_bf.cu``
+ENGINES = ("auto", "pallas_tiled", "pallas")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -46,12 +47,17 @@ class KnnConfig:
     # --- port knobs --------------------------------------------------------
     device: str | None = None        # None = "cuda"; "cpu" runs the plain
                                      # PyTorch versions of the kernels
-    engine: str = "auto"             # "auto" = "pallas_tiled"
+    engine: str = "auto"             # "auto" = "pallas_tiled"; or "pallas"
+    query_tile: int = 2048           # flat engine: queries per tile (the
+                                     # kernel's rows per block, clamped)
+    point_tile: int = 2048           # flat engine: points per tile (the
+                                     # kernel's staged lanes, clamped)
     bucket_size: int = 0             # points per spatial bucket; 0 = auto
                                      # (parallel/ring.py resolve_bucket_size)
     point_group: int = 0             # coarsen the resident point side by
                                      # this power-of-two factor; 0 = auto (2)
-    num_shards: int = 1              # virtual ring shards on the one card
+    num_shards: int = 1              # virtual shards on the one card (0 =
+                                     # 1, or one per pre-partitioned file)
 
     # --- JAX-package options not ported yet (validate refuses them) --------
     query_chunk: int = 0
@@ -64,7 +70,7 @@ class KnnConfig:
         if self.k < 1:
             raise ValueError("no k specified, or invalid k value")
         if self.engine not in ENGINES:
-            if self.engine in ("tiled", "bruteforce", "tree", "pallas"):
+            if self.engine in ("tiled", "bruteforce", "tree"):
                 raise not_ported(f"engine '{self.engine}'",
                                  "Queue 1, the tiled twin and flat engines")
             raise ValueError(f"unknown engine '{self.engine}'")
@@ -87,6 +93,9 @@ class KnnConfig:
             raise not_ported("profile_dir", "Queue 1, observability")
         if self.num_shards < 0:
             raise ValueError(f"num_shards must be >= 0, got {self.num_shards}")
+        if self.query_tile < 1 or self.point_tile < 1:
+            raise ValueError("query_tile and point_tile must be >= 1, got "
+                             f"{self.query_tile} and {self.point_tile}")
         pg = self.point_group
         if pg < 0 or (pg and (pg & (pg - 1)) != 0):
             raise ValueError(

@@ -29,3 +29,39 @@ class CandidateState(NamedTuple):
 
     dist2: torch.Tensor  # f32[num_queries, k]
     idx: torch.Tensor    # i32[num_queries, k]
+
+
+class Aabb(NamedTuple):
+    """Axis-aligned bounding box (the reference's ``cukd::box_t<float3>``:
+    six contiguous floats)."""
+
+    lower: torch.Tensor  # f32[D]
+    upper: torch.Tensor  # f32[D]
+
+
+def aabb_of_points(points: torch.Tensor,
+                   valid_mask: torch.Tensor | None = None) -> Aabb:
+    """Bounds of the real (non-sentinel) rows of ``f32[N, D]``. An empty set
+    gives lower=+inf, upper=-inf (the ``setEmpty()`` convention)."""
+    if valid_mask is None:
+        valid_mask = points[:, 0] < PAD_SENTINEL / 2
+    lo = torch.where(valid_mask[:, None], points, torch.inf).amin(dim=0)
+    hi = torch.where(valid_mask[:, None], points, -torch.inf).amax(dim=0)
+    return Aabb(lo, hi)
+
+
+def aabb_box_distance(a_lower, a_upper, b_lower, b_upper) -> torch.Tensor:
+    """Min Euclidean distance between boxes (broadcast over leading axes):
+    per component ``max(0, max(a.lo - b.hi, b.lo - a.hi))``, squares summed
+    left to right in f32, then the root taken in f64 and rounded once, the
+    correctly rounded f32 root (PyTorch's vectorized f32 ``sqrt`` on the CPU
+    can be 1 ulp off, which would move a prune decision). An empty box
+    (inverted inf bounds) is +inf away: a nan from inf - inf becomes +inf."""
+    diff = torch.clamp_min(torch.maximum(a_lower - b_upper,
+                                         b_lower - a_upper), 0.0)
+    d2 = None
+    for i in range(diff.shape[-1]):
+        sq = diff[..., i] * diff[..., i]
+        d2 = sq if d2 is None else d2 + sq
+    d2 = torch.where(torch.isnan(d2), torch.inf, d2)
+    return torch.sqrt(d2.double()).float()

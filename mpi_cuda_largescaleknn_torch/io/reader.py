@@ -1,7 +1,10 @@
 """Binary point-file input, byte-compatible with the reference.
 
 ``.float3`` input is raw little-endian f32 triples with no header
-(``readFilePortion<float3>``).
+(``readFilePortion<float3>``). A file-of-filenames (the pre-partitioned
+pipeline's input) holds one path per line; every non-empty line counts
+(the reference drops a last line without a trailing newline, a latent bug
+rather than a contract).
 """
 
 from __future__ import annotations
@@ -25,3 +28,22 @@ def read_file_portion(path: str, rank: int, size: int):
         f.seek(begin * _RECORD_BYTES)
         pts = np.fromfile(f, dtype=np.float32, count=(end - begin) * 3)
     return pts.reshape(-1, 3), begin, num_data
+
+
+def read_points(path: str) -> np.ndarray:
+    """Whole-file read (the pre-partitioned pipeline's per-rank
+    ``readFilePortion(..., 0, 1)``). ``.npy`` inputs hold any
+    f32-coercible [N, D] array."""
+    if path.endswith(".npy"):
+        pts = np.asarray(np.load(path), np.float32)
+        if pts.ndim != 2 or pts.shape[1] < 1:
+            raise ValueError(f"{path}: expected an [N, D] array, got "
+                             f"shape {list(pts.shape)}")
+        return pts
+    pts, _, _ = read_file_portion(path, 0, 1)
+    return pts
+
+
+def read_list_of_file_names(path: str) -> list[str]:
+    with open(path) as f:
+        return [line.strip() for line in f if line.strip()]

@@ -1,0 +1,77 @@
+"""The pre-partitioned pipeline: one spatially coherent shard per file.
+
+End-to-end equivalent of ``cudaMpiKNN_prePartitionedData``'s main(): each
+shard owns one input partition, shards are padded to the largest one, and
+the bounds-pruned early-exit ring (``parallel/demand.py``) refines every
+partition's rows until no shard can improve. Results come back per
+partition (the reference writes one ``prefix_%06d.float`` per rank). The
+shards are virtual: all of them live on the one card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from mpi_cuda_largescaleknn_torch.core.config import KnnConfig, resolve_device
+from mpi_cuda_largescaleknn_torch.models.sharding import (
+    check_neighbor_id_capacity,
+    pad_and_flatten,
+    trim_per_shard,
+)
+from mpi_cuda_largescaleknn_torch.obs.timers import PhaseTimers
+from mpi_cuda_largescaleknn_torch.parallel.demand import demand_knn
+
+
+class PrePartitionedKNN:
+    """kNN distances for pre-partitioned point sets over virtual shards on
+    one device. ``config.num_shards`` 0 means one shard per partition;
+    any other value must equal the number of partitions."""
+
+    def __init__(self, config: KnnConfig):
+        config.validate()
+        self.config = config
+        self.device = resolve_device(config.device)
+        self.timers = PhaseTimers()
+        self.last_stats: dict | None = None  # rounds, kernels_run and
+        # rotations_run of the most recent run (parallel/demand.py)
+
+    def run(self, partitions: list[np.ndarray],
+            return_neighbors: bool = False):
+        """partitions: one f32[Ni, D] array per shard -> per-partition
+        f32[Ni] k-th-NN distances (global over the union of all partitions).
+
+        With ``return_neighbors`` also returns per-partition i32[Ni, k]
+        neighbor ids, numbered globally in partition concatenation order
+        (-1 where fewer than k neighbors exist)."""
+        cfg = self.config
+        partitions = [np.asarray(p, np.float32) for p in partitions]
+        num_shards = cfg.num_shards or len(partitions)
+        if return_neighbors:
+            check_neighbor_id_capacity(sum(len(p) for p in partitions))
+        if len(partitions) != num_shards:
+            # the reference's "number of input files does not match MPI size"
+            raise ValueError(
+                f"number of input partitions ({len(partitions)}) does not "
+                f"match the shard count ({num_shards})")
+
+        with self.timers.phase("pad"):
+            sizes = np.cumsum([0] + [len(p) for p in partitions])
+            flat, ids, counts, npad = pad_and_flatten(
+                partitions, id_bases=[int(s) for s in sizes[:-1]],
+                dim=partitions[0].shape[-1])
+
+        with self.timers.phase("demand_ring"):
+            dists, cands, self.last_stats = demand_knn(
+                flat, ids, cfg.k, num_shards, max_radius=cfg.max_radius,
+                engine=cfg.engine, query_tile=cfg.query_tile,
+                point_tile=cfg.point_tile, bucket_size=cfg.bucket_size,
+                point_group=cfg.point_group, device=self.device,
+                return_stats=True, timers=self.timers)
+            dists = dists.cpu().numpy()
+
+        with self.timers.phase("extract"):
+            out = trim_per_shard(dists, counts, npad)
+            if return_neighbors:
+                idx = trim_per_shard(cands.idx.cpu().numpy(), counts, npad)
+                return out, idx
+            return out

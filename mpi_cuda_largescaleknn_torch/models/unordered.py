@@ -56,7 +56,8 @@ class UnorderedKNN:
         with self.timers.phase("ring"):
             got = ring_knn(
                 flat, ids, cfg.k, num_shards, max_radius=cfg.max_radius,
-                engine=cfg.engine, bucket_size=cfg.bucket_size,
+                engine=cfg.engine, query_tile=cfg.query_tile,
+                point_tile=cfg.point_tile, bucket_size=cfg.bucket_size,
                 point_group=cfg.point_group, device=self.device,
                 return_candidates=return_neighbors, return_stats=True,
                 timers=self.timers)

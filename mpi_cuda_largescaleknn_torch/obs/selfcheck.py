@@ -6,27 +6,56 @@ brute force, bounded memory) and fails loudly on a mismatch.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 
 def kth_distance_exact(points: np.ndarray, query_idx: np.ndarray, k: int,
                        max_radius: float = np.inf,
-                       budget_elems: int = 64_000_000) -> np.ndarray:
-    """Exact k-th-NN distance for ``points[query_idx]`` against ALL points,
-    in point blocks that keep the distance slab within ``budget_elems``."""
+                       budget_elems: int = 16_000_000) -> np.ndarray:
+    """Exact k-th-NN distance for ``points[query_idx]`` against ALL points.
+    The query rows are split over up to 8 threads (numpy's loops release
+    the GIL), each streaming the points in blocks that keep its distance
+    slab within ``budget_elems / threads`` elements."""
     q = points[query_idx].astype(np.float32)
-    nq = max(1, len(q))
-    block = max(1024, budget_elems // nq)
-    # running k-smallest per sampled query (unsorted; only the max matters)
+    workers = max(1, min(os.cpu_count() or 1, 8, len(q)))
+    chunks = np.array_split(q, workers)
+    block = max(1024, budget_elems // workers // max(1, len(chunks[0])))
+    with ThreadPoolExecutor(workers) as pool:
+        parts = list(pool.map(
+            lambda c: _kth_rows(points, c, k, max_radius, block), chunks))
+    return np.concatenate(parts)
+
+
+def _kth_rows(points: np.ndarray, q: np.ndarray, k: int, max_radius: float,
+              block: int) -> np.ndarray:
+    nq = len(q)
+    # running k-smallest per query (unsorted; only the max matters)
     best = np.full((nq, k), np.float32(max_radius) ** 2, np.float32)
+    acc = np.empty((nq, block), np.float32)
+    tmp = np.empty_like(acc)
     for lo in range(0, len(points), block):
         p = points[lo:lo + block].astype(np.float32)
-        dx = q[:, None, 0] - p[None, :, 0]
-        dy = q[:, None, 1] - p[None, :, 1]
-        dz = q[:, None, 2] - p[None, :, 2]
-        d2 = (dx * dx + dy * dy) + dz * dz
-        cat = np.concatenate([best, d2], axis=1)
-        best = np.partition(cat, k - 1, axis=1)[:, :k]
+        d2, t = acc[:, :len(p)], tmp[:, :len(p)]
+        # ((d0*d0 + d1*d1) + d2*d2), in place
+        np.subtract(q[:, None, 0], p[None, :, 0], out=d2)
+        np.multiply(d2, d2, out=d2)
+        for i in range(1, q.shape[1]):
+            np.subtract(q[:, None, i], p[None, :, i], out=t)
+            np.multiply(t, t, out=t)
+            np.add(d2, t, out=d2)
+        # only entries below a row's current k-th can change it: gather
+        # them into a narrow padded slab before the partition
+        rows, cols = np.nonzero(d2 < best.max(axis=1)[:, None])
+        if len(rows):
+            counts = np.bincount(rows, minlength=nq)
+            slot = np.arange(len(rows)) - (np.cumsum(counts) - counts)[rows]
+            cand = np.full((nq, counts.max()), np.inf, np.float32)
+            cand[rows, slot] = d2[rows, cols]
+            best = np.partition(np.concatenate([best, cand], axis=1), k - 1,
+                                axis=1)[:, :k]
     return np.sqrt(best.max(axis=1))
 
 

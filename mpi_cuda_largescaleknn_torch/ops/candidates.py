@@ -49,3 +49,17 @@ def extract_final_result(state: CandidateState) -> torch.Tensor:
     f64 and rounded once to f32, which is the correctly rounded f32 root
     (PyTorch's vectorized f32 ``sqrt`` on the CPU can be 1 ulp off)."""
     return torch.sqrt(state.dist2[:, -1].double()).float()
+
+
+def current_worst_radius(state: CandidateState,
+                         valid_mask: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """Max over the (real) queries of their current k-th candidate distance:
+    the prune cutoff of the pre-partitioned pipeline, a 0-d f32 tensor. A
+    shard with no real queries gives 0 (prune everything), not the nan of
+    ``sqrt(-inf)``. The root is taken in f64 and rounded once, as in
+    ``extract_final_result``."""
+    kth = state.dist2[:, -1]
+    if valid_mask is not None:
+        kth = torch.where(valid_mask, kth, -torch.inf)
+    return torch.sqrt(torch.clamp_min(kth.amax(), 0.0).double()).float()

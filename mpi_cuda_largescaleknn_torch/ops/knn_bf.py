@@ -1,0 +1,183 @@
+"""Flat brute force (the engine ``pallas``): the CUDA kernel, its wrapper
+and its plain PyTorch version.
+
+This replaces the JAX package's TPU kernel ``ops/pallas/knn_bf.py``
+(``_kernel`` / ``_run``, wrapped by ``knn_update_pallas``). Contract (the
+same as the TPU kernel's, and as one ``runQuery`` launch of the
+reference): every row of ``points`` is folded into each query's persistent
+sorted top-k row — strict-< adoption, each adopted point inserted after
+every equal entry, so existing entries win ties, then lower point rows.
+
+- ``knn_update_bf_cuda`` is the entry point: on a CUDA tensor it launches
+  ``csrc/knn_bf.cu`` (or raises), on a CPU tensor it runs
+  ``knn_update_bf_plain``.
+- ``knn_update_bf_plain`` follows the JAX package's
+  ``ops/brute_force.py`` ``knn_update_bruteforce``: [query_tile,
+  point_tile] tiles of exact distances, each stable-merged into the rows.
+
+Both return the same bits whatever the tiles: a stable merge of the rows
+with the points in ascending order keeps the k smallest by (d2, existing
+first, then point row), and so does a merge tile by tile. Ids are read
+from ``point_ids`` directly; the TPU kernel's encoded lane positions and
+``decode_positions`` existed only for Mosaic and are not ported. Padding
+query rows (sentinel coordinates) are scored like any other row: against
+sentinel points they score 0 and adopt id -1, as in the TPU kernel, and
+callers drop them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mpi_cuda_largescaleknn_torch.core.types import CandidateState
+from mpi_cuda_largescaleknn_torch.ops.candidates import merge_candidates
+from mpi_cuda_largescaleknn_torch.ops.distance import elementwise_dist2
+from mpi_cuda_largescaleknn_torch.ops.knn_tiled import SMEM_OPTIN
+from mpi_cuda_largescaleknn_torch.utils.math import round_up
+
+#: point lanes staged in shared memory at once (16 B each)
+MAX_TILE_LANES = 2048
+
+
+def knn_update_bf_plain(state: CandidateState, queries: torch.Tensor,
+                        points: torch.Tensor,
+                        point_ids: torch.Tensor | None = None, *,
+                        query_tile: int = 2048,
+                        point_tile: int = 2048) -> CandidateState:
+    """Plain PyTorch version of the kernel: for each block of
+    ``query_tile`` rows, each ``point_tile`` block of points in turn is
+    scored exactly and stable-merged into the rows."""
+    num_q = state.dist2.shape[0]
+    num_p = points.shape[0]
+    if num_p == 0 or num_q == 0:
+        return state
+    if point_ids is None:
+        point_ids = torch.arange(num_p, dtype=torch.int32,
+                                 device=points.device)
+    qt = min(query_tile, num_q)
+    pt = min(point_tile, num_p)
+    d2_out, idx_out = [], []
+    for q0 in range(0, num_q, qt):
+        q = queries[q0:q0 + qt]
+        st = CandidateState(state.dist2[q0:q0 + qt], state.idx[q0:q0 + qt])
+        for p0 in range(0, num_p, pt):
+            d2 = elementwise_dist2(q, points[p0:p0 + pt])
+            st = merge_candidates(st, d2,
+                                  point_ids[None, p0:p0 + pt].expand_as(d2))
+        d2_out.append(st.dist2)
+        idx_out.append(st.idx)
+    return CandidateState(torch.cat(d2_out), torch.cat(idx_out))
+
+
+def launch_geometry(query_tile: int, point_tile: int,
+                    k: int) -> tuple[int, int]:
+    """(rows per block = threads, staged lanes): ``query_tile`` rows a
+    block, rounded up to whole warps, and ``point_tile`` lanes a staged
+    tile, each clamped to what 1024 threads and shared memory allow (the
+    candidate columns take 8 bytes a slot, the tile 16 bytes a lane)."""
+    lanes = max(1, min(point_tile, MAX_TILE_LANES))
+    budget = SMEM_OPTIN - 1024 - 16 * lanes
+    cap = min(1024, budget // (8 * k) // 32 * 32)
+    if cap < 32:
+        raise NotImplementedError(
+            f"k={k}: 32 candidate rows no longer fit in shared memory "
+            "(candidate rows in device memory: ROADMAP.md Queue 1)")
+    return min(round_up(max(query_tile, 1), 32), cap), lanes
+
+
+def _check_inputs(state: CandidateState, queries: torch.Tensor,
+                  points: torch.Tensor, point_ids: torch.Tensor) -> None:
+    for name, t, dtype in (("queries", queries, torch.float32),
+                           ("points", points, torch.float32),
+                           ("point_ids", point_ids, torch.int32),
+                           ("state.dist2", state.dist2, torch.float32),
+                           ("state.idx", state.idx, torch.int32)):
+        if t.device.type != "cuda" or t.dtype != dtype:
+            raise ValueError(f"{name} must be a CUDA {dtype} tensor, got "
+                             f"{t.device} {t.dtype}")
+    if queries.shape[-1] != 3 or points.shape[-1] != 3:
+        raise NotImplementedError(
+            "the CUDA brute-force kernel scores D=3 points only (D >= 16 "
+            "goes through the score_mxu branch: ROADMAP.md Queue 1)")
+    if state.dist2.shape[0] != queries.shape[0] \
+            or state.idx.shape != state.dist2.shape \
+            or point_ids.shape != (points.shape[0],):
+        raise ValueError(f"state {tuple(state.dist2.shape)}, queries "
+                         f"{tuple(queries.shape)}, points "
+                         f"{tuple(points.shape)} and point_ids "
+                         f"{tuple(point_ids.shape)} do not match")
+
+
+def knn_update_bf_cuda(state: CandidateState, queries: torch.Tensor,
+                       points: torch.Tensor,
+                       point_ids: torch.Tensor | None = None, *,
+                       query_tile: int = 2048,
+                       point_tile: int = 2048) -> CandidateState:
+    """Fold every row of ``points`` (ids ``point_ids``, default their row
+    numbers) into ``state`` (module docstring). CPU tensors take
+    ``knn_update_bf_plain``; CUDA tensors launch the kernel or raise.
+    Returns a new state and leaves the input as it was, as the plain
+    version does, so both sides of a comparison may share one input. The
+    copy moves 16 bytes a slot (about 1.6 GB, well under a millisecond,
+    at 1M rows and k=100), against a fold that scores every point of the
+    shard for every row."""
+    if queries.device.type == "cpu":
+        return knn_update_bf_plain(state, queries, points, point_ids,
+                                   query_tile=query_tile,
+                                   point_tile=point_tile)
+    num_q, k = state.dist2.shape
+    num_p = points.shape[0]
+    if point_ids is None:
+        point_ids = torch.arange(num_p, dtype=torch.int32,
+                                 device=points.device)
+    _check_inputs(state, queries, points, point_ids)
+    if num_p == 0 or num_q == 0:
+        return state
+    # the kernel updates its rows in place: it gets fresh copies
+    out = CandidateState(state.dist2.contiguous().clone(),
+                         state.idx.contiguous().clone())
+    launch_knn_bf(queries, points, point_ids, out, query_tile=query_tile,
+                  point_tile=point_tile)
+    return out
+
+
+def launch_knn_bf(queries: torch.Tensor, points: torch.Tensor,
+                  point_ids: torch.Tensor, rows: CandidateState, *,
+                  query_tile: int = 2048, point_tile: int = 2048) -> None:
+    """Launch the kernel on PyTorch's current stream, folding ``points``
+    into ``rows`` IN PLACE (contiguous CUDA rows, inputs as checked by
+    ``knn_update_bf_cuda``). Counts one launch in
+    ``knn_update_bf_cuda.launches``."""
+    num_q, k = rows.dist2.shape
+    if not (rows.dist2.is_contiguous() and rows.idx.is_contiguous()):
+        raise ValueError("rows must be contiguous")
+    threads, lanes = launch_geometry(query_tile, point_tile, k)
+    q, p, pid = queries.contiguous(), points.contiguous(), \
+        point_ids.contiguous()
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.knn_bf_launch(q.data_ptr(), p.data_ptr(), pid.data_ptr(),
+                                rows.dist2.data_ptr(), rows.idx.data_ptr(),
+                                num_q, p.shape[0], k, threads, lanes, stream)
+    if err:
+        raise RuntimeError(f"knn_bf kernel launch failed: CUDA error {err}")
+    knn_update_bf_cuda.launches += 1
+
+
+#: kernel launches made by this process (read by chip_smoke.py and the CLIs)
+knn_update_bf_cuda.launches = 0
+
+
+def _library() -> ctypes.CDLL:
+    from mpi_cuda_largescaleknn_torch.utils.cuda_build import load_library
+
+    lib = load_library("knn_bf")
+    fn = lib.knn_bf_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib

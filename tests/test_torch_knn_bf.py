@@ -1,0 +1,183 @@
+"""The port's flat brute force (``ops/knn_bf.py``) against the JAX package's
+Pallas kernel ``knn_update_pallas``, run in interpret mode on the CPU as
+``tests/test_pallas_knn.py`` runs it: the same numpy inputs through both,
+d2 bitwise equal including the inf pattern, ids equal. The Pallas side
+pins ``LSK_FOLD_SEGS=1``: at k >= 32 its multi-segment fold breaks lane
+order among exact ties (ROADMAP.md Queue 3), the port keeps lane order."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from mpi_cuda_largescaleknn_torch.ops import candidates as tcand
+from mpi_cuda_largescaleknn_torch.ops import knn_bf as tb
+from mpi_cuda_largescaleknn_tpu.core.types import pad_points
+from mpi_cuda_largescaleknn_tpu.ops.candidates import init_candidates
+from mpi_cuda_largescaleknn_tpu.ops.pallas.knn_bf import knn_update_pallas
+from tests.oracle import kth_nn_dist, random_points
+from tests.test_torch_ops import assert_bitwise, points
+
+
+@pytest.fixture(autouse=True)
+def one_fold_segment(monkeypatch):
+    monkeypatch.setenv("LSK_FOLD_SEGS", "1")
+
+
+def port_update(state, queries, pts, ids=None, **tiles):
+    """The port's wrapper on CPU tensors (its plain version)."""
+    st = tcand.CandidateState(torch.from_numpy(np.array(state.dist2)),
+                              torch.from_numpy(np.array(state.idx)))
+    return tb.knn_update_bf_cuda(
+        st, torch.from_numpy(np.array(queries)),
+        torch.from_numpy(np.array(pts)),
+        None if ids is None else torch.from_numpy(np.array(ids)), **tiles)
+
+
+def assert_state_equal(got, want):
+    assert_bitwise(got.dist2.numpy(), np.asarray(want.dist2))
+    assert_bitwise(got.idx.numpy(), np.asarray(want.idx))
+
+
+CASES = {
+    # name: (kind, n queries, n points, k, max_radius)
+    "self_n100_k1": ("uniform", 100, None, 1, math.inf),
+    "self_n300_k8": ("uniform", 300, None, 8, math.inf),
+    "self_n520_k17": ("uniform", 520, None, 17, math.inf),
+    "q130_p400_k9": ("uniform", 130, 400, 9, math.inf),
+    "k_above_n": ("uniform", 5, None, 8, math.inf),
+    "radius_k10": ("uniform", 260, None, 10, 0.05),
+    "dupes_k8": ("dupes", 300, None, 8, math.inf),
+    "dupes_k40": ("dupes", 300, None, 40, math.inf),
+    "clustered_k33": ("clustered", 280, None, 33, math.inf),
+    "self_n300_k100": ("uniform", 300, None, 100, math.inf),
+    "radius_k64": ("uniform", 280, None, 64, 0.2),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_matches_pallas_kernel(case):
+    kind, nq, npts, k, radius = CASES[case]
+    pts = points(kind, npts or nq, seed=nq + k)
+    q = pts if npts is None else points(kind, nq, seed=nq + k + 1)
+    state = init_candidates(nq, k, max_radius=radius)
+    want = knn_update_pallas(state, q, pts, query_tile=64, point_tile=128)
+    got = port_update(state, q, pts, query_tile=64, point_tile=128)
+    assert_state_equal(got, want)
+    if npts is None:
+        np.testing.assert_allclose(
+            tcand.extract_final_result(got).numpy(),
+            kth_nn_dist(pts, pts, k, radius), rtol=5e-7, atol=1e-37)
+
+
+def test_incremental_rounds_match_pallas_and_one_call():
+    pts = random_points(384, seed=5)
+    q = random_points(96, seed=6)
+    k = 7
+    state = init_candidates(96, k)
+    want = knn_update_pallas(state, q, pts[:150], query_tile=32,
+                             point_tile=128)
+    want = knn_update_pallas(want, q, pts[150:],
+                             point_ids=np.arange(150, 384, dtype=np.int32),
+                             query_tile=32, point_tile=128)
+    got = port_update(state, q, pts[:150])
+    got = tb.knn_update_bf_cuda(got, torch.from_numpy(q),
+                                torch.from_numpy(pts[150:]),
+                                torch.arange(150, 384, dtype=torch.int32))
+    assert_state_equal(got, want)
+    one = port_update(state, q, pts)
+    assert torch.equal(one.dist2, got.dist2) and torch.equal(one.idx, got.idx)
+
+
+def test_sentinel_points_are_inert_and_match_pallas():
+    pts = random_points(100, seed=9)
+    padded, _ = pad_points(pts, 160)
+    padded = np.asarray(padded)
+    ids = np.where(np.arange(160) < 100, np.arange(160), -1).astype(np.int32)
+    k = 4
+    state = init_candidates(100, k)
+    want = knn_update_pallas(state, pts, padded, point_ids=ids,
+                             query_tile=32, point_tile=128)
+    got = port_update(state, pts, padded, ids)
+    assert_state_equal(got, want)
+    ref = port_update(state, pts, pts)
+    assert torch.equal(got.dist2, ref.dist2) and torch.equal(got.idx, ref.idx)
+
+
+def test_padding_query_rows_match_pallas():
+    # sentinel queries against sentinel points score 0 and adopt id -1, in
+    # the TPU kernel and the port alike
+    pts, _ = pad_points(random_points(70, seed=4), 96)
+    pts = np.asarray(pts)
+    ids = np.where(np.arange(96) < 70, np.arange(96), -1).astype(np.int32)
+    state = init_candidates(96, 5)
+    want = knn_update_pallas(state, pts, pts, point_ids=ids, query_tile=32,
+                             point_tile=128)
+    got = port_update(state, pts, pts, ids)
+    assert_state_equal(got, want)
+    assert np.all(got.dist2.numpy()[70:] == 0.0)
+    assert np.all(got.idx.numpy()[70:] == -1)
+
+
+def test_point_ids_with_an_offset():
+    pts = random_points(200, seed=11)
+    ids = np.arange(5000, 5200, dtype=np.int32)
+    state = init_candidates(200, 5)
+    want = knn_update_pallas(state, pts, pts, point_ids=ids, query_tile=64,
+                             point_tile=128)
+    got = port_update(state, pts, pts, ids)
+    assert_state_equal(got, want)
+    assert got.idx.min() >= 5000
+
+
+@pytest.mark.parametrize("query_tile,point_tile", [
+    (1, 1), (7, 13), (32, 128), (100, 77), (4096, 4096)])
+def test_tiles_do_not_change_the_result(query_tile, point_tile):
+    pts = points("dupes", 330, seed=21)
+    state = init_candidates(330, 12, max_radius=0.3)
+    base = port_update(state, pts, pts)
+    got = port_update(state, pts, pts, query_tile=query_tile,
+                      point_tile=point_tile)
+    assert torch.equal(got.dist2, base.dist2)
+    assert torch.equal(got.idx, base.idx)
+
+
+def test_empty_inputs_return_the_state():
+    st = tcand.init_candidates(4, 3)
+    got = tb.knn_update_bf_cuda(st, torch.zeros(4, 3),
+                                torch.zeros(0, 3))
+    assert got is st
+
+
+@pytest.mark.parametrize("query_tile,point_tile,k,want", [
+    (2048, 2048, 8, (1024, 2048)),
+    (2048, 2048, 100, (224, 2048)),
+    (2048, 2048, 200, (96, 2048)),
+    (96, 300, 100, (96, 300)),
+    (50, 5000, 1, (64, 2048)),
+])
+def test_launch_geometry(query_tile, point_tile, k, want):
+    rows, lanes = tb.launch_geometry(query_tile, point_tile, k)
+    assert (rows, lanes) == want
+    assert rows % 32 == 0 and rows <= 1024
+    assert 16 * lanes + 8 * k * rows <= tb.SMEM_OPTIN - 1024
+
+
+def test_launch_geometry_refuses_huge_k():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tb.launch_geometry(2048, 2048, 1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 100])
+def test_kernel_matches_plain_on_the_card(k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    pts = torch.from_numpy(points("uniform", 20_000, seed=k)).cuda()
+    state = tcand.init_candidates(20_000, k, device=pts.device)
+    want = tb.knn_update_bf_plain(state, pts, pts)
+    got = tb.knn_update_bf_cuda(state, pts, pts)
+    torch.cuda.synchronize()
+    assert torch.equal(got.dist2, want.dist2)
+    assert torch.equal(got.idx, want.idx)

@@ -242,7 +242,7 @@ def test_selfcheck_matches(k, radius):
 @pytest.mark.parametrize("field,value,exc", [
     ("k", 0, ValueError),
     ("engine", "tiled", NotImplementedError),
-    ("engine", "pallas", NotImplementedError),
+    ("engine", "bruteforce", NotImplementedError),
     ("engine", "nope", ValueError),
     ("score_dtype", "bf16", NotImplementedError),
     ("query_chunk", 64, NotImplementedError),
@@ -250,6 +250,7 @@ def test_selfcheck_matches(k, radius):
     ("merge", "device", NotImplementedError),
     ("profile_dir", "prof", NotImplementedError),
     ("point_group", 3, ValueError),
+    ("query_tile", 0, ValueError),
 ])
 def test_config_refuses_what_is_not_ported(field, value, exc):
     kw = {"k": 4, field: value}
@@ -276,6 +277,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "before = set(sys.modules)\n"
         "import mpi_cuda_largescaleknn_torch\n"
         "import mpi_cuda_largescaleknn_torch.cli.unordered_main\n"
+        "import mpi_cuda_largescaleknn_torch.cli.prepartitioned_main\n"
+        "import mpi_cuda_largescaleknn_torch.cli.partition_main\n"
+        "import mpi_cuda_largescaleknn_torch.parallel.demand\n"
+        "import mpi_cuda_largescaleknn_torch.ops.knn_bf\n"
         "import mpi_cuda_largescaleknn_torch.convert\n"
         "import mpi_cuda_largescaleknn_torch.utils.cuda_build\n"
         "bad = [m for m in set(sys.modules) - before"
