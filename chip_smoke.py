@@ -6,8 +6,9 @@
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. the card's name and power limit, and the kernels of the main paths;
-2. build ``csrc/knn_tiled.cu`` and ``csrc/knn_bf.cu`` with nvcc into
-   ``build/``, both compilers started together;
+2. build ``csrc/knn_tiled.cu``, ``csrc/knn_bf.cu`` and
+   ``csrc/knn_tiled_mxu.cu`` with nvcc into ``build/``, the compilers
+   started together;
 3. the traversal kernel against its plain PyTorch version on the card,
    bit for bit (d2, ids and visit counts), on ~32K seeded uniform and
    clustered points: k in {1, 8, 100, 200}, a finite ``-r``, ``skip_self``
@@ -17,6 +18,14 @@ Phases, each fatal on failure (exit code 1, no result line):
    200}, a finite ``-r``, sentinel-padded points and queries, ids with an
    offset, two incremental calls against one, a point count that is not a
    multiple of the staged tile, and other tiles giving the same bits;
+3c. the general-D f32 kernels of both against their plain versions, bit
+   for bit, on 32,000 clustered points at D in {4, 16, 128}: k in {1, 10,
+   100}, a finite ``-r``, ``skip_self`` with point group 2, point buckets
+   wider than one staged tile;
+3d. the tensor-core bf16 kernel against its plain version at D in {16,
+   32, 128}, k in {1, 10, 100}, a finite ``-r`` and warm-started rows: d2
+   bitwise and equal to the f32 kernel's; ids equal, where they differ,
+   only among equally distant points (checked exactly);
 4. the main path through the CLI: 1,000,000 seeded uniform points at
    k=100 and at k=8, each with ``--selfcheck 1000 --timings``;
 5. the same k=8 run over 4 virtual shards, byte-equal to the 1-shard file;
@@ -31,7 +40,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    clustered points in 8 parts (where the early exit prunes);
 9. the brute-force kernel's time at the flat path's shape (1M x 1M, k=8
    and k=100) against its bound, and its plain version's on the first
-   16,384 queries.
+   16,384 queries;
+10. the high-D main path: ``UnorderedKNN`` on 1,000,000 seeded points at
+   D=128 (32 Gaussian clusters, the SIFT1M shape) and k=10, in bf16 at
+   R=1, in f32 at R=1 and in bf16 at R=4: distances byte-equal, ids equal
+   up to the order of exact ties, a selfcheck of 200 samples;
+10b. ``prepartitioned_main`` on 4 ``.npy`` slab parts of the first
+   262,144 of those points, byte-equal to ``UnorderedKNN`` on them;
+11. the f32 and bf16 traversal kernels' time at phase 10's shape against
+   their bounds, and their plain versions' on 16 query buckets.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -60,8 +77,14 @@ SOURCE = "mpi_cuda_largescaleknn_torch/csrc/knn_tiled.cu"
 REPLACES = "mpi_cuda_largescaleknn_tpu/ops/pallas/knn_tiled.py:54"
 BF_SOURCE = "mpi_cuda_largescaleknn_torch/csrc/knn_bf.cu"
 BF_REPLACES = "mpi_cuda_largescaleknn_tpu/ops/pallas/knn_bf.py:173"
-KERNELS = ("knn_tiled", "knn_bf")
+MXU_SOURCE = "mpi_cuda_largescaleknn_torch/csrc/knn_tiled_mxu.cu"
+MXU_REPLACES = "mpi_cuda_largescaleknn_tpu/ops/pallas/knn_tiled.py:135"
+KERNELS = ("knn_tiled", "knn_bf", "knn_tiled_mxu")
 PLAIN_QUERIES = 16_384  # the brute-force plain version's reduced shape
+PEAK_BF16 = 989e12      # dense bf16 tensor-core FLOP/s (same data sheet)
+HD_DIM, HD_K = 128, 10  # phase 10: the SIFT1M shape and its recall@10
+HD_SUB = 262_144        # phase 10b: points cut into 4 .npy slab parts
+PLAIN_BUCKETS = 16      # phase 11: query buckets the plain versions run
 
 
 def fail(msg: str) -> None:
@@ -84,10 +107,79 @@ def seeded_points(kind: str, n: int, seed: int):
     return (centers[pick] + rng.normal(0.0, 0.5, (n, 3))).astype(np.float32)
 
 
+def clustered_nd(n: int, dim: int, seed: int):
+    """``n`` points in ``dim`` dimensions: 32 Gaussian clusters, centres
+    drawn N(0, 4^2) per component, sigma 1 (zero-mean data, so the bf16
+    matmul form's error, which grows with |q||p|, stays small)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0.0, 4.0, (32, dim)).astype(np.float32)
+    pts = rng.standard_normal((n, dim), dtype=np.float32)
+    pts += centers[rng.integers(0, 32, n)]
+    return pts
+
+
+def max_abs_err(got, want) -> float:
+    """Max abs difference of the entries finite on both sides."""
+    import torch
+
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    return float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) \
+        else 0.0
+
+
+def cuda_ms(fn):
+    """(milliseconds of ``fn()`` on the card by CUDA events, its result)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), result
+
+
+def tie_rows(got_idx, want_idx, queries, points) -> int:
+    """Rows whose ids differ between two results with bitwise-equal d2:
+    checks that each such row of both results holds distinct ids whose
+    exact distances to the query, sorted, are equal, so the two differ
+    only in which of several equally distant points they keep. Returns the
+    count; fails on any other difference. ``queries`` are the rows'
+    coordinates, ``points`` are indexed by id."""
+    import torch
+
+    bad = (got_idx != want_idx).any(dim=1)
+    n = int(bad.sum())
+    if n == 0:
+        return 0
+    q = queries[bad]
+    exact = []
+    for ids in (got_idx[bad], want_idx[bad]):
+        srt = ids.sort(dim=1).values
+        if bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any()):
+            fail("a row holds the same neighbor twice")
+        pg = points[ids.clamp(min=0).long()]
+        acc = None
+        for i in range(q.shape[-1]):
+            di = q[:, None, i] - pg[..., i]
+            acc = di * di if acc is None else acc + di * di
+        exact.append(torch.where(ids >= 0, acc, torch.inf).sort(dim=1).values)
+    if not torch.equal(exact[0], exact[1]):
+        fail(f"{n} rows differ in their neighbors' distances, not only in "
+             "the order of ties")
+    return n
+
+
 def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
-                 group=2, warm=True):
-    """Kernel vs plain on the card for one input; returns the max abs
-    difference of the finite d2 entries (0.0 when bitwise equal)."""
+                 group=2, warm=True, score_dtype="f32"):
+    """Traversal kernel vs plain on the card for one input (f32: the D=3 or
+    the general-D kernel; bf16: the tensor-core kernel, whose rows must
+    also equal the f32 kernel's up to the order of exact ties); returns
+    the max abs difference of the finite d2 entries (0.0 when bitwise
+    equal)."""
     import torch
 
     from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
@@ -95,6 +187,9 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
         knn_update_tiled_cuda,
         knn_update_tiled_plain,
         launch_geometry,
+        mxu_launch_geometry,
+        survivor_width,
+        uses_mxu,
     )
     from mpi_cuda_largescaleknn_torch.ops.partition import (
         coarsen_buckets,
@@ -103,28 +198,50 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
     from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
 
     pts = torch.from_numpy(pts_np).cuda()
+    dim = pts.shape[1]
     q = partition_points(pts, bucket_size=bucket_size)
     pc = coarsen_buckets(q, group)
     state = (warm_start_self(pc, k, radius) if warm else
              init_candidates(q.num_buckets * q.bucket_size, k, radius,
                              device=pts.device))
-    want, want_vis = knn_update_tiled_plain(state, q, pc, skip_self=warm,
-                                            self_group=group, with_stats=True)
-    got, got_vis = knn_update_tiled_cuda(state, q, pc, skip_self=warm,
-                                         self_group=group, with_stats=True)
+    kw = dict(skip_self=warm, self_group=group, with_stats=True,
+              score_dtype=score_dtype)
+    want, want_vis = knn_update_tiled_plain(state, q, pc, **kw)
+    got, got_vis = knn_update_tiled_cuda(state, q, pc, **kw)
     torch.cuda.synchronize()
     same_inf = torch.equal(torch.isinf(got.dist2), torch.isinf(want.dist2))
-    fin = torch.isfinite(want.dist2) & torch.isfinite(got.dist2)
-    err = float((got.dist2[fin] - want.dist2[fin]).abs().max()) \
-        if bool(fin.any()) else 0.0
-    rows, _, lanes = launch_geometry(q.bucket_size, pc.bucket_size, k)
-    one_block = rows == q.bucket_size
-    ok = (torch.equal(got.dist2, want.dist2) and torch.equal(got.idx, want.idx)
-          and same_inf and (not one_block or int(got_vis) == int(want_vis)))
-    say(f"  {name}: B={q.num_buckets} S={q.bucket_size} T={pc.bucket_size} "
-        f"k={k} rows/block={rows} lanes/tile={lanes} visits={int(got_vis)} "
-        f"(plain {int(want_vis)}) max_abs_err={err} "
-        f"{'bit-equal' if ok else 'MISMATCH'}")
+    err = max_abs_err(got.dist2, want.dist2)
+    if uses_mxu(score_dtype, dim):
+        rows, lanes, _ = mxu_launch_geometry(q.bucket_size, dim,
+                                             survivor_width(k, pc))
+        one_block = rows >= q.bucket_size
+    else:
+        rows, _, lanes = launch_geometry(q.bucket_size, pc.bucket_size, k,
+                                         dim)
+        one_block = rows == q.bucket_size
+    ok = (torch.equal(got.dist2, want.dist2) and same_inf
+          and (not one_block or int(got_vis) == int(want_vis)))
+    ties = ""
+    if score_dtype == "f32":
+        ok = ok and torch.equal(got.idx, want.idx)
+    elif ok:
+        # under bf16 equal exact distances keep the order of their
+        # approximate scores, whose last bits depend on the order of
+        # accumulation: ids may differ among exact ties, nowhere else
+        qrows = q.pts.reshape(-1, dim)
+        exact = knn_update_tiled_cuda(state, q, pc, skip_self=warm,
+                                      self_group=group)
+        torch.cuda.synchronize()
+        if not torch.equal(got.dist2, exact.dist2):
+            fail(f"case {name}: bf16 distances differ from the f32 kernel's "
+                 f"in {int((got.dist2 != exact.dist2).any(1).sum())} rows")
+        ties = (f", ids: {tie_rows(got.idx, want.idx, qrows, pts)} rows vs "
+                f"plain and {tie_rows(got.idx, exact.idx, qrows, pts)} vs the "
+                "f32 kernel differ only among equally distant points")
+    say(f"  {name}: D={dim} B={q.num_buckets} S={q.bucket_size} "
+        f"T={pc.bucket_size} k={k} rows/block={rows} lanes/tile={lanes} "
+        f"visits={int(got_vis)} (plain {int(want_vis)}) max_abs_err={err} "
+        f"{'bit-equal' if ok else 'MISMATCH'}{ties}")
     if not ok:
         fail(f"kernel disagrees with its plain version in case {name}")
     return err
@@ -179,15 +296,16 @@ def main_path_run(label, pts_path, out_path, k, shards, n, engine="auto"):
     return t
 
 
-def prepartitioned_run(label, list_path, prefix, k, engine, num_parts):
+def prepartitioned_run(label, list_path, prefix, k, engine, num_parts,
+                       selfcheck=1000):
     """``prepartitioned_main`` over the parts of ``list_path``; returns
     (timings, the rank files' bytes joined in rank order)."""
     import numpy as np
 
     t, out = run_cli([str(list_path), "-o", str(prefix), "-k", str(k),
-                      "--engine", engine, "--selfcheck", "1000"],
+                      "--engine", engine, "--selfcheck", str(selfcheck)],
                      module="prepartitioned_main")
-    if "selfcheck OK (1000 samples)" not in out:
+    if f"selfcheck OK ({selfcheck} samples)" not in out:
         fail(f"{label}: no selfcheck line in\n{out}")
     files = [Path(f"{prefix}_{r:06d}.float") for r in range(num_parts)]
     joined = b"".join(f.read_bytes() for f in files)
@@ -252,12 +370,11 @@ def compare_bf_case(name, q_np, p_np, k, *, radius=float("inf"), id_base=0,
         got = knn_update_bf_cuda(got, q, p[split:], ids[split:],
                                  query_tile=qt, point_tile=pt)
     torch.cuda.synchronize()
-    fin = torch.isfinite(want.dist2) & torch.isfinite(got.dist2)
-    err = float((got.dist2[fin] - want.dist2[fin]).abs().max()) \
-        if bool(fin.any()) else 0.0
+    err = max_abs_err(got.dist2, want.dist2)
     ok = torch.equal(got.dist2, want.dist2) and torch.equal(got.idx, want.idx)
-    rows, lanes = launch_geometry(qt, pt, k)
-    say(f"  {name}: Q={len(q)} N={len(p)} k={k} rows/block={rows} "
+    rows, lanes = launch_geometry(qt, pt, k, p.shape[1])
+    say(f"  {name}: D={p.shape[1]} Q={len(q)} N={len(p)} k={k} "
+        f"rows/block={rows} "
         f"lanes/tile={lanes} max_abs_err={err} "
         f"{'bit-equal' if ok else 'MISMATCH'}")
     if not ok:
@@ -295,27 +412,16 @@ def time_kernel(k, pts, reps=5):
     for _ in range(reps):
         rows.dist2.copy_(warm.dist2)
         rows.idx.copy_(warm.idx)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        visits = launch_knn_tiled(order, sorted_d2, q, pc, rows,
-                                  skip_self=True, self_group=2)
-        end.record()
-        end.synchronize()
-        total_ms += start.elapsed_time(end)
+        ms, visits = cuda_ms(lambda: launch_knn_tiled(
+            order, sorted_d2, q, pc, rows, skip_self=True, self_group=2))
+        total_ms += ms
     ms = total_ms / reps
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    plain = knn_update_tiled_plain(warm, q, pc, skip_self=True, self_group=2)
-    end.record()
-    end.synchronize()
-    plain_ms = start.elapsed_time(end)
+    plain_ms, plain = cuda_ms(lambda: knn_update_tiled_plain(
+        warm, q, pc, skip_self=True, self_group=2))
     if not (torch.equal(plain.dist2, rows.dist2)
             and torch.equal(plain.idx, rows.idx)):
         fail(f"k={k}: kernel and plain differ at the main path's shape")
-    fin = torch.isfinite(plain.dist2)
-    err = float((plain.dist2[fin] - rows.dist2[fin]).abs().max())
+    err = max_abs_err(rows.dist2, plain.dist2)
 
     bq, s = q.ids.shape
     bp, t = pc.ids.shape
@@ -362,28 +468,15 @@ def time_bf_kernel(k, pts, reps=3):
     for _ in range(reps):
         rows.dist2.copy_(init.dist2)
         rows.idx.copy_(init.idx)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        launch_knn_bf(pts, pts, ids, rows)
-        end.record()
-        end.synchronize()
-        total_ms += start.elapsed_time(end)
+        total_ms += cuda_ms(lambda: launch_knn_bf(pts, pts, ids, rows))[0]
     ms = total_ms / reps
     nq = PLAIN_QUERIES
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    plain = knn_update_bf_plain(
-        CandidateState(init.dist2[:nq], init.idx[:nq]), pts[:nq], pts, ids)
-    end.record()
-    end.synchronize()
-    plain_ms = start.elapsed_time(end)
+    plain_ms, plain = cuda_ms(lambda: knn_update_bf_plain(
+        CandidateState(init.dist2[:nq], init.idx[:nq]), pts[:nq], pts, ids))
     if not (torch.equal(plain.dist2, rows.dist2[:nq])
             and torch.equal(plain.idx, rows.idx[:nq])):
         fail(f"knn_bf k={k}: kernel and plain differ at the flat shape")
-    fin = torch.isfinite(plain.dist2)
-    err = float((plain.dist2[fin] - rows.dist2[:nq][fin]).abs().max())
+    err = max_abs_err(rows.dist2[:nq], plain.dist2)
 
     threads, lanes = launch_geometry(2048, 2048, k)
     blocks = -(-n // threads)
@@ -401,6 +494,170 @@ def time_bf_kernel(k, pts, reps=3):
             "bound_by": ("operations" if bound_ops_ms >= bound_bytes_ms
                          else "bytes"),
             "rows_per_block": threads, "lanes": lanes}
+
+
+def unordered_run(label, pts_np, k, shards, score_dtype):
+    """``UnorderedKNN`` in this process on ``pts_np`` (any D), with every
+    kernel count set to 0 just before the run and read just after.
+    Returns (timings, distances f32[N], neighbor ids i32[N, k])."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.core.config import KnnConfig
+    from mpi_cuda_largescaleknn_torch.models.unordered import UnorderedKNN
+    from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        knn_update_tiled_cuda,
+    )
+
+    model = UnorderedKNN(KnnConfig(k=k, num_shards=shards,
+                                   score_dtype=score_dtype))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    knn_update_tiled_cuda.launches = 0
+    knn_update_tiled_cuda.mxu_launches = 0
+    knn_update_bf_cuda.launches = 0
+    t0 = time.perf_counter()
+    dists, idx = model.run(pts_np, return_neighbors=True)
+    wall = time.perf_counter() - t0
+    t = model.timers.report()
+    t.update({"run_seconds": wall, "queries_per_second": len(pts_np) / wall,
+              "knn_tiled_launches": knn_update_tiled_cuda.launches,
+              "knn_tiled_mxu_launches": knn_update_tiled_cuda.mxu_launches,
+              "knn_bf_launches": knn_update_bf_cuda.launches,
+              "peak_device_bytes": torch.cuda.max_memory_allocated(),
+              **(model.last_stats or {})})
+    if dists.shape != (len(pts_np),) or not np.all(np.isfinite(dists)) \
+            or np.any(dists <= 0):
+        fail(f"{label}: output has shape {dists.shape} or non-finite/zero "
+             "values")
+    key = ("knn_tiled_mxu_launches" if score_dtype == "bf16"
+           else "knn_tiled_launches")
+    say(f"  {label}: run {wall:.3f} s, {t['queries_per_second']:.0f} "
+        f"queries/s, knn_tiled launches {t['knn_tiled_launches']}, "
+        f"knn_tiled_mxu launches {t['knn_tiled_mxu_launches']}, knn_bf "
+        f"launches {t['knn_bf_launches']}, peak device memory "
+        f"{t['peak_device_bytes'] / 2**20:.1f} MiB, pair_evals "
+        f"{t['pair_evals']}")
+    say("    stages: " + ", ".join(
+        f"{name} {v['seconds']:.4f} s" for name, v in t.items()
+        if isinstance(v, dict) and "seconds" in v))
+    if t[key] < 1:
+        fail(f"{label}: {key} is 0: the kernel was never launched")
+    return t, dists, idx
+
+
+def time_hd_kernels(pts_np, k, reps=2):
+    """Phase 11: the f32 general-D kernel and the bf16 tensor-core kernel
+    at phase 10's shape (the one fold of a 1-shard run after the warm
+    start), each over ``reps`` launches on fresh copies of the warm rows;
+    the rows of both compared; their plain versions timed on the first
+    PLAIN_BUCKETS query buckets and compared with the kernels' rows; and
+    the bounds, on the pairs the f32 kernel's walk visits (the work the
+    data needs): f32 at 3*D+1 FP32 operations a pair; bf16 at 3*2*Dp
+    tensor-core FLOP a pair at the bf16 peak and 4 FP32 operations of the
+    epilogue a pair at the FP32 peak, whichever is longer."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.core.types import CandidateState
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        knn_update_tiled_plain,
+        launch_knn_tiled,
+        launch_knn_tiled_mxu,
+        mxu_launch_geometry,
+        survivor_width,
+        widen_rows,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.partition import (
+        BucketedPoints,
+        coarsen_buckets,
+        nearest_first_order,
+        partition_points,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
+
+    pts = torch.from_numpy(pts_np).cuda()
+    n, dim = pts.shape
+    q = partition_points(pts, bucket_size=256)
+    pc = coarsen_buckets(q, 2)
+    warm = warm_start_self(pc, k)
+    sorted_d2, order = nearest_first_order(q.lower, q.upper,
+                                           pc.lower, pc.upper)
+    w = survivor_width(k, pc)
+    wide = widen_rows(warm, w)
+    runs = {}
+    for mode, start_rows, launch in (
+            ("f32", warm, launch_knn_tiled),
+            ("bf16", wide, launch_knn_tiled_mxu)):
+        rows = CandidateState(start_rows.dist2.clone(),
+                              start_rows.idx.clone())
+        total = 0.0
+        for _ in range(reps):
+            rows.dist2.copy_(start_rows.dist2)
+            rows.idx.copy_(start_rows.idx)
+            ms, visits = cuda_ms(lambda: launch(
+                order, sorted_d2, q, pc, rows, skip_self=True, self_group=2))
+            total += ms
+        runs[mode] = (total / reps, rows, visits)
+    f32_ms, f32_rows, f32_vis = runs["f32"]
+    bf_ms, bf_wide, bf_vis = runs["bf16"]
+    bf_rows = CandidateState(bf_wide.dist2[:, :k], bf_wide.idx[:, :k])
+    qrows = q.pts.reshape(-1, dim)
+    if not torch.equal(bf_rows.dist2, f32_rows.dist2):
+        fail("phase 11: bf16 kernel distances differ from the f32 kernel's")
+    ties = tie_rows(bf_rows.idx, f32_rows.idx, qrows, pts)
+
+    nb, s = PLAIN_BUCKETS, q.bucket_size
+    qs = BucketedPoints(q.pts[:nb], q.ids[:nb], q.lower[:nb], q.upper[:nb],
+                        q.pos[:nb])
+    sub = CandidateState(warm.dist2[:nb * s], warm.idx[:nb * s])
+    plain = {mode: cuda_ms(lambda: knn_update_tiled_plain(
+        sub, qs, pc, skip_self=True, self_group=2, score_dtype=mode))
+        for mode in ("f32", "bf16")}
+    for mode, rows in (("f32", f32_rows), ("bf16", bf_rows)):
+        got = plain[mode][1]
+        if not torch.equal(got.dist2, rows.dist2[:nb * s]):
+            fail(f"phase 11: {mode} kernel and plain differ")
+        if mode == "f32" and not torch.equal(got.idx, rows.idx[:nb * s]):
+            fail("phase 11: f32 kernel and plain ids differ")
+        if mode == "bf16":
+            tie_rows(rows.idx[:nb * s], got.idx, qrows[:nb * s], pts)
+
+    bq, t = q.num_buckets, pc.bucket_size
+    nvis = int(f32_vis.sum())
+    pairs = nvis * s * t
+    dp = -(-dim // 16) * 16
+    schedule = (nvis + bq) * 8
+    f32_ops = pairs * (3 * dim + 1)
+    f32_bytes = 2 * n * (dim * 4 + 4) + 2 * n * k * 8 + schedule
+    bf_tc = pairs * 3 * 2 * dp
+    bf_epi = pairs * 4
+    bf_bytes = 2 * n * (dim * 4 + 4) + 2 * n * w * 8 + schedule
+    f32_bound = (f32_ops / PEAK_F32, f32_bytes / PEAK_BYTES)
+    bf_bound = (max(bf_tc / PEAK_BF16, bf_epi / PEAK_F32),
+                bf_bytes / PEAK_BYTES)
+    rows_mxu, lanes_mxu, _ = mxu_launch_geometry(s, dim, w)
+    res = {}
+    for mode, ms, vis, bound, err_rows in (
+            ("f32", f32_ms, f32_vis, f32_bound, f32_rows),
+            ("bf16", bf_ms, bf_vis, bf_bound, bf_rows)):
+        res[mode] = {
+            "ms": ms, "plain_ms": plain[mode][0],
+            "plain_shape": f"{nb} of {bq} query buckets ({nb * s} rows)",
+            "max_abs_err": max_abs_err(plain[mode][1].dist2,
+                                       err_rows.dist2[:nb * s]),
+            "visits": int(vis.sum()), "pairs": pairs,
+            "bound_ms": max(bound) * 1e3,
+            "bound_by": "operations" if bound[0] >= bound[1] else "bytes"}
+    res["f32"].update({"ops": f32_ops, "bytes": f32_bytes})
+    res["bf16"].update({"tensor_flop": bf_tc, "epilogue_ops": bf_epi,
+                        "bytes": bf_bytes, "W": w,
+                        "rows_per_block": rows_mxu,
+                        "lanes_per_chunk": lanes_mxu,
+                        "id_rows_differing_by_ties": ties})
+    res["shape"] = {"N": n, "D": dim, "k": k, "Bq": bq, "S": s,
+                    "Bp": pc.num_buckets, "T": t}
+    return res
 
 
 def main() -> int:
@@ -493,6 +750,59 @@ def main() -> int:
     ]
     details["phase3b_max_abs_err"] = max(bf_errs)
 
+    # -- phase 3c -----------------------------------------------------------
+    say("[phase 3c] general-D f32 kernels vs plain on the card, bit for bit")
+    nd = {d: clustered_nd(32_000, d, SEED + 10 + d) for d in (4, 16, 32, 128)}
+    radius = {4: 0.6, 16: 4.0, 128: 14.5}   # a finite -r for k=10
+    nd_errs = []
+    for d in (4, 16, 128):
+        x = nd[d]
+        nd_errs += [
+            compare_case(f"D={d} k=1 skip_self G2", x, 1),
+            compare_case(f"D={d} k=10 skip_self G2", x, 10),
+            compare_case(f"D={d} k=100 skip_self G2", x, 100),
+            compare_case(f"D={d} k=10 -r {radius[d]} cold G1", x, 10,
+                         radius=radius[d], group=1, warm=False),
+        ]
+    nd_errs.append(compare_case("D=16 k=10 T=2000 (two staged tiles)",
+                                nd[16], 10, bucket_size=1024))
+    for d in (4, 16, 128):
+        x = nd[d]
+        qx = x[:4096] if d == 128 else x   # keeps the plain version short
+        nd_errs += [
+            compare_bf_case(f"D={d} k=1", qx, x, 1),
+            compare_bf_case(f"D={d} k=10", qx, x, 10),
+            compare_bf_case(f"D={d} k=100", qx, x, 100),
+            compare_bf_case(f"D={d} k=10 -r {radius[d]}", qx, x, 10,
+                            radius=radius[d]),
+        ]
+    details["phase3c_max_abs_err"] = max(nd_errs)
+
+    # -- phase 3d -----------------------------------------------------------
+    say("[phase 3d] tensor-core bf16 kernel vs plain on the card")
+    mxu_radius = {16: 4.0, 32: 6.0, 128: 14.5}
+    mxu_errs = []
+    for d in (16, 32, 128):
+        x = nd[d]
+        mxu_errs += [
+            compare_case(f"bf16 D={d} k=1 skip_self G2", x, 1,
+                         score_dtype="bf16"),
+            compare_case(f"bf16 D={d} k=10 skip_self G2", x, 10,
+                         score_dtype="bf16"),
+            compare_case(f"bf16 D={d} k=100 skip_self G2", x, 100,
+                         score_dtype="bf16"),
+            compare_case(f"bf16 D={d} k=10 -r {mxu_radius[d]} cold G1", x,
+                         10, radius=mxu_radius[d], group=1, warm=False,
+                         score_dtype="bf16"),
+        ]
+    # D=600 and D=960 (GIST's) take the 32- and 16-lane chunk kernels
+    for d, lanes in ((600, 32), (960, 16)):
+        mxu_errs.append(compare_case(
+            f"bf16 D={d} k=10 skip_self G2 ({lanes}-lane chunks)",
+            clustered_nd(8_000, d, SEED + 20 + d), 10, score_dtype="bf16"))
+    details["phase3d_max_abs_err"] = max(mxu_errs)
+    del nd
+
     # -- phase 4 ------------------------------------------------------------
     say(f"[phase 4] main path: {N_MAIN} uniform points through the CLI")
     WORK.mkdir(parents=True, exist_ok=True)
@@ -584,16 +894,86 @@ def main() -> int:
             f"{r['plain_ms']:.3f} ms on {r['plain_shape']}, max_abs_err "
             f"{r['max_abs_err']}")
     details["bf_kernel_timing"] = bf_timed
+    del pts
 
-    main_runs = list(runs.values()) + list(pre.values())
-    head, bf_head = timed[8], bf_timed[8]
+    # -- phase 10 -----------------------------------------------------------
+    say(f"[phase 10] high-D main path: {N_MAIN} points, D={HD_DIM}, "
+        f"k={HD_K}, 32 Gaussian clusters")
+    from mpi_cuda_largescaleknn_torch.obs.selfcheck import verify_sample
+
+    hd = clustered_nd(N_MAIN, HD_DIM, SEED + 5)
+    hd_runs, hd_out = {}, {}
+    for label, shards, sd in (("bf16 R=1", 1, "bf16"), ("f32 R=1", 1, "f32"),
+                              ("bf16 R=4", 4, "bf16")):
+        t, d, idx = unordered_run(label, hd, HD_K, shards, sd)
+        hd_runs[label], hd_out[label] = t, (d, idx)
+    ref_d, ref_idx = hd_out["f32 R=1"]
+    hd_pts = torch.from_numpy(hd).cuda()
+    for label in ("bf16 R=1", "bf16 R=4"):
+        d, idx = hd_out[label]
+        rows = int(np.count_nonzero(d.view(np.int32) != ref_d.view(np.int32)))
+        if rows:
+            fail(f"phase 10: {label} distances differ from f32 R=1 in "
+                 f"{rows} rows")
+        ties = tie_rows(torch.from_numpy(idx).cuda(),
+                        torch.from_numpy(ref_idx).cuda(), hd_pts, hd_pts)
+        hd_runs[label]["id_rows_differing_by_ties"] = ties
+        say(f"  {label} output is byte-equal to f32 R=1; neighbor ids of "
+            f"{ties} rows differ only among equally distant points")
+    del hd_pts
+    checked = verify_sample(hd, ref_d, HD_K, 200)
+    say(f"  selfcheck OK ({checked} samples)")
+    details["high_d"] = hd_runs
+
+    # -- phase 10b ----------------------------------------------------------
+    say(f"[phase 10b] pre-partitioned on 4 .npy slab parts of the first "
+        f"{HD_SUB} points")
+    sub = hd[:HD_SUB]
+    names = []
+    for r in range(4):
+        name = parts / f"hd_{r}.npy"
+        np.save(name, sub[r * HD_SUB // 4:(r + 1) * HD_SUB // 4])
+        names.append(str(name))
+    hd_list = parts / "hd.txt"
+    hd_list.write_text("\n".join(names) + "\n")
+    pre["highd_auto_k10"], hd_joined = prepartitioned_run(
+        f"R=4 .npy D={HD_DIM} --engine auto k={HD_K}", hd_list,
+        parts / "hd_k10", HD_K, "auto", 4, selfcheck=200)
+    t_sub, d_sub, _ = unordered_run(f"f32 R=1 on the first {HD_SUB}", sub,
+                                    HD_K, 1, "f32")
+    hd_runs["f32 R=1 sub"] = t_sub
+    if hd_joined != d_sub.astype(np.float32).tobytes():
+        fail("phase 10b: pre-partitioned rank files differ from UnorderedKNN "
+             "on the same points")
+    say("  rank files joined == UnorderedKNN f32 on the same points, byte "
+        "for byte")
+
+    # -- phase 11 -----------------------------------------------------------
+    say(f"[phase 11] the high-D kernels' time at phase 10's shape")
+    hd_timed = time_hd_kernels(hd, HD_K)
+    for mode in ("f32", "bf16"):
+        r = hd_timed[mode]
+        say(f"  {mode}: kernel {r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}), visits {r['visits']}, plain "
+            f"{r['plain_ms']:.3f} ms on {r['plain_shape']}, max_abs_err "
+            f"{r['max_abs_err']}")
+    say(f"  shape {hd_timed['shape']}; bf16 W={hd_timed['bf16']['W']}, "
+        f"ids of {hd_timed['bf16']['id_rows_differing_by_ties']} rows differ "
+        "from f32 only among equally distant points")
+    details["high_d_kernel_timing"] = hd_timed
+
+    main_runs = list(runs.values()) + list(pre.values()) \
+        + list(hd_runs.values())
+    head, bf_head, mxu_head = timed[8], bf_timed[8], hd_timed["bf16"]
     kernels = {"kernels": [{
         "name": "knn_tiled", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES,
         "launches": sum(r["knn_tiled_launches"] for r in main_runs),
         "max_abs_err": max(details["phase3_max_abs_err"],
+                           details["phase3c_max_abs_err"],
                            timed[8]["max_abs_err"],
-                           timed[100]["max_abs_err"]),
+                           timed[100]["max_abs_err"],
+                           hd_timed["f32"]["max_abs_err"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None}, {
@@ -601,10 +981,20 @@ def main() -> int:
         "replaces": BF_REPLACES,
         "launches": sum(r["knn_bf_launches"] for r in main_runs),
         "max_abs_err": max(details["phase3b_max_abs_err"],
+                           details["phase3c_max_abs_err"],
                            bf_timed[8]["max_abs_err"],
                            bf_timed[100]["max_abs_err"]),
         "ms": bf_head["ms"], "plain_ms": bf_head["plain_ms"],
         "bound_ms": bf_head["bound_ms"], "bound_by": bf_head["bound_by"],
+        "library_ms": None}, {
+        "name": "knn_tiled_mxu", "route": "cuda", "source": MXU_SOURCE,
+        "replaces": MXU_REPLACES,
+        "launches": sum(r.get("knn_tiled_mxu_launches", 0)
+                        for r in main_runs),
+        "max_abs_err": max(details["phase3d_max_abs_err"],
+                           mxu_head["max_abs_err"]),
+        "ms": mxu_head["ms"], "plain_ms": mxu_head["plain_ms"],
+        "bound_ms": mxu_head["bound_ms"], "bound_by": mxu_head["bound_by"],
         "library_ms": None}]}
     for kern in kernels["kernels"]:
         if kern["launches"] < 1 or kern["max_abs_err"] != 0.0:

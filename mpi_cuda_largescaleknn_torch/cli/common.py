@@ -29,7 +29,10 @@ Port options (no reference analogue):
   --bucket-size N   points per spatial bucket (default auto: 256)
   --point-group N   coarsen the resident point side by this power-of-two
                     factor (default auto: 2; 1 disables)
-  --score-dtype T   f32 (exact elementwise, the only mode ported)
+  --score-dtype T   f32 (exact elementwise, default) | bf16 (the
+                    traversal's matmul-form scores on the tensor cores at
+                    D >= 16, survivors rescored exactly; --engine pallas
+                    refuses it, the pre-partitioned pipeline scores f32)
   --timings         print phase timings as JSON to stderr
   --selfcheck N     after the run, verify N random outputs against an exact
                     streamed recomputation and fail loudly on mismatch

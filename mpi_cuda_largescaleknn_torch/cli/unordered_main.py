@@ -6,7 +6,8 @@
 Byte-compatible ``.float3`` in / ``.float`` out, output in global point
 order. ``--timings`` writes one JSON object to stderr: the phase times,
 queries/s over the ring, the kernels' launch counts and the peak device
-memory. ``--engine pallas`` folds whole shards with the flat brute-force
+memory. ``--score-dtype bf16`` asks for the traversal's matmul form, which
+engages at D >= 16 (a ``.float3`` file holds D=3 points, scored exactly). ``--engine pallas`` folds whole shards with the flat brute-force
 kernel instead of the traversal.
 """
 
@@ -43,7 +44,8 @@ def main(argv: list[str] | None = None) -> int:
         # set-up outside the timed run: the CUDA context starts here
         torch.zeros(1, device=model.device)
         torch.cuda.reset_peak_memory_stats(model.device)
-    launches0 = knn_update_tiled_cuda.launches, knn_update_bf_cuda.launches
+    launches0 = (knn_update_tiled_cuda.launches, knn_update_bf_cuda.launches,
+                 knn_update_tiled_cuda.mxu_launches)
     t0 = time.perf_counter()
     got = model.run(points, return_neighbors=want_idx)
     wall = time.perf_counter() - t0
@@ -68,6 +70,8 @@ def main(argv: list[str] | None = None) -> int:
             "knn_tiled_launches": knn_update_tiled_cuda.launches
             - launches0[0],
             "knn_bf_launches": knn_update_bf_cuda.launches - launches0[1],
+            "knn_tiled_mxu_launches": knn_update_tiled_cuda.mxu_launches
+            - launches0[2],
             "peak_device_bytes": (torch.cuda.max_memory_allocated(model.device)
                                   if model.device.type == "cuda" else 0),
             **(model.last_stats or {})})

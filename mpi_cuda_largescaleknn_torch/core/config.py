@@ -58,11 +58,15 @@ class KnnConfig:
                                      # this power-of-two factor; 0 = auto (2)
     num_shards: int = 1              # virtual shards on the one card (0 =
                                      # 1, or one per pre-partitioned file)
+    score_dtype: str = "f32"         # "f32" exact; "bf16" = matmul-form
+                                     # scores on the tensor cores + exact
+                                     # rescore (traversal, D >= 16; the
+                                     # flat engine refuses it, the
+                                     # pre-partitioned pipeline scores f32)
 
     # --- JAX-package options not ported yet (validate refuses them) --------
     query_chunk: int = 0
     merge: str = "host"
-    score_dtype: str = "f32"
     profile_dir: str | None = None
     checkpoint_dir: str | None = None
 
@@ -74,10 +78,7 @@ class KnnConfig:
                 raise not_ported(f"engine '{self.engine}'",
                                  "Queue 1, the tiled twin and flat engines")
             raise ValueError(f"unknown engine '{self.engine}'")
-        if self.score_dtype == "bf16":
-            raise not_ported("score_dtype='bf16'",
-                             "Queue 1, the score_mxu bf16 branch")
-        if self.score_dtype != "f32":
+        if self.score_dtype not in ("f32", "bf16"):
             raise ValueError(f"unknown score_dtype '{self.score_dtype}' "
                              "(expected f32 | bf16)")
         if self.query_chunk > 0:

@@ -34,29 +34,26 @@
 // in shared memory column-major ([k][threads], so each thread's slot j is
 // conflict-free) with the row's k-th value cached in a register, so the
 // rare insertion is the only shared-memory traffic of the fold.
+//
+// Points of any other dimension D go through knn_tiled_nd_kernel: the same
+// walk, prune and fold, with each pair scored left to right over all D
+// components. At D=128 a pair is 384 FP32 operations, so arithmetic bounds
+// it harder still; a visited bucket no longer fits in shared memory (496
+// lanes x 512 B), so it is staged in tiles of lanes zero-padded to a
+// multiple of 4 components, and each thread keeps 32 lanes' partial sums
+// in registers while it streams its query row (read as float4 from a
+// component-major copy, coalesced across the block's rows) against
+// float4 broadcast loads of the tile: one shared-memory load per 12 FP32
+// operations (4 components of one pair).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "knn_rows.cuh"
+
 namespace {
 
-// Max over the block of v; every thread returns the same value.
-// blockDim.x must be a multiple of 32.
-__device__ __forceinline__ float block_max(float v, float* warp_buf) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  __syncthreads();  // warp_buf is free again after the previous call
-  if (lane == 0) warp_buf[warp] = v;
-  __syncthreads();
-  v = lane < (int)(blockDim.x >> 5) ? warp_buf[lane] : -CUDART_INF_F;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
+using knn::block_max;
 
 __global__ void knn_tiled_kernel(
     const int* __restrict__ order,     // [Bq, Bp] nearest-first bucket ids
@@ -164,7 +161,101 @@ __global__ void knn_tiled_kernel(
   if (tid == 0 && nvis) atomicAdd(visits + b, nvis);
 }
 
+__global__ void knn_tiled_nd_kernel(
+    const int* __restrict__ order,     // [Bq, Bp] nearest-first bucket ids
+    const float* __restrict__ boxd2,   // [Bq, Bp] ascending box d2
+    const float4* __restrict__ q_t,    // [Bq, d4n, S] component groups
+    const int* __restrict__ q_ids,     // [Bq, S]
+    const float* __restrict__ p_pts,   // [Bp, T, D]
+    const int* __restrict__ p_ids,     // [Bp, T]
+    float* __restrict__ d2,            // [Bq*S, k] in/out, ascending rows
+    int* __restrict__ idx,             // [Bq*S, k] in/out
+    int* __restrict__ visits,          // [Bq] buckets scored, accumulated
+    int s_q, int num_pb, int t_p, int dim, int k, int skip_self,
+    int self_group, int rows_per_block, int tile_lanes) {
+  extern __shared__ float4 smem[];
+  __shared__ float warp_buf[32];
+  const int bd = blockDim.x;
+  const int d4n = (dim + 3) >> 2;
+  float4* tile = smem;                                     // [lanes][d4n]
+  int* tile_ids = reinterpret_cast<int*>(smem + (size_t)tile_lanes * d4n);
+  float* cd2 = reinterpret_cast<float*>(tile_ids + tile_lanes);  // [k][bd]
+  int* cidx = reinterpret_cast<int*>(cd2 + (size_t)k * bd);      // [k][bd]
+
+  const int b = blockIdx.x;
+  const int r0 = blockIdx.y * rows_per_block;
+  const int nrows = min(rows_per_block, s_q - r0);
+  const int tid = threadIdx.x;
+  const long long row0 = (long long)b * s_q + r0;
+  const long long base = row0 * k;
+
+  for (int e = tid; e < nrows * k; e += bd) {
+    const int r = e / k;
+    const int j = e - r * k;
+    cd2[j * bd + r] = d2[base + e];
+    cidx[j * bd + r] = idx[base + e];
+  }
+  const bool valid = tid < nrows && q_ids[row0 + tid] >= 0;
+  const float4* qcol = q_t + (long long)b * d4n * s_q + r0 + tid;
+  __syncthreads();
+  float kth = valid ? cd2[(k - 1) * bd + tid] : -CUDART_INF_F;
+  float worst = block_max(kth, warp_buf);
+
+  const int own = b / self_group;
+  const int* ord = order + (long long)b * num_pb;
+  const float* bx = boxd2 + (long long)b * num_pb;
+  int nvis = 0;
+  for (int v = 0; v < num_pb; ++v) {
+    if (!(bx[v] < worst)) break;
+    const int pb = ord[v];
+    if (skip_self && pb == own) continue;
+    const long long lane0 = (long long)pb * t_p;
+    for (int l0 = 0; l0 < t_p; l0 += tile_lanes) {
+      const int nl = min(tile_lanes, t_p - l0);
+      __syncthreads();  // every thread is done with the previous tile
+      knn::stage_tile_nd(tile, tile_ids, p_pts, p_ids, lane0 + l0, nl, dim,
+                         d4n);
+      __syncthreads();
+      if (valid)
+        for (int ls = 0; ls < nl; ls += knn::kLaneBlock)
+          knn::score_fold_nd(tile, tile_ids, ls, nl, d4n, qcol, s_q, cd2,
+                             cidx, bd, tid, k, kth);
+    }
+    ++nvis;
+    worst = block_max(valid ? kth : -CUDART_INF_F, warp_buf);
+  }
+  __syncthreads();
+  for (int e = tid; e < nrows * k; e += bd) {
+    const int r = e / k;
+    const int j = e - r * k;
+    d2[base + e] = cd2[j * bd + r];
+    idx[base + e] = cidx[j * bd + r];
+  }
+  if (tid == 0 && nvis) atomicAdd(visits + b, nvis);
+}
+
 }  // namespace
+
+// Launches on `stream`; returns the CUDA error code of the launch (0 = ok).
+extern "C" int knn_tiled_nd_launch(
+    const int* order, const float* boxd2, const float4* q_t,
+    const int* q_ids, const float* p_pts, const int* p_ids, float* d2,
+    int* idx, int* visits, int num_qb, int s_q, int num_pb, int t_p,
+    int dim, int k, int skip_self, int self_group, int rows_per_block,
+    int threads, int tile_lanes, void* stream) {
+  const size_t smem = (size_t)tile_lanes * (((dim + 3) >> 2) * sizeof(float4)
+                                            + sizeof(int)) +
+                      (size_t)k * threads * (sizeof(float) + sizeof(int));
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_tiled_nd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(num_qb, (s_q + rows_per_block - 1) / rows_per_block);
+  knn_tiled_nd_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      order, boxd2, q_t, q_ids, p_pts, p_ids, d2, idx, visits, s_q, num_pb,
+      t_p, dim, k, skip_self, self_group, rows_per_block, tile_lanes);
+  return (int)cudaGetLastError();
+}
 
 // Launches on `stream`; returns the CUDA error code of the launch (0 = ok).
 extern "C" int knn_tiled_launch(

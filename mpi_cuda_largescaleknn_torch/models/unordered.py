@@ -58,7 +58,8 @@ class UnorderedKNN:
                 flat, ids, cfg.k, num_shards, max_radius=cfg.max_radius,
                 engine=cfg.engine, query_tile=cfg.query_tile,
                 point_tile=cfg.point_tile, bucket_size=cfg.bucket_size,
-                point_group=cfg.point_group, device=self.device,
+                point_group=cfg.point_group, score_dtype=cfg.score_dtype,
+                device=self.device,
                 return_candidates=return_neighbors, return_stats=True,
                 timers=self.timers)
             if return_neighbors:

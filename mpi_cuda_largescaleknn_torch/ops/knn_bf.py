@@ -2,15 +2,17 @@
 and its plain PyTorch version.
 
 This replaces the JAX package's TPU kernel ``ops/pallas/knn_bf.py``
-(``_kernel`` / ``_run``, wrapped by ``knn_update_pallas``). Contract (the
+(``_kernel`` / ``_run``, wrapped by ``knn_update_pallas``), exact f32 at
+every dimension D as it is (the flat engine has no bf16 path in either
+package). Contract (the
 same as the TPU kernel's, and as one ``runQuery`` launch of the
 reference): every row of ``points`` is folded into each query's persistent
 sorted top-k row — strict-< adoption, each adopted point inserted after
 every equal entry, so existing entries win ties, then lower point rows.
 
 - ``knn_update_bf_cuda`` is the entry point: on a CUDA tensor it launches
-  ``csrc/knn_bf.cu`` (or raises), on a CPU tensor it runs
-  ``knn_update_bf_plain``.
+  ``csrc/knn_bf.cu`` (its D=3 specialisation or its general-D kernel) or
+  raises, on a CPU tensor it runs ``knn_update_bf_plain``.
 - ``knn_update_bf_plain`` follows the JAX package's
   ``ops/brute_force.py`` ``knn_update_bruteforce``: [query_tile,
   point_tile] tiles of exact distances, each stable-merged into the rows.
@@ -34,10 +36,15 @@ import torch
 from mpi_cuda_largescaleknn_torch.core.types import CandidateState
 from mpi_cuda_largescaleknn_torch.ops.candidates import merge_candidates
 from mpi_cuda_largescaleknn_torch.ops.distance import elementwise_dist2
-from mpi_cuda_largescaleknn_torch.ops.knn_tiled import SMEM_OPTIN
+from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+    ND_MAX_THREADS,
+    ND_TILE_BYTES,
+    SMEM_OPTIN,
+    component_major,
+)
 from mpi_cuda_largescaleknn_torch.utils.math import round_up
 
-#: point lanes staged in shared memory at once (16 B each)
+#: point lanes staged in shared memory at once (16 B each) at D=3
 MAX_TILE_LANES = 2048
 
 
@@ -71,19 +78,31 @@ def knn_update_bf_plain(state: CandidateState, queries: torch.Tensor,
     return CandidateState(torch.cat(d2_out), torch.cat(idx_out))
 
 
-def launch_geometry(query_tile: int, point_tile: int,
-                    k: int) -> tuple[int, int]:
+def launch_geometry(query_tile: int, point_tile: int, k: int,
+                    dim: int = 3) -> tuple[int, int]:
     """(rows per block = threads, staged lanes): ``query_tile`` rows a
     block, rounded up to whole warps, and ``point_tile`` lanes a staged
     tile, each clamped to what 1024 threads and shared memory allow (the
-    candidate columns take 8 bytes a slot, the tile 16 bytes a lane)."""
-    lanes = max(1, min(point_tile, MAX_TILE_LANES))
-    budget = SMEM_OPTIN - 1024 - 16 * lanes
-    cap = min(1024, budget // (8 * k) // 32 * 32)
+    candidate columns take 8 bytes a slot, the tile 16 bytes a lane at
+    D=3; at other D ``16 * ceil(D/4) + 4`` bytes a lane, in tiles of a
+    multiple of 32 lanes within ``ND_TILE_BYTES``, and at most
+    ``ND_MAX_THREADS`` rows)."""
+    if dim == 3:
+        lanes = max(1, min(point_tile, MAX_TILE_LANES))
+        tile_bytes = 16 * lanes
+        max_threads = 1024
+    else:
+        lane_bytes = 16 * -(-dim // 4) + 4
+        lanes = min(round_up(max(point_tile, 1), 32),
+                    max(32, ND_TILE_BYTES // lane_bytes // 32 * 32))
+        tile_bytes = lane_bytes * lanes
+        max_threads = ND_MAX_THREADS
+    budget = SMEM_OPTIN - 1024 - tile_bytes
+    cap = min(max_threads, budget // (8 * k) // 32 * 32)
     if cap < 32:
         raise NotImplementedError(
-            f"k={k}: 32 candidate rows no longer fit in shared memory "
-            "(candidate rows in device memory: ROADMAP.md Queue 1)")
+            f"k={k}, D={dim}: 32 candidate rows no longer fit in shared "
+            "memory (candidate rows in device memory: ROADMAP.md Queue 1)")
     return min(round_up(max(query_tile, 1), 32), cap), lanes
 
 
@@ -97,10 +116,9 @@ def _check_inputs(state: CandidateState, queries: torch.Tensor,
         if t.device.type != "cuda" or t.dtype != dtype:
             raise ValueError(f"{name} must be a CUDA {dtype} tensor, got "
                              f"{t.device} {t.dtype}")
-    if queries.shape[-1] != 3 or points.shape[-1] != 3:
-        raise NotImplementedError(
-            "the CUDA brute-force kernel scores D=3 points only (D >= 16 "
-            "goes through the score_mxu branch: ROADMAP.md Queue 1)")
+    if queries.shape[-1] != points.shape[-1]:
+        raise ValueError(f"queries have D={queries.shape[-1]}, points "
+                         f"D={points.shape[-1]}")
     if state.dist2.shape[0] != queries.shape[0] \
             or state.idx.shape != state.dist2.shape \
             or point_ids.shape != (points.shape[0],):
@@ -151,17 +169,27 @@ def launch_knn_bf(queries: torch.Tensor, points: torch.Tensor,
     ``knn_update_bf_cuda``). Counts one launch in
     ``knn_update_bf_cuda.launches``."""
     num_q, k = rows.dist2.shape
+    dim = queries.shape[-1]
     if not (rows.dist2.is_contiguous() and rows.idx.is_contiguous()):
         raise ValueError("rows must be contiguous")
-    threads, lanes = launch_geometry(query_tile, point_tile, k)
-    q, p, pid = queries.contiguous(), points.contiguous(), \
-        point_ids.contiguous()
+    threads, lanes = launch_geometry(query_tile, point_tile, k, dim)
+    p, pid = points.contiguous(), point_ids.contiguous()
     lib = _library()
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.knn_bf_launch(q.data_ptr(), p.data_ptr(), pid.data_ptr(),
-                                rows.dist2.data_ptr(), rows.idx.data_ptr(),
-                                num_q, p.shape[0], k, threads, lanes, stream)
+        if dim == 3:
+            q = queries.contiguous()
+            err = lib.knn_bf_launch(q.data_ptr(), p.data_ptr(),
+                                    pid.data_ptr(), rows.dist2.data_ptr(),
+                                    rows.idx.data_ptr(), num_q, p.shape[0],
+                                    k, threads, lanes, stream)
+        else:
+            q_t = component_major(queries)
+            err = lib.knn_bf_nd_launch(q_t.data_ptr(), p.data_ptr(),
+                                       pid.data_ptr(), rows.dist2.data_ptr(),
+                                       rows.idx.data_ptr(), num_q,
+                                       p.shape[0], dim, k, threads, lanes,
+                                       stream)
     if err:
         raise RuntimeError(f"knn_bf kernel launch failed: CUDA error {err}")
     knn_update_bf_cuda.launches += 1
@@ -175,9 +203,9 @@ def _library() -> ctypes.CDLL:
     from mpi_cuda_largescaleknn_torch.utils.cuda_build import load_library
 
     lib = load_library("knn_bf")
-    fn = lib.knn_bf_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for fn, ints in ((lib.knn_bf_launch, 5), (lib.knn_bf_nd_launch, 6)):
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * ints \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib

@@ -3,8 +3,8 @@ plain PyTorch version.
 
 This replaces the JAX package's TPU kernel ``ops/pallas/knn_tiled.py``
 (``knn_update_tiled_pallas``) and its in-VMEM fold
-``ops/pallas/knn_bf.py`` ``fold_tile_into_candidates``, in f32 mode.
-Contract (the same as the TPU kernel's): ``state`` rows are in ``q``'s
+``ops/pallas/knn_bf.py`` ``fold_tile_into_candidates``, at any dimension
+D. Contract (the same as the TPU kernel's): ``state`` rows are in ``q``'s
 bucket order, row ``b * S + i`` is query ``q.pts[b, i]``; every real point
 of ``p`` is folded in, each query bucket visiting point buckets in
 ascending box distance and stopping once the next box is not strictly
@@ -13,10 +13,23 @@ closer than its worst k-th candidate. ``skip_self`` masks point bucket
 started with their own bucket, ``ops/tiled.py``).
 
 - ``knn_update_tiled_cuda`` is the entry point: on a CUDA tensor it
-  launches ``csrc/knn_tiled.cu`` (or raises), on a CPU tensor it runs
-  ``knn_update_tiled_plain``.
+  launches a kernel (or raises), on a CPU tensor it runs
+  ``knn_update_tiled_plain``. In f32 the kernel is ``csrc/knn_tiled.cu``
+  (its D=3 specialisation or its general-D kernel); with
+  ``score_dtype="bf16"`` at D >= ``mxu_min_dim()`` it is
+  ``csrc/knn_tiled_mxu.cu``, the TPU kernel's ``score_mxu`` branch.
 - ``knn_update_tiled_plain`` lock-steps all query buckets through their
   visit schedules and merges each visited bucket with a stable sort.
+
+Under bf16 (the TPU wrapper's algorithm) the rows are widened to
+``W = rescore_width(k, lanes)`` slots (``lanes`` counts each point bucket
+padded to 128 lanes, as the TPU wrapper does), lanes are scored by the
+matmul form and adopted by strict-< into the widened rows as encoded flat
+positions ``-2 - (pb*T + lane)``, the pruning radius is each row's last
+slot; afterwards every adopted entry is rescored exactly (the f32 bits),
+its id decoded, and the rows are sorted stably by d2 and sliced back to
+k. Entries carried in keep their ids and exact d2. The result equals the
+f32 one whenever each row's true top k lie inside the survivor window.
 
 Both return the same bits: pruning granularity does not change a strict-<
 fold's result, only the visit order and the tie rule do, and both keep
@@ -38,7 +51,16 @@ import torch
 
 from mpi_cuda_largescaleknn_torch.core.types import CandidateState
 from mpi_cuda_largescaleknn_torch.ops.candidates import merge_candidates
-from mpi_cuda_largescaleknn_torch.ops.distance import elementwise_dist2
+from mpi_cuda_largescaleknn_torch.ops.distance import (
+    accumulate_sq,
+    elementwise_dist2,
+    mxu_min_dim,
+    mxu_scores,
+    norms2,
+    rescore_width,
+    split_bf16,
+    validate_score_dtype,
+)
 from mpi_cuda_largescaleknn_torch.ops.partition import (
     BucketedPoints,
     nearest_first_order,
@@ -47,8 +69,15 @@ from mpi_cuda_largescaleknn_torch.utils.math import round_up
 
 #: shared memory one block may opt into on sm_90 (227 KB)
 SMEM_OPTIN = 232_448
-#: point lanes staged in shared memory at once (16 B each)
+#: point lanes staged in shared memory at once (16 B each) at D=3
 MAX_TILE_LANES = 1024
+#: shared memory of the general-D kernels' staged point tile
+ND_TILE_BYTES = 96 * 1024
+#: threads a block of the general-D kernels may have: their ~72 registers
+#: a thread would overrun the SM's 65,536 at 1024 threads
+ND_MAX_THREADS = 512
+#: f32 elements of the [rows, W, D] gather one bf16 rescore step may hold
+_RESCORE_BUDGET = 1 << 24
 
 
 def fold_tile_into_candidates(d2: torch.Tensor, ids: torch.Tensor,
@@ -68,23 +97,90 @@ def _worst2(hd2: torch.Tensor, qvalid: torch.Tensor) -> torch.Tensor:
     return torch.where(qvalid, hd2[:, :, -1], -torch.inf).amax(dim=1)
 
 
+def uses_mxu(score_dtype: str, dim: int) -> bool:
+    """Whether a traversal at dimension ``dim`` takes the matmul form:
+    bf16 at D >= ``mxu_min_dim()``; below it bf16 scores exactly, as in
+    the JAX package."""
+    return validate_score_dtype(score_dtype) == "bf16" \
+        and dim >= mxu_min_dim()
+
+
+def survivor_width(k: int, p: BucketedPoints) -> int:
+    """W of the widened rows: ``rescore_width`` over the point buckets'
+    lanes, each bucket padded to a multiple of 128 as in the TPU wrapper
+    (so W agrees with the JAX package's on tiny problems too)."""
+    num_pb, t_p = p.ids.shape
+    return rescore_width(k, num_pb * round_up(t_p, 128))
+
+
+def widen_rows(state: CandidateState, w: int) -> CandidateState:
+    """Fresh contiguous rows widened to ``w`` slots with +inf / -1."""
+    rows, k = state.dist2.shape
+    dev = state.dist2.device
+    return CandidateState(
+        torch.cat([state.dist2, torch.full((rows, w - k), torch.inf,
+                                           device=dev)], dim=1),
+        torch.cat([state.idx, torch.full((rows, w - k), -1,
+                                         dtype=torch.int32, device=dev)],
+                  dim=1))
+
+
+def rescore_rows(rows: CandidateState, q: BucketedPoints,
+                 p: BucketedPoints, k: int) -> CandidateState:
+    """Plain epilogue of the bf16 traversal: each entry with an encoded
+    position (idx <= -2) gets its exact f32 distance and its id, then each
+    row is sorted stably by d2 and cut to ``k``. Row chunks bound the
+    [rows, W, D] gather."""
+    n, w = rows.dist2.shape
+    dim = q.pts.shape[-1]
+    q_flat = q.pts.reshape(-1, dim)
+    p_flat = p.pts.reshape(-1, dim)
+    p_ids = p.ids.reshape(-1)
+    step = max(1, _RESCORE_BUDGET // (w * dim))
+    d2_out, idx_out = [], []
+    for r0 in range(0, n, step):
+        d2 = rows.dist2[r0:r0 + step]
+        idx = rows.idx[r0:r0 + step]
+        enc = idx <= -2
+        flat = torch.where(enc, -2 - idx, 0).long()
+        pg = p_flat[flat]                                   # [c, W, D]
+        qr = q_flat[r0:r0 + step]
+        acc = None
+        for i in range(dim):
+            acc = accumulate_sq(acc, qr[:, None, i] - pg[..., i])
+        d2 = torch.where(enc, acc, d2)
+        idx = torch.where(enc, p_ids[flat], idx)
+        d2, order = torch.sort(d2, dim=1, stable=True)
+        d2_out.append(d2[:, :k])
+        idx_out.append(torch.gather(idx, 1, order)[:, :k])
+    return CandidateState(torch.cat(d2_out), torch.cat(idx_out))
+
+
 def knn_update_tiled_plain(state: CandidateState, q: BucketedPoints,
                            p: BucketedPoints, *, skip_self: bool = False,
-                           self_group: int = 1, with_stats: bool = False):
-    """Plain PyTorch version of the traversal kernel. Step j takes every
+                           self_group: int = 1, with_stats: bool = False,
+                           score_dtype: str = "f32"):
+    """Plain PyTorch version of the traversal kernels. Step j takes every
     query bucket's j-th nearest point bucket, keeps it where its box d2 is
     below the bucket's radius (and it is not the skipped own bucket),
-    scores it exactly and stable-merges it into the rows. With
-    ``with_stats`` also returns the summed visit count."""
+    scores it (exactly, or by the matmul form under bf16) and
+    stable-merges it into the rows. With ``with_stats`` also returns the
+    summed visit count."""
     num_qb, s_q = q.ids.shape
-    num_pb = p.ids.shape[0]
+    num_pb, t_p = p.ids.shape
     k = state.dist2.shape[1]
     dev = q.pts.device
+    mxu = uses_mxu(score_dtype, q.pts.shape[-1])
+    if mxu:
+        state = widen_rows(state, survivor_width(k, p))
+        qn2, pn2 = norms2(q.pts), norms2(p.pts)
+        lanes = torch.arange(t_p, dtype=torch.int32, device=dev)
+    kk = state.dist2.shape[1]
     sorted_d2, order = nearest_first_order(q.lower, q.upper,
                                            p.lower, p.upper)
     qvalid = q.ids >= 0
-    hd2 = state.dist2.reshape(num_qb, s_q, k).clone()
-    hidx = state.idx.reshape(num_qb, s_q, k).clone()
+    hd2 = state.dist2.reshape(num_qb, s_q, kk).clone()
+    hidx = state.idx.reshape(num_qb, s_q, kk).clone()
     own = torch.arange(num_qb, device=dev) // self_group
     visits = torch.zeros((), dtype=torch.int64, device=dev)
     for step in range(num_pb):
@@ -98,36 +194,78 @@ def knn_update_tiled_plain(state: CandidateState, q: BucketedPoints,
         if sel.numel() == 0:
             continue
         a = sel.numel()
-        d2 = elementwise_dist2(q.pts[sel], p.pts[pb[sel]])     # [A, S, T]
+        psel = pb[sel]
+        if mxu:
+            d2 = mxu_scores(q.pts[sel], p.pts[psel], pn2=pn2[psel],
+                            qn2=qn2[sel])                    # [A, S, T]
+            ids = -2 - (psel[:, None].int() * t_p + lanes)   # [A, T]
+        else:
+            d2 = elementwise_dist2(q.pts[sel], p.pts[psel])  # [A, S, T]
+            ids = p.ids[psel]
         d2 = torch.where(qvalid[sel][:, :, None], d2, torch.inf)
-        t_p = d2.shape[-1]
         st = fold_tile_into_candidates(
             d2.reshape(a * s_q, t_p),
-            p.ids[pb[sel]][:, None, :].expand(a, s_q, t_p).reshape(a * s_q,
-                                                                  t_p),
-            hd2[sel].reshape(a * s_q, k), hidx[sel].reshape(a * s_q, k))
-        hd2[sel] = st.dist2.view(a, s_q, k)
-        hidx[sel] = st.idx.view(a, s_q, k)
+            ids[:, None, :].expand(a, s_q, t_p).reshape(a * s_q, t_p),
+            hd2[sel].reshape(a * s_q, kk), hidx[sel].reshape(a * s_q, kk))
+        hd2[sel] = st.dist2.view(a, s_q, kk)
+        hidx[sel] = st.idx.view(a, s_q, kk)
         visits += a
-    out = CandidateState(hd2.view(num_qb * s_q, k),
-                         hidx.view(num_qb * s_q, k))
+    out = CandidateState(hd2.view(num_qb * s_q, kk),
+                         hidx.view(num_qb * s_q, kk))
+    if mxu:
+        out = rescore_rows(out, q, p, k)
     return (out, visits) if with_stats else out
 
 
-def launch_geometry(s_q: int, t_p: int, k: int) -> tuple[int, int, int]:
-    """(rows per block, threads per block, staged lanes): one thread per
-    query row, as many rows per block as the [k, threads] candidate
-    columns leave shared memory for (all S rows up to k=100 at S=248)."""
-    tile_lanes = min(t_p, MAX_TILE_LANES)
-    budget = SMEM_OPTIN - 1024 - 16 * tile_lanes
-    cap = min(1024, budget // (8 * k) // 32 * 32)
+def launch_geometry(s_q: int, t_p: int, k: int,
+                    dim: int = 3) -> tuple[int, int, int]:
+    """(rows per block, threads per block, staged lanes) of the f32
+    kernels: one thread per query row, as many rows per block as the
+    [k, threads] candidate columns leave shared memory for (all S rows up
+    to k=100 at S=248 and D=3). At D=3 a lane takes 16 bytes; at other D
+    ``16 * ceil(D/4) + 4`` bytes, in tiles of a multiple of 32 lanes
+    within ``ND_TILE_BYTES``, and a block has at most ``ND_MAX_THREADS``
+    threads."""
+    if dim == 3:
+        tile_lanes = min(t_p, MAX_TILE_LANES)
+        tile_bytes = 16 * tile_lanes
+        max_threads = 1024
+    else:
+        lane_bytes = 16 * -(-dim // 4) + 4
+        tile_lanes = min(round_up(t_p, 32),
+                         max(32, ND_TILE_BYTES // lane_bytes // 32 * 32))
+        tile_bytes = lane_bytes * tile_lanes
+        max_threads = ND_MAX_THREADS
+    budget = SMEM_OPTIN - 1024 - tile_bytes
+    cap = min(max_threads, budget // (8 * k) // 32 * 32)
     if cap < 32:
         raise NotImplementedError(
-            f"k={k}: 32 candidate rows no longer fit in shared memory "
-            "(candidate rows in device memory: ROADMAP.md Queue 1)")
+            f"k={k}, D={dim}: 32 candidate rows no longer fit in shared "
+            "memory (candidate rows in device memory: ROADMAP.md Queue 1)")
     if round_up(s_q, 32) <= cap:
         return s_q, round_up(s_q, 32), tile_lanes
     return cap, cap, tile_lanes
+
+
+def mxu_launch_geometry(s_q: int, dim: int, w: int) -> tuple[int, int, int]:
+    """(rows per block = threads, lanes per staged chunk, Dp) of the bf16
+    kernel: Dp is D rounded up to 16; the chunk is 64 lanes where shared
+    memory allows (else 32 or 16), and the rows are the most of 256, 128,
+    64, 32 whose query halves, score slabs and widened candidate columns
+    fit beside it (shared-memory rows are padded by 8 bf16)."""
+    dp = round_up(dim, 16)
+    ldq = dp + 8
+    for lanes in (64, 32, 16):
+        for rows in (256, 128, 64, 32):
+            if rows > max(32, round_up(s_q, 32)):
+                continue
+            smem = (4 * rows * ldq + 4 * lanes * ldq + 4 * lanes
+                    + 4 * rows * lanes + 8 * w * rows)
+            if smem <= SMEM_OPTIN - 1024:
+                return rows, lanes, dp
+    raise NotImplementedError(
+        f"W={w}, D={dim}: 32 widened candidate rows no longer fit in shared "
+        "memory (candidate rows in device memory: ROADMAP.md Queue 1)")
 
 
 def _check_inputs(state: CandidateState, q: BucketedPoints,
@@ -142,9 +280,9 @@ def _check_inputs(state: CandidateState, q: BucketedPoints,
         if t.device.type != "cuda" or t.dtype != dtype:
             raise ValueError(f"{name} must be a CUDA {dtype} tensor, got "
                              f"{t.device} {t.dtype}")
-    if q.pts.shape[-1] != 3 or p.pts.shape[-1] != 3:
-        raise NotImplementedError(
-            "the CUDA traversal kernel scores D=3 points only")
+    if q.pts.shape[-1] != p.pts.shape[-1]:
+        raise ValueError(f"queries have D={q.pts.shape[-1]}, points "
+                         f"D={p.pts.shape[-1]}")
     if state.dist2.shape != (num_qb * s_q, state.dist2.shape[1]) \
             or state.idx.shape != state.dist2.shape:
         raise ValueError(f"state {tuple(state.dist2.shape)} does not match "
@@ -153,74 +291,179 @@ def _check_inputs(state: CandidateState, q: BucketedPoints,
 
 def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
                           p: BucketedPoints, *, skip_self: bool = False,
-                          self_group: int = 1, with_stats: bool = False):
+                          self_group: int = 1, with_stats: bool = False,
+                          score_dtype: str = "f32"):
     """Fold every real point of ``p`` into ``state`` (module docstring).
-    CPU tensors take ``knn_update_tiled_plain``; CUDA tensors launch the
+    CPU tensors take ``knn_update_tiled_plain``; CUDA tensors launch a
     kernel or raise. Returns a new state (the input is not modified) and,
     with ``with_stats``, the summed visit count as a device scalar."""
     if q.pts.device.type == "cpu":
         return knn_update_tiled_plain(state, q, p, skip_self=skip_self,
                                       self_group=self_group,
-                                      with_stats=with_stats)
+                                      with_stats=with_stats,
+                                      score_dtype=score_dtype)
     _check_inputs(state, q, p)
     sorted_d2, order = nearest_first_order(q.lower, q.upper,
                                            p.lower, p.upper)
-    # the kernel updates its rows in place: it gets fresh copies
-    out = CandidateState(state.dist2.contiguous().clone(),
-                         state.idx.contiguous().clone())
-    visits = launch_knn_tiled(order, sorted_d2, q, p, out,
-                              skip_self=skip_self, self_group=self_group)
+    k = state.dist2.shape[1]
+    if uses_mxu(score_dtype, q.pts.shape[-1]):
+        rows = widen_rows(state, survivor_width(k, p))
+        visits = launch_knn_tiled_mxu(order, sorted_d2, q, p, rows,
+                                      skip_self=skip_self,
+                                      self_group=self_group)
+        out = CandidateState(rows.dist2[:, :k].contiguous(),
+                             rows.idx[:, :k].contiguous())
+    else:
+        # the kernel updates its rows in place: it gets fresh copies
+        out = CandidateState(state.dist2.contiguous().clone(),
+                             state.idx.contiguous().clone())
+        visits = launch_knn_tiled(order, sorted_d2, q, p, out,
+                                  skip_self=skip_self, self_group=self_group)
     return (out, visits.sum()) if with_stats else out
+
+
+def _check_schedule(order, sorted_d2, q, p, rows) -> None:
+    for name, t in (("order", order), ("sorted_d2", sorted_d2),
+                    ("rows.dist2", rows.dist2), ("rows.idx", rows.idx)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if order.shape != (q.ids.shape[0], p.ids.shape[0]) \
+            or order.dtype != torch.int32 or sorted_d2.shape != order.shape:
+        raise ValueError("the visit schedule must be i32/f32 [Bq, Bp]")
+
+
+def component_major(pts: torch.Tensor) -> torch.Tensor:
+    """f32[..., R, D] -> f32[..., ceil(D/4), R, 4] contiguous, components
+    zero-padded to a multiple of 4: the general-D kernels read one query
+    row's group of 4 components as a float4, coalesced across rows."""
+    dim = pts.shape[-1]
+    d4n = -(-dim // 4)
+    padded = torch.nn.functional.pad(pts, (0, 4 * d4n - dim))
+    return padded.unflatten(-1, (d4n, 4)).transpose(-3, -2).contiguous()
 
 
 def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
                      q: BucketedPoints, p: BucketedPoints,
                      rows: CandidateState, *, skip_self: bool,
                      self_group: int) -> torch.Tensor:
-    """Launch the kernel on PyTorch's current stream, folding ``p`` into
-    ``rows`` IN PLACE along the visit schedule ``(order, sorted_d2)`` of
-    ``nearest_first_order``. Returns the per-query-bucket visit counts
-    (i32[Bq]). Counts one launch in ``knn_update_tiled_cuda.launches``."""
+    """Launch the f32 kernel on PyTorch's current stream (the D=3 one or
+    the general-D one), folding ``p`` into ``rows`` IN PLACE along the
+    visit schedule ``(order, sorted_d2)`` of ``nearest_first_order``.
+    Returns the per-query-bucket visit counts (i32[Bq]). Counts one launch
+    in ``knn_update_tiled_cuda.launches``."""
     num_qb, s_q = q.ids.shape
     num_pb, t_p = p.ids.shape
+    dim = q.pts.shape[-1]
     k = rows.dist2.shape[1]
-    for name, t in (("order", order), ("sorted_d2", sorted_d2),
-                    ("rows.dist2", rows.dist2), ("rows.idx", rows.idx)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if order.shape != (num_qb, num_pb) or order.dtype != torch.int32 \
-            or sorted_d2.shape != order.shape:
-        raise ValueError("the visit schedule must be i32/f32 [Bq, Bp]")
-    block_rows, threads, tile_lanes = launch_geometry(s_q, t_p, k)
+    _check_schedule(order, sorted_d2, q, p, rows)
+    block_rows, threads, tile_lanes = launch_geometry(s_q, t_p, k, dim)
     visits = torch.zeros(num_qb, dtype=torch.int32, device=order.device)
-    q_pts, q_ids = q.pts.contiguous(), q.ids.contiguous()
+    q_ids = q.ids.contiguous()
     p_pts, p_ids = p.pts.contiguous(), p.ids.contiguous()
-    lib = _library()
+    lib = _library("knn_tiled")
     with torch.cuda.device(order.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.knn_tiled_launch(
-            order.data_ptr(), sorted_d2.data_ptr(), q_pts.data_ptr(),
-            q_ids.data_ptr(), p_pts.data_ptr(), p_ids.data_ptr(),
-            rows.dist2.data_ptr(), rows.idx.data_ptr(), visits.data_ptr(),
-            num_qb, s_q, num_pb, t_p, k, int(bool(skip_self)), self_group,
-            block_rows, threads, tile_lanes, stream)
+        if dim == 3:
+            q_pts = q.pts.contiguous()
+            err = lib.knn_tiled_launch(
+                order.data_ptr(), sorted_d2.data_ptr(), q_pts.data_ptr(),
+                q_ids.data_ptr(), p_pts.data_ptr(), p_ids.data_ptr(),
+                rows.dist2.data_ptr(), rows.idx.data_ptr(),
+                visits.data_ptr(), num_qb, s_q, num_pb, t_p, k,
+                int(bool(skip_self)), self_group, block_rows, threads,
+                tile_lanes, stream)
+        else:
+            q_t = component_major(q.pts)
+            err = lib.knn_tiled_nd_launch(
+                order.data_ptr(), sorted_d2.data_ptr(), q_t.data_ptr(),
+                q_ids.data_ptr(), p_pts.data_ptr(), p_ids.data_ptr(),
+                rows.dist2.data_ptr(), rows.idx.data_ptr(),
+                visits.data_ptr(), num_qb, s_q, num_pb, t_p, dim, k,
+                int(bool(skip_self)), self_group, block_rows, threads,
+                tile_lanes, stream)
     if err:
         raise RuntimeError(f"knn_tiled kernel launch failed: CUDA error {err}")
     knn_update_tiled_cuda.launches += 1
     return visits
 
 
-#: kernel launches made by this process (read by chip_smoke.py and the CLI)
+def _bf16_halves(pts: torch.Tensor, rows: int, dp: int):
+    """(hi, lo) bf16[B, rows, dp] of f32[B, R, D], zero-padded."""
+    b, r, dim = pts.shape
+    out = []
+    for half in split_bf16(pts):
+        buf = torch.zeros((b, rows, dp), dtype=torch.bfloat16,
+                          device=pts.device)
+        buf[:, :r, :dim] = half
+        out.append(buf)
+    return out
+
+
+def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
+                         q: BucketedPoints, p: BucketedPoints,
+                         rows: CandidateState, *, skip_self: bool,
+                         self_group: int) -> torch.Tensor:
+    """Launch the bf16 kernel on PyTorch's current stream, folding ``p``
+    into the WIDENED ``rows`` IN PLACE (module docstring: on return each
+    row holds exact d2 and ids, sorted stably). Prepares the bf16 halves
+    of both sides, zero-padded to Dp components, and the exact ``|p|^2``.
+    Returns the per-query-bucket visit counts (i32[Bq]). Counts one launch
+    in ``knn_update_tiled_cuda.mxu_launches``."""
+    num_qb, s_q = q.ids.shape
+    num_pb, t_p = p.ids.shape
+    dim = q.pts.shape[-1]
+    w = rows.dist2.shape[1]
+    _check_schedule(order, sorted_d2, q, p, rows)
+    if num_pb * t_p >= 2**31 - 2:
+        raise ValueError(f"{num_pb * t_p} point lanes overflow the encoded "
+                         "positions of the bf16 kernel")
+    block_rows, lanes, dp = mxu_launch_geometry(s_q, dim, w)
+    s_pad = round_up(s_q, block_rows)
+    qh, ql = _bf16_halves(q.pts, s_pad, dp)
+    ph, pl = _bf16_halves(p.pts, t_p, dp)
+    pn2 = norms2(p.pts).contiguous()
+    visits = torch.zeros(num_qb, dtype=torch.int32, device=order.device)
+    q_pts, q_ids = q.pts.contiguous(), q.ids.contiguous()
+    p_pts, p_ids = p.pts.contiguous(), p.ids.contiguous()
+    lib = _library("knn_tiled_mxu")
+    with torch.cuda.device(order.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.knn_tiled_mxu_launch(
+            order.data_ptr(), sorted_d2.data_ptr(), q_pts.data_ptr(),
+            q_ids.data_ptr(), qh.data_ptr(), ql.data_ptr(), p_pts.data_ptr(),
+            p_ids.data_ptr(), ph.data_ptr(), pl.data_ptr(), pn2.data_ptr(),
+            rows.dist2.data_ptr(), rows.idx.data_ptr(), visits.data_ptr(),
+            num_qb, s_q, s_pad, num_pb, t_p, dim, dp, w,
+            int(bool(skip_self)), self_group, block_rows, lanes, stream)
+    if err:
+        raise RuntimeError(
+            f"knn_tiled_mxu kernel launch failed: CUDA error {err}")
+    knn_update_tiled_cuda.mxu_launches += 1
+    return visits
+
+
+#: kernel launches made by this process (read by chip_smoke.py and the
+#: CLIs): ``launches`` of csrc/knn_tiled.cu, ``mxu_launches`` of
+#: csrc/knn_tiled_mxu.cu
 knn_update_tiled_cuda.launches = 0
+knn_update_tiled_cuda.mxu_launches = 0
+
+#: per library, its launchers' arguments: p = pointer, i = int
+_SIGNATURES = {
+    "knn_tiled": {"knn_tiled_launch": 9 * "p" + 10 * "i" + "p",
+                  "knn_tiled_nd_launch": 9 * "p" + 11 * "i" + "p"},
+    "knn_tiled_mxu": {"knn_tiled_mxu_launch": 14 * "p" + 12 * "i" + "p"},
+}
 
 
-def _library() -> ctypes.CDLL:
+def _library(name: str) -> ctypes.CDLL:
     from mpi_cuda_largescaleknn_torch.utils.cuda_build import load_library
 
-    lib = load_library("knn_tiled")
-    fn = lib.knn_tiled_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    lib = load_library(name)
+    for fn_name, sig in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
+                           for c in sig]
+            fn.restype = ctypes.c_int
     return lib

@@ -133,13 +133,20 @@ def partition_points(points: torch.Tensor,
 def bucket_box_dist2(q_lower, q_upper, p_lower, p_upper) -> torch.Tensor:
     """Squared min box-to-box distance matrix f32[Bq, Bp]: per-component
     ``max(0, max(q.lo - p.hi, p.lo - q.hi))``, squares summed left to
-    right. Empty buckets (inverted inf bounds) give +inf."""
-    diff = torch.clamp_min(
-        torch.maximum(q_lower[:, None, :] - p_upper[None, :, :],
-                      p_lower[None, :, :] - q_upper[:, None, :]), 0.0)
+    right. Empty buckets (inverted inf bounds) give +inf.
+
+    One component at a time on [Bq, Bp] tensors: the broadcast [Bq, Bp, D]
+    form would hold 4.3 GB per temporary at 1M points and D=128. Each
+    element sees the same operations, so the bits are the broadcast form's.
+    (The JAX package sums the D axis with ``jnp.sum``, whose order XLA may
+    change at large D: there the box d2, and with it the visit order, can
+    differ by an ulp; distances and ids on tie-free data do not.)"""
     d2 = None
-    for i in range(diff.shape[-1]):
-        sq = diff[..., i] * diff[..., i]
+    for i in range(q_lower.shape[-1]):
+        diff = torch.clamp_min(
+            torch.maximum(q_lower[:, None, i] - p_upper[None, :, i],
+                          p_lower[None, :, i] - q_upper[:, None, i]), 0.0)
+        sq = diff * diff
         d2 = sq if d2 is None else d2 + sq
     return torch.where(torch.isnan(d2), torch.inf, d2)
 

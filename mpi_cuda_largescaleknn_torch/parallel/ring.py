@@ -12,9 +12,11 @@ order: in round r shard i folds shard (i - r) % R forward, then shard
 (i + r) % R backward, except in round 0 (both copies are its own shard)
 and, for even R, in round R/2 (both are the antipode). Round 0 folds the
 own shard with ``skip_self``: each row was warm-started with its own
-bucket (ops/tiled.py). The flat engine ``pallas`` folds whole shards with
-the brute-force kernel (``csrc/knn_bf.cu``) in the same order: queries in
-slab order, no partition, no warm start. The ``torch.distributed`` ring
+bucket (ops/tiled.py, always exact f32). ``score_dtype`` reaches the
+traversal only. The flat engine ``pallas`` folds whole shards with the
+brute-force kernel (``csrc/knn_bf.cu``) in the same order: queries in
+slab order, no partition, no warm start, and no bf16 path (it raises, as
+the JAX package's ``_engine_fn`` does). The ``torch.distributed`` ring
 across cards is ROADMAP.md Queue 1.
 """
 
@@ -30,6 +32,7 @@ from mpi_cuda_largescaleknn_torch.ops.candidates import (
     extract_final_result,
     init_candidates,
 )
+from mpi_cuda_largescaleknn_torch.ops.distance import validate_score_dtype
 from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
 from mpi_cuda_largescaleknn_torch.ops.knn_tiled import knn_update_tiled_cuda
 from mpi_cuda_largescaleknn_torch.ops.partition import (
@@ -107,7 +110,8 @@ def _ring_stats(visits_total: int, bucket_size: int, q_rows: int,
 def ring_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
              max_radius: float = float("inf"), engine: str = "auto",
              query_tile: int = 2048, point_tile: int = 2048,
-             bucket_size: int = 0, point_group: int = 0, device=None,
+             bucket_size: int = 0, point_group: int = 0,
+             score_dtype: str = "f32", device=None,
              return_candidates: bool = False, return_stats: bool = False,
              timers=None):
     """Run the full ring over ``num_shards`` virtual shards on ``device``.
@@ -118,6 +122,8 @@ def ring_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
       ids_sharded: i32[R*Npad] global point ids (-1 for padding).
       query_tile / point_tile: the flat engine's tiles (results do not
         depend on them).
+      score_dtype: "f32" or "bf16" (the traversal's matmul-form scores,
+        ops/knn_tiled.py); the flat engine raises ValueError on "bf16".
 
     Returns f32[R*Npad] k-th-NN distances (a tensor on ``device``; inf for
     the tiled engine's padding rows, which the flat engine fills with
@@ -129,6 +135,10 @@ def ring_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
     """
     engine = resolve_engine(engine)
     flat = engine == "pallas"
+    if validate_score_dtype(score_dtype) != "f32" and flat:
+        raise ValueError(
+            f"engine '{engine}' has no score_dtype='{score_dtype}' path "
+            "(matmul-form scoring exists for the traversal)")
     bucket_size = resolve_bucket_size(bucket_size)
     total_rounds = ring_total_rounds(num_shards)
     pts = torch.as_tensor(points_sharded, dtype=torch.float32, device=device)
@@ -164,7 +174,8 @@ def ring_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
                                                 resident[shard],
                                                 skip_self=skip_self,
                                                 self_group=group,
-                                                with_stats=True)
+                                                with_stats=True,
+                                                score_dtype=score_dtype)
             visits = visits + v
 
     with timed_stage(timers, "traverse", pts.device):

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C launcher, so it compiles in
 seconds without PyTorch's headers. The shared library goes to ``build/``
-at the root of the checkout, named by a hash of the source and the flags,
+at the root of the checkout, named by a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags,
 so an edited source rebuilds and an unchanged one loads at once. Nothing is
 built at import time: the first launch builds.
 """
@@ -46,8 +47,11 @@ def build_library(name: str) -> tuple[Path, str, float]:
     (library path, compiler output, seconds spent compiling — 0 when the
     library was already built)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the shared headers count too: an edited header rebuilds every kernel
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     lib = BUILD_DIR / f"{name}-{digest}.so"
     log = lib.with_suffix(".log")
     if lib.exists():

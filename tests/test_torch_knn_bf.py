@@ -41,26 +41,31 @@ def assert_state_equal(got, want):
 
 
 CASES = {
-    # name: (kind, n queries, n points, k, max_radius)
-    "self_n100_k1": ("uniform", 100, None, 1, math.inf),
-    "self_n300_k8": ("uniform", 300, None, 8, math.inf),
-    "self_n520_k17": ("uniform", 520, None, 17, math.inf),
-    "q130_p400_k9": ("uniform", 130, 400, 9, math.inf),
-    "k_above_n": ("uniform", 5, None, 8, math.inf),
-    "radius_k10": ("uniform", 260, None, 10, 0.05),
-    "dupes_k8": ("dupes", 300, None, 8, math.inf),
-    "dupes_k40": ("dupes", 300, None, 40, math.inf),
-    "clustered_k33": ("clustered", 280, None, 33, math.inf),
-    "self_n300_k100": ("uniform", 300, None, 100, math.inf),
-    "radius_k64": ("uniform", 280, None, 64, 0.2),
+    # name: (kind, n queries, n points, k, max_radius, D)
+    "self_n100_k1": ("uniform", 100, None, 1, math.inf, 3),
+    "self_n300_k8": ("uniform", 300, None, 8, math.inf, 3),
+    "self_n520_k17": ("uniform", 520, None, 17, math.inf, 3),
+    "q130_p400_k9": ("uniform", 130, 400, 9, math.inf, 3),
+    "k_above_n": ("uniform", 5, None, 8, math.inf, 3),
+    "radius_k10": ("uniform", 260, None, 10, 0.05, 3),
+    "dupes_k8": ("dupes", 300, None, 8, math.inf, 3),
+    "dupes_k40": ("dupes", 300, None, 40, math.inf, 3),
+    "clustered_k33": ("clustered", 280, None, 33, math.inf, 3),
+    "self_n300_k100": ("uniform", 300, None, 100, math.inf, 3),
+    "radius_k64": ("uniform", 280, None, 64, 0.2, 3),
+    # points of other dimensions: the general-D kernel's plain version
+    "d4_self_k8": ("uniform", 300, None, 8, math.inf, 4),
+    "d4_q130_p400_k9_dupes": ("dupes", 130, 400, 9, math.inf, 4),
+    "d16_self_k8": ("normal", 260, None, 8, math.inf, 16),
+    "d16_radius_k40": ("normal", 280, None, 40, 5.0, 16),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_plain_matches_pallas_kernel(case):
-    kind, nq, npts, k, radius = CASES[case]
-    pts = points(kind, npts or nq, seed=nq + k)
-    q = pts if npts is None else points(kind, nq, seed=nq + k + 1)
+    kind, nq, npts, k, radius, dim = CASES[case]
+    pts = points(kind, npts or nq, seed=nq + k, dim=dim)
+    q = pts if npts is None else points(kind, nq, seed=nq + k + 1, dim=dim)
     state = init_candidates(nq, k, max_radius=radius)
     want = knn_update_pallas(state, q, pts, query_tile=64, point_tile=128)
     got = port_update(state, q, pts, query_tile=64, point_tile=128)
@@ -162,6 +167,20 @@ def test_launch_geometry(query_tile, point_tile, k, want):
     assert (rows, lanes) == want
     assert rows % 32 == 0 and rows <= 1024
     assert 16 * lanes + 8 * k * rows <= tb.SMEM_OPTIN - 1024
+
+
+@pytest.mark.parametrize("query_tile,point_tile,k,dim,want", [
+    (2048, 2048, 8, 4, (512, 2048)),
+    (2048, 2048, 10, 128, (512, 160)),
+    (2048, 2048, 100, 128, (160, 160)),
+    (50, 5000, 1, 16, (64, 1440)),
+])
+def test_launch_geometry_general_d(query_tile, point_tile, k, dim, want):
+    rows, lanes = tb.launch_geometry(query_tile, point_tile, k, dim)
+    assert (rows, lanes) == want
+    assert rows % 32 == 0 and rows <= tb.ND_MAX_THREADS and lanes % 32 == 0
+    assert (16 * -(-dim // 4) + 4) * lanes + 8 * k * rows \
+        <= tb.SMEM_OPTIN - 1024
 
 
 def test_launch_geometry_refuses_huge_k():

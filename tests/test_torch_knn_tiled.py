@@ -49,23 +49,31 @@ def jax_inputs(pts, k, bucket_size, group, radius, warm):
 
 
 CASES = {
-    # name: (kind, n, k, bucket_size, group, radius, warm/skip_self, V)
-    "k1": ("uniform", 300, 1, 16, 1, math.inf, False, None),
-    "k8": ("uniform", 500, 8, 16, 1, math.inf, False, None),
-    "k100": ("uniform", 500, 100, 32, 1, math.inf, False, None),
-    "k8_radius": ("uniform", 400, 8, 16, 1, 0.09, False, None),
-    "k100_radius": ("uniform", 450, 100, 32, 2, 0.2, True, None),
-    "k8_skip_self_g2": ("uniform", 600, 8, 16, 2, math.inf, True, None),
-    "k1_skip_self_g2": ("clustered", 500, 1, 16, 2, math.inf, True, None),
-    "k8_clustered_g2": ("clustered", 560, 8, 16, 2, math.inf, True, None),
-    "k8_dupes_g2": ("dupes", 480, 8, 16, 2, math.inf, True, None),
-    "k13_dupes": ("dupes", 300, 13, 16, 1, math.inf, False, None),
-    "k100_dupes_g2": ("dupes", 500, 100, 32, 2, math.inf, True, None),
+    # name: (kind, n, k, bucket_size, group, radius, warm/skip_self, V,
+    #        D)
+    "k1": ("uniform", 300, 1, 16, 1, math.inf, False, None, 3),
+    "k8": ("uniform", 500, 8, 16, 1, math.inf, False, None, 3),
+    "k100": ("uniform", 500, 100, 32, 1, math.inf, False, None, 3),
+    "k8_radius": ("uniform", 400, 8, 16, 1, 0.09, False, None, 3),
+    "k100_radius": ("uniform", 450, 100, 32, 2, 0.2, True, None, 3),
+    "k8_skip_self_g2": ("uniform", 600, 8, 16, 2, math.inf, True, None, 3),
+    "k1_skip_self_g2": ("clustered", 500, 1, 16, 2, math.inf, True, None, 3),
+    "k8_clustered_g2": ("clustered", 560, 8, 16, 2, math.inf, True, None, 3),
+    "k8_dupes_g2": ("dupes", 480, 8, 16, 2, math.inf, True, None, 3),
+    "k13_dupes": ("dupes", 300, 13, 16, 1, math.inf, False, None, 3),
+    "k100_dupes_g2": ("dupes", 500, 100, 32, 2, math.inf, True, None, 3),
     # 5 real buckets of 8 with V=1/2/3: V=3 leaves a partial last chunk
-    "v1": ("uniform", 5 * 16, 6, 16, 1, math.inf, False, 1),
-    "v2": ("uniform", 5 * 16, 6, 16, 1, math.inf, False, 2),
-    "v3": ("uniform", 5 * 16, 6, 16, 1, math.inf, False, 3),
-    "v3_skip_self_g2": ("uniform", 300, 7, 16, 2, math.inf, True, 3),
+    "v1": ("uniform", 5 * 16, 6, 16, 1, math.inf, False, 1, 3),
+    "v2": ("uniform", 5 * 16, 6, 16, 1, math.inf, False, 2, 3),
+    "v3": ("uniform", 5 * 16, 6, 16, 1, math.inf, False, 3, 3),
+    "v3_skip_self_g2": ("uniform", 300, 7, 16, 2, math.inf, True, 3, 3),
+    # points of other dimensions: the general-D kernel's plain version
+    "d4_k8": ("uniform", 400, 8, 16, 1, math.inf, False, None, 4),
+    "d4_k8_dupes_g2": ("dupes", 420, 8, 16, 2, math.inf, True, None, 4),
+    "d16_k8_skip_self_g2": ("uniform", 500, 8, 16, 2, math.inf, True, None,
+                            16),
+    "d16_k1_v2": ("normal", 300, 1, 16, 1, math.inf, False, 2, 16),
+    "d32_k40_radius_g2": ("normal", 450, 40, 32, 2, 7.0, True, None, 32),
 }
 
 
@@ -76,8 +84,8 @@ def test_plain_matches_pallas_kernel(case, monkeypatch):
     # across segments (test_fold_keeps_lane_order_on_ties_across_segments);
     # the port keeps the documented lane order, the one-segment result
     monkeypatch.setenv("LSK_FOLD_SEGS", "1")
-    kind, n, k, bs, group, radius, warm, visit_batch = CASES[case]
-    pts = points(kind, n, seed=n + k)
+    kind, n, k, bs, group, radius, warm, visit_batch, dim = CASES[case]
+    pts = points(kind, n, seed=n + k, dim=dim)
     q, pc, state = jax_inputs(pts, k, bs, group, radius, warm)
     skip = jnp.int32(1) if warm else None
     want = knn_update_tiled_pallas(state, q, pc, skip_self=skip,
@@ -190,6 +198,21 @@ def test_launch_geometry(s_q, t_p, k, want):
     assert (rows, threads, lanes) == want
     smem = 16 * lanes + 8 * k * threads
     assert smem <= tk.SMEM_OPTIN - 1024 and threads % 32 == 0
+
+
+@pytest.mark.parametrize("s_q,t_p,k,dim,want", [
+    (248, 496, 10, 128, (248, 256, 160)),
+    (248, 496, 100, 128, (160, 160, 160)),
+    (248, 496, 8, 4, (248, 256, 512)),
+    (1000, 2000, 10, 16, (512, 512, 1440)),
+    (16, 20, 1, 960, (16, 32, 32)),
+])
+def test_launch_geometry_general_d(s_q, t_p, k, dim, want):
+    rows, threads, lanes = tk.launch_geometry(s_q, t_p, k, dim)
+    assert (rows, threads, lanes) == want
+    smem = (16 * -(-dim // 4) + 4) * lanes + 8 * k * threads
+    assert smem <= tk.SMEM_OPTIN - 1024 and lanes % 32 == 0
+    assert threads % 32 == 0 and threads <= tk.ND_MAX_THREADS
 
 
 def test_launch_geometry_refuses_huge_k():

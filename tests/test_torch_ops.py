@@ -32,18 +32,21 @@ from mpi_cuda_largescaleknn_tpu.utils import math as jmath
 from tests.oracle import random_points
 
 
-def points(kind: str, n: int, seed: int) -> np.ndarray:
-    """Seeded test point sets: uniform, two far clusters, or uniform with
-    exact duplicates (ties in coordinates, box and point distances)."""
+def points(kind: str, n: int, seed: int, dim: int = 3) -> np.ndarray:
+    """Seeded test point sets of dimension ``dim``: uniform, standard
+    normal (zero-mean, for the matmul form), two far clusters, or uniform
+    with exact duplicates (ties in coordinates, box and point distances)."""
     rng = np.random.default_rng(seed)
     if kind == "uniform":
-        return rng.random((n, 3)).astype(np.float32)
+        return rng.random((n, dim)).astype(np.float32)
+    if kind == "normal":
+        return rng.standard_normal((n, dim)).astype(np.float32)
     if kind == "clustered":
         half = n // 2
-        a = rng.random((half, 3)) * 0.1
-        b = rng.random((n - half, 3)) * 0.1 + 50.0
+        a = rng.random((half, dim)) * 0.1
+        b = rng.random((n - half, dim)) * 0.1 + 50.0
         return np.concatenate([a, b]).astype(np.float32)
-    base = rng.random((n // 3 + 1, 3)).astype(np.float32)
+    base = rng.random((n // 3 + 1, dim)).astype(np.float32)
     return base[rng.integers(0, len(base), n)]
 
 
@@ -113,6 +116,29 @@ def test_coarsen_and_visit_order_bitwise(kind, group):
     assert_bitwise(torder.numpy(), jorder)
 
 
+@pytest.mark.parametrize("dim", [3, 16])
+def test_box_dist2_per_component_equals_broadcast_form(dim):
+    """One component at a time gives the bits of the [Bq, Bp, D] broadcast
+    form; at D=3 also the JAX package's."""
+    pts = points("uniform", 600, seed=dim, dim=dim)
+    jq, tq = both_partitions(pts, 16)
+    tc = tpart.coarsen_buckets(tq, 2)
+    diff = torch.clamp_min(
+        torch.maximum(tq.lower[:, None, :] - tc.upper[None, :, :],
+                      tc.lower[None, :, :] - tq.upper[:, None, :]), 0.0)
+    want = None
+    for i in range(dim):
+        sq = diff[..., i] * diff[..., i]
+        want = sq if want is None else want + sq
+    want = torch.where(torch.isnan(want), torch.inf, want)
+    got = tpart.bucket_box_dist2(tq.lower, tq.upper, tc.lower, tc.upper)
+    assert_bitwise(got.numpy(), want.numpy())
+    if dim == 3:
+        jc = jpart.coarsen_buckets(jq, 2)
+        assert_bitwise(got.numpy(), jpart.bucket_box_dist2(
+            jq.lower, jq.upper, jc.lower, jc.upper))
+
+
 def test_scatter_back_matches():
     pts = points("uniform", 150, seed=5)
     jq, tq = both_partitions(pts, 16)
@@ -123,7 +149,7 @@ def test_scatter_back_matches():
     assert_bitwise(got.numpy(), want)
 
 
-@pytest.mark.parametrize("dim", [2, 3, 5])
+@pytest.mark.parametrize("dim", [2, 3, 5, 16, 128])
 def test_elementwise_dist2_bitwise(dim):
     q = random_points(37, seed=1, scale=7.0, dim=dim)
     p = random_points(53, seed=2, scale=7.0, dim=dim)
@@ -244,7 +270,7 @@ def test_selfcheck_matches(k, radius):
     ("engine", "tiled", NotImplementedError),
     ("engine", "bruteforce", NotImplementedError),
     ("engine", "nope", ValueError),
-    ("score_dtype", "bf16", NotImplementedError),
+    ("score_dtype", "fp8", ValueError),
     ("query_chunk", 64, NotImplementedError),
     ("checkpoint_dir", "ckpt", NotImplementedError),
     ("merge", "device", NotImplementedError),
@@ -258,6 +284,11 @@ def test_config_refuses_what_is_not_ported(field, value, exc):
         tconfig.KnnConfig(**kw).validate()
     if exc is NotImplementedError:
         assert "ROADMAP.md" in str(err.value)
+
+
+@pytest.mark.parametrize("score_dtype", ["f32", "bf16"])
+def test_config_accepts_both_score_dtypes(score_dtype):
+    tconfig.KnnConfig(k=4, score_dtype=score_dtype).validate()
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -281,6 +312,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import mpi_cuda_largescaleknn_torch.cli.partition_main\n"
         "import mpi_cuda_largescaleknn_torch.parallel.demand\n"
         "import mpi_cuda_largescaleknn_torch.ops.knn_bf\n"
+        "import mpi_cuda_largescaleknn_torch.ops.knn_tiled\n"
         "import mpi_cuda_largescaleknn_torch.convert\n"
         "import mpi_cuda_largescaleknn_torch.utils.cuda_build\n"
         "bad = [m for m in set(sys.modules) - before"

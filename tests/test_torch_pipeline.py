@@ -91,7 +91,7 @@ def test_cli_sharded_output_is_byte_identical(tmp_path):
                                   ["--merge", "device"],
                                   ["--num-hosts", "2"],
                                   ["--profile-dir", "prof"],
-                                  ["--score-dtype", "bf16"],
+                                  ["--checkpoint-every", "2"],
                                   ["--engine", "tree"]])
 def test_cli_refuses_options_not_ported(tmp_path, flag):
     src = tmp_path / "pts.float3"
