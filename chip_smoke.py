@@ -10,7 +10,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``csrc/knn_tiled_mxu.cu`` with nvcc into ``build/``, the compilers
    started together;
 3. the traversal kernel against its plain PyTorch version on the card,
-   bit for bit (d2, ids and visit counts), on ~32K seeded uniform and
+   bit for bit (d2 and ids; visit counts equal where a query bucket is one
+   block, at most the plain count where its rows split over blocks), on
+   ~32K seeded uniform and
    clustered points: k in {1, 8, 100, 200}, a finite ``-r``, ``skip_self``
    with point group 2, and buckets wider than one staged tile;
 3b. the brute-force kernel against its plain version, bit for bit (d2 and
@@ -22,10 +24,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    for bit, on 32,000 clustered points at D in {4, 16, 128}: k in {1, 10,
    100}, a finite ``-r``, ``skip_self`` with point group 2, point buckets
    wider than one staged tile;
-3d. the tensor-core bf16 kernel against its plain version at D in {16,
-   32, 128}, k in {1, 10, 100}, a finite ``-r`` and warm-started rows: d2
-   bitwise and equal to the f32 kernel's; ids equal, where they differ,
-   only among equally distant points (checked exactly);
+3d. the tensor-core bf16 kernels against their plain version: the wgmma
+   kernel at D in {16, 32, 64, 128}, k in {1, 10, 100}, a finite ``-r``
+   and warm-started rows, a bucket of 1,000 rows (split over blocks, T not
+   a multiple of the chunk) and D=200 (a 2-stage ring, rows in device
+   memory); the wmma kernel at D=600 and D=960: d2 bitwise and equal to
+   the f32 kernel's; ids equal, where they differ, only among equally
+   distant points (checked exactly); each case's launch on its route;
 4. the main path through the CLI: 1,000,000 seeded uniform points at
    k=100 and at k=8, each with ``--selfcheck 1000 --timings``;
 5. the same k=8 run over 4 virtual shards, byte-equal to the 1-shard file;
@@ -44,11 +49,15 @@ Phases, each fatal on failure (exit code 1, no result line):
 10. the high-D main path: ``UnorderedKNN`` on 1,000,000 seeded points at
    D=128 (32 Gaussian clusters, the SIFT1M shape) and k=10, in bf16 at
    R=1, in f32 at R=1 and in bf16 at R=4: distances byte-equal, ids equal
-   up to the order of exact ties, a selfcheck of 200 samples;
+   up to the order of exact ties, a selfcheck of 200 samples; every bf16
+   launch on the wgmma kernel, bf16 ``pair_evals`` at most 1.1x f32's, and
+   the bf16 runs' kernel time per launch beside the wrapper's preparation
+   time (the packed halves rebuilt at every launch);
 10b. ``prepartitioned_main`` on 4 ``.npy`` slab parts of the first
    262,144 of those points, byte-equal to ``UnorderedKNN`` on them;
-11. the f32 and bf16 traversal kernels' time at phase 10's shape against
-   their bounds, and their plain versions' on 16 query buckets.
+11. the f32 and bf16 (wgmma) traversal kernels' time at phase 10's shape
+   against their bounds and their share of it, and their plain versions'
+   on 16 query buckets.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -174,12 +183,13 @@ def tie_rows(got_idx, want_idx, queries, points) -> int:
 
 
 def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
-                 group=2, warm=True, score_dtype="f32"):
+                 group=2, warm=True, score_dtype="f32", route=None):
     """Traversal kernel vs plain on the card for one input (f32: the D=3 or
     the general-D kernel; bf16: the tensor-core kernel, whose rows must
-    also equal the f32 kernel's up to the order of exact ties); returns
-    the max abs difference of the finite d2 entries (0.0 when bitwise
-    equal)."""
+    also equal the f32 kernel's up to the order of exact ties, and
+    ``route`` names the bf16 kernel the case must plan and launch);
+    returns the max abs difference of the finite d2 entries (0.0 when
+    bitwise equal)."""
     import torch
 
     from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
@@ -207,20 +217,33 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
     kw = dict(skip_self=warm, self_group=group, with_stats=True,
               score_dtype=score_dtype)
     want, want_vis = knn_update_tiled_plain(state, q, pc, **kw)
+    wgmma_before = knn_update_tiled_cuda.wgmma_launches
     got, got_vis = knn_update_tiled_cuda(state, q, pc, **kw)
     torch.cuda.synchronize()
     same_inf = torch.equal(torch.isinf(got.dist2), torch.isinf(want.dist2))
     err = max_abs_err(got.dist2, want.dist2)
+    plan_txt = ""
     if uses_mxu(score_dtype, dim):
-        rows, lanes, _ = mxu_launch_geometry(q.bucket_size, dim,
-                                             survivor_width(k, pc))
+        plan = mxu_launch_geometry(q.bucket_size, dim, survivor_width(k, pc))
+        rows, lanes = plan.rows, plan.lanes
         one_block = rows >= q.bucket_size
+        ran = knn_update_tiled_cuda.wgmma_launches - wgmma_before
+        if route is not None and plan.kernel != route:
+            fail(f"case {name}: planned the {plan.kernel} kernel, not "
+                 f"the {route} one")
+        if ran != (plan.kernel == "wgmma"):
+            fail(f"case {name}: planned the {plan.kernel} kernel, but "
+                 f"{ran} wgmma launches ran")
+        plan_txt = (f" {plan.kernel} stages={plan.stages} rows_in_smem="
+                    f"{plan.rows_in_smem}")
     else:
         rows, _, lanes = launch_geometry(q.bucket_size, pc.bucket_size, k,
                                          dim)
         one_block = rows == q.bucket_size
-    ok = (torch.equal(got.dist2, want.dist2) and same_inf
-          and (not one_block or int(got_vis) == int(want_vis)))
+    # a bucket split over blocks prunes per block: at most the plain count
+    vis_ok = (int(got_vis) == int(want_vis) if one_block
+              else int(got_vis) <= int(want_vis))
+    ok = torch.equal(got.dist2, want.dist2) and same_inf and vis_ok
     ties = ""
     if score_dtype == "f32":
         ok = ok and torch.equal(got.idx, want.idx)
@@ -239,8 +262,9 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
                 f"plain and {tie_rows(got.idx, exact.idx, qrows, pts)} vs the "
                 "f32 kernel differ only among equally distant points")
     say(f"  {name}: D={dim} B={q.num_buckets} S={q.bucket_size} "
-        f"T={pc.bucket_size} k={k} rows/block={rows} lanes/tile={lanes} "
-        f"visits={int(got_vis)} (plain {int(want_vis)}) max_abs_err={err} "
+        f"T={pc.bucket_size} k={k}{plan_txt} rows/block={rows} "
+        f"lanes/tile={lanes} visits={int(got_vis)} (plain {int(want_vis)}"
+        f"{'' if one_block else ', rows split'}) max_abs_err={err} "
         f"{'bit-equal' if ok else 'MISMATCH'}{ties}")
     if not ok:
         fail(f"kernel disagrees with its plain version in case {name}")
@@ -498,8 +522,9 @@ def time_bf_kernel(k, pts, reps=3):
 
 def unordered_run(label, pts_np, k, shards, score_dtype):
     """``UnorderedKNN`` in this process on ``pts_np`` (any D), with every
-    kernel count set to 0 just before the run and read just after.
-    Returns (timings, distances f32[N], neighbor ids i32[N, k])."""
+    kernel count set to 0 just before the run and read just after; a bf16
+    run also times each bf16 launch's preparation and kernel apart (CUDA
+    events). Returns (timings, distances f32[N], neighbor ids i32[N, k])."""
     import numpy as np
     import torch
 
@@ -516,14 +541,20 @@ def unordered_run(label, pts_np, k, shards, score_dtype):
     torch.cuda.reset_peak_memory_stats()
     knn_update_tiled_cuda.launches = 0
     knn_update_tiled_cuda.mxu_launches = 0
+    knn_update_tiled_cuda.wgmma_launches = 0
     knn_update_bf_cuda.launches = 0
+    events = [] if score_dtype == "bf16" else None
+    knn_update_tiled_cuda.mxu_events = events
     t0 = time.perf_counter()
     dists, idx = model.run(pts_np, return_neighbors=True)
     wall = time.perf_counter() - t0
+    knn_update_tiled_cuda.mxu_events = None
     t = model.timers.report()
     t.update({"run_seconds": wall, "queries_per_second": len(pts_np) / wall,
               "knn_tiled_launches": knn_update_tiled_cuda.launches,
               "knn_tiled_mxu_launches": knn_update_tiled_cuda.mxu_launches,
+              "knn_tiled_wgmma_launches":
+                  knn_update_tiled_cuda.wgmma_launches,
               "knn_bf_launches": knn_update_bf_cuda.launches,
               "peak_device_bytes": torch.cuda.max_memory_allocated(),
               **(model.last_stats or {})})
@@ -544,13 +575,23 @@ def unordered_run(label, pts_np, k, shards, score_dtype):
         if isinstance(v, dict) and "seconds" in v))
     if t[key] < 1:
         fail(f"{label}: {key} is 0: the kernel was never launched")
+    if events:
+        torch.cuda.synchronize()
+        t["mxu_prep_ms"] = sum(a.elapsed_time(b) for a, b, _ in events)
+        t["mxu_kernel_ms"] = sum(b.elapsed_time(c) for _, b, c in events)
+        say(f"    bf16 launches: {len(events)}, kernel "
+            f"{t['mxu_kernel_ms'] / len(events):.3f} ms per launch, "
+            f"preparation (halves, norms) "
+            f"{t['mxu_prep_ms'] / len(events):.3f} ms per launch")
     return t, dists, idx
 
 
 def time_hd_kernels(pts_np, k, reps=2):
     """Phase 11: the f32 general-D kernel and the bf16 tensor-core kernel
-    at phase 10's shape (the one fold of a 1-shard run after the warm
-    start), each over ``reps`` launches on fresh copies of the warm rows;
+    (the wgmma one) at phase 10's shape (the one fold of a 1-shard run
+    after the warm start), each over ``reps`` launches on fresh copies of
+    the warm rows (bf16: the kernel alone by the wrapper's CUDA events,
+    and with its preparation);
     the rows of both compared; their plain versions timed on the first
     PLAIN_BUCKETS query buckets and compared with the kernels' rows; and
     the bounds, on the pairs the f32 kernel's walk visits (the work the
@@ -561,6 +602,7 @@ def time_hd_kernels(pts_np, k, reps=2):
 
     from mpi_cuda_largescaleknn_torch.core.types import CandidateState
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        knn_update_tiled_cuda,
         knn_update_tiled_plain,
         launch_knn_tiled,
         launch_knn_tiled_mxu,
@@ -585,6 +627,8 @@ def time_hd_kernels(pts_np, k, reps=2):
                                            pc.lower, pc.upper)
     w = survivor_width(k, pc)
     wide = widen_rows(warm, w)
+    plan = mxu_launch_geometry(q.bucket_size, dim, w)
+    wgmma_before = knn_update_tiled_cuda.wgmma_launches
     runs = {}
     for mode, start_rows, launch in (
             ("f32", warm, launch_knn_tiled),
@@ -592,15 +636,25 @@ def time_hd_kernels(pts_np, k, reps=2):
         rows = CandidateState(start_rows.dist2.clone(),
                               start_rows.idx.clone())
         total = 0.0
+        events = [] if mode == "bf16" else None
+        knn_update_tiled_cuda.mxu_events = events
         for _ in range(reps):
             rows.dist2.copy_(start_rows.dist2)
             rows.idx.copy_(start_rows.idx)
             ms, visits = cuda_ms(lambda: launch(
                 order, sorted_d2, q, pc, rows, skip_self=True, self_group=2))
             total += ms
-        runs[mode] = (total / reps, rows, visits)
-    f32_ms, f32_rows, f32_vis = runs["f32"]
-    bf_ms, bf_wide, bf_vis = runs["bf16"]
+        knn_update_tiled_cuda.mxu_events = None
+        runs[mode] = (total / reps, rows, visits, events)
+    if plan.kernel != "wgmma" or \
+            knn_update_tiled_cuda.wgmma_launches - wgmma_before != reps:
+        fail("phase 11: the bf16 launches did not all take the wgmma kernel")
+    f32_ms, f32_rows, f32_vis, _ = runs["f32"]
+    # bf16: the kernel alone, and with the wrapper's preparation of the
+    # packed halves and norms (what one call of the wrapper costs)
+    bf_wrapper_ms, bf_wide, bf_vis, events = runs["bf16"]
+    bf_ms = sum(b.elapsed_time(c) for _, b, c in events) / reps
+    bf_prep_ms = sum(a.elapsed_time(b) for a, b, _ in events) / reps
     bf_rows = CandidateState(bf_wide.dist2[:, :k], bf_wide.idx[:, :k])
     qrows = q.pts.reshape(-1, dim)
     if not torch.equal(bf_rows.dist2, f32_rows.dist2):
@@ -636,7 +690,6 @@ def time_hd_kernels(pts_np, k, reps=2):
     f32_bound = (f32_ops / PEAK_F32, f32_bytes / PEAK_BYTES)
     bf_bound = (max(bf_tc / PEAK_BF16, bf_epi / PEAK_F32),
                 bf_bytes / PEAK_BYTES)
-    rows_mxu, lanes_mxu, _ = mxu_launch_geometry(s, dim, w)
     res = {}
     for mode, ms, vis, bound, err_rows in (
             ("f32", f32_ms, f32_vis, f32_bound, f32_rows),
@@ -648,12 +701,16 @@ def time_hd_kernels(pts_np, k, reps=2):
                                        err_rows.dist2[:nb * s]),
             "visits": int(vis.sum()), "pairs": pairs,
             "bound_ms": max(bound) * 1e3,
+            "share_of_bound": max(bound) * 1e3 / ms,
             "bound_by": "operations" if bound[0] >= bound[1] else "bytes"}
     res["f32"].update({"ops": f32_ops, "bytes": f32_bytes})
-    res["bf16"].update({"tensor_flop": bf_tc, "epilogue_ops": bf_epi,
+    res["bf16"].update({"wrapper_ms": bf_wrapper_ms, "prep_ms": bf_prep_ms,
+                        "tensor_flop": bf_tc, "epilogue_ops": bf_epi,
                         "bytes": bf_bytes, "W": w,
-                        "rows_per_block": rows_mxu,
-                        "lanes_per_chunk": lanes_mxu,
+                        "kernel": plan.kernel, "stages": plan.stages,
+                        "rows_in_smem": plan.rows_in_smem,
+                        "rows_per_block": plan.rows,
+                        "lanes_per_chunk": plan.lanes,
                         "id_rows_differing_by_ties": ties})
     res["shape"] = {"N": n, "D": dim, "k": k, "Bq": bq, "S": s,
                     "Bp": pc.num_buckets, "T": t}
@@ -698,7 +755,10 @@ def main() -> int:
     for name, (lib, log, secs) in zip(KERNELS, built):
         say(f"  built {lib.name} in {secs:.1f} s")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            # (C7519 notes where ptxas fences wgmma accumulators: one per
+            # product site, left out)
+            if ("registers" in line or "spill" in line or "smem" in line) \
+                    and "C7519" not in line:
                 say(f"  ptxas: {line.strip()}")
         details["build_seconds"][name] = secs
 
@@ -752,7 +812,8 @@ def main() -> int:
 
     # -- phase 3c -----------------------------------------------------------
     say("[phase 3c] general-D f32 kernels vs plain on the card, bit for bit")
-    nd = {d: clustered_nd(32_000, d, SEED + 10 + d) for d in (4, 16, 32, 128)}
+    nd = {d: clustered_nd(32_000, d, SEED + 10 + d)
+          for d in (4, 16, 32, 64, 128)}
     radius = {4: 0.6, 16: 4.0, 128: 14.5}   # a finite -r for k=10
     nd_errs = []
     for d in (4, 16, 128):
@@ -779,27 +840,35 @@ def main() -> int:
     details["phase3c_max_abs_err"] = max(nd_errs)
 
     # -- phase 3d -----------------------------------------------------------
-    say("[phase 3d] tensor-core bf16 kernel vs plain on the card")
-    mxu_radius = {16: 4.0, 32: 6.0, 128: 14.5}
+    say("[phase 3d] tensor-core bf16 kernels vs plain on the card")
+    mxu_radius = {16: 4.0, 32: 6.0, 64: 10.0, 128: 14.5}
     mxu_errs = []
-    for d in (16, 32, 128):
+    for d in (16, 32, 64, 128):
         x = nd[d]
+        bf = dict(score_dtype="bf16", route="wgmma")
         mxu_errs += [
-            compare_case(f"bf16 D={d} k=1 skip_self G2", x, 1,
-                         score_dtype="bf16"),
-            compare_case(f"bf16 D={d} k=10 skip_self G2", x, 10,
-                         score_dtype="bf16"),
-            compare_case(f"bf16 D={d} k=100 skip_self G2", x, 100,
-                         score_dtype="bf16"),
+            compare_case(f"bf16 D={d} k=1 skip_self G2", x, 1, **bf),
+            compare_case(f"bf16 D={d} k=10 skip_self G2", x, 10, **bf),
+            compare_case(f"bf16 D={d} k=100 skip_self G2", x, 100, **bf),
             compare_case(f"bf16 D={d} k=10 -r {mxu_radius[d]} cold G1", x,
                          10, radius=mxu_radius[d], group=1, warm=False,
-                         score_dtype="bf16"),
+                         **bf),
         ]
-    # D=600 and D=960 (GIST's) take the 32- and 16-lane chunk kernels
+    mxu_errs += [
+        compare_case("bf16 D=64 k=10 S=1000 (rows over 8 blocks, T=2000)",
+                     nd[64], 10, bucket_size=1000, score_dtype="bf16",
+                     route="wgmma"),
+        compare_case("bf16 D=200 k=10 skip_self G2 (2-stage ring)",
+                     clustered_nd(8_000, 200, SEED + 220), 10,
+                     score_dtype="bf16", route="wgmma"),
+    ]
+    # above WGMMA_MAX_DP: D=600 and D=960 (GIST's) take the wmma kernel's
+    # 32- and 16-lane chunks
     for d, lanes in ((600, 32), (960, 16)):
         mxu_errs.append(compare_case(
-            f"bf16 D={d} k=10 skip_self G2 ({lanes}-lane chunks)",
-            clustered_nd(8_000, d, SEED + 20 + d), 10, score_dtype="bf16"))
+            f"bf16 D={d} k=10 skip_self G2 (wmma, {lanes}-lane chunks)",
+            clustered_nd(8_000, d, SEED + 20 + d), 10, score_dtype="bf16",
+            route="wmma"))
     details["phase3d_max_abs_err"] = max(mxu_errs)
     del nd
 
@@ -921,6 +990,18 @@ def main() -> int:
         say(f"  {label} output is byte-equal to f32 R=1; neighbor ids of "
             f"{ties} rows differ only among equally distant points")
     del hd_pts
+    for label in ("bf16 R=1", "bf16 R=4"):
+        t = hd_runs[label]
+        if t["knn_tiled_wgmma_launches"] != t["knn_tiled_mxu_launches"]:
+            fail(f"phase 10: {label} launched the wgmma kernel "
+                 f"{t['knn_tiled_wgmma_launches']} of "
+                 f"{t['knn_tiled_mxu_launches']} bf16 launches")
+    ratio = (hd_runs["bf16 R=1"]["pair_evals"]
+             / hd_runs["f32 R=1"]["pair_evals"])
+    hd_runs["bf16 R=1"]["pair_evals_over_f32"] = ratio
+    say(f"  bf16 R=1 pair_evals are {ratio:.4f}x f32 R=1's")
+    if ratio > 1.1:
+        fail(f"phase 10: bf16 pair_evals are {ratio:.4f}x f32's (> 1.1x)")
     checked = verify_sample(hd, ref_d, HD_K, 200)
     say(f"  selfcheck OK ({checked} samples)")
     details["high_d"] = hd_runs
@@ -954,10 +1035,15 @@ def main() -> int:
     for mode in ("f32", "bf16"):
         r = hd_timed[mode]
         say(f"  {mode}: kernel {r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']}), visits {r['visits']}, plain "
+            f"({r['bound_by']}, {100 * r['share_of_bound']:.1f}% of it), "
+            f"visits {r['visits']}, plain "
             f"{r['plain_ms']:.3f} ms on {r['plain_shape']}, max_abs_err "
             f"{r['max_abs_err']}")
-    say(f"  shape {hd_timed['shape']}; bf16 W={hd_timed['bf16']['W']}, "
+    say(f"  bf16 with the wrapper's preparation: "
+        f"{hd_timed['bf16']['wrapper_ms']:.3f} ms (preparation "
+        f"{hd_timed['bf16']['prep_ms']:.3f} ms)")
+    say(f"  shape {hd_timed['shape']}; bf16 on the "
+        f"{hd_timed['bf16']['kernel']} kernel, W={hd_timed['bf16']['W']}, "
         f"ids of {hd_timed['bf16']['id_rows_differing_by_ties']} rows differ "
         "from f32 only among equally distant points")
     details["high_d_kernel_timing"] = hd_timed

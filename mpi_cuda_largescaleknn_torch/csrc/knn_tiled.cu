@@ -21,7 +21,10 @@
 // could take. So each block keeps its own radius, refreshed after every
 // visited bucket, and exits on its own; distances and ids stay those of the
 // TPU kernel. Padding query rows (id < 0) fold nothing and come back as
-// they went in.
+// they went in. A bucket's visit count is the most any of its blocks
+// scored (atomicMax): each block's radius is at most the bucket's, so the
+// count is the plain version's when the bucket is one block, and at most
+// it when its rows split over blocks.
 //
 // What bounds it on the H100: arithmetic. Each scored pair is 3 sub, 3 mul,
 // 2 add and a compare against a register (no FMA may fuse them), while the
@@ -64,7 +67,7 @@ __global__ void knn_tiled_kernel(
     const int* __restrict__ p_ids,     // [Bp, T]
     float* __restrict__ d2,            // [Bq*S, k] in/out, ascending rows
     int* __restrict__ idx,             // [Bq*S, k] in/out
-    int* __restrict__ visits,          // [Bq] buckets scored, accumulated
+    int* __restrict__ visits,          // [Bq] buckets scored, max over blocks
     int s_q, int num_pb, int t_p, int k, int skip_self, int self_group,
     int rows_per_block, int tile_lanes) {
   extern __shared__ float4 smem[];
@@ -158,7 +161,7 @@ __global__ void knn_tiled_kernel(
     d2[base + e] = cd2[j * bd + r];
     idx[base + e] = cidx[j * bd + r];
   }
-  if (tid == 0 && nvis) atomicAdd(visits + b, nvis);
+  if (tid == 0 && nvis) atomicMax(visits + b, nvis);
 }
 
 __global__ void knn_tiled_nd_kernel(
@@ -170,7 +173,7 @@ __global__ void knn_tiled_nd_kernel(
     const int* __restrict__ p_ids,     // [Bp, T]
     float* __restrict__ d2,            // [Bq*S, k] in/out, ascending rows
     int* __restrict__ idx,             // [Bq*S, k] in/out
-    int* __restrict__ visits,          // [Bq] buckets scored, accumulated
+    int* __restrict__ visits,          // [Bq] buckets scored, max over blocks
     int s_q, int num_pb, int t_p, int dim, int k, int skip_self,
     int self_group, int rows_per_block, int tile_lanes) {
   extern __shared__ float4 smem[];
@@ -231,7 +234,7 @@ __global__ void knn_tiled_nd_kernel(
     d2[base + e] = cd2[j * bd + r];
     idx[base + e] = cidx[j * bd + r];
   }
-  if (tid == 0 && nvis) atomicAdd(visits + b, nvis);
+  if (tid == 0 && nvis) atomicMax(visits + b, nvis);
 }
 
 }  // namespace

@@ -16,8 +16,10 @@ started with their own bucket, ``ops/tiled.py``).
   launches a kernel (or raises), on a CPU tensor it runs
   ``knn_update_tiled_plain``. In f32 the kernel is ``csrc/knn_tiled.cu``
   (its D=3 specialisation or its general-D kernel); with
-  ``score_dtype="bf16"`` at D >= ``mxu_min_dim()`` it is
-  ``csrc/knn_tiled_mxu.cu``, the TPU kernel's ``score_mxu`` branch.
+  ``score_dtype="bf16"`` at D >= ``mxu_min_dim()`` it is one of
+  ``csrc/knn_tiled_mxu.cu``, the TPU kernel's ``score_mxu`` branch, routed
+  by Dp (D rounded up to 16): ``knn_tiled_wgmma_kernel`` up to
+  ``WGMMA_MAX_DP``, ``knn_tiled_mxu_kernel`` (``nvcuda::wmma``) above it.
 - ``knn_update_tiled_plain`` lock-steps all query buckets through their
   visit schedules and merges each visited bucket with a stable sort.
 
@@ -40,12 +42,15 @@ and rows of padding queries (id < 0) fold nothing, where the TPU kernel
 folded padding lanes into them; those rows are dropped by ``scatter_back``.
 The visit count is per query bucket, of buckets scored with a radius
 refreshed after every bucket (the TPU kernel refreshed it per chunk of V
-buckets, so it can count a few more).
+buckets, so it can count a few more). Where a bucket's rows split over
+blocks, each block prunes against its own rows and the kernels count the
+most any block scored, at most the plain version's count.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -247,13 +252,64 @@ def launch_geometry(s_q: int, t_p: int, k: int,
     return cap, cap, tile_lanes
 
 
-def mxu_launch_geometry(s_q: int, dim: int, w: int) -> tuple[int, int, int]:
-    """(rows per block = threads, lanes per staged chunk, Dp) of the bf16
-    kernel: Dp is D rounded up to 16; the chunk is 64 lanes where shared
-    memory allows (else 32 or 16), and the rows are the most of 256, 128,
-    64, 32 whose query halves, score slabs and widened candidate columns
-    fit beside it (shared-memory rows are padded by 8 bf16)."""
+#: the wgmma kernel's block: 128 query rows (two consumer warpgroups of
+#: 64) against chunks of 64 point lanes (the n of its m64n64k16 products),
+#: taken in pairs (its lanes are padded to a multiple of 128)
+WGMMA_ROWS = 128
+WGMMA_LANES = 64
+#: the largest Dp the wgmma kernel's plan takes: its query halves and a
+#: 2-stage chunk ring (1024 * Dp + 640 bytes) fit in shared memory up to
+#: Dp=224 (the rows then stay in device memory); above it bf16 goes to the
+#: wmma kernel
+WGMMA_MAX_DP = 224
+
+
+class MxuPlan(NamedTuple):
+    """How a bf16 traversal launches: ``kernel`` is "wgmma" or "wmma";
+    ``rows`` query rows a block; ``lanes`` point lanes a chunk; ``dp`` the
+    padded components; ``stages`` of the wgmma kernel's chunk ring (1 for
+    the wmma kernel); ``rows_in_smem``: whether the widened candidate rows
+    sit in shared memory (else in place in device memory); ``smem`` bytes
+    of dynamic shared memory."""
+    kernel: str
+    rows: int
+    lanes: int
+    dp: int
+    stages: int
+    rows_in_smem: bool
+    smem: int
+
+
+def wgmma_smem_bytes(dp: int, w: int, stages: int,
+                     rows_in_smem: bool) -> int:
+    """Dynamic shared memory of ``knn_tiled_wgmma_kernel``: both query
+    halves of 128 rows, ``stages`` chunks of both point halves and their
+    ``|p|^2``, the [W, 128] candidate columns when they sit there, and 128
+    bytes of barriers and flags."""
+    return (2 * WGMMA_ROWS * dp * 2
+            + stages * (2 * WGMMA_LANES * dp * 2 + WGMMA_LANES * 4)
+            + (WGMMA_ROWS * w * 8 if rows_in_smem else 0) + 128)
+
+
+def mxu_launch_geometry(s_q: int, dim: int, w: int) -> MxuPlan:
+    """The bf16 kernel and its plan, by Dp = D rounded up to 16.
+
+    Up to ``WGMMA_MAX_DP`` the wgmma kernel: 128 rows a block, 64-lane
+    chunks; the widened rows in shared memory where they fit beside a
+    ring of 3 stages, else of 2, and otherwise in device memory with the
+    ring as deep as fits. Above it the wmma kernel: a chunk of 64 lanes
+    where shared memory allows (else 32 or 16), and the most of 256, 128,
+    64, 32 rows whose query halves, score slabs and widened candidate
+    columns fit beside it (its shared-memory rows are padded by 8 bf16)."""
     dp = round_up(dim, 16)
+    budget = SMEM_OPTIN - 1024
+    if dp <= WGMMA_MAX_DP:
+        for rows_in_smem in (True, False):
+            for stages in (3, 2):
+                smem = wgmma_smem_bytes(dp, w, stages, rows_in_smem)
+                if smem <= budget:
+                    return MxuPlan("wgmma", WGMMA_ROWS, WGMMA_LANES, dp,
+                                   stages, rows_in_smem, smem)
     ldq = dp + 8
     for lanes in (64, 32, 16):
         for rows in (256, 128, 64, 32):
@@ -261,8 +317,8 @@ def mxu_launch_geometry(s_q: int, dim: int, w: int) -> tuple[int, int, int]:
                 continue
             smem = (4 * rows * ldq + 4 * lanes * ldq + 4 * lanes
                     + 4 * rows * lanes + 8 * w * rows)
-            if smem <= SMEM_OPTIN - 1024:
-                return rows, lanes, dp
+            if smem <= budget:
+                return MxuPlan("wmma", rows, lanes, dp, 1, True, smem)
     raise NotImplementedError(
         f"W={w}, D={dim}: 32 widened candidate rows no longer fit in shared "
         "memory (candidate rows in device memory: ROADMAP.md Queue 1)")
@@ -399,16 +455,48 @@ def _bf16_halves(pts: torch.Tensor, rows: int, dp: int):
     return out
 
 
+def pack_wgmma_halves(pts: torch.Tensor, t_pad: int, dp: int):
+    """(hi, lo) bf16[B, t_pad/8, dp/8, 8, 8] of f32[B, T, D]: the bf16
+    halves, lanes zero-padded to ``t_pad`` and components to ``dp``, in
+    wgmma's K-major no-swizzle core-matrix order: each 128-byte core
+    matrix is 8 lanes x 8 components (16 bytes a lane), core matrices run
+    along the components, then along groups of 8 lanes. So lanes
+    [l0, l0 + L) of a bucket (l0 a multiple of 8) are one contiguous run of
+    ``L * dp`` values per half, and a descriptor steps 128 bytes to the
+    next 8 components and ``16 * dp`` bytes to the next 8 lanes."""
+    b = pts.shape[0]
+    return tuple(h.view(b, t_pad // 8, 8, dp // 8, 8).transpose(2, 3)
+                 .contiguous() for h in _bf16_halves(pts, t_pad, dp))
+
+
+def unpack_wgmma_halves(hi: torch.Tensor, lo: torch.Tensor):
+    """The plain inverse of ``pack_wgmma_halves``: (hi, lo)
+    bf16[B, t_pad, dp], padding included."""
+    b, groups, kgroups = hi.shape[:3]
+    return tuple(h.transpose(2, 3).reshape(b, groups * 8, kgroups * 8)
+                 for h in (hi, lo))
+
+
+def padded_norms2(pts: torch.Tensor, t_pad: int) -> torch.Tensor:
+    """f32[B, t_pad]: the exact ``|p|^2`` of f32[B, T, D], +inf on the
+    padding lanes (their scores are +inf, never adopted)."""
+    n2 = norms2(pts)
+    return torch.nn.functional.pad(n2, (0, t_pad - n2.shape[-1]),
+                                   value=torch.inf).contiguous()
+
+
 def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
                          q: BucketedPoints, p: BucketedPoints,
                          rows: CandidateState, *, skip_self: bool,
                          self_group: int) -> torch.Tensor:
-    """Launch the bf16 kernel on PyTorch's current stream, folding ``p``
-    into the WIDENED ``rows`` IN PLACE (module docstring: on return each
-    row holds exact d2 and ids, sorted stably). Prepares the bf16 halves
-    of both sides, zero-padded to Dp components, and the exact ``|p|^2``.
+    """Launch the bf16 kernel that ``mxu_launch_geometry`` names on
+    PyTorch's current stream, folding ``p`` into the WIDENED ``rows`` IN
+    PLACE (module docstring: on return each row holds exact d2 and ids,
+    sorted stably). Prepares the bf16 halves of both sides (packed for the
+    wgmma kernel, row-major for the wmma one) and the exact ``|p|^2``.
     Returns the per-query-bucket visit counts (i32[Bq]). Counts one launch
-    in ``knn_update_tiled_cuda.mxu_launches``."""
+    in ``knn_update_tiled_cuda.mxu_launches``, and the wgmma kernel's also
+    in ``wgmma_launches``."""
     num_qb, s_q = q.ids.shape
     num_pb, t_p = p.ids.shape
     dim = q.pts.shape[-1]
@@ -417,42 +505,73 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
     if num_pb * t_p >= 2**31 - 2:
         raise ValueError(f"{num_pb * t_p} point lanes overflow the encoded "
                          "positions of the bf16 kernel")
-    block_rows, lanes, dp = mxu_launch_geometry(s_q, dim, w)
-    s_pad = round_up(s_q, block_rows)
-    qh, ql = _bf16_halves(q.pts, s_pad, dp)
-    ph, pl = _bf16_halves(p.pts, t_p, dp)
-    pn2 = norms2(p.pts).contiguous()
+    plan = mxu_launch_geometry(s_q, dim, w)
+    events = knn_update_tiled_cuda.mxu_events
+    if events is not None:
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+    s_pad = round_up(s_q, plan.rows)
+    wgmma = plan.kernel == "wgmma"
+    if wgmma:
+        t_pad = round_up(t_p, 2 * plan.lanes)  # the kernel takes chunk pairs
+        qh, ql = pack_wgmma_halves(q.pts, s_pad, plan.dp)
+        ph, pl = pack_wgmma_halves(p.pts, t_pad, plan.dp)
+        pn2 = padded_norms2(p.pts, t_pad)
+    else:
+        qh, ql = _bf16_halves(q.pts, s_pad, plan.dp)
+        ph, pl = _bf16_halves(p.pts, t_p, plan.dp)
+        pn2 = norms2(p.pts).contiguous()
     visits = torch.zeros(num_qb, dtype=torch.int32, device=order.device)
     q_pts, q_ids = q.pts.contiguous(), q.ids.contiguous()
     p_pts, p_ids = p.pts.contiguous(), p.ids.contiguous()
     lib = _library("knn_tiled_mxu")
     with torch.cuda.device(order.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.knn_tiled_mxu_launch(
-            order.data_ptr(), sorted_d2.data_ptr(), q_pts.data_ptr(),
-            q_ids.data_ptr(), qh.data_ptr(), ql.data_ptr(), p_pts.data_ptr(),
-            p_ids.data_ptr(), ph.data_ptr(), pl.data_ptr(), pn2.data_ptr(),
-            rows.dist2.data_ptr(), rows.idx.data_ptr(), visits.data_ptr(),
-            num_qb, s_q, s_pad, num_pb, t_p, dim, dp, w,
-            int(bool(skip_self)), self_group, block_rows, lanes, stream)
+        if events is not None:
+            marks[1].record()
+        ptrs = (order.data_ptr(), sorted_d2.data_ptr(), q_pts.data_ptr(),
+                q_ids.data_ptr(), qh.data_ptr(), ql.data_ptr(),
+                p_pts.data_ptr(), p_ids.data_ptr(), ph.data_ptr(),
+                pl.data_ptr(), pn2.data_ptr(), rows.dist2.data_ptr(),
+                rows.idx.data_ptr(), visits.data_ptr())
+        flags = (int(bool(skip_self)), self_group)
+        if wgmma:
+            err = lib.knn_tiled_wgmma_launch(
+                *ptrs, num_qb, s_q, s_pad, num_pb, t_p, t_pad, dim, plan.dp,
+                w, *flags, plan.stages, int(plan.rows_in_smem), stream)
+        else:
+            err = lib.knn_tiled_mxu_launch(
+                *ptrs, num_qb, s_q, s_pad, num_pb, t_p, dim, plan.dp, w,
+                *flags, plan.rows, plan.lanes, stream)
+        if events is not None:
+            marks[2].record()
+            events.append(marks)
     if err:
-        raise RuntimeError(
-            f"knn_tiled_mxu kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"knn_tiled_mxu kernel launch failed "
+                           f"({plan.kernel} route): CUDA error {err}")
     knn_update_tiled_cuda.mxu_launches += 1
+    knn_update_tiled_cuda.wgmma_launches += int(wgmma)
     return visits
 
 
 #: kernel launches made by this process (read by chip_smoke.py and the
 #: CLIs): ``launches`` of csrc/knn_tiled.cu, ``mxu_launches`` of
-#: csrc/knn_tiled_mxu.cu
+#: csrc/knn_tiled_mxu.cu (either route), ``wgmma_launches`` of those that
+#: went to its wgmma kernel
 knn_update_tiled_cuda.launches = 0
 knn_update_tiled_cuda.mxu_launches = 0
+knn_update_tiled_cuda.wgmma_launches = 0
+#: None, or a list to which every bf16 launch appends three recorded CUDA
+#: events: before its preparation (halves, norms), before the kernel and
+#: after it, so a caller can time the two apart
+knn_update_tiled_cuda.mxu_events = None
 
 #: per library, its launchers' arguments: p = pointer, i = int
 _SIGNATURES = {
     "knn_tiled": {"knn_tiled_launch": 9 * "p" + 10 * "i" + "p",
                   "knn_tiled_nd_launch": 9 * "p" + 11 * "i" + "p"},
-    "knn_tiled_mxu": {"knn_tiled_mxu_launch": 14 * "p" + 12 * "i" + "p"},
+    "knn_tiled_mxu": {"knn_tiled_mxu_launch": 14 * "p" + 12 * "i" + "p",
+                      "knn_tiled_wgmma_launch": 14 * "p" + 13 * "i" + "p"},
 }
 
 

@@ -26,6 +26,7 @@ from mpi_cuda_largescaleknn_torch.ops import knn_tiled as tk
 from mpi_cuda_largescaleknn_torch.ops import partition as tpart
 from mpi_cuda_largescaleknn_torch.ops import tiled as ttiled
 from mpi_cuda_largescaleknn_torch.parallel import ring as tring
+from mpi_cuda_largescaleknn_torch.utils.math import round_up
 from mpi_cuda_largescaleknn_tpu.ops import distance as jdist
 from mpi_cuda_largescaleknn_tpu.ops.pallas.knn_tiled import (
     knn_update_tiled_pallas,
@@ -263,31 +264,108 @@ def test_cli_bf16_on_float3_scores_exactly(tmp_path):
 
 
 @pytest.mark.parametrize("s_q,dim,w,want", [
-    (248, 128, 20, (128, 64, 128)),
-    (248, 128, 200, (64, 64, 128)),
-    (248, 16, 20, (256, 64, 16)),
-    (10, 20, 16, (32, 64, 32)),
+    (248, 128, 20, ("wgmma", 128, 64, 128, 3, True)),
+    (248, 128, 200, ("wgmma", 128, 64, 128, 3, False)),
+    (248, 16, 20, ("wgmma", 128, 64, 16, 3, True)),
+    (10, 960, 16, ("wmma", 32, 16, 960, 1, True)),
 ])
 def test_mxu_launch_geometry(s_q, dim, w, want):
-    rows, lanes, dp = tk.mxu_launch_geometry(s_q, dim, w)
-    assert (rows, lanes, dp) == want
-    ldq = dp + 8
-    smem = (4 * rows * ldq + 4 * lanes * ldq + 4 * lanes + 4 * rows * lanes
-            + 8 * w * rows)
-    assert smem <= tk.SMEM_OPTIN - 1024 and rows % 32 == 0
+    """The route is by Dp: the wgmma kernel up to WGMMA_MAX_DP (rows in
+    shared memory where they fit), the wmma kernel above it; each plan
+    fits the shared memory a block may opt into."""
+    plan = tk.mxu_launch_geometry(s_q, dim, w)
+    assert tuple(plan[:6]) == want
+    assert plan.smem <= tk.SMEM_OPTIN - 1024
+    if plan.kernel == "wgmma":
+        assert plan.dp <= tk.WGMMA_MAX_DP
+        assert plan.smem == tk.wgmma_smem_bytes(plan.dp, w, plan.stages,
+                                                plan.rows_in_smem)
+    else:
+        assert plan.dp > tk.WGMMA_MAX_DP and plan.rows % 32 == 0
+        ldq = plan.dp + 8
+        assert plan.smem == (4 * plan.rows * ldq + 4 * plan.lanes * ldq
+                             + 4 * plan.lanes + 4 * plan.rows * plan.lanes
+                             + 8 * w * plan.rows)
+
+
+def test_wgmma_max_dp_is_the_largest_the_plan_takes():
+    budget = tk.SMEM_OPTIN - 1024
+    top = tk.WGMMA_MAX_DP
+    assert top >= 128 and top % 16 == 0
+    assert tk.wgmma_smem_bytes(top, 10_000, 2, False) <= budget
+    assert tk.wgmma_smem_bytes(top + 16, 1, 2, False) > budget
+    assert tk.mxu_launch_geometry(248, top, 20).kernel == "wgmma"
+    assert tk.mxu_launch_geometry(248, top + 1, 20).kernel == "wmma"
 
 
 def test_mxu_launch_geometry_refuses_huge_width():
+    # the wgmma kernel keeps wide rows in device memory; the wmma kernel
+    # above WGMMA_MAX_DP needs them in shared memory
+    assert tk.mxu_launch_geometry(248, 128, 2000).kernel == "wgmma"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.mxu_launch_geometry(248, 128, 2000)
+        tk.mxu_launch_geometry(248, 960, 2000)
+
+
+def _halves_input(t, dim):
+    return torch.from_numpy(points("normal", 3 * t, seed=t + dim,
+                                   dim=dim)).view(3, t, dim) * 7.0
+
+
+@pytest.mark.parametrize("t", [64, 496])
+@pytest.mark.parametrize("dim", [16, 100, 128])
+def test_pack_wgmma_halves_round_trip(dim, t):
+    """Unpacking gives split_bf16's halves bit for bit, zero-padded to
+    t_pad lanes and Dp components."""
+    x = _halves_input(t, dim)
+    t_pad, dp = round_up(t, tk.WGMMA_LANES), round_up(dim, 16)
+    hi, lo = tk.pack_wgmma_halves(x, t_pad, dp)
+    assert hi.shape == lo.shape == (3, t_pad // 8, dp // 8, 8, 8)
+    assert hi.dtype == lo.dtype == torch.bfloat16 and hi.is_contiguous()
+    want = tdist.split_bf16(x)
+    for got, ref in zip(tk.unpack_wgmma_halves(hi, lo), want):
+        assert got.shape == (3, t_pad, dp)
+        assert torch.equal(got[:, :t, :dim].view(torch.int16),
+                           ref.view(torch.int16))
+        assert not got[:, t:].any() and not got[:, :, dim:].any()
+
+
+@pytest.mark.parametrize("dim", [16, 100, 128])
+def test_wgmma_chunk_is_one_contiguous_run(dim):
+    """Lanes [c*64, (c+1)*64) of bucket pb are the ``64 * dp`` values the
+    kernel bulk-copies from element ``(pb * t_pad + c * 64) * dp``, in
+    core-matrix order: 8-lane groups of [dp/8][8 lanes][8 components]."""
+    x = _halves_input(496, dim)
+    t_pad, dp, lanes = 512, round_up(dim, 16), tk.WGMMA_LANES
+    packed = tk.pack_wgmma_halves(x, t_pad, dp)
+    for half, full in zip(packed, tk.unpack_wgmma_halves(*packed)):
+        flat = half.reshape(-1)
+        for pb, c in ((0, 0), (1, 3), (2, 7)):
+            e0 = (pb * t_pad + c * lanes) * dp
+            run = flat[e0:e0 + lanes * dp].view(lanes // 8, dp // 8, 8, 8)
+            lanes_major = run.transpose(1, 2).reshape(lanes, dp)
+            assert torch.equal(lanes_major.view(torch.int16),
+                               full[pb, c * lanes:(c + 1) * lanes]
+                               .view(torch.int16))
+
+
+def test_padding_lanes_carry_inf_norms_and_zero_halves():
+    x = _halves_input(496, 100)
+    n2 = tk.padded_norms2(x, 512)
+    assert n2.shape == (3, 512) and n2.is_contiguous()
+    assert torch.equal(n2[:, :496], tdist.norms2(x))
+    assert bool(torch.isinf(n2[:, 496:]).all()) and bool((n2[:, 496:] > 0)
+                                                          .all())
+    for half in tk.unpack_wgmma_halves(*tk.pack_wgmma_halves(x, 512, 112)):
+        assert not half[:, 496:].any()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dim", [64, 128])
 @pytest.mark.parametrize("k", [1, 10, 100])
-def test_mxu_kernel_matches_plain_on_the_card(k):
+def test_mxu_kernel_matches_plain_on_the_card(k, dim):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    pts = torch.from_numpy(points("normal", 20_000, seed=k, dim=64)).cuda()
+    pts = torch.from_numpy(points("normal", 20_000, seed=k, dim=dim)).cuda()
     q = tpart.partition_points(pts, bucket_size=256)
     pc = tpart.coarsen_buckets(q, 2)
     state = ttiled.warm_start_self(pc, k)
