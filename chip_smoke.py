@@ -22,8 +22,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    multiple of the staged tile, and other tiles giving the same bits;
 3c. the general-D f32 kernels of both against their plain versions, bit
    for bit, on 32,000 clustered points at D in {4, 16, 128}: k in {1, 10,
-   100}, a finite ``-r``, ``skip_self`` with point group 2, point buckets
-   wider than one staged tile;
+   100} (k=100 at D=128 with the rows in device memory), a finite ``-r``,
+   ``skip_self`` with point group 2, point buckets wider than one staged
+   tile; D=5 and D=130 (padded components), a bucket of 1,000 rows (split
+   over blocks); each traversal case on its planned route (the ring kernel,
+   or ``knn_tiled_nd_kernel`` at D=240, above ``RING_MAX_DP4``);
 3d. the tensor-core bf16 kernels against their plain version: the wgmma
    kernel at D in {16, 32, 64, 128}, k in {1, 10, 100}, a finite ``-r``
    and warm-started rows, a bucket of 1,000 rows (split over blocks, T not
@@ -35,7 +38,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    k=100 and at k=8, each with ``--selfcheck 1000 --timings``;
 5. the same k=8 run over 4 virtual shards, byte-equal to the 1-shard file;
 6. the traversal kernel's time at the main path's shapes (the one fold of
-   a 1-shard run) against its plain version and its bound;
+   a 1-shard run) against its plain version and its bounds (the data
+   sheet's, and the FMA-free one: ``PEAK_F32_ISSUE``);
 7. the flat engine through the unordered CLI (``--engine pallas -k 8``),
    byte-equal to phase 4's k=8 file;
 8. the pre-partitioned pipeline: phase 4's file cut into 4 Morton parts,
@@ -44,20 +48,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    to each other and to the unordered CLI on the joined parts; then 1M
    clustered points in 8 parts (where the early exit prunes);
 9. the brute-force kernel's time at the flat path's shape (1M x 1M, k=8
-   and k=100) against its bound, and its plain version's on the first
+   and k=100) against its bounds, and its plain version's on the first
    16,384 queries;
 10. the high-D main path: ``UnorderedKNN`` on 1,000,000 seeded points at
    D=128 (32 Gaussian clusters, the SIFT1M shape) and k=10, in bf16 at
    R=1, in f32 at R=1 and in bf16 at R=4: distances byte-equal, ids equal
    up to the order of exact ties, a selfcheck of 200 samples; every bf16
-   launch on the wgmma kernel, bf16 ``pair_evals`` at most 1.1x f32's, and
-   the bf16 runs' kernel time per launch beside the wrapper's preparation
-   time (the packed halves rebuilt at every launch);
+   launch on the wgmma kernel and every f32 one on the ring kernel, bf16
+   ``pair_evals`` at most 1.1x f32's, and the bf16 runs' kernel time per
+   launch beside the wrapper's preparation time (the packed halves rebuilt
+   at every launch);
 10b. ``prepartitioned_main`` on 4 ``.npy`` slab parts of the first
-   262,144 of those points, byte-equal to ``UnorderedKNN`` on them;
-11. the f32 and bf16 (wgmma) traversal kernels' time at phase 10's shape
-   against their bounds and their share of it, and their plain versions'
-   on 16 query buckets.
+   262,144 of those points, byte-equal to ``UnorderedKNN`` on them, every
+   traversal launch on the ring kernel;
+11. the f32 ring kernel (with its plan, and its wrapper's layout time
+   apart) and the bf16 (wgmma) kernel at phase 10's shape, against both
+   bounds and their share of each, and their plain versions' on 16 query
+   buckets;
+12. phase 10's f32 R=1 run again under ``profile_trace``, byte-equal to
+   it: the card's busy share of the run and its top kernels by device
+   time (last, so that no timing runs in a process that has been
+   profiled).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -81,14 +92,22 @@ SEED = 20261016
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# The data sheet's FP32 rate counts a fused multiply-add as two FLOPs:
+# 132 SMs x 128 FP32 lanes x 2 x 1.98 GHz. The exact kernels fuse nothing
+# (each (q-p)*(q-p) is rounded before its add), so each sub, mul, add and
+# compare is one issue of an FP32 lane: 132 x 128 x 1.98e9 = 33.5e12
+# operations/s, half the data sheet's rate. The FMA-free bound of an f32
+# kernel is its operations at this rate (or its bytes, if longer).
+PEAK_F32_ISSUE = 33.5e12
 OPS_PER_PAIR = 9   # 3 sub, 3 mul, 2 add, 1 compare
 SOURCE = "mpi_cuda_largescaleknn_torch/csrc/knn_tiled.cu"
 REPLACES = "mpi_cuda_largescaleknn_tpu/ops/pallas/knn_tiled.py:54"
+RING_REPLACES = "mpi_cuda_largescaleknn_tpu/ops/pallas/knn_tiled.py:161"
 BF_SOURCE = "mpi_cuda_largescaleknn_torch/csrc/knn_bf.cu"
 BF_REPLACES = "mpi_cuda_largescaleknn_tpu/ops/pallas/knn_bf.py:173"
 MXU_SOURCE = "mpi_cuda_largescaleknn_torch/csrc/knn_tiled_mxu.cu"
 MXU_REPLACES = "mpi_cuda_largescaleknn_tpu/ops/pallas/knn_tiled.py:135"
-KERNELS = ("knn_tiled", "knn_bf", "knn_tiled_mxu")
+KERNELS = ("knn_tiled", "knn_bf", "knn_tiled_mxu")  # sources in csrc/
 PLAIN_QUERIES = 16_384  # the brute-force plain version's reduced shape
 PEAK_BF16 = 989e12      # dense bf16 tensor-core FLOP/s (same data sheet)
 HD_DIM, HD_K = 128, 10  # phase 10: the SIFT1M shape and its recall@10
@@ -184,21 +203,21 @@ def tie_rows(got_idx, want_idx, queries, points) -> int:
 
 def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
                  group=2, warm=True, score_dtype="f32", route=None):
-    """Traversal kernel vs plain on the card for one input (f32: the D=3 or
-    the general-D kernel; bf16: the tensor-core kernel, whose rows must
-    also equal the f32 kernel's up to the order of exact ties, and
-    ``route`` names the bf16 kernel the case must plan and launch);
-    returns the max abs difference of the finite d2 entries (0.0 when
-    bitwise equal)."""
+    """Traversal kernel vs plain on the card for one input (f32: the D=3,
+    the ring or the general-D kernel; bf16: the tensor-core kernel, whose
+    rows must also equal the f32 kernel's up to the order of exact ties);
+    ``route`` names the kernel the case must plan, and the launch counters
+    show it ran there. Returns the max abs difference of the finite d2
+    entries (0.0 when bitwise equal)."""
     import torch
 
     from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
         knn_update_tiled_cuda,
         knn_update_tiled_plain,
-        launch_geometry,
         mxu_launch_geometry,
         survivor_width,
+        tiled_launch_plan,
         uses_mxu,
     )
     from mpi_cuda_largescaleknn_torch.ops.partition import (
@@ -217,29 +236,32 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
     kw = dict(skip_self=warm, self_group=group, with_stats=True,
               score_dtype=score_dtype)
     want, want_vis = knn_update_tiled_plain(state, q, pc, **kw)
-    wgmma_before = knn_update_tiled_cuda.wgmma_launches
+    before = (knn_update_tiled_cuda.wgmma_launches,
+              knn_update_tiled_cuda.ring_launches)
     got, got_vis = knn_update_tiled_cuda(state, q, pc, **kw)
     torch.cuda.synchronize()
     same_inf = torch.equal(torch.isinf(got.dist2), torch.isinf(want.dist2))
     err = max_abs_err(got.dist2, want.dist2)
-    plan_txt = ""
     if uses_mxu(score_dtype, dim):
         plan = mxu_launch_geometry(q.bucket_size, dim, survivor_width(k, pc))
-        rows, lanes = plan.rows, plan.lanes
-        one_block = rows >= q.bucket_size
-        ran = knn_update_tiled_cuda.wgmma_launches - wgmma_before
-        if route is not None and plan.kernel != route:
-            fail(f"case {name}: planned the {plan.kernel} kernel, not "
-                 f"the {route} one")
-        if ran != (plan.kernel == "wgmma"):
-            fail(f"case {name}: planned the {plan.kernel} kernel, but "
-                 f"{ran} wgmma launches ran")
-        plan_txt = (f" {plan.kernel} stages={plan.stages} rows_in_smem="
-                    f"{plan.rows_in_smem}")
+        counted = "wgmma"
+        ran = knn_update_tiled_cuda.wgmma_launches - before[0]
     else:
-        rows, _, lanes = launch_geometry(q.bucket_size, pc.bucket_size, k,
-                                         dim)
-        one_block = rows == q.bucket_size
+        plan = tiled_launch_plan(q.bucket_size, pc.bucket_size, k, dim)
+        counted = "ring"
+        ran = knn_update_tiled_cuda.ring_launches - before[1]
+    if route is not None and plan.kernel != route:
+        fail(f"case {name}: planned the {plan.kernel} kernel, not the "
+             f"{route} one")
+    if ran != (plan.kernel == counted):
+        fail(f"case {name}: planned the {plan.kernel} kernel, but {ran} "
+             f"{counted} launches ran")
+    rows, lanes = plan.rows, plan.lanes
+    one_block = rows >= q.bucket_size
+    plan_txt = f" {plan.kernel}"
+    if plan.stages > 1:
+        plan_txt += (f" stages={plan.stages} rows_in_smem="
+                     f"{plan.rows_in_smem}")
     # a bucket split over blocks prunes per block: at most the plain count
     vis_ok = (int(got_vis) == int(want_vis) if one_block
               else int(got_vis) <= int(want_vis))
@@ -406,6 +428,52 @@ def compare_bf_case(name, q_np, p_np, k, *, radius=float("inf"), id_base=0,
     return err
 
 
+def bounds(ms, op_s, fma_free_op_s, nbytes):
+    """A kernel's two bounds and its share of each: ``bound_ms`` with its
+    operations at the data sheet's peaks (``op_s`` seconds), and
+    ``fma_free_bound_ms`` with its FP32 operations at ``PEAK_F32_ISSUE``
+    (``fma_free_op_s`` seconds); each the longer of those and ``nbytes``
+    at ``PEAK_BYTES``."""
+    byte_s = nbytes / PEAK_BYTES
+    out = {}
+    for key, t in (("bound", op_s), ("fma_free_bound", fma_free_op_s)):
+        out[f"{key}_ms"] = max(t, byte_s) * 1e3
+        out[f"{key}_by"] = "operations" if t >= byte_s else "bytes"
+        out[f"share_of_{key}"] = out[f"{key}_ms"] / ms
+    return out
+
+
+def bound_txt(r) -> str:
+    """Both bounds of a timed kernel and its share of each."""
+    return (f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
+            f"{100 * r['share_of_bound']:.1f}% of it), FMA-free bound "
+            f"{r['fma_free_bound_ms']:.3f} ms ("
+            f"{100 * r['share_of_fma_free_bound']:.1f}%)")
+
+
+def visited_pairs(order, visits, q, p) -> int:
+    """Pairs of real query rows and real point lanes (ids >= 0) that a walk
+    with these per-query-bucket visit counts scores: each query bucket's
+    real rows against the real lanes of the first ``visits`` point buckets
+    of its nearest-first ``order`` (bucket padding left out)."""
+    import torch
+
+    lanes = (p.ids >= 0).sum(1)[order.long()]
+    walked = (torch.arange(order.shape[1], device=order.device)
+              < visits[:, None])
+    return int(((q.ids >= 0).sum(1) * (lanes * walked).sum(1)).sum())
+
+
+def check_ring_route(label, t) -> None:
+    """Fails unless every f32 traversal launch of a D=128 run's timings
+    ``t`` went to the ring kernel."""
+    n, ring = t["knn_tiled_launches"], t["knn_tiled_ring_launches"]
+    if n < 1 or ring != n:
+        fail(f"{label}: {ring} of {n} knn_tiled launches took the ring "
+             "kernel")
+    say(f"  {label}: all {n} knn_tiled launches on the ring kernel")
+
+
 def time_kernel(k, pts, reps=5):
     """The main path's fold at 1M points (R=1: one launch after the warm
     start): kernel time by CUDA events over ``reps`` launches on fresh
@@ -450,19 +518,15 @@ def time_kernel(k, pts, reps=5):
     bq, s = q.ids.shape
     bp, t = pc.ids.shape
     nvis = int(visits.sum())
-    pairs = nvis * s * t
+    pairs = visited_pairs(order, visits, q, pc)
     ops = pairs * OPS_PER_PAIR
     nbytes = (bq * s * 16                 # query coords + ids
               + 2 * bq * s * k * 8        # candidate rows in and out
               + bp * t * 16               # point coords + ids
               + (nvis + bq) * 8)          # the visited schedule prefix
-    bound_ops_ms = ops / PEAK_F32 * 1e3
-    bound_bytes_ms = nbytes / PEAK_BYTES * 1e3
     return {"k": k, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
             "visits": nvis, "pairs": pairs, "ops": ops, "bytes": nbytes,
-            "bound_ms": max(bound_ops_ms, bound_bytes_ms),
-            "bound_by": ("operations" if bound_ops_ms >= bound_bytes_ms
-                         else "bytes"),
+            **bounds(ms, ops / PEAK_F32, ops / PEAK_F32_ISSUE, nbytes),
             "Bq": bq, "S": s, "Bp": bp, "T": t}
 
 
@@ -509,27 +573,29 @@ def time_bf_kernel(k, pts, reps=3):
     nbytes = (blocks * n * 16             # the staged point set per block
               + n * 12                    # query coordinates
               + 2 * n * k * 8)            # candidate rows in and out
-    bound_ops_ms = ops / PEAK_F32 * 1e3
-    bound_bytes_ms = nbytes / PEAK_BYTES * 1e3
     return {"k": k, "ms": ms, "plain_ms": plain_ms,
             "plain_shape": f"{nq} queries x {n} points", "max_abs_err": err,
             "pairs": pairs, "ops": ops, "bytes": nbytes,
-            "bound_ms": max(bound_ops_ms, bound_bytes_ms),
-            "bound_by": ("operations" if bound_ops_ms >= bound_bytes_ms
-                         else "bytes"),
+            **bounds(ms, ops / PEAK_F32, ops / PEAK_F32_ISSUE, nbytes),
             "rows_per_block": threads, "lanes": lanes}
 
 
-def unordered_run(label, pts_np, k, shards, score_dtype):
+def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None):
     """``UnorderedKNN`` in this process on ``pts_np`` (any D), with every
     kernel count set to 0 just before the run and read just after; a bf16
     run also times each bf16 launch's preparation and kernel apart (CUDA
-    events). Returns (timings, distances f32[N], neighbor ids i32[N, k])."""
+    events). With ``profile_dir`` the run is traced by ``profile_trace``
+    and its timings also hold the card's busy share and top kernels.
+    Returns (timings, distances f32[N], neighbor ids i32[N, k])."""
     import numpy as np
     import torch
 
     from mpi_cuda_largescaleknn_torch.core.config import KnnConfig
     from mpi_cuda_largescaleknn_torch.models.unordered import UnorderedKNN
+    from mpi_cuda_largescaleknn_torch.obs.trace import (
+        device_summary,
+        profile_trace,
+    )
     from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
         knn_update_tiled_cuda,
@@ -540,18 +606,21 @@ def unordered_run(label, pts_np, k, shards, score_dtype):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     knn_update_tiled_cuda.launches = 0
+    knn_update_tiled_cuda.ring_launches = 0
     knn_update_tiled_cuda.mxu_launches = 0
     knn_update_tiled_cuda.wgmma_launches = 0
     knn_update_bf_cuda.launches = 0
     events = [] if score_dtype == "bf16" else None
     knn_update_tiled_cuda.mxu_events = events
-    t0 = time.perf_counter()
-    dists, idx = model.run(pts_np, return_neighbors=True)
-    wall = time.perf_counter() - t0
+    with profile_trace(profile_dir) as prof:
+        t0 = time.perf_counter()
+        dists, idx = model.run(pts_np, return_neighbors=True)
+        wall = time.perf_counter() - t0
     knn_update_tiled_cuda.mxu_events = None
     t = model.timers.report()
     t.update({"run_seconds": wall, "queries_per_second": len(pts_np) / wall,
               "knn_tiled_launches": knn_update_tiled_cuda.launches,
+              "knn_tiled_ring_launches": knn_update_tiled_cuda.ring_launches,
               "knn_tiled_mxu_launches": knn_update_tiled_cuda.mxu_launches,
               "knn_tiled_wgmma_launches":
                   knn_update_tiled_cuda.wgmma_launches,
@@ -565,7 +634,8 @@ def unordered_run(label, pts_np, k, shards, score_dtype):
     key = ("knn_tiled_mxu_launches" if score_dtype == "bf16"
            else "knn_tiled_launches")
     say(f"  {label}: run {wall:.3f} s, {t['queries_per_second']:.0f} "
-        f"queries/s, knn_tiled launches {t['knn_tiled_launches']}, "
+        f"queries/s, knn_tiled launches {t['knn_tiled_launches']} (ring "
+        f"{t['knn_tiled_ring_launches']}), "
         f"knn_tiled_mxu launches {t['knn_tiled_mxu_launches']}, knn_bf "
         f"launches {t['knn_bf_launches']}, peak device memory "
         f"{t['peak_device_bytes'] / 2**20:.1f} MiB, pair_evals "
@@ -575,6 +645,20 @@ def unordered_run(label, pts_np, k, shards, score_dtype):
         if isinstance(v, dict) and "seconds" in v))
     if t[key] < 1:
         fail(f"{label}: {key} is 0: the kernel was never launched")
+    if prof is not None:
+        summary = device_summary(prof, wall)
+        t["profile"] = summary
+        if summary["busy_share"] is None:
+            say("    profile: device busy share not measured, top kernels "
+                "not measured (the trace holds no device time)")
+        else:
+            say(f"    profile: the card was busy "
+                f"{summary['device_seconds']:.4f} s of the {wall:.3f} s run "
+                f"({100 * summary['busy_share']:.1f}%); top kernels by "
+                "device time:")
+            for row in summary["top"]:
+                say(f"      {row['ms']:.3f} ms in {row['calls']} calls: "
+                    f"{row['name'][:100]}")
     if events:
         torch.cuda.synchronize()
         t["mxu_prep_ms"] = sum(a.elapsed_time(b) for a, b, _ in events)
@@ -587,17 +671,18 @@ def unordered_run(label, pts_np, k, shards, score_dtype):
 
 
 def time_hd_kernels(pts_np, k, reps=2):
-    """Phase 11: the f32 general-D kernel and the bf16 tensor-core kernel
-    (the wgmma one) at phase 10's shape (the one fold of a 1-shard run
-    after the warm start), each over ``reps`` launches on fresh copies of
-    the warm rows (bf16: the kernel alone by the wrapper's CUDA events,
-    and with its preparation);
-    the rows of both compared; their plain versions timed on the first
-    PLAIN_BUCKETS query buckets and compared with the kernels' rows; and
-    the bounds, on the pairs the f32 kernel's walk visits (the work the
+    """Phase 11: the f32 ring kernel and the bf16 tensor-core kernel (the
+    wgmma one) at phase 10's shape (the one fold of a 1-shard run after
+    the warm start), each over ``reps`` launches on fresh copies of the
+    warm rows: the kernel alone by the wrapper's CUDA events, and with its
+    preparation (f32: the ring layouts; bf16: the packed halves and
+    norms); the rows of both compared; the plain versions timed on the
+    first PLAIN_BUCKETS query buckets and compared with the kernels' rows;
+    and the bounds, on the real pairs the f32 walk visits (the work the
     data needs): f32 at 3*D+1 FP32 operations a pair; bf16 at 3*2*Dp
     tensor-core FLOP a pair at the bf16 peak and 4 FP32 operations of the
-    epilogue a pair at the FP32 peak, whichever is longer."""
+    epilogue a pair at the FP32 rate, whichever is longer; each at the data
+    sheet's FP32 peak and at the FMA-free issue rate."""
     import torch
 
     from mpi_cuda_largescaleknn_torch.core.types import CandidateState
@@ -608,6 +693,7 @@ def time_hd_kernels(pts_np, k, reps=2):
         launch_knn_tiled_mxu,
         mxu_launch_geometry,
         survivor_width,
+        tiled_launch_plan,
         widen_rows,
     )
     from mpi_cuda_largescaleknn_torch.ops.partition import (
@@ -625,19 +711,22 @@ def time_hd_kernels(pts_np, k, reps=2):
     warm = warm_start_self(pc, k)
     sorted_d2, order = nearest_first_order(q.lower, q.upper,
                                            pc.lower, pc.upper)
+    s, t = q.bucket_size, pc.bucket_size
     w = survivor_width(k, pc)
     wide = widen_rows(warm, w)
-    plan = mxu_launch_geometry(q.bucket_size, dim, w)
-    wgmma_before = knn_update_tiled_cuda.wgmma_launches
+    plan = mxu_launch_geometry(s, dim, w)
+    ring_plan = tiled_launch_plan(s, t, k, dim)
+    before = (knn_update_tiled_cuda.wgmma_launches,
+              knn_update_tiled_cuda.ring_launches)
     runs = {}
-    for mode, start_rows, launch in (
-            ("f32", warm, launch_knn_tiled),
-            ("bf16", wide, launch_knn_tiled_mxu)):
+    for mode, start_rows, launch in (("f32", warm, launch_knn_tiled),
+                                     ("bf16", wide, launch_knn_tiled_mxu)):
         rows = CandidateState(start_rows.dist2.clone(),
                               start_rows.idx.clone())
         total = 0.0
-        events = [] if mode == "bf16" else None
-        knn_update_tiled_cuda.mxu_events = events
+        events = []
+        knn_update_tiled_cuda.mxu_events = events if mode == "bf16" else None
+        knn_update_tiled_cuda.ring_events = events if mode == "f32" else None
         for _ in range(reps):
             rows.dist2.copy_(start_rows.dist2)
             rows.idx.copy_(start_rows.idx)
@@ -645,23 +734,27 @@ def time_hd_kernels(pts_np, k, reps=2):
                 order, sorted_d2, q, pc, rows, skip_self=True, self_group=2))
             total += ms
         knn_update_tiled_cuda.mxu_events = None
-        runs[mode] = (total / reps, rows, visits, events)
-    if plan.kernel != "wgmma" or \
-            knn_update_tiled_cuda.wgmma_launches - wgmma_before != reps:
-        fail("phase 11: the bf16 launches did not all take the wgmma kernel")
-    f32_ms, f32_rows, f32_vis, _ = runs["f32"]
-    # bf16: the kernel alone, and with the wrapper's preparation of the
-    # packed halves and norms (what one call of the wrapper costs)
-    bf_wrapper_ms, bf_wide, bf_vis, events = runs["bf16"]
-    bf_ms = sum(b.elapsed_time(c) for _, b, c in events) / reps
-    bf_prep_ms = sum(a.elapsed_time(b) for a, b, _ in events) / reps
+        knn_update_tiled_cuda.ring_events = None
+        # with the wrapper's preparation, and the kernel alone by the
+        # wrapper's events
+        runs[mode] = {
+            "wrapper_ms": total / reps, "rows": rows, "visits": visits,
+            "ms": sum(b.elapsed_time(c) for _, b, c in events) / reps,
+            "prep_ms": sum(a.elapsed_time(b) for a, b, _ in events) / reps}
+    if plan.kernel != "wgmma" or ring_plan.kernel != "ring" or \
+            knn_update_tiled_cuda.wgmma_launches - before[0] != reps or \
+            knn_update_tiled_cuda.ring_launches - before[1] != reps:
+        fail("phase 11: the f32 and bf16 launches did not all take the ring "
+             "and the wgmma kernels")
+    f32_rows = runs["f32"]["rows"]
+    bf_wide = runs["bf16"]["rows"]
     bf_rows = CandidateState(bf_wide.dist2[:, :k], bf_wide.idx[:, :k])
     qrows = q.pts.reshape(-1, dim)
     if not torch.equal(bf_rows.dist2, f32_rows.dist2):
         fail("phase 11: bf16 kernel distances differ from the f32 kernel's")
     ties = tie_rows(bf_rows.idx, f32_rows.idx, qrows, pts)
 
-    nb, s = PLAIN_BUCKETS, q.bucket_size
+    nb = PLAIN_BUCKETS
     qs = BucketedPoints(q.pts[:nb], q.ids[:nb], q.lower[:nb], q.upper[:nb],
                         q.pos[:nb])
     sub = CandidateState(warm.dist2[:nb * s], warm.idx[:nb * s])
@@ -677,9 +770,9 @@ def time_hd_kernels(pts_np, k, reps=2):
         if mode == "bf16":
             tie_rows(rows.idx[:nb * s], got.idx, qrows[:nb * s], pts)
 
-    bq, t = q.num_buckets, pc.bucket_size
-    nvis = int(f32_vis.sum())
-    pairs = nvis * s * t
+    bq = q.num_buckets
+    nvis = int(runs["f32"]["visits"].sum())
+    pairs = visited_pairs(order, runs["f32"]["visits"], q, pc)
     dp = -(-dim // 16) * 16
     schedule = (nvis + bq) * 8
     f32_ops = pairs * (3 * dim + 1)
@@ -687,25 +780,24 @@ def time_hd_kernels(pts_np, k, reps=2):
     bf_tc = pairs * 3 * 2 * dp
     bf_epi = pairs * 4
     bf_bytes = 2 * n * (dim * 4 + 4) + 2 * n * w * 8 + schedule
-    f32_bound = (f32_ops / PEAK_F32, f32_bytes / PEAK_BYTES)
-    bf_bound = (max(bf_tc / PEAK_BF16, bf_epi / PEAK_F32),
-                bf_bytes / PEAK_BYTES)
+    yardsticks = {
+        "f32": (f32_ops / PEAK_F32, f32_ops / PEAK_F32_ISSUE, f32_bytes),
+        "bf16": (max(bf_tc / PEAK_BF16, bf_epi / PEAK_F32),
+                 max(bf_tc / PEAK_BF16, bf_epi / PEAK_F32_ISSUE), bf_bytes)}
     res = {}
-    for mode, ms, vis, bound, err_rows in (
-            ("f32", f32_ms, f32_vis, f32_bound, f32_rows),
-            ("bf16", bf_ms, bf_vis, bf_bound, bf_rows)):
+    for mode, run in runs.items():
+        err_rows = bf_rows if mode == "bf16" else run["rows"]
         res[mode] = {
-            "ms": ms, "plain_ms": plain[mode][0],
+            "ms": run["ms"], "wrapper_ms": run["wrapper_ms"],
+            "prep_ms": run["prep_ms"], "plain_ms": plain[mode][0],
             "plain_shape": f"{nb} of {bq} query buckets ({nb * s} rows)",
             "max_abs_err": max_abs_err(plain[mode][1].dist2,
                                        err_rows.dist2[:nb * s]),
-            "visits": int(vis.sum()), "pairs": pairs,
-            "bound_ms": max(bound) * 1e3,
-            "share_of_bound": max(bound) * 1e3 / ms,
-            "bound_by": "operations" if bound[0] >= bound[1] else "bytes"}
-    res["f32"].update({"ops": f32_ops, "bytes": f32_bytes})
-    res["bf16"].update({"wrapper_ms": bf_wrapper_ms, "prep_ms": bf_prep_ms,
-                        "tensor_flop": bf_tc, "epilogue_ops": bf_epi,
+            "visits": int(run["visits"].sum()), "pairs": pairs,
+            **bounds(run["ms"], *yardsticks[mode])}
+    res["f32"].update({"ops": f32_ops, "bytes": f32_bytes,
+                       "plan": ring_plan._asdict()})
+    res["bf16"].update({"tensor_flop": bf_tc, "epilogue_ops": bf_epi,
                         "bytes": bf_bytes, "W": w,
                         "kernel": plan.kernel, "stages": plan.stages,
                         "rows_in_smem": plan.rows_in_smem,
@@ -813,20 +905,36 @@ def main() -> int:
     # -- phase 3c -----------------------------------------------------------
     say("[phase 3c] general-D f32 kernels vs plain on the card, bit for bit")
     nd = {d: clustered_nd(32_000, d, SEED + 10 + d)
-          for d in (4, 16, 32, 64, 128)}
-    radius = {4: 0.6, 16: 4.0, 128: 14.5}   # a finite -r for k=10
+          for d in (4, 5, 16, 32, 64, 128, 130)}
+    # a finite -r for k=10
+    radius = {4: 0.6, 5: 0.7, 16: 4.0, 128: 14.5, 130: 14.6}
+    ring = dict(route="ring")
     nd_errs = []
     for d in (4, 16, 128):
         x = nd[d]
         nd_errs += [
-            compare_case(f"D={d} k=1 skip_self G2", x, 1),
-            compare_case(f"D={d} k=10 skip_self G2", x, 10),
-            compare_case(f"D={d} k=100 skip_self G2", x, 100),
+            compare_case(f"D={d} k=1 skip_self G2", x, 1, **ring),
+            compare_case(f"D={d} k=10 skip_self G2", x, 10, **ring),
+            compare_case(f"D={d} k=100 skip_self G2", x, 100, **ring),
             compare_case(f"D={d} k=10 -r {radius[d]} cold G1", x, 10,
-                         radius=radius[d], group=1, warm=False),
+                         radius=radius[d], group=1, warm=False, **ring),
         ]
-    nd_errs.append(compare_case("D=16 k=10 T=2000 (two staged tiles)",
-                                nd[16], 10, bucket_size=1024))
+    # Dp4 pads (D=5: 8 components, D=130: 132)
+    for d in (5, 130):
+        nd_errs += [
+            compare_case(f"D={d} k=10 skip_self G2", nd[d], 10, **ring),
+            compare_case(f"D={d} k=10 -r {radius[d]} cold G1", nd[d], 10,
+                         radius=radius[d], group=1, warm=False, **ring),
+        ]
+    nd_errs += [
+        compare_case("D=16 k=10 T=2000 (two staged tiles)", nd[16], 10,
+                     bucket_size=1024, **ring),
+        compare_case("D=64 k=10 S=1000 (rows over 8 blocks, T=2000)",
+                     nd[64], 10, bucket_size=1000, **ring),
+        # above RING_MAX_DP4: the first general-D kernel
+        compare_case("D=240 k=10 skip_self G2", clustered_nd(
+            8_000, 240, SEED + 250), 10, route="nd"),
+    ]
     for d in (4, 16, 128):
         x = nd[d]
         qx = x[:4096] if d == 128 else x   # keeps the plain version short
@@ -902,8 +1010,8 @@ def main() -> int:
         timed[k] = r
         say(f"  k={k}: Bq={r['Bq']} S={r['S']} Bp={r['Bp']} T={r['T']} "
             f"visits={r['visits']} kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']}), max_abs_err {r['max_abs_err']}")
+            f"{r['plain_ms']:.3f} ms, {bound_txt(r)}, max_abs_err "
+            f"{r['max_abs_err']}")
     details["kernel_timing"] = timed
     del pts
 
@@ -958,10 +1066,9 @@ def main() -> int:
         r = time_bf_kernel(k, pts)
         bf_timed[k] = r
         say(f"  k={k}: {N_MAIN} x {N_MAIN} rows/block={r['rows_per_block']} "
-            f"lanes={r['lanes']} kernel {r['ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.3f} ms ({r['bound_by']}), plain "
-            f"{r['plain_ms']:.3f} ms on {r['plain_shape']}, max_abs_err "
-            f"{r['max_abs_err']}")
+            f"lanes={r['lanes']} kernel {r['ms']:.3f} ms, {bound_txt(r)}, "
+            f"plain {r['plain_ms']:.3f} ms on {r['plain_shape']}, "
+            f"max_abs_err {r['max_abs_err']}")
     details["bf_kernel_timing"] = bf_timed
     del pts
 
@@ -977,6 +1084,7 @@ def main() -> int:
         t, d, idx = unordered_run(label, hd, HD_K, shards, sd)
         hd_runs[label], hd_out[label] = t, (d, idx)
     ref_d, ref_idx = hd_out["f32 R=1"]
+    check_ring_route("phase 10: f32 R=1", hd_runs["f32 R=1"])
     hd_pts = torch.from_numpy(hd).cuda()
     for label in ("bf16 R=1", "bf16 R=4"):
         d, idx = hd_out[label]
@@ -1023,6 +1131,9 @@ def main() -> int:
     t_sub, d_sub, _ = unordered_run(f"f32 R=1 on the first {HD_SUB}", sub,
                                     HD_K, 1, "f32")
     hd_runs["f32 R=1 sub"] = t_sub
+    check_ring_route("phase 10b: the pre-partitioned CLI",
+                     pre["highd_auto_k10"])
+    check_ring_route("phase 10b: UnorderedKNN", t_sub)
     if hd_joined != d_sub.astype(np.float32).tobytes():
         fail("phase 10b: pre-partitioned rank files differ from UnorderedKNN "
              "on the same points")
@@ -1032,56 +1143,66 @@ def main() -> int:
     # -- phase 11 -----------------------------------------------------------
     say(f"[phase 11] the high-D kernels' time at phase 10's shape")
     hd_timed = time_hd_kernels(hd, HD_K)
-    for mode in ("f32", "bf16"):
+    say(f"  f32 ring plan: {hd_timed['f32']['plan']}")
+    for mode, name in (("f32", "ring kernel"), ("bf16", "wgmma kernel")):
         r = hd_timed[mode]
-        say(f"  {mode}: kernel {r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']}, {100 * r['share_of_bound']:.1f}% of it), "
-            f"visits {r['visits']}, plain "
-            f"{r['plain_ms']:.3f} ms on {r['plain_shape']}, max_abs_err "
-            f"{r['max_abs_err']}")
-    say(f"  bf16 with the wrapper's preparation: "
-        f"{hd_timed['bf16']['wrapper_ms']:.3f} ms (preparation "
-        f"{hd_timed['bf16']['prep_ms']:.3f} ms)")
+        say(f"  {mode} ({name}): kernel {r['ms']:.3f} ms, {bound_txt(r)}, "
+            f"visits {r['visits']}, plain {r['plain_ms']:.3f} ms on "
+            f"{r['plain_shape']}, max_abs_err {r['max_abs_err']}")
+    for mode, what in (("f32", "ring layouts"), ("bf16", "halves, norms")):
+        say(f"  {mode} with the wrapper's preparation: "
+            f"{hd_timed[mode]['wrapper_ms']:.3f} ms (preparation: {what}, "
+            f"{hd_timed[mode]['prep_ms']:.3f} ms)")
     say(f"  shape {hd_timed['shape']}; bf16 on the "
         f"{hd_timed['bf16']['kernel']} kernel, W={hd_timed['bf16']['W']}, "
         f"ids of {hd_timed['bf16']['id_rows_differing_by_ties']} rows differ "
         "from f32 only among equally distant points")
     details["high_d_kernel_timing"] = hd_timed
 
+    # -- phase 12 -----------------------------------------------------------
+    say("[phase 12] phase 10's f32 R=1 run again under the profiler")
+    label = "f32 R=1 under the profiler"
+    t, d, _ = unordered_run(label, hd, HD_K, 1, "f32",
+                            profile_dir=str(WORK / "profile"))
+    hd_runs[label] = t
+    if d.tobytes() != ref_d.tobytes():
+        fail(f"phase 12: {label}: distances differ from phase 10's")
+    check_ring_route(f"phase 12: {label}", t)
+
     main_runs = list(runs.values()) + list(pre.values()) \
         + list(hd_runs.values())
-    head, bf_head, mxu_head = timed[8], bf_timed[8], hd_timed["bf16"]
-    kernels = {"kernels": [{
-        "name": "knn_tiled", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES,
-        "launches": sum(r["knn_tiled_launches"] for r in main_runs),
-        "max_abs_err": max(details["phase3_max_abs_err"],
-                           details["phase3c_max_abs_err"],
-                           timed[8]["max_abs_err"],
-                           timed[100]["max_abs_err"],
-                           hd_timed["f32"]["max_abs_err"]),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None}, {
-        "name": "knn_bf", "route": "cuda", "source": BF_SOURCE,
-        "replaces": BF_REPLACES,
-        "launches": sum(r["knn_bf_launches"] for r in main_runs),
-        "max_abs_err": max(details["phase3b_max_abs_err"],
-                           details["phase3c_max_abs_err"],
-                           bf_timed[8]["max_abs_err"],
-                           bf_timed[100]["max_abs_err"]),
-        "ms": bf_head["ms"], "plain_ms": bf_head["plain_ms"],
-        "bound_ms": bf_head["bound_ms"], "bound_by": bf_head["bound_by"],
-        "library_ms": None}, {
-        "name": "knn_tiled_mxu", "route": "cuda", "source": MXU_SOURCE,
-        "replaces": MXU_REPLACES,
-        "launches": sum(r.get("knn_tiled_mxu_launches", 0)
-                        for r in main_runs),
-        "max_abs_err": max(details["phase3d_max_abs_err"],
-                           mxu_head["max_abs_err"]),
-        "ms": mxu_head["ms"], "plain_ms": mxu_head["plain_ms"],
-        "bound_ms": mxu_head["bound_ms"], "bound_by": mxu_head["bound_by"],
-        "library_ms": None}]}
+
+    def launched(key):
+        return sum(r.get(key, 0) for r in main_runs)
+
+    def entry(name, source, replaces, launches, errs, r):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(errs), "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None}
+
+    kernels = {"kernels": [
+        # knn_tiled_kernel (D=3, timed in phase 6) and knn_tiled_nd_kernel
+        entry("knn_tiled", SOURCE, REPLACES,
+              launched("knn_tiled_launches")
+              - launched("knn_tiled_ring_launches"),
+              (details["phase3_max_abs_err"], details["phase3c_max_abs_err"],
+               timed[8]["max_abs_err"], timed[100]["max_abs_err"]),
+              timed[8]),
+        entry("knn_tiled_nd_ring", SOURCE, RING_REPLACES,
+              launched("knn_tiled_ring_launches"),
+              (details["phase3c_max_abs_err"],
+               hd_timed["f32"]["max_abs_err"]), hd_timed["f32"]),
+        entry("knn_bf", BF_SOURCE, BF_REPLACES, launched("knn_bf_launches"),
+              (details["phase3b_max_abs_err"], details["phase3c_max_abs_err"],
+               bf_timed[8]["max_abs_err"], bf_timed[100]["max_abs_err"]),
+              bf_timed[8]),
+        entry("knn_tiled_mxu", MXU_SOURCE, MXU_REPLACES,
+              launched("knn_tiled_mxu_launches"),
+              (details["phase3d_max_abs_err"],
+               hd_timed["bf16"]["max_abs_err"]), hd_timed["bf16"]),
+    ]}
     for kern in kernels["kernels"]:
         if kern["launches"] < 1 or kern["max_abs_err"] != 0.0:
             fail(f"{kern['name']}: {kern['launches']} launches on the main "

@@ -38,6 +38,8 @@ Port options (no reference analogue):
                     streamed recomputation and fail loudly on mismatch
   --write-indices P  also write the k neighbor ids per point (int32,
                     ascending by distance, -1 = fewer than k found)
+  --profile-dir P   trace the run with torch.profiler (host operators and
+                    the card's kernels) into P as a Chrome trace
 """
 
 # JAX-package flags not ported yet: flag -> (takes a value, ROADMAP item)
@@ -48,7 +50,6 @@ _NOT_PORTED = {
                          "Queue 1, ring_knn_chunked / ring_knn_stepwise"),
     "--checkpoint-every": (True,
                            "Queue 1, ring_knn_chunked / ring_knn_stepwise"),
-    "--profile-dir": (True, "Queue 1, observability"),
     "--coordinator": (True, "Queue 1, the multi-card torch.distributed ring"),
     "--num-hosts": (True, "Queue 1, the multi-card torch.distributed ring"),
     "--host-id": (True, "Queue 1, the multi-card torch.distributed ring"),
@@ -74,7 +75,7 @@ def parse_args(program: str, argv: list[str]):
     extras = {"device": None, "shards": None, "engine": "auto",
               "query_tile": 2048, "point_tile": 2048, "bucket_size": 0,
               "point_group": 0, "score_dtype": "f32", "timings": False,
-              "selfcheck": 0, "write_indices": None}
+              "selfcheck": 0, "write_indices": None, "profile_dir": None}
     i = 0
     try:
         while i < len(argv):
@@ -111,6 +112,8 @@ def parse_args(program: str, argv: list[str]):
                 i += 1; extras["selfcheck"] = int(argv[i])
             elif arg == "--write-indices":
                 i += 1; extras["write_indices"] = argv[i]
+            elif arg == "--profile-dir":
+                i += 1; extras["profile_dir"] = argv[i]
             elif arg in _NOT_PORTED:
                 raise not_ported(f"option {arg}", _NOT_PORTED[arg][1])
             else:
@@ -133,5 +136,6 @@ def parse_args(program: str, argv: list[str]):
                     bucket_size=extras["bucket_size"],
                     point_group=extras["point_group"],
                     num_shards=extras["shards"] or 0,
-                    score_dtype=extras["score_dtype"])
+                    score_dtype=extras["score_dtype"],
+                    profile_dir=extras["profile_dir"])
     return cfg, in_path, out_path, extras

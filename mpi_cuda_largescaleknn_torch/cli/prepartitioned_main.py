@@ -9,7 +9,7 @@ files and must equal it, the reference's ``#files == ranks`` check); one
 concatenation order. ``--timings`` writes one JSON object to stderr: the
 phase times, the demand ring's ``rounds``, ``kernels_run`` and
 ``rotations_run``, the kernels' launch counts, queries/s and the peak
-device memory.
+device memory. ``--profile-dir`` traces the run with torch.profiler.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from mpi_cuda_largescaleknn_torch.io.writer import (
 from mpi_cuda_largescaleknn_torch.models.prepartitioned import (
     PrePartitionedKNN,
 )
+from mpi_cuda_largescaleknn_torch.obs.trace import profile_trace
 from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
 from mpi_cuda_largescaleknn_torch.ops.knn_tiled import knn_update_tiled_cuda
 
@@ -58,10 +59,12 @@ def main(argv: list[str] | None = None) -> int:
         # set-up outside the timed run: the CUDA context starts here
         torch.zeros(1, device=model.device)
         torch.cuda.reset_peak_memory_stats(model.device)
-    launches0 = knn_update_tiled_cuda.launches, knn_update_bf_cuda.launches
-    t0 = time.perf_counter()
-    got = model.run(partitions, return_neighbors=want_idx)
-    wall = time.perf_counter() - t0
+    launches0 = (knn_update_tiled_cuda.launches, knn_update_bf_cuda.launches,
+                 knn_update_tiled_cuda.ring_launches)
+    with profile_trace(cfg.profile_dir):
+        t0 = time.perf_counter()
+        got = model.run(partitions, return_neighbors=want_idx)
+        wall = time.perf_counter() - t0
     results, idx_lists = got if want_idx else (got, None)
     for r, dists in enumerate(results):
         write_rank_file(out_prefix, r, dists)
@@ -85,6 +88,8 @@ def main(argv: list[str] | None = None) -> int:
             "knn_tiled_launches": knn_update_tiled_cuda.launches
             - launches0[0],
             "knn_bf_launches": knn_update_bf_cuda.launches - launches0[1],
+            "knn_tiled_ring_launches": knn_update_tiled_cuda.ring_launches
+            - launches0[2],
             "peak_device_bytes": (torch.cuda.max_memory_allocated(model.device)
                                   if model.device.type == "cuda" else 0),
             **model.last_stats})

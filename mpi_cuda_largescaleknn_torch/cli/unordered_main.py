@@ -6,9 +6,11 @@
 Byte-compatible ``.float3`` in / ``.float`` out, output in global point
 order. ``--timings`` writes one JSON object to stderr: the phase times,
 queries/s over the ring, the kernels' launch counts and the peak device
-memory. ``--score-dtype bf16`` asks for the traversal's matmul form, which
-engages at D >= 16 (a ``.float3`` file holds D=3 points, scored exactly). ``--engine pallas`` folds whole shards with the flat brute-force
-kernel instead of the traversal.
+memory. ``--profile-dir`` traces the run with torch.profiler.
+``--score-dtype bf16`` asks for the traversal's matmul form, which engages
+at D >= 16 (a ``.float3`` file holds D=3 points, scored exactly).
+``--engine pallas`` folds whole shards with the flat brute-force kernel
+instead of the traversal.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from mpi_cuda_largescaleknn_torch.io.writer import (
     write_indices,
 )
 from mpi_cuda_largescaleknn_torch.models.unordered import UnorderedKNN
+from mpi_cuda_largescaleknn_torch.obs.trace import profile_trace
 from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
 from mpi_cuda_largescaleknn_torch.ops.knn_tiled import knn_update_tiled_cuda
 
@@ -45,10 +48,12 @@ def main(argv: list[str] | None = None) -> int:
         torch.zeros(1, device=model.device)
         torch.cuda.reset_peak_memory_stats(model.device)
     launches0 = (knn_update_tiled_cuda.launches, knn_update_bf_cuda.launches,
-                 knn_update_tiled_cuda.mxu_launches)
-    t0 = time.perf_counter()
-    got = model.run(points, return_neighbors=want_idx)
-    wall = time.perf_counter() - t0
+                 knn_update_tiled_cuda.mxu_launches,
+                 knn_update_tiled_cuda.ring_launches)
+    with profile_trace(cfg.profile_dir):
+        t0 = time.perf_counter()
+        got = model.run(points, return_neighbors=want_idx)
+        wall = time.perf_counter() - t0
     if want_idx:
         dists, idx = got
         write_indices(extras["write_indices"], idx)
@@ -72,6 +77,8 @@ def main(argv: list[str] | None = None) -> int:
             "knn_bf_launches": knn_update_bf_cuda.launches - launches0[1],
             "knn_tiled_mxu_launches": knn_update_tiled_cuda.mxu_launches
             - launches0[2],
+            "knn_tiled_ring_launches": knn_update_tiled_cuda.ring_launches
+            - launches0[3],
             "peak_device_bytes": (torch.cuda.max_memory_allocated(model.device)
                                   if model.device.type == "cuda" else 0),
             **(model.last_stats or {})})

@@ -63,11 +63,13 @@ class KnnConfig:
                                      # rescore (traversal, D >= 16; the
                                      # flat engine refuses it, the
                                      # pre-partitioned pipeline scores f32)
+    profile_dir: str | None = None   # the CLIs trace the run with
+                                     # torch.profiler into this directory
+                                     # (obs/trace.py)
 
     # --- JAX-package options not ported yet (validate refuses them) --------
     query_chunk: int = 0
     merge: str = "host"
-    profile_dir: str | None = None
     checkpoint_dir: str | None = None
 
     def validate(self) -> None:
@@ -90,8 +92,6 @@ class KnnConfig:
         if self.merge != "host":
             raise not_ported(f"merge='{self.merge}'",
                              "Queue 1, ring_knn_chunked / ring_knn_stepwise")
-        if self.profile_dir:
-            raise not_ported("profile_dir", "Queue 1, observability")
         if self.num_shards < 0:
             raise ValueError(f"num_shards must be >= 0, got {self.num_shards}")
         if self.query_tile < 1 or self.point_tile < 1:

@@ -48,10 +48,44 @@
 // component-major copy, coalesced across the block's rows) against
 // float4 broadcast loads of the tile: one shared-memory load per 12 FP32
 // operations (4 components of one pair).
+//
+// knn_tiled_nd_ring_kernel is the general-D kernel built for that bound
+// (the wrapper, ops/knn_tiled.py tiled_launch_plan, sends it every D other
+// than 3 whose Dp4 = 4*ceil(D/4) is at most RING_MAX_DP4; knn_tiled_nd_kernel
+// keeps the rest). Each pair is still sum_i (q_i - p_i)^2 left to right,
+// uncontracted, so it is 3 FP32 issues per component and no tensor core
+// can help; where knn_tiled_nd_kernel loses time, and what this one does:
+// - There every shared-memory load feeds one query row, and the query row
+//   comes from L2 again for every 32-lane block. Here a block's 128 query
+//   rows are copied into shared memory once, and each consumer thread
+//   holds a register tile of 8 rows x 4 lanes (rows rg + 16i, lanes
+//   lg + 16j), so per group of 4 components it loads 8 + 4 float4 and
+//   issues 384 FP32 operations; a half-warp shares its rows (broadcast)
+//   and reads 16 consecutive lanes, so no load meets a bank conflict.
+// - There tiles are staged synchronously through registers. Here the
+//   wrapper lays the points out once per launch as chunks of 64 lanes,
+//   each component-major ([Dp4/4][64] float4) and contiguous, lanes past T
+//   at PAD_SENTINEL (their d2 is +inf, never adopted); one producer thread
+//   keeps a ring of 2-3 stages full with cp.async.bulk on full/empty
+//   mbarriers, running ahead along the walk, so the next chunk's copy
+//   overlaps this chunk's arithmetic (the pattern of knn_tiled_mxu.cu).
+// - There a 16-lane tail costs a full 32-lane block of work; here the
+//   tail rounds up to 64 lanes (T=496 pads to 512, 3%).
+// The fold is gated: after a chunk each thread compares its 32 scores with
+// its rows' k-th values (copies that only shrink, so a failing lane could
+// never be adopted). A row's 64 lanes lie in one half-warp, so when a warp
+// holds a passing lane the half-warp merges its masks into one 64-bit lane
+// mask per row, pops it lowest lane first, and shuffles each score to the
+// row's inserting thread (lg == i), which inserts strict-< into the row:
+// lane order, the bits of every other fold. Rows sit in shared memory
+// where they fit beside the ring, else in place in device memory.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "bulk_ring.cuh"
 #include "knn_rows.cuh"
 
 namespace {
@@ -237,7 +271,307 @@ __global__ void knn_tiled_nd_kernel(
   if (tid == 0 && nvis) atomicMax(visits + b, nvis);
 }
 
+// ---------------------------------------------------------------------------
+// knn_tiled_nd_ring_kernel
+
+constexpr int kRingRows = 128;       // query rows a block
+constexpr int kRingLanes = 64;       // point lanes a chunk
+constexpr int kRingConsumers = 256;  // 8 consumer warps
+constexpr int kRingThreads = kRingConsumers + 32;  // and one producer warp
+constexpr int kRingMaxStages = 3;
+// A half-warp's 16 threads share one row group rg and hold lanes lg + 16j;
+// a thread's rows are rg + kRowGroups*i.
+constexpr int kRowGroups = kRingConsumers / 16;
+constexpr int kTR = kRingRows / kRowGroups;  // rows of a thread's tile
+constexpr int kTL = kRingLanes / 16;         // lanes of it
+
+__device__ __forceinline__ float add_sq(float acc, float a, float b) {
+  const float d = __fsub_rn(a, b);
+  return __fadd_rn(acc, __fmul_rn(d, d));
+}
+
+// acc[i][j] = d2 of query row rg + kRowGroups*i against chunk lane
+// lg + 16j, over all d4n groups of 4 components in order. q_s is
+// [d4n][128], p_s [d4n][64], both float4.
+__device__ __forceinline__ void score_chunk(float (&acc)[kTR][kTL],
+                                            const float4* q_s,
+                                            const float4* p_s, int d4n,
+                                            int rg, int lg) {
+#pragma unroll
+  for (int i = 0; i < kTR; ++i)
+#pragma unroll
+    for (int j = 0; j < kTL; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int d4 = 0; d4 < d4n; ++d4) {
+    const float4* pp = p_s + d4 * kRingLanes + lg;
+    const float4* qq = q_s + d4 * kRingRows + rg;
+    float4 p[kTL];
+#pragma unroll
+    for (int j = 0; j < kTL; ++j) p[j] = pp[16 * j];
+#pragma unroll
+    for (int i = 0; i < kTR; ++i) {
+      const float4 q = qq[kRowGroups * i];
+#pragma unroll
+      for (int j = 0; j < kTL; ++j) {
+        float a = add_sq(acc[i][j], q.x, p[j].x);
+        a = add_sq(a, q.y, p[j].y);
+        a = add_sq(a, q.z, p[j].z);
+        acc[i][j] = add_sq(a, q.w, p[j].w);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kRingThreads, 1) knn_tiled_nd_ring_kernel(
+    const int* __restrict__ order,       // [Bq, Bp] nearest-first bucket ids
+    const float* __restrict__ boxd2,     // [Bq, Bp] ascending box d2
+    const float4* __restrict__ q_ring,   // [Bq, S_pad/128, Dp4/4, 128]
+    const int* __restrict__ q_ids,       // [Bq, S]
+    const float4* __restrict__ p_ring,   // [Bp, T_pad/64, Dp4/4, 64]
+    const int* __restrict__ p_ids,       // [Bp, T]
+    float* d2,                           // [Bq*S, k] in/out, ascending rows
+    int* idx,                            // [Bq*S, k] in/out
+    int* __restrict__ visits,            // [Bq] buckets scored, max over blocks
+    int s_q, int s_pad, int num_pb, int t_p, int t_pad, int d4n, int k,
+    int skip_self, int self_group, int stages, int rows_in_smem) {
+  extern __shared__ __align__(128) unsigned char sbuf[];
+  const uint32_t qbytes = kRingRows * d4n * 16;   // the block's queries
+  const uint32_t cbytes = kRingLanes * d4n * 16;  // one chunk
+  const float4* q_s = reinterpret_cast<const float4*>(sbuf);
+  unsigned char* ring = sbuf + qbytes;
+  const int row_slots = rows_in_smem ? k * kRingRows : 0;
+  float* cd2 = reinterpret_cast<float*>(ring + stages * cbytes);  // [k][128]
+  int* cidx = reinterpret_cast<int*>(cd2 + row_slots);            // [k][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(cidx + row_slots);
+  uint64_t* empty = full + kRingMaxStages;
+  uint64_t* qbar = empty + kRingMaxStages;
+  float* red = reinterpret_cast<float*>(qbar + 1);  // [2][consumer warps]
+  volatile int* stop =
+      reinterpret_cast<volatile int*>(red + kRingConsumers / 16);
+
+  const int b = blockIdx.x;
+  const int r0 = blockIdx.y * kRingRows;
+  const int nrows = min(kRingRows, s_q - r0);
+  const int tid = threadIdx.x;
+  const int own = b / self_group;
+  const int* ord = order + (long long)b * num_pb;
+  const float* bx = boxd2 + (long long)b * num_pb;
+  const int nch = t_pad / kRingLanes;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      knn::mbar_init(full + s, 1);
+      knn::mbar_init(empty + s, kRingConsumers / 32);  // one arrival a warp
+    }
+    knn::mbar_init(qbar, 1);
+    *stop = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kRingConsumers) {
+    // The producer: one thread copies the block's queries, then walks the
+    // consumers' schedule without the prune and keeps the ring full until
+    // they stop it.
+    if (tid != kRingConsumers) return;
+    knn::mbar_expect_tx(qbar, qbytes);
+    knn::bulk_load(sbuf,
+                   q_ring + ((long long)b * (s_pad / kRingRows) + blockIdx.y)
+                                * kRingRows * d4n,
+                   qbytes, qbar);
+    int n = 0;  // chunks issued
+    for (int v = 0; v < num_pb && !*stop; ++v) {
+      const int pb = ord[v];
+      if (skip_self && pb == own) continue;
+      for (int c = 0; c < nch; ++c, ++n) {
+        const int s = n % stages;
+        if (n >= stages) {  // wait until every consumer warp released it
+          const uint32_t parity = (n / stages - 1) & 1;
+          while (!knn::mbar_try_wait(empty + s, parity))
+            if (*stop) goto drain;
+        }
+        if (*stop) goto drain;
+        knn::mbar_expect_tx(full + s, cbytes);
+        knn::bulk_load(ring + s * cbytes,
+                       p_ring + ((long long)pb * nch + c) * kRingLanes * d4n,
+                       cbytes, full + s);
+      }
+    }
+  drain:
+    // every copy issued lands before the block exits
+    knn::mbar_wait(qbar, 0);
+    for (int s = 0; s < stages && s < n; ++s)
+      knn::mbar_wait(full + s, ((n - 1 - s) / stages) & 1);
+    return;
+  }
+
+  // The consumers: thread (rg, lg) scores rows rg + kRowGroups*i against
+  // lanes lg + 16j of each chunk; rows rg belong to one half-warp.
+  const int lane = tid & 31;
+  const int lg = lane & 15;
+  const int half = lane & 16;  // first lane of this half-warp
+  const int rg = tid >> 4;
+  const long long row0 = (long long)b * s_q + r0;
+  const long long base = row0 * k;
+  const int rstride = rows_in_smem ? kRingRows : 1;
+  auto row_d2 = [&](int r) {
+    return rows_in_smem ? cd2 + r : d2 + (row0 + r) * k;
+  };
+  auto row_idx = [&](int r) {
+    return rows_in_smem ? cidx + r : idx + (row0 + r) * k;
+  };
+  if (rows_in_smem)
+    for (int e = tid; e < nrows * k; e += kRingConsumers) {
+      const int r = e / k;
+      const int j = e - r * k;
+      cd2[j * kRingRows + r] = d2[base + e];
+      cidx[j * kRingRows + r] = idx[base + e];
+    }
+  knn::consumer_sync<kRingConsumers>();
+  // each row's k-th d2 (-inf for rows that fold nothing); only the row's
+  // inserting thread (lg == i) holds it exactly, the others a copy that is
+  // never below it
+  float kth[kTR];
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    const int r = rg + kRowGroups * i;
+    const bool valid = r < nrows && q_ids[row0 + r] >= 0;
+    kth[i] = valid ? row_d2(r)[(k - 1) * rstride] : -CUDART_INF_F;
+  }
+  auto rows_max = [&]() {
+    float m = kth[0];
+#pragma unroll
+    for (int i = 1; i < kTR; ++i) m = fmaxf(m, kth[i]);
+    return m;
+  };
+  int parity = 0;
+  float worst = knn::consumer_max<kRingConsumers>(rows_max(), red, parity);
+  knn::mbar_wait(qbar, 0);
+
+  // The lanes of a chunk that passed the gate (bit kTL*i + j of m), adopted
+  // row by row in lane order; pos0 is the chunk's first lane in p_ids.
+  auto adopt = [&](const float (&acc)[kTR][kTL], uint32_t m, long long pos0) {
+    uint64_t u[kTR];
+#pragma unroll
+    for (int i = 0; i < kTR; ++i) {
+      uint64_t x = 0ull;
+#pragma unroll
+      for (int j = 0; j < kTL; ++j)
+        x |= (uint64_t)((m >> (kTL * i + j)) & 1u) << (16 * j + lg);
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        x |= __shfl_xor_sync(0xffffffffu, x, off);
+      u[i] = x;
+    }
+    auto pending = [&]() {
+      uint64_t any = 0ull;
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) any |= u[i];
+      return any != 0ull;
+    };
+    while (__any_sync(0xffffffffu, pending())) {
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) {
+        const bool has = u[i] != 0ull;
+        const int col = has ? __ffsll((long long)u[i]) - 1 : 0;
+        u[i] &= u[i] - 1ull;
+        const int jc = col >> 4;
+        float mine = acc[i][0];
+#pragma unroll
+        for (int j = 1; j < kTL; ++j)
+          if (j == jc) mine = acc[i][j];
+        const float val = __shfl_sync(0xffffffffu, mine, half | (col & 15));
+        if (has && lg == i && val < kth[i]) {
+          const int r = rg + kRowGroups * i;
+          kth[i] = knn::insert_sorted(row_d2(r), row_idx(r), rstride, 0, k,
+                                      val, p_ids[pos0 + col]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kTR; ++i)
+      kth[i] = __shfl_sync(0xffffffffu, kth[i], half | i);
+  };
+
+  int n = 0;  // chunks consumed
+  int nvis = 0;
+  for (int v = 0; v < num_pb; ++v) {
+    // ascending box d2 and a radius that only shrinks: nothing later can
+    // be adopted either
+    if (!(bx[v] < worst)) break;
+    const int pb = ord[v];
+    if (skip_self && pb == own) continue;
+    const long long lane0 = (long long)pb * t_p;
+    for (int c = 0; c < nch; ++c, ++n) {
+      const int s = n % stages;
+      knn::mbar_wait(full + s, (n / stages) & 1);
+      float acc[kTR][kTL];
+      score_chunk(acc, q_s,
+                  reinterpret_cast<const float4*>(ring + s * cbytes), d4n,
+                  rg, lg);
+      __syncwarp();
+      if (lane == 0) knn::mbar_arrive(empty + s);
+      uint32_t m = 0u;
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int j = 0; j < kTL; ++j)
+          m |= (uint32_t)(acc[i][j] < kth[i]) << (kTL * i + j);
+      if (__any_sync(0xffffffffu, m != 0u))
+        adopt(acc, m, lane0 + (long long)c * kRingLanes);
+    }
+    ++nvis;
+    parity ^= 1;
+    worst = knn::consumer_max<kRingConsumers>(rows_max(), red, parity);
+  }
+  if (tid == 0) *stop = 1;
+  knn::consumer_sync<kRingConsumers>();
+  if (rows_in_smem)
+    for (int e = tid; e < nrows * k; e += kRingConsumers) {
+      const int r = e / k;
+      const int j = e - r * k;
+      d2[base + e] = cd2[j * kRingRows + r];
+      idx[base + e] = cidx[j * kRingRows + r];
+    }
+  if (tid == 0 && nvis) atomicMax(visits + b, nvis);
+}
+
+// Dynamic shared memory of knn_tiled_nd_ring_kernel (ops/knn_tiled.py
+// ring_smem_bytes computes the same).
+size_t ring_smem(int dp4, int k, int stages, int rows_in_smem) {
+  return (size_t)kRingRows * dp4 * 4 + (size_t)stages * kRingLanes * dp4 * 4 +
+         (rows_in_smem ? (size_t)k * kRingRows * 8 : 0) + 256;
+}
+
 }  // namespace
+
+// Launches knn_tiled_nd_ring_kernel on `stream`; returns the CUDA error
+// code of the launch (0 = ok), or cudaErrorInvalidValue for a shape it does
+// not take (Dp4 not a multiple of 4, S_pad not of 128, T_pad not of 64, or
+// a ring of other than 2 or 3 stages).
+extern "C" int knn_tiled_nd_ring_launch(
+    const int* order, const float* boxd2, const float* q_ring,
+    const int* q_ids, const float* p_ring, const int* p_ids, float* d2,
+    int* idx, int* visits, int num_qb, int s_q, int s_pad, int num_pb,
+    int t_p, int t_pad, int dp4, int k, int skip_self, int self_group,
+    int stages, int rows_in_smem, void* stream) {
+  if (dp4 % 4 || s_pad % kRingRows || t_pad % kRingLanes || stages < 2 ||
+      stages > kRingMaxStages)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ring_smem(dp4, k, stages, rows_in_smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_tiled_nd_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(num_qb, s_pad / kRingRows);
+  knn_tiled_nd_ring_kernel<<<grid, kRingThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      order, boxd2, reinterpret_cast<const float4*>(q_ring), q_ids,
+      reinterpret_cast<const float4*>(p_ring), p_ids, d2, idx, visits, s_q,
+      s_pad, num_pb, t_p, t_pad, dp4 / 4, k, skip_self, self_group, stages,
+      rows_in_smem);
+  return (int)cudaGetLastError();
+}
 
 // Launches on `stream`; returns the CUDA error code of the launch (0 = ok).
 extern "C" int knn_tiled_nd_launch(

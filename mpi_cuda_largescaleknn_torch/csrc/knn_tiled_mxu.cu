@@ -76,11 +76,19 @@
 #include <math_constants.h>
 #include <mma.h>
 
+#include "bulk_ring.cuh"
 #include "knn_rows.cuh"
 
 namespace {
 
 using namespace nvcuda;
+using knn::bulk_load;
+using knn::mbar_arrive;
+using knn::mbar_expect_tx;
+using knn::mbar_init;
+using knn::mbar_try_wait;
+using knn::mbar_wait;
+using knn::smem_addr;
 
 constexpr int kT = 16;  // wmma tile: m = n = k = 16
 
@@ -303,61 +311,6 @@ constexpr int kConsumers = 256;    // two consumer warpgroups of 64 rows
 constexpr int kWgThreads = kConsumers + 32;  // and one producer warp
 constexpr int kMaxStages = 3;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-// Arrive once and expect `bytes` of asynchronous copies on `bar`.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-// Whether the phase of `bar` with parity `parity` has completed.
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
-                                              uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// Spins until the phase with parity `parity` has completed. The loop is
-// inside the asm, so the compiler sees no divergent path before the
-// products that follow (one would serialize them).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      "WAIT:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @!p bra WAIT;\n}\n"
-      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from device to shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // wgmma descriptor of a K-major operand without swizzle (layout type 0):
 // 8-row x 16-byte core matrices, 128 B apart along K (the leading byte
 // offset) and `sbo` bytes apart along M or N (the stride byte offset).
@@ -427,10 +380,6 @@ __device__ __forceinline__ void chunk_products(float (&acc)[32], uint64_t qh,
   fence_regs(acc);
 }
 
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
-}
-
 // The consumer warpgroups take turns issuing their products (named
 // barriers 2 and 3): warpgroup g waits for its turn, issues, and hands the
 // turn to the other, so one folds while the other's products run.
@@ -442,22 +391,6 @@ __device__ __forceinline__ void wait_turn(int wg) {
 __device__ __forceinline__ void pass_turn(int wg) {
   asm volatile("bar.arrive %0, %1;\n" :: "r"(3 - wg), "n"(kConsumers)
                : "memory");
-}
-
-// Max of v over the consumer threads. `red` holds two sets of 8 (one per
-// consumer warp) used in turn, so one barrier a call suffices.
-__device__ __forceinline__ float consumer_max(float v, float* red,
-                                              int parity) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  float* set = red + parity * (kConsumers / 32);
-  if ((threadIdx.x & 31) == 0) set[threadIdx.x >> 5] = v;
-  consumer_sync();
-  v = set[0];
-#pragma unroll
-  for (int i = 1; i < kConsumers / 32; ++i) v = fmaxf(v, set[i]);
-  return __shfl_sync(0xffffffffu, v, 0);  // known warp-uniform
 }
 
 __global__ void __launch_bounds__(kWgThreads, 1) knn_tiled_wgmma_kernel(
@@ -585,12 +518,13 @@ __global__ void __launch_bounds__(kWgThreads, 1) knn_tiled_wgmma_kernel(
         qn2[h] = __fadd_rn(qn2[h], __fmul_rn(qrow[d], qrow[d]));
     }
   }
-  consumer_sync();
+  knn::consumer_sync<kConsumers>();
 #pragma unroll
   for (int h = 0; h < 2; ++h)
     kth[h] = valid[h] ? rd[h][(w - 1) * rstride] : -CUDART_INF_F;
   int parity = 0;
-  float worst = consumer_max(fmaxf(kth[0], kth[1]), red, parity);
+  float worst =
+      knn::consumer_max<kConsumers>(fmaxf(kth[0], kth[1]), red, parity);
 
   const uint32_t sbo = dp * 16;  // bytes between 8-row core-matrix groups
   const uint64_t qh_d = wgmma_desc(q_s + wg * (qbytes / 2), sbo);
@@ -704,7 +638,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) knn_tiled_wgmma_kernel(
     n += nch;
     ++nvis;
     parity ^= 1;
-    worst = consumer_max(fmaxf(kth[0], kth[1]), red, parity);
+    worst =
+        knn::consumer_max<kConsumers>(fmaxf(kth[0], kth[1]), red, parity);
   }
   if (tid == 0) *stop = 1;
   if (wg == 0) wait_turn(wg);  // the turn warpgroup 1 passed last
@@ -748,7 +683,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) knn_tiled_wgmma_kernel(
       rih[i * rstride] = id;
     }
   }
-  consumer_sync();
+  knn::consumer_sync<kConsumers>();
   if (rows_in_smem)
     for (int e = tid; e < nrows * w; e += kConsumers) {
       const int r = e / w;

@@ -14,8 +14,10 @@ started with their own bucket, ``ops/tiled.py``).
 
 - ``knn_update_tiled_cuda`` is the entry point: on a CUDA tensor it
   launches a kernel (or raises), on a CPU tensor it runs
-  ``knn_update_tiled_plain``. In f32 the kernel is ``csrc/knn_tiled.cu``
-  (its D=3 specialisation or its general-D kernel); with
+  ``knn_update_tiled_plain``. In f32 the kernel is one of
+  ``csrc/knn_tiled.cu``, named by ``tiled_launch_plan``: its D=3
+  specialisation, ``knn_tiled_nd_ring_kernel`` (a ring of bulk-copied
+  chunks) up to Dp4 = ``RING_MAX_DP4``, ``knn_tiled_nd_kernel`` above; with
   ``score_dtype="bf16"`` at D >= ``mxu_min_dim()`` it is one of
   ``csrc/knn_tiled_mxu.cu``, the TPU kernel's ``score_mxu`` branch, routed
   by Dp (D rounded up to 16): ``knn_tiled_wgmma_kernel`` up to
@@ -54,7 +56,10 @@ from typing import NamedTuple
 
 import torch
 
-from mpi_cuda_largescaleknn_torch.core.types import CandidateState
+from mpi_cuda_largescaleknn_torch.core.types import (
+    PAD_SENTINEL,
+    CandidateState,
+)
 from mpi_cuda_largescaleknn_torch.ops.candidates import merge_candidates
 from mpi_cuda_largescaleknn_torch.ops.distance import (
     accumulate_sq,
@@ -252,6 +257,69 @@ def launch_geometry(s_q: int, t_p: int, k: int,
     return cap, cap, tile_lanes
 
 
+#: the ring kernel's block: 128 query rows against chunks of 64 point
+#: lanes, in 8 consumer warps (each thread a register tile of 8 rows x 4
+#: lanes) and one producer warp
+RING_ROWS = 128
+RING_LANES = 64
+RING_THREADS = 256 + 32
+#: the largest Dp4 (D rounded up to 4) the ring kernel's plan takes: its
+#: queries and a 2-stage chunk ring (1024 * Dp4 + 256 bytes) fit in shared
+#: memory up to Dp4=224 (the rows then stay in device memory); above it
+#: f32 goes to knn_tiled_nd_kernel
+RING_MAX_DP4 = 224
+
+
+class TiledPlan(NamedTuple):
+    """How an f32 traversal launches: ``kernel`` is "d3"
+    (``knn_tiled_kernel``), "ring" (``knn_tiled_nd_ring_kernel``) or "nd"
+    (``knn_tiled_nd_kernel``); ``rows`` query rows a block; ``lanes``
+    point lanes a staged tile or chunk; ``threads`` a block; ``dp4`` the
+    components padded to 4; ``stages`` of the ring (1 for the others);
+    ``rows_in_smem``: whether the candidate rows sit in shared memory
+    (else in place in device memory); ``smem`` bytes of the ring kernel's
+    dynamic shared memory (0 for the others, whose launchers size it)."""
+    kernel: str
+    rows: int
+    lanes: int
+    threads: int
+    dp4: int
+    stages: int
+    rows_in_smem: bool
+    smem: int
+
+
+def ring_smem_bytes(dp4: int, k: int, stages: int,
+                    rows_in_smem: bool) -> int:
+    """Dynamic shared memory of ``knn_tiled_nd_ring_kernel``: the block's
+    128 query rows, ``stages`` chunks of 64 lanes, the [k, 128] candidate
+    columns when they sit there, and 256 bytes of barriers and flags."""
+    return (4 * RING_ROWS * dp4 + stages * 4 * RING_LANES * dp4
+            + (RING_ROWS * k * 8 if rows_in_smem else 0) + 256)
+
+
+def tiled_launch_plan(s_q: int, t_p: int, k: int, dim: int) -> TiledPlan:
+    """The f32 kernel and its plan, by D and Dp4 = D rounded up to 4.
+
+    D=3 takes ``knn_tiled_kernel``. Other D up to ``RING_MAX_DP4`` take the
+    ring kernel: 128 rows a block, 64-lane chunks, the candidate rows in
+    shared memory where they fit beside a ring of 3 stages, else of 2, and
+    otherwise in device memory with the ring as deep as fits. Above it
+    ``knn_tiled_nd_kernel`` (``launch_geometry``)."""
+    dp4 = round_up(dim, 4)
+    if dim != 3 and dp4 <= RING_MAX_DP4:
+        for rows_in_smem in (True, False):
+            for stages in (3, 2):
+                smem = ring_smem_bytes(dp4, k, stages, rows_in_smem)
+                if smem <= SMEM_OPTIN - 1024:
+                    return TiledPlan("ring", RING_ROWS, RING_LANES,
+                                     RING_THREADS, dp4, stages,
+                                     rows_in_smem, smem)
+    rows, threads, lanes = launch_geometry(s_q, t_p, k, dim)
+    return TiledPlan("d3" if dim == 3 else "nd", rows, lanes, threads, dp4,
+                     1, True, 0)
+
+
 #: the wgmma kernel's block: 128 query rows (two consumer warpgroups of
 #: 64) against chunks of 64 point lanes (the n of its m64n64k16 products),
 #: taken in pairs (its lanes are padded to a multiple of 128)
@@ -398,48 +466,93 @@ def component_major(pts: torch.Tensor) -> torch.Tensor:
     return padded.unflatten(-1, (d4n, 4)).transpose(-3, -2).contiguous()
 
 
+def ring_layout(pts: torch.Tensor, n_pad: int, group: int, dp4: int,
+                fill: float) -> torch.Tensor:
+    """f32[B, N, D] -> f32[B, n_pad/group, dp4/4, group, 4] contiguous: the
+    ring kernel's layout. Components are zero-padded to ``dp4`` (they add
+    +0 to every d2); rows past N get ``fill`` in their D components; each
+    run of ``group`` rows is component-major, so one group (a block's
+    queries, or a chunk of lanes) is one contiguous, 16-byte aligned run
+    of ``group * dp4`` values."""
+    b, n, dim = pts.shape
+    buf = torch.zeros((b, n_pad, dp4), dtype=torch.float32, device=pts.device)
+    buf[:, :n, :dim] = pts
+    buf[:, n:, :dim] = fill
+    return buf.view(b, n_pad // group, group, dp4 // 4, 4).transpose(2, 3) \
+        .contiguous()
+
+
 def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
                      q: BucketedPoints, p: BucketedPoints,
                      rows: CandidateState, *, skip_self: bool,
                      self_group: int) -> torch.Tensor:
-    """Launch the f32 kernel on PyTorch's current stream (the D=3 one or
-    the general-D one), folding ``p`` into ``rows`` IN PLACE along the
-    visit schedule ``(order, sorted_d2)`` of ``nearest_first_order``.
-    Returns the per-query-bucket visit counts (i32[Bq]). Counts one launch
-    in ``knn_update_tiled_cuda.launches``."""
+    """Launch the f32 kernel that ``tiled_launch_plan`` names on PyTorch's
+    current stream, folding ``p`` into ``rows`` IN PLACE along the visit
+    schedule ``(order, sorted_d2)`` of ``nearest_first_order``. The ring
+    kernel gets both sides in ``ring_layout`` (points padded to whole
+    chunks with ``PAD_SENTINEL`` lanes, never adopted). Returns the
+    per-query-bucket visit counts (i32[Bq]). Counts one launch in
+    ``knn_update_tiled_cuda.launches``, and the ring kernel's also in
+    ``ring_launches``."""
     num_qb, s_q = q.ids.shape
     num_pb, t_p = p.ids.shape
     dim = q.pts.shape[-1]
     k = rows.dist2.shape[1]
     _check_schedule(order, sorted_d2, q, p, rows)
-    block_rows, threads, tile_lanes = launch_geometry(s_q, t_p, k, dim)
+    plan = tiled_launch_plan(s_q, t_p, k, dim)
     visits = torch.zeros(num_qb, dtype=torch.int32, device=order.device)
     q_ids = q.ids.contiguous()
-    p_pts, p_ids = p.pts.contiguous(), p.ids.contiguous()
+    p_ids = p.ids.contiguous()
+    flags = (int(bool(skip_self)), self_group)
     lib = _library("knn_tiled")
     with torch.cuda.device(order.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if dim == 3:
-            q_pts = q.pts.contiguous()
-            err = lib.knn_tiled_launch(
-                order.data_ptr(), sorted_d2.data_ptr(), q_pts.data_ptr(),
-                q_ids.data_ptr(), p_pts.data_ptr(), p_ids.data_ptr(),
+        if plan.kernel == "ring":
+            events = knn_update_tiled_cuda.ring_events
+            if events is not None:
+                marks = [torch.cuda.Event(enable_timing=True)
+                         for _ in range(3)]
+                marks[0].record()
+            s_pad = round_up(s_q, plan.rows)
+            t_pad = round_up(t_p, plan.lanes)
+            q_ring = ring_layout(q.pts, s_pad, plan.rows, plan.dp4, 0.0)
+            p_ring = ring_layout(p.pts, t_pad, plan.lanes, plan.dp4,
+                                 PAD_SENTINEL)
+            if events is not None:
+                marks[1].record()
+            err = lib.knn_tiled_nd_ring_launch(
+                order.data_ptr(), sorted_d2.data_ptr(), q_ring.data_ptr(),
+                q_ids.data_ptr(), p_ring.data_ptr(), p_ids.data_ptr(),
                 rows.dist2.data_ptr(), rows.idx.data_ptr(),
-                visits.data_ptr(), num_qb, s_q, num_pb, t_p, k,
-                int(bool(skip_self)), self_group, block_rows, threads,
-                tile_lanes, stream)
+                visits.data_ptr(), num_qb, s_q, s_pad, num_pb, t_p, t_pad,
+                plan.dp4, k, *flags, plan.stages, int(plan.rows_in_smem),
+                stream)
+            if events is not None:
+                marks[2].record()
+                events.append(marks)
         else:
-            q_t = component_major(q.pts)
-            err = lib.knn_tiled_nd_launch(
-                order.data_ptr(), sorted_d2.data_ptr(), q_t.data_ptr(),
-                q_ids.data_ptr(), p_pts.data_ptr(), p_ids.data_ptr(),
-                rows.dist2.data_ptr(), rows.idx.data_ptr(),
-                visits.data_ptr(), num_qb, s_q, num_pb, t_p, dim, k,
-                int(bool(skip_self)), self_group, block_rows, threads,
-                tile_lanes, stream)
+            p_pts = p.pts.contiguous()
+            args = (num_qb, s_q, num_pb, t_p)
+            geometry = (*flags, plan.rows, plan.threads, plan.lanes, stream)
+            if plan.kernel == "d3":
+                err = lib.knn_tiled_launch(
+                    order.data_ptr(), sorted_d2.data_ptr(),
+                    q.pts.contiguous().data_ptr(), q_ids.data_ptr(),
+                    p_pts.data_ptr(), p_ids.data_ptr(),
+                    rows.dist2.data_ptr(), rows.idx.data_ptr(),
+                    visits.data_ptr(), *args, k, *geometry)
+            else:
+                err = lib.knn_tiled_nd_launch(
+                    order.data_ptr(), sorted_d2.data_ptr(),
+                    component_major(q.pts).data_ptr(), q_ids.data_ptr(),
+                    p_pts.data_ptr(), p_ids.data_ptr(),
+                    rows.dist2.data_ptr(), rows.idx.data_ptr(),
+                    visits.data_ptr(), *args, dim, k, *geometry)
     if err:
-        raise RuntimeError(f"knn_tiled kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"knn_tiled kernel launch failed ({plan.kernel} "
+                           f"route): CUDA error {err}")
     knn_update_tiled_cuda.launches += 1
+    knn_update_tiled_cuda.ring_launches += int(plan.kernel == "ring")
     return visits
 
 
@@ -555,21 +668,26 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
 
 
 #: kernel launches made by this process (read by chip_smoke.py and the
-#: CLIs): ``launches`` of csrc/knn_tiled.cu, ``mxu_launches`` of
+#: CLIs): ``launches`` of csrc/knn_tiled.cu (any route), ``ring_launches``
+#: of those that went to its ring kernel, ``mxu_launches`` of
 #: csrc/knn_tiled_mxu.cu (either route), ``wgmma_launches`` of those that
 #: went to its wgmma kernel
 knn_update_tiled_cuda.launches = 0
+knn_update_tiled_cuda.ring_launches = 0
 knn_update_tiled_cuda.mxu_launches = 0
 knn_update_tiled_cuda.wgmma_launches = 0
-#: None, or a list to which every bf16 launch appends three recorded CUDA
-#: events: before its preparation (halves, norms), before the kernel and
-#: after it, so a caller can time the two apart
+#: None, or a list to which every bf16 launch (``mxu_events``) or ring
+#: kernel launch (``ring_events``) appends three recorded CUDA events:
+#: before its preparation (bf16: halves, norms; ring: the layouts), before
+#: the kernel and after it, so a caller can time the two apart
 knn_update_tiled_cuda.mxu_events = None
+knn_update_tiled_cuda.ring_events = None
 
 #: per library, its launchers' arguments: p = pointer, i = int
 _SIGNATURES = {
     "knn_tiled": {"knn_tiled_launch": 9 * "p" + 10 * "i" + "p",
-                  "knn_tiled_nd_launch": 9 * "p" + 11 * "i" + "p"},
+                  "knn_tiled_nd_launch": 9 * "p" + 11 * "i" + "p",
+                  "knn_tiled_nd_ring_launch": 9 * "p" + 12 * "i" + "p"},
     "knn_tiled_mxu": {"knn_tiled_mxu_launch": 14 * "p" + 12 * "i" + "p",
                       "knn_tiled_wgmma_launch": 14 * "p" + 13 * "i" + "p"},
 }

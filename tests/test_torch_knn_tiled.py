@@ -14,10 +14,14 @@ import pytest
 import torch
 
 from mpi_cuda_largescaleknn_torch import convert
-from mpi_cuda_largescaleknn_torch.core.types import CandidateState
+from mpi_cuda_largescaleknn_torch.core.types import (
+    PAD_SENTINEL,
+    CandidateState,
+)
 from mpi_cuda_largescaleknn_torch.ops import knn_tiled as tk
 from mpi_cuda_largescaleknn_torch.ops import partition as tpart
 from mpi_cuda_largescaleknn_torch.ops import tiled as ttiled
+from mpi_cuda_largescaleknn_torch.ops.distance import elementwise_dist2
 from mpi_cuda_largescaleknn_tpu.ops.candidates import init_candidates
 from mpi_cuda_largescaleknn_tpu.ops.pallas.knn_bf import (
     fold_tile_into_candidates as jfold,
@@ -74,6 +78,10 @@ CASES = {
                             16),
     "d16_k1_v2": ("normal", 300, 1, 16, 1, math.inf, False, 2, 16),
     "d32_k40_radius_g2": ("normal", 450, 40, 32, 2, 7.0, True, None, 32),
+    # D not a multiple of 4: the ring kernel pads to Dp4 (8 and 132)
+    "d5_k8_skip_self_g2": ("uniform", 400, 8, 16, 2, math.inf, True, None,
+                           5),
+    "d130_k6_radius": ("normal", 260, 6, 16, 1, 17.0, False, None, 130),
 }
 
 
@@ -218,6 +226,97 @@ def test_launch_geometry_general_d(s_q, t_p, k, dim, want):
 def test_launch_geometry_refuses_huge_k():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tk.launch_geometry(248, 496, 2000)
+
+
+@pytest.mark.parametrize("s_q,t_p,k,dim,want", [
+    # phase 10's shape: rows in shared memory beside a 3-stage ring
+    (248, 496, 10, 128, ("ring", 128, 64, 288, 128, 3, True)),
+    # k=100 at D=128: the rows stay in device memory
+    (248, 496, 100, 128, ("ring", 128, 64, 288, 128, 3, False)),
+    (248, 496, 10, 5, ("ring", 128, 64, 288, 8, 3, True)),
+    (1000, 2000, 10, 130, ("ring", 128, 64, 288, 132, 3, True)),
+    # the largest Dp4 the ring takes: 2 stages, rows in device memory
+    (248, 496, 10, 224, ("ring", 128, 64, 288, 224, 2, False)),
+    (248, 496, 10, 225, ("nd", 248, 96, 256, 228, 1, True)),
+    (16, 20, 1, 960, ("nd", 16, 32, 32, 960, 1, True)),
+    (248, 496, 8, 3, ("d3", 248, 496, 256, 4, 1, True)),
+])
+def test_tiled_launch_plan(s_q, t_p, k, dim, want):
+    """The f32 route is by D and Dp4: D=3 on knn_tiled_kernel, other D up
+    to RING_MAX_DP4 on the ring kernel (whose shared memory fits what a
+    block may opt into), above it on knn_tiled_nd_kernel with
+    launch_geometry's block."""
+    plan = tk.tiled_launch_plan(s_q, t_p, k, dim)
+    assert tuple(plan[:7]) == want
+    if plan.kernel == "ring":
+        assert plan.smem == tk.ring_smem_bytes(plan.dp4, k, plan.stages,
+                                               plan.rows_in_smem)
+        assert plan.smem <= tk.SMEM_OPTIN - 1024
+        assert plan.threads == tk.RING_THREADS
+    else:
+        assert plan.smem == 0
+        rows, threads, lanes = tk.launch_geometry(s_q, t_p, k, dim)
+        assert (plan.rows, plan.threads, plan.lanes) == (rows, threads,
+                                                         lanes)
+
+
+def test_ring_max_dp4_is_the_largest_the_plan_takes():
+    budget = tk.SMEM_OPTIN - 1024
+    top = tk.RING_MAX_DP4
+    assert top >= 128 and top % 4 == 0
+    assert tk.ring_smem_bytes(top, 10_000, 2, False) <= budget
+    assert tk.ring_smem_bytes(top + 4, 1, 2, False) > budget
+    assert tk.tiled_launch_plan(248, 496, 10, top).kernel == "ring"
+    assert tk.tiled_launch_plan(248, 496, 10, top + 1).kernel == "nd"
+    # rows in device memory: the ring takes any k below RING_MAX_DP4
+    assert tk.tiled_launch_plan(248, 496, 2000, 128).kernel == "ring"
+
+
+@pytest.mark.parametrize("t,dim", [(100, 5), (64, 128), (130, 130)])
+def test_ring_layout_matches_plain_distances(t, dim):
+    """The ring kernel's point layout, read back: real lanes hold the
+    points bit for bit (their d2 from the plain version's tree over the
+    padded components equal the unpadded ones: zero components add +0),
+    and every lane added to fill the last chunk is at least PAD_SENTINEL
+    away from any query, so no row adopts it."""
+    pts = torch.from_numpy(points("normal", 2 * t, seed=t + dim, dim=dim)
+                           ).view(2, t, dim)
+    plan = tk.tiled_launch_plan(t, t, 4, dim)
+    t_pad = -(-t // plan.lanes) * plan.lanes
+    ring = tk.ring_layout(pts, t_pad, plan.lanes, plan.dp4, PAD_SENTINEL)
+    assert ring.shape == (2, t_pad // plan.lanes, plan.dp4 // 4, plan.lanes,
+                          4)
+    back = ring.transpose(2, 3).reshape(2, t_pad, plan.dp4)
+    assert_bitwise(back[:, :t, :dim].numpy(), pts.numpy())
+    assert not back[:, :, dim:].any()
+    queries = torch.from_numpy(points("normal", 2 * 7, seed=dim, dim=dim)
+                               ).view(2, 7, dim)
+    qpad = torch.nn.functional.pad(queries, (0, plan.dp4 - dim))
+    got = elementwise_dist2(qpad, back)
+    assert_bitwise(got[:, :, :t].numpy(),
+                   elementwise_dist2(queries, pts).numpy())
+    assert bool((got[:, :, t:] >= PAD_SENTINEL).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,k", [(5, 10), (128, 10), (128, 100)])
+def test_ring_kernel_matches_plain_on_the_card(dim, k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    pts = torch.from_numpy(points("normal", 8_000, seed=dim + k, dim=dim)
+                           ).cuda()
+    q = tpart.partition_points(pts, bucket_size=256)
+    pc = tpart.coarsen_buckets(q, 2)
+    state = ttiled.warm_start_self(pc, k)
+    want = tk.knn_update_tiled_plain(state, q, pc, skip_self=True,
+                                     self_group=2)
+    before = tk.knn_update_tiled_cuda.ring_launches
+    got = tk.knn_update_tiled_cuda(state, q, pc, skip_self=True,
+                                   self_group=2)
+    torch.cuda.synchronize()
+    assert tk.knn_update_tiled_cuda.ring_launches == before + 1
+    assert torch.equal(got.dist2, want.dist2)
+    assert torch.equal(got.idx, want.idx)
 
 
 @pytest.mark.cuda

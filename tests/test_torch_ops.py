@@ -274,7 +274,6 @@ def test_selfcheck_matches(k, radius):
     ("query_chunk", 64, NotImplementedError),
     ("checkpoint_dir", "ckpt", NotImplementedError),
     ("merge", "device", NotImplementedError),
-    ("profile_dir", "prof", NotImplementedError),
     ("point_group", 3, ValueError),
     ("query_tile", 0, ValueError),
 ])
@@ -289,6 +288,10 @@ def test_config_refuses_what_is_not_ported(field, value, exc):
 @pytest.mark.parametrize("score_dtype", ["f32", "bf16"])
 def test_config_accepts_both_score_dtypes(score_dtype):
     tconfig.KnnConfig(k=4, score_dtype=score_dtype).validate()
+
+
+def test_config_accepts_profile_dir():
+    tconfig.KnnConfig(k=4, profile_dir="prof").validate()
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -4,7 +4,9 @@ API at R=1 and R=4 (distances bitwise, ids at R=1), and the CLI
 traversal (``engine="pallas_tiled"``) in interpret mode, the engine the
 port's ``auto`` stands for."""
 
+import json
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -90,7 +92,7 @@ def test_cli_sharded_output_is_byte_identical(tmp_path):
                                   ["--checkpoint-dir", "ckpt"],
                                   ["--merge", "device"],
                                   ["--num-hosts", "2"],
-                                  ["--profile-dir", "prof"],
+                                  ["--host-id", "1"],
                                   ["--checkpoint-every", "2"],
                                   ["--engine", "tree"]])
 def test_cli_refuses_options_not_ported(tmp_path, flag):
@@ -99,6 +101,56 @@ def test_cli_refuses_options_not_ported(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_cli.main([str(src), "-o", str(tmp_path / "o.float"), "-k", "2",
                         "--device", "cpu"] + flag)
+
+
+def test_cli_profile_dir_writes_a_trace(tmp_path):
+    """``--profile-dir`` traces the run with torch.profiler into a Chrome
+    trace and changes no output byte."""
+    src = tmp_path / "pts.float3"
+    random_points(300, seed=4).tofile(src)
+    outs = []
+    for extra in ([], ["--profile-dir", str(tmp_path / "prof")]):
+        out = tmp_path / f"o{len(extra)}.float"
+        assert torch_cli.main([str(src), "-o", str(out), "-k", "4",
+                               "--bucket-size", "16", "--device", "cpu"]
+                              + extra) == 0
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1]
+    traces = list((tmp_path / "prof").glob("trace-*.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
+def test_device_summary_unions_device_intervals():
+    """The busy share counts overlapping device intervals once and host
+    events not at all; the top kernels are ordered by device time."""
+    from torch.autograd import DeviceType
+
+    from mpi_cuda_largescaleknn_torch.obs.trace import device_summary
+
+    def ev(start, end, device=DeviceType.CUDA):
+        return SimpleNamespace(time_range=SimpleNamespace(start=start,
+                                                          end=end),
+                               device_type=device)
+
+    def avg(key, us, count, device=DeviceType.CUDA):
+        return SimpleNamespace(key=key, self_device_time_total=us,
+                               count=count, device_type=device)
+
+    prof = SimpleNamespace(
+        events=lambda: [ev(0, 400, DeviceType.CPU), ev(100, 200),
+                        ev(150, 300), ev(500, 600)],
+        key_averages=lambda: [avg("aten::add", 0, 3, DeviceType.CPU),
+                              avg("small", 100, 1), avg("big", 250, 2)])
+    got = device_summary(prof, seconds=0.001)
+    assert got["device_seconds"] == pytest.approx(300e-6)
+    assert got["busy_share"] == pytest.approx(0.3)
+    assert [r["name"] for r in got["top"]] == ["big", "small"]
+    assert got["top"][0] == {"name": "big", "ms": 0.25, "calls": 2}
+    none = device_summary(SimpleNamespace(events=lambda: [],
+                                          key_averages=lambda: []), 1.0)
+    assert none == {"device_seconds": None, "busy_share": None, "top": []}
 
 
 def test_cli_usage_errors(tmp_path):
