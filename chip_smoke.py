@@ -9,17 +9,22 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. build ``csrc/knn_tiled.cu``, ``csrc/knn_bf.cu`` and
    ``csrc/knn_tiled_mxu.cu`` with nvcc into ``build/``, the compilers
    started together;
-3. the traversal kernel against its plain PyTorch version on the card,
-   bit for bit (d2 and ids; visit counts equal where a query bucket is one
-   block, at most the plain count where its rows split over blocks), on
-   ~32K seeded uniform and
-   clustered points: k in {1, 8, 100, 200}, a finite ``-r``, ``skip_self``
-   with point group 2, and buckets wider than one staged tile;
+3. the D=3 traversal kernel against its plain PyTorch version on the
+   card, bit for bit (d2 and ids; visit counts equal where a query bucket
+   is one block, at most the plain count where its rows split over
+   blocks, as they do at D=3), on ~32K seeded uniform, clustered and
+   integer-grid points (exact ties at the k-th slot): k in {1, 8, 31, 32,
+   33, 64, 65, 100, 200} (the lane borders of the warp fold) and 300 and
+   903 (its instances of 16 and 32 slots a lane), a finite
+   ``-r``, ``skip_self`` with point group 2, and buckets wider than one
+   staged tile with a partial last tile; each case on the D=3 kernel;
 3b. the brute-force kernel against its plain version, bit for bit (d2 and
-   ids), on ~32K seeded points: uniform and clustered, k in {1, 8, 100,
-   200}, a finite ``-r``, sentinel-padded points and queries, ids with an
-   offset, two incremental calls against one, a point count that is not a
-   multiple of the staged tile, and other tiles giving the same bits;
+   ids), on ~32K seeded points: uniform, clustered and integer-grid, k in
+   {1, 8, 31, 32, 33, 64, 65, 100, 200, 300, 903}, a finite ``-r``,
+   sentinel-padded points and queries, ids with an offset, two incremental
+   calls against one, a point count that is not a multiple of the staged
+   tile, and other tiles giving the same bits; each case on its route by
+   the counters;
 3c. the general-D f32 kernels of both against their plain versions, bit
    for bit, on 32,000 clustered points at D in {4, 16, 128}: k in {1, 10,
    100} (k=100 at D=128 with the rows in device memory), a finite ``-r``,
@@ -35,11 +40,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    the f32 kernel's; ids equal, where they differ, only among equally
    distant points (checked exactly); each case's launch on its route;
 4. the main path through the CLI: 1,000,000 seeded uniform points at
-   k=100 and at k=8, each with ``--selfcheck 1000 --timings``;
+   k=100 and at k=8, each with ``--selfcheck 1000 --timings`` (in phases
+   4-8 every launch must be on the D=3 kernels);
 5. the same k=8 run over 4 virtual shards, byte-equal to the 1-shard file;
-6. the traversal kernel's time at the main path's shapes (the one fold of
-   a 1-shard run) against its plain version and its bounds (the data
-   sheet's, and the FMA-free one: ``PEAK_F32_ISSUE``);
+5b. in a fresh process, the kernel library's load, then the k=8 run at
+   R=1 twice and at R=4 through ``UnorderedKNN``: each D=3 launch's visit
+   schedule, layout (``d3_lanes``) and kernel timed apart, the first
+   launch's kernel time holding its loading;
+6. the D=3 traversal kernel's time at the main path's shapes (the one
+   fold of a 1-shard run) against its plain version and its bounds (the
+   data sheet's, and the FMA-free one: ``PEAK_F32_ISSUE``) on the real
+   pairs its 32-row blocks score (``block_walk``, checked against its rows
+   and visits) and on those of the plain version's walk, and the warps an
+   SM holds (at least the plan's);
 7. the flat engine through the unordered CLI (``--engine pallas -k 8``),
    byte-equal to phase 4's k=8 file;
 8. the pre-partitioned pipeline: phase 4's file cut into 4 Morton parts,
@@ -48,8 +61,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    to each other and to the unordered CLI on the joined parts; then 1M
    clustered points in 8 parts (where the early exit prunes);
 9. the brute-force kernel's time at the flat path's shape (1M x 1M, k=8
-   and k=100) against its bounds, and its plain version's on the first
-   16,384 queries;
+   and k=100) against its bounds, its plain version's on the first 16,384
+   queries, and the warps an SM holds (at least the plan's);
 10. the high-D main path: ``UnorderedKNN`` on 1,000,000 seeded points at
    D=128 (32 Gaussian clusters, the SIFT1M shape) and k=10, in bf16 at
    R=1, in f32 at R=1 and in bf16 at R=4: distances byte-equal, ids equal
@@ -65,6 +78,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    apart) and the bf16 (wgmma) kernel at phase 10's shape, against both
    bounds and their share of each, and their plain versions' on 16 query
    buckets;
+11b. the three kernels no main path launches (``knn_tiled_nd_kernel`` at
+   D=240, the wmma kernel at D=600, ``knn_bf_nd_kernel`` at D=128),
+   each against its plain version and both bounds (``time_offpath_kernels``);
 12. phase 10's f32 R=1 run again under ``profile_trace``, byte-equal to
    it: the card's busy share of the run and its top kernels by device
    time (last, so that no timing runs in a process that has been
@@ -135,6 +151,16 @@ def seeded_points(kind: str, n: int, seed: int):
     return (centers[pick] + rng.normal(0.0, 0.5, (n, 3))).astype(np.float32)
 
 
+def grid_points(n: int, seed: int):
+    """``n`` points on the integer grid [0, 24)^3: most distances are
+    shared by many pairs and many points repeat, so exact ties meet at the
+    k-th slot and across the lane borders of the warp fold."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 24, (n, 3)).astype(np.float32)
+
+
 def clustered_nd(n: int, dim: int, seed: int):
     """``n`` points in ``dim`` dimensions: 32 Gaussian clusters, centres
     drawn N(0, 4^2) per component, sigma 1 (zero-mean data, so the bf16
@@ -201,6 +227,23 @@ def tie_rows(got_idx, want_idx, queries, points) -> int:
     return n
 
 
+def route_counts() -> dict:
+    """Launches so far of each kernel of the traversal and flat modules,
+    by route: "d3", "ring", "nd" (csrc/knn_tiled.cu), "wgmma", "wmma"
+    (csrc/knn_tiled_mxu.cu), "bf_d3", "bf_nd" (csrc/knn_bf.cu)."""
+    from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        knn_update_tiled_cuda as kt,
+    )
+
+    bf = knn_update_bf_cuda
+    return {"d3": kt.d3_launches, "ring": kt.ring_launches,
+            "nd": kt.launches - kt.d3_launches - kt.ring_launches,
+            "wgmma": kt.wgmma_launches,
+            "wmma": kt.mxu_launches - kt.wgmma_launches,
+            "bf_d3": bf.d3_launches, "bf_nd": bf.launches - bf.d3_launches}
+
+
 def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
                  group=2, warm=True, score_dtype="f32", route=None):
     """Traversal kernel vs plain on the card for one input (f32: the D=3,
@@ -236,26 +279,23 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
     kw = dict(skip_self=warm, self_group=group, with_stats=True,
               score_dtype=score_dtype)
     want, want_vis = knn_update_tiled_plain(state, q, pc, **kw)
-    before = (knn_update_tiled_cuda.wgmma_launches,
-              knn_update_tiled_cuda.ring_launches)
+    before = route_counts()
     got, got_vis = knn_update_tiled_cuda(state, q, pc, **kw)
     torch.cuda.synchronize()
     same_inf = torch.equal(torch.isinf(got.dist2), torch.isinf(want.dist2))
     err = max_abs_err(got.dist2, want.dist2)
     if uses_mxu(score_dtype, dim):
         plan = mxu_launch_geometry(q.bucket_size, dim, survivor_width(k, pc))
-        counted = "wgmma"
-        ran = knn_update_tiled_cuda.wgmma_launches - before[0]
     else:
         plan = tiled_launch_plan(q.bucket_size, pc.bucket_size, k, dim)
-        counted = "ring"
-        ran = knn_update_tiled_cuda.ring_launches - before[1]
     if route is not None and plan.kernel != route:
         fail(f"case {name}: planned the {plan.kernel} kernel, not the "
              f"{route} one")
-    if ran != (plan.kernel == counted):
-        fail(f"case {name}: planned the {plan.kernel} kernel, but {ran} "
-             f"{counted} launches ran")
+    ran = route_counts()
+    for kernel, n in ran.items():
+        if n - before[kernel] != (kernel == plan.kernel):
+            fail(f"case {name}: planned the {plan.kernel} kernel, but "
+                 f"{n - before[kernel]} {kernel} launches ran")
     rows, lanes = plan.rows, plan.lanes
     one_block = rows >= q.bucket_size
     plan_txt = f" {plan.kernel}"
@@ -263,8 +303,8 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
         plan_txt += (f" stages={plan.stages} rows_in_smem="
                      f"{plan.rows_in_smem}")
     # a bucket split over blocks prunes per block: at most the plain count
-    vis_ok = (int(got_vis) == int(want_vis) if one_block
-              else int(got_vis) <= int(want_vis))
+    vis_ok = bool((got_vis == want_vis).all() if one_block
+                  else (got_vis <= want_vis).all())
     ok = torch.equal(got.dist2, want.dist2) and same_inf and vis_ok
     ties = ""
     if score_dtype == "f32":
@@ -285,7 +325,8 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
                 "f32 kernel differ only among equally distant points")
     say(f"  {name}: D={dim} B={q.num_buckets} S={q.bucket_size} "
         f"T={pc.bucket_size} k={k}{plan_txt} rows/block={rows} "
-        f"lanes/tile={lanes} visits={int(got_vis)} (plain {int(want_vis)}"
+        f"lanes/tile={lanes} visits={int(got_vis.sum())} "
+        f"(plain {int(want_vis.sum())}"
         f"{'' if one_block else ', rows split'}) max_abs_err={err} "
         f"{'bit-equal' if ok else 'MISMATCH'}{ties}")
     if not ok:
@@ -338,14 +379,98 @@ def main_path_run(label, pts_path, out_path, k, shards, n, engine="auto"):
         fail(f"{label}: output has shape {d.shape} or non-finite/zero values")
     report_run(label, t, "knn_bf_launches" if engine == "pallas"
                else "knn_tiled_launches")
+    check_d3_route(label, t)
     say(f"    pair_evals {t['pair_evals']}")
     return t
 
 
+def first_launch_child() -> None:
+    """Runs in a fresh process (``first_launch_split``): the kernel
+    library's load (``dlopen`` and its CUDA runtime's start), then phase
+    4's k=8 run through ``UnorderedKNN``, at R=1 twice and then at R=4,
+    with each D=3 launch's visit schedule (``nearest_first_order``, timed
+    on the host between synchronisations), layout (``d3_lanes``) and kernel
+    timed apart, the last two by CUDA events. The first launch's kernel
+    time holds the kernel's loading into the process, as in every CLI run
+    of phases 4-8. Prints one JSON line."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.core.config import KnnConfig
+    from mpi_cuda_largescaleknn_torch.models.unordered import UnorderedKNN
+    from mpi_cuda_largescaleknn_torch.ops import knn_tiled
+
+    kt = knn_tiled.knn_update_tiled_cuda
+    pts = seeded_points("uniform", N_MAIN, SEED + 2)
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    knn_tiled._library("knn_tiled")
+    load_ms = (time.perf_counter() - t0) * 1e3
+    schedule_ms = []
+    order_fn = knn_tiled.nearest_first_order
+
+    def timed_order(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = order_fn(*args)
+        torch.cuda.synchronize()
+        schedule_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    knn_tiled.nearest_first_order = timed_order
+    runs = [{"label": "library load", "ms": load_ms}]
+    for label, shards in (("R=1, the process's first", 1),
+                          ("R=1 again", 1), ("R=4", 4)):
+        events = []
+        schedule_ms.clear()
+        kt.layout_events = events
+        kt.launches = kt.d3_launches = 0
+        model = UnorderedKNN(KnnConfig(k=8, num_shards=shards))
+        model.run(pts)
+        torch.cuda.synchronize()
+        kt.layout_events = None
+        runs.append({
+            "label": label,
+            "traverse": model.timers.report()["traverse"]["seconds"],
+            "launches": kt.launches, "d3_launches": kt.d3_launches,
+            "schedule_ms": list(schedule_ms),
+            "layout_ms": [a.elapsed_time(b) for a, b, _ in events],
+            "kernel_ms": [b.elapsed_time(c) for _, b, c in events]})
+    print(json.dumps(runs))
+
+
+def first_launch_split():
+    """``first_launch_child`` in a fresh process: where the traverse stage
+    of a CLI run goes (layout, kernel, the first launch's loading)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.first_launch_child()"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+        check=False)
+    if proc.returncode != 0:
+        fail(f"first-launch child exited {proc.returncode}:\n"
+             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    runs = json.loads(proc.stdout.strip().splitlines()[-1])
+    say(f"  the kernel library's load: {runs[0]['ms']:.3f} ms")
+    for r in runs[1:]:
+        if r["launches"] < 1 or r["d3_launches"] != r["launches"]:
+            fail(f"first-launch child, {r['label']}: {r['d3_launches']} of "
+                 f"{r['launches']} launches on the D=3 kernel")
+        say(f"  {r['label']}: traverse {r['traverse']:.4f} s, "
+            f"{r['launches']} launches: visit schedule "
+            f"{sum(r['schedule_ms']):.3f} ms (first "
+            f"{r['schedule_ms'][0]:.3f}), layout {sum(r['layout_ms']):.3f} ms "
+            f"(first {r['layout_ms'][0]:.3f}), kernel "
+            f"{sum(r['kernel_ms']):.3f} ms (first {r['kernel_ms'][0]:.3f})")
+    return runs
+
+
 def prepartitioned_run(label, list_path, prefix, k, engine, num_parts,
-                       selfcheck=1000):
-    """``prepartitioned_main`` over the parts of ``list_path``; returns
-    (timings, the rank files' bytes joined in rank order)."""
+                       selfcheck=1000, dim3=True):
+    """``prepartitioned_main`` over the parts of ``list_path`` (points at
+    D=3 unless ``dim3`` is false); returns (timings, the rank files' bytes
+    joined in rank order)."""
     import numpy as np
 
     t, out = run_cli([str(list_path), "-o", str(prefix), "-k", str(k),
@@ -362,6 +487,8 @@ def prepartitioned_run(label, list_path, prefix, k, engine, num_parts,
         fail(f"{label}: {t['rounds']} rounds, not in 1..{num_parts // 2 + 1}")
     report_run(label, t, "knn_bf_launches" if engine == "pallas"
                else "knn_tiled_launches")
+    if dim3:
+        check_d3_route(label, t)
     say(f"    rounds {t['rounds']}, kernels_run {t['kernels_run']}, "
         f"rotations_run {t['rotations_run']}")
     return t, joined
@@ -406,6 +533,7 @@ def compare_bf_case(name, q_np, p_np, k, *, radius=float("inf"), id_base=0,
     ids = torch.where(p[:, 0] < PAD_SENTINEL / 2, ids, -1)
     state = init_candidates(len(q), k, radius, device=q.device)
     want = knn_update_bf_plain(state, q, p, ids)
+    before = route_counts()
     qt, pt = tiles
     if split is None:
         got = knn_update_bf_cuda(state, q, p, ids, query_tile=qt,
@@ -416,6 +544,10 @@ def compare_bf_case(name, q_np, p_np, k, *, radius=float("inf"), id_base=0,
         got = knn_update_bf_cuda(got, q, p[split:], ids[split:],
                                  query_tile=qt, point_tile=pt)
     torch.cuda.synchronize()
+    route = "bf_d3" if p.shape[1] == 3 else "bf_nd"
+    ran = route_counts()[route] - before[route]
+    if ran != (1 if split is None else 2):
+        fail(f"case {name}: {ran} launches of the {route} kernel")
     err = max_abs_err(got.dist2, want.dist2)
     ok = torch.equal(got.dist2, want.dist2) and torch.equal(got.idx, want.idx)
     rows, lanes = launch_geometry(qt, pt, k, p.shape[1])
@@ -464,6 +596,58 @@ def visited_pairs(order, visits, q, p) -> int:
     return int(((q.ids >= 0).sum(1) * (lanes * walked).sum(1)).sum())
 
 
+def block_walk(state, q, p, rows, self_group):
+    """The D=3 traversal kernel's own walk in plain PyTorch: each block of
+    ``rows`` query rows walks its bucket's nearest-first order and prunes
+    on the radius of its own rows. That is the plain version run on the
+    query buckets cut into sub-buckets of ``rows`` rows that keep their
+    bucket's box (so its order) and its own point bucket. Returns the rows
+    (in ``q``'s layout), the sub-buckets and their visit counts
+    (i64[Bq * blocks a bucket])."""
+    import torch
+    from torch.nn.functional import pad
+
+    from mpi_cuda_largescaleknn_torch.core.types import CandidateState
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        knn_update_tiled_plain,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.partition import BucketedPoints
+
+    bq, s = q.ids.shape
+    k = state.dist2.shape[1]
+    nb = -(-s // rows)
+    extra = nb * rows - s
+    sub = BucketedPoints(
+        pad(q.pts, (0, 0, 0, extra)).view(bq * nb, rows, -1),
+        pad(q.ids, (0, extra), value=-1).view(bq * nb, rows),
+        q.lower.repeat_interleave(nb, 0), q.upper.repeat_interleave(nb, 0),
+        pad(q.pos, (0, extra), value=-1).view(bq * nb, rows))
+    rows_in = CandidateState(
+        pad(state.dist2.view(bq, s, k), (0, 0, 0, extra),
+            value=float("inf")).view(-1, k),
+        pad(state.idx.view(bq, s, k), (0, 0, 0, extra),
+            value=-1).view(-1, k))
+    # sub-bucket b's own point bucket is (b // nb) // self_group
+    out, visits = knn_update_tiled_plain(rows_in, sub, p, skip_self=True,
+                                         self_group=self_group * nb,
+                                         with_stats=True)
+    out = CandidateState(out.dist2.view(bq, nb * rows, k)[:, :s].reshape(-1, k),
+                         out.idx.view(bq, nb * rows, k)[:, :s].reshape(-1, k))
+    return out, sub, visits
+
+
+def check_d3_route(label, t) -> None:
+    """Fails unless every launch of a D=3 run's timings ``t`` went to the
+    D=3 kernels (knn_tiled_d3_kernel, knn_bf_d3_kernel)."""
+    for total, d3 in (("knn_tiled_launches", "knn_tiled_d3_launches"),
+                      ("knn_bf_launches", "knn_bf_d3_launches")):
+        if t[d3] != t[total]:
+            fail(f"{label}: {t[d3]} of {t[total]} {total[:-9]} launches "
+                 "took the D=3 kernel")
+    say(f"    all {t['knn_tiled_launches']} knn_tiled and "
+        f"{t['knn_bf_launches']} knn_bf launches on the D=3 kernels")
+
+
 def check_ring_route(label, t) -> None:
     """Fails unless every f32 traversal launch of a D=128 run's timings
     ``t`` went to the ring kernel."""
@@ -477,13 +661,21 @@ def check_ring_route(label, t) -> None:
 def time_kernel(k, pts, reps=5):
     """The main path's fold at 1M points (R=1: one launch after the warm
     start): kernel time by CUDA events over ``reps`` launches on fresh
-    copies of the warm rows, the plain version's time, and the bound."""
+    copies of the warm rows, the plain version's time, the bounds on the
+    real pairs the kernel's blocks scored (``block_walk``: each block
+    prunes on its own rows) and, under ``plain_walk``, on those of the
+    plain version's walk (each query bucket's radius over all its rows, as
+    in the TPU kernel), and the warps an SM holds (fails below the plan's
+    count)."""
     import torch
 
     from mpi_cuda_largescaleknn_torch.core.types import CandidateState
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        d3_blocks_per_sm,
+        d3_resident_warps,
         knn_update_tiled_plain,
         launch_knn_tiled,
+        tiled_launch_plan,
     )
     from mpi_cuda_largescaleknn_torch.ops.partition import (
         coarsen_buckets,
@@ -508,8 +700,8 @@ def time_kernel(k, pts, reps=5):
             order, sorted_d2, q, pc, rows, skip_self=True, self_group=2))
         total_ms += ms
     ms = total_ms / reps
-    plain_ms, plain = cuda_ms(lambda: knn_update_tiled_plain(
-        warm, q, pc, skip_self=True, self_group=2))
+    plain_ms, (plain, plain_visits) = cuda_ms(lambda: knn_update_tiled_plain(
+        warm, q, pc, skip_self=True, self_group=2, with_stats=True))
     if not (torch.equal(plain.dist2, rows.dist2)
             and torch.equal(plain.idx, rows.idx)):
         fail(f"k={k}: kernel and plain differ at the main path's shape")
@@ -517,16 +709,44 @@ def time_kernel(k, pts, reps=5):
 
     bq, s = q.ids.shape
     bp, t = pc.ids.shape
-    nvis = int(visits.sum())
-    pairs = visited_pairs(order, visits, q, pc)
+    plan = tiled_launch_plan(s, t, k, 3)
+    # the pairs the kernel's blocks scored: the walk of each block of
+    # plan.rows rows on its own radius, checked against the kernel's rows
+    # and its visits (the most of a bucket's blocks)
+    walked, sub, block_visits = block_walk(warm, q, pc, plan.rows, 2)
+    if not (torch.equal(walked.dist2, rows.dist2)
+            and torch.equal(walked.idx, rows.idx)):
+        fail(f"k={k}: the walk of the kernel's blocks gives other rows")
+    if not torch.equal(block_visits.view(bq, -1).amax(1), visits.long()):
+        fail(f"k={k}: the kernel's visits are not the most of its blocks' "
+             "walks")
+    nvis = int(plain_visits.sum())
+    plain_pairs = visited_pairs(order, plain_visits, q, pc)
+    # a sub-bucket walks its bucket's order
+    pairs = visited_pairs(order.repeat_interleave(sub.num_buckets // bq, 0),
+                          block_visits, sub, pc)
     ops = pairs * OPS_PER_PAIR
     nbytes = (bq * s * 16                 # query coords + ids
               + 2 * bq * s * k * 8        # candidate rows in and out
               + bp * t * 16               # point coords + ids
               + (nvis + bq) * 8)          # the visited schedule prefix
+    plain_ops = plain_pairs * OPS_PER_PAIR
+    plain_walk = bounds(ms, plain_ops / PEAK_F32, plain_ops / PEAK_F32_ISSUE,
+                        nbytes)
+    blocks = d3_blocks_per_sm(plan.threads, plan.smem)
+    warps = d3_resident_warps(s, t, k)
+    if warps < blocks * plan.threads // 32:
+        fail(f"k={k}: the card holds {warps} warps an SM, the plan counted "
+             f"on {blocks * plan.threads // 32}")
     return {"k": k, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "visits": nvis, "pairs": pairs, "ops": ops, "bytes": nbytes,
+            "visits": nvis, "kernel_visits": int(visits.sum()),
+            "block_visits": int(block_visits.sum()),
+            "pairs": pairs, "plain_walk_pairs": plain_pairs, "ops": ops,
+            "bytes": nbytes,
             **bounds(ms, ops / PEAK_F32, ops / PEAK_F32_ISSUE, nbytes),
+            "plain_walk": plain_walk,
+            "plan": plan._asdict(), "warps_per_sm": warps,
+            "planned_warps_per_sm": blocks * plan.threads // 32,
             "Bq": bq, "S": s, "Bp": bp, "T": t}
 
 
@@ -544,6 +764,12 @@ def time_bf_kernel(k, pts, reps=3):
         knn_update_bf_plain,
         launch_geometry,
         launch_knn_bf,
+        resident_warps,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        CHUNK_LANES,
+        d3_blocks_per_sm,
+        d3_smem_bytes,
     )
 
     n = pts.shape[0]
@@ -566,18 +792,26 @@ def time_bf_kernel(k, pts, reps=3):
         fail(f"knn_bf k={k}: kernel and plain differ at the flat shape")
     err = max_abs_err(rows.dist2[:nq], plain.dist2)
 
-    threads, lanes = launch_geometry(2048, 2048, k)
-    blocks = -(-n // threads)
+    rows, lanes = launch_geometry(2048, 2048, k)
+    warps = resident_warps(k)
+    planned = d3_blocks_per_sm(8 * rows, d3_smem_bytes(rows, lanes, k)) \
+        * rows // 4
+    if warps < planned:
+        fail(f"knn_bf k={k}: the card holds {warps} warps an SM, the plan "
+             f"counted on {planned}")
+    blocks = -(-n // rows)
     pairs = n * n
     ops = pairs * OPS_PER_PAIR
-    nbytes = (blocks * n * 16             # the staged point set per block
+    np_pad = -(-n // CHUNK_LANES) * CHUNK_LANES
+    nbytes = (blocks * np_pad * 16        # the staged point set per block
               + n * 12                    # query coordinates
               + 2 * n * k * 8)            # candidate rows in and out
     return {"k": k, "ms": ms, "plain_ms": plain_ms,
             "plain_shape": f"{nq} queries x {n} points", "max_abs_err": err,
             "pairs": pairs, "ops": ops, "bytes": nbytes,
             **bounds(ms, ops / PEAK_F32, ops / PEAK_F32_ISSUE, nbytes),
-            "rows_per_block": threads, "lanes": lanes}
+            "rows_per_block": rows, "lanes": lanes,
+            "warps_per_sm": warps, "planned_warps_per_sm": planned}
 
 
 def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None):
@@ -607,9 +841,11 @@ def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None):
     torch.cuda.reset_peak_memory_stats()
     knn_update_tiled_cuda.launches = 0
     knn_update_tiled_cuda.ring_launches = 0
+    knn_update_tiled_cuda.d3_launches = 0
     knn_update_tiled_cuda.mxu_launches = 0
     knn_update_tiled_cuda.wgmma_launches = 0
     knn_update_bf_cuda.launches = 0
+    knn_update_bf_cuda.d3_launches = 0
     events = [] if score_dtype == "bf16" else None
     knn_update_tiled_cuda.mxu_events = events
     with profile_trace(profile_dir) as prof:
@@ -621,10 +857,12 @@ def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None):
     t.update({"run_seconds": wall, "queries_per_second": len(pts_np) / wall,
               "knn_tiled_launches": knn_update_tiled_cuda.launches,
               "knn_tiled_ring_launches": knn_update_tiled_cuda.ring_launches,
+              "knn_tiled_d3_launches": knn_update_tiled_cuda.d3_launches,
               "knn_tiled_mxu_launches": knn_update_tiled_cuda.mxu_launches,
               "knn_tiled_wgmma_launches":
                   knn_update_tiled_cuda.wgmma_launches,
               "knn_bf_launches": knn_update_bf_cuda.launches,
+              "knn_bf_d3_launches": knn_update_bf_cuda.d3_launches,
               "peak_device_bytes": torch.cuda.max_memory_allocated(),
               **(model.last_stats or {})})
     if dists.shape != (len(pts_np),) or not np.all(np.isfinite(dists)) \
@@ -726,7 +964,7 @@ def time_hd_kernels(pts_np, k, reps=2):
         total = 0.0
         events = []
         knn_update_tiled_cuda.mxu_events = events if mode == "bf16" else None
-        knn_update_tiled_cuda.ring_events = events if mode == "f32" else None
+        knn_update_tiled_cuda.layout_events = events if mode == "f32" else None
         for _ in range(reps):
             rows.dist2.copy_(start_rows.dist2)
             rows.idx.copy_(start_rows.idx)
@@ -734,7 +972,7 @@ def time_hd_kernels(pts_np, k, reps=2):
                 order, sorted_d2, q, pc, rows, skip_self=True, self_group=2))
             total += ms
         knn_update_tiled_cuda.mxu_events = None
-        knn_update_tiled_cuda.ring_events = None
+        knn_update_tiled_cuda.layout_events = None
         # with the wrapper's preparation, and the kernel alone by the
         # wrapper's events
         runs[mode] = {
@@ -809,6 +1047,154 @@ def time_hd_kernels(pts_np, k, reps=2):
     return res
 
 
+def time_offpath_kernels(hd_np):
+    """Phase 11b: the three kernels that no main path launches, each timed
+    by CUDA events over one launch at a shape of its own (with its
+    wrapper's preparation: the component-major queries, or the bf16 halves
+    and norms, which the wmma kernel's events time apart), its plain
+    version timed on a reduced shape and compared with the kernel's rows
+    there, and both bounds on the work this run's data needs:
+    - ``knn_tiled_nd_kernel``: 262,144 clustered points at D=240 (above
+      ``RING_MAX_DP4``), k=10, one traversal after the warm start; a bucket
+      is one block, so its visits are the plain version's; the plain
+      version on PLAIN_BUCKETS query buckets;
+    - ``knn_tiled_mxu_kernel`` (wmma): 65,536 clustered points at D=600,
+      k=10, the bounds on the pairs of its own walk (the widened rows'
+      radius); the plain bf16 version on PLAIN_BUCKETS query buckets;
+    - ``knn_bf_nd_kernel``: the first 16,384 of phase 10's points against
+      all 1M at D=128, k=10; the plain version on 2,048 queries x 131,072
+      points, against the kernel on the same."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.core.types import CandidateState
+    from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
+    from mpi_cuda_largescaleknn_torch.ops.knn_bf import (
+        knn_update_bf_plain,
+        launch_geometry,
+        launch_knn_bf,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        knn_update_tiled_cuda,
+        knn_update_tiled_plain,
+        launch_knn_tiled,
+        launch_knn_tiled_mxu,
+        mxu_launch_geometry,
+        survivor_width,
+        tiled_launch_plan,
+        widen_rows,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.partition import (
+        BucketedPoints,
+        coarsen_buckets,
+        nearest_first_order,
+        partition_points,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
+
+    k = HD_K
+    res = {}
+    nb = PLAIN_BUCKETS
+    for name, n, dim in (("knn_tiled_nd", 262_144, 240),
+                         ("knn_tiled_mxu_wmma", 65_536, 600)):
+        pts = torch.from_numpy(clustered_nd(n, dim, SEED + 30 + dim)).cuda()
+        q = partition_points(pts, bucket_size=256)
+        pc = coarsen_buckets(q, 2)
+        warm = warm_start_self(pc, k)
+        sorted_d2, order = nearest_first_order(q.lower, q.upper,
+                                               pc.lower, pc.upper)
+        s, t = q.bucket_size, pc.bucket_size
+        wmma = name.endswith("wmma")
+        if wmma:
+            w = survivor_width(k, pc)
+            start = widen_rows(warm, w)
+            plan = mxu_launch_geometry(s, dim, w)
+            launch, mode = launch_knn_tiled_mxu, "bf16"
+        else:
+            start = warm
+            plan = tiled_launch_plan(s, t, k, dim)
+            launch, mode = launch_knn_tiled, "f32"
+        if plan.kernel != ("wmma" if wmma else "nd"):
+            fail(f"phase 11b: {name} planned the {plan.kernel} kernel")
+        before = route_counts()
+        rows = CandidateState(start.dist2.clone(), start.idx.clone())
+        events = []
+        knn_update_tiled_cuda.mxu_events = events if wmma else None
+        wrapper_ms, visits = cuda_ms(lambda: launch(
+            order, sorted_d2, q, pc, rows, skip_self=True, self_group=2))
+        knn_update_tiled_cuda.mxu_events = None
+        ms = events[0][1].elapsed_time(events[0][2]) if wmma else wrapper_ms
+        after = route_counts()
+        if after[plan.kernel] - before[plan.kernel] != 1:
+            fail(f"phase 11b: {name} did not launch its kernel once")
+        got = CandidateState(rows.dist2[:, :k], rows.idx[:, :k])
+        qs = BucketedPoints(q.pts[:nb], q.ids[:nb], q.lower[:nb],
+                            q.upper[:nb], q.pos[:nb])
+        sub = CandidateState(warm.dist2[:nb * s], warm.idx[:nb * s])
+        plain_ms, plain = cuda_ms(lambda: knn_update_tiled_plain(
+            sub, qs, pc, skip_self=True, self_group=2, score_dtype=mode))
+        if not torch.equal(plain.dist2, got.dist2[:nb * s]):
+            fail(f"phase 11b: {name} and its plain version differ")
+        if wmma:
+            tie_rows(got.idx[:nb * s], plain.idx,
+                     q.pts[:nb].reshape(-1, dim), pts)
+        elif not torch.equal(plain.idx, got.idx[:nb * s]):
+            fail(f"phase 11b: {name} and its plain version's ids differ")
+        pairs = visited_pairs(order, visits, q, pc)
+        schedule = (int(visits.sum()) + q.num_buckets) * 8
+        width = plan.dp if wmma else dim
+        nbytes = (2 * n * (dim * 4 + 4) + schedule
+                  + 2 * n * rows.dist2.shape[1] * 8)
+        if wmma:
+            tc, epi = pairs * 3 * 2 * width, pairs * 4
+            yard = (max(tc / PEAK_BF16, epi / PEAK_F32),
+                    max(tc / PEAK_BF16, epi / PEAK_F32_ISSUE), nbytes)
+        else:
+            ops = pairs * (3 * dim + 1)
+            yard = (ops / PEAK_F32, ops / PEAK_F32_ISSUE, nbytes)
+        res[name] = {
+            "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "plain_shape": f"{nb} of {q.num_buckets} query buckets",
+            "max_abs_err": max_abs_err(got.dist2[:nb * s], plain.dist2),
+            "visits": int(visits.sum()), "pairs": pairs,
+            "shape": {"N": n, "D": dim, "k": k, "S": s, "T": t},
+            "plan": plan._asdict(), **bounds(ms, *yard)}
+        del pts, q, pc, warm, start, rows, got
+
+    # knn_bf_nd_kernel at D=128
+    pts = torch.from_numpy(hd_np).cuda()
+    n, dim = pts.shape
+    nq = PLAIN_QUERIES
+    ids = torch.arange(n, dtype=torch.int32, device=pts.device)
+    init = init_candidates(nq, k, device=pts.device)
+    rows = CandidateState(init.dist2.clone(), init.idx.clone())
+    before = route_counts()
+    ms, _ = cuda_ms(lambda: launch_knn_bf(pts[:nq], pts, ids, rows))
+    pq, pp = 2048, 131_072
+    small = CandidateState(init.dist2[:pq].clone(), init.idx[:pq].clone())
+    launch_knn_bf(pts[:pq], pts[:pp], ids[:pp], small)
+    if route_counts()["bf_nd"] - before["bf_nd"] != 2:
+        fail("phase 11b: knn_bf_nd did not launch its kernel")
+    plain_ms, plain = cuda_ms(lambda: knn_update_bf_plain(
+        CandidateState(init.dist2[:pq], init.idx[:pq]), pts[:pq], pts[:pp],
+        ids[:pp]))
+    if not (torch.equal(plain.dist2, small.dist2)
+            and torch.equal(plain.idx, small.idx)):
+        fail("phase 11b: knn_bf_nd and its plain version differ")
+    block_rows, lanes = launch_geometry(2048, 2048, k, dim)
+    pairs = nq * n
+    ops = pairs * (3 * dim + 1)
+    nbytes = (-(-nq // block_rows) * n * (16 * -(-dim // 4) + 4)
+              + nq * dim * 4 + 2 * nq * k * 8)
+    res["knn_bf_nd"] = {
+        "ms": ms, "plain_ms": plain_ms,
+        "plain_shape": f"{pq} queries x {pp} points",
+        "max_abs_err": max_abs_err(small.dist2, plain.dist2),
+        "pairs": pairs, "shape": {"Q": nq, "N": n, "D": dim, "k": k},
+        "rows_per_block": block_rows, "lanes": lanes,
+        **bounds(ms, ops / PEAK_F32, ops / PEAK_F32_ISSUE, nbytes)}
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -858,18 +1244,26 @@ def main() -> int:
     say("[phase 3] kernel vs plain on the card, bit for bit")
     uni = seeded_points("uniform", 32_000, SEED)
     clu = seeded_points("clustered", 32_000, SEED + 1)
-    errs = [
-        compare_case("uniform k=1 skip_self G2", uni, 1),
-        compare_case("uniform k=8 skip_self G2", uni, 8),
-        compare_case("uniform k=100 skip_self G2", uni, 100),
-        compare_case("uniform k=200 (rows split over 2 blocks)", uni, 200),
+    grid = grid_points(32_000, SEED + 7)
+    d3 = dict(route="d3")
+    errs = [compare_case(f"uniform k={k} skip_self G2", uni, k, **d3)
+            for k in (1, 8, 31, 32, 33, 64, 65, 100, 200)]
+    errs += [compare_case(f"integer grid k={k} skip_self G2 (ties)", grid, k,
+                          **d3) for k in (8, 32, 33, 65, 100)]
+    errs += [
         compare_case("uniform k=8 -r 0.02 cold G1", uni, 8, radius=0.02,
-                     group=1, warm=False),
-        compare_case("clustered k=8 skip_self G2", clu, 8),
+                     group=1, warm=False, **d3),
+        compare_case("clustered k=8 skip_self G2", clu, 8, **d3),
         compare_case("clustered k=100 -r 1.5 skip_self G2", clu, 100,
-                     radius=1.5),
-        compare_case("uniform k=8 T=2000 (partial staged tile)", uni, 8,
-                     bucket_size=1024),
+                     radius=1.5, **d3),
+        compare_case("uniform k=8 T=2000 (partial last tile)", uni, 8,
+                     bucket_size=1024, **d3),
+        compare_case("integer grid k=33 S=1000 T=2000 (ties, partial last "
+                     "tile)", grid, 33, bucket_size=1000, **d3),
+        compare_case("integer grid k=300 (16 slots a lane)", grid[:16_000],
+                     300, **d3),
+        compare_case("uniform k=903 (32 slots a lane, the largest k)",
+                     uni[:16_000], 903, **d3),
     ]
     details["phase3_max_abs_err"] = max(errs)
 
@@ -880,11 +1274,12 @@ def main() -> int:
     padded = np.concatenate([uni, np.full((1000, 3), PAD_SENTINEL,
                                           np.float32)])
     odd = seeded_points("uniform", 32_777, SEED + 3)
-    bf_errs = [
-        compare_bf_case("uniform k=1", uni, uni, 1),
-        compare_bf_case("uniform k=8", uni, uni, 8),
-        compare_bf_case("uniform k=100", uni, uni, 100),
-        compare_bf_case("uniform k=200", uni, uni, 200),
+    grid_odd = grid_points(32_777, SEED + 8)
+    bf_errs = [compare_bf_case(f"uniform k={k}", uni, uni, k)
+               for k in (1, 8, 31, 32, 33, 64, 65, 100, 200)]
+    bf_errs += [compare_bf_case(f"integer grid k={k} (ties)", grid, grid, k)
+                for k in (8, 32, 33, 65, 100)]
+    bf_errs += [
         compare_bf_case("uniform k=8 -r 0.02", uni, uni, 8, radius=0.02),
         compare_bf_case("clustered k=8", clu, clu, 8),
         compare_bf_case("clustered k=100 -r 1.5", clu, clu, 100,
@@ -895,14 +1290,23 @@ def main() -> int:
                         id_base=1_000_000),
         compare_bf_case("uniform k=8 in two calls (12,345 + rest)", uni, uni,
                         8, split=12_345),
-        compare_bf_case("uniform k=8 N=32,777 (partial staged tile)", odd,
+        compare_bf_case("uniform k=8 N=32,777 (partial last tile)", odd,
                         odd, 8),
+        compare_bf_case("integer grid k=65 N=32,777 (ties, partial last "
+                        "tile)", grid_odd, grid_odd, 65),
         compare_bf_case("uniform k=100 query_tile=96 point_tile=300", uni,
                         uni, 100, tiles=(96, 300)),
+        compare_bf_case("integer grid k=300 (16 slots a lane)", grid[:4096],
+                        grid, 300),
+        compare_bf_case("uniform k=903 (32 slots a lane, the largest k)",
+                        uni[:2048], uni[:20_000], 903),
     ]
     details["phase3b_max_abs_err"] = max(bf_errs)
 
     # -- phase 3c -----------------------------------------------------------
+    # launches of the kernels no main path runs, counted where they run:
+    # phases 3c, 3d and 11b
+    offpath = route_counts()
     say("[phase 3c] general-D f32 kernels vs plain on the card, bit for bit")
     nd = {d: clustered_nd(32_000, d, SEED + 10 + d)
           for d in (4, 5, 16, 32, 64, 128, 130)}
@@ -979,6 +1383,7 @@ def main() -> int:
             route="wmma"))
     details["phase3d_max_abs_err"] = max(mxu_errs)
     del nd
+    offpath = {key: n - offpath[key] for key, n in route_counts().items()}
 
     # -- phase 4 ------------------------------------------------------------
     say(f"[phase 4] main path: {N_MAIN} uniform points through the CLI")
@@ -1001,6 +1406,11 @@ def main() -> int:
     say("  R=4 output is byte-equal to R=1")
     details["main_path"] = runs
 
+    # -- phase 5b -----------------------------------------------------------
+    say("[phase 5b] the traverse stage of phases 4-5 split, in a fresh "
+        "process")
+    details["first_launch_split"] = first_launch_split()
+
     # -- phase 6 ------------------------------------------------------------
     say("[phase 6] kernel time at the main path's shapes")
     pts = torch.from_numpy(pts_np).cuda()
@@ -1009,9 +1419,17 @@ def main() -> int:
         r = time_kernel(k, pts)
         timed[k] = r
         say(f"  k={k}: Bq={r['Bq']} S={r['S']} Bp={r['Bp']} T={r['T']} "
-            f"visits={r['visits']} kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, {bound_txt(r)}, max_abs_err "
-            f"{r['max_abs_err']}")
+            f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"max_abs_err {r['max_abs_err']}")
+        say(f"    pairs the kernel's blocks scored {r['pairs']} "
+            f"({r['block_visits']} block visits; the most of a bucket's "
+            f"blocks: {r['kernel_visits']}): {bound_txt(r)}")
+        say(f"    pairs of the plain version's walk {r['plain_walk_pairs']} "
+            f"({r['visits']} bucket visits, "
+            f"{r['pairs'] / r['plain_walk_pairs']:.4f}x the kernel's): "
+            f"{bound_txt(r['plain_walk'])}")
+        say(f"    plan {r['plan']}, {r['warps_per_sm']} warps resident per "
+            f"SM (the plan counted on {r['planned_warps_per_sm']})")
     details["kernel_timing"] = timed
     del pts
 
@@ -1068,7 +1486,9 @@ def main() -> int:
         say(f"  k={k}: {N_MAIN} x {N_MAIN} rows/block={r['rows_per_block']} "
             f"lanes={r['lanes']} kernel {r['ms']:.3f} ms, {bound_txt(r)}, "
             f"plain {r['plain_ms']:.3f} ms on {r['plain_shape']}, "
-            f"max_abs_err {r['max_abs_err']}")
+            f"max_abs_err {r['max_abs_err']}, {r['warps_per_sm']} warps "
+            f"resident per SM (the plan counted on "
+            f"{r['planned_warps_per_sm']})")
     details["bf_kernel_timing"] = bf_timed
     del pts
 
@@ -1127,7 +1547,7 @@ def main() -> int:
     hd_list.write_text("\n".join(names) + "\n")
     pre["highd_auto_k10"], hd_joined = prepartitioned_run(
         f"R=4 .npy D={HD_DIM} --engine auto k={HD_K}", hd_list,
-        parts / "hd_k10", HD_K, "auto", 4, selfcheck=200)
+        parts / "hd_k10", HD_K, "auto", 4, selfcheck=200, dim3=False)
     t_sub, d_sub, _ = unordered_run(f"f32 R=1 on the first {HD_SUB}", sub,
                                     HD_K, 1, "f32")
     hd_runs["f32 R=1 sub"] = t_sub
@@ -1159,6 +1579,22 @@ def main() -> int:
         "from f32 only among equally distant points")
     details["high_d_kernel_timing"] = hd_timed
 
+    # -- phase 11b ----------------------------------------------------------
+    say("[phase 11b] the kernels no main path launches")
+    before = route_counts()
+    t0 = time.perf_counter()
+    off_timed = time_offpath_kernels(hd)
+    details["offpath_seconds"] = time.perf_counter() - t0
+    for key, n in route_counts().items():
+        offpath[key] += n - before[key]
+    for name, r in off_timed.items():
+        say(f"  {name}: {r['shape']} kernel {r['ms']:.3f} ms, "
+            f"{bound_txt(r)}, plain {r['plain_ms']:.3f} ms on "
+            f"{r['plain_shape']}, max_abs_err {r['max_abs_err']}")
+    say(f"  phase 11b took {details['offpath_seconds']:.1f} s")
+    details["offpath_kernel_timing"] = off_timed
+    details["offpath_launches"] = offpath
+
     # -- phase 12 -----------------------------------------------------------
     say("[phase 12] phase 10's f32 R=1 run again under the profiler")
     label = "f32 R=1 under the profiler"
@@ -1183,30 +1619,49 @@ def main() -> int:
                 "bound_by": r["bound_by"], "library_ms": None}
 
     kernels = {"kernels": [
-        # knn_tiled_kernel (D=3, timed in phase 6) and knn_tiled_nd_kernel
-        entry("knn_tiled", SOURCE, REPLACES,
-              launched("knn_tiled_launches")
-              - launched("knn_tiled_ring_launches"),
-              (details["phase3_max_abs_err"], details["phase3c_max_abs_err"],
-               timed[8]["max_abs_err"], timed[100]["max_abs_err"]),
-              timed[8]),
+        # knn_tiled_d3_kernel, timed in phase 6
+        entry("knn_tiled", SOURCE, REPLACES, launched("knn_tiled_d3_launches"),
+              (details["phase3_max_abs_err"], timed[8]["max_abs_err"],
+               timed[100]["max_abs_err"]), timed[8]),
         entry("knn_tiled_nd_ring", SOURCE, RING_REPLACES,
               launched("knn_tiled_ring_launches"),
               (details["phase3c_max_abs_err"],
                hd_timed["f32"]["max_abs_err"]), hd_timed["f32"]),
-        entry("knn_bf", BF_SOURCE, BF_REPLACES, launched("knn_bf_launches"),
-              (details["phase3b_max_abs_err"], details["phase3c_max_abs_err"],
-               bf_timed[8]["max_abs_err"], bf_timed[100]["max_abs_err"]),
-              bf_timed[8]),
+        # knn_bf_d3_kernel, timed in phase 9
+        entry("knn_bf", BF_SOURCE, BF_REPLACES, launched("knn_bf_d3_launches"),
+              (details["phase3b_max_abs_err"], bf_timed[8]["max_abs_err"],
+               bf_timed[100]["max_abs_err"]), bf_timed[8]),
+        # knn_tiled_wgmma_kernel, timed in phase 11
         entry("knn_tiled_mxu", MXU_SOURCE, MXU_REPLACES,
               launched("knn_tiled_mxu_launches"),
               (details["phase3d_max_abs_err"],
                hd_timed["bf16"]["max_abs_err"]), hd_timed["bf16"]),
+        # the kernels no main path launches (0 launches there), timed in
+        # phase 11b; details["offpath_launches"] counts their launches in
+        # phases 3c, 3d and 11b
+        entry("knn_tiled_nd", SOURCE, RING_REPLACES, 0,
+              (details["phase3c_max_abs_err"],
+               off_timed["knn_tiled_nd"]["max_abs_err"]),
+              off_timed["knn_tiled_nd"]),
+        entry("knn_tiled_mxu_wmma", MXU_SOURCE, MXU_REPLACES,
+              0, (details["phase3d_max_abs_err"],
+                                off_timed["knn_tiled_mxu_wmma"]
+                                ["max_abs_err"]),
+              off_timed["knn_tiled_mxu_wmma"]),
+        entry("knn_bf_nd", BF_SOURCE, BF_REPLACES, 0,
+              (details["phase3c_max_abs_err"],
+               off_timed["knn_bf_nd"]["max_abs_err"]),
+              off_timed["knn_bf_nd"]),
     ]}
+    # a main-path kernel must have run on the main paths, an off-path one
+    # in phases 3c, 3d and 11b
+    ran = {"knn_tiled_nd": offpath["nd"], "knn_tiled_mxu_wmma":
+           offpath["wmma"], "knn_bf_nd": offpath["bf_nd"]}
     for kern in kernels["kernels"]:
-        if kern["launches"] < 1 or kern["max_abs_err"] != 0.0:
-            fail(f"{kern['name']}: {kern['launches']} launches on the main "
-                 f"paths, max_abs_err {kern['max_abs_err']}")
+        n = ran.get(kern["name"], kern["launches"])
+        if n < 1 or kern["max_abs_err"] != 0.0:
+            fail(f"{kern['name']}: {n} launches, "
+                 f"max_abs_err {kern['max_abs_err']}")
     details["kernels"] = kernels
     details["seconds"] = time.perf_counter() - t_start
     (WORK / "chip_smoke.json").write_text(json.dumps(details, indent=1))

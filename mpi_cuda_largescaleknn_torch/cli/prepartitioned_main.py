@@ -60,7 +60,9 @@ def main(argv: list[str] | None = None) -> int:
         torch.zeros(1, device=model.device)
         torch.cuda.reset_peak_memory_stats(model.device)
     launches0 = (knn_update_tiled_cuda.launches, knn_update_bf_cuda.launches,
-                 knn_update_tiled_cuda.ring_launches)
+                 knn_update_tiled_cuda.ring_launches,
+                 knn_update_tiled_cuda.d3_launches,
+                 knn_update_bf_cuda.d3_launches)
     with profile_trace(cfg.profile_dir):
         t0 = time.perf_counter()
         got = model.run(partitions, return_neighbors=want_idx)
@@ -90,6 +92,10 @@ def main(argv: list[str] | None = None) -> int:
             "knn_bf_launches": knn_update_bf_cuda.launches - launches0[1],
             "knn_tiled_ring_launches": knn_update_tiled_cuda.ring_launches
             - launches0[2],
+            "knn_tiled_d3_launches": knn_update_tiled_cuda.d3_launches
+            - launches0[3],
+            "knn_bf_d3_launches": knn_update_bf_cuda.d3_launches
+            - launches0[4],
             "peak_device_bytes": (torch.cuda.max_memory_allocated(model.device)
                                   if model.device.type == "cuda" else 0),
             **model.last_stats})

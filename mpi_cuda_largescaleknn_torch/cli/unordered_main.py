@@ -49,7 +49,9 @@ def main(argv: list[str] | None = None) -> int:
         torch.cuda.reset_peak_memory_stats(model.device)
     launches0 = (knn_update_tiled_cuda.launches, knn_update_bf_cuda.launches,
                  knn_update_tiled_cuda.mxu_launches,
-                 knn_update_tiled_cuda.ring_launches)
+                 knn_update_tiled_cuda.ring_launches,
+                 knn_update_tiled_cuda.d3_launches,
+                 knn_update_bf_cuda.d3_launches)
     with profile_trace(cfg.profile_dir):
         t0 = time.perf_counter()
         got = model.run(points, return_neighbors=want_idx)
@@ -79,6 +81,10 @@ def main(argv: list[str] | None = None) -> int:
             - launches0[2],
             "knn_tiled_ring_launches": knn_update_tiled_cuda.ring_launches
             - launches0[3],
+            "knn_tiled_d3_launches": knn_update_tiled_cuda.d3_launches
+            - launches0[4],
+            "knn_bf_d3_launches": knn_update_bf_cuda.d3_launches
+            - launches0[5],
             "peak_device_bytes": (torch.cuda.max_memory_allocated(model.device)
                                   if model.device.type == "cuda" else 0),
             **(model.last_stats or {})})

@@ -16,19 +16,35 @@
 // are read from point_ids directly (the TPU kernel stored lane positions
 // and decoded them afterwards, which only Mosaic needed).
 //
-// What bounds it on the H100: operations. A pair is about 9 FP32 operations
-// (3 sub, 3 mul, 2 add, a compare against a register; no FMA may fuse
-// them), so the flat path's 10^12 pairs at 1M points need 134 ms at the
-// card's 67 TFLOP/s, while the bytes are small: the point set (16 MB
-// staged as float4) is re-read once per block of query rows, mostly from
-// L2. The design keeps the pair loop on registers and one broadcast
-// shared-memory load per lane: one thread per query row, a block of rows
-// whose candidate columns sit in shared memory column-major ([k][threads],
-// so each thread's slot j is conflict-free) with the row's k-th value cached
-// in a register, so the rare insertion is the only shared-memory traffic of
-// the fold; the point set is staged tile by tile in shared memory as float4
-// {x, y, z, id bits}, and one loop over all tiles inside the block replaces
-// the TPU grid's sequential point axis.
+// What bounds it on the H100: operations. A pair is 9 FP32 issues (3 sub,
+// 3 mul, 2 add and a compare or min; no FMA may fuse them), so the flat
+// path's 10^12 pairs at 1M points need 268.7 ms at the card's 33.5e12
+// FP32 issues/s, while the bytes are small: the point set (16 MB as
+// float4) is re-read once per block of query rows, from L2.
+//
+// knn_bf_d3_kernel is built for that bound. Where the first D=3 kernel
+// (one thread per query row, its k slots in shared memory as [k][threads])
+// lost its time, and what this one does:
+// - There a block held at most 224 rows at k=100 (8 bytes a slot a row),
+//   so an SM ran 7 warps, too few to hide any latency. Here a warp folds 4
+//   rows whose slots lie across its 32 lanes (knn_rows.cuh, the warp fold),
+//   a block holds up to 16 warps, and the plan (ops/knn_bf.py
+//   launch_geometry) keeps at least two blocks on an SM: 32 warps at
+//   k=100 (64 registers a thread).
+// - There every adoption shifted the row one slot at a time through
+//   shared memory, in divergent control flow, so a warp waited for its
+//   longest shift; a query adopts about k(1 + ln(N/k)) lanes, a thousand at
+//   k=100. Here a lane's scores are gated by one compare of their min
+//   against the row's k-th d2 (a warp-uniform register), and an adoption
+//   is one warp-parallel insert: a count, a reduction, a shuffle, no chain.
+// - There a pair cost a shared-memory load besides its 9 issues; here one
+//   float4 load feeds the warp's 4 rows.
+// - There each tile was staged through registers between two barriers.
+//   Here the wrapper lays the points out once per launch as float4 {x, y,
+//   z, id bits} (padded to whole 256-lane chunks with NaN lanes, never
+//   adopted), and one thread bulk-copies the next tile (cp.async.bulk on an
+//   mbarrier, bulk_ring.cuh) while the block folds this one: one barrier a
+//   tile.
 //
 // Points of any other dimension D go through knn_bf_nd_kernel, exact f32
 // at every D like the TPU kernel (which has no matmul-form branch): the
@@ -41,88 +57,70 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "bulk_ring.cuh"
 #include "knn_rows.cuh"
 
 namespace {
 
-__global__ void knn_bf_kernel(
+template <int S>
+__global__ void __launch_bounds__(knn::kD3MaxThreads, 2) knn_bf_d3_kernel(
     const float* __restrict__ q_pts,   // [nq, 3]
-    const float* __restrict__ p_pts,   // [np, 3]
-    const int* __restrict__ p_ids,     // [np]
+    const float4* __restrict__ p4,     // [np_pad] {x, y, z, id bits}
     float* __restrict__ d2,            // [nq, k] in/out, ascending rows
     int* __restrict__ idx,             // [nq, k] in/out
-    int nq, int np, int k, int tile_lanes) {
-  extern __shared__ float4 smem[];
-  const int bd = blockDim.x;
-  float4* tile = smem;                                          // [tile_lanes]
-  float* cd2 = reinterpret_cast<float*>(smem + tile_lanes);     // [k][bd]
-  int* cidx = reinterpret_cast<int*>(cd2 + (size_t)k * bd);     // [k][bd]
+    int nq, int np_pad, int k, int tile_lanes) {
+  using knn::kWarpRows;
+  extern __shared__ __align__(16) unsigned char sbuf[];
+  const int rows = (blockDim.x >> 5) * kWarpRows;
+  float4* tiles = reinterpret_cast<float4*>(sbuf);                // [2][lanes]
+  float* rd2 = reinterpret_cast<float*>(tiles + 2 * tile_lanes);  // [rows][S][32]
+  int* ridx = reinterpret_cast<int*>(rd2 + rows * S * 32);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ridx + rows * S * 32);  // [2]
 
-  const long long row0 = (long long)blockIdx.x * bd;
-  const int nrows = (int)min((long long)bd, (long long)nq - row0);
   const int tid = threadIdx.x;
-  const long long base = row0 * k;
-
-  // this block's rows are contiguous in global memory: coalesced staging
-  for (int e = tid; e < nrows * k; e += bd) {
-    const int r = e / k;
-    const int j = e - r * k;
-    cd2[j * bd + r] = d2[base + e];
-    cidx[j * bd + r] = idx[base + e];
-  }
-  const bool active = tid < nrows;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    const long long row = row0 + tid;
-    qx = q_pts[row * 3 + 0];
-    qy = q_pts[row * 3 + 1];
-    qz = q_pts[row * 3 + 2];
+  const int warp = tid >> 5;
+  const int ntiles = (np_pad + tile_lanes - 1) / tile_lanes;
+  // tile t goes to buffer t & 1 and completes on full[t & 1]
+  auto issue = [&](int t) {
+    const int l0 = t * tile_lanes;
+    const uint32_t bytes = (uint32_t)min(tile_lanes, np_pad - l0) * 16u;
+    knn::mbar_expect_tx(full + (t & 1), bytes);
+    knn::bulk_load(tiles + (t & 1) * tile_lanes, p4 + l0, bytes,
+                   full + (t & 1));
+  };
+  if (tid == 0) {
+    knn::mbar_init(full, 1);
+    knn::mbar_init(full + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  float kth = active ? cd2[(k - 1) * bd + tid] : -CUDART_INF_F;
+  if (tid == 0) issue(0);
 
-  for (int l0 = 0; l0 < np; l0 += tile_lanes) {
-    const int nl = min(tile_lanes, np - l0);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int l = tid; l < nl; l += bd) {
-      const float* p = p_pts + (long long)(l0 + l) * 3;
-      tile[l] = make_float4(p[0], p[1], p[2], __int_as_float(p_ids[l0 + l]));
-    }
-    __syncthreads();
-    if (active) {
-#pragma unroll 4
-      for (int l = 0; l < nl; ++l) {
-        const float4 p = tile[l];
-        const float dx = __fsub_rn(qx, p.x);
-        const float dy = __fsub_rn(qy, p.y);
-        const float dz = __fsub_rn(qz, p.z);
-        const float dd = __fadd_rn(
-            __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-            __fmul_rn(dz, dz));
-        if (dd < kth) {
-          // sorted insert after every entry <= dd; the old k-th drops
-          int j = k - 1;
-          while (j > 0) {
-            const float prev = cd2[(j - 1) * bd + tid];
-            if (prev <= dd) break;
-            cd2[j * bd + tid] = prev;
-            cidx[j * bd + tid] = cidx[(j - 1) * bd + tid];
-            --j;
-          }
-          cd2[j * bd + tid] = dd;
-          cidx[j * bd + tid] = __float_as_int(p.w);
-          kth = cd2[(k - 1) * bd + tid];
-        }
-      }
-    }
+  const long long row0 = (long long)blockIdx.x * rows + warp * kWarpRows;
+  float* wd2 = rd2 + warp * kWarpRows * S * 32;
+  int* widx = ridx + warp * kWarpRows * S * 32;
+  const int kth_at = ((k - 1) % S) * 32 + (k - 1) / S;
+  bool valid[kWarpRows];
+  knn::WarpQueries wq;
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) {
+    const long long row = row0 + r;
+    valid[r] = row < nq;
+    wq.x[r] = valid[r] ? q_pts[row * 3 + 0] : 0.f;
+    wq.y[r] = valid[r] ? q_pts[row * 3 + 1] : 0.f;
+    wq.z[r] = valid[r] ? q_pts[row * 3 + 2] : 0.f;
   }
-  __syncthreads();
-  for (int e = tid; e < nrows * k; e += bd) {
-    const int r = e / k;
-    const int j = e - r * k;
-    d2[base + e] = cd2[j * bd + r];
-    idx[base + e] = cidx[j * bd + r];
+  knn::load_warp_rows<S>(d2, idx, row0, valid, wd2, widx, k, kth_at, wq);
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t) __syncthreads();  // every warp is done with tile t-1's buffer
+    if (tid == 0 && t + 1 < ntiles) issue(t + 1);
+    knn::mbar_wait(full + (t & 1), (t >> 1) & 1);
+    knn::fold_tile<S>(tiles + (t & 1) * tile_lanes,
+                      min(tile_lanes, np_pad - t * tile_lanes), wq, wd2, widx,
+                      k, kth_at);
   }
+  knn::store_warp_rows<S>(d2, idx, row0, valid, wd2, widx, k);
 }
 
 __global__ void knn_bf_nd_kernel(
@@ -196,19 +194,64 @@ extern "C" int knn_bf_nd_launch(const float4* q_t, const float* p_pts,
   return (int)cudaGetLastError();
 }
 
-// Launches on `stream`; returns the CUDA error code of the launch (0 = ok).
-extern "C" int knn_bf_launch(const float* q_pts, const float* p_pts,
-                             const int* p_ids, float* d2, int* idx, int nq,
-                             int np, int k, int threads, int tile_lanes,
-                             void* stream) {
-  const size_t smem = (size_t)tile_lanes * sizeof(float4) +
-                      (size_t)k * threads * (sizeof(float) + sizeof(int));
+namespace {
+
+template <int S>
+int bf_d3_launch(const float* q_pts, const float4* p4, float* d2, int* idx,
+                 int nq, int np_pad, int k, int threads, int tile_lanes,
+                 size_t smem, cudaStream_t stream) {
+  const int rows = threads / 32 * knn::kWarpRows;
   cudaError_t err = cudaFuncSetAttribute(
-      knn_bf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      knn_bf_d3_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks =
-      (unsigned)(((long long)nq + threads - 1) / threads);
-  knn_bf_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      q_pts, p_pts, p_ids, d2, idx, nq, np, k, tile_lanes);
+  const unsigned blocks = (unsigned)(((long long)nq + rows - 1) / rows);
+  knn_bf_d3_kernel<S><<<blocks, threads, smem, stream>>>(
+      q_pts, p4, d2, idx, nq, np_pad, k, tile_lanes);
   return (int)cudaGetLastError();
+}
+
+template <int S>
+int bf_d3_blocks_per_sm(int threads, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_bf_d3_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, knn_bf_d3_kernel<S>, threads, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+}  // namespace
+
+// Launches knn_bf_d3_kernel on `stream` with the plan of ops/knn_bf.py
+// launch_geometry: `slots` a lane for a row of k (d3_slots), `threads` a
+// block (4 query rows a warp), tiles of `tile_lanes` (a multiple of 256, as
+// np_pad is) staged lanes, `smem` bytes of dynamic shared memory
+// (d3_smem_bytes). Returns the CUDA error code of the launch (0 = ok), or
+// cudaErrorInvalidValue for a shape it does not take.
+extern "C" int knn_bf_launch(const float* q_pts, const float* p4, float* d2,
+                             int* idx, int nq, int np_pad, int k, int slots,
+                             int threads, int tile_lanes, int smem,
+                             void* stream) {
+  if (threads % 32 || threads > knn::kD3MaxThreads ||
+      tile_lanes % knn::kChunkLanes || np_pad % knn::kChunkLanes || k < 1 ||
+      k > 32 * slots)
+    return (int)cudaErrorInvalidValue;
+  const float4* p = reinterpret_cast<const float4*>(p4);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return knn::with_d3_slots(slots, (int)cudaErrorInvalidValue, [&](auto s) {
+    return bf_d3_launch<decltype(s)::value>(q_pts, p, d2, idx, nq, np_pad, k,
+                                            threads, tile_lanes,
+                                            (size_t)smem, st);
+  });
+}
+
+// Blocks of knn_bf_d3_kernel an SM holds at this plan
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a CUDA error.
+extern "C" int knn_bf_blocks_per_sm(int slots, int threads, int smem) {
+  return knn::with_d3_slots(slots, -(int)cudaErrorInvalidValue, [&](auto s) {
+    return bf_d3_blocks_per_sm<decltype(s)::value>(threads, (size_t)smem);
+  });
 }

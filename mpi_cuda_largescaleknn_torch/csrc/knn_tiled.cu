@@ -19,24 +19,46 @@
 // Results do not depend on how finely the radius prunes: a bucket whose box
 // d2 is at or beyond a row's k-th d2 holds no point that strict-< adoption
 // could take. So each block keeps its own radius, refreshed after every
-// visited bucket, and exits on its own; distances and ids stay those of the
+// visited bucket (the D=3 kernel: after every staged tile, deciding at
+// bucket starts), and exits on its own; distances and ids stay those of the
 // TPU kernel. Padding query rows (id < 0) fold nothing and come back as
 // they went in. A bucket's visit count is the most any of its blocks
 // scored (atomicMax): each block's radius is at most the bucket's, so the
 // count is the plain version's when the bucket is one block, and at most
 // it when its rows split over blocks.
 //
-// What bounds it on the H100: arithmetic. Each scored pair is 3 sub, 3 mul,
-// 2 add and a compare against a register (no FMA may fuse them), while the
-// bytes are small: a query bucket reads its candidate rows once and each
-// visited point bucket (496 lanes x 16 B at the 1M-point shape) from L2.
-// The design keeps the pair loop on registers and one broadcast shared-
-// memory load per lane: one block per query bucket (blockIdx.y splits the
-// rows when k is large), one thread per query row, the visited bucket
-// staged in shared memory as float4 {x, y, z, id bits}, the candidate rows
-// in shared memory column-major ([k][threads], so each thread's slot j is
-// conflict-free) with the row's k-th value cached in a register, so the
-// rare insertion is the only shared-memory traffic of the fold.
+// What bounds it on the H100: operations. Each scored pair is 3 sub, 3 mul,
+// 2 add and a compare or min (9 FP32 issues, no FMA may fuse them), while
+// the bytes are small: a query bucket reads its candidate rows once and
+// each visited point bucket (496 lanes x 16 B at the 1M-point shape) from
+// L2.
+//
+// knn_tiled_d3_kernel is built for that bound. Where the first D=3 kernel
+// (one thread per query row, its k slots in shared memory as [k][threads])
+// lost its time, and what this one does:
+// - There a block held all 248 rows of a bucket up to k=100 (198 KB of
+//   slots), one block of 8 warps an SM. Here a warp folds 4 rows whose
+//   slots lie across its 32 lanes (knn_rows.cuh, the warp fold), a block
+//   holds 8 warps (32 rows; blockIdx.y splits the bucket), and the plan
+//   (ops/knn_tiled.py tiled_launch_plan) keeps at least two blocks on an
+//   SM: 32 warps at k=100 (64 registers a thread).
+// - There every adoption shifted the row one slot at a time through
+//   shared memory, in divergent control flow, so a warp waited for its
+//   longest shift (a few hundred adoptions a query at k=100). Here a
+//   chunk's scores are gated by one compare of their min against the row's
+//   k-th d2 (a warp-uniform register), and an adoption is one warp-parallel
+//   insert: a count, a reduction, a shuffle, no chain.
+// - There a pair cost a shared-memory load besides its 9 issues; here one
+//   float4 load feeds the warp's 4 rows.
+// - There each visited bucket was staged through registers between two
+//   barriers, and the radius took two more. Here the wrapper lays the point
+//   buckets out once per launch as float4 {x, y, z, id bits}, padded to
+//   whole 256-lane chunks with NaN lanes (never adopted); one thread
+//   bulk-copies the next tile of the walk (cp.async.bulk on an mbarrier,
+//   bulk_ring.cuh; the next bucket is copied before the prune has decided
+//   on it) while the block folds this one; and each warp adds its rows'
+//   largest k-th d2 to a shared atomicMax on the float bits (d2 >= 0), so
+//   one barrier a tile both frees the other buffer and settles the radius.
 //
 // Points of any other dimension D go through knn_tiled_nd_kernel: the same
 // walk, prune and fold, with each pair scored left to right over all D
@@ -92,109 +114,121 @@ namespace {
 
 using knn::block_max;
 
-__global__ void knn_tiled_kernel(
+template <int S>
+__global__ void __launch_bounds__(knn::kD3MaxThreads, 2) knn_tiled_d3_kernel(
     const int* __restrict__ order,     // [Bq, Bp] nearest-first bucket ids
     const float* __restrict__ boxd2,   // [Bq, Bp] ascending box d2
     const float* __restrict__ q_pts,   // [Bq, S, 3]
     const int* __restrict__ q_ids,     // [Bq, S]
-    const float* __restrict__ p_pts,   // [Bp, T, 3]
-    const int* __restrict__ p_ids,     // [Bp, T]
+    const float4* __restrict__ p4,     // [Bp, t_pad] {x, y, z, id bits}
     float* __restrict__ d2,            // [Bq*S, k] in/out, ascending rows
     int* __restrict__ idx,             // [Bq*S, k] in/out
     int* __restrict__ visits,          // [Bq] buckets scored, max over blocks
-    int s_q, int num_pb, int t_p, int k, int skip_self, int self_group,
-    int rows_per_block, int tile_lanes) {
-  extern __shared__ float4 smem[];
-  __shared__ float warp_buf[32];
-  const int bd = blockDim.x;
-  float4* tile = smem;                                          // [tile_lanes]
-  float* cd2 = reinterpret_cast<float*>(smem + tile_lanes);     // [k][bd]
-  int* cidx = reinterpret_cast<int*>(cd2 + (size_t)k * bd);     // [k][bd]
+    int s_q, int num_pb, int t_pad, int k, int skip_self, int self_group,
+    int tile_lanes) {
+  using knn::kWarpRows;
+  extern __shared__ __align__(16) unsigned char sbuf[];
+  const int rows = (blockDim.x >> 5) * kWarpRows;
+  float4* tiles = reinterpret_cast<float4*>(sbuf);                // [2][lanes]
+  float* rd2 = reinterpret_cast<float*>(tiles + 2 * tile_lanes);  // [rows][S][32]
+  int* ridx = reinterpret_cast<int*>(rd2 + rows * S * 32);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ridx + rows * S * 32);  // [2]
+  // the block's radius, as float bits: tile n's atomics go to red[(n+1)%3],
+  // read after the next barrier; red[(n+2)%3] is cleared meanwhile
+  int* red = reinterpret_cast<int*>(full + 2);  // [3]
 
   const int b = blockIdx.x;
-  const int r0 = blockIdx.y * rows_per_block;
-  const int nrows = min(rows_per_block, s_q - r0);
   const int tid = threadIdx.x;
-  const long long row0 = (long long)b * s_q + r0;
-  const long long base = row0 * k;
-
-  // this block's rows are contiguous in global memory: coalesced staging
-  for (int e = tid; e < nrows * k; e += bd) {
-    const int r = e / k;
-    const int j = e - r * k;
-    cd2[j * bd + r] = d2[base + e];
-    cidx[j * bd + r] = idx[base + e];
-  }
-  bool valid = false;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (tid < nrows) {
-    const long long row = row0 + tid;
-    valid = q_ids[row] >= 0;
-    qx = q_pts[row * 3 + 0];
-    qy = q_pts[row * 3 + 1];
-    qz = q_pts[row * 3 + 2];
-  }
-  __syncthreads();
-  float kth = valid ? cd2[(k - 1) * bd + tid] : -CUDART_INF_F;
-  float worst = block_max(kth, warp_buf);
-
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int own = b / self_group;
   const int* ord = order + (long long)b * num_pb;
   const float* bx = boxd2 + (long long)b * num_pb;
-  int nvis = 0;
-  for (int v = 0; v < num_pb; ++v) {
-    // ascending box d2 and a radius that only shrinks: nothing later can
-    // be adopted either
-    if (!(bx[v] < worst)) break;
-    const int pb = ord[v];
-    if (skip_self && pb == own) continue;
-    const float* pp = p_pts + (long long)pb * t_p * 3;
-    const int* pid = p_ids + (long long)pb * t_p;
-    for (int l0 = 0; l0 < t_p; l0 += tile_lanes) {
-      const int nl = min(tile_lanes, t_p - l0);
-      __syncthreads();  // every thread is done with the previous tile
-      for (int l = tid; l < nl; l += bd) {
-        const float* p = pp + (long long)(l0 + l) * 3;
-        tile[l] = make_float4(p[0], p[1], p[2], __int_as_float(pid[l0 + l]));
-      }
-      __syncthreads();
-      if (valid) {
-#pragma unroll 4
-        for (int l = 0; l < nl; ++l) {
-          const float4 p = tile[l];
-          const float dx = __fsub_rn(qx, p.x);
-          const float dy = __fsub_rn(qy, p.y);
-          const float dz = __fsub_rn(qz, p.z);
-          const float dd = __fadd_rn(
-              __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-              __fmul_rn(dz, dz));
-          if (dd < kth) {
-            // sorted insert after every entry <= dd; the old k-th drops
-            int j = k - 1;
-            while (j > 0) {
-              const float prev = cd2[(j - 1) * bd + tid];
-              if (prev <= dd) break;
-              cd2[j * bd + tid] = prev;
-              cidx[j * bd + tid] = cidx[(j - 1) * bd + tid];
-              --j;
-            }
-            cd2[j * bd + tid] = dd;
-            cidx[j * bd + tid] = __float_as_int(p.w);
-            kth = cd2[(k - 1) * bd + tid];
-          }
-        }
-      }
-    }
-    ++nvis;
-    worst = block_max(valid ? kth : -CUDART_INF_F, warp_buf);
+  const int pieces = (t_pad + tile_lanes - 1) / tile_lanes;
+  // the schedule position after v that the walk scores (skip_self masks
+  // the own bucket out)
+  auto next_pos = [&](int v) {
+    ++v;
+    while (v < num_pb && skip_self && ord[v] == own) ++v;
+    return v;
+  };
+  // tile n of the walk (piece c of the bucket at position v) goes to
+  // buffer n & 1 and completes on full[n & 1]
+  auto issue = [&](int v, int c, int n) {
+    const int l0 = c * tile_lanes;
+    const uint32_t bytes = (uint32_t)min(tile_lanes, t_pad - l0) * 16u;
+    knn::mbar_expect_tx(full + (n & 1), bytes);
+    knn::bulk_load(tiles + (n & 1) * tile_lanes,
+                   p4 + (long long)ord[v] * t_pad + l0, bytes, full + (n & 1));
+  };
+  if (tid == 0) {
+    knn::mbar_init(full, 1);
+    knn::mbar_init(full + 1, 1);
+    red[0] = red[1] = red[2] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  for (int e = tid; e < nrows * k; e += bd) {
-    const int r = e / k;
-    const int j = e - r * k;
-    d2[base + e] = cd2[j * bd + r];
-    idx[base + e] = cidx[j * bd + r];
+  int v = next_pos(-1);
+  if (tid == 0 && v < num_pb) issue(v, 0, 0);
+
+  const int r0 = blockIdx.y * rows + warp * kWarpRows;  // in the bucket
+  const long long row0 = (long long)b * s_q + r0;
+  float* wd2 = rd2 + warp * kWarpRows * S * 32;
+  int* widx = ridx + warp * kWarpRows * S * 32;
+  const int kth_at = ((k - 1) % S) * 32 + (k - 1) / S;
+  bool valid[kWarpRows];
+  knn::WarpQueries wq;
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) {
+    const long long row = row0 + r;
+    valid[r] = r0 + r < s_q && q_ids[row] >= 0;
+    wq.x[r] = valid[r] ? q_pts[row * 3 + 0] : 0.f;
+    wq.y[r] = valid[r] ? q_pts[row * 3 + 1] : 0.f;
+    wq.z[r] = valid[r] ? q_pts[row * 3 + 2] : 0.f;
   }
+  knn::load_warp_rows<S>(d2, idx, row0, valid, wd2, widx, k, kth_at, wq);
+  // the largest k-th d2 of the warp's rows, as float bits (0 when none
+  // folds: no box d2 is below it)
+  auto radius_bits = [&]() {
+    float m = 0.f;
+#pragma unroll
+    for (int r = 0; r < kWarpRows; ++r) m = fmaxf(m, wq.kth[r]);
+    return __float_as_int(m);
+  };
+  if (lane == 0) atomicMax(red, radius_bits());
+
+  int n = 0;  // tiles scored
+  int c = 0;  // piece of the bucket at position v
+  int nvis = 0;
+  while (v < num_pb) {
+    // every warp is done with tile n-1 (its buffer is free) and has added
+    // its radius to red[n % 3]
+    __syncthreads();
+    const float worst = __int_as_float(red[n % 3]);
+    if (tid == 0) red[(n + 2) % 3] = 0;
+    // ascending box d2 and a radius that only shrinks: nothing later can
+    // be adopted either
+    if (c == 0 && !(bx[v] < worst)) break;
+    int vn = v, cn = c + 1;
+    if (cn == pieces) {
+      vn = next_pos(v);
+      cn = 0;
+    }
+    if (tid == 0 && vn < num_pb) issue(vn, cn, n + 1);
+    knn::mbar_wait(full + (n & 1), (n >> 1) & 1);
+    knn::fold_tile<S>(tiles + (n & 1) * tile_lanes,
+                      min(tile_lanes, t_pad - c * tile_lanes), wq, wd2, widx,
+                      k, kth_at);
+    if (lane == 0) atomicMax(red + (n + 1) % 3, radius_bits());
+    if (cn == 0) ++nvis;
+    v = vn;
+    c = cn;
+    ++n;
+  }
+  // the walk stopped at a bucket whose first tile was already copied: it
+  // lands before the block exits
+  if (tid == 0 && v < num_pb) knn::mbar_wait(full + (n & 1), (n >> 1) & 1);
+  knn::store_warp_rows<S>(d2, idx, row0, valid, wd2, widx, k);
   if (tid == 0 && nvis) atomicMax(visits + b, nvis);
 }
 
@@ -594,22 +628,70 @@ extern "C" int knn_tiled_nd_launch(
   return (int)cudaGetLastError();
 }
 
-// Launches on `stream`; returns the CUDA error code of the launch (0 = ok).
-extern "C" int knn_tiled_launch(
-    const int* order, const float* boxd2, const float* q_pts,
-    const int* q_ids, const float* p_pts, const int* p_ids, float* d2,
-    int* idx, int* visits, int num_qb, int s_q, int num_pb, int t_p, int k,
-    int skip_self, int self_group, int rows_per_block, int threads,
-    int tile_lanes, void* stream) {
-  const size_t smem = (size_t)tile_lanes * sizeof(float4) +
-                      (size_t)k * threads * (sizeof(float) + sizeof(int));
+namespace {
+
+template <int S>
+int tiled_d3_launch(const int* order, const float* boxd2, const float* q_pts,
+                    const int* q_ids, const float4* p4, float* d2, int* idx,
+                    int* visits, int num_qb, int s_q, int num_pb, int t_pad,
+                    int k, int skip_self, int self_group, int threads,
+                    int tile_lanes, size_t smem, cudaStream_t stream) {
+  const int rows = threads / 32 * knn::kWarpRows;
   cudaError_t err = cudaFuncSetAttribute(
-      knn_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      knn_tiled_d3_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(num_qb, (s_q + rows_per_block - 1) / rows_per_block);
-  knn_tiled_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      order, boxd2, q_pts, q_ids, p_pts, p_ids, d2, idx, visits, s_q, num_pb,
-      t_p, k, skip_self, self_group, rows_per_block, tile_lanes);
+  const dim3 grid(num_qb, (s_q + rows - 1) / rows);
+  knn_tiled_d3_kernel<S><<<grid, threads, smem, stream>>>(
+      order, boxd2, q_pts, q_ids, p4, d2, idx, visits, s_q, num_pb, t_pad, k,
+      skip_self, self_group, tile_lanes);
   return (int)cudaGetLastError();
+}
+
+template <int S>
+int tiled_d3_blocks_per_sm(int threads, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_tiled_d3_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, knn_tiled_d3_kernel<S>, threads, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+}  // namespace
+
+// Launches knn_tiled_d3_kernel on `stream` with the plan of ops/knn_tiled.py
+// tiled_launch_plan: `slots` a lane for a row of k (d3_slots), `threads` a
+// block (4 query rows a warp), point buckets of t_pad lanes (a multiple of
+// 256) staged in tiles of `tile_lanes` (a multiple of 256), `smem` bytes of
+// dynamic shared memory (d3_smem_bytes). Returns the CUDA error code of the
+// launch (0 = ok), or cudaErrorInvalidValue for a shape it does not take.
+extern "C" int knn_tiled_launch(
+    const int* order, const float* boxd2, const float* q_pts,
+    const int* q_ids, const float* p4, float* d2, int* idx, int* visits,
+    int num_qb, int s_q, int num_pb, int t_pad, int k, int skip_self,
+    int self_group, int slots, int threads, int tile_lanes, int smem,
+    void* stream) {
+  if (threads % 32 || threads > knn::kD3MaxThreads ||
+      tile_lanes % knn::kChunkLanes || t_pad % knn::kChunkLanes || k < 1 ||
+      k > 32 * slots)
+    return (int)cudaErrorInvalidValue;
+  const float4* p = reinterpret_cast<const float4*>(p4);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return knn::with_d3_slots(slots, (int)cudaErrorInvalidValue, [&](auto s) {
+    return tiled_d3_launch<decltype(s)::value>(
+        order, boxd2, q_pts, q_ids, p, d2, idx, visits, num_qb, s_q, num_pb,
+        t_pad, k, skip_self, self_group, threads, tile_lanes, (size_t)smem,
+        st);
+  });
+}
+
+// Blocks of knn_tiled_d3_kernel an SM holds at this plan
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a CUDA error.
+extern "C" int knn_tiled_blocks_per_sm(int slots, int threads, int smem) {
+  return knn::with_d3_slots(slots, -(int)cudaErrorInvalidValue, [&](auto s) {
+    return tiled_d3_blocks_per_sm<decltype(s)::value>(threads, (size_t)smem);
+  });
 }

@@ -11,7 +11,8 @@ sorted top-k row — strict-< adoption, each adopted point inserted after
 every equal entry, so existing entries win ties, then lower point rows.
 
 - ``knn_update_bf_cuda`` is the entry point: on a CUDA tensor it launches
-  ``csrc/knn_bf.cu`` (its D=3 specialisation or its general-D kernel) or
+  ``csrc/knn_bf.cu`` (``knn_bf_d3_kernel``, the warp fold of
+  ``csrc/knn_rows.cuh``, at D=3; ``knn_bf_nd_kernel`` at other D) or
   raises, on a CPU tensor it runs ``knn_update_bf_plain``.
 - ``knn_update_bf_plain`` follows the JAX package's
   ``ops/brute_force.py`` ``knn_update_bruteforce``: [query_tile,
@@ -37,15 +38,18 @@ from mpi_cuda_largescaleknn_torch.core.types import CandidateState
 from mpi_cuda_largescaleknn_torch.ops.candidates import merge_candidates
 from mpi_cuda_largescaleknn_torch.ops.distance import elementwise_dist2
 from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+    CHUNK_LANES,
     ND_MAX_THREADS,
     ND_TILE_BYTES,
     SMEM_OPTIN,
     component_major,
+    d3_block,
+    d3_lanes,
+    d3_slots,
+    d3_smem_bytes,
+    d3_tile_lanes,
 )
 from mpi_cuda_largescaleknn_torch.utils.math import round_up
-
-#: point lanes staged in shared memory at once (16 B each) at D=3
-MAX_TILE_LANES = 2048
 
 
 def knn_update_bf_plain(state: CandidateState, queries: torch.Tensor,
@@ -80,25 +84,24 @@ def knn_update_bf_plain(state: CandidateState, queries: torch.Tensor,
 
 def launch_geometry(query_tile: int, point_tile: int, k: int,
                     dim: int = 3) -> tuple[int, int]:
-    """(rows per block = threads, staged lanes): ``query_tile`` rows a
-    block, rounded up to whole warps, and ``point_tile`` lanes a staged
-    tile, each clamped to what 1024 threads and shared memory allow (the
-    candidate columns take 8 bytes a slot, the tile 16 bytes a lane at
-    D=3; at other D ``16 * ceil(D/4) + 4`` bytes a lane, in tiles of a
-    multiple of 32 lanes within ``ND_TILE_BYTES``, and at most
-    ``ND_MAX_THREADS`` rows)."""
+    """(rows per block, staged lanes). At D=3 (``knn_bf_d3_kernel``)
+    ``query_tile`` rows a block in warps of 4 (``d3_block``: at most 16
+    warps, fewer where two blocks would not fit on an SM) and tiles of
+    ``point_tile`` lanes rounded up to whole 256-lane chunks, at most 1024
+    (``d3_tile_lanes``); a block has 8 threads a row. At other D
+    (``knn_bf_nd_kernel``, one thread a row) ``query_tile`` rows rounded up
+    to whole warps and ``point_tile`` lanes, each clamped to what shared
+    memory allows (the candidate columns take 8 bytes a slot, a lane
+    ``16 * ceil(D/4) + 4`` bytes, in tiles of a multiple of 32 lanes
+    within ``ND_TILE_BYTES``), at most ``ND_MAX_THREADS`` rows."""
     if dim == 3:
-        lanes = max(1, min(point_tile, MAX_TILE_LANES))
-        tile_bytes = 16 * lanes
-        max_threads = 1024
-    else:
-        lane_bytes = 16 * -(-dim // 4) + 4
-        lanes = min(round_up(max(point_tile, 1), 32),
-                    max(32, ND_TILE_BYTES // lane_bytes // 32 * 32))
-        tile_bytes = lane_bytes * lanes
-        max_threads = ND_MAX_THREADS
-    budget = SMEM_OPTIN - 1024 - tile_bytes
-    cap = min(max_threads, budget // (8 * k) // 32 * 32)
+        lanes = d3_tile_lanes(point_tile)
+        return d3_block(query_tile, lanes, k)[0], lanes
+    lane_bytes = 16 * -(-dim // 4) + 4
+    lanes = min(round_up(max(point_tile, 1), 32),
+                max(32, ND_TILE_BYTES // lane_bytes // 32 * 32))
+    budget = SMEM_OPTIN - 1024 - lane_bytes * lanes
+    cap = min(ND_MAX_THREADS, budget // (8 * k) // 32 * 32)
     if cap < 32:
         raise NotImplementedError(
             f"k={k}, D={dim}: 32 candidate rows no longer fit in shared "
@@ -166,46 +169,74 @@ def launch_knn_bf(queries: torch.Tensor, points: torch.Tensor,
                   query_tile: int = 2048, point_tile: int = 2048) -> None:
     """Launch the kernel on PyTorch's current stream, folding ``points``
     into ``rows`` IN PLACE (contiguous CUDA rows, inputs as checked by
-    ``knn_update_bf_cuda``). Counts one launch in
-    ``knn_update_bf_cuda.launches``."""
+    ``knn_update_bf_cuda``). The D=3 kernel gets the points as
+    ``d3_lanes`` padded to whole 256-lane chunks. Counts one launch in
+    ``knn_update_bf_cuda.launches``, and the D=3 kernel's also in
+    ``d3_launches``."""
     num_q, k = rows.dist2.shape
     dim = queries.shape[-1]
     if not (rows.dist2.is_contiguous() and rows.idx.is_contiguous()):
         raise ValueError("rows must be contiguous")
-    threads, lanes = launch_geometry(query_tile, point_tile, k, dim)
+    block_rows, lanes = launch_geometry(query_tile, point_tile, k, dim)
     p, pid = points.contiguous(), point_ids.contiguous()
     lib = _library()
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream().cuda_stream
         if dim == 3:
             q = queries.contiguous()
-            err = lib.knn_bf_launch(q.data_ptr(), p.data_ptr(),
-                                    pid.data_ptr(), rows.dist2.data_ptr(),
-                                    rows.idx.data_ptr(), num_q, p.shape[0],
-                                    k, threads, lanes, stream)
+            np_pad = round_up(p.shape[0], CHUNK_LANES)
+            p4 = d3_lanes(p, pid, np_pad)
+            err = lib.knn_bf_launch(q.data_ptr(), p4.data_ptr(),
+                                    rows.dist2.data_ptr(),
+                                    rows.idx.data_ptr(), num_q, np_pad, k,
+                                    d3_slots(k), 8 * block_rows, lanes,
+                                    d3_smem_bytes(block_rows, lanes, k),
+                                    stream)
         else:
             q_t = component_major(queries)
             err = lib.knn_bf_nd_launch(q_t.data_ptr(), p.data_ptr(),
                                        pid.data_ptr(), rows.dist2.data_ptr(),
                                        rows.idx.data_ptr(), num_q,
-                                       p.shape[0], dim, k, threads, lanes,
+                                       p.shape[0], dim, k, block_rows, lanes,
                                        stream)
     if err:
         raise RuntimeError(f"knn_bf kernel launch failed: CUDA error {err}")
     knn_update_bf_cuda.launches += 1
+    knn_update_bf_cuda.d3_launches += int(dim == 3)
 
 
-#: kernel launches made by this process (read by chip_smoke.py and the CLIs)
+def resident_warps(k: int, query_tile: int = 2048,
+                   point_tile: int = 2048) -> int:
+    """Warps of ``knn_bf_d3_kernel`` an SM holds at the plan for these
+    knobs, as the card reports it (cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+    builds the library)."""
+    rows, lanes = launch_geometry(query_tile, point_tile, k)
+    blocks = _library().knn_bf_blocks_per_sm(
+        d3_slots(k), 8 * rows, d3_smem_bytes(rows, lanes, k))
+    if blocks < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-blocks}")
+    return blocks * rows // 4
+
+
+#: kernel launches made by this process (read by chip_smoke.py and the
+#: CLIs): ``launches`` of csrc/knn_bf.cu, ``d3_launches`` of those that
+#: went to its D=3 kernel
 knn_update_bf_cuda.launches = 0
+knn_update_bf_cuda.d3_launches = 0
 
 
 def _library() -> ctypes.CDLL:
     from mpi_cuda_largescaleknn_torch.utils.cuda_build import load_library
 
     lib = load_library("knn_bf")
-    for fn, ints in ((lib.knn_bf_launch, 5), (lib.knn_bf_nd_launch, 6)):
+    # launcher: (pointers, ints), each followed by the stream
+    for fn, ptrs, ints in ((lib.knn_bf_launch, 4, 7),
+                           (lib.knn_bf_nd_launch, 5, 6)):
         if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * ints \
+            fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints \
                 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+    if lib.knn_bf_blocks_per_sm.argtypes is None:
+        lib.knn_bf_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        lib.knn_bf_blocks_per_sm.restype = ctypes.c_int
     return lib

@@ -15,9 +15,10 @@ started with their own bucket, ``ops/tiled.py``).
 - ``knn_update_tiled_cuda`` is the entry point: on a CUDA tensor it
   launches a kernel (or raises), on a CPU tensor it runs
   ``knn_update_tiled_plain``. In f32 the kernel is one of
-  ``csrc/knn_tiled.cu``, named by ``tiled_launch_plan``: its D=3
-  specialisation, ``knn_tiled_nd_ring_kernel`` (a ring of bulk-copied
-  chunks) up to Dp4 = ``RING_MAX_DP4``, ``knn_tiled_nd_kernel`` above; with
+  ``csrc/knn_tiled.cu``, named by ``tiled_launch_plan``:
+  ``knn_tiled_d3_kernel`` at D=3 (the warp fold of ``csrc/knn_rows.cuh``),
+  ``knn_tiled_nd_ring_kernel`` (a ring of bulk-copied chunks) up to Dp4 =
+  ``RING_MAX_DP4``, ``knn_tiled_nd_kernel`` above; with
   ``score_dtype="bf16"`` at D >= ``mxu_min_dim()`` it is one of
   ``csrc/knn_tiled_mxu.cu``, the TPU kernel's ``score_mxu`` branch, routed
   by Dp (D rounded up to 16): ``knn_tiled_wgmma_kernel`` up to
@@ -77,10 +78,27 @@ from mpi_cuda_largescaleknn_torch.ops.partition import (
 )
 from mpi_cuda_largescaleknn_torch.utils.math import round_up
 
-#: shared memory one block may opt into on sm_90 (227 KB)
+#: shared memory one block may opt into on sm_90 (227 KB), and an SM's
+#: (228 KB, of which each resident block takes 1 KB for the system)
 SMEM_OPTIN = 232_448
-#: point lanes staged in shared memory at once (16 B each) at D=3
-MAX_TILE_LANES = 1024
+SMEM_SM = 233_472
+#: the D=3 kernels (csrc/knn_rows.cuh, the warp fold): a warp folds
+#: WARP_ROWS query rows, scoring chunks of CHUNK_LANES point lanes staged as
+#: float4 in tiles of at most D3_MAX_TILE_LANES, two tiles at once; a block
+#: has at most D3_MAX_WARPS warps of at most D3_REGS registers a thread
+#: (__launch_bounds__(512, 2)); a row keeps d3_slots(k) slots a lane, and
+#: k is at most D3_MAX_K: the largest k the first D=3 kernels took (8 bytes
+#: a slot beside one 16-byte lane, (SMEM_OPTIN - 1024 - 16) // 256), in
+#: the instance of 32 slots a lane
+WARP_ROWS = 4
+CHUNK_LANES = 256
+D3_MAX_TILE_LANES = 1024
+D3_MAX_WARPS = 16
+D3_REGS = 64
+D3_MAX_K = 903
+#: warps of a traversal block at D=3: 32 rows, so a bucket of S=248 rows
+#: splits over 8 blocks that prune on their own rows
+D3_TILED_WARPS = 8
 #: shared memory of the general-D kernels' staged point tile
 ND_TILE_BYTES = 96 * 1024
 #: threads a block of the general-D kernels may have: their ~72 registers
@@ -174,8 +192,8 @@ def knn_update_tiled_plain(state: CandidateState, q: BucketedPoints,
     query bucket's j-th nearest point bucket, keeps it where its box d2 is
     below the bucket's radius (and it is not the skipped own bucket),
     scores it (exactly, or by the matmul form under bf16) and
-    stable-merges it into the rows. With ``with_stats`` also returns the
-    summed visit count."""
+    stable-merges it into the rows. With ``with_stats`` also returns each
+    query bucket's visit count (i64[Bq])."""
     num_qb, s_q = q.ids.shape
     num_pb, t_p = p.ids.shape
     k = state.dist2.shape[1]
@@ -192,7 +210,7 @@ def knn_update_tiled_plain(state: CandidateState, q: BucketedPoints,
     hd2 = state.dist2.reshape(num_qb, s_q, kk).clone()
     hidx = state.idx.reshape(num_qb, s_q, kk).clone()
     own = torch.arange(num_qb, device=dev) // self_group
-    visits = torch.zeros((), dtype=torch.int64, device=dev)
+    visits = torch.zeros(num_qb, dtype=torch.int64, device=dev)
     for step in range(num_pb):
         live = sorted_d2[:, step] < _worst2(hd2, qvalid)
         if not bool(live.any()):
@@ -219,7 +237,7 @@ def knn_update_tiled_plain(state: CandidateState, q: BucketedPoints,
             hd2[sel].reshape(a * s_q, kk), hidx[sel].reshape(a * s_q, kk))
         hd2[sel] = st.dist2.view(a, s_q, kk)
         hidx[sel] = st.idx.view(a, s_q, kk)
-        visits += a
+        visits[sel] += 1
     out = CandidateState(hd2.view(num_qb * s_q, kk),
                          hidx.view(num_qb * s_q, kk))
     if mxu:
@@ -227,25 +245,88 @@ def knn_update_tiled_plain(state: CandidateState, q: BucketedPoints,
     return (out, visits) if with_stats else out
 
 
+def d3_slots(k: int) -> int:
+    """Slots a lane holds for a row of ``k`` entries in the warp fold: a
+    power of two >= k/32 (the kernels have an instance for each, and the
+    launchers take it from here)."""
+    s = 1
+    while 32 * s < k:
+        s *= 2
+    return s
+
+
+def d3_smem_bytes(rows: int, lanes: int, k: int) -> int:
+    """Dynamic shared memory of a D=3 kernel's block, as the launchers get
+    it: two staged tiles of ``lanes`` float4, ``rows`` candidate rows of
+    32 * d3_slots(k) slots (d2 and id), and 32 bytes of mbarriers and
+    radius slots."""
+    return 2 * 16 * lanes + rows * d3_slots(k) * 32 * 8 + 32
+
+
+def d3_blocks_per_sm(threads: int, smem: int) -> int:
+    """Blocks of a D=3 kernel an SM can hold: the least of its 64 warps,
+    its 65,536 registers at ``D3_REGS`` a thread, and its shared memory."""
+    return min(2048 // threads, 65_536 // (threads * D3_REGS),
+               SMEM_SM // (smem + 1024))
+
+
+def d3_block(rows: int, lanes: int, k: int) -> tuple[int, int]:
+    """(rows per block, threads) of a D=3 kernel: ``WARP_ROWS`` rows a
+    warp, as many warps as ``rows`` asks for up to ``D3_MAX_WARPS``, fewer
+    where two blocks would no longer fit on an SM. Raises above
+    ``D3_MAX_K``."""
+    if not 1 <= k <= D3_MAX_K:
+        raise NotImplementedError(
+            f"k={k}, D=3: the warp fold holds at most {D3_MAX_K} entries a "
+            "row (larger k: ROADMAP.md Queue 2)")
+    warps = max(1, min(D3_MAX_WARPS, -(-rows // WARP_ROWS)))
+    while warps > 1 and d3_blocks_per_sm(
+            32 * warps, d3_smem_bytes(WARP_ROWS * warps, lanes, k)) < 2:
+        warps -= 1
+    return WARP_ROWS * warps, 32 * warps
+
+
+def d3_tile_lanes(lanes: int) -> int:
+    """Lanes of a D=3 kernel's staged tile for ``lanes`` asked for: whole
+    chunks, at most ``D3_MAX_TILE_LANES``."""
+    return min(round_up(max(lanes, 1), CHUNK_LANES), D3_MAX_TILE_LANES)
+
+
+def d3_lanes(pts: torch.Tensor, ids: torch.Tensor,
+             n_pad: int) -> torch.Tensor:
+    """f32[..., N, 3] points and their i32[..., N] ids -> f32[..., n_pad, 4]
+    contiguous: the D=3 kernels' staged lanes {x, y, z, id bits}. Lanes past
+    N are NaN with id -1: their d2 is NaN, which no compare adopts."""
+    n = pts.shape[-2]
+    out = torch.full((*pts.shape[:-2], n_pad, 4), float("nan"),
+                     dtype=torch.float32, device=pts.device)
+    out[..., :n, :3] = pts
+    bits = out.view(torch.int32)
+    bits[..., 3] = -1
+    bits[..., :n, 3] = ids
+    return out
+
+
 def launch_geometry(s_q: int, t_p: int, k: int,
                     dim: int = 3) -> tuple[int, int, int]:
     """(rows per block, threads per block, staged lanes) of the f32
-    kernels: one thread per query row, as many rows per block as the
-    [k, threads] candidate columns leave shared memory for (all S rows up
-    to k=100 at S=248 and D=3). At D=3 a lane takes 16 bytes; at other D
-    ``16 * ceil(D/4) + 4`` bytes, in tiles of a multiple of 32 lanes
-    within ``ND_TILE_BYTES``, and a block has at most ``ND_MAX_THREADS``
-    threads."""
+    kernels. At D=3 (``knn_tiled_d3_kernel``) ``D3_TILED_WARPS`` warps of 4
+    rows (``d3_block``) and tiles of whole 256-lane chunks of the bucket
+    padded to a multiple of 256 lanes. At other D (``knn_tiled_nd_kernel``)
+    one thread per query row, as many rows per block as the [k, threads]
+    candidate columns leave shared memory for, a lane taking
+    ``16 * ceil(D/4) + 4`` bytes, in tiles of a multiple of 32 lanes within
+    ``ND_TILE_BYTES``, and at most ``ND_MAX_THREADS`` threads."""
     if dim == 3:
-        tile_lanes = min(t_p, MAX_TILE_LANES)
-        tile_bytes = 16 * tile_lanes
-        max_threads = 1024
-    else:
-        lane_bytes = 16 * -(-dim // 4) + 4
-        tile_lanes = min(round_up(t_p, 32),
-                         max(32, ND_TILE_BYTES // lane_bytes // 32 * 32))
-        tile_bytes = lane_bytes * tile_lanes
-        max_threads = ND_MAX_THREADS
+        lanes = d3_tile_lanes(t_p)
+        rows, threads = d3_block(min(s_q, WARP_ROWS * D3_TILED_WARPS),
+                                 lanes, k)
+        return rows, threads, lanes
+    lane_bytes = 16 * -(-dim // 4) + 4
+    tile_lanes = min(round_up(t_p, 32),
+                     max(32, ND_TILE_BYTES // lane_bytes // 32 * 32))
+    tile_bytes = lane_bytes * tile_lanes
+    max_threads = ND_MAX_THREADS
     budget = SMEM_OPTIN - 1024 - tile_bytes
     cap = min(max_threads, budget // (8 * k) // 32 * 32)
     if cap < 32:
@@ -272,13 +353,13 @@ RING_MAX_DP4 = 224
 
 class TiledPlan(NamedTuple):
     """How an f32 traversal launches: ``kernel`` is "d3"
-    (``knn_tiled_kernel``), "ring" (``knn_tiled_nd_ring_kernel``) or "nd"
-    (``knn_tiled_nd_kernel``); ``rows`` query rows a block; ``lanes``
+    (``knn_tiled_d3_kernel``), "ring" (``knn_tiled_nd_ring_kernel``) or
+    "nd" (``knn_tiled_nd_kernel``); ``rows`` query rows a block; ``lanes``
     point lanes a staged tile or chunk; ``threads`` a block; ``dp4`` the
-    components padded to 4; ``stages`` of the ring (1 for the others);
-    ``rows_in_smem``: whether the candidate rows sit in shared memory
-    (else in place in device memory); ``smem`` bytes of the ring kernel's
-    dynamic shared memory (0 for the others, whose launchers size it)."""
+    components padded to 4; ``stages`` of staged tiles in flight (the ring's
+    stages, 2 at D=3, 1 for "nd"); ``rows_in_smem``: whether the candidate
+    rows sit in shared memory (else in place in device memory); ``smem``
+    bytes of dynamic shared memory (0 for "nd", whose launcher sizes it)."""
     kernel: str
     rows: int
     lanes: int
@@ -301,7 +382,8 @@ def ring_smem_bytes(dp4: int, k: int, stages: int,
 def tiled_launch_plan(s_q: int, t_p: int, k: int, dim: int) -> TiledPlan:
     """The f32 kernel and its plan, by D and Dp4 = D rounded up to 4.
 
-    D=3 takes ``knn_tiled_kernel``. Other D up to ``RING_MAX_DP4`` take the
+    D=3 takes ``knn_tiled_d3_kernel`` (``launch_geometry``'s block, two
+    tiles in flight). Other D up to ``RING_MAX_DP4`` take the
     ring kernel: 128 rows a block, 64-lane chunks, the candidate rows in
     shared memory where they fit beside a ring of 3 stages, else of 2, and
     otherwise in device memory with the ring as deep as fits. Above it
@@ -316,8 +398,22 @@ def tiled_launch_plan(s_q: int, t_p: int, k: int, dim: int) -> TiledPlan:
                                      RING_THREADS, dp4, stages,
                                      rows_in_smem, smem)
     rows, threads, lanes = launch_geometry(s_q, t_p, k, dim)
-    return TiledPlan("d3" if dim == 3 else "nd", rows, lanes, threads, dp4,
-                     1, True, 0)
+    if dim == 3:
+        return TiledPlan("d3", rows, lanes, threads, dp4, 2, True,
+                         d3_smem_bytes(rows, lanes, k))
+    return TiledPlan("nd", rows, lanes, threads, dp4, 1, True, 0)
+
+
+def d3_resident_warps(s_q: int, t_p: int, k: int) -> int:
+    """Warps of ``knn_tiled_d3_kernel`` an SM holds at the plan for these
+    shapes, as the card reports it (cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+    builds the library)."""
+    plan = tiled_launch_plan(s_q, t_p, k, 3)
+    blocks = _library("knn_tiled").knn_tiled_blocks_per_sm(
+        d3_slots(k), plan.threads, plan.smem)
+    if blocks < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-blocks}")
+    return blocks * plan.threads // 32
 
 
 #: the wgmma kernel's block: 128 query rows (two consumer warpgroups of
@@ -420,7 +516,7 @@ def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
     """Fold every real point of ``p`` into ``state`` (module docstring).
     CPU tensors take ``knn_update_tiled_plain``; CUDA tensors launch a
     kernel or raise. Returns a new state (the input is not modified) and,
-    with ``with_stats``, the summed visit count as a device scalar."""
+    with ``with_stats``, each query bucket's visit count (i64[Bq])."""
     if q.pts.device.type == "cpu":
         return knn_update_tiled_plain(state, q, p, skip_self=skip_self,
                                       self_group=self_group,
@@ -443,7 +539,7 @@ def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
                              state.idx.contiguous().clone())
         visits = launch_knn_tiled(order, sorted_d2, q, p, out,
                                   skip_self=skip_self, self_group=self_group)
-    return (out, visits.sum()) if with_stats else out
+    return (out, visits.long()) if with_stats else out
 
 
 def _check_schedule(order, sorted_d2, q, p, rows) -> None:
@@ -490,10 +586,11 @@ def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
     current stream, folding ``p`` into ``rows`` IN PLACE along the visit
     schedule ``(order, sorted_d2)`` of ``nearest_first_order``. The ring
     kernel gets both sides in ``ring_layout`` (points padded to whole
-    chunks with ``PAD_SENTINEL`` lanes, never adopted). Returns the
-    per-query-bucket visit counts (i32[Bq]). Counts one launch in
+    chunks with ``PAD_SENTINEL`` lanes, never adopted); the D=3 kernel
+    gets the point buckets as ``d3_lanes`` padded to whole chunks. Returns
+    the per-query-bucket visit counts (i32[Bq]). Counts one launch in
     ``knn_update_tiled_cuda.launches``, and the ring kernel's also in
-    ``ring_launches``."""
+    ``ring_launches``, the D=3 kernel's in ``d3_launches``."""
     num_qb, s_q = q.ids.shape
     num_pb, t_p = p.ids.shape
     dim = q.pts.shape[-1]
@@ -507,12 +604,11 @@ def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
     lib = _library("knn_tiled")
     with torch.cuda.device(order.device):
         stream = torch.cuda.current_stream().cuda_stream
+        events = knn_update_tiled_cuda.layout_events
+        if events is not None and plan.kernel != "nd":
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            marks[0].record()
         if plan.kernel == "ring":
-            events = knn_update_tiled_cuda.ring_events
-            if events is not None:
-                marks = [torch.cuda.Event(enable_timing=True)
-                         for _ in range(3)]
-                marks[0].record()
             s_pad = round_up(s_q, plan.rows)
             t_pad = round_up(t_p, plan.lanes)
             q_ring = ring_layout(q.pts, s_pad, plan.rows, plan.dp4, 0.0)
@@ -527,32 +623,35 @@ def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
                 visits.data_ptr(), num_qb, s_q, s_pad, num_pb, t_p, t_pad,
                 plan.dp4, k, *flags, plan.stages, int(plan.rows_in_smem),
                 stream)
+        elif plan.kernel == "d3":
+            t_pad = round_up(t_p, CHUNK_LANES)
+            p4 = d3_lanes(p.pts, p_ids, t_pad)
+            q_pts = q.pts.contiguous()
             if events is not None:
-                marks[2].record()
-                events.append(marks)
+                marks[1].record()
+            err = lib.knn_tiled_launch(
+                order.data_ptr(), sorted_d2.data_ptr(), q_pts.data_ptr(),
+                q_ids.data_ptr(), p4.data_ptr(), rows.dist2.data_ptr(),
+                rows.idx.data_ptr(), visits.data_ptr(), num_qb, s_q, num_pb,
+                t_pad, k, *flags, d3_slots(k), plan.threads, plan.lanes,
+                plan.smem, stream)
         else:
-            p_pts = p.pts.contiguous()
-            args = (num_qb, s_q, num_pb, t_p)
-            geometry = (*flags, plan.rows, plan.threads, plan.lanes, stream)
-            if plan.kernel == "d3":
-                err = lib.knn_tiled_launch(
-                    order.data_ptr(), sorted_d2.data_ptr(),
-                    q.pts.contiguous().data_ptr(), q_ids.data_ptr(),
-                    p_pts.data_ptr(), p_ids.data_ptr(),
-                    rows.dist2.data_ptr(), rows.idx.data_ptr(),
-                    visits.data_ptr(), *args, k, *geometry)
-            else:
-                err = lib.knn_tiled_nd_launch(
-                    order.data_ptr(), sorted_d2.data_ptr(),
-                    component_major(q.pts).data_ptr(), q_ids.data_ptr(),
-                    p_pts.data_ptr(), p_ids.data_ptr(),
-                    rows.dist2.data_ptr(), rows.idx.data_ptr(),
-                    visits.data_ptr(), *args, dim, k, *geometry)
+            err = lib.knn_tiled_nd_launch(
+                order.data_ptr(), sorted_d2.data_ptr(),
+                component_major(q.pts).data_ptr(), q_ids.data_ptr(),
+                p.pts.contiguous().data_ptr(), p_ids.data_ptr(),
+                rows.dist2.data_ptr(), rows.idx.data_ptr(),
+                visits.data_ptr(), num_qb, s_q, num_pb, t_p, dim, k, *flags,
+                plan.rows, plan.threads, plan.lanes, stream)
+        if events is not None and plan.kernel != "nd":
+            marks[2].record()
+            events.append(marks)
     if err:
         raise RuntimeError(f"knn_tiled kernel launch failed ({plan.kernel} "
                            f"route): CUDA error {err}")
     knn_update_tiled_cuda.launches += 1
     knn_update_tiled_cuda.ring_launches += int(plan.kernel == "ring")
+    knn_update_tiled_cuda.d3_launches += int(plan.kernel == "d3")
     return visits
 
 
@@ -669,23 +768,27 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
 
 #: kernel launches made by this process (read by chip_smoke.py and the
 #: CLIs): ``launches`` of csrc/knn_tiled.cu (any route), ``ring_launches``
-#: of those that went to its ring kernel, ``mxu_launches`` of
+#: and ``d3_launches`` of those that went to its ring kernel and its D=3
+#: kernel, ``mxu_launches`` of
 #: csrc/knn_tiled_mxu.cu (either route), ``wgmma_launches`` of those that
 #: went to its wgmma kernel
 knn_update_tiled_cuda.launches = 0
 knn_update_tiled_cuda.ring_launches = 0
+knn_update_tiled_cuda.d3_launches = 0
 knn_update_tiled_cuda.mxu_launches = 0
 knn_update_tiled_cuda.wgmma_launches = 0
-#: None, or a list to which every bf16 launch (``mxu_events``) or ring
-#: kernel launch (``ring_events``) appends three recorded CUDA events:
-#: before its preparation (bf16: halves, norms; ring: the layouts), before
-#: the kernel and after it, so a caller can time the two apart
+#: None, or a list to which every bf16 launch (``mxu_events``) or ring or
+#: D=3 kernel launch (``layout_events``) appends three recorded CUDA
+#: events: before its preparation (bf16: halves, norms; ring: the layouts;
+#: D=3: ``d3_lanes``), before the kernel and after it, so a caller can time
+#: the two apart
 knn_update_tiled_cuda.mxu_events = None
-knn_update_tiled_cuda.ring_events = None
+knn_update_tiled_cuda.layout_events = None
 
 #: per library, its launchers' arguments: p = pointer, i = int
 _SIGNATURES = {
-    "knn_tiled": {"knn_tiled_launch": 9 * "p" + 10 * "i" + "p",
+    "knn_tiled": {"knn_tiled_launch": 8 * "p" + 11 * "i" + "p",
+                  "knn_tiled_blocks_per_sm": "iii",
                   "knn_tiled_nd_launch": 9 * "p" + 11 * "i" + "p",
                   "knn_tiled_nd_ring_launch": 9 * "p" + 12 * "i" + "p"},
     "knn_tiled_mxu": {"knn_tiled_mxu_launch": 14 * "p" + 12 * "i" + "p",

@@ -176,7 +176,7 @@ def ring_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
                                                 self_group=group,
                                                 with_stats=True,
                                                 score_dtype=score_dtype)
-            visits = visits + v
+            visits = visits + v.sum()
 
     with timed_stage(timers, "traverse", pts.device):
         for rnd in range(total_rounds):

@@ -13,10 +13,15 @@ import torch
 
 from mpi_cuda_largescaleknn_torch.ops import candidates as tcand
 from mpi_cuda_largescaleknn_torch.ops import knn_bf as tb
+from mpi_cuda_largescaleknn_torch.ops import knn_tiled as tk
 from mpi_cuda_largescaleknn_tpu.core.types import pad_points
 from mpi_cuda_largescaleknn_tpu.ops.candidates import init_candidates
 from mpi_cuda_largescaleknn_tpu.ops.pallas.knn_bf import knn_update_pallas
 from tests.oracle import kth_nn_dist, random_points
+from tests.test_torch_knn_tiled import (
+    CONTRACT_K,
+    k_smallest_by_d2_then_arrival,
+)
 from tests.test_torch_ops import assert_bitwise, points
 
 
@@ -53,6 +58,10 @@ CASES = {
     "clustered_k33": ("clustered", 280, None, 33, math.inf, 3),
     "self_n300_k100": ("uniform", 300, None, 100, math.inf, 3),
     "radius_k64": ("uniform", 280, None, 64, 0.2, 3),
+    # a row of 32 / 33 entries: one lane slot, then two, in the D=3 warp
+    # fold
+    "dupes_k32": ("dupes", 300, None, 32, math.inf, 3),
+    "dupes_k33": ("dupes", 300, None, 33, math.inf, 3),
     # points of other dimensions: the general-D kernel's plain version
     "d4_self_k8": ("uniform", 300, None, 8, math.inf, 4),
     "d4_q130_p400_k9_dupes": ("dupes", 130, 400, 9, math.inf, 4),
@@ -155,18 +164,53 @@ def test_empty_inputs_return_the_state():
     assert got is st
 
 
+@pytest.mark.parametrize("k", CONTRACT_K)
+def test_plain_is_k_smallest_by_d2_then_arrival(k):
+    """The flat plain version on integer-grid points (many exact ties)
+    equals the contract the D=3 kernel's warp fold is built on: the k
+    smallest by (d2, arrival) of the row as it came in (here the rows of a
+    first call, -r slots included) and the points in row order."""
+    rng = np.random.default_rng(200 + k)
+    pts = rng.integers(0, 5, (300, 3)).astype(np.float32)
+    q = pts[:90]
+    ids = np.arange(300, dtype=np.int32)
+    state = tcand.init_candidates(90, k, max_radius=2.0)
+    first = tb.knn_update_bf_plain(state, torch.from_numpy(q),
+                                   torch.from_numpy(pts[:120]),
+                                   torch.from_numpy(ids[:120]))
+    got = tb.knn_update_bf_plain(first, torch.from_numpy(q),
+                                 torch.from_numpy(pts[120:]),
+                                 torch.from_numpy(ids[120:]))
+    diff = q[:, None, :] - pts[None, 120:]
+    lane_d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]) \
+        + diff[..., 2] * diff[..., 2]
+    want_d2, want_idx = k_smallest_by_d2_then_arrival(
+        first.dist2.numpy(), first.idx.numpy(), lane_d2, ids[120:], k)
+    assert_bitwise(got.dist2.numpy(), want_d2)
+    assert_bitwise(got.idx.numpy(), want_idx)
+
+
 @pytest.mark.parametrize("query_tile,point_tile,k,want", [
-    (2048, 2048, 8, (1024, 2048)),
-    (2048, 2048, 100, (224, 2048)),
-    (2048, 2048, 200, (96, 2048)),
-    (96, 300, 100, (96, 300)),
-    (50, 5000, 1, (64, 2048)),
+    (2048, 2048, 8, (64, 1024)),
+    (2048, 2048, 100, (64, 1024)),
+    (2048, 2048, 200, (40, 1024)),
+    (96, 300, 100, (64, 512)),
+    (50, 5000, 1, (52, 1024)),
 ])
 def test_launch_geometry(query_tile, point_tile, k, want):
+    """D=3: warps of 4 query rows, at most 16 a block, fewer where two
+    blocks would not fit on an SM; tiles of whole 256-lane chunks, at most
+    1024 lanes. Two blocks fit in shared memory and in registers (64 a
+    thread, 8 threads a row): 32 warps resident at k=8 and k=100."""
     rows, lanes = tb.launch_geometry(query_tile, point_tile, k)
     assert (rows, lanes) == want
-    assert rows % 32 == 0 and rows <= 1024
-    assert 16 * lanes + 8 * k * rows <= tb.SMEM_OPTIN - 1024
+    assert rows % tk.WARP_ROWS == 0
+    assert rows <= tk.WARP_ROWS * tk.D3_MAX_WARPS
+    assert lanes % tk.CHUNK_LANES == 0 and lanes <= tk.D3_MAX_TILE_LANES
+    smem = tk.d3_smem_bytes(rows, lanes, k)
+    assert smem <= tb.SMEM_OPTIN - 1024
+    assert 2 * (smem + 1024) <= tk.SMEM_SM
+    assert 2 * 8 * rows * tk.D3_REGS <= 65_536
 
 
 @pytest.mark.parametrize("query_tile,point_tile,k,dim,want", [
@@ -196,7 +240,9 @@ def test_kernel_matches_plain_on_the_card(k):
     pts = torch.from_numpy(points("uniform", 20_000, seed=k)).cuda()
     state = tcand.init_candidates(20_000, k, device=pts.device)
     want = tb.knn_update_bf_plain(state, pts, pts)
+    before = tb.knn_update_bf_cuda.d3_launches
     got = tb.knn_update_bf_cuda(state, pts, pts)
     torch.cuda.synchronize()
+    assert tb.knn_update_bf_cuda.d3_launches == before + 1
     assert torch.equal(got.dist2, want.dist2)
     assert torch.equal(got.idx, want.idx)

@@ -66,6 +66,10 @@ CASES = {
     "k8_dupes_g2": ("dupes", 480, 8, 16, 2, math.inf, True, None, 3),
     "k13_dupes": ("dupes", 300, 13, 16, 1, math.inf, False, None, 3),
     "k100_dupes_g2": ("dupes", 500, 100, 32, 2, math.inf, True, None, 3),
+    # a row of 32 / 33 entries: one lane slot, then two, in the D=3 warp
+    # fold
+    "k32_dupes_g2": ("dupes", 480, 32, 32, 2, math.inf, True, None, 3),
+    "k33_dupes": ("dupes", 400, 33, 32, 1, math.inf, False, None, 3),
     # 5 real buckets of 8 with V=1/2/3: V=3 leaves a partial last chunk
     "v1": ("uniform", 5 * 16, 6, 16, 1, math.inf, False, 1, 3),
     "v2": ("uniform", 5 * 16, 6, 16, 1, math.inf, False, 2, 3),
@@ -184,28 +188,135 @@ def test_fold_keeps_lane_order_on_ties_across_segments():
     assert (-2 - np.asarray(pos)).tolist() == [[0, 1]]
 
 
+def k_smallest_by_d2_then_arrival(row_d2, row_idx, lane_d2, lane_ids, k):
+    """The fold's contract: the k smallest of (the row) and (the lanes in
+    arrival order) by the key (d2, arrival), the row's own entries
+    arriving first. A stable sort of the concatenation."""
+    d2 = np.concatenate([row_d2, lane_d2], axis=-1)
+    ids = np.concatenate([row_idx, np.broadcast_to(lane_ids, lane_d2.shape)],
+                         axis=-1)
+    order = np.argsort(d2, axis=-1, kind="stable")[..., :k]
+    return (np.take_along_axis(d2, order, -1),
+            np.take_along_axis(ids, order, -1))
+
+
+def grid_d2(rng, shape):
+    """Tie-heavy d2: squared distances between integer-grid points."""
+    a = rng.integers(0, 4, (*shape, 3)).astype(np.float32)
+    return (a * a).sum(-1, dtype=np.float32)
+
+
+CONTRACT_K = [1, 31, 32, 33, 64, 65, 100]
+
+
+@pytest.mark.parametrize("k", CONTRACT_K)
+def test_fold_is_k_smallest_by_d2_then_arrival(k):
+    """``fold_tile_into_candidates`` (strict-< adoption, insert after equal
+    entries) keeps exactly the k smallest entries by (d2, arrival) of the
+    row and the tile: the contract the D=3 kernels' warp fold is built on.
+    Tie-heavy rows (finite, ``-r``-like and +inf slots) across the lane
+    borders of a 32-lane spread."""
+    rng = np.random.default_rng(k)
+    s, t = 6, 300
+    lane_d2 = grid_d2(rng, (s, t))
+    lane_d2[:, 7::11] = np.inf
+    row_d2 = np.sort(grid_d2(rng, (s, k)), axis=1)
+    row_d2[1] = np.float32(2.0)           # a -r cutoff: max_radius^2 slots
+    row_d2[2, k // 2:] = np.inf           # an underfull row
+    row_d2[3] = np.inf                    # an empty row
+    row_idx = rng.integers(0, 50, (s, k)).astype(np.int32)
+    row_idx[1] = -1
+    lane_ids = np.arange(1000, 1000 + t, dtype=np.int32)
+    got = tk.fold_tile_into_candidates(
+        torch.from_numpy(lane_d2), torch.from_numpy(lane_ids),
+        torch.from_numpy(row_d2), torch.from_numpy(row_idx))
+    want_d2, want_idx = k_smallest_by_d2_then_arrival(row_d2, row_idx,
+                                                      lane_d2, lane_ids, k)
+    assert_bitwise(got.dist2.numpy(), want_d2)
+    assert_bitwise(got.idx.numpy(), want_idx)
+
+
+@pytest.mark.parametrize("k", CONTRACT_K)
+def test_plain_is_k_smallest_by_d2_then_arrival(k):
+    """The plain traversal on integer-grid points (many exact ties) equals
+    the contract with lanes arriving in visit order: query bucket b takes
+    the point buckets in ``nearest_first_order`` (its own group skipped),
+    each in lane order. Pruned buckets need not be listed apart: every
+    lane of one is at least the radius away, so it arrives after a tie."""
+    rng = np.random.default_rng(100 + k)
+    pts = rng.integers(0, 6, (320, 3)).astype(np.float32)
+    q = tpart.partition_points(torch.from_numpy(pts), bucket_size=16)
+    pc = tpart.coarsen_buckets(q, 2)
+    state = ttiled.warm_start_self(pc, k)
+    got = tk.knn_update_tiled_plain(state, q, pc, skip_self=True,
+                                    self_group=2)
+    _, order = tpart.nearest_first_order(q.lower, q.upper, pc.lower,
+                                         pc.upper)
+    num_qb, s_q = q.ids.shape
+    rows_d2 = state.dist2.numpy().reshape(num_qb, s_q, k)
+    rows_idx = state.idx.numpy().reshape(num_qb, s_q, k)
+    qp, pp, pids = q.pts.numpy(), pc.pts.numpy(), pc.ids.numpy()
+    valid = q.ids.numpy() >= 0
+    for b in range(num_qb):
+        walk = [int(pb) for pb in order[b] if int(pb) != b // 2]
+        lp = pp[walk].reshape(-1, 3)
+        diff = qp[b][:, None, :] - lp[None]
+        with np.errstate(over="ignore"):   # PAD_SENTINEL lanes: +inf
+            lane_d2 = (diff[..., 0] * diff[..., 0]
+                       + diff[..., 1] * diff[..., 1]) \
+                + diff[..., 2] * diff[..., 2]
+        want_d2, want_idx = k_smallest_by_d2_then_arrival(
+            rows_d2[b], rows_idx[b], lane_d2, pids[walk].reshape(-1), k)
+        v = valid[b]
+        assert_bitwise(got.dist2.numpy()[b * s_q:(b + 1) * s_q][v],
+                       want_d2[v])
+        assert_bitwise(got.idx.numpy()[b * s_q:(b + 1) * s_q][v],
+                       want_idx[v])
+
+
 def test_plain_visit_stats_count_scored_buckets():
     pts = points("uniform", 400, seed=2)
     q = tpart.partition_points(torch.from_numpy(pts), bucket_size=16)
     state = ttiled.warm_start_self(q, 4)
-    _, visits = tk.knn_update_tiled_plain(state, q, q, skip_self=True,
-                                          with_stats=True)
+    _, per_bucket = tk.knn_update_tiled_plain(state, q, q, skip_self=True,
+                                              with_stats=True)
+    assert per_bucket.shape == (q.num_buckets,)
+    assert per_bucket.dtype == torch.int64
     # at least one neighbour bucket per query bucket, far below all pairs
-    assert q.num_buckets <= int(visits) < q.num_buckets ** 2 - q.num_buckets
+    visits = int(per_bucket.sum())
+    assert q.num_buckets <= visits < q.num_buckets ** 2 - q.num_buckets
+    # the entry point on the CPU returns the same counts
+    _, same = tk.knn_update_tiled_cuda(state, q, q, skip_self=True,
+                                       with_stats=True)
+    assert torch.equal(same, per_bucket)
+    # every bucket of real queries scores a neighbour; padding ones none
+    real = (q.ids >= 0).any(dim=1)
+    assert bool((per_bucket[real] >= 1).all())
+    assert not bool(per_bucket[~real].any())
 
 
 @pytest.mark.parametrize("s_q,t_p,k,want", [
-    (248, 496, 8, (248, 256, 496)),
-    (248, 496, 100, (248, 256, 496)),
-    (256, 512, 1, (256, 256, 512)),
-    (248, 496, 200, (128, 128, 496)),
-    (16, 4096, 8, (16, 32, 1024)),
+    (248, 496, 8, (32, 256, 512)),
+    (248, 496, 100, (32, 256, 512)),
+    (256, 512, 1, (32, 256, 512)),
+    (248, 496, 200, (32, 256, 512)),
+    (16, 4096, 8, (16, 128, 1024)),
 ])
 def test_launch_geometry(s_q, t_p, k, want):
+    """D=3: warps of 4 query rows (8 threads a row), 8 warps a block (a
+    bucket's rows split over blocks), whole 256-lane chunks a tile; at least
+    two blocks fit on an SM in shared memory and in registers (64 a
+    thread): at k=100 four, 32 warps resident."""
     rows, threads, lanes = tk.launch_geometry(s_q, t_p, k)
     assert (rows, threads, lanes) == want
-    smem = 16 * lanes + 8 * k * threads
-    assert smem <= tk.SMEM_OPTIN - 1024 and threads % 32 == 0
+    assert threads == 8 * rows and threads % 32 == 0
+    assert lanes % tk.CHUNK_LANES == 0 and lanes <= tk.D3_MAX_TILE_LANES
+    smem = tk.d3_smem_bytes(rows, lanes, k)
+    assert smem == 2 * 16 * lanes + rows * 32 * tk.d3_slots(k) * 8 + 32
+    assert smem <= tk.SMEM_OPTIN - 1024
+    assert 2 * (smem + 1024) <= tk.SMEM_SM
+    assert 2 * threads * tk.D3_REGS <= 65_536
+    assert tk.d3_blocks_per_sm(threads, smem) >= 2
 
 
 @pytest.mark.parametrize("s_q,t_p,k,dim,want", [
@@ -228,6 +339,41 @@ def test_launch_geometry_refuses_huge_k():
         tk.launch_geometry(248, 496, 2000)
 
 
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 100, 200, 500, 873, 896, 903])
+def test_d3_plans_take_every_k_the_first_kernels_took(k):
+    """Every k up to D3_MAX_K (the 903 the first D=3 kernels took with
+    the smallest tile, 873 of them at T=496) plans a block that fits twice
+    on an SM; above it the plan raises."""
+    assert tk.D3_MAX_K == (tk.SMEM_OPTIN - 1024 - 16) // 256
+    for rows_wanted, lanes in ((248, 512), (2048, 1024)):
+        rows, threads = tk.d3_block(rows_wanted, lanes, k)
+        assert rows % tk.WARP_ROWS == 0 and threads == 8 * rows
+        assert tk.d3_blocks_per_sm(threads,
+                                   tk.d3_smem_bytes(rows, lanes, k)) >= 2
+    slots = tk.d3_slots(k)
+    assert 32 * slots >= k and (slots == 1 or 16 * slots < k)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tk.d3_block(32, 512, tk.D3_MAX_K + 1)
+
+
+def test_d3_lanes_layout():
+    """The D=3 kernels' staged lanes: {x, y, z, id bits} bit for bit, and
+    lanes past N NaN with id -1, whose d2 is NaN: no strict-< compare
+    adopts it."""
+    pts = torch.from_numpy(points("dupes", 2 * 37, seed=5)).view(2, 37, 3)
+    ids = torch.arange(74, dtype=torch.int32).view(2, 37) - 3
+    lanes = tk.d3_lanes(pts, ids, 256)
+    assert lanes.shape == (2, 256, 4) and lanes.is_contiguous()
+    assert_bitwise(lanes[:, :37, :3].numpy(), pts.numpy())
+    bits = lanes.view(torch.int32)
+    assert torch.equal(bits[:, :37, 3], ids)
+    assert bool((bits[:, 37:, 3] == -1).all())
+    assert bool(lanes[:, 37:, :3].isnan().all())
+    d2 = elementwise_dist2(pts[:, :4], lanes[..., :3])
+    assert bool(d2[:, :, 37:].isnan().all())
+    assert not bool((d2[:, :, 37:] < torch.inf).any())
+
+
 @pytest.mark.parametrize("s_q,t_p,k,dim,want", [
     # phase 10's shape: rows in shared memory beside a 3-stage ring
     (248, 496, 10, 128, ("ring", 128, 64, 288, 128, 3, True)),
@@ -239,10 +385,10 @@ def test_launch_geometry_refuses_huge_k():
     (248, 496, 10, 224, ("ring", 128, 64, 288, 224, 2, False)),
     (248, 496, 10, 225, ("nd", 248, 96, 256, 228, 1, True)),
     (16, 20, 1, 960, ("nd", 16, 32, 32, 960, 1, True)),
-    (248, 496, 8, 3, ("d3", 248, 496, 256, 4, 1, True)),
+    (248, 496, 8, 3, ("d3", 32, 512, 256, 4, 2, True)),
 ])
 def test_tiled_launch_plan(s_q, t_p, k, dim, want):
-    """The f32 route is by D and Dp4: D=3 on knn_tiled_kernel, other D up
+    """The f32 route is by D and Dp4: D=3 on knn_tiled_d3_kernel, other D up
     to RING_MAX_DP4 on the ring kernel (whose shared memory fits what a
     block may opt into), above it on knn_tiled_nd_kernel with
     launch_geometry's block."""
@@ -254,7 +400,8 @@ def test_tiled_launch_plan(s_q, t_p, k, dim, want):
         assert plan.smem <= tk.SMEM_OPTIN - 1024
         assert plan.threads == tk.RING_THREADS
     else:
-        assert plan.smem == 0
+        assert plan.smem == (tk.d3_smem_bytes(plan.rows, plan.lanes, k)
+                             if plan.kernel == "d3" else 0)
         rows, threads, lanes = tk.launch_geometry(s_q, t_p, k, dim)
         assert (plan.rows, plan.threads, plan.lanes) == (rows, threads,
                                                          lanes)
@@ -330,8 +477,10 @@ def test_kernel_matches_plain_on_the_card(k):
     state = ttiled.warm_start_self(pc, k)
     want = tk.knn_update_tiled_plain(state, q, pc, skip_self=True,
                                      self_group=2)
+    before = tk.knn_update_tiled_cuda.d3_launches
     got = tk.knn_update_tiled_cuda(state, q, pc, skip_self=True,
                                    self_group=2)
     torch.cuda.synchronize()
+    assert tk.knn_update_tiled_cuda.d3_launches == before + 1
     assert torch.equal(got.dist2, want.dist2)
     assert torch.equal(got.idx, want.idx)
