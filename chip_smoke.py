@@ -25,13 +25,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    calls against one, a point count that is not a multiple of the staged
    tile, and other tiles giving the same bits; each case on its route by
    the counters;
-3c. the general-D f32 kernels of both against their plain versions, bit
-   for bit, on 32,000 clustered points at D in {4, 16, 128}: k in {1, 10,
+3c. the ring kernel (``knn_tiled_nd_ring_kernel``, every f32 fold at D !=
+   3) against the plain versions, bit for bit, on both its routes: the
+   traversal on 32,000 clustered points at D in {4, 16, 128}: k in {1, 10,
    100} (k=100 at D=128 with the rows in device memory), a finite ``-r``,
-   ``skip_self`` with point group 2, point buckets wider than one staged
-   tile; D=5 and D=130 (padded components), a bucket of 1,000 rows (split
-   over blocks); each traversal case on its planned route (the ring kernel,
-   or ``knn_tiled_nd_kernel`` at D=240, above ``RING_MAX_DP4``);
+   ``skip_self`` with point group 2, point buckets of two chunks and more;
+   D=5 and D=130 (padded components), a bucket of 1,000 rows (split over
+   blocks); above ``RESIDENT_MAX_DP4``, D streamed in slices, on 8,000
+   points at D in {228, 240, 256, 960} and k in {1, 10, 100}, a bucket of
+   1,000 rows at D=240, k=1000 at D in {128, 240, 960}; the flat fold at D
+   in {4, 16, 128} (k in {1, 10, 100}, a finite ``-r``), sentinel points
+   and queries with a partial last chunk, D=240, and k=1000 at D in {128,
+   240, 960}; each case on its planned route by the counters;
 3d. the tensor-core bf16 kernels against their plain version: the wgmma
    kernel at D in {16, 32, 64, 128}, k in {1, 10, 100}, a finite ``-r``
    and warm-started rows, a bucket of 1,000 rows (split over blocks, T not
@@ -74,12 +79,20 @@ Phases, each fatal on failure (exit code 1, no result line):
 10b. ``prepartitioned_main`` on 4 ``.npy`` slab parts of the first
    262,144 of those points, byte-equal to ``UnorderedKNN`` on them, every
    traversal launch on the ring kernel;
+10c. the main paths above ``RESIDENT_MAX_DP4``: ``UnorderedKNN`` f32 at R=1
+   on 262,144 points at D=960 (GIST1M's width and k=10; 32 Gaussian
+   clusters; a quarter of its points), a selfcheck of 200 samples, every
+   traversal launch on the streamed ring route; and ``UnorderedKNN`` with
+   ``engine="pallas"`` at D=128 on phase 10b's points (the flat route of the
+   ring kernel), byte-equal to the ``auto`` run there; stages and peak
+   device memory of both;
 11. the f32 ring kernel (with its plan, and its wrapper's layout time
    apart) and the bf16 (wgmma) kernel at phase 10's shape, against both
    bounds and their share of each, and their plain versions' on 16 query
    buckets;
-11b. the three kernels no main path launches (``knn_tiled_nd_kernel`` at
-   D=240, the wmma kernel at D=600, ``knn_bf_nd_kernel`` at D=128),
+11b. the ring kernel's streamed traversal at D=240 and its flat fold at
+   D=128 (16,384 queries x 1M points), at the shapes their first kernels
+   were timed at, and the wmma kernel (no main path launches it) at D=600,
    each against its plain version and both bounds (``time_offpath_kernels``);
 12. phase 10's f32 R=1 run again under ``profile_trace``, byte-equal to
    it: the card's busy share of the run and its top kernels by device
@@ -128,6 +141,7 @@ PLAIN_QUERIES = 16_384  # the brute-force plain version's reduced shape
 PEAK_BF16 = 989e12      # dense bf16 tensor-core FLOP/s (same data sheet)
 HD_DIM, HD_K = 128, 10  # phase 10: the SIFT1M shape and its recall@10
 HD_SUB = 262_144        # phase 10b: points cut into 4 .npy slab parts
+GIST_DIM = 960          # phase 10c: GIST1M's width, on HD_SUB points
 PLAIN_BUCKETS = 16      # phase 11: query buckets the plain versions run
 
 
@@ -136,7 +150,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+#: (phase, start time) of each phase, in order, as ``say`` announces them
+PHASE_STARTS = []
+
+
 def say(msg: str) -> None:
+    if msg.startswith("[phase "):
+        PHASE_STARTS.append((msg[7:msg.index("]")], time.perf_counter()))
     print(msg, flush=True)
 
 
@@ -229,8 +249,10 @@ def tie_rows(got_idx, want_idx, queries, points) -> int:
 
 def route_counts() -> dict:
     """Launches so far of each kernel of the traversal and flat modules,
-    by route: "d3", "ring", "nd" (csrc/knn_tiled.cu), "wgmma", "wmma"
-    (csrc/knn_tiled_mxu.cu), "bf_d3", "bf_nd" (csrc/knn_bf.cu)."""
+    by route: "d3", "ring" (queries resident), "stream" (D streamed)
+    (csrc/knn_tiled.cu), "wgmma", "wmma" (csrc/knn_tiled_mxu.cu), "bf_d3"
+    (csrc/knn_bf.cu), "bf_ring" (the flat fold on csrc/knn_tiled.cu's ring
+    kernel)."""
     from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
         knn_update_tiled_cuda as kt,
@@ -238,16 +260,15 @@ def route_counts() -> dict:
 
     bf = knn_update_bf_cuda
     return {"d3": kt.d3_launches, "ring": kt.ring_launches,
-            "nd": kt.launches - kt.d3_launches - kt.ring_launches,
-            "wgmma": kt.wgmma_launches,
+            "stream": kt.stream_launches, "wgmma": kt.wgmma_launches,
             "wmma": kt.mxu_launches - kt.wgmma_launches,
-            "bf_d3": bf.d3_launches, "bf_nd": bf.launches - bf.d3_launches}
+            "bf_d3": bf.d3_launches, "bf_ring": bf.ring_launches}
 
 
 def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
                  group=2, warm=True, score_dtype="f32", route=None):
-    """Traversal kernel vs plain on the card for one input (f32: the D=3,
-    the ring or the general-D kernel; bf16: the tensor-core kernel, whose
+    """Traversal kernel vs plain on the card for one input (f32: the D=3
+    or the ring kernel; bf16: the tensor-core kernel, whose
     rows must also equal the f32 kernel's up to the order of exact ties);
     ``route`` names the kernel the case must plan, and the launch counters
     show it ran there. Returns the max abs difference of the finite d2
@@ -302,6 +323,8 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
     if plan.stages > 1:
         plan_txt += (f" stages={plan.stages} rows_in_smem="
                      f"{plan.rows_in_smem}")
+    if getattr(plan, "slice_groups", 0):
+        plan_txt += f" slice_groups={plan.slice_groups}"
     # a bucket split over blocks prunes per block: at most the plain count
     vis_ok = bool((got_vis == want_vis).all() if one_block
                   else (got_vis <= want_vis).all())
@@ -521,6 +544,7 @@ def compare_bf_case(name, q_np, p_np, k, *, radius=float("inf"), id_base=0,
     from mpi_cuda_largescaleknn_torch.core.types import PAD_SENTINEL
     from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
     from mpi_cuda_largescaleknn_torch.ops.knn_bf import (
+        flat_plan,
         knn_update_bf_cuda,
         knn_update_bf_plain,
         launch_geometry,
@@ -544,17 +568,26 @@ def compare_bf_case(name, q_np, p_np, k, *, radius=float("inf"), id_base=0,
         got = knn_update_bf_cuda(got, q, p[split:], ids[split:],
                                  query_tile=qt, point_tile=pt)
     torch.cuda.synchronize()
-    route = "bf_d3" if p.shape[1] == 3 else "bf_nd"
-    ran = route_counts()[route] - before[route]
-    if ran != (1 if split is None else 2):
-        fail(f"case {name}: {ran} launches of the {route} kernel")
+    dim = p.shape[1]
+    route = "bf_d3" if dim == 3 else "bf_ring"
+    calls = 1 if split is None else 2
+    for kernel, n in route_counts().items():
+        if n - before[kernel] != (calls if kernel == route else 0):
+            fail(f"case {name}: {n - before[kernel]} launches of the "
+                 f"{kernel} route, {calls} of the {route} one planned")
     err = max_abs_err(got.dist2, want.dist2)
     ok = torch.equal(got.dist2, want.dist2) and torch.equal(got.idx, want.idx)
-    rows, lanes = launch_geometry(qt, pt, k, p.shape[1])
-    say(f"  {name}: D={p.shape[1]} Q={len(q)} N={len(p)} k={k} "
-        f"rows/block={rows} "
-        f"lanes/tile={lanes} max_abs_err={err} "
-        f"{'bit-equal' if ok else 'MISMATCH'}")
+    if dim == 3:
+        rows, lanes = launch_geometry(qt, pt, k)
+        plan_txt = f"rows/block={rows} lanes/tile={lanes}"
+    else:
+        plan = flat_plan(k, dim)
+        plan_txt = (f"ring kernel, {plan.kernel} stages={plan.stages} "
+                    f"rows_in_smem={plan.rows_in_smem}"
+                    + (f" slice_groups={plan.slice_groups}"
+                       if plan.slice_groups else ""))
+    say(f"  {name}: D={dim} Q={len(q)} N={len(p)} k={k} {plan_txt} "
+        f"max_abs_err={err} {'bit-equal' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"knn_bf disagrees with its plain version in case {name}")
     return err
@@ -648,14 +681,18 @@ def check_d3_route(label, t) -> None:
         f"{t['knn_bf_launches']} knn_bf launches on the D=3 kernels")
 
 
-def check_ring_route(label, t) -> None:
-    """Fails unless every f32 traversal launch of a D=128 run's timings
-    ``t`` went to the ring kernel."""
-    n, ring = t["knn_tiled_launches"], t["knn_tiled_ring_launches"]
+def check_ring_route(label, t, stream=False) -> None:
+    """Fails unless every f32 traversal launch of a run's timings ``t``
+    went to the ring kernel with the queries resident (D=128) or, with
+    ``stream``, with D streamed."""
+    key = "knn_tiled_stream_launches" if stream else "knn_tiled_ring_launches"
+    what = "streamed" if stream else "resident"
+    n, ring = t["knn_tiled_launches"], t[key]
     if n < 1 or ring != n:
         fail(f"{label}: {ring} of {n} knn_tiled launches took the ring "
-             "kernel")
-    say(f"  {label}: all {n} knn_tiled launches on the ring kernel")
+             f"kernel's {what} route")
+    say(f"  {label}: all {n} knn_tiled launches on the ring kernel's "
+        f"{what} route")
 
 
 def time_kernel(k, pts, reps=5):
@@ -814,16 +851,19 @@ def time_bf_kernel(k, pts, reps=3):
             "warps_per_sm": warps, "planned_warps_per_sm": planned}
 
 
-def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None):
-    """``UnorderedKNN`` in this process on ``pts_np`` (any D), with every
-    kernel count set to 0 just before the run and read just after; a bf16
-    run also times each bf16 launch's preparation and kernel apart (CUDA
-    events). With ``profile_dir`` the run is traced by ``profile_trace``
+def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None,
+                  engine="auto"):
+    """``UnorderedKNN`` in this process on ``pts_np`` (any D) with
+    ``engine``, with every kernel count set to 0 just before the run and
+    read just after; each launch's preparation (the bf16 halves and norms,
+    or the ring layouts) and kernel are timed apart by the wrappers' CUDA
+    events. With ``profile_dir`` the run is traced by ``profile_trace``
     and its timings also hold the card's busy share and top kernels.
     Returns (timings, distances f32[N], neighbor ids i32[N, k])."""
     import numpy as np
     import torch
 
+    from mpi_cuda_largescaleknn_torch.cli.common import launch_counts
     from mpi_cuda_largescaleknn_torch.core.config import KnnConfig
     from mpi_cuda_largescaleknn_torch.models.unordered import UnorderedKNN
     from mpi_cuda_largescaleknn_torch.obs.trace import (
@@ -835,34 +875,34 @@ def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None):
         knn_update_tiled_cuda,
     )
 
-    model = UnorderedKNN(KnnConfig(k=k, num_shards=shards,
+    model = UnorderedKNN(KnnConfig(k=k, num_shards=shards, engine=engine,
                                    score_dtype=score_dtype))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    knn_update_tiled_cuda.launches = 0
-    knn_update_tiled_cuda.ring_launches = 0
-    knn_update_tiled_cuda.d3_launches = 0
-    knn_update_tiled_cuda.mxu_launches = 0
-    knn_update_tiled_cuda.wgmma_launches = 0
-    knn_update_bf_cuda.launches = 0
-    knn_update_bf_cuda.d3_launches = 0
-    events = [] if score_dtype == "bf16" else None
-    knn_update_tiled_cuda.mxu_events = events
+    for name in ("launches", "ring_launches", "stream_launches",
+                 "d3_launches", "mxu_launches", "wgmma_launches"):
+        setattr(knn_update_tiled_cuda, name, 0)
+    for name in ("launches", "d3_launches", "ring_launches"):
+        setattr(knn_update_bf_cuda, name, 0)
+    events = []
+    if score_dtype == "bf16":
+        knn_update_tiled_cuda.mxu_events = events
+    elif engine == "pallas":
+        knn_update_bf_cuda.layout_events = events
+    else:
+        knn_update_tiled_cuda.layout_events = events
     with profile_trace(profile_dir) as prof:
         t0 = time.perf_counter()
         dists, idx = model.run(pts_np, return_neighbors=True)
         wall = time.perf_counter() - t0
     knn_update_tiled_cuda.mxu_events = None
+    knn_update_tiled_cuda.layout_events = None
+    knn_update_bf_cuda.layout_events = None
     t = model.timers.report()
     t.update({"run_seconds": wall, "queries_per_second": len(pts_np) / wall,
-              "knn_tiled_launches": knn_update_tiled_cuda.launches,
-              "knn_tiled_ring_launches": knn_update_tiled_cuda.ring_launches,
-              "knn_tiled_d3_launches": knn_update_tiled_cuda.d3_launches,
-              "knn_tiled_mxu_launches": knn_update_tiled_cuda.mxu_launches,
+              **launch_counts(),
               "knn_tiled_wgmma_launches":
                   knn_update_tiled_cuda.wgmma_launches,
-              "knn_bf_launches": knn_update_bf_cuda.launches,
-              "knn_bf_d3_launches": knn_update_bf_cuda.d3_launches,
               "peak_device_bytes": torch.cuda.max_memory_allocated(),
               **(model.last_stats or {})})
     if dists.shape != (len(pts_np),) or not np.all(np.isfinite(dists)) \
@@ -870,12 +910,15 @@ def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None):
         fail(f"{label}: output has shape {dists.shape} or non-finite/zero "
              "values")
     key = ("knn_tiled_mxu_launches" if score_dtype == "bf16"
+           else "knn_bf_launches" if engine == "pallas"
            else "knn_tiled_launches")
     say(f"  {label}: run {wall:.3f} s, {t['queries_per_second']:.0f} "
         f"queries/s, knn_tiled launches {t['knn_tiled_launches']} (ring "
-        f"{t['knn_tiled_ring_launches']}), "
+        f"{t['knn_tiled_ring_launches']}, streamed "
+        f"{t['knn_tiled_stream_launches']}), "
         f"knn_tiled_mxu launches {t['knn_tiled_mxu_launches']}, knn_bf "
-        f"launches {t['knn_bf_launches']}, peak device memory "
+        f"launches {t['knn_bf_launches']} (ring "
+        f"{t['knn_bf_ring_launches']}), peak device memory "
         f"{t['peak_device_bytes'] / 2**20:.1f} MiB, pair_evals "
         f"{t['pair_evals']}")
     say("    stages: " + ", ".join(
@@ -899,12 +942,14 @@ def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None):
                     f"{row['name'][:100]}")
     if events:
         torch.cuda.synchronize()
-        t["mxu_prep_ms"] = sum(a.elapsed_time(b) for a, b, _ in events)
-        t["mxu_kernel_ms"] = sum(b.elapsed_time(c) for _, b, c in events)
-        say(f"    bf16 launches: {len(events)}, kernel "
-            f"{t['mxu_kernel_ms'] / len(events):.3f} ms per launch, "
-            f"preparation (halves, norms) "
-            f"{t['mxu_prep_ms'] / len(events):.3f} ms per launch")
+        t["prep_ms"] = sum(a.elapsed_time(b) for a, b, _ in events)
+        t["kernel_ms"] = sum(b.elapsed_time(c) for _, b, c in events)
+        prep = ("halves, norms" if score_dtype == "bf16" else
+                "d3_lanes" if pts_np.shape[1] == 3 else "ring layouts")
+        say(f"    {score_dtype} launches: {len(events)}, kernel "
+            f"{t['kernel_ms'] / len(events):.3f} ms per launch, "
+            f"preparation ({prep}) "
+            f"{t['prep_ms'] / len(events):.3f} ms per launch")
     return t, dists, idx
 
 
@@ -1048,29 +1093,32 @@ def time_hd_kernels(pts_np, k, reps=2):
 
 
 def time_offpath_kernels(hd_np):
-    """Phase 11b: the three kernels that no main path launches, each timed
-    by CUDA events over one launch at a shape of its own (with its
-    wrapper's preparation: the component-major queries, or the bf16 halves
-    and norms, which the wmma kernel's events time apart), its plain
-    version timed on a reduced shape and compared with the kernel's rows
-    there, and both bounds on the work this run's data needs:
-    - ``knn_tiled_nd_kernel``: 262,144 clustered points at D=240 (above
-      ``RING_MAX_DP4``), k=10, one traversal after the warm start; a bucket
-      is one block, so its visits are the plain version's; the plain
-      version on PLAIN_BUCKETS query buckets;
-    - ``knn_tiled_mxu_kernel`` (wmma): 65,536 clustered points at D=600,
-      k=10, the bounds on the pairs of its own walk (the widened rows'
-      radius); the plain bf16 version on PLAIN_BUCKETS query buckets;
-    - ``knn_bf_nd_kernel``: the first 16,384 of phase 10's points against
-      all 1M at D=128, k=10; the plain version on 2,048 queries x 131,072
-      points, against the kernel on the same."""
+    """Phase 11b: each kernel timed by CUDA events over one launch at a
+    shape of its own, alone and with its wrapper's preparation (the ring
+    layouts, or the bf16 halves and norms), its plain version timed on a
+    reduced shape and compared with the kernel's rows there, and both
+    bounds on the work this run's data needs:
+    - the ring kernel's streamed traversal (``stream``): 262,144 clustered
+      points at D=240 (above ``RESIDENT_MAX_DP4``), k=10, one traversal
+      after the warm start; a bucket is one block, so its visits are the
+      plain version's; the plain version on PLAIN_BUCKETS query buckets;
+    - ``knn_tiled_mxu_kernel`` (wmma, which no main path launches): 65,536
+      clustered points at D=600, k=10, the bounds on the pairs of its own
+      walk (the widened rows' radius); the plain bf16 version on
+      PLAIN_BUCKETS query buckets;
+    - the ring kernel's flat fold (``bf_ring``): the first 16,384 of phase
+      10's points against all 1M at D=128, k=10; the plain version on 2,048
+      queries x 131,072 points, against the kernel on the same.
+    The first and the last are the shapes at which the general-D kernels
+    they replaced were timed."""
     import torch
 
     from mpi_cuda_largescaleknn_torch.core.types import CandidateState
     from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
     from mpi_cuda_largescaleknn_torch.ops.knn_bf import (
+        flat_plan,
+        knn_update_bf_cuda,
         knn_update_bf_plain,
-        launch_geometry,
         launch_knn_bf,
     )
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
@@ -1094,7 +1142,7 @@ def time_offpath_kernels(hd_np):
     k = HD_K
     res = {}
     nb = PLAIN_BUCKETS
-    for name, n, dim in (("knn_tiled_nd", 262_144, 240),
+    for name, n, dim in (("knn_tiled_nd_ring_stream", 262_144, 240),
                          ("knn_tiled_mxu_wmma", 65_536, 600)):
         pts = torch.from_numpy(clustered_nd(n, dim, SEED + 30 + dim)).cuda()
         q = partition_points(pts, bucket_size=256)
@@ -1113,16 +1161,18 @@ def time_offpath_kernels(hd_np):
             start = warm
             plan = tiled_launch_plan(s, t, k, dim)
             launch, mode = launch_knn_tiled, "f32"
-        if plan.kernel != ("wmma" if wmma else "nd"):
-            fail(f"phase 11b: {name} planned the {plan.kernel} kernel")
+        if plan.kernel != ("wmma" if wmma else "stream"):
+            fail(f"phase 11b: {name} planned the {plan.kernel} route")
         before = route_counts()
         rows = CandidateState(start.dist2.clone(), start.idx.clone())
         events = []
         knn_update_tiled_cuda.mxu_events = events if wmma else None
+        knn_update_tiled_cuda.layout_events = None if wmma else events
         wrapper_ms, visits = cuda_ms(lambda: launch(
             order, sorted_d2, q, pc, rows, skip_self=True, self_group=2))
         knn_update_tiled_cuda.mxu_events = None
-        ms = events[0][1].elapsed_time(events[0][2]) if wmma else wrapper_ms
+        knn_update_tiled_cuda.layout_events = None
+        ms = events[0][1].elapsed_time(events[0][2])
         after = route_counts()
         if after[plan.kernel] - before[plan.kernel] != 1:
             fail(f"phase 11b: {name} did not launch its kernel once")
@@ -1160,7 +1210,7 @@ def time_offpath_kernels(hd_np):
             "plan": plan._asdict(), **bounds(ms, *yard)}
         del pts, q, pc, warm, start, rows, got
 
-    # knn_bf_nd_kernel at D=128
+    # the flat fold on the ring kernel at D=128
     pts = torch.from_numpy(hd_np).cuda()
     n, dim = pts.shape
     nq = PLAIN_QUERIES
@@ -1168,29 +1218,32 @@ def time_offpath_kernels(hd_np):
     init = init_candidates(nq, k, device=pts.device)
     rows = CandidateState(init.dist2.clone(), init.idx.clone())
     before = route_counts()
-    ms, _ = cuda_ms(lambda: launch_knn_bf(pts[:nq], pts, ids, rows))
+    events = []
+    knn_update_bf_cuda.layout_events = events
+    wrapper_ms, _ = cuda_ms(lambda: launch_knn_bf(pts[:nq], pts, ids, rows))
+    knn_update_bf_cuda.layout_events = None
+    ms = events[0][1].elapsed_time(events[0][2])
     pq, pp = 2048, 131_072
     small = CandidateState(init.dist2[:pq].clone(), init.idx[:pq].clone())
     launch_knn_bf(pts[:pq], pts[:pp], ids[:pp], small)
-    if route_counts()["bf_nd"] - before["bf_nd"] != 2:
-        fail("phase 11b: knn_bf_nd did not launch its kernel")
+    if route_counts()["bf_ring"] - before["bf_ring"] != 2:
+        fail("phase 11b: the flat fold did not launch the ring kernel")
     plain_ms, plain = cuda_ms(lambda: knn_update_bf_plain(
         CandidateState(init.dist2[:pq], init.idx[:pq]), pts[:pq], pts[:pp],
         ids[:pp]))
     if not (torch.equal(plain.dist2, small.dist2)
             and torch.equal(plain.idx, small.idx)):
-        fail("phase 11b: knn_bf_nd and its plain version differ")
-    block_rows, lanes = launch_geometry(2048, 2048, k, dim)
+        fail("phase 11b: the flat ring fold and its plain version differ")
     pairs = nq * n
     ops = pairs * (3 * dim + 1)
-    nbytes = (-(-nq // block_rows) * n * (16 * -(-dim // 4) + 4)
-              + nq * dim * 4 + 2 * nq * k * 8)
-    res["knn_bf_nd"] = {
-        "ms": ms, "plain_ms": plain_ms,
+    # queries, points with their ids, and the rows in and out, once each
+    nbytes = nq * dim * 4 + n * (dim * 4 + 4) + 2 * nq * k * 8
+    res["knn_bf_ring"] = {
+        "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
         "plain_shape": f"{pq} queries x {pp} points",
         "max_abs_err": max_abs_err(small.dist2, plain.dist2),
         "pairs": pairs, "shape": {"Q": nq, "N": n, "D": dim, "k": k},
-        "rows_per_block": block_rows, "lanes": lanes,
+        "plan": flat_plan(k, dim)._asdict(),
         **bounds(ms, ops / PEAK_F32, ops / PEAK_F32_ISSUE, nbytes)}
     return res
 
@@ -1304,10 +1357,11 @@ def main() -> int:
     details["phase3b_max_abs_err"] = max(bf_errs)
 
     # -- phase 3c -----------------------------------------------------------
-    # launches of the kernels no main path runs, counted where they run:
-    # phases 3c, 3d and 11b
+    # launches of the kernel no main path runs (the wmma one), counted where
+    # they run: phases 3c, 3d and 11b
     offpath = route_counts()
-    say("[phase 3c] general-D f32 kernels vs plain on the card, bit for bit")
+    say("[phase 3c] the ring kernel (f32, D != 3) vs plain on the card, bit "
+        "for bit")
     nd = {d: clustered_nd(32_000, d, SEED + 10 + d)
           for d in (4, 5, 16, 32, 64, 128, 130)}
     # a finite -r for k=10
@@ -1335,10 +1389,26 @@ def main() -> int:
                      bucket_size=1024, **ring),
         compare_case("D=64 k=10 S=1000 (rows over 8 blocks, T=2000)",
                      nd[64], 10, bucket_size=1000, **ring),
-        # above RING_MAX_DP4: the first general-D kernel
-        compare_case("D=240 k=10 skip_self G2", clustered_nd(
-            8_000, 240, SEED + 250), 10, route="nd"),
+        compare_case("D=128 k=1000 (rows in device memory)", nd[128][:8_000],
+                     1000, **ring),
     ]
+    # above RESIDENT_MAX_DP4: D streamed in slices (D=228 and 256 just
+    # above the resident route, D=960 GIST's width)
+    wide = {d: clustered_nd(8_000, d, SEED + 10 + d)
+            for d in (228, 240, 256, 960)}
+    stream = dict(route="stream")
+    for d, x in wide.items():
+        nd_errs += [compare_case(f"D={d} k={k} skip_self G2", x, k, **stream)
+                    for k in (1, 10, 100)]
+    nd_errs += [
+        compare_case("D=240 k=10 -r 22 cold G1", wide[240], 10, radius=22.0,
+                     group=1, warm=False, **stream),
+        compare_case("D=240 k=10 S=1000 (rows over 8 blocks, T=2000)",
+                     wide[240], 10, bucket_size=1000, **stream),
+    ]
+    nd_errs += [compare_case(f"D={d} k=1000 (rows in device memory)",
+                             wide[d], 1000, **stream) for d in (240, 960)]
+    # the flat fold on the ring kernel
     for d in (4, 16, 128):
         x = nd[d]
         qx = x[:4096] if d == 128 else x   # keeps the plain version short
@@ -1349,6 +1419,18 @@ def main() -> int:
             compare_bf_case(f"D={d} k=10 -r {radius[d]}", qx, x, 10,
                             radius=radius[d]),
         ]
+    sent = np.concatenate([nd[128][:20_000],
+                           np.full((500, 128), PAD_SENTINEL, np.float32)])
+    nd_errs += [
+        compare_bf_case("D=128 k=10, 500 sentinel points and queries "
+                        "(N=20,500: a partial last chunk)", sent[-4_500:],
+                        sent, 10),
+        compare_bf_case("D=240 k=10", wide[240][:2_000], wide[240], 10),
+    ]
+    nd_errs += [compare_bf_case(f"D={d} k=1000", x[:2_000], x, 1000)
+                for d, x in ((128, nd[128][:8_000]), (240, wide[240]),
+                             (960, wide[960]))]
+    del wide
     details["phase3c_max_abs_err"] = max(nd_errs)
 
     # -- phase 3d -----------------------------------------------------------
@@ -1560,6 +1642,47 @@ def main() -> int:
     say("  rank files joined == UnorderedKNN f32 on the same points, byte "
         "for byte")
 
+    # -- phase 10c ----------------------------------------------------------
+    say(f"[phase 10c] main paths above RESIDENT_MAX_DP4: {HD_SUB} points at "
+        f"D={GIST_DIM}; the flat route at D={HD_DIM}")
+    gist = clustered_nd(HD_SUB, GIST_DIM, SEED + 6)
+    label = f"f32 R=1 D={GIST_DIM}"
+    t_gist, d_gist, _ = unordered_run(label, gist, HD_K, 1, "f32")
+    hd_runs[label] = t_gist
+    check_ring_route(f"phase 10c: {label}", t_gist, stream=True)
+    checked = verify_sample(gist, d_gist, HD_K, 200)
+    say(f"  selfcheck OK ({checked} samples)")
+    del gist
+    label = f"--engine pallas f32 R=1 on the first {HD_SUB}"
+    t_flat, d_flat, _ = unordered_run(label, sub, HD_K, 1, "f32",
+                                      engine="pallas")
+    hd_runs[label] = t_flat
+    if t_flat["knn_bf_ring_launches"] != t_flat["knn_bf_launches"] or \
+            t_flat["knn_tiled_launches"]:
+        fail(f"phase 10c: {label}: {t_flat['knn_bf_ring_launches']} of "
+             f"{t_flat['knn_bf_launches']} flat launches on the ring kernel, "
+             f"{t_flat['knn_tiled_launches']} traversal launches")
+    if d_flat.tobytes() != d_sub.tobytes():
+        fail(f"phase 10c: {label}: distances differ from the auto run on the "
+             "same points")
+    say(f"  all {t_flat['knn_bf_launches']} flat launches on the ring kernel; "
+        "distances byte-equal to the auto run on the same points")
+    # each kernel against its bounds on the pairs it scored: the flat
+    # fold's every pair, the traversal's pair_evals less the warm start's
+    # own-bucket tiles (auto: buckets of 256, point group 2)
+    from mpi_cuda_largescaleknn_torch.ops.partition import choose_buckets
+
+    nqb, s = choose_buckets(HD_SUB, 256)
+    for t, dim, pairs in (
+            (t_gist, GIST_DIM, t_gist["pair_evals"] - nqb * s * s * 2),
+            (t_flat, HD_DIM, t_flat["pair_evals"])):
+        ops = pairs * (3 * dim + 1)
+        t["kernel_pairs"] = pairs
+        t["kernel_bounds"] = bounds(t["kernel_ms"], ops / PEAK_F32,
+                                    ops / PEAK_F32_ISSUE, 0)
+        say(f"  D={dim}: kernel {t['kernel_ms']:.3f} ms on {pairs} pairs "
+            f"(bucket rows x lanes): {bound_txt(t['kernel_bounds'])}")
+
     # -- phase 11 -----------------------------------------------------------
     say(f"[phase 11] the high-D kernels' time at phase 10's shape")
     hd_timed = time_hd_kernels(hd, HD_K)
@@ -1580,7 +1703,8 @@ def main() -> int:
     details["high_d_kernel_timing"] = hd_timed
 
     # -- phase 11b ----------------------------------------------------------
-    say("[phase 11b] the kernels no main path launches")
+    say("[phase 11b] the ring kernel's streamed and flat routes at their "
+        "first kernels' shapes, and the wmma kernel")
     before = route_counts()
     t0 = time.perf_counter()
     off_timed = time_offpath_kernels(hd)
@@ -1588,7 +1712,8 @@ def main() -> int:
     for key, n in route_counts().items():
         offpath[key] += n - before[key]
     for name, r in off_timed.items():
-        say(f"  {name}: {r['shape']} kernel {r['ms']:.3f} ms, "
+        say(f"  {name}: {r['shape']} kernel {r['ms']:.3f} ms "
+            f"({r['wrapper_ms']:.3f} ms with its preparation), "
             f"{bound_txt(r)}, plain {r['plain_ms']:.3f} ms on "
             f"{r['plain_shape']}, max_abs_err {r['max_abs_err']}")
     say(f"  phase 11b took {details['offpath_seconds']:.1f} s")
@@ -1636,27 +1761,29 @@ def main() -> int:
               launched("knn_tiled_mxu_launches"),
               (details["phase3d_max_abs_err"],
                hd_timed["bf16"]["max_abs_err"]), hd_timed["bf16"]),
-        # the kernels no main path launches (0 launches there), timed in
-        # phase 11b; details["offpath_launches"] counts their launches in
-        # phases 3c, 3d and 11b
-        entry("knn_tiled_nd", SOURCE, RING_REPLACES, 0,
+        # the ring kernel's streamed traversal and its flat fold, timed in
+        # phase 11b, launched by phase 10c's main paths
+        entry("knn_tiled_nd_ring_stream", SOURCE, RING_REPLACES,
+              launched("knn_tiled_stream_launches"),
               (details["phase3c_max_abs_err"],
-               off_timed["knn_tiled_nd"]["max_abs_err"]),
-              off_timed["knn_tiled_nd"]),
+               off_timed["knn_tiled_nd_ring_stream"]["max_abs_err"]),
+              off_timed["knn_tiled_nd_ring_stream"]),
+        entry("knn_bf_ring", SOURCE, BF_REPLACES,
+              launched("knn_bf_ring_launches"),
+              (details["phase3c_max_abs_err"],
+               off_timed["knn_bf_ring"]["max_abs_err"]),
+              off_timed["knn_bf_ring"]),
+        # no main path launches the wmma kernel (0 launches there), timed
+        # in phase 11b; details["offpath_launches"] counts its launches in
+        # phases 3d and 11b
         entry("knn_tiled_mxu_wmma", MXU_SOURCE, MXU_REPLACES,
               0, (details["phase3d_max_abs_err"],
-                                off_timed["knn_tiled_mxu_wmma"]
-                                ["max_abs_err"]),
+                  off_timed["knn_tiled_mxu_wmma"]["max_abs_err"]),
               off_timed["knn_tiled_mxu_wmma"]),
-        entry("knn_bf_nd", BF_SOURCE, BF_REPLACES, 0,
-              (details["phase3c_max_abs_err"],
-               off_timed["knn_bf_nd"]["max_abs_err"]),
-              off_timed["knn_bf_nd"]),
     ]}
-    # a main-path kernel must have run on the main paths, an off-path one
-    # in phases 3c, 3d and 11b
-    ran = {"knn_tiled_nd": offpath["nd"], "knn_tiled_mxu_wmma":
-           offpath["wmma"], "knn_bf_nd": offpath["bf_nd"]}
+    # a main-path kernel must have run on the main paths, the wmma one in
+    # phases 3d and 11b
+    ran = {"knn_tiled_mxu_wmma": offpath["wmma"]}
     for kern in kernels["kernels"]:
         n = ran.get(kern["name"], kern["launches"])
         if n < 1 or kern["max_abs_err"] != 0.0:
@@ -1664,6 +1791,11 @@ def main() -> int:
                  f"max_abs_err {kern['max_abs_err']}")
     details["kernels"] = kernels
     details["seconds"] = time.perf_counter() - t_start
+    ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
+    details["phase_seconds"] = {name: end - t0 for (name, t0), end
+                                in zip(PHASE_STARTS, ends)}
+    say("phase seconds: " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in details["phase_seconds"].items()))
     (WORK / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     say(f"total {details['seconds']:.1f} s")
     print(json.dumps(kernels))

@@ -22,10 +22,12 @@ Port options (no reference analogue):
                     pre-partitioned CLI: one per listed file)
   --engine E        auto | pallas_tiled (the nearest-first traversal) |
                     pallas (the flat brute force)
-  --query-tile N    flat engine: queries per tile, the kernel's rows per
-                    block (default 2048, clamped; results do not change)
-  --point-tile N    flat engine: points per tile, the kernel's staged
-                    lanes (default 2048, clamped; results do not change)
+  --query-tile N    flat engine at D=3: queries per tile, the kernel's
+                    rows per block (default 2048, clamped; results do not
+                    change; other D take the ring kernel's 128-row blocks)
+  --point-tile N    flat engine at D=3: points per tile, the kernel's
+                    staged lanes (default 2048, clamped; results do not
+                    change; other D take 64-lane chunks)
   --bucket-size N   points per spatial bucket (default auto: 256)
   --point-group N   coarsen the resident point side by this power-of-two
                     factor (default auto: 2; 1 disables)
@@ -139,3 +141,24 @@ def parse_args(program: str, argv: list[str]):
                     score_dtype=extras["score_dtype"],
                     profile_dir=extras["profile_dir"])
     return cfg, in_path, out_path, extras
+
+
+def launch_counts() -> dict:
+    """The process's kernel launches so far, by their ``--timings`` keys:
+    the traversal (any route; the ring kernel with resident queries, with D
+    streamed; the D=3 kernel; the bf16 kernels) and the flat fold (any
+    route; the D=3 kernel; the ring kernel)."""
+    from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        knn_update_tiled_cuda,
+    )
+
+    kt, bf = knn_update_tiled_cuda, knn_update_bf_cuda
+    return {"knn_tiled_launches": kt.launches,
+            "knn_tiled_ring_launches": kt.ring_launches,
+            "knn_tiled_stream_launches": kt.stream_launches,
+            "knn_tiled_d3_launches": kt.d3_launches,
+            "knn_tiled_mxu_launches": kt.mxu_launches,
+            "knn_bf_launches": bf.launches,
+            "knn_bf_d3_launches": bf.d3_launches,
+            "knn_bf_ring_launches": bf.ring_launches}

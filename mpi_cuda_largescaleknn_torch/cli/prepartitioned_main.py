@@ -22,7 +22,10 @@ import time
 import numpy as np
 import torch
 
-from mpi_cuda_largescaleknn_torch.cli.common import parse_args
+from mpi_cuda_largescaleknn_torch.cli.common import (
+    launch_counts,
+    parse_args,
+)
 from mpi_cuda_largescaleknn_torch.io.reader import (
     read_list_of_file_names,
     read_points,
@@ -35,8 +38,6 @@ from mpi_cuda_largescaleknn_torch.models.prepartitioned import (
     PrePartitionedKNN,
 )
 from mpi_cuda_largescaleknn_torch.obs.trace import profile_trace
-from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
-from mpi_cuda_largescaleknn_torch.ops.knn_tiled import knn_update_tiled_cuda
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -59,10 +60,7 @@ def main(argv: list[str] | None = None) -> int:
         # set-up outside the timed run: the CUDA context starts here
         torch.zeros(1, device=model.device)
         torch.cuda.reset_peak_memory_stats(model.device)
-    launches0 = (knn_update_tiled_cuda.launches, knn_update_bf_cuda.launches,
-                 knn_update_tiled_cuda.ring_launches,
-                 knn_update_tiled_cuda.d3_launches,
-                 knn_update_bf_cuda.d3_launches)
+    launches0 = launch_counts()
     with profile_trace(cfg.profile_dir):
         t0 = time.perf_counter()
         got = model.run(partitions, return_neighbors=want_idx)
@@ -87,15 +85,8 @@ def main(argv: list[str] | None = None) -> int:
             "device": str(model.device),
             "run_seconds": wall,
             "queries_per_second": n_total / wall if wall else 0.0,
-            "knn_tiled_launches": knn_update_tiled_cuda.launches
-            - launches0[0],
-            "knn_bf_launches": knn_update_bf_cuda.launches - launches0[1],
-            "knn_tiled_ring_launches": knn_update_tiled_cuda.ring_launches
-            - launches0[2],
-            "knn_tiled_d3_launches": knn_update_tiled_cuda.d3_launches
-            - launches0[3],
-            "knn_bf_d3_launches": knn_update_bf_cuda.d3_launches
-            - launches0[4],
+            **{key: n - launches0[key]
+               for key, n in launch_counts().items()},
             "peak_device_bytes": (torch.cuda.max_memory_allocated(model.device)
                                   if model.device.type == "cuda" else 0),
             **model.last_stats})

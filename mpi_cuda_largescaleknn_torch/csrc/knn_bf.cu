@@ -46,16 +46,12 @@
 //   mbarrier, bulk_ring.cuh) while the block folds this one: one barrier a
 //   tile.
 //
-// Points of any other dimension D go through knn_bf_nd_kernel, exact f32
-// at every D like the TPU kernel (which has no matmul-form branch): the
-// same fold, each pair scored left to right over all D components, the
-// point tile staged as zero-padded float4 rows with the ids beside them,
-// and each thread keeping 32 lanes' partial sums in registers while its
-// query row streams in as float4 from a component-major copy (coalesced
-// across the block's rows); knn_rows.cuh score_fold_nd.
+// Points of any other dimension D take knn_tiled.cu's
+// knn_tiled_nd_ring_kernel (ops/knn_bf.py launch_knn_bf): the flat fold is
+// its traversal with one query bucket of every row and one point bucket of
+// every point, each pair scored left to right over all D components.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
 #include "bulk_ring.cuh"
 #include "knn_rows.cuh"
@@ -122,79 +118,6 @@ __global__ void __launch_bounds__(knn::kD3MaxThreads, 2) knn_bf_d3_kernel(
   }
   knn::store_warp_rows<S>(d2, idx, row0, valid, wd2, widx, k);
 }
-
-__global__ void knn_bf_nd_kernel(
-    const float4* __restrict__ q_t,    // [d4n, nq] component groups
-    const float* __restrict__ p_pts,   // [np, D]
-    const int* __restrict__ p_ids,     // [np]
-    float* __restrict__ d2,            // [nq, k] in/out, ascending rows
-    int* __restrict__ idx,             // [nq, k] in/out
-    int nq, int np, int dim, int k, int tile_lanes) {
-  extern __shared__ float4 smem[];
-  const int bd = blockDim.x;
-  const int d4n = (dim + 3) >> 2;
-  float4* tile = smem;                                     // [lanes][d4n]
-  int* tile_ids = reinterpret_cast<int*>(smem + (size_t)tile_lanes * d4n);
-  float* cd2 = reinterpret_cast<float*>(tile_ids + tile_lanes);  // [k][bd]
-  int* cidx = reinterpret_cast<int*>(cd2 + (size_t)k * bd);      // [k][bd]
-
-  const long long row0 = (long long)blockIdx.x * bd;
-  const int nrows = (int)min((long long)bd, (long long)nq - row0);
-  const int tid = threadIdx.x;
-  const long long base = row0 * k;
-
-  for (int e = tid; e < nrows * k; e += bd) {
-    const int r = e / k;
-    const int j = e - r * k;
-    cd2[j * bd + r] = d2[base + e];
-    cidx[j * bd + r] = idx[base + e];
-  }
-  const bool active = tid < nrows;
-  const float4* qcol = q_t + row0 + tid;
-  __syncthreads();
-  float kth = active ? cd2[(k - 1) * bd + tid] : -CUDART_INF_F;
-
-  for (int l0 = 0; l0 < np; l0 += tile_lanes) {
-    const int nl = min(tile_lanes, np - l0);
-    __syncthreads();  // every thread is done with the previous tile
-    knn::stage_tile_nd(tile, tile_ids, p_pts, p_ids, l0, nl, dim, d4n);
-    __syncthreads();
-    if (active)
-      for (int ls = 0; ls < nl; ls += knn::kLaneBlock)
-        knn::score_fold_nd(tile, tile_ids, ls, nl, d4n, qcol, nq, cd2, cidx,
-                           bd, tid, k, kth);
-  }
-  __syncthreads();
-  for (int e = tid; e < nrows * k; e += bd) {
-    const int r = e / k;
-    const int j = e - r * k;
-    d2[base + e] = cd2[j * bd + r];
-    idx[base + e] = cidx[j * bd + r];
-  }
-}
-
-}  // namespace
-
-// Launches on `stream`; returns the CUDA error code of the launch (0 = ok).
-extern "C" int knn_bf_nd_launch(const float4* q_t, const float* p_pts,
-                                const int* p_ids, float* d2, int* idx, int nq,
-                                int np, int dim, int k, int threads,
-                                int tile_lanes, void* stream) {
-  const size_t smem = (size_t)tile_lanes * (((dim + 3) >> 2) * sizeof(float4)
-                                            + sizeof(int)) +
-                      (size_t)k * threads * (sizeof(float) + sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_bf_nd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks =
-      (unsigned)(((long long)nq + threads - 1) / threads);
-  knn_bf_nd_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      q_t, p_pts, p_ids, d2, idx, nq, np, dim, k, tile_lanes);
-  return (int)cudaGetLastError();
-}
-
-namespace {
 
 template <int S>
 int bf_d3_launch(const float* q_pts, const float4* p4, float* d2, int* idx,

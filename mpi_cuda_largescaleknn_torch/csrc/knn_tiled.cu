@@ -60,47 +60,47 @@
 //   largest k-th d2 to a shared atomicMax on the float bits (d2 >= 0), so
 //   one barrier a tile both frees the other buffer and settles the radius.
 //
-// Points of any other dimension D go through knn_tiled_nd_kernel: the same
-// walk, prune and fold, with each pair scored left to right over all D
-// components. At D=128 a pair is 384 FP32 operations, so arithmetic bounds
-// it harder still; a visited bucket no longer fits in shared memory (496
-// lanes x 512 B), so it is staged in tiles of lanes zero-padded to a
-// multiple of 4 components, and each thread keeps 32 lanes' partial sums
-// in registers while it streams its query row (read as float4 from a
-// component-major copy, coalesced across the block's rows) against
-// float4 broadcast loads of the tile: one shared-memory load per 12 FP32
-// operations (4 components of one pair).
-//
-// knn_tiled_nd_ring_kernel is the general-D kernel built for that bound
-// (the wrapper, ops/knn_tiled.py tiled_launch_plan, sends it every D other
-// than 3 whose Dp4 = 4*ceil(D/4) is at most RING_MAX_DP4; knn_tiled_nd_kernel
-// keeps the rest). Each pair is still sum_i (q_i - p_i)^2 left to right,
-// uncontracted, so it is 3 FP32 issues per component and no tensor core
-// can help; where knn_tiled_nd_kernel loses time, and what this one does:
-// - There every shared-memory load feeds one query row, and the query row
-//   comes from L2 again for every 32-lane block. Here a block's 128 query
-//   rows are copied into shared memory once, and each consumer thread
-//   holds a register tile of 8 rows x 4 lanes (rows rg + 16i, lanes
+// Points of any other dimension D go through knn_tiled_nd_ring_kernel: the
+// same walk, prune and fold, with each pair scored left to right over all
+// D components. Each pair is sum_i (q_i - p_i)^2, uncontracted, so it is 3
+// FP32 issues per component (385 at D=128) and no tensor core can help:
+// arithmetic bounds it harder still, and a visited bucket (496 lanes x 512
+// B at D=128) no longer fits in shared memory. What the kernel does:
+// - A block's 128 query rows sit in shared memory, and each consumer
+//   thread holds a register tile of 8 rows x 4 lanes (rows rg + 16i, lanes
 //   lg + 16j), so per group of 4 components it loads 8 + 4 float4 and
 //   issues 384 FP32 operations; a half-warp shares its rows (broadcast)
 //   and reads 16 consecutive lanes, so no load meets a bank conflict.
-// - There tiles are staged synchronously through registers. Here the
-//   wrapper lays the points out once per launch as chunks of 64 lanes,
+// - The wrapper lays the points out once per launch as chunks of 64 lanes,
 //   each component-major ([Dp4/4][64] float4) and contiguous, lanes past T
-//   at PAD_SENTINEL (their d2 is +inf, never adopted); one producer thread
-//   keeps a ring of 2-3 stages full with cp.async.bulk on full/empty
-//   mbarriers, running ahead along the walk, so the next chunk's copy
-//   overlaps this chunk's arithmetic (the pattern of knn_tiled_mxu.cu).
-// - There a 16-lane tail costs a full 32-lane block of work; here the
-//   tail rounds up to 64 lanes (T=496 pads to 512, 3%).
-// The fold is gated: after a chunk each thread compares its 32 scores with
-// its rows' k-th values (copies that only shrink, so a failing lane could
-// never be adopted). A row's 64 lanes lie in one half-warp, so when a warp
-// holds a passing lane the half-warp merges its masks into one 64-bit lane
-// mask per row, pops it lowest lane first, and shuffles each score to the
-// row's inserting thread (lg == i), which inserts strict-< into the row:
-// lane order, the bits of every other fold. Rows sit in shared memory
-// where they fit beside the ring, else in place in device memory.
+//   NaN (their d2 is NaN, never adopted); one producer thread keeps a ring
+//   of 2-3 stages full with cp.async.bulk on full/empty mbarriers, running
+//   ahead along the walk, so the next chunk's copy overlaps this chunk's
+//   arithmetic (the pattern of knn_tiled_mxu.cu). The tail of a bucket
+//   rounds up to 64 lanes (T=496 pads to 512, 3%).
+// - Up to Dp4 = 224 (ops/knn_tiled.py RESIDENT_MAX_DP4) the queries are
+//   resident: copied once, beside a ring of whole chunks. Above it they and
+//   a 2-stage ring no longer fit in 227 KB, so D is streamed: every stage
+//   carries one slice of G float4 groups of a chunk (G*64 float4) and the
+//   same slice of the block's queries (G*128 float4), the producer walks
+//   (chunk, slice) pairs, and the register tile persists over a chunk's
+//   slices, which go in ascending order: each d2 keeps the tree of
+//   elementwise_dist2, bit for bit. The queries are then read again for
+//   every chunk, from L2: 4/(3*64) bytes per FP32 issue against the
+//   points' 4/(3*128), about 1 TB/s at the full issue rate.
+// The fold is gated: after a chunk (its last slice) each thread compares
+// its 32 scores with its rows' k-th values (copies that only shrink, so a
+// failing lane could never be adopted). A row's 64 lanes lie in one
+// half-warp, so when a warp holds a passing lane the half-warp merges its
+// masks into one 64-bit lane mask per row, pops it lowest lane first, and
+// shuffles each score to the row's inserting thread (lg == i), which
+// inserts strict-< into the row: lane order, the bits of every other fold.
+// Rows sit in shared memory where they fit beside the ring, else in place
+// in device memory, so any k runs.
+//
+// The flat engine's fold at D != 3 (ops/knn_bf.py) is this kernel too: a
+// traversal with one query bucket of every row (all real) and one point
+// bucket of every point, visited once.
 
 #include <cstdint>
 
@@ -111,8 +111,6 @@
 #include "knn_rows.cuh"
 
 namespace {
-
-using knn::block_max;
 
 template <int S>
 __global__ void __launch_bounds__(knn::kD3MaxThreads, 2) knn_tiled_d3_kernel(
@@ -232,79 +230,6 @@ __global__ void __launch_bounds__(knn::kD3MaxThreads, 2) knn_tiled_d3_kernel(
   if (tid == 0 && nvis) atomicMax(visits + b, nvis);
 }
 
-__global__ void knn_tiled_nd_kernel(
-    const int* __restrict__ order,     // [Bq, Bp] nearest-first bucket ids
-    const float* __restrict__ boxd2,   // [Bq, Bp] ascending box d2
-    const float4* __restrict__ q_t,    // [Bq, d4n, S] component groups
-    const int* __restrict__ q_ids,     // [Bq, S]
-    const float* __restrict__ p_pts,   // [Bp, T, D]
-    const int* __restrict__ p_ids,     // [Bp, T]
-    float* __restrict__ d2,            // [Bq*S, k] in/out, ascending rows
-    int* __restrict__ idx,             // [Bq*S, k] in/out
-    int* __restrict__ visits,          // [Bq] buckets scored, max over blocks
-    int s_q, int num_pb, int t_p, int dim, int k, int skip_self,
-    int self_group, int rows_per_block, int tile_lanes) {
-  extern __shared__ float4 smem[];
-  __shared__ float warp_buf[32];
-  const int bd = blockDim.x;
-  const int d4n = (dim + 3) >> 2;
-  float4* tile = smem;                                     // [lanes][d4n]
-  int* tile_ids = reinterpret_cast<int*>(smem + (size_t)tile_lanes * d4n);
-  float* cd2 = reinterpret_cast<float*>(tile_ids + tile_lanes);  // [k][bd]
-  int* cidx = reinterpret_cast<int*>(cd2 + (size_t)k * bd);      // [k][bd]
-
-  const int b = blockIdx.x;
-  const int r0 = blockIdx.y * rows_per_block;
-  const int nrows = min(rows_per_block, s_q - r0);
-  const int tid = threadIdx.x;
-  const long long row0 = (long long)b * s_q + r0;
-  const long long base = row0 * k;
-
-  for (int e = tid; e < nrows * k; e += bd) {
-    const int r = e / k;
-    const int j = e - r * k;
-    cd2[j * bd + r] = d2[base + e];
-    cidx[j * bd + r] = idx[base + e];
-  }
-  const bool valid = tid < nrows && q_ids[row0 + tid] >= 0;
-  const float4* qcol = q_t + (long long)b * d4n * s_q + r0 + tid;
-  __syncthreads();
-  float kth = valid ? cd2[(k - 1) * bd + tid] : -CUDART_INF_F;
-  float worst = block_max(kth, warp_buf);
-
-  const int own = b / self_group;
-  const int* ord = order + (long long)b * num_pb;
-  const float* bx = boxd2 + (long long)b * num_pb;
-  int nvis = 0;
-  for (int v = 0; v < num_pb; ++v) {
-    if (!(bx[v] < worst)) break;
-    const int pb = ord[v];
-    if (skip_self && pb == own) continue;
-    const long long lane0 = (long long)pb * t_p;
-    for (int l0 = 0; l0 < t_p; l0 += tile_lanes) {
-      const int nl = min(tile_lanes, t_p - l0);
-      __syncthreads();  // every thread is done with the previous tile
-      knn::stage_tile_nd(tile, tile_ids, p_pts, p_ids, lane0 + l0, nl, dim,
-                         d4n);
-      __syncthreads();
-      if (valid)
-        for (int ls = 0; ls < nl; ls += knn::kLaneBlock)
-          knn::score_fold_nd(tile, tile_ids, ls, nl, d4n, qcol, s_q, cd2,
-                             cidx, bd, tid, k, kth);
-    }
-    ++nvis;
-    worst = block_max(valid ? kth : -CUDART_INF_F, warp_buf);
-  }
-  __syncthreads();
-  for (int e = tid; e < nrows * k; e += bd) {
-    const int r = e / k;
-    const int j = e - r * k;
-    d2[base + e] = cd2[j * bd + r];
-    idx[base + e] = cidx[j * bd + r];
-  }
-  if (tid == 0 && nvis) atomicMax(visits + b, nvis);
-}
-
 // ---------------------------------------------------------------------------
 // knn_tiled_nd_ring_kernel
 
@@ -324,19 +249,15 @@ __device__ __forceinline__ float add_sq(float acc, float a, float b) {
   return __fadd_rn(acc, __fmul_rn(d, d));
 }
 
-// acc[i][j] = d2 of query row rg + kRowGroups*i against chunk lane
-// lg + 16j, over all d4n groups of 4 components in order. q_s is
-// [d4n][128], p_s [d4n][64], both float4.
-__device__ __forceinline__ void score_chunk(float (&acc)[kTR][kTL],
-                                            const float4* q_s,
-                                            const float4* p_s, int d4n,
-                                            int rg, int lg) {
-#pragma unroll
-  for (int i = 0; i < kTR; ++i)
-#pragma unroll
-    for (int j = 0; j < kTL; ++j) acc[i][j] = 0.f;
+// acc[i][j] += d2 terms of query row rg + kRowGroups*i against chunk lane
+// lg + 16j, over `groups` groups of 4 components in order. q_s is
+// [groups][128], p_s [groups][64], both float4.
+__device__ __forceinline__ void score_groups(float (&acc)[kTR][kTL],
+                                             const float4* q_s,
+                                             const float4* p_s, int groups,
+                                             int rg, int lg) {
 #pragma unroll 2
-  for (int d4 = 0; d4 < d4n; ++d4) {
+  for (int d4 = 0; d4 < groups; ++d4) {
     const float4* pp = p_s + d4 * kRingLanes + lg;
     const float4* qq = q_s + d4 * kRingRows + rg;
     float4 p[kTL];
@@ -356,6 +277,33 @@ __device__ __forceinline__ void score_chunk(float (&acc)[kTR][kTL],
   }
 }
 
+// acc[i][j] = d2 of query row rg + kRowGroups*i against chunk lane
+// lg + 16j, over all d4n groups of 4 components in order (resident
+// queries).
+__device__ __forceinline__ void score_chunk(float (&acc)[kTR][kTL],
+                                            const float4* q_s,
+                                            const float4* p_s, int d4n,
+                                            int rg, int lg) {
+#pragma unroll
+  for (int i = 0; i < kTR; ++i)
+#pragma unroll
+    for (int j = 0; j < kTL; ++j) acc[i][j] = 0.f;
+  score_groups(acc, q_s, p_s, d4n, rg, lg);
+}
+
+// Bytes of one ring stage: a whole chunk (resident queries), or one slice
+// of `slice_groups` float4 groups of a chunk and of the block's queries.
+__host__ __device__ __forceinline__ uint32_t ring_stage_bytes(
+    int d4n, int slice_groups) {
+  return slice_groups ? (uint32_t)slice_groups * (kRingRows + kRingLanes) * 16
+                      : (uint32_t)d4n * kRingLanes * 16;
+}
+
+// kStream = false: the queries resident in shared memory, a stage holds a
+// chunk. kStream = true: a stage holds slice sl of a chunk and of the
+// queries, groups [sl*slice_groups, ...) of the d4n, the queries first,
+// the points slice_groups*128 float4 after them.
+template <bool kStream>
 __global__ void __launch_bounds__(kRingThreads, 1) knn_tiled_nd_ring_kernel(
     const int* __restrict__ order,       // [Bq, Bp] nearest-first bucket ids
     const float* __restrict__ boxd2,     // [Bq, Bp] ascending box d2
@@ -367,14 +315,16 @@ __global__ void __launch_bounds__(kRingThreads, 1) knn_tiled_nd_ring_kernel(
     int* idx,                            // [Bq*S, k] in/out
     int* __restrict__ visits,            // [Bq] buckets scored, max over blocks
     int s_q, int s_pad, int num_pb, int t_p, int t_pad, int d4n, int k,
-    int skip_self, int self_group, int stages, int rows_in_smem) {
+    int skip_self, int self_group, int stages, int rows_in_smem,
+    int slice_groups) {
   extern __shared__ __align__(128) unsigned char sbuf[];
-  const uint32_t qbytes = kRingRows * d4n * 16;   // the block's queries
-  const uint32_t cbytes = kRingLanes * d4n * 16;  // one chunk
+  const uint32_t qbytes = kStream ? 0u : kRingRows * d4n * 16;  // resident
+  const uint32_t sbytes = ring_stage_bytes(d4n, kStream ? slice_groups : 0);
+  const int nsl = kStream ? (d4n + slice_groups - 1) / slice_groups : 1;
   const float4* q_s = reinterpret_cast<const float4*>(sbuf);
   unsigned char* ring = sbuf + qbytes;
   const int row_slots = rows_in_smem ? k * kRingRows : 0;
-  float* cd2 = reinterpret_cast<float*>(ring + stages * cbytes);  // [k][128]
+  float* cd2 = reinterpret_cast<float*>(ring + stages * sbytes);  // [k][128]
   int* cidx = reinterpret_cast<int*>(cd2 + row_slots);            // [k][128]
   uint64_t* full = reinterpret_cast<uint64_t*>(cidx + row_slots);
   uint64_t* empty = full + kRingMaxStages;
@@ -404,36 +354,54 @@ __global__ void __launch_bounds__(kRingThreads, 1) knn_tiled_nd_ring_kernel(
   __syncthreads();
 
   if (tid >= kRingConsumers) {
-    // The producer: one thread copies the block's queries, then walks the
-    // consumers' schedule without the prune and keeps the ring full until
-    // they stop it.
+    // The producer: one thread copies the block's resident queries, then
+    // walks the consumers' schedule without the prune and keeps the ring
+    // full until they stop it; stage n holds chunk n (resident) or the
+    // n-th (chunk, slice) pair (streamed).
     if (tid != kRingConsumers) return;
-    knn::mbar_expect_tx(qbar, qbytes);
-    knn::bulk_load(sbuf,
-                   q_ring + ((long long)b * (s_pad / kRingRows) + blockIdx.y)
-                                * kRingRows * d4n,
-                   qbytes, qbar);
-    int n = 0;  // chunks issued
+    // the block's queries, [d4n][128]
+    const float4* q_blk =
+        q_ring + ((long long)b * (s_pad / kRingRows) + blockIdx.y) *
+                     kRingRows * d4n;
+    if (!kStream) {
+      knn::mbar_expect_tx(qbar, qbytes);
+      knn::bulk_load(sbuf, q_blk, qbytes, qbar);
+    }
+    int n = 0;  // stages issued
     for (int v = 0; v < num_pb && !*stop; ++v) {
       const int pb = ord[v];
       if (skip_self && pb == own) continue;
-      for (int c = 0; c < nch; ++c, ++n) {
-        const int s = n % stages;
-        if (n >= stages) {  // wait until every consumer warp released it
-          const uint32_t parity = (n / stages - 1) & 1;
-          while (!knn::mbar_try_wait(empty + s, parity))
-            if (*stop) goto drain;
+      for (int c = 0; c < nch; ++c) {
+        const float4* chunk = p_ring + ((long long)pb * nch + c)
+                                           * kRingLanes * d4n;
+        for (int sl = 0; sl < nsl; ++sl, ++n) {
+          const int s = n % stages;
+          if (n >= stages) {  // wait until every consumer warp released it
+            const uint32_t parity = (n / stages - 1) & 1;
+            while (!knn::mbar_try_wait(empty + s, parity))
+              if (*stop) goto drain;
+          }
+          if (*stop) goto drain;
+          unsigned char* st = ring + s * sbytes;
+          if (kStream) {
+            const int g0 = sl * slice_groups;
+            const int g = min(slice_groups, d4n - g0);
+            knn::mbar_expect_tx(full + s, g * (kRingRows + kRingLanes) * 16);
+            knn::bulk_load(st, q_blk + g0 * kRingRows, g * kRingRows * 16,
+                           full + s);
+            knn::bulk_load(st + slice_groups * kRingRows * 16,
+                           chunk + g0 * kRingLanes, g * kRingLanes * 16,
+                           full + s);
+          } else {
+            knn::mbar_expect_tx(full + s, sbytes);
+            knn::bulk_load(st, chunk, sbytes, full + s);
+          }
         }
-        if (*stop) goto drain;
-        knn::mbar_expect_tx(full + s, cbytes);
-        knn::bulk_load(ring + s * cbytes,
-                       p_ring + ((long long)pb * nch + c) * kRingLanes * d4n,
-                       cbytes, full + s);
       }
     }
   drain:
     // every copy issued lands before the block exits
-    knn::mbar_wait(qbar, 0);
+    if (!kStream) knn::mbar_wait(qbar, 0);
     for (int s = 0; s < stages && s < n; ++s)
       knn::mbar_wait(full + s, ((n - 1 - s) / stages) & 1);
     return;
@@ -480,7 +448,7 @@ __global__ void __launch_bounds__(kRingThreads, 1) knn_tiled_nd_ring_kernel(
   };
   int parity = 0;
   float worst = knn::consumer_max<kRingConsumers>(rows_max(), red, parity);
-  knn::mbar_wait(qbar, 0);
+  if (!kStream) knn::mbar_wait(qbar, 0);
 
   // The lanes of a chunk that passed the gate (bit kTL*i + j of m), adopted
   // row by row in lane order; pos0 is the chunk's first lane in p_ids.
@@ -527,7 +495,7 @@ __global__ void __launch_bounds__(kRingThreads, 1) knn_tiled_nd_ring_kernel(
       kth[i] = __shfl_sync(0xffffffffu, kth[i], half | i);
   };
 
-  int n = 0;  // chunks consumed
+  int n = 0;  // stages consumed
   int nvis = 0;
   for (int v = 0; v < num_pb; ++v) {
     // ascending box d2 and a radius that only shrinks: nothing later can
@@ -536,15 +504,34 @@ __global__ void __launch_bounds__(kRingThreads, 1) knn_tiled_nd_ring_kernel(
     const int pb = ord[v];
     if (skip_self && pb == own) continue;
     const long long lane0 = (long long)pb * t_p;
-    for (int c = 0; c < nch; ++c, ++n) {
-      const int s = n % stages;
-      knn::mbar_wait(full + s, (n / stages) & 1);
+    for (int c = 0; c < nch; ++c) {
       float acc[kTR][kTL];
-      score_chunk(acc, q_s,
-                  reinterpret_cast<const float4*>(ring + s * cbytes), d4n,
-                  rg, lg);
-      __syncwarp();
-      if (lane == 0) knn::mbar_arrive(empty + s);
+      if (kStream) {
+        // the chunk's slices in ascending order into one tile
+#pragma unroll
+        for (int i = 0; i < kTR; ++i)
+#pragma unroll
+          for (int j = 0; j < kTL; ++j) acc[i][j] = 0.f;
+        for (int sl = 0; sl < nsl; ++sl, ++n) {
+          const int s = n % stages;
+          knn::mbar_wait(full + s, (n / stages) & 1);
+          const float4* st =
+              reinterpret_cast<const float4*>(ring + s * sbytes);
+          score_groups(acc, st, st + slice_groups * kRingRows,
+                       min(slice_groups, d4n - sl * slice_groups), rg, lg);
+          __syncwarp();
+          if (lane == 0) knn::mbar_arrive(empty + s);
+        }
+      } else {
+        const int s = n % stages;
+        knn::mbar_wait(full + s, (n / stages) & 1);
+        score_chunk(acc, q_s,
+                    reinterpret_cast<const float4*>(ring + s * sbytes), d4n,
+                    rg, lg);
+        __syncwarp();
+        if (lane == 0) knn::mbar_arrive(empty + s);
+        ++n;
+      }
       uint32_t m = 0u;
 #pragma unroll
       for (int i = 0; i < kTR; ++i)
@@ -572,60 +559,62 @@ __global__ void __launch_bounds__(kRingThreads, 1) knn_tiled_nd_ring_kernel(
 
 // Dynamic shared memory of knn_tiled_nd_ring_kernel (ops/knn_tiled.py
 // ring_smem_bytes computes the same).
-size_t ring_smem(int dp4, int k, int stages, int rows_in_smem) {
-  return (size_t)kRingRows * dp4 * 4 + (size_t)stages * kRingLanes * dp4 * 4 +
+size_t ring_smem(int dp4, int k, int stages, int rows_in_smem,
+                 int slice_groups) {
+  return (slice_groups ? 0 : (size_t)kRingRows * dp4 * 4) +
+         (size_t)stages * ring_stage_bytes(dp4 / 4, slice_groups) +
          (rows_in_smem ? (size_t)k * kRingRows * 8 : 0) + 256;
+}
+
+template <bool kStream>
+int ring_launch(const int* order, const float* boxd2, const float* q_ring,
+                const int* q_ids, const float* p_ring, const int* p_ids,
+                float* d2, int* idx, int* visits, int num_qb, int s_q,
+                int s_pad, int num_pb, int t_p, int t_pad, int dp4, int k,
+                int skip_self, int self_group, int stages, int rows_in_smem,
+                int slice_groups, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_tiled_nd_ring_kernel<kStream>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(num_qb, s_pad / kRingRows);
+  knn_tiled_nd_ring_kernel<kStream><<<grid, kRingThreads, smem, stream>>>(
+      order, boxd2, reinterpret_cast<const float4*>(q_ring), q_ids,
+      reinterpret_cast<const float4*>(p_ring), p_ids, d2, idx, visits, s_q,
+      s_pad, num_pb, t_p, t_pad, dp4 / 4, k, skip_self, self_group, stages,
+      rows_in_smem, slice_groups);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches knn_tiled_nd_ring_kernel on `stream`; returns the CUDA error
-// code of the launch (0 = ok), or cudaErrorInvalidValue for a shape it does
-// not take (Dp4 not a multiple of 4, S_pad not of 128, T_pad not of 64, or
-// a ring of other than 2 or 3 stages).
+// Launches knn_tiled_nd_ring_kernel on `stream`: with the queries resident
+// when slice_groups is 0, else with D streamed in slices of slice_groups
+// float4 groups. Returns the CUDA error code of the launch (0 = ok), or
+// cudaErrorInvalidValue for a shape it does not take (Dp4 not a multiple
+// of 4, S_pad not of 128, T_pad not of 64, a ring of other than 2 or 3
+// stages, or more than 65,535 blocks of 128 rows a bucket).
 extern "C" int knn_tiled_nd_ring_launch(
     const int* order, const float* boxd2, const float* q_ring,
     const int* q_ids, const float* p_ring, const int* p_ids, float* d2,
     int* idx, int* visits, int num_qb, int s_q, int s_pad, int num_pb,
     int t_p, int t_pad, int dp4, int k, int skip_self, int self_group,
-    int stages, int rows_in_smem, void* stream) {
+    int stages, int rows_in_smem, int slice_groups, void* stream) {
   if (dp4 % 4 || s_pad % kRingRows || t_pad % kRingLanes || stages < 2 ||
-      stages > kRingMaxStages)
+      stages > kRingMaxStages || slice_groups < 0 ||
+      s_pad / kRingRows > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = ring_smem(dp4, k, stages, rows_in_smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_tiled_nd_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(num_qb, s_pad / kRingRows);
-  knn_tiled_nd_ring_kernel<<<grid, kRingThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      order, boxd2, reinterpret_cast<const float4*>(q_ring), q_ids,
-      reinterpret_cast<const float4*>(p_ring), p_ids, d2, idx, visits, s_q,
-      s_pad, num_pb, t_p, t_pad, dp4 / 4, k, skip_self, self_group, stages,
-      rows_in_smem);
-  return (int)cudaGetLastError();
-}
-
-// Launches on `stream`; returns the CUDA error code of the launch (0 = ok).
-extern "C" int knn_tiled_nd_launch(
-    const int* order, const float* boxd2, const float4* q_t,
-    const int* q_ids, const float* p_pts, const int* p_ids, float* d2,
-    int* idx, int* visits, int num_qb, int s_q, int num_pb, int t_p,
-    int dim, int k, int skip_self, int self_group, int rows_per_block,
-    int threads, int tile_lanes, void* stream) {
-  const size_t smem = (size_t)tile_lanes * (((dim + 3) >> 2) * sizeof(float4)
-                                            + sizeof(int)) +
-                      (size_t)k * threads * (sizeof(float) + sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_tiled_nd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(num_qb, (s_q + rows_per_block - 1) / rows_per_block);
-  knn_tiled_nd_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      order, boxd2, q_t, q_ids, p_pts, p_ids, d2, idx, visits, s_q, num_pb,
-      t_p, dim, k, skip_self, self_group, rows_per_block, tile_lanes);
-  return (int)cudaGetLastError();
+  const size_t smem = ring_smem(dp4, k, stages, rows_in_smem, slice_groups);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return slice_groups
+             ? ring_launch<true>(order, boxd2, q_ring, q_ids, p_ring, p_ids,
+                                 d2, idx, visits, num_qb, s_q, s_pad, num_pb,
+                                 t_p, t_pad, dp4, k, skip_self, self_group,
+                                 stages, rows_in_smem, slice_groups, smem, st)
+             : ring_launch<false>(order, boxd2, q_ring, q_ids, p_ring, p_ids,
+                                  d2, idx, visits, num_qb, s_q, s_pad, num_pb,
+                                  t_p, t_pad, dp4, k, skip_self, self_group,
+                                  stages, rows_in_smem, 0, smem, st);
 }
 
 namespace {

@@ -11,9 +11,12 @@ sorted top-k row — strict-< adoption, each adopted point inserted after
 every equal entry, so existing entries win ties, then lower point rows.
 
 - ``knn_update_bf_cuda`` is the entry point: on a CUDA tensor it launches
-  ``csrc/knn_bf.cu`` (``knn_bf_d3_kernel``, the warp fold of
-  ``csrc/knn_rows.cuh``, at D=3; ``knn_bf_nd_kernel`` at other D) or
-  raises, on a CPU tensor it runs ``knn_update_bf_plain``.
+  a kernel or raises, on a CPU tensor it runs ``knn_update_bf_plain``. At
+  D=3 the kernel is ``csrc/knn_bf.cu``'s ``knn_bf_d3_kernel`` (the warp
+  fold of ``csrc/knn_rows.cuh``); at other D it is the traversal's
+  ``knn_tiled_nd_ring_kernel`` (``csrc/knn_tiled.cu``) on
+  ``flat_buckets``: one query bucket of every row and one point bucket of
+  every point, visited once, which folds the points in the same order.
 - ``knn_update_bf_plain`` follows the JAX package's
   ``ops/brute_force.py`` ``knn_update_bruteforce``: [query_tile,
   point_tile] tiles of exact distances, each stable-merged into the rows.
@@ -25,7 +28,8 @@ from ``point_ids`` directly; the TPU kernel's encoded lane positions and
 ``decode_positions`` existed only for Mosaic and are not ported. Padding
 query rows (sentinel coordinates) are scored like any other row: against
 sentinel points they score 0 and adopt id -1, as in the TPU kernel, and
-callers drop them.
+callers drop them. Every query row of ``flat_buckets`` is real for the
+traversal, so the ring kernel folds those rows too.
 """
 
 from __future__ import annotations
@@ -39,15 +43,20 @@ from mpi_cuda_largescaleknn_torch.ops.candidates import merge_candidates
 from mpi_cuda_largescaleknn_torch.ops.distance import elementwise_dist2
 from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
     CHUNK_LANES,
-    ND_MAX_THREADS,
-    ND_TILE_BYTES,
-    SMEM_OPTIN,
-    component_major,
+    RING_LANES,
+    RING_ROWS,
+    TiledPlan,
     d3_block,
     d3_lanes,
     d3_slots,
     d3_smem_bytes,
     d3_tile_lanes,
+    launch_f32_plan,
+    tiled_launch_plan,
+)
+from mpi_cuda_largescaleknn_torch.ops.partition import (
+    BucketedPoints,
+    nearest_first_order,
 )
 from mpi_cuda_largescaleknn_torch.utils.math import round_up
 
@@ -82,31 +91,46 @@ def knn_update_bf_plain(state: CandidateState, queries: torch.Tensor,
     return CandidateState(torch.cat(d2_out), torch.cat(idx_out))
 
 
-def launch_geometry(query_tile: int, point_tile: int, k: int,
-                    dim: int = 3) -> tuple[int, int]:
-    """(rows per block, staged lanes). At D=3 (``knn_bf_d3_kernel``)
+def launch_geometry(query_tile: int, point_tile: int,
+                    k: int) -> tuple[int, int]:
+    """(rows per block, staged lanes) of ``knn_bf_d3_kernel``:
     ``query_tile`` rows a block in warps of 4 (``d3_block``: at most 16
     warps, fewer where two blocks would not fit on an SM) and tiles of
     ``point_tile`` lanes rounded up to whole 256-lane chunks, at most 1024
-    (``d3_tile_lanes``); a block has 8 threads a row. At other D
-    (``knn_bf_nd_kernel``, one thread a row) ``query_tile`` rows rounded up
-    to whole warps and ``point_tile`` lanes, each clamped to what shared
-    memory allows (the candidate columns take 8 bytes a slot, a lane
-    ``16 * ceil(D/4) + 4`` bytes, in tiles of a multiple of 32 lanes
-    within ``ND_TILE_BYTES``), at most ``ND_MAX_THREADS`` rows."""
+    (``d3_tile_lanes``); a block has 8 threads a row."""
+    lanes = d3_tile_lanes(point_tile)
+    return d3_block(query_tile, lanes, k)[0], lanes
+
+
+def flat_plan(k: int, dim: int) -> TiledPlan:
+    """The ring kernel's plan for the flat fold at D != 3
+    (``tiled_launch_plan``: queries resident up to ``RESIDENT_MAX_DP4``, D
+    streamed above it, any k); the engine's tiles do not enter it."""
     if dim == 3:
-        lanes = d3_tile_lanes(point_tile)
-        return d3_block(query_tile, lanes, k)[0], lanes
-    lane_bytes = 16 * -(-dim // 4) + 4
-    lanes = min(round_up(max(point_tile, 1), 32),
-                max(32, ND_TILE_BYTES // lane_bytes // 32 * 32))
-    budget = SMEM_OPTIN - 1024 - lane_bytes * lanes
-    cap = min(ND_MAX_THREADS, budget // (8 * k) // 32 * 32)
-    if cap < 32:
-        raise NotImplementedError(
-            f"k={k}, D={dim}: 32 candidate rows no longer fit in shared "
-            "memory (candidate rows in device memory: ROADMAP.md Queue 1)")
-    return min(round_up(max(query_tile, 1), 32), cap), lanes
+        raise ValueError("the flat fold at D=3 takes knn_bf_d3_kernel")
+    return tiled_launch_plan(RING_ROWS, RING_LANES, k, dim)
+
+
+def flat_buckets(queries: torch.Tensor, points: torch.Tensor,
+                 point_ids: torch.Tensor):
+    """The flat fold as a traversal: (one query bucket of every row, each
+    real with its row number as id; one point bucket of every point with
+    ``point_ids``). Both boxes are all of space, so the one box d2 is 0 and
+    the walk visits the bucket whenever a row could adopt anything: the
+    traversal folds every point, in row order, into every row."""
+    dim = queries.shape[-1]
+    dev = queries.device
+
+    def bucket(pts, ids):
+        n = pts.shape[0]
+        return BucketedPoints(
+            pts[None], ids[None],
+            torch.full((1, dim), -torch.inf, device=dev),
+            torch.full((1, dim), torch.inf, device=dev),
+            torch.arange(n, dtype=torch.int32, device=dev)[None])
+
+    rows = torch.arange(queries.shape[0], dtype=torch.int32, device=dev)
+    return bucket(queries, rows), bucket(points, point_ids)
 
 
 def _check_inputs(state: CandidateState, queries: torch.Tensor,
@@ -164,45 +188,57 @@ def knn_update_bf_cuda(state: CandidateState, queries: torch.Tensor,
     return out
 
 
+#: query rows one flat launch on the ring kernel takes: 65,535 blocks of
+#: 128 (the grid's y limit); more go in several launches
+FLAT_MAX_ROWS = 65_535 * RING_ROWS
+
+
 def launch_knn_bf(queries: torch.Tensor, points: torch.Tensor,
                   point_ids: torch.Tensor, rows: CandidateState, *,
                   query_tile: int = 2048, point_tile: int = 2048) -> None:
-    """Launch the kernel on PyTorch's current stream, folding ``points``
+    """Launch the flat fold on PyTorch's current stream, folding ``points``
     into ``rows`` IN PLACE (contiguous CUDA rows, inputs as checked by
-    ``knn_update_bf_cuda``). The D=3 kernel gets the points as
-    ``d3_lanes`` padded to whole 256-lane chunks. Counts one launch in
-    ``knn_update_bf_cuda.launches``, and the D=3 kernel's also in
-    ``d3_launches``."""
+    ``knn_update_bf_cuda``). At D=3 ``knn_bf_d3_kernel`` gets the points as
+    ``d3_lanes`` padded to whole 256-lane chunks; at other D the ring
+    kernel (``flat_plan``) folds ``flat_buckets``, ignoring the tiles.
+    Counts each launch in ``knn_update_bf_cuda.launches``, and in
+    ``d3_launches`` or ``ring_launches`` by its kernel."""
     num_q, k = rows.dist2.shape
     dim = queries.shape[-1]
     if not (rows.dist2.is_contiguous() and rows.idx.is_contiguous()):
         raise ValueError("rows must be contiguous")
-    block_rows, lanes = launch_geometry(query_tile, point_tile, k, dim)
+    bf = knn_update_bf_cuda
+    if dim != 3:
+        plan = flat_plan(k, dim)
+        for q0 in range(0, num_q, FLAT_MAX_ROWS):
+            sl = slice(q0, q0 + FLAT_MAX_ROWS)
+            q, p = flat_buckets(queries[sl], points, point_ids)
+            sorted_d2, order = nearest_first_order(q.lower, q.upper,
+                                                   p.lower, p.upper)
+            launch_f32_plan(plan, order, sorted_d2, q, p,
+                            CandidateState(rows.dist2[sl], rows.idx[sl]),
+                            skip_self=False, self_group=1,
+                            events=bf.layout_events)
+            bf.launches += 1
+            bf.ring_launches += 1
+        return
+    block_rows, lanes = launch_geometry(query_tile, point_tile, k)
     p, pid = points.contiguous(), point_ids.contiguous()
+    q = queries.contiguous()
+    np_pad = round_up(p.shape[0], CHUNK_LANES)
+    p4 = d3_lanes(p, pid, np_pad)
     lib = _library()
     with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if dim == 3:
-            q = queries.contiguous()
-            np_pad = round_up(p.shape[0], CHUNK_LANES)
-            p4 = d3_lanes(p, pid, np_pad)
-            err = lib.knn_bf_launch(q.data_ptr(), p4.data_ptr(),
-                                    rows.dist2.data_ptr(),
-                                    rows.idx.data_ptr(), num_q, np_pad, k,
-                                    d3_slots(k), 8 * block_rows, lanes,
-                                    d3_smem_bytes(block_rows, lanes, k),
-                                    stream)
-        else:
-            q_t = component_major(queries)
-            err = lib.knn_bf_nd_launch(q_t.data_ptr(), p.data_ptr(),
-                                       pid.data_ptr(), rows.dist2.data_ptr(),
-                                       rows.idx.data_ptr(), num_q,
-                                       p.shape[0], dim, k, block_rows, lanes,
-                                       stream)
+        err = lib.knn_bf_launch(q.data_ptr(), p4.data_ptr(),
+                                rows.dist2.data_ptr(), rows.idx.data_ptr(),
+                                num_q, np_pad, k, d3_slots(k),
+                                8 * block_rows, lanes,
+                                d3_smem_bytes(block_rows, lanes, k),
+                                torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"knn_bf kernel launch failed: CUDA error {err}")
-    knn_update_bf_cuda.launches += 1
-    knn_update_bf_cuda.d3_launches += int(dim == 3)
+    bf.launches += 1
+    bf.d3_launches += 1
 
 
 def resident_warps(k: int, query_tile: int = 2048,
@@ -218,24 +254,29 @@ def resident_warps(k: int, query_tile: int = 2048,
     return blocks * rows // 4
 
 
-#: kernel launches made by this process (read by chip_smoke.py and the
-#: CLIs): ``launches`` of csrc/knn_bf.cu, ``d3_launches`` of those that
-#: went to its D=3 kernel
+#: flat kernel launches made by this process (read by chip_smoke.py and the
+#: CLIs): ``launches`` of either kernel, ``d3_launches`` of those that went
+#: to csrc/knn_bf.cu's D=3 kernel, ``ring_launches`` of those that went to
+#: csrc/knn_tiled.cu's ring kernel (D != 3)
 knn_update_bf_cuda.launches = 0
 knn_update_bf_cuda.d3_launches = 0
+knn_update_bf_cuda.ring_launches = 0
+#: None, or a list to which every ring-kernel launch appends three recorded
+#: CUDA events (``launch_f32_plan``): before the layouts, before the kernel
+#: and after it
+knn_update_bf_cuda.layout_events = None
 
 
 def _library() -> ctypes.CDLL:
     from mpi_cuda_largescaleknn_torch.utils.cuda_build import load_library
 
     lib = load_library("knn_bf")
-    # launcher: (pointers, ints), each followed by the stream
-    for fn, ptrs, ints in ((lib.knn_bf_launch, 4, 7),
-                           (lib.knn_bf_nd_launch, 5, 6)):
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+    # launcher: 4 pointers, 7 ints, the stream
+    fn = lib.knn_bf_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     if lib.knn_bf_blocks_per_sm.argtypes is None:
         lib.knn_bf_blocks_per_sm.argtypes = [ctypes.c_int] * 3
         lib.knn_bf_blocks_per_sm.restype = ctypes.c_int

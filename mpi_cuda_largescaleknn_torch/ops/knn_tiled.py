@@ -17,8 +17,9 @@ started with their own bucket, ``ops/tiled.py``).
   ``knn_update_tiled_plain``. In f32 the kernel is one of
   ``csrc/knn_tiled.cu``, named by ``tiled_launch_plan``:
   ``knn_tiled_d3_kernel`` at D=3 (the warp fold of ``csrc/knn_rows.cuh``),
-  ``knn_tiled_nd_ring_kernel`` (a ring of bulk-copied chunks) up to Dp4 =
-  ``RING_MAX_DP4``, ``knn_tiled_nd_kernel`` above; with
+  ``knn_tiled_nd_ring_kernel`` (a ring of bulk-copied chunks) at every
+  other D, with the queries resident up to Dp4 = ``RESIDENT_MAX_DP4`` and
+  D streamed in slices above it; with
   ``score_dtype="bf16"`` at D >= ``mxu_min_dim()`` it is one of
   ``csrc/knn_tiled_mxu.cu``, the TPU kernel's ``score_mxu`` branch, routed
   by Dp (D rounded up to 16): ``knn_tiled_wgmma_kernel`` up to
@@ -57,10 +58,7 @@ from typing import NamedTuple
 
 import torch
 
-from mpi_cuda_largescaleknn_torch.core.types import (
-    PAD_SENTINEL,
-    CandidateState,
-)
+from mpi_cuda_largescaleknn_torch.core.types import CandidateState
 from mpi_cuda_largescaleknn_torch.ops.candidates import merge_candidates
 from mpi_cuda_largescaleknn_torch.ops.distance import (
     accumulate_sq,
@@ -99,11 +97,6 @@ D3_MAX_K = 903
 #: warps of a traversal block at D=3: 32 rows, so a bucket of S=248 rows
 #: splits over 8 blocks that prune on their own rows
 D3_TILED_WARPS = 8
-#: shared memory of the general-D kernels' staged point tile
-ND_TILE_BYTES = 96 * 1024
-#: threads a block of the general-D kernels may have: their ~72 registers
-#: a thread would overrun the SM's 65,536 at 1024 threads
-ND_MAX_THREADS = 512
 #: f32 elements of the [rows, W, D] gather one bf16 rescore step may hold
 _RESCORE_BUDGET = 1 << 24
 
@@ -307,35 +300,14 @@ def d3_lanes(pts: torch.Tensor, ids: torch.Tensor,
     return out
 
 
-def launch_geometry(s_q: int, t_p: int, k: int,
-                    dim: int = 3) -> tuple[int, int, int]:
-    """(rows per block, threads per block, staged lanes) of the f32
-    kernels. At D=3 (``knn_tiled_d3_kernel``) ``D3_TILED_WARPS`` warps of 4
-    rows (``d3_block``) and tiles of whole 256-lane chunks of the bucket
-    padded to a multiple of 256 lanes. At other D (``knn_tiled_nd_kernel``)
-    one thread per query row, as many rows per block as the [k, threads]
-    candidate columns leave shared memory for, a lane taking
-    ``16 * ceil(D/4) + 4`` bytes, in tiles of a multiple of 32 lanes within
-    ``ND_TILE_BYTES``, and at most ``ND_MAX_THREADS`` threads."""
-    if dim == 3:
-        lanes = d3_tile_lanes(t_p)
-        rows, threads = d3_block(min(s_q, WARP_ROWS * D3_TILED_WARPS),
-                                 lanes, k)
-        return rows, threads, lanes
-    lane_bytes = 16 * -(-dim // 4) + 4
-    tile_lanes = min(round_up(t_p, 32),
-                     max(32, ND_TILE_BYTES // lane_bytes // 32 * 32))
-    tile_bytes = lane_bytes * tile_lanes
-    max_threads = ND_MAX_THREADS
-    budget = SMEM_OPTIN - 1024 - tile_bytes
-    cap = min(max_threads, budget // (8 * k) // 32 * 32)
-    if cap < 32:
-        raise NotImplementedError(
-            f"k={k}, D={dim}: 32 candidate rows no longer fit in shared "
-            "memory (candidate rows in device memory: ROADMAP.md Queue 1)")
-    if round_up(s_q, 32) <= cap:
-        return s_q, round_up(s_q, 32), tile_lanes
-    return cap, cap, tile_lanes
+def launch_geometry(s_q: int, t_p: int, k: int) -> tuple[int, int, int]:
+    """(rows per block, threads per block, staged lanes) of
+    ``knn_tiled_d3_kernel``: ``D3_TILED_WARPS`` warps of 4 rows
+    (``d3_block``) and tiles of whole 256-lane chunks of the bucket padded
+    to a multiple of 256 lanes."""
+    lanes = d3_tile_lanes(t_p)
+    rows, threads = d3_block(min(s_q, WARP_ROWS * D3_TILED_WARPS), lanes, k)
+    return rows, threads, lanes
 
 
 #: the ring kernel's block: 128 query rows against chunks of 64 point
@@ -344,22 +316,26 @@ def launch_geometry(s_q: int, t_p: int, k: int,
 RING_ROWS = 128
 RING_LANES = 64
 RING_THREADS = 256 + 32
-#: the largest Dp4 (D rounded up to 4) the ring kernel's plan takes: its
-#: queries and a 2-stage chunk ring (1024 * Dp4 + 256 bytes) fit in shared
-#: memory up to Dp4=224 (the rows then stay in device memory); above it
-#: f32 goes to knn_tiled_nd_kernel
-RING_MAX_DP4 = 224
+#: the largest Dp4 (D rounded up to 4) whose queries stay resident: they
+#: and a 2-stage chunk ring (1024 * Dp4 + 256 bytes) fit in shared memory up
+#: to Dp4=224 (the rows then stay in device memory); above it D is streamed
+RESIDENT_MAX_DP4 = 224
+#: the float4 groups of D (16 = 64 components) a streamed stage carries at
+#: most: 48 KB of queries and points, so 3 stages fit beside rows of k <= 81
+STREAM_SLICE_GROUPS = 16
 
 
 class TiledPlan(NamedTuple):
     """How an f32 traversal launches: ``kernel`` is "d3"
-    (``knn_tiled_d3_kernel``), "ring" (``knn_tiled_nd_ring_kernel``) or
-    "nd" (``knn_tiled_nd_kernel``); ``rows`` query rows a block; ``lanes``
-    point lanes a staged tile or chunk; ``threads`` a block; ``dp4`` the
-    components padded to 4; ``stages`` of staged tiles in flight (the ring's
-    stages, 2 at D=3, 1 for "nd"); ``rows_in_smem``: whether the candidate
-    rows sit in shared memory (else in place in device memory); ``smem``
-    bytes of dynamic shared memory (0 for "nd", whose launcher sizes it)."""
+    (``knn_tiled_d3_kernel``), "ring" (``knn_tiled_nd_ring_kernel``, the
+    queries resident) or "stream" (the same kernel, D streamed in slices);
+    ``rows`` query rows a block; ``lanes`` point lanes a staged tile or
+    chunk; ``threads`` a block; ``dp4`` the components padded to 4;
+    ``stages`` of staged tiles in flight (the ring's stages, 2 at D=3);
+    ``rows_in_smem``: whether the candidate rows sit in shared memory (else
+    in place in device memory); ``smem`` bytes of dynamic shared memory;
+    ``slice_groups`` the float4 groups of D a streamed stage carries (0
+    unless "stream")."""
     kernel: str
     rows: int
     lanes: int
@@ -368,40 +344,57 @@ class TiledPlan(NamedTuple):
     stages: int
     rows_in_smem: bool
     smem: int
+    slice_groups: int = 0
 
 
-def ring_smem_bytes(dp4: int, k: int, stages: int,
-                    rows_in_smem: bool) -> int:
+def ring_smem_bytes(dp4: int, k: int, stages: int, rows_in_smem: bool,
+                    slice_groups: int = 0) -> int:
     """Dynamic shared memory of ``knn_tiled_nd_ring_kernel``: the block's
-    128 query rows, ``stages`` chunks of 64 lanes, the [k, 128] candidate
-    columns when they sit there, and 256 bytes of barriers and flags."""
-    return (4 * RING_ROWS * dp4 + stages * 4 * RING_LANES * dp4
-            + (RING_ROWS * k * 8 if rows_in_smem else 0) + 256)
+    128 resident query rows and ``stages`` chunks of 64 lanes, or (with
+    ``slice_groups``) ``stages`` slices of ``4 * slice_groups`` components
+    of both; the [k, 128] candidate columns when they sit there; and 256
+    bytes of barriers and flags."""
+    if slice_groups:
+        ring = stages * 16 * (RING_ROWS + RING_LANES) * slice_groups
+    else:
+        ring = 4 * RING_ROWS * dp4 + stages * 4 * RING_LANES * dp4
+    return ring + (RING_ROWS * k * 8 if rows_in_smem else 0) + 256
+
+
+def stream_slice_groups(dp4: int) -> int:
+    """float4 groups a streamed slice carries: the Dp4/4 groups split into
+    the fewest slices of at most ``STREAM_SLICE_GROUPS``, as even as they
+    go (D=240: 4 slices of 15; D=960: 15 of 16)."""
+    groups = dp4 // 4
+    slices = -(-groups // STREAM_SLICE_GROUPS)
+    return -(-groups // slices)
 
 
 def tiled_launch_plan(s_q: int, t_p: int, k: int, dim: int) -> TiledPlan:
     """The f32 kernel and its plan, by D and Dp4 = D rounded up to 4.
 
     D=3 takes ``knn_tiled_d3_kernel`` (``launch_geometry``'s block, two
-    tiles in flight). Other D up to ``RING_MAX_DP4`` take the
-    ring kernel: 128 rows a block, 64-lane chunks, the candidate rows in
-    shared memory where they fit beside a ring of 3 stages, else of 2, and
-    otherwise in device memory with the ring as deep as fits. Above it
-    ``knn_tiled_nd_kernel`` (``launch_geometry``)."""
+    tiles in flight). Every other D takes the ring kernel: 128 rows a
+    block, 64-lane chunks; up to ``RESIDENT_MAX_DP4`` with the queries
+    resident, above it with D streamed in slices
+    (``stream_slice_groups``). The candidate rows sit in shared memory
+    where they fit beside a ring of 3 stages, else of 2, and otherwise in
+    device memory with the ring as deep as fits, so any k plans."""
     dp4 = round_up(dim, 4)
-    if dim != 3 and dp4 <= RING_MAX_DP4:
-        for rows_in_smem in (True, False):
-            for stages in (3, 2):
-                smem = ring_smem_bytes(dp4, k, stages, rows_in_smem)
-                if smem <= SMEM_OPTIN - 1024:
-                    return TiledPlan("ring", RING_ROWS, RING_LANES,
-                                     RING_THREADS, dp4, stages,
-                                     rows_in_smem, smem)
-    rows, threads, lanes = launch_geometry(s_q, t_p, k, dim)
     if dim == 3:
+        rows, threads, lanes = launch_geometry(s_q, t_p, k)
         return TiledPlan("d3", rows, lanes, threads, dp4, 2, True,
                          d3_smem_bytes(rows, lanes, k))
-    return TiledPlan("nd", rows, lanes, threads, dp4, 1, True, 0)
+    stream = dp4 > RESIDENT_MAX_DP4
+    groups = stream_slice_groups(dp4) if stream else 0
+    for rows_in_smem in (True, False):
+        for stages in (3, 2):
+            smem = ring_smem_bytes(dp4, k, stages, rows_in_smem, groups)
+            if smem <= SMEM_OPTIN - 1024:
+                return TiledPlan("stream" if stream else "ring", RING_ROWS,
+                                 RING_LANES, RING_THREADS, dp4, stages,
+                                 rows_in_smem, smem, groups)
+    raise AssertionError(f"no ring plan fits at Dp4={dp4}")
 
 
 def d3_resident_warps(s_q: int, t_p: int, k: int) -> int:
@@ -552,16 +545,6 @@ def _check_schedule(order, sorted_d2, q, p, rows) -> None:
         raise ValueError("the visit schedule must be i32/f32 [Bq, Bp]")
 
 
-def component_major(pts: torch.Tensor) -> torch.Tensor:
-    """f32[..., R, D] -> f32[..., ceil(D/4), R, 4] contiguous, components
-    zero-padded to a multiple of 4: the general-D kernels read one query
-    row's group of 4 components as a float4, coalesced across rows."""
-    dim = pts.shape[-1]
-    d4n = -(-dim // 4)
-    padded = torch.nn.functional.pad(pts, (0, 4 * d4n - dim))
-    return padded.unflatten(-1, (d4n, 4)).transpose(-3, -2).contiguous()
-
-
 def ring_layout(pts: torch.Tensor, n_pad: int, group: int, dp4: int,
                 fill: float) -> torch.Tensor:
     """f32[B, N, D] -> f32[B, n_pad/group, dp4/4, group, 4] contiguous: the
@@ -569,7 +552,8 @@ def ring_layout(pts: torch.Tensor, n_pad: int, group: int, dp4: int,
     +0 to every d2); rows past N get ``fill`` in their D components; each
     run of ``group`` rows is component-major, so one group (a block's
     queries, or a chunk of lanes) is one contiguous, 16-byte aligned run
-    of ``group * dp4`` values."""
+    of ``group * dp4`` values, and so is each run of its float4 groups (a
+    streamed slice: ``group * 4 * slice_groups`` values)."""
     b, n, dim = pts.shape
     buf = torch.zeros((b, n_pad, dp4), dtype=torch.float32, device=pts.device)
     buf[:, :n, :dim] = pts
@@ -584,19 +568,42 @@ def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
                      self_group: int) -> torch.Tensor:
     """Launch the f32 kernel that ``tiled_launch_plan`` names on PyTorch's
     current stream, folding ``p`` into ``rows`` IN PLACE along the visit
-    schedule ``(order, sorted_d2)`` of ``nearest_first_order``. The ring
-    kernel gets both sides in ``ring_layout`` (points padded to whole
-    chunks with ``PAD_SENTINEL`` lanes, never adopted); the D=3 kernel
-    gets the point buckets as ``d3_lanes`` padded to whole chunks. Returns
-    the per-query-bucket visit counts (i32[Bq]). Counts one launch in
-    ``knn_update_tiled_cuda.launches``, and the ring kernel's also in
-    ``ring_launches``, the D=3 kernel's in ``d3_launches``."""
+    schedule ``(order, sorted_d2)`` of ``nearest_first_order``
+    (``launch_f32_plan``). Returns the per-query-bucket visit counts
+    (i32[Bq]). Counts one launch in ``knn_update_tiled_cuda.launches``, and
+    the ring kernel's also in ``ring_launches`` (queries resident) or
+    ``stream_launches`` (D streamed), the D=3 kernel's in
+    ``d3_launches``."""
+    _check_schedule(order, sorted_d2, q, p, rows)
+    plan = tiled_launch_plan(q.ids.shape[1], p.ids.shape[1],
+                             rows.dist2.shape[1], q.pts.shape[-1])
+    visits = launch_f32_plan(plan, order, sorted_d2, q, p, rows,
+                             skip_self=skip_self, self_group=self_group,
+                             events=knn_update_tiled_cuda.layout_events)
+    kt = knn_update_tiled_cuda
+    kt.launches += 1
+    kt.ring_launches += int(plan.kernel == "ring")
+    kt.stream_launches += int(plan.kernel == "stream")
+    kt.d3_launches += int(plan.kernel == "d3")
+    return visits
+
+
+def launch_f32_plan(plan: TiledPlan, order: torch.Tensor,
+                    sorted_d2: torch.Tensor, q: BucketedPoints,
+                    p: BucketedPoints, rows: CandidateState, *,
+                    skip_self: bool, self_group: int,
+                    events: list | None = None) -> torch.Tensor:
+    """Launch ``plan``'s kernel of ``csrc/knn_tiled.cu`` (contiguous rows
+    and schedule, as ``_check_schedule`` asks); counts nothing, raises on a
+    failed launch. The ring kernel gets both sides in ``ring_layout``
+    (points padded to whole chunks with NaN lanes, whose d2 is NaN and
+    never adopted); the D=3 kernel gets the point buckets as ``d3_lanes``
+    padded to whole chunks. With ``events`` (a list) it appends three
+    recorded CUDA events: before the layouts, before the kernel and after
+    it. Returns the per-query-bucket visit counts (i32[Bq])."""
     num_qb, s_q = q.ids.shape
     num_pb, t_p = p.ids.shape
-    dim = q.pts.shape[-1]
     k = rows.dist2.shape[1]
-    _check_schedule(order, sorted_d2, q, p, rows)
-    plan = tiled_launch_plan(s_q, t_p, k, dim)
     visits = torch.zeros(num_qb, dtype=torch.int32, device=order.device)
     q_ids = q.ids.contiguous()
     p_ids = p.ids.contiguous()
@@ -604,26 +611,10 @@ def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
     lib = _library("knn_tiled")
     with torch.cuda.device(order.device):
         stream = torch.cuda.current_stream().cuda_stream
-        events = knn_update_tiled_cuda.layout_events
-        if events is not None and plan.kernel != "nd":
+        if events is not None:
             marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             marks[0].record()
-        if plan.kernel == "ring":
-            s_pad = round_up(s_q, plan.rows)
-            t_pad = round_up(t_p, plan.lanes)
-            q_ring = ring_layout(q.pts, s_pad, plan.rows, plan.dp4, 0.0)
-            p_ring = ring_layout(p.pts, t_pad, plan.lanes, plan.dp4,
-                                 PAD_SENTINEL)
-            if events is not None:
-                marks[1].record()
-            err = lib.knn_tiled_nd_ring_launch(
-                order.data_ptr(), sorted_d2.data_ptr(), q_ring.data_ptr(),
-                q_ids.data_ptr(), p_ring.data_ptr(), p_ids.data_ptr(),
-                rows.dist2.data_ptr(), rows.idx.data_ptr(),
-                visits.data_ptr(), num_qb, s_q, s_pad, num_pb, t_p, t_pad,
-                plan.dp4, k, *flags, plan.stages, int(plan.rows_in_smem),
-                stream)
-        elif plan.kernel == "d3":
+        if plan.kernel == "d3":
             t_pad = round_up(t_p, CHUNK_LANES)
             p4 = d3_lanes(p.pts, p_ids, t_pad)
             q_pts = q.pts.contiguous()
@@ -636,22 +627,26 @@ def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
                 t_pad, k, *flags, d3_slots(k), plan.threads, plan.lanes,
                 plan.smem, stream)
         else:
-            err = lib.knn_tiled_nd_launch(
-                order.data_ptr(), sorted_d2.data_ptr(),
-                component_major(q.pts).data_ptr(), q_ids.data_ptr(),
-                p.pts.contiguous().data_ptr(), p_ids.data_ptr(),
+            s_pad = round_up(s_q, plan.rows)
+            t_pad = round_up(t_p, plan.lanes)
+            q_ring = ring_layout(q.pts, s_pad, plan.rows, plan.dp4, 0.0)
+            p_ring = ring_layout(p.pts, t_pad, plan.lanes, plan.dp4,
+                                 float("nan"))
+            if events is not None:
+                marks[1].record()
+            err = lib.knn_tiled_nd_ring_launch(
+                order.data_ptr(), sorted_d2.data_ptr(), q_ring.data_ptr(),
+                q_ids.data_ptr(), p_ring.data_ptr(), p_ids.data_ptr(),
                 rows.dist2.data_ptr(), rows.idx.data_ptr(),
-                visits.data_ptr(), num_qb, s_q, num_pb, t_p, dim, k, *flags,
-                plan.rows, plan.threads, plan.lanes, stream)
-        if events is not None and plan.kernel != "nd":
+                visits.data_ptr(), num_qb, s_q, s_pad, num_pb, t_p, t_pad,
+                plan.dp4, k, *flags, plan.stages, int(plan.rows_in_smem),
+                plan.slice_groups, stream)
+        if events is not None:
             marks[2].record()
             events.append(marks)
     if err:
         raise RuntimeError(f"knn_tiled kernel launch failed ({plan.kernel} "
                            f"route): CUDA error {err}")
-    knn_update_tiled_cuda.launches += 1
-    knn_update_tiled_cuda.ring_launches += int(plan.kernel == "ring")
-    knn_update_tiled_cuda.d3_launches += int(plan.kernel == "d3")
     return visits
 
 
@@ -767,18 +762,20 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
 
 
 #: kernel launches made by this process (read by chip_smoke.py and the
-#: CLIs): ``launches`` of csrc/knn_tiled.cu (any route), ``ring_launches``
-#: and ``d3_launches`` of those that went to its ring kernel and its D=3
+#: CLIs): ``launches`` of csrc/knn_tiled.cu (any route), ``ring_launches``,
+#: ``stream_launches`` and ``d3_launches`` of those that went to its ring
+#: kernel with the queries resident, with D streamed, and to its D=3
 #: kernel, ``mxu_launches`` of
 #: csrc/knn_tiled_mxu.cu (either route), ``wgmma_launches`` of those that
 #: went to its wgmma kernel
 knn_update_tiled_cuda.launches = 0
 knn_update_tiled_cuda.ring_launches = 0
+knn_update_tiled_cuda.stream_launches = 0
 knn_update_tiled_cuda.d3_launches = 0
 knn_update_tiled_cuda.mxu_launches = 0
 knn_update_tiled_cuda.wgmma_launches = 0
-#: None, or a list to which every bf16 launch (``mxu_events``) or ring or
-#: D=3 kernel launch (``layout_events``) appends three recorded CUDA
+#: None, or a list to which every bf16 launch (``mxu_events``) or f32
+#: launch (``layout_events``) appends three recorded CUDA
 #: events: before its preparation (bf16: halves, norms; ring: the layouts;
 #: D=3: ``d3_lanes``), before the kernel and after it, so a caller can time
 #: the two apart
@@ -789,8 +786,7 @@ knn_update_tiled_cuda.layout_events = None
 _SIGNATURES = {
     "knn_tiled": {"knn_tiled_launch": 8 * "p" + 11 * "i" + "p",
                   "knn_tiled_blocks_per_sm": "iii",
-                  "knn_tiled_nd_launch": 9 * "p" + 11 * "i" + "p",
-                  "knn_tiled_nd_ring_launch": 9 * "p" + 12 * "i" + "p"},
+                  "knn_tiled_nd_ring_launch": 9 * "p" + 13 * "i" + "p"},
     "knn_tiled_mxu": {"knn_tiled_mxu_launch": 14 * "p" + 12 * "i" + "p",
                       "knn_tiled_wgmma_launch": 14 * "p" + 13 * "i" + "p"},
 }

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from mpi_cuda_largescaleknn_torch.core.types import PAD_SENTINEL
 from mpi_cuda_largescaleknn_torch.ops import candidates as tcand
 from mpi_cuda_largescaleknn_torch.ops import knn_bf as tb
 from mpi_cuda_largescaleknn_torch.ops import knn_tiled as tk
@@ -67,6 +68,8 @@ CASES = {
     "d4_q130_p400_k9_dupes": ("dupes", 130, 400, 9, math.inf, 4),
     "d16_self_k8": ("normal", 260, None, 8, math.inf, 16),
     "d16_radius_k40": ("normal", 280, None, 40, 5.0, 16),
+    # above RESIDENT_MAX_DP4: the ring kernel streams D in slices
+    "d240_q70_p200_k10": ("normal", 70, 200, 10, math.inf, 240),
 }
 
 
@@ -208,23 +211,75 @@ def test_launch_geometry(query_tile, point_tile, k, want):
     assert rows <= tk.WARP_ROWS * tk.D3_MAX_WARPS
     assert lanes % tk.CHUNK_LANES == 0 and lanes <= tk.D3_MAX_TILE_LANES
     smem = tk.d3_smem_bytes(rows, lanes, k)
-    assert smem <= tb.SMEM_OPTIN - 1024
+    assert smem <= tk.SMEM_OPTIN - 1024
     assert 2 * (smem + 1024) <= tk.SMEM_SM
     assert 2 * 8 * rows * tk.D3_REGS <= 65_536
 
 
 @pytest.mark.parametrize("query_tile,point_tile,k,dim,want", [
-    (2048, 2048, 8, 4, (512, 2048)),
-    (2048, 2048, 10, 128, (512, 160)),
-    (2048, 2048, 100, 128, (160, 160)),
-    (50, 5000, 1, 16, (64, 1440)),
+    (2048, 2048, 8, 4, ("ring", 4, 3, True)),
+    (2048, 2048, 10, 128, ("ring", 128, 3, True)),
+    (2048, 2048, 100, 128, ("ring", 128, 3, False)),
+    (50, 5000, 1, 16, ("ring", 16, 3, True)),
 ])
 def test_launch_geometry_general_d(query_tile, point_tile, k, dim, want):
-    rows, lanes = tb.launch_geometry(query_tile, point_tile, k, dim)
-    assert (rows, lanes) == want
-    assert rows % 32 == 0 and rows <= tb.ND_MAX_THREADS and lanes % 32 == 0
-    assert (16 * -(-dim // 4) + 4) * lanes + 8 * k * rows \
-        <= tb.SMEM_OPTIN - 1024
+    """At D != 3 the flat fold plans the traversal's ring kernel, whatever
+    the engine's tiles: its fixed block of 128 rows and 64-lane chunks, its
+    stages and where the rows sit by Dp4 and k, in shared memory a block
+    may opt into."""
+    plan = tb.flat_plan(k, dim)
+    assert (plan.kernel, plan.dp4, plan.stages, plan.rows_in_smem) == want
+    assert plan == tk.tiled_launch_plan(query_tile, point_tile, k, dim)
+    assert (plan.rows, plan.lanes) == (tk.RING_ROWS, tk.RING_LANES)
+    assert plan.smem <= tk.SMEM_OPTIN - 1024
+
+
+@pytest.mark.parametrize("dim", [128, 240, 960])
+def test_flat_plans_k1000(dim):
+    """k=1000 plans at D=128, 240 and 960 (the old general-D flat kernel
+    raised near k=580 at D=128): rows in device memory, the queries
+    resident or D streamed by Dp4."""
+    plan = tb.flat_plan(1000, dim)
+    assert plan.kernel == ("ring" if dim <= tk.RESIDENT_MAX_DP4
+                           else "stream")
+    assert not plan.rows_in_smem and plan.smem <= tk.SMEM_OPTIN - 1024
+    with pytest.raises(ValueError):
+        tb.flat_plan(1000, 3)
+
+
+FLAT_KINDS = ["uniform", "dupes", "sentinel"]
+
+
+@pytest.mark.parametrize("kind", FLAT_KINDS)
+@pytest.mark.parametrize("k", [1, 8, 33, 100])
+def test_flat_schedule_is_the_flat_fold(kind, k):
+    """The flat route of the ring kernel rests on this: the traversal's
+    plain version on ``flat_buckets`` (one query bucket of every row, all
+    real; one point bucket of every point) gives exactly the flat plain
+    version's bits, padding query rows included: sentinel queries adopt
+    the sentinel points (d2 0, id -1), as in the TPU kernel."""
+    dim = 6
+    pts = points("uniform" if kind == "sentinel" else kind, 260, seed=k,
+                 dim=dim)
+    q = points("uniform" if kind == "sentinel" else kind, 90, seed=k + 1,
+               dim=dim)
+    ids = np.arange(260, dtype=np.int32) + 7
+    if kind == "sentinel":
+        pts[200:] = PAD_SENTINEL
+        ids[200:] = -1
+        q[60:] = PAD_SENTINEL
+    qt, pt, it = (torch.from_numpy(x) for x in (q, pts, ids))
+    state = tcand.init_candidates(90, k, max_radius=0.9 if k == 8 else
+                                  math.inf)
+    want = tb.knn_update_bf_plain(state, qt, pt, it, query_tile=32,
+                                  point_tile=64)
+    qb, pb = tb.flat_buckets(qt, pt, it)
+    got = tk.knn_update_tiled_plain(state, qb, pb)
+    assert torch.equal(got.dist2, want.dist2)
+    assert torch.equal(got.idx, want.idx)
+    if kind == "sentinel":
+        assert bool((got.dist2[60:, :min(k, 60)] == 0).all())
+        assert bool((got.idx[60:, :min(k, 60)] == -1).all())
 
 
 def test_launch_geometry_refuses_huge_k():
@@ -244,5 +299,23 @@ def test_kernel_matches_plain_on_the_card(k):
     got = tb.knn_update_bf_cuda(state, pts, pts)
     torch.cuda.synchronize()
     assert tb.knn_update_bf_cuda.d3_launches == before + 1
+    assert torch.equal(got.dist2, want.dist2)
+    assert torch.equal(got.idx, want.idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,k", [(128, 10), (240, 10), (128, 1000)])
+def test_flat_ring_kernel_matches_plain_on_the_card(dim, k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    pts = torch.from_numpy(points("normal", 6_000, seed=dim + k, dim=dim)
+                           ).cuda()
+    q = pts[:2_000]
+    state = tcand.init_candidates(2_000, k, device=pts.device)
+    want = tb.knn_update_bf_plain(state, q, pts)
+    before = tb.knn_update_bf_cuda.ring_launches
+    got = tb.knn_update_bf_cuda(state, q, pts)
+    torch.cuda.synchronize()
+    assert tb.knn_update_bf_cuda.ring_launches == before + 1
     assert torch.equal(got.dist2, want.dist2)
     assert torch.equal(got.idx, want.idx)

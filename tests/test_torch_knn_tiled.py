@@ -1,7 +1,8 @@
 """The port's traversal (``ops/knn_tiled.py``) against the JAX package's
 Pallas kernel ``knn_update_tiled_pallas``, run in interpret mode on the
 CPU as ``tests/test_pallas_tiled.py`` runs it: the same partitioned inputs
-(converted with ``convert.py``), d2 bitwise equal including the inf
+(converted with ``convert.py``; from D=240 on partitioned by the port,
+``jax_inputs``), d2 bitwise equal including the inf
 pattern, ids equal. Rows of padding queries are not compared: the Pallas
 kernel folds padding lanes into them, the port leaves them untouched, and
 ``scatter_back`` drops them either way."""
@@ -14,20 +15,21 @@ import pytest
 import torch
 
 from mpi_cuda_largescaleknn_torch import convert
-from mpi_cuda_largescaleknn_torch.core.types import (
-    PAD_SENTINEL,
-    CandidateState,
-)
+from mpi_cuda_largescaleknn_torch.core.types import CandidateState
 from mpi_cuda_largescaleknn_torch.ops import knn_tiled as tk
 from mpi_cuda_largescaleknn_torch.ops import partition as tpart
 from mpi_cuda_largescaleknn_torch.ops import tiled as ttiled
 from mpi_cuda_largescaleknn_torch.ops.distance import elementwise_dist2
+from mpi_cuda_largescaleknn_tpu.core.types import CandidateState as JaxState
 from mpi_cuda_largescaleknn_tpu.ops.candidates import init_candidates
 from mpi_cuda_largescaleknn_tpu.ops.pallas.knn_bf import (
     fold_tile_into_candidates as jfold,
 )
 from mpi_cuda_largescaleknn_tpu.ops.pallas.knn_tiled import (
     knn_update_tiled_pallas,
+)
+from mpi_cuda_largescaleknn_tpu.ops.partition import (
+    BucketedPoints as JaxBuckets,
 )
 from mpi_cuda_largescaleknn_tpu.ops.partition import (
     coarsen_buckets,
@@ -43,13 +45,35 @@ def assert_rows_equal(got: CandidateState, want, qids):
     assert_bitwise(got.idx.numpy()[valid], np.asarray(want.idx)[valid])
 
 
+#: from this D on, ``jax_inputs`` partitions with the port: the JAX
+#: package's partition sorts D + 3 operands a level, which XLA takes about
+#: three minutes to compile at D=960
+PORT_PARTITION_DIM = 240
+
+
 def jax_inputs(pts, k, bucket_size, group, radius, warm):
-    """(q, coarsened resident side, initial state) from the JAX package."""
-    q = partition_points(jnp.asarray(pts), bucket_size=bucket_size)
-    pc = coarsen_buckets(q, group)
-    state = (warm_start_self(pc, k, radius) if warm else
-             init_candidates(q.num_buckets * q.bucket_size, k, radius))
-    return q, pc, state
+    """(q, coarsened resident side, initial state) from the JAX package;
+    at D >= PORT_PARTITION_DIM the buckets and the warm start come from the
+    port, as the JAX package's types (``tests/test_torch_ops.py`` holds the
+    two partitions and warm starts bitwise equal at D=3), so both kernels
+    fold the same inputs."""
+    if pts.shape[1] < PORT_PARTITION_DIM:
+        q = partition_points(jnp.asarray(pts), bucket_size=bucket_size)
+        pc = coarsen_buckets(q, group)
+        state = (warm_start_self(pc, k, radius) if warm else
+                 init_candidates(q.num_buckets * q.bucket_size, k, radius))
+        return q, pc, state
+    tq = tpart.partition_points(torch.from_numpy(pts),
+                                bucket_size=bucket_size)
+    tpc = tpart.coarsen_buckets(tq, group)
+    q, pc = (JaxBuckets(*(jnp.asarray(t.numpy()) for t in b))
+             for b in (tq, tpc))
+    if not warm:
+        return q, pc, init_candidates(q.num_buckets * q.bucket_size, k,
+                                      radius)
+    st = ttiled.warm_start_self(tpc, k, radius)
+    return q, pc, JaxState(jnp.asarray(st.dist2.numpy()),
+                           jnp.asarray(st.idx.numpy()))
 
 
 CASES = {
@@ -86,6 +110,14 @@ CASES = {
     "d5_k8_skip_self_g2": ("uniform", 400, 8, 16, 2, math.inf, True, None,
                            5),
     "d130_k6_radius": ("normal", 260, 6, 16, 1, 17.0, False, None, 130),
+    # above RESIDENT_MAX_DP4: the ring kernel streams D in slices (GIST's
+    # D=960 among them)
+    "d240_k10_skip_self_g2": ("normal", 300, 10, 16, 2, math.inf, True,
+                              None, 240),
+    "d240_k4_radius": ("normal", 260, 4, 16, 1, 22.0, False, None, 240),
+    "d960_k10_skip_self_g2": ("normal", 200, 10, 16, 2, math.inf, True,
+                              None, 960),
+    "d960_k3_radius": ("dupes", 200, 3, 16, 1, 12.5, False, None, 960),
 }
 
 
@@ -320,18 +352,27 @@ def test_launch_geometry(s_q, t_p, k, want):
 
 
 @pytest.mark.parametrize("s_q,t_p,k,dim,want", [
-    (248, 496, 10, 128, (248, 256, 160)),
-    (248, 496, 100, 128, (160, 160, 160)),
-    (248, 496, 8, 4, (248, 256, 512)),
-    (1000, 2000, 10, 16, (512, 512, 1440)),
-    (16, 20, 1, 960, (16, 32, 32)),
+    (248, 496, 10, 128, ("ring", 3, True, 0)),
+    (248, 496, 100, 128, ("ring", 3, False, 0)),
+    (248, 496, 8, 4, ("ring", 3, True, 0)),
+    (1000, 2000, 10, 16, ("ring", 3, True, 0)),
+    (16, 20, 1, 960, ("stream", 3, True, 16)),
 ])
 def test_launch_geometry_general_d(s_q, t_p, k, dim, want):
-    rows, threads, lanes = tk.launch_geometry(s_q, t_p, k, dim)
-    assert (rows, threads, lanes) == want
-    smem = (16 * -(-dim // 4) + 4) * lanes + 8 * k * threads
-    assert smem <= tk.SMEM_OPTIN - 1024 and lanes % 32 == 0
-    assert threads % 32 == 0 and threads <= tk.ND_MAX_THREADS
+    """Every D other than 3 plans the ring kernel's fixed block (128 rows,
+    64-lane chunks, 288 threads) whatever the bucket sizes: its stages,
+    where the rows sit and the slices of D follow from Dp4 and k alone, and
+    its shared memory fits what a block may opt into."""
+    plan = tk.tiled_launch_plan(s_q, t_p, k, dim)
+    assert (plan.kernel, plan.stages, plan.rows_in_smem,
+            plan.slice_groups) == want
+    assert (plan.rows, plan.lanes, plan.threads) == (
+        tk.RING_ROWS, tk.RING_LANES, tk.RING_THREADS)
+    assert plan == tk.tiled_launch_plan(tk.RING_ROWS, tk.RING_LANES, k, dim)
+    assert plan.smem == tk.ring_smem_bytes(plan.dp4, k, plan.stages,
+                                           plan.rows_in_smem,
+                                           plan.slice_groups)
+    assert plan.smem <= tk.SMEM_OPTIN - 1024
 
 
 def test_launch_geometry_refuses_huge_k():
@@ -383,70 +424,140 @@ def test_d3_lanes_layout():
     (1000, 2000, 10, 130, ("ring", 128, 64, 288, 132, 3, True)),
     # the largest Dp4 the ring takes: 2 stages, rows in device memory
     (248, 496, 10, 224, ("ring", 128, 64, 288, 224, 2, False)),
-    (248, 496, 10, 225, ("nd", 248, 96, 256, 228, 1, True)),
-    (16, 20, 1, 960, ("nd", 16, 32, 32, 960, 1, True)),
+    # above it D is streamed: 57 float4 groups in 4 slices of 15, and 240
+    # in 15 slices of 16
+    (248, 496, 10, 225, ("stream", 128, 64, 288, 228, 3, True)),
+    (16, 20, 1, 960, ("stream", 128, 64, 288, 960, 3, True)),
     (248, 496, 8, 3, ("d3", 32, 512, 256, 4, 2, True)),
 ])
 def test_tiled_launch_plan(s_q, t_p, k, dim, want):
-    """The f32 route is by D and Dp4: D=3 on knn_tiled_d3_kernel, other D up
-    to RING_MAX_DP4 on the ring kernel (whose shared memory fits what a
-    block may opt into), above it on knn_tiled_nd_kernel with
-    launch_geometry's block."""
+    """The f32 route is by D and Dp4: D=3 on knn_tiled_d3_kernel with
+    launch_geometry's block, other D on the ring kernel (whose shared memory
+    fits what a block may opt into): the queries resident up to
+    RESIDENT_MAX_DP4, D streamed in slices above it."""
     plan = tk.tiled_launch_plan(s_q, t_p, k, dim)
     assert tuple(plan[:7]) == want
-    if plan.kernel == "ring":
-        assert plan.smem == tk.ring_smem_bytes(plan.dp4, k, plan.stages,
-                                               plan.rows_in_smem)
-        assert plan.smem <= tk.SMEM_OPTIN - 1024
-        assert plan.threads == tk.RING_THREADS
-    else:
-        assert plan.smem == (tk.d3_smem_bytes(plan.rows, plan.lanes, k)
-                             if plan.kernel == "d3" else 0)
-        rows, threads, lanes = tk.launch_geometry(s_q, t_p, k, dim)
+    if plan.kernel == "d3":
+        assert plan.smem == tk.d3_smem_bytes(plan.rows, plan.lanes, k)
+        rows, threads, lanes = tk.launch_geometry(s_q, t_p, k)
         assert (plan.rows, plan.threads, plan.lanes) == (rows, threads,
                                                          lanes)
+        return
+    assert plan.smem == tk.ring_smem_bytes(plan.dp4, k, plan.stages,
+                                           plan.rows_in_smem,
+                                           plan.slice_groups)
+    assert plan.smem <= tk.SMEM_OPTIN - 1024
+    assert plan.threads == tk.RING_THREADS
+    if plan.kernel == "stream":
+        groups = plan.dp4 // 4
+        g = plan.slice_groups
+        assert g == tk.stream_slice_groups(plan.dp4)
+        assert 0 < g <= tk.STREAM_SLICE_GROUPS
+        # the fewest slices, and none of them empty
+        slices = -(-groups // g)
+        assert slices == -(-groups // tk.STREAM_SLICE_GROUPS)
+        assert groups - (slices - 1) * g > 0
+    else:
+        assert plan.slice_groups == 0
 
 
 def test_ring_max_dp4_is_the_largest_the_plan_takes():
+    """RESIDENT_MAX_DP4 is the largest Dp4 whose queries and a 2-stage
+    chunk ring fit in shared memory; above it the plan streams D, whose
+    stages fit at any Dp4. The rows go to device memory where they must,
+    so both take any k."""
     budget = tk.SMEM_OPTIN - 1024
-    top = tk.RING_MAX_DP4
+    top = tk.RESIDENT_MAX_DP4
     assert top >= 128 and top % 4 == 0
     assert tk.ring_smem_bytes(top, 10_000, 2, False) <= budget
     assert tk.ring_smem_bytes(top + 4, 1, 2, False) > budget
     assert tk.tiled_launch_plan(248, 496, 10, top).kernel == "ring"
-    assert tk.tiled_launch_plan(248, 496, 10, top + 1).kernel == "nd"
-    # rows in device memory: the ring takes any k below RING_MAX_DP4
+    assert tk.tiled_launch_plan(248, 496, 10, top + 1).kernel == "stream"
+    groups = tk.STREAM_SLICE_GROUPS
+    assert tk.ring_smem_bytes(top + 4, 10_000, 3, False, groups) <= budget
+    # rows in device memory: both routes take any k
     assert tk.tiled_launch_plan(248, 496, 2000, 128).kernel == "ring"
+    assert tk.tiled_launch_plan(248, 496, 2000, 240).kernel == "stream"
 
 
-@pytest.mark.parametrize("t,dim", [(100, 5), (64, 128), (130, 130)])
+@pytest.mark.parametrize("dim", [128, 240, 960])
+def test_traversal_plans_k1000(dim):
+    """k=1000 plans at D=128, 240 and 960 (the old general-D kernel
+    raised once 32 rows of k no longer fit in shared memory): the rows stay
+    in device memory beside a 3-stage ring."""
+    plan = tk.tiled_launch_plan(248, 496, 1000, dim)
+    assert plan.kernel == ("ring" if dim <= tk.RESIDENT_MAX_DP4
+                           else "stream")
+    assert (plan.stages, plan.rows_in_smem) == (3, False)
+    assert plan.smem <= tk.SMEM_OPTIN - 1024
+
+
+def kernel_walk_dist2(q_ring, p_ring, plan, num_pb, t_pad):
+    """d2 of the first query block's 128 rows against every lane of every
+    point bucket, read from the two layouts as the ring kernel reads them:
+    chunk by chunk, each chunk's slices of ``plan.slice_groups`` float4
+    groups in ascending order (one slice of all of them when the queries
+    are resident), each a (block, slice) and a (chunk, slice) run at its
+    flat float4 offset; components accumulate left to right from +0 into
+    the chunk's tile. Returns f32[num_pb, 128, t_pad]."""
+    d4n = plan.dp4 // 4
+    g = plan.slice_groups or d4n
+    rows, lanes = plan.rows, plan.lanes
+    nch = t_pad // lanes
+    qf, pf = q_ring.reshape(-1, 4), p_ring.reshape(-1, 4)
+    out = torch.empty(num_pb, rows, t_pad)
+    for pb in range(num_pb):
+        for c in range(nch):
+            acc = torch.zeros(rows, lanes)
+            for g0 in range(0, d4n, g):
+                gn = min(g, d4n - g0)
+                qs = qf[g0 * rows:(g0 + gn) * rows].view(gn, rows, 4)
+                at = ((pb * nch + c) * d4n + g0) * lanes
+                ps = pf[at:at + gn * lanes].view(gn, lanes, 4)
+                for d4 in range(gn):
+                    for x in range(4):
+                        diff = qs[d4, :, None, x] - ps[d4, None, :, x]
+                        acc = acc + diff * diff
+            out[pb, :, c * lanes:(c + 1) * lanes] = acc
+    return out
+
+
+@pytest.mark.parametrize("t,dim", [(100, 5), (64, 128), (130, 130),
+                                   (70, 240), (65, 960)])
 def test_ring_layout_matches_plain_distances(t, dim):
-    """The ring kernel's point layout, read back: real lanes hold the
-    points bit for bit (their d2 from the plain version's tree over the
-    padded components equal the unpadded ones: zero components add +0),
-    and every lane added to fill the last chunk is at least PAD_SENTINEL
-    away from any query, so no row adopts it."""
+    """The ring kernel's layouts, read back: real lanes hold the points bit
+    for bit (zero padding components add +0), lanes added to fill the last
+    chunk are NaN (the wrapper's fill), whose d2 no strict-< compare adopts,
+    and the walk of the kernel over the flat layouts (a chunk whole, or
+    slice by slice where D is streamed: D=240 in 4 slices of 15 groups,
+    D=960 in 15 of 16) gives every real lane ``elementwise_dist2``'s
+    bits."""
     pts = torch.from_numpy(points("normal", 2 * t, seed=t + dim, dim=dim)
                            ).view(2, t, dim)
     plan = tk.tiled_launch_plan(t, t, 4, dim)
+    assert plan.kernel == ("ring" if dim <= 130 else "stream")
     t_pad = -(-t // plan.lanes) * plan.lanes
-    ring = tk.ring_layout(pts, t_pad, plan.lanes, plan.dp4, PAD_SENTINEL)
+    ring = tk.ring_layout(pts, t_pad, plan.lanes, plan.dp4, float("nan"))
     assert ring.shape == (2, t_pad // plan.lanes, plan.dp4 // 4, plan.lanes,
                           4)
     back = ring.transpose(2, 3).reshape(2, t_pad, plan.dp4)
     assert_bitwise(back[:, :t, :dim].numpy(), pts.numpy())
-    assert not back[:, :, dim:].any()
+    assert not back[:, :t, dim:].any()
+    assert bool(back[:, t:, :dim].isnan().all())
     queries = torch.from_numpy(points("normal", 2 * 7, seed=dim, dim=dim)
                                ).view(2, 7, dim)
-    qpad = torch.nn.functional.pad(queries, (0, plan.dp4 - dim))
-    got = elementwise_dist2(qpad, back)
-    assert_bitwise(got[:, :, :t].numpy(),
-                   elementwise_dist2(queries, pts).numpy())
-    assert bool((got[:, :, t:] >= PAD_SENTINEL).all())
+    q_ring = tk.ring_layout(queries, plan.rows, plan.rows, plan.dp4, 0.0)
+    got = kernel_walk_dist2(q_ring, ring, plan, 2, t_pad)[:, :7]
+    for pb in range(2):
+        assert_bitwise(got[pb, :, :t].numpy(),
+                       elementwise_dist2(queries[0], pts[pb]).numpy())
+    assert bool(got[:, :, t:].isnan().all())
+    assert not bool((got[:, :, t:] < torch.inf).any())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim,k", [(5, 10), (128, 10), (128, 100)])
+@pytest.mark.parametrize("dim,k", [(5, 10), (128, 10), (128, 100),
+                                   (240, 10), (960, 10), (128, 1000)])
 def test_ring_kernel_matches_plain_on_the_card(dim, k):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -457,11 +568,14 @@ def test_ring_kernel_matches_plain_on_the_card(dim, k):
     state = ttiled.warm_start_self(pc, k)
     want = tk.knn_update_tiled_plain(state, q, pc, skip_self=True,
                                      self_group=2)
-    before = tk.knn_update_tiled_cuda.ring_launches
+    route = tk.tiled_launch_plan(q.bucket_size, pc.bucket_size, k,
+                                 dim).kernel
+    counter = "stream_launches" if route == "stream" else "ring_launches"
+    before = getattr(tk.knn_update_tiled_cuda, counter)
     got = tk.knn_update_tiled_cuda(state, q, pc, skip_self=True,
                                    self_group=2)
     torch.cuda.synchronize()
-    assert tk.knn_update_tiled_cuda.ring_launches == before + 1
+    assert getattr(tk.knn_update_tiled_cuda, counter) == before + 1
     assert torch.equal(got.dist2, want.dist2)
     assert torch.equal(got.idx, want.idx)
 
