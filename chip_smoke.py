@@ -37,13 +37,16 @@ Phases, each fatal on failure (exit code 1, no result line):
    in {4, 16, 128} (k in {1, 10, 100}, a finite ``-r``), sentinel points
    and queries with a partial last chunk, D=240, and k=1000 at D in {128,
    240, 960}; each case on its planned route by the counters;
-3d. the tensor-core bf16 kernels against their plain version: the wgmma
-   kernel at D in {16, 32, 64, 128}, k in {1, 10, 100}, a finite ``-r``
-   and warm-started rows, a bucket of 1,000 rows (split over blocks, T not
-   a multiple of the chunk) and D=200 (a 2-stage ring, rows in device
-   memory); the wmma kernel at D=600 and D=960: d2 bitwise and equal to
-   the f32 kernel's; ids equal, where they differ, only among equally
-   distant points (checked exactly); each case's launch on its route;
+3d. the tensor-core bf16 kernel against its plain version, on both its
+   routes: the query halves resident at D in {16, 32, 64, 128}, k in {1,
+   10, 100}, a finite ``-r`` and warm-started rows, a bucket of 1,000 rows
+   (split over blocks, T not a multiple of the chunk) and D=200 (a 2-stage
+   ring, rows in device memory); above ``WGMMA_MAX_DP``, D streamed in
+   K-slices, at D=240 (just above), D=600 and D=1000 (a short last slice),
+   D=960 at k in {1, 10, 100} and k=1000 (W=2000, rows in device memory),
+   and a bucket of 1,000 rows at D=600: d2 bitwise and equal to the f32
+   kernel's; ids equal, where they differ, only among equally distant
+   points (checked exactly); each case's launch on its route;
 4. the main path through the CLI: 1,000,000 seeded uniform points at
    k=100 and at k=8, each with ``--selfcheck 1000 --timings`` (in phases
    4-8 every launch must be on the D=3 kernels);
@@ -81,19 +84,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    traversal launch on the ring kernel;
 10c. the main paths above ``RESIDENT_MAX_DP4``: ``UnorderedKNN`` f32 at R=1
    on 262,144 points at D=960 (GIST1M's width and k=10; 32 Gaussian
-   clusters; a quarter of its points), a selfcheck of 200 samples, every
-   traversal launch on the streamed ring route; and ``UnorderedKNN`` with
-   ``engine="pallas"`` at D=128 on phase 10b's points (the flat route of the
-   ring kernel), byte-equal to the ``auto`` run there; stages and peak
-   device memory of both;
+   clusters; a quarter of its points), every traversal launch on the
+   streamed ring route; ``UnorderedKNN`` in bf16 at R=1 on the same
+   points, every launch on the wgmma kernel's streamed route, distances
+   byte-equal to the f32 run, ids equal up to the order of exact ties, its
+   kernel and preparation timed apart; a selfcheck of 200 samples of the
+   distances both runs share; and ``UnorderedKNN`` with ``engine="pallas"`` at D=128 on
+   phase 10b's points (the flat route of the ring kernel), byte-equal to
+   the ``auto`` run there; stages and peak device memory of each, and each
+   kernel against its bounds on the pairs it scored;
 11. the f32 ring kernel (with its plan, and its wrapper's layout time
    apart) and the bf16 (wgmma) kernel at phase 10's shape, against both
    bounds and their share of each, and their plain versions' on 16 query
    buckets;
 11b. the ring kernel's streamed traversal at D=240 and its flat fold at
-   D=128 (16,384 queries x 1M points), at the shapes their first kernels
-   were timed at, and the wmma kernel (no main path launches it) at D=600,
-   each against its plain version and both bounds (``time_offpath_kernels``);
+   D=128 (16,384 queries x 1M points), and the wgmma kernel's streamed
+   route at D=600 (65,536 points), at the shapes their first kernels were
+   timed at, each against its plain version and both bounds
+   (``time_offpath_kernels``);
 12. phase 10's f32 R=1 run again under ``profile_trace``, byte-equal to
    it: the card's busy share of the run and its top kernels by device
    time (last, so that no timing runs in a process that has been
@@ -250,9 +258,9 @@ def tie_rows(got_idx, want_idx, queries, points) -> int:
 def route_counts() -> dict:
     """Launches so far of each kernel of the traversal and flat modules,
     by route: "d3", "ring" (queries resident), "stream" (D streamed)
-    (csrc/knn_tiled.cu), "wgmma", "wmma" (csrc/knn_tiled_mxu.cu), "bf_d3"
-    (csrc/knn_bf.cu), "bf_ring" (the flat fold on csrc/knn_tiled.cu's ring
-    kernel)."""
+    (csrc/knn_tiled.cu), "wgmma" (query halves resident), "wgmma_stream"
+    (D streamed) (csrc/knn_tiled_mxu.cu), "bf_d3" (csrc/knn_bf.cu),
+    "bf_ring" (the flat fold on csrc/knn_tiled.cu's ring kernel)."""
     from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
         knn_update_tiled_cuda as kt,
@@ -261,7 +269,7 @@ def route_counts() -> dict:
     bf = knn_update_bf_cuda
     return {"d3": kt.d3_launches, "ring": kt.ring_launches,
             "stream": kt.stream_launches, "wgmma": kt.wgmma_launches,
-            "wmma": kt.mxu_launches - kt.wgmma_launches,
+            "wgmma_stream": kt.wgmma_stream_launches,
             "bf_d3": bf.d3_launches, "bf_ring": bf.ring_launches}
 
 
@@ -277,6 +285,8 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
 
     from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        WGMMA_LANES,
+        WGMMA_ROWS,
         knn_update_tiled_cuda,
         knn_update_tiled_plain,
         mxu_launch_geometry,
@@ -306,7 +316,7 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
     same_inf = torch.equal(torch.isinf(got.dist2), torch.isinf(want.dist2))
     err = max_abs_err(got.dist2, want.dist2)
     if uses_mxu(score_dtype, dim):
-        plan = mxu_launch_geometry(q.bucket_size, dim, survivor_width(k, pc))
+        plan = mxu_launch_geometry(dim, survivor_width(k, pc))
     else:
         plan = tiled_launch_plan(q.bucket_size, pc.bucket_size, k, dim)
     if route is not None and plan.kernel != route:
@@ -317,7 +327,8 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
         if n - before[kernel] != (kernel == plan.kernel):
             fail(f"case {name}: planned the {plan.kernel} kernel, but "
                  f"{n - before[kernel]} {kernel} launches ran")
-    rows, lanes = plan.rows, plan.lanes
+    rows, lanes = ((WGMMA_ROWS, WGMMA_LANES) if uses_mxu(score_dtype, dim)
+                   else (plan.rows, plan.lanes))
     one_block = rows >= q.bucket_size
     plan_txt = f" {plan.kernel}"
     if plan.stages > 1:
@@ -325,6 +336,8 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
                      f"{plan.rows_in_smem}")
     if getattr(plan, "slice_groups", 0):
         plan_txt += f" slice_groups={plan.slice_groups}"
+    if getattr(plan, "slice_width", 0):
+        plan_txt += f" slice_width={plan.slice_width}"
     # a bucket split over blocks prunes per block: at most the plain count
     vis_ok = bool((got_vis == want_vis).all() if one_block
                   else (got_vis <= want_vis).all())
@@ -880,7 +893,8 @@ def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for name in ("launches", "ring_launches", "stream_launches",
-                 "d3_launches", "mxu_launches", "wgmma_launches"):
+                 "d3_launches", "mxu_launches", "wgmma_launches",
+                 "wgmma_stream_launches"):
         setattr(knn_update_tiled_cuda, name, 0)
     for name in ("launches", "d3_launches", "ring_launches"):
         setattr(knn_update_bf_cuda, name, 0)
@@ -901,8 +915,6 @@ def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None,
     t = model.timers.report()
     t.update({"run_seconds": wall, "queries_per_second": len(pts_np) / wall,
               **launch_counts(),
-              "knn_tiled_wgmma_launches":
-                  knn_update_tiled_cuda.wgmma_launches,
               "peak_device_bytes": torch.cuda.max_memory_allocated(),
               **(model.last_stats or {})})
     if dists.shape != (len(pts_np),) or not np.all(np.isfinite(dists)) \
@@ -916,7 +928,9 @@ def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None,
         f"queries/s, knn_tiled launches {t['knn_tiled_launches']} (ring "
         f"{t['knn_tiled_ring_launches']}, streamed "
         f"{t['knn_tiled_stream_launches']}), "
-        f"knn_tiled_mxu launches {t['knn_tiled_mxu_launches']}, knn_bf "
+        f"knn_tiled_mxu launches {t['knn_tiled_mxu_launches']} (resident "
+        f"{t['knn_tiled_wgmma_launches']}, streamed "
+        f"{t['knn_tiled_wgmma_stream_launches']}), knn_bf "
         f"launches {t['knn_bf_launches']} (ring "
         f"{t['knn_bf_ring_launches']}), peak device memory "
         f"{t['peak_device_bytes'] / 2**20:.1f} MiB, pair_evals "
@@ -962,7 +976,7 @@ def time_hd_kernels(pts_np, k, reps=2):
     norms); the rows of both compared; the plain versions timed on the
     first PLAIN_BUCKETS query buckets and compared with the kernels' rows;
     and the bounds, on the real pairs the f32 walk visits (the work the
-    data needs): f32 at 3*D+1 FP32 operations a pair; bf16 at 3*2*Dp
+    data needs): f32 at 3*D+1 FP32 operations a pair; bf16 at 3*2*D
     tensor-core FLOP a pair at the bf16 peak and 4 FP32 operations of the
     epilogue a pair at the FP32 rate, whichever is longer; each at the data
     sheet's FP32 peak and at the FMA-free issue rate."""
@@ -970,6 +984,8 @@ def time_hd_kernels(pts_np, k, reps=2):
 
     from mpi_cuda_largescaleknn_torch.core.types import CandidateState
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        WGMMA_LANES,
+        WGMMA_ROWS,
         knn_update_tiled_cuda,
         knn_update_tiled_plain,
         launch_knn_tiled,
@@ -997,7 +1013,7 @@ def time_hd_kernels(pts_np, k, reps=2):
     s, t = q.bucket_size, pc.bucket_size
     w = survivor_width(k, pc)
     wide = widen_rows(warm, w)
-    plan = mxu_launch_geometry(s, dim, w)
+    plan = mxu_launch_geometry(dim, w)
     ring_plan = tiled_launch_plan(s, t, k, dim)
     before = (knn_update_tiled_cuda.wgmma_launches,
               knn_update_tiled_cuda.ring_launches)
@@ -1056,11 +1072,10 @@ def time_hd_kernels(pts_np, k, reps=2):
     bq = q.num_buckets
     nvis = int(runs["f32"]["visits"].sum())
     pairs = visited_pairs(order, runs["f32"]["visits"], q, pc)
-    dp = -(-dim // 16) * 16
     schedule = (nvis + bq) * 8
     f32_ops = pairs * (3 * dim + 1)
     f32_bytes = 2 * n * (dim * 4 + 4) + 2 * n * k * 8 + schedule
-    bf_tc = pairs * 3 * 2 * dp
+    bf_tc = pairs * 3 * 2 * dim
     bf_epi = pairs * 4
     bf_bytes = 2 * n * (dim * 4 + 4) + 2 * n * w * 8 + schedule
     yardsticks = {
@@ -1084,8 +1099,8 @@ def time_hd_kernels(pts_np, k, reps=2):
                         "bytes": bf_bytes, "W": w,
                         "kernel": plan.kernel, "stages": plan.stages,
                         "rows_in_smem": plan.rows_in_smem,
-                        "rows_per_block": plan.rows,
-                        "lanes_per_chunk": plan.lanes,
+                        "rows_per_block": WGMMA_ROWS,
+                        "lanes_per_chunk": WGMMA_LANES,
                         "id_rows_differing_by_ties": ties})
     res["shape"] = {"N": n, "D": dim, "k": k, "Bq": bq, "S": s,
                     "Bp": pc.num_buckets, "T": t}
@@ -1102,15 +1117,14 @@ def time_offpath_kernels(hd_np):
       points at D=240 (above ``RESIDENT_MAX_DP4``), k=10, one traversal
       after the warm start; a bucket is one block, so its visits are the
       plain version's; the plain version on PLAIN_BUCKETS query buckets;
-    - ``knn_tiled_mxu_kernel`` (wmma, which no main path launches): 65,536
-      clustered points at D=600, k=10, the bounds on the pairs of its own
-      walk (the widened rows' radius); the plain bf16 version on
-      PLAIN_BUCKETS query buckets;
+    - the wgmma kernel's streamed route (``wgmma_stream``): 65,536
+      clustered points at D=600 (Dp=608, a short last slice), k=10, the
+      bounds on the pairs of its own walk (the widened rows' radius); the
+      plain bf16 version on PLAIN_BUCKETS query buckets;
     - the ring kernel's flat fold (``bf_ring``): the first 16,384 of phase
       10's points against all 1M at D=128, k=10; the plain version on 2,048
       queries x 131,072 points, against the kernel on the same.
-    The first and the last are the shapes at which the general-D kernels
-    they replaced were timed."""
+    These are the shapes at which the kernels they replaced were timed."""
     import torch
 
     from mpi_cuda_largescaleknn_torch.core.types import CandidateState
@@ -1143,7 +1157,7 @@ def time_offpath_kernels(hd_np):
     res = {}
     nb = PLAIN_BUCKETS
     for name, n, dim in (("knn_tiled_nd_ring_stream", 262_144, 240),
-                         ("knn_tiled_mxu_wmma", 65_536, 600)):
+                         ("knn_tiled_mxu_stream", 65_536, 600)):
         pts = torch.from_numpy(clustered_nd(n, dim, SEED + 30 + dim)).cuda()
         q = partition_points(pts, bucket_size=256)
         pc = coarsen_buckets(q, 2)
@@ -1151,23 +1165,23 @@ def time_offpath_kernels(hd_np):
         sorted_d2, order = nearest_first_order(q.lower, q.upper,
                                                pc.lower, pc.upper)
         s, t = q.bucket_size, pc.bucket_size
-        wmma = name.endswith("wmma")
-        if wmma:
+        bf16 = name.startswith("knn_tiled_mxu")
+        if bf16:
             w = survivor_width(k, pc)
             start = widen_rows(warm, w)
-            plan = mxu_launch_geometry(s, dim, w)
+            plan = mxu_launch_geometry(dim, w)
             launch, mode = launch_knn_tiled_mxu, "bf16"
         else:
             start = warm
             plan = tiled_launch_plan(s, t, k, dim)
             launch, mode = launch_knn_tiled, "f32"
-        if plan.kernel != ("wmma" if wmma else "stream"):
+        if plan.kernel != ("wgmma_stream" if bf16 else "stream"):
             fail(f"phase 11b: {name} planned the {plan.kernel} route")
         before = route_counts()
         rows = CandidateState(start.dist2.clone(), start.idx.clone())
         events = []
-        knn_update_tiled_cuda.mxu_events = events if wmma else None
-        knn_update_tiled_cuda.layout_events = None if wmma else events
+        knn_update_tiled_cuda.mxu_events = events if bf16 else None
+        knn_update_tiled_cuda.layout_events = None if bf16 else events
         wrapper_ms, visits = cuda_ms(lambda: launch(
             order, sorted_d2, q, pc, rows, skip_self=True, self_group=2))
         knn_update_tiled_cuda.mxu_events = None
@@ -1184,18 +1198,19 @@ def time_offpath_kernels(hd_np):
             sub, qs, pc, skip_self=True, self_group=2, score_dtype=mode))
         if not torch.equal(plain.dist2, got.dist2[:nb * s]):
             fail(f"phase 11b: {name} and its plain version differ")
-        if wmma:
+        if bf16:
             tie_rows(got.idx[:nb * s], plain.idx,
                      q.pts[:nb].reshape(-1, dim), pts)
         elif not torch.equal(plain.idx, got.idx[:nb * s]):
             fail(f"phase 11b: {name} and its plain version's ids differ")
         pairs = visited_pairs(order, visits, q, pc)
         schedule = (int(visits.sum()) + q.num_buckets) * 8
-        width = plan.dp if wmma else dim
         nbytes = (2 * n * (dim * 4 + 4) + schedule
                   + 2 * n * rows.dist2.shape[1] * 8)
-        if wmma:
-            tc, epi = pairs * 3 * 2 * width, pairs * 4
+        if bf16:
+            # the function's D components; the kernel also multiplies the
+            # Dp - D zero columns, shown apart as padded_tensor_flop
+            tc, epi = pairs * 3 * 2 * dim, pairs * 4
             yard = (max(tc / PEAK_BF16, epi / PEAK_F32),
                     max(tc / PEAK_BF16, epi / PEAK_F32_ISSUE), nbytes)
         else:
@@ -1208,6 +1223,9 @@ def time_offpath_kernels(hd_np):
             "visits": int(visits.sum()), "pairs": pairs,
             "shape": {"N": n, "D": dim, "k": k, "S": s, "T": t},
             "plan": plan._asdict(), **bounds(ms, *yard)}
+        if bf16:
+            res[name].update(tensor_flop=tc,
+                             padded_tensor_flop=pairs * 3 * 2 * plan.dp)
         del pts, q, pc, warm, start, rows, got
 
     # the flat fold on the ring kernel at D=128
@@ -1286,11 +1304,13 @@ def main() -> int:
     for name, (lib, log, secs) in zip(KERNELS, built):
         say(f"  built {lib.name} in {secs:.1f} s")
         for line in log.splitlines():
-            # (C7519 notes where ptxas fences wgmma accumulators: one per
-            # product site, left out)
-            if ("registers" in line or "spill" in line or "smem" in line) \
+            # each kernel's name, registers and spills, and any warning but
+            # the C7519 notes where ptxas fences wgmma accumulators (one per
+            # product site; C7520 would mean serialized products)
+            if any(key in line for key in ("registers", "spill", "smem",
+                                           "entry function", "arning")) \
                     and "C7519" not in line:
-                say(f"  ptxas: {line.strip()}")
+                say(f"  ptxas: {line.strip()[:160]}")
         details["build_seconds"][name] = secs
 
     # -- phase 3 ------------------------------------------------------------
@@ -1357,9 +1377,6 @@ def main() -> int:
     details["phase3b_max_abs_err"] = max(bf_errs)
 
     # -- phase 3c -----------------------------------------------------------
-    # launches of the kernel no main path runs (the wmma one), counted where
-    # they run: phases 3c, 3d and 11b
-    offpath = route_counts()
     say("[phase 3c] the ring kernel (f32, D != 3) vs plain on the card, bit "
         "for bit")
     nd = {d: clustered_nd(32_000, d, SEED + 10 + d)
@@ -1434,7 +1451,7 @@ def main() -> int:
     details["phase3c_max_abs_err"] = max(nd_errs)
 
     # -- phase 3d -----------------------------------------------------------
-    say("[phase 3d] tensor-core bf16 kernels vs plain on the card")
+    say("[phase 3d] the tensor-core bf16 kernel vs plain on the card")
     mxu_radius = {16: 4.0, 32: 6.0, 64: 10.0, 128: 14.5}
     mxu_errs = []
     for d in (16, 32, 64, 128):
@@ -1456,16 +1473,24 @@ def main() -> int:
                      clustered_nd(8_000, 200, SEED + 220), 10,
                      score_dtype="bf16", route="wgmma"),
     ]
-    # above WGMMA_MAX_DP: D=600 and D=960 (GIST's) take the wmma kernel's
-    # 32- and 16-lane chunks
-    for d, lanes in ((600, 32), (960, 16)):
-        mxu_errs.append(compare_case(
-            f"bf16 D={d} k=10 skip_self G2 (wmma, {lanes}-lane chunks)",
-            clustered_nd(8_000, d, SEED + 20 + d), 10, score_dtype="bf16",
-            route="wmma"))
+    # above WGMMA_MAX_DP, D streamed in K-slices: D=240 just above, D=600
+    # (Dp=608) and D=1000 (Dp=1008) with a short last slice, D=960 GIST's
+    # width
+    wide = {d: clustered_nd(8_000, d, SEED + 20 + d)
+            for d in (240, 600, 960, 1000)}
+    bfs = dict(score_dtype="bf16", route="wgmma_stream")
+    mxu_errs += [compare_case(f"bf16 D={d} k=10 skip_self G2", wide[d], 10,
+                              **bfs) for d in (240, 600, 1000)]
+    mxu_errs += [compare_case(f"bf16 D=960 k={k} skip_self G2", wide[960], k,
+                              **bfs) for k in (1, 10, 100)]
+    mxu_errs += [
+        compare_case("bf16 D=960 k=1000 (W=2000, rows in device memory)",
+                     wide[960], 1000, **bfs),
+        compare_case("bf16 D=600 k=10 S=1000 (rows over 8 blocks, T=2000)",
+                     wide[600], 10, bucket_size=1000, **bfs),
+    ]
     details["phase3d_max_abs_err"] = max(mxu_errs)
-    del nd
-    offpath = {key: n - offpath[key] for key, n in route_counts().items()}
+    del nd, wide
 
     # -- phase 4 ------------------------------------------------------------
     say(f"[phase 4] main path: {N_MAIN} uniform points through the CLI")
@@ -1647,11 +1672,33 @@ def main() -> int:
         f"D={GIST_DIM}; the flat route at D={HD_DIM}")
     gist = clustered_nd(HD_SUB, GIST_DIM, SEED + 6)
     label = f"f32 R=1 D={GIST_DIM}"
-    t_gist, d_gist, _ = unordered_run(label, gist, HD_K, 1, "f32")
+    t_gist, d_gist, i_gist = unordered_run(label, gist, HD_K, 1, "f32")
     hd_runs[label] = t_gist
     check_ring_route(f"phase 10c: {label}", t_gist, stream=True)
-    checked = verify_sample(gist, d_gist, HD_K, 200)
-    say(f"  selfcheck OK ({checked} samples)")
+    label = f"bf16 R=1 D={GIST_DIM}"
+    t_gbf, d_gbf, i_gbf = unordered_run(label, gist, HD_K, 1, "bf16")
+    hd_runs[label] = t_gbf
+    n = t_gbf["knn_tiled_mxu_launches"]
+    if n < 1 or t_gbf["knn_tiled_wgmma_stream_launches"] != n:
+        fail(f"phase 10c: {label}: {t_gbf['knn_tiled_wgmma_stream_launches']} "
+             f"of {n} bf16 launches on the wgmma kernel's streamed route")
+    rows = int(np.count_nonzero(d_gbf.view(np.int32)
+                                != d_gist.view(np.int32)))
+    if rows:
+        fail(f"phase 10c: {label}: distances differ from the f32 run in "
+             f"{rows} rows")
+    gist_pts = torch.from_numpy(gist).cuda()
+    ties = tie_rows(torch.from_numpy(i_gbf).cuda(),
+                    torch.from_numpy(i_gist).cuda(), gist_pts, gist_pts)
+    del gist_pts
+    t_gbf["id_rows_differing_by_ties"] = ties
+    say(f"  all {n} bf16 launches on the streamed route; distances "
+        f"byte-equal to the f32 run; neighbor ids of {ties} rows differ only "
+        "among equally distant points")
+    # one selfcheck holds both runs' distances, which are the same bytes
+    checked = verify_sample(gist, d_gbf, HD_K, 200)
+    say(f"  selfcheck OK ({checked} samples) of the distances both runs "
+        "share")
     del gist
     label = f"--engine pallas f32 R=1 on the first {HD_SUB}"
     t_flat, d_flat, _ = unordered_run(label, sub, HD_K, 1, "f32",
@@ -1673,15 +1720,25 @@ def main() -> int:
     from mpi_cuda_largescaleknn_torch.ops.partition import choose_buckets
 
     nqb, s = choose_buckets(HD_SUB, 256)
+    warm_pairs = nqb * s * s * 2
     for t, dim, pairs in (
-            (t_gist, GIST_DIM, t_gist["pair_evals"] - nqb * s * s * 2),
+            (t_gist, GIST_DIM, t_gist["pair_evals"] - warm_pairs),
+            (t_gbf, GIST_DIM, t_gbf["pair_evals"] - warm_pairs),
             (t_flat, HD_DIM, t_flat["pair_evals"])):
-        ops = pairs * (3 * dim + 1)
         t["kernel_pairs"] = pairs
-        t["kernel_bounds"] = bounds(t["kernel_ms"], ops / PEAK_F32,
-                                    ops / PEAK_F32_ISSUE, 0)
-        say(f"  D={dim}: kernel {t['kernel_ms']:.3f} ms on {pairs} pairs "
-            f"(bucket rows x lanes): {bound_txt(t['kernel_bounds'])}")
+        if t is t_gbf:
+            # the tensor-core term (bf16 at Dp = D here), or the epilogue's
+            tc, epi = pairs * 3 * 2 * GIST_DIM, pairs * 4
+            yard = (max(tc / PEAK_BF16, epi / PEAK_F32),
+                    max(tc / PEAK_BF16, epi / PEAK_F32_ISSUE))
+            what = "bf16"
+        else:
+            ops = pairs * (3 * dim + 1)
+            yard = (ops / PEAK_F32, ops / PEAK_F32_ISSUE)
+            what = "f32"
+        t["kernel_bounds"] = bounds(t["kernel_ms"], *yard, 0)
+        say(f"  {what} D={dim}: kernel {t['kernel_ms']:.3f} ms on {pairs} "
+            f"pairs (bucket rows x lanes): {bound_txt(t['kernel_bounds'])}")
 
     # -- phase 11 -----------------------------------------------------------
     say(f"[phase 11] the high-D kernels' time at phase 10's shape")
@@ -1703,22 +1760,24 @@ def main() -> int:
     details["high_d_kernel_timing"] = hd_timed
 
     # -- phase 11b ----------------------------------------------------------
-    say("[phase 11b] the ring kernel's streamed and flat routes at their "
-        "first kernels' shapes, and the wmma kernel")
-    before = route_counts()
+    say("[phase 11b] the ring kernel's streamed and flat routes and the "
+        "wgmma kernel's streamed route at their first kernels' shapes")
     t0 = time.perf_counter()
     off_timed = time_offpath_kernels(hd)
     details["offpath_seconds"] = time.perf_counter() - t0
-    for key, n in route_counts().items():
-        offpath[key] += n - before[key]
     for name, r in off_timed.items():
         say(f"  {name}: {r['shape']} kernel {r['ms']:.3f} ms "
             f"({r['wrapper_ms']:.3f} ms with its preparation), "
             f"{bound_txt(r)}, plain {r['plain_ms']:.3f} ms on "
             f"{r['plain_shape']}, max_abs_err {r['max_abs_err']}")
+        say(f"    plan {r['plan']}")
+        if "padded_tensor_flop" in r:
+            say(f"    tensor-core FLOP {r['tensor_flop']:.4e} for D, "
+                f"{r['padded_tensor_flop']:.4e} multiplied at Dp "
+                f"({r['padded_tensor_flop'] / PEAK_BF16 * 1e3:.3f} ms at "
+                "the peak)")
     say(f"  phase 11b took {details['offpath_seconds']:.1f} s")
     details["offpath_kernel_timing"] = off_timed
-    details["offpath_launches"] = offpath
 
     # -- phase 12 -----------------------------------------------------------
     say("[phase 12] phase 10's f32 R=1 run again under the profiler")
@@ -1756,9 +1815,10 @@ def main() -> int:
         entry("knn_bf", BF_SOURCE, BF_REPLACES, launched("knn_bf_d3_launches"),
               (details["phase3b_max_abs_err"], bf_timed[8]["max_abs_err"],
                bf_timed[100]["max_abs_err"]), bf_timed[8]),
-        # knn_tiled_wgmma_kernel, timed in phase 11
+        # knn_tiled_wgmma_kernel with the query halves resident, timed in
+        # phase 11
         entry("knn_tiled_mxu", MXU_SOURCE, MXU_REPLACES,
-              launched("knn_tiled_mxu_launches"),
+              launched("knn_tiled_wgmma_launches"),
               (details["phase3d_max_abs_err"],
                hd_timed["bf16"]["max_abs_err"]), hd_timed["bf16"]),
         # the ring kernel's streamed traversal and its flat fold, timed in
@@ -1773,21 +1833,18 @@ def main() -> int:
               (details["phase3c_max_abs_err"],
                off_timed["knn_bf_ring"]["max_abs_err"]),
               off_timed["knn_bf_ring"]),
-        # no main path launches the wmma kernel (0 launches there), timed
-        # in phase 11b; details["offpath_launches"] counts its launches in
-        # phases 3d and 11b
-        entry("knn_tiled_mxu_wmma", MXU_SOURCE, MXU_REPLACES,
-              0, (details["phase3d_max_abs_err"],
-                  off_timed["knn_tiled_mxu_wmma"]["max_abs_err"]),
-              off_timed["knn_tiled_mxu_wmma"]),
+        # the same kernel with D streamed, timed in phase 11b, launched by
+        # phase 10c's bf16 main path
+        entry("knn_tiled_mxu_stream", MXU_SOURCE, MXU_REPLACES,
+              launched("knn_tiled_wgmma_stream_launches"),
+              (details["phase3d_max_abs_err"],
+               off_timed["knn_tiled_mxu_stream"]["max_abs_err"]),
+              off_timed["knn_tiled_mxu_stream"]),
     ]}
-    # a main-path kernel must have run on the main paths, the wmma one in
-    # phases 3d and 11b
-    ran = {"knn_tiled_mxu_wmma": offpath["wmma"]}
+    # every kernel must have run on the main paths
     for kern in kernels["kernels"]:
-        n = ran.get(kern["name"], kern["launches"])
-        if n < 1 or kern["max_abs_err"] != 0.0:
-            fail(f"{kern['name']}: {n} launches, "
+        if kern["launches"] < 1 or kern["max_abs_err"] != 0.0:
+            fail(f"{kern['name']}: {kern['launches']} launches, "
                  f"max_abs_err {kern['max_abs_err']}")
     details["kernels"] = kernels
     details["seconds"] = time.perf_counter() - t_start

@@ -146,8 +146,9 @@ def parse_args(program: str, argv: list[str]):
 def launch_counts() -> dict:
     """The process's kernel launches so far, by their ``--timings`` keys:
     the traversal (any route; the ring kernel with resident queries, with D
-    streamed; the D=3 kernel; the bf16 kernels) and the flat fold (any
-    route; the D=3 kernel; the ring kernel)."""
+    streamed; the D=3 kernel; the bf16 kernel, and of those with resident
+    query halves, with D streamed) and the flat fold (any route; the D=3
+    kernel; the ring kernel)."""
     from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
         knn_update_tiled_cuda,
@@ -159,6 +160,8 @@ def launch_counts() -> dict:
             "knn_tiled_stream_launches": kt.stream_launches,
             "knn_tiled_d3_launches": kt.d3_launches,
             "knn_tiled_mxu_launches": kt.mxu_launches,
+            "knn_tiled_wgmma_launches": kt.wgmma_launches,
+            "knn_tiled_wgmma_stream_launches": kt.wgmma_stream_launches,
             "knn_bf_launches": bf.launches,
             "knn_bf_d3_launches": bf.d3_launches,
             "knn_bf_ring_launches": bf.ring_launches}

@@ -27,24 +27,6 @@
 
 namespace knn {
 
-// Max over the block of v; every thread returns the same value.
-// blockDim.x must be a multiple of 32.
-__device__ __forceinline__ float block_max(float v, float* warp_buf) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  __syncthreads();  // warp_buf is free again after the previous call
-  if (lane == 0) warp_buf[warp] = v;
-  __syncthreads();
-  v = lane < (int)(blockDim.x >> 5) ? warp_buf[lane] : -CUDART_INF_F;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
 // Insert (dd, id) into this thread's sorted row of `slots` entries; returns
 // the row's new last value.
 __device__ __forceinline__ float insert_sorted(float* cd2, int* cidx, int bd,

@@ -1,6 +1,7 @@
 // Nearest-first bucketed kNN traversal with matmul-form scores on the
-// tensor cores, for Hopper (sm_90a): two kernels, routed by Dp (the
-// wrapper, ops/knn_tiled.py mxu_launch_geometry, names the limit).
+// tensor cores, for Hopper (sm_90a): knn_tiled_wgmma_kernel, in two
+// instances routed by Dp (the wrapper, ops/knn_tiled.py
+// mxu_launch_geometry, names the limit).
 //
 // Replaces the score_mxu branch of the TPU kernel
 // mpi_cuda_largescaleknn_tpu/ops/pallas/knn_tiled.py (_kernel, lines
@@ -23,65 +24,73 @@
 //   kernel's whenever each row's true top k lie inside its survivor window.
 //   A bucket's visit count is the most any of its blocks scored.
 //
-// What bounds it on the H100: the tensor cores. The cross term is 3*2*Dp
-// bf16 FLOP per scored pair (Dp = D rounded up to 16, zero columns add
-// nothing; 989 TFLOP/s dense) against a handful of FP32 operations of the
-// epilogue per pair.
+// What bounds it on the H100: the tensor cores. The cross term needs 3*2*D
+// bf16 FLOP per scored pair (989 TFLOP/s dense) against a handful of FP32
+// operations of the epilogue per pair. The kernel multiplies Dp = D
+// rounded up to 16 components: the zero columns are products wasted
+// (8 of 608 at D=600).
 //
-// knn_tiled_wgmma_kernel (Dp up to the plan's limit) is built for that
-// bound. The first design (knn_tiled_mxu_kernel below) lost it three ways;
-// what this one does about each:
-// - Occupancy: 4 warps a block and one block an SM, mostly for a 32 KB
-//   score slab. Here a block is 128 query rows in two consumer warpgroups
-//   (8 warps) plus one producer warp, and there is no slab.
-// - Nothing overlapped: each chunk was copied through registers, synced,
-//   multiplied, stored and folded in turn. Here the wrapper packs both
-//   bf16 halves in wgmma's K-major no-swizzle core-matrix order (8 lanes x
-//   16 B per 128 B core matrix), so 64 lanes of a bucket are one
-//   contiguous run per half; one producer thread fills a ring of 2-3
-//   stages with cp.async.bulk (full/empty mbarriers), running ahead into
-//   the next bucket of the walk; each warpgroup issues
-//   wgmma.mma_async m64n64k16 (hh, hl, lh per 16-wide k-slice into one f32
-//   accumulator) for a pair of chunks into two accumulators and folds the
-//   first while the second multiplies; the two warpgroups take turns to
-//   issue (named barriers), so one folds while the other's products run.
-// - A slow fold: one thread per row read back every score. Here each
-//   thread scores its 32 accumulator entries in registers and gates them
-//   against its two rows' W-th values at the chunk's start (these only
-//   shrink, so a lane failing the gate could never be adopted). Only when
-//   a warp holds a passing lane do the quads merge their pass masks in
-//   column (= lane) order and hand each passing score by shuffle to the
-//   row's inserting thread, which re-checks it strict-< against its
-//   shrinking W-th value. Rows sit in shared memory where they fit beside
-//   the ring (W=20 at Dp=128); wider rows stay in place in device memory,
-//   touched only by the rare adoption and the epilogue.
+// The design, against that bound:
+// - A block is 128 query rows in two consumer warpgroups (8 warps) plus
+//   one producer warp. The wrapper packs both bf16 halves in wgmma's
+//   K-major no-swizzle core-matrix order (8 lanes x 16 B per 128 B core
+//   matrix); one producer thread fills a ring of 2-3 stages with
+//   cp.async.bulk (full/empty mbarriers), running ahead into the next
+//   bucket of the walk; the consumers issue wgmma.mma_async (hh, hl, lh per
+//   16-wide k-step into one f32 accumulator) for a pair of 64-lane chunks
+//   into two accumulators, and the two warpgroups take turns to issue
+//   (named barriers), so one folds while the other's products run.
+// - The fold is gated: each thread scores its 32 accumulator entries in
+//   registers and gates them against its two rows' W-th values at the
+//   chunk's start (these only shrink, so a lane failing the gate could
+//   never be adopted). Only when a warp holds a passing lane do the quads
+//   merge their pass masks in column (= lane) order and hand each passing
+//   score by shuffle to the row's inserting thread, which re-checks it
+//   strict-< against its shrinking W-th value. Rows sit in shared memory
+//   where they fit beside the ring (W=20 at every Dp); wider rows stay in
+//   place in device memory, touched only by the rare adoption and the
+//   epilogue, so any W runs.
+// - Up to Dp = 224 (kStream = false) the block's query halves are
+//   resident, copied once; a stage is one 64-lane chunk of both point
+//   halves and its |p|^2, and each chunk's products are one committed
+//   group (m64n64k16), the pair's two waited for in turn so the first is
+//   folded while the second multiplies.
+// - Above it (kStream = true) the query halves and a 2-stage ring no
+//   longer fit in 227 KB, so D is streamed: a stage is one K-slice of at
+//   most 64 components (4 k-steps) of the block's query halves (128 rows)
+//   and of the chunk pair's point halves (128 lanes), 64 KB, plus the
+//   pair's 128 |p|^2 with its last slice. The producer walks (chunk pair,
+//   slice) pairs; the accumulators persist over a pair's slices (the first
+//   k-step zeroes them), each slice's products are one m64n128k16 a
+//   half-product and k-step (the pair's two accumulators as one), committed
+//   and waited for within the slice, so no group stays in flight across
+//   iterations (ptxas would serialize every product: C7520), and a stage
+//   is released only once the products that read it are complete. The
+//   gate runs once per pair, after its last slice.
+// What bounds the streamed route beyond the tensor cores: L2. The queries
+// are re-read for every chunk pair, so a stage carries 3*2*128*128*64 FLOP
+// for 64 KB, 96 FLOP a byte (the resident route's chunks carry 192): at
+// the tensor cores' peak about 10 TB/s, all from L2, more than it is
+// likely to give. What the design does: a stage spans the whole pair (128
+// lanes), so each query slice feeds twice the products a 64-lane stage
+// would, and three stages keep two slices' copies in flight behind the
+// one multiplied.
 // The exact rescore spreads each row's slots over its quad (each sum one
 // thread's left-to-right chain); the row's inserting thread sorts. The
 // prefetch is speculative across the block's prune break: the producer
 // waits for every copy it issued before the block exits.
-//
-// knn_tiled_mxu_kernel (above that Dp, where the query halves and a ring
-// no longer fit in shared memory) is the simple design: one thread per
-// row and one warp per 32 rows; the block's query halves staged once,
-// each visited bucket staged in chunks of 16*NCT lanes, nvcuda::wmma
-// 16x16x16 bf16 fragments, the f32 cross terms stored column-major to a
-// per-warp shared-memory slab, and each thread folding its row's scores
-// in lane order. Rows of shared memory are padded by 8 bf16 so fragment
-// loads spread over banks.
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
 
 #include "bulk_ring.cuh"
 #include "knn_rows.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using knn::bulk_load;
 using knn::mbar_arrive;
 using knn::mbar_expect_tx;
@@ -89,218 +98,6 @@ using knn::mbar_init;
 using knn::mbar_try_wait;
 using knn::mbar_wait;
 using knn::smem_addr;
-
-constexpr int kT = 16;  // wmma tile: m = n = k = 16
-
-// Copy `n` rows of `dp` bf16 from global (row stride dp) to shared memory
-// (row stride ldq) as 16-byte words, zero-filling rows >= nvalid.
-__device__ __forceinline__ void stage_bf16_rows(
-    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int n,
-    int nvalid, int dp, int ldq) {
-  const int words = dp / 8;
-  for (int e = threadIdx.x; e < n * words; e += blockDim.x) {
-    const int r = e / words;
-    const int w = e - r * words;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (r < nvalid)
-      v = reinterpret_cast<const int4*>(src + (long long)r * dp)[w];
-    reinterpret_cast<int4*>(dst + r * ldq)[w] = v;
-  }
-}
-
-template <int NCT>
-__global__ void knn_tiled_mxu_kernel(
-    const int* __restrict__ order,           // [Bq, Bp] nearest-first
-    const float* __restrict__ boxd2,         // [Bq, Bp] ascending box d2
-    const float* __restrict__ q_pts,         // [Bq, S, D]
-    const int* __restrict__ q_ids,           // [Bq, S]
-    const __nv_bfloat16* __restrict__ qh,    // [Bq, S_pad, Dp]
-    const __nv_bfloat16* __restrict__ ql,    // [Bq, S_pad, Dp]
-    const float* __restrict__ p_pts,         // [Bp, T, D]
-    const int* __restrict__ p_ids,           // [Bp, T]
-    const __nv_bfloat16* __restrict__ ph,    // [Bp, T, Dp]
-    const __nv_bfloat16* __restrict__ pl,    // [Bp, T, Dp]
-    const float* __restrict__ pn2,           // [Bp, T] exact |p|^2
-    float* __restrict__ d2,                  // [Bq*S, W] in/out
-    int* __restrict__ idx,                   // [Bq*S, W] in/out
-    int* __restrict__ visits,                // [Bq] max over blocks
-    int s_q, int s_pad, int num_pb, int t_p, int dim, int dp, int w,
-    int skip_self, int self_group, int rows_per_block) {
-  constexpr int LC = NCT * kT;  // lanes per staged chunk
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float warp_buf[32];
-  const int bd = blockDim.x;  // == rows_per_block, a multiple of 32
-  const int ldq = dp + 8;
-  __nv_bfloat16* qh_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ql_s = qh_s + (size_t)bd * ldq;
-  __nv_bfloat16* ph_s = ql_s + (size_t)bd * ldq;
-  __nv_bfloat16* pl_s = ph_s + (size_t)LC * ldq;
-  float* pn2_s = reinterpret_cast<float*>(pl_s + (size_t)LC * ldq);  // [LC]
-  float* sc = pn2_s + LC;                    // [warps][LC][32] col-major
-  float* cd2 = sc + (size_t)(bd >> 5) * LC * 32;  // [w][bd]
-  int* cidx = reinterpret_cast<int*>(cd2 + (size_t)w * bd);  // [w][bd]
-
-  const int b = blockIdx.x;
-  const int r0 = blockIdx.y * rows_per_block;
-  const int nrows = min(rows_per_block, s_q - r0);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const long long row0 = (long long)b * s_q + r0;
-  const long long base = row0 * w;
-
-  for (int e = tid; e < nrows * w; e += bd) {
-    const int r = e / w;
-    const int j = e - r * w;
-    cd2[j * bd + r] = d2[base + e];
-    cidx[j * bd + r] = idx[base + e];
-  }
-  const long long qrow0 = (long long)b * s_pad + r0;
-  stage_bf16_rows(qh_s, qh + qrow0 * dp, bd, bd, dp, ldq);
-  stage_bf16_rows(ql_s, ql + qrow0 * dp, bd, bd, dp, ldq);
-  const bool valid = tid < nrows && q_ids[row0 + tid] >= 0;
-  const float* qrow = q_pts + (row0 + tid) * dim;
-  float qn2 = 0.f;
-  if (valid)
-    for (int d = 0; d < dim; ++d)
-      qn2 = __fadd_rn(qn2, __fmul_rn(qrow[d], qrow[d]));
-  __syncthreads();
-  float kth = valid ? cd2[(w - 1) * bd + tid] : -CUDART_INF_F;
-  float worst = knn::block_max(kth, warp_buf);
-
-  const int own = b / self_group;
-  const int* ord = order + (long long)b * num_pb;
-  const float* bx = boxd2 + (long long)b * num_pb;
-  float* sc_w = sc + (size_t)warp * LC * 32;
-  const __nv_bfloat16* qh_w = qh_s + (size_t)warp * 32 * ldq;
-  const __nv_bfloat16* ql_w = ql_s + (size_t)warp * 32 * ldq;
-  int nvis = 0;
-  for (int v = 0; v < num_pb; ++v) {
-    if (!(bx[v] < worst)) break;
-    const int pb = ord[v];
-    if (skip_self && pb == own) continue;
-    const long long lane0 = (long long)pb * t_p;
-    for (int l0 = 0; l0 < t_p; l0 += LC) {
-      const int nl = min(LC, t_p - l0);
-      __syncthreads();  // every warp is done with the previous chunk
-      stage_bf16_rows(ph_s, ph + (lane0 + l0) * dp, LC, nl, dp, ldq);
-      stage_bf16_rows(pl_s, pl + (lane0 + l0) * dp, LC, nl, dp, ldq);
-      for (int l = tid; l < LC; l += bd)
-        pn2_s[l] = l < nl ? pn2[lane0 + l0 + l] : CUDART_INF_F;
-      __syncthreads();
-
-      wmma::fragment<wmma::accumulator, kT, kT, kT, float> acc[2][NCT];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int c = 0; c < NCT; ++c) wmma::fill_fragment(acc[i][c], 0.f);
-      for (int ks = 0; ks < dp; ks += kT) {
-        wmma::fragment<wmma::matrix_a, kT, kT, kT, __nv_bfloat16,
-                       wmma::row_major> ah[2], al[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          wmma::load_matrix_sync(ah[i], qh_w + i * kT * ldq + ks, ldq);
-          wmma::load_matrix_sync(al[i], ql_w + i * kT * ldq + ks, ldq);
-        }
-#pragma unroll
-        for (int c = 0; c < NCT; ++c) {
-          wmma::fragment<wmma::matrix_b, kT, kT, kT, __nv_bfloat16,
-                         wmma::col_major> bh, bl;
-          wmma::load_matrix_sync(bh, ph_s + c * kT * ldq + ks, ldq);
-          wmma::load_matrix_sync(bl, pl_s + c * kT * ldq + ks, ldq);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            wmma::mma_sync(acc[i][c], ah[i], bh, acc[i][c]);
-            wmma::mma_sync(acc[i][c], ah[i], bl, acc[i][c]);
-            wmma::mma_sync(acc[i][c], al[i], bh, acc[i][c]);
-          }
-        }
-      }
-      // element (row r of the warp, lane l) lands at sc_w[l * 32 + r]
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int c = 0; c < NCT; ++c)
-          wmma::store_matrix_sync(sc_w + c * kT * 32 + i * kT, acc[i][c], 32,
-                                  wmma::mem_col_major);
-      __syncwarp();
-      if (valid) {
-        for (int l = 0; l < nl; ++l) {
-          const float s = __fsub_rn(__fadd_rn(qn2, pn2_s[l]),
-                                    __fmul_rn(2.f, sc_w[l * 32 + lane]));
-          if (s < kth)
-            kth = knn::insert_sorted(cd2, cidx, bd, tid, w, s,
-                                     (int)(-2 - (lane0 + l0 + l)));
-        }
-      }
-    }
-    ++nvis;
-    worst = knn::block_max(valid ? kth : -CUDART_INF_F, warp_buf);
-  }
-
-  if (valid) {
-    // exact rescore of every adopted entry, then a stable insertion sort
-    for (int j = 0; j < w; ++j) {
-      const int id = cidx[j * bd + tid];
-      if (id > -2) continue;
-      const long long flat = -2LL - id;
-      const float* pp = p_pts + flat * dim;
-      float acc = 0.f;
-      for (int d = 0; d < dim; ++d) {
-        const float di = __fsub_rn(qrow[d], pp[d]);
-        acc = __fadd_rn(acc, __fmul_rn(di, di));
-      }
-      cd2[j * bd + tid] = acc;
-      cidx[j * bd + tid] = p_ids[flat];
-    }
-    for (int j = 1; j < w; ++j) {
-      const float v = cd2[j * bd + tid];
-      const int id = cidx[j * bd + tid];
-      int i = j;
-      while (i > 0 && cd2[(i - 1) * bd + tid] > v) {
-        cd2[i * bd + tid] = cd2[(i - 1) * bd + tid];
-        cidx[i * bd + tid] = cidx[(i - 1) * bd + tid];
-        --i;
-      }
-      cd2[i * bd + tid] = v;
-      cidx[i * bd + tid] = id;
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < nrows * w; e += bd) {
-    const int r = e / w;
-    const int j = e - r * w;
-    d2[base + e] = cd2[j * bd + r];
-    idx[base + e] = cidx[j * bd + r];
-  }
-  if (tid == 0 && nvis) atomicMax(visits + b, nvis);
-}
-
-template <int NCT>
-int launch(const int* order, const float* boxd2, const float* q_pts,
-           const int* q_ids, const __nv_bfloat16* qh,
-           const __nv_bfloat16* ql, const float* p_pts, const int* p_ids,
-           const __nv_bfloat16* ph, const __nv_bfloat16* pl,
-           const float* pn2, float* d2, int* idx, int* visits, int num_qb,
-           int s_q, int s_pad, int num_pb, int t_p, int dim, int dp, int w,
-           int skip_self, int self_group, int rows, cudaStream_t stream) {
-  constexpr int LC = NCT * kT;
-  const size_t ldq = dp + 8;
-  const size_t smem = 2 * (size_t)rows * ldq * 2 + 2 * (size_t)LC * ldq * 2 +
-                      (size_t)LC * 4 + (size_t)(rows / 32) * LC * 32 * 4 +
-                      (size_t)w * rows * 8;
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_tiled_mxu_kernel<NCT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(num_qb, s_pad / rows);
-  knn_tiled_mxu_kernel<NCT><<<grid, rows, smem, stream>>>(
-      order, boxd2, q_pts, q_ids, qh, ql, p_pts, p_ids, ph, pl, pn2, d2, idx,
-      visits, s_q, s_pad, num_pb, t_p, dim, dp, w, skip_self, self_group,
-      rows);
-  return (int)cudaGetLastError();
-}
-
 
 // ---------------------------------------------------------------------------
 // knn_tiled_wgmma_kernel
@@ -380,6 +177,63 @@ __device__ __forceinline__ void chunk_products(float (&acc)[32], uint64_t qh,
   fence_regs(acc);
 }
 
+// d0|d1 (+)= A[64, 16] . B[128, 16]^T, both K-major in shared memory: d0
+// holds columns 0-63 and d1 columns 64-127, each in wgmma_m64n64k16's
+// layout.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d0)[32],
+                                                 float (&d1)[32], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]),
+        "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]),
+        "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]),
+        "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]),
+        "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]),
+        "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
+        "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]),
+        "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]),
+        "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]),
+        "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]),
+        "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
+        "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]),
+        "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
+        "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
+        "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// One K-slice of a chunk pair (streamed route): acc0|acc1 (+)= qh.ph +
+// qh.pl + ql.ph over `ksteps` k-steps of 16, as one committed group; the
+// pair's first k-step (k0 == 0) zeroes both.
+__device__ __forceinline__ void slice_products(float (&acc0)[32],
+                                               float (&acc1)[32], uint64_t qh,
+                                               uint64_t ql, uint64_t ph,
+                                               uint64_t pl, int ksteps,
+                                               int k0) {
+  fence_regs(acc0);
+  fence_regs(acc1);
+  wgmma_fence();
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const uint64_t o = 16ull * ks;
+    wgmma_m64n128k16(acc0, acc1, qh + o, ph + o, k0 + ks);
+    wgmma_m64n128k16(acc0, acc1, qh + o, pl + o, 1);
+    wgmma_m64n128k16(acc0, acc1, ql + o, ph + o, 1);
+  }
+  wgmma_commit();
+  fence_regs(acc0);
+  fence_regs(acc1);
+}
+
 // The consumer warpgroups take turns issuing their products (named
 // barriers 2 and 3): warpgroup g waits for its turn, issues, and hands the
 // turn to the other, so one folds while the other's products run.
@@ -393,27 +247,50 @@ __device__ __forceinline__ void pass_turn(int wg) {
                : "memory");
 }
 
+// Bytes of one ring stage: a 64-lane chunk of both point halves and its
+// |p|^2 (resident queries), or one K-slice of `slice` components of both
+// query halves (128 rows) and both point halves of a chunk pair (128
+// lanes), then the pair's 128 |p|^2.
+__host__ __device__ __forceinline__ uint32_t wgmma_stage_bytes(int dp,
+                                                               int slice) {
+  return slice ? 4u * kWgRows * slice * 2 + 2 * kWgLanes * 4
+               : 2u * kWgLanes * dp * 2 + kWgLanes * 4;
+}
+
+// kStream = false: the block's query halves resident in shared memory, a
+// stage holds one chunk. kStream = true: a stage holds one K-slice of
+// `slice` components (the last one may be shorter): the slice of qh, of ql
+// (128 rows each), of ph, of pl (the chunk pair's 128 lanes each), each in
+// a part of 256 * slice bytes, and after the pair's last slice its |p|^2.
+// The wrapper's packing (ops/knn_tiled.py pack_wgmma_halves) makes each
+// part one contiguous run: within a group of 128 rows or lanes, slice
+// [c0, c0 + g) starts at element 128 * c0, in core-matrix order.
+template <bool kStream>
 __global__ void __launch_bounds__(kWgThreads, 1) knn_tiled_wgmma_kernel(
     const int* __restrict__ order,           // [Bq, Bp] nearest-first
     const float* __restrict__ boxd2,         // [Bq, Bp] ascending box d2
     const float* __restrict__ q_pts,         // [Bq, S, D]
     const int* __restrict__ q_ids,           // [Bq, S]
     const __nv_bfloat16* __restrict__ qh,    // [Bq, S_pad/8, Dp/8, 8, 8]
-    const __nv_bfloat16* __restrict__ ql,    // [Bq, S_pad/8, Dp/8, 8, 8]
+    const __nv_bfloat16* __restrict__ ql,    // (streamed: sliced runs)
     const float* __restrict__ p_pts,         // [Bp, T, D]
     const int* __restrict__ p_ids,           // [Bp, T]
     const __nv_bfloat16* __restrict__ ph,    // [Bp, T_pad/8, Dp/8, 8, 8]
-    const __nv_bfloat16* __restrict__ pl,    // [Bp, T_pad/8, Dp/8, 8, 8]
+    const __nv_bfloat16* __restrict__ pl,    // (streamed: sliced runs)
     const float* __restrict__ pn2,           // [Bp, T_pad], +inf padding
     float* d2,                               // [Bq*S, W] in/out
     int* idx,                                // [Bq*S, W] in/out
     int* __restrict__ visits,                // [Bq] max over blocks
     int s_q, int s_pad, int num_pb, int t_p, int t_pad, int dim, int dp,
-    int w, int skip_self, int self_group, int stages, int rows_in_smem) {
+    int w, int skip_self, int self_group, int stages, int rows_in_smem,
+    int slice) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t qbytes = kWgRows * dp * 2;   // one half of the queries
+  // one half of the queries (resident)
+  const uint32_t qbytes = kStream ? 0u : kWgRows * dp * 2;
   const uint32_t cbytes = kWgLanes * dp * 2;  // one half of a chunk
-  const uint32_t sbytes = 2 * cbytes + kWgLanes * 4;  // a stage, |p|^2 last
+  const uint32_t sbytes = kStream ? wgmma_stage_bytes(dp, slice)
+                                  : 2 * cbytes + kWgLanes * 4;  // |p|^2 last
+  const uint32_t part = kWgRows * slice * 2;  // a streamed stage's part
   unsigned char* q_s = smem;                  // qh, then ql
   unsigned char* ring = smem + 2 * qbytes;
   const int row_slots = rows_in_smem ? w * kWgRows : 0;
@@ -452,33 +329,65 @@ __global__ void __launch_bounds__(kWgThreads, 1) knn_tiled_wgmma_kernel(
     // prune and keeps the ring full until they stop it.
     if (tid != kConsumers) return;
     const long long qoff = ((long long)b * s_pad + r0) * dp;
-    mbar_expect_tx(qbar, 2 * qbytes);
-    bulk_load(q_s, qh + qoff, qbytes, qbar);
-    bulk_load(q_s + qbytes, ql + qoff, qbytes, qbar);
-    int n = 0;  // chunks issued
+    if (!kStream) {
+      mbar_expect_tx(qbar, 2 * qbytes);
+      bulk_load(q_s, qh + qoff, qbytes, qbar);
+      bulk_load(q_s + qbytes, ql + qoff, qbytes, qbar);
+    }
+    int n = 0;  // stages issued: chunks, or (chunk pair, slice) pairs
     for (int v = 0; v < num_pb && !*stop; ++v) {
       const int pb = ord[v];
       if (skip_self && pb == own) continue;
-      for (int c = 0; c < nch; ++c, ++n) {
-        const int s = n % stages;
-        if (n >= stages) {  // wait until every consumer warp released it
-          const uint32_t parity = (n / stages - 1) & 1;
-          while (!mbar_try_wait(empty + s, parity))
+      if (kStream) {
+        for (int c = 0; c < nch; c += 2) {
+          const long long poff = ((long long)pb * t_pad + c * kWgLanes) * dp;
+          for (int c0 = 0; c0 < dp; c0 += slice, ++n) {
+            const int s = n % stages;
+            if (n >= stages) {  // wait until every consumer warp released it
+              const uint32_t parity = (n / stages - 1) & 1;
+              while (!mbar_try_wait(empty + s, parity))
+                if (*stop) goto drain;
+            }
             if (*stop) goto drain;
+            unsigned char* st = ring + s * sbytes;
+            const uint32_t bytes = kWgRows * min(slice, dp - c0) * 2;
+            const bool last = c0 + slice >= dp;
+            const long long e = (long long)kWgRows * c0;
+            mbar_expect_tx(full + s,
+                           4 * bytes + (last ? 2 * kWgLanes * 4 : 0));
+            bulk_load(st, qh + qoff + e, bytes, full + s);
+            bulk_load(st + part, ql + qoff + e, bytes, full + s);
+            bulk_load(st + 2 * part, ph + poff + e, bytes, full + s);
+            bulk_load(st + 3 * part, pl + poff + e, bytes, full + s);
+            if (last)
+              bulk_load(st + 4 * part,
+                        pn2 + (long long)pb * t_pad + c * kWgLanes,
+                        2 * kWgLanes * 4, full + s);
+          }
         }
-        if (*stop) goto drain;
-        unsigned char* st = ring + s * sbytes;
-        const long long e0 = ((long long)pb * t_pad + c * kWgLanes) * dp;
-        mbar_expect_tx(full + s, sbytes);
-        bulk_load(st, ph + e0, cbytes, full + s);
-        bulk_load(st + cbytes, pl + e0, cbytes, full + s);
-        bulk_load(st + 2 * cbytes, pn2 + (long long)pb * t_pad + c * kWgLanes,
-                  kWgLanes * 4, full + s);
+      } else {
+        for (int c = 0; c < nch; ++c, ++n) {
+          const int s = n % stages;
+          if (n >= stages) {  // wait until every consumer warp released it
+            const uint32_t parity = (n / stages - 1) & 1;
+            while (!mbar_try_wait(empty + s, parity))
+              if (*stop) goto drain;
+          }
+          if (*stop) goto drain;
+          unsigned char* st = ring + s * sbytes;
+          const long long e0 = ((long long)pb * t_pad + c * kWgLanes) * dp;
+          mbar_expect_tx(full + s, sbytes);
+          bulk_load(st, ph + e0, cbytes, full + s);
+          bulk_load(st + cbytes, pl + e0, cbytes, full + s);
+          bulk_load(st + 2 * cbytes,
+                    pn2 + (long long)pb * t_pad + c * kWgLanes, kWgLanes * 4,
+                    full + s);
+        }
       }
     }
   drain:
     // every copy issued lands before the block exits
-    mbar_wait(qbar, 0);
+    if (!kStream) mbar_wait(qbar, 0);
     for (int s = 0; s < stages && s < n; ++s)
       mbar_wait(full + s, ((n - 1 - s) / stages) & 1);
     return;
@@ -533,7 +442,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) knn_tiled_wgmma_kernel(
   float acc0[32], acc1[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
-  mbar_wait(qbar, 0);
+  if (!kStream) mbar_wait(qbar, 0);
 
   // wait for chunk n (of the walk) and start its products into acc
   auto issue = [&](float (&acc)[32], int n) {
@@ -580,17 +489,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) knn_tiled_wgmma_kernel(
       kth[h] = __shfl_sync(0xffffffffu, kth[h], (lane & ~3) | h);
   };
 
-  // Chunk n of the walk, its products complete in `cur`: release its
-  // stage, score and gate in registers, adopt what passed.
-  auto fold = [&](float (&cur)[32], int n, long long pos0) {
-    const int s = n % stages;
-    const float2* pn =
-        reinterpret_cast<const float2*>(ring + s * sbytes + 2 * cbytes);
-    float2 pv[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) pv[j] = pn[4 * j + q4];
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + s);
+  // A chunk's complete products in `cur`, its lanes' |p|^2 in pv (this
+  // thread's columns): score and gate in registers, adopt what passed.
+  auto gate = [&](float (&cur)[32], const float2 (&pv)[8], long long pos0) {
     float sc[32];
     uint32_t m[2] = {0u, 0u};
 #pragma unroll
@@ -608,7 +509,21 @@ __global__ void __launch_bounds__(kWgThreads, 1) knn_tiled_wgmma_kernel(
     if (__any_sync(0xffffffffu, (m[0] | m[1]) != 0u)) adopt(sc, m, pos0);
   };
 
-  int n = 0;  // chunks consumed
+  // Chunk n of the walk, its products complete in `cur`: release its
+  // stage, then gate.
+  auto fold = [&](float (&cur)[32], int n, long long pos0) {
+    const int s = n % stages;
+    const float2* pn =
+        reinterpret_cast<const float2*>(ring + s * sbytes + 2 * cbytes);
+    float2 pv[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) pv[j] = pn[4 * j + q4];
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+    gate(cur, pv, pos0);
+  };
+
+  int n = 0;  // stages consumed
   int nvis = 0;
   if (wg == 1) pass_turn(wg);  // warpgroup 0 issues first
   for (int v = 0; v < num_pb; ++v) {
@@ -618,24 +533,67 @@ __global__ void __launch_bounds__(kWgThreads, 1) knn_tiled_wgmma_kernel(
     const int pb = __shfl_sync(0xffffffffu, ord[v], 0);
     if (skip_self && pb == own) continue;
     const long long lane0 = (long long)pb * t_p;
-    // Chunks go in pairs (T_pad is a multiple of 128 lanes): chunk c+1's
-    // products, and then the other warpgroup's, run while chunk c is
-    // folded. Both groups are issued and waited for within one iteration:
-    // ptxas serializes the products when a group stays in flight across
-    // iterations.
-    for (int c = 0; c < nch; c += 2) {
-      wait_turn(wg);
-      issue(acc0, n + c);
-      issue(acc1, n + c + 1);
-      pass_turn(wg);
-      wgmma_wait<1>();
-      fence_regs(acc0);
-      fold(acc0, n + c, lane0 + (long long)c * kWgLanes);
-      wgmma_wait<0>();
-      fence_regs(acc1);
-      fold(acc1, n + c + 1, lane0 + (long long)(c + 1) * kWgLanes);
+    if (kStream) {
+      // A chunk pair's slices in ascending order into acc0|acc1; each
+      // slice's group is issued and waited for within its iteration, and
+      // its stage released then (the last one's once its |p|^2 is read),
+      // while the other warpgroup's products run.
+      for (int c = 0; c < nch; c += 2) {
+        int s = 0;
+        for (int c0 = 0; c0 < dp; c0 += slice, ++n) {
+          s = n % stages;
+          const unsigned char* st = ring + s * sbytes;
+          const int g = min(slice, dp - c0);
+          const uint32_t sbo_g = 16 * g;  // between 8-row groups
+          const uint32_t rows64 = 128 * g;  // bytes of 64 rows of a part
+          wait_turn(wg);
+          mbar_wait(full + s, (n / stages) & 1);
+          slice_products(acc0, acc1, wgmma_desc(st + wg * rows64, sbo_g),
+                         wgmma_desc(st + part + wg * rows64, sbo_g),
+                         wgmma_desc(st + 2 * part, sbo_g),
+                         wgmma_desc(st + 3 * part, sbo_g), g / 16, c0);
+          pass_turn(wg);
+          wgmma_wait<0>();
+          fence_regs(acc0);
+          fence_regs(acc1);
+          if (c0 + slice < dp) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty + s);
+          }
+        }
+        const float2* pn =
+            reinterpret_cast<const float2*>(ring + s * sbytes + 4 * part);
+        float2 pv0[8], pv1[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          pv0[j] = pn[4 * j + q4];
+          pv1[j] = pn[32 + 4 * j + q4];
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
+        gate(acc0, pv0, lane0 + (long long)c * kWgLanes);
+        gate(acc1, pv1, lane0 + (long long)(c + 1) * kWgLanes);
+      }
+    } else {
+      // Chunks go in pairs (T_pad is a multiple of 128 lanes): chunk c+1's
+      // products, and then the other warpgroup's, run while chunk c is
+      // folded. Both groups are issued and waited for within one
+      // iteration: ptxas serializes the products when a group stays in
+      // flight across iterations.
+      for (int c = 0; c < nch; c += 2) {
+        wait_turn(wg);
+        issue(acc0, n + c);
+        issue(acc1, n + c + 1);
+        pass_turn(wg);
+        wgmma_wait<1>();
+        fence_regs(acc0);
+        fold(acc0, n + c, lane0 + (long long)c * kWgLanes);
+        wgmma_wait<0>();
+        fence_regs(acc1);
+        fold(acc1, n + c + 1, lane0 + (long long)(c + 1) * kWgLanes);
+      }
+      n += nch;
     }
-    n += nch;
     ++nvis;
     parity ^= 1;
     worst =
@@ -695,77 +653,69 @@ __global__ void __launch_bounds__(kWgThreads, 1) knn_tiled_wgmma_kernel(
 }
 
 // Dynamic shared memory of knn_tiled_wgmma_kernel (ops/knn_tiled.py
-// wgmma_smem_bytes computes the same).
-size_t wgmma_smem(int dp, int w, int stages, int rows_in_smem) {
-  return 2 * (size_t)kWgRows * dp * 2 +
-         (size_t)stages * (2 * (size_t)kWgLanes * dp * 2 + kWgLanes * 4) +
+// wgmma_smem_bytes computes the same): the resident query halves (none
+// when streamed), the ring, the rows when they sit there, and 128 bytes
+// of barriers and flags.
+size_t wgmma_smem(int dp, int w, int stages, int rows_in_smem, int slice) {
+  return (slice ? 0 : 2 * (size_t)kWgRows * dp * 2) +
+         (size_t)stages * wgmma_stage_bytes(dp, slice) +
          (rows_in_smem ? (size_t)w * kWgRows * 8 : 0) + 128;
+}
+
+template <bool kStream>
+int wgmma_launch(const int* order, const float* boxd2, const float* q_pts,
+                 const int* q_ids, const void* qh, const void* ql,
+                 const float* p_pts, const int* p_ids, const void* ph,
+                 const void* pl, const float* pn2, float* d2, int* idx,
+                 int* visits, int num_qb, int s_q, int s_pad, int num_pb,
+                 int t_p, int t_pad, int dim, int dp, int w, int skip_self,
+                 int self_group, int stages, int rows_in_smem, int slice,
+                 cudaStream_t stream) {
+  const size_t smem = wgmma_smem(dp, w, stages, rows_in_smem, slice);
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_tiled_wgmma_kernel<kStream>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(num_qb, s_pad / kWgRows);
+  knn_tiled_wgmma_kernel<kStream><<<grid, kWgThreads, smem, stream>>>(
+      order, boxd2, q_pts, q_ids, static_cast<const __nv_bfloat16*>(qh),
+      static_cast<const __nv_bfloat16*>(ql), p_pts, p_ids,
+      static_cast<const __nv_bfloat16*>(ph),
+      static_cast<const __nv_bfloat16*>(pl), pn2, d2, idx, visits, s_q,
+      s_pad, num_pb, t_p, t_pad, dim, dp, w, skip_self, self_group, stages,
+      rows_in_smem, slice);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches on `stream`; returns the CUDA error code of the launch (0 = ok),
-// or cudaErrorInvalidValue for a chunk width other than 16, 32 or 64.
-extern "C" int knn_tiled_mxu_launch(
-    const int* order, const float* boxd2, const float* q_pts,
-    const int* q_ids, const void* qh, const void* ql, const float* p_pts,
-    const int* p_ids, const void* ph, const void* pl, const float* pn2,
-    float* d2, int* idx, int* visits, int num_qb, int s_q, int s_pad,
-    int num_pb, int t_p, int dim, int dp, int w, int skip_self,
-    int self_group, int rows, int lanes_chunk, void* stream) {
-  const auto* qh_ = static_cast<const __nv_bfloat16*>(qh);
-  const auto* ql_ = static_cast<const __nv_bfloat16*>(ql);
-  const auto* ph_ = static_cast<const __nv_bfloat16*>(ph);
-  const auto* pl_ = static_cast<const __nv_bfloat16*>(pl);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (lanes_chunk) {
-    case 64:
-      return launch<4>(order, boxd2, q_pts, q_ids, qh_, ql_, p_pts, p_ids,
-                       ph_, pl_, pn2, d2, idx, visits, num_qb, s_q, s_pad,
-                       num_pb, t_p, dim, dp, w, skip_self, self_group, rows,
-                       s);
-    case 32:
-      return launch<2>(order, boxd2, q_pts, q_ids, qh_, ql_, p_pts, p_ids,
-                       ph_, pl_, pn2, d2, idx, visits, num_qb, s_q, s_pad,
-                       num_pb, t_p, dim, dp, w, skip_self, self_group, rows,
-                       s);
-    case 16:
-      return launch<1>(order, boxd2, q_pts, q_ids, qh_, ql_, p_pts, p_ids,
-                       ph_, pl_, pn2, d2, idx, visits, num_qb, s_q, s_pad,
-                       num_pb, t_p, dim, dp, w, skip_self, self_group, rows,
-                       s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// Launches knn_tiled_wgmma_kernel on `stream`; returns the CUDA error code
-// of the launch (0 = ok), or cudaErrorInvalidValue for a shape it does not
-// take (Dp not a multiple of 16, S_pad not of 128, T_pad not of 128, or
-// a ring of other than 2 or 3 stages).
+// Launches knn_tiled_wgmma_kernel on `stream`: with the query halves
+// resident when slice is 0, else with D streamed in K-slices of `slice`
+// components (the halves packed in that slicing). Returns the CUDA error
+// code of the launch (0 = ok), or cudaErrorInvalidValue for a shape it does
+// not take (Dp not a multiple of 16, S_pad not of 128, T_pad not of 128, a
+// ring of other than 2 or 3 stages, a slice not a multiple of 16 or above
+// Dp, or more than 65,535 blocks of 128 rows a bucket).
 extern "C" int knn_tiled_wgmma_launch(
     const int* order, const float* boxd2, const float* q_pts,
     const int* q_ids, const void* qh, const void* ql, const float* p_pts,
     const int* p_ids, const void* ph, const void* pl, const float* pn2,
     float* d2, int* idx, int* visits, int num_qb, int s_q, int s_pad,
     int num_pb, int t_p, int t_pad, int dim, int dp, int w, int skip_self,
-    int self_group, int stages, int rows_in_smem, void* stream) {
+    int self_group, int stages, int rows_in_smem, int slice, void* stream) {
   if (dp % 16 || s_pad % kWgRows || t_pad % (2 * kWgLanes) || stages < 2 ||
-      stages > kMaxStages)
+      stages > kMaxStages || slice % 16 || slice < 0 || slice > dp ||
+      s_pad / kWgRows > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = wgmma_smem(dp, w, stages, rows_in_smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_tiled_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(num_qb, s_pad / kWgRows);
-  knn_tiled_wgmma_kernel<<<grid, kWgThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      order, boxd2, q_pts, q_ids, static_cast<const __nv_bfloat16*>(qh),
-      static_cast<const __nv_bfloat16*>(ql), p_pts, p_ids,
-      static_cast<const __nv_bfloat16*>(ph),
-      static_cast<const __nv_bfloat16*>(pl), pn2, d2, idx, visits, s_q,
-      s_pad, num_pb, t_p, t_pad, dim, dp, w, skip_self, self_group, stages,
-      rows_in_smem);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return slice ? wgmma_launch<true>(order, boxd2, q_pts, q_ids, qh, ql,
+                                    p_pts, p_ids, ph, pl, pn2, d2, idx,
+                                    visits, num_qb, s_q, s_pad, num_pb, t_p,
+                                    t_pad, dim, dp, w, skip_self, self_group,
+                                    stages, rows_in_smem, slice, st)
+               : wgmma_launch<false>(order, boxd2, q_pts, q_ids, qh, ql,
+                                     p_pts, p_ids, ph, pl, pn2, d2, idx,
+                                     visits, num_qb, s_q, s_pad, num_pb, t_p,
+                                     t_pad, dim, dp, w, skip_self, self_group,
+                                     stages, rows_in_smem, 0, st);
 }

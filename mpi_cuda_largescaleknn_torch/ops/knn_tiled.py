@@ -20,10 +20,11 @@ started with their own bucket, ``ops/tiled.py``).
   ``knn_tiled_nd_ring_kernel`` (a ring of bulk-copied chunks) at every
   other D, with the queries resident up to Dp4 = ``RESIDENT_MAX_DP4`` and
   D streamed in slices above it; with
-  ``score_dtype="bf16"`` at D >= ``mxu_min_dim()`` it is one of
-  ``csrc/knn_tiled_mxu.cu``, the TPU kernel's ``score_mxu`` branch, routed
-  by Dp (D rounded up to 16): ``knn_tiled_wgmma_kernel`` up to
-  ``WGMMA_MAX_DP``, ``knn_tiled_mxu_kernel`` (``nvcuda::wmma``) above it.
+  ``score_dtype="bf16"`` at D >= ``mxu_min_dim()`` it is
+  ``csrc/knn_tiled_mxu.cu``'s ``knn_tiled_wgmma_kernel``, the TPU kernel's
+  ``score_mxu`` branch, named by ``mxu_launch_geometry`` by Dp (D rounded
+  up to 16): with the query halves resident up to ``WGMMA_MAX_DP``, with
+  D streamed in K-slices above it.
 - ``knn_update_tiled_plain`` lock-steps all query buckets through their
   visit schedules and merges each visited bucket with a stable sort.
 
@@ -414,71 +415,86 @@ def d3_resident_warps(s_q: int, t_p: int, k: int) -> int:
 #: taken in pairs (its lanes are padded to a multiple of 128)
 WGMMA_ROWS = 128
 WGMMA_LANES = 64
-#: the largest Dp the wgmma kernel's plan takes: its query halves and a
-#: 2-stage chunk ring (1024 * Dp + 640 bytes) fit in shared memory up to
-#: Dp=224 (the rows then stay in device memory); above it bf16 goes to the
-#: wmma kernel
+#: the largest Dp whose query halves stay resident: they and a 2-stage
+#: chunk ring (1024 * Dp + 640 bytes) fit in shared memory up to Dp=224
+#: (the rows then stay in device memory); above it D is streamed
 WGMMA_MAX_DP = 224
+#: the components a streamed stage carries at most (4 k-steps of 16): 64
+#: KB of both sides' halves, so 3 stages fit beside rows of W <= 32
+WGMMA_SLICE_MAX = 64
 
 
 class MxuPlan(NamedTuple):
-    """How a bf16 traversal launches: ``kernel`` is "wgmma" or "wmma";
-    ``rows`` query rows a block; ``lanes`` point lanes a chunk; ``dp`` the
-    padded components; ``stages`` of the wgmma kernel's chunk ring (1 for
-    the wmma kernel); ``rows_in_smem``: whether the widened candidate rows
-    sit in shared memory (else in place in device memory); ``smem`` bytes
-    of dynamic shared memory."""
+    """How a bf16 traversal launches: ``kernel`` is "wgmma"
+    (``knn_tiled_wgmma_kernel``, the query halves resident) or
+    "wgmma_stream" (the same kernel, D streamed in K-slices), with
+    ``WGMMA_ROWS`` query rows a block and chunks of ``WGMMA_LANES`` lanes
+    either way; ``dp`` the padded components; ``stages`` of the ring;
+    ``rows_in_smem``: whether the widened candidate rows sit in shared
+    memory (else in place in device memory); ``smem`` bytes of dynamic
+    shared memory; ``slice_width`` the components of a streamed K-slice (0
+    unless "wgmma_stream")."""
     kernel: str
-    rows: int
-    lanes: int
     dp: int
     stages: int
     rows_in_smem: bool
     smem: int
+    slice_width: int = 0
 
 
-def wgmma_smem_bytes(dp: int, w: int, stages: int,
-                     rows_in_smem: bool) -> int:
+def wgmma_smem_bytes(dp: int, w: int, stages: int, rows_in_smem: bool,
+                     slice_width: int = 0) -> int:
     """Dynamic shared memory of ``knn_tiled_wgmma_kernel``: both query
-    halves of 128 rows, ``stages`` chunks of both point halves and their
-    ``|p|^2``, the [W, 128] candidate columns when they sit there, and 128
-    bytes of barriers and flags."""
-    return (2 * WGMMA_ROWS * dp * 2
-            + stages * (2 * WGMMA_LANES * dp * 2 + WGMMA_LANES * 4)
-            + (WGMMA_ROWS * w * 8 if rows_in_smem else 0) + 128)
+    halves of 128 rows and ``stages`` chunks of both point halves and
+    their ``|p|^2``, or (with ``slice_width``) ``stages`` K-slices of
+    ``slice_width`` components of both halves of the 128 query rows and of
+    a chunk pair's 128 lanes, and the pair's ``|p|^2``; the [W, 128]
+    candidate columns when they sit there; and 128 bytes of barriers and
+    flags."""
+    if slice_width:
+        ring = stages * (4 * WGMMA_ROWS * slice_width * 2
+                         + 2 * WGMMA_LANES * 4)
+    else:
+        ring = (2 * WGMMA_ROWS * dp * 2
+                + stages * (2 * WGMMA_LANES * dp * 2 + WGMMA_LANES * 4))
+    return ring + (WGMMA_ROWS * w * 8 if rows_in_smem else 0) + 128
 
 
-def mxu_launch_geometry(s_q: int, dim: int, w: int) -> MxuPlan:
-    """The bf16 kernel and its plan, by Dp = D rounded up to 16.
+def wgmma_slice_width(dp: int) -> int:
+    """Components a streamed K-slice carries: the Dp/16 k-steps split into
+    the fewest slices of at most ``WGMMA_SLICE_MAX`` components, as even
+    as they go; the last slice takes the rest (D=600, Dp=608: 9 slices of
+    64 and one of 32; D=960: 15 of 64). Dp is not padded further: zero
+    columns would cost tensor-core products."""
+    ksteps = dp // 16
+    slices = -(-ksteps // (WGMMA_SLICE_MAX // 16))
+    return 16 * -(-ksteps // slices)
 
-    Up to ``WGMMA_MAX_DP`` the wgmma kernel: 128 rows a block, 64-lane
-    chunks; the widened rows in shared memory where they fit beside a
-    ring of 3 stages, else of 2, and otherwise in device memory with the
-    ring as deep as fits. Above it the wmma kernel: a chunk of 64 lanes
-    where shared memory allows (else 32 or 16), and the most of 256, 128,
-    64, 32 rows whose query halves, score slabs and widened candidate
-    columns fit beside it (its shared-memory rows are padded by 8 bf16)."""
+
+def wgmma_slices(dp: int, slice_width: int) -> list[tuple[int, int]]:
+    """(first component, width) of each K-slice of ``dp`` components."""
+    return [(c0, min(slice_width, dp - c0))
+            for c0 in range(0, dp, slice_width)]
+
+
+def mxu_launch_geometry(dim: int, w: int) -> MxuPlan:
+    """The bf16 kernel's plan, by Dp = D rounded up to 16: 128 rows a
+    block, 64-lane chunks taken in pairs; up to ``WGMMA_MAX_DP`` with the
+    query halves resident ("wgmma"), above it with D streamed in K-slices
+    of ``wgmma_slice_width(dp)`` ("wgmma_stream"). The widened rows sit in
+    shared memory where they fit beside a ring of 3 stages, else of 2, and
+    otherwise in device memory with the ring as deep as fits, so any W
+    plans."""
     dp = round_up(dim, 16)
-    budget = SMEM_OPTIN - 1024
-    if dp <= WGMMA_MAX_DP:
-        for rows_in_smem in (True, False):
-            for stages in (3, 2):
-                smem = wgmma_smem_bytes(dp, w, stages, rows_in_smem)
-                if smem <= budget:
-                    return MxuPlan("wgmma", WGMMA_ROWS, WGMMA_LANES, dp,
-                                   stages, rows_in_smem, smem)
-    ldq = dp + 8
-    for lanes in (64, 32, 16):
-        for rows in (256, 128, 64, 32):
-            if rows > max(32, round_up(s_q, 32)):
-                continue
-            smem = (4 * rows * ldq + 4 * lanes * ldq + 4 * lanes
-                    + 4 * rows * lanes + 8 * w * rows)
-            if smem <= budget:
-                return MxuPlan("wmma", rows, lanes, dp, 1, True, smem)
-    raise NotImplementedError(
-        f"W={w}, D={dim}: 32 widened candidate rows no longer fit in shared "
-        "memory (candidate rows in device memory: ROADMAP.md Queue 1)")
+    stream = dp > WGMMA_MAX_DP
+    width = wgmma_slice_width(dp) if stream else 0
+    for rows_in_smem in (True, False):
+        for stages in (3, 2):
+            smem = wgmma_smem_bytes(dp, w, stages, rows_in_smem, width)
+            if smem <= SMEM_OPTIN - 1024:
+                return MxuPlan("wgmma_stream" if stream else "wgmma", dp,
+                               stages, rows_in_smem, smem, width)
+    raise AssertionError(f"no wgmma plan fits at Dp={dp}")
 
 
 def _check_inputs(state: CandidateState, q: BucketedPoints,
@@ -662,26 +678,56 @@ def _bf16_halves(pts: torch.Tensor, rows: int, dp: int):
     return out
 
 
-def pack_wgmma_halves(pts: torch.Tensor, t_pad: int, dp: int):
-    """(hi, lo) bf16[B, t_pad/8, dp/8, 8, 8] of f32[B, T, D]: the bf16
-    halves, lanes zero-padded to ``t_pad`` and components to ``dp``, in
-    wgmma's K-major no-swizzle core-matrix order: each 128-byte core
-    matrix is 8 lanes x 8 components (16 bytes a lane), core matrices run
-    along the components, then along groups of 8 lanes. So lanes
-    [l0, l0 + L) of a bucket (l0 a multiple of 8) are one contiguous run of
-    ``L * dp`` values per half, and a descriptor steps 128 bytes to the
-    next 8 components and ``16 * dp`` bytes to the next 8 lanes."""
+def pack_wgmma_halves(pts: torch.Tensor, t_pad: int, dp: int,
+                      group: int = 8, slice_width: int = 0):
+    """The bf16 halves (hi, lo) of f32[B, T, D], lanes zero-padded to
+    ``t_pad`` and components to ``dp``, in wgmma's K-major no-swizzle
+    core-matrix order: each 128-byte core matrix is 8 lanes x 8 components
+    (16 bytes a lane).
+
+    The lanes go in runs of ``group`` (a multiple of 8 dividing t_pad),
+    each run cut into the K-slices ``wgmma_slices(dp, slice_width)``
+    (``slice_width`` 0: one slice of dp) laid one after the other; within
+    a slice of width g, core matrices run along its components, then along
+    the run's groups of 8 lanes. So a run's slice starting at component c0
+    is one contiguous run of ``group * g`` values from element
+    ``group * c0`` of the run (what the kernel bulk-copies), and a
+    descriptor steps 128 bytes to the next 8 components and ``16 * g``
+    bytes to the next 8 lanes. Returns bf16[B, t_pad/group, group * dp]
+    each; with one slice the order is the same for any group."""
     b = pts.shape[0]
-    return tuple(h.view(b, t_pad // 8, 8, dp // 8, 8).transpose(2, 3)
-                 .contiguous() for h in _bf16_halves(pts, t_pad, dp))
+    sw = slice_width or dp
+    runs = t_pad // group
+    out = []
+    for h in _bf16_halves(pts, t_pad, dp):
+        buf = torch.empty((b, runs, group * dp), dtype=torch.bfloat16,
+                          device=pts.device)
+        for c0, g in wgmma_slices(dp, sw):
+            buf[..., group * c0:group * (c0 + g)] \
+                .view(b, runs, group // 8, g // 8, 8, 8) \
+                .copy_(h[..., c0:c0 + g].view(b, runs, group // 8, 8, g // 8,
+                                              8).transpose(3, 4))
+        out.append(buf)
+    return tuple(out)
 
 
-def unpack_wgmma_halves(hi: torch.Tensor, lo: torch.Tensor):
-    """The plain inverse of ``pack_wgmma_halves``: (hi, lo)
-    bf16[B, t_pad, dp], padding included."""
-    b, groups, kgroups = hi.shape[:3]
-    return tuple(h.transpose(2, 3).reshape(b, groups * 8, kgroups * 8)
-                 for h in (hi, lo))
+def unpack_wgmma_halves(hi: torch.Tensor, lo: torch.Tensor, dp: int,
+                        slice_width: int = 0):
+    """The plain inverse of ``pack_wgmma_halves`` (``slice_width`` 0: one
+    slice of dp): (hi, lo) bf16[B, t_pad, dp], padding included."""
+    b, runs, n = hi.shape
+    group = n // dp
+    out = []
+    for h in (hi, lo):
+        full = torch.empty((b, runs * group, dp), dtype=h.dtype,
+                           device=h.device)
+        for c0, g in wgmma_slices(dp, slice_width or dp):
+            full[..., c0:c0 + g].view(b, runs, group // 8, 8, g // 8, 8) \
+                .copy_(h[..., group * c0:group * (c0 + g)]
+                       .view(b, runs, group // 8, g // 8, 8, 8)
+                       .transpose(3, 4))
+        out.append(full)
+    return tuple(out)
 
 
 def padded_norms2(pts: torch.Tensor, t_pad: int) -> torch.Tensor:
@@ -696,14 +742,17 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
                          q: BucketedPoints, p: BucketedPoints,
                          rows: CandidateState, *, skip_self: bool,
                          self_group: int) -> torch.Tensor:
-    """Launch the bf16 kernel that ``mxu_launch_geometry`` names on
-    PyTorch's current stream, folding ``p`` into the WIDENED ``rows`` IN
-    PLACE (module docstring: on return each row holds exact d2 and ids,
-    sorted stably). Prepares the bf16 halves of both sides (packed for the
-    wgmma kernel, row-major for the wmma one) and the exact ``|p|^2``.
-    Returns the per-query-bucket visit counts (i32[Bq]). Counts one launch
-    in ``knn_update_tiled_cuda.mxu_launches``, and the wgmma kernel's also
-    in ``wgmma_launches``."""
+    """Launch ``knn_tiled_wgmma_kernel`` on the route that
+    ``mxu_launch_geometry`` names, on PyTorch's current stream, folding
+    ``p`` into the WIDENED ``rows`` IN PLACE (module docstring: on return
+    each row holds exact d2 and ids, sorted stably). Prepares the bf16
+    halves of both sides (``pack_wgmma_halves``: in one slice with the
+    queries resident, else in the plan's K-slices in runs of 128 query
+    rows and of a chunk pair's 128 lanes) and the exact ``|p|^2``. Returns
+    the per-query-bucket visit counts (i32[Bq]). Counts one launch in
+    ``knn_update_tiled_cuda.mxu_launches``, and also in
+    ``wgmma_launches`` (queries resident) or ``wgmma_stream_launches`` (D
+    streamed)."""
     num_qb, s_q = q.ids.shape
     num_pb, t_p = p.ids.shape
     dim = q.pts.shape[-1]
@@ -712,22 +761,18 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
     if num_pb * t_p >= 2**31 - 2:
         raise ValueError(f"{num_pb * t_p} point lanes overflow the encoded "
                          "positions of the bf16 kernel")
-    plan = mxu_launch_geometry(s_q, dim, w)
+    plan = mxu_launch_geometry(dim, w)
     events = knn_update_tiled_cuda.mxu_events
     if events is not None:
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         marks[0].record()
-    s_pad = round_up(s_q, plan.rows)
-    wgmma = plan.kernel == "wgmma"
-    if wgmma:
-        t_pad = round_up(t_p, 2 * plan.lanes)  # the kernel takes chunk pairs
-        qh, ql = pack_wgmma_halves(q.pts, s_pad, plan.dp)
-        ph, pl = pack_wgmma_halves(p.pts, t_pad, plan.dp)
-        pn2 = padded_norms2(p.pts, t_pad)
-    else:
-        qh, ql = _bf16_halves(q.pts, s_pad, plan.dp)
-        ph, pl = _bf16_halves(p.pts, t_p, plan.dp)
-        pn2 = norms2(p.pts).contiguous()
+    s_pad = round_up(s_q, WGMMA_ROWS)
+    t_pad = round_up(t_p, 2 * WGMMA_LANES)  # the kernel takes chunk pairs
+    qh, ql = pack_wgmma_halves(q.pts, s_pad, plan.dp, WGMMA_ROWS,
+                               plan.slice_width)
+    ph, pl = pack_wgmma_halves(p.pts, t_pad, plan.dp, 2 * WGMMA_LANES,
+                               plan.slice_width)
+    pn2 = padded_norms2(p.pts, t_pad)
     visits = torch.zeros(num_qb, dtype=torch.int32, device=order.device)
     q_pts, q_ids = q.pts.contiguous(), q.ids.contiguous()
     p_pts, p_ids = p.pts.contiguous(), p.ids.contiguous()
@@ -741,23 +786,20 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
                 p_pts.data_ptr(), p_ids.data_ptr(), ph.data_ptr(),
                 pl.data_ptr(), pn2.data_ptr(), rows.dist2.data_ptr(),
                 rows.idx.data_ptr(), visits.data_ptr())
-        flags = (int(bool(skip_self)), self_group)
-        if wgmma:
-            err = lib.knn_tiled_wgmma_launch(
-                *ptrs, num_qb, s_q, s_pad, num_pb, t_p, t_pad, dim, plan.dp,
-                w, *flags, plan.stages, int(plan.rows_in_smem), stream)
-        else:
-            err = lib.knn_tiled_mxu_launch(
-                *ptrs, num_qb, s_q, s_pad, num_pb, t_p, dim, plan.dp, w,
-                *flags, plan.rows, plan.lanes, stream)
+        err = lib.knn_tiled_wgmma_launch(
+            *ptrs, num_qb, s_q, s_pad, num_pb, t_p, t_pad, dim, plan.dp, w,
+            int(bool(skip_self)), self_group, plan.stages,
+            int(plan.rows_in_smem), plan.slice_width, stream)
         if events is not None:
             marks[2].record()
             events.append(marks)
     if err:
         raise RuntimeError(f"knn_tiled_mxu kernel launch failed "
                            f"({plan.kernel} route): CUDA error {err}")
-    knn_update_tiled_cuda.mxu_launches += 1
-    knn_update_tiled_cuda.wgmma_launches += int(wgmma)
+    kt = knn_update_tiled_cuda
+    kt.mxu_launches += 1
+    kt.wgmma_launches += int(plan.kernel == "wgmma")
+    kt.wgmma_stream_launches += int(plan.kernel == "wgmma_stream")
     return visits
 
 
@@ -766,14 +808,16 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
 #: ``stream_launches`` and ``d3_launches`` of those that went to its ring
 #: kernel with the queries resident, with D streamed, and to its D=3
 #: kernel, ``mxu_launches`` of
-#: csrc/knn_tiled_mxu.cu (either route), ``wgmma_launches`` of those that
-#: went to its wgmma kernel
+#: csrc/knn_tiled_mxu.cu (either route), ``wgmma_launches`` and
+#: ``wgmma_stream_launches`` of those with the query halves resident and
+#: with D streamed
 knn_update_tiled_cuda.launches = 0
 knn_update_tiled_cuda.ring_launches = 0
 knn_update_tiled_cuda.stream_launches = 0
 knn_update_tiled_cuda.d3_launches = 0
 knn_update_tiled_cuda.mxu_launches = 0
 knn_update_tiled_cuda.wgmma_launches = 0
+knn_update_tiled_cuda.wgmma_stream_launches = 0
 #: None, or a list to which every bf16 launch (``mxu_events``) or f32
 #: launch (``layout_events``) appends three recorded CUDA
 #: events: before its preparation (bf16: halves, norms; ring: the layouts;
@@ -787,8 +831,7 @@ _SIGNATURES = {
     "knn_tiled": {"knn_tiled_launch": 8 * "p" + 11 * "i" + "p",
                   "knn_tiled_blocks_per_sm": "iii",
                   "knn_tiled_nd_ring_launch": 9 * "p" + 13 * "i" + "p"},
-    "knn_tiled_mxu": {"knn_tiled_mxu_launch": 14 * "p" + 12 * "i" + "p",
-                      "knn_tiled_wgmma_launch": 14 * "p" + 13 * "i" + "p"},
+    "knn_tiled_mxu": {"knn_tiled_wgmma_launch": 14 * "p" + 14 * "i" + "p"},
 }
 
 

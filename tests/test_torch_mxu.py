@@ -115,6 +115,8 @@ CASES = {
     "d16_k8_radius": (500, 8, 32, 1, 4.5, False, 16, ""),
     "d32_k8_radius_g2": (512, 8, 32, 2, 6.5, True, 32, ""),
     "d8_k8_min_dim_1_g2": (512, 8, 32, 2, math.inf, True, 8, "1"),
+    # above WGMMA_MAX_DP, where the kernel streams D in K-slices
+    "d240_k10_skip_self_g2": (300, 10, 32, 2, math.inf, True, 240, ""),
 }
 
 
@@ -263,29 +265,34 @@ def test_cli_bf16_on_float3_scores_exactly(tmp_path):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("s_q,dim,w,want", [
-    (248, 128, 20, ("wgmma", 128, 64, 128, 3, True)),
-    (248, 128, 200, ("wgmma", 128, 64, 128, 3, False)),
-    (248, 16, 20, ("wgmma", 128, 64, 16, 3, True)),
-    (10, 960, 16, ("wmma", 32, 16, 960, 1, True)),
+@pytest.mark.parametrize("dim,w,want", [
+    (128, 20, ("wgmma", 128, 3, True, 0)),
+    (128, 200, ("wgmma", 128, 3, False, 0)),
+    (16, 20, ("wgmma", 16, 3, True, 0)),
+    (960, 16, ("wgmma_stream", 960, 3, True, 64)),
+    # just above the cap: 15 k-steps, slices of 64, 64, 64, 48
+    (240, 20, ("wgmma_stream", 240, 3, True, 64)),
+    # Dp=608: 9 slices of 64 and a short last one of 32
+    (600, 20, ("wgmma_stream", 608, 3, True, 64)),
+    (960, 20, ("wgmma_stream", 960, 3, True, 64)),
+    # k=1000: W=2000 rows in device memory
+    (960, 2000, ("wgmma_stream", 960, 3, False, 64)),
 ])
-def test_mxu_launch_geometry(s_q, dim, w, want):
-    """The route is by Dp: the wgmma kernel up to WGMMA_MAX_DP (rows in
-    shared memory where they fit), the wmma kernel above it; each plan
-    fits the shared memory a block may opt into."""
-    plan = tk.mxu_launch_geometry(s_q, dim, w)
-    assert tuple(plan[:6]) == want
+def test_mxu_launch_geometry(dim, w, want):
+    """The route is by Dp: the query halves resident up to WGMMA_MAX_DP,
+    D streamed in K-slices above it; rows in shared memory where they
+    fit; each plan fits the shared memory a block may opt into."""
+    plan = tk.mxu_launch_geometry(dim, w)
+    assert (*plan[:4], plan.slice_width) == want
     assert plan.smem <= tk.SMEM_OPTIN - 1024
+    assert plan.smem == tk.wgmma_smem_bytes(plan.dp, w, plan.stages,
+                                            plan.rows_in_smem,
+                                            plan.slice_width)
     if plan.kernel == "wgmma":
         assert plan.dp <= tk.WGMMA_MAX_DP
-        assert plan.smem == tk.wgmma_smem_bytes(plan.dp, w, plan.stages,
-                                                plan.rows_in_smem)
     else:
-        assert plan.dp > tk.WGMMA_MAX_DP and plan.rows % 32 == 0
-        ldq = plan.dp + 8
-        assert plan.smem == (4 * plan.rows * ldq + 4 * plan.lanes * ldq
-                             + 4 * plan.lanes + 4 * plan.rows * plan.lanes
-                             + 8 * w * plan.rows)
+        assert plan.dp > tk.WGMMA_MAX_DP
+        assert plan.slice_width == tk.wgmma_slice_width(plan.dp)
 
 
 def test_wgmma_max_dp_is_the_largest_the_plan_takes():
@@ -294,16 +301,47 @@ def test_wgmma_max_dp_is_the_largest_the_plan_takes():
     assert top >= 128 and top % 16 == 0
     assert tk.wgmma_smem_bytes(top, 10_000, 2, False) <= budget
     assert tk.wgmma_smem_bytes(top + 16, 1, 2, False) > budget
-    assert tk.mxu_launch_geometry(248, top, 20).kernel == "wgmma"
-    assert tk.mxu_launch_geometry(248, top + 1, 20).kernel == "wmma"
+    assert tk.mxu_launch_geometry(top, 20).kernel == "wgmma"
+    assert tk.mxu_launch_geometry(top + 1, 20).kernel == "wgmma_stream"
 
 
 def test_mxu_launch_geometry_refuses_huge_width():
-    # the wgmma kernel keeps wide rows in device memory; the wmma kernel
-    # above WGMMA_MAX_DP needs them in shared memory
-    assert tk.mxu_launch_geometry(248, 128, 2000).kernel == "wgmma"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.mxu_launch_geometry(248, 960, 2000)
+    """Despite the name, no width is refused: at every Dp from 16 to 1024
+    the plan takes any W, the rows in shared memory where they fit beside
+    2 stages, else in device memory (the kernel reads them in place)."""
+    budget = tk.SMEM_OPTIN - 1024
+    for dp in range(16, 1025, 16):
+        for w in (16, 20, 32, 200, 2000, 20_000):
+            plan = tk.mxu_launch_geometry(dp, w)
+            assert plan.dp == dp and plan.smem <= budget
+            fits = tk.wgmma_smem_bytes(dp, w, 2, True,
+                                       plan.slice_width) <= budget
+            assert plan.rows_in_smem == fits
+            assert plan.stages == 3 or tk.wgmma_smem_bytes(
+                dp, w if plan.rows_in_smem else 0, 3, plan.rows_in_smem,
+                plan.slice_width) > budget
+
+
+@pytest.mark.parametrize("dp", [16, 64, 208, 224, 240, 256, 400, 608, 960,
+                                1008, 1024])
+def test_wgmma_slice_split_is_fewest_and_evenest(dp):
+    """The k-steps split into the fewest slices of at most
+    WGMMA_SLICE_MAX components, at the narrowest width that keeps that
+    count (only the last slice is shorter), covering Dp once; the plan's
+    stage holds the widest slice."""
+    width = tk.wgmma_slice_width(dp)
+    slices = tk.wgmma_slices(dp, width)
+    assert len(slices) == -(-dp // tk.WGMMA_SLICE_MAX)
+    assert width % 16 == 0 and width <= tk.WGMMA_SLICE_MAX
+    assert width == 16 or len(tk.wgmma_slices(dp, width - 16)) > len(slices)
+    assert [c0 for c0, _ in slices] == list(range(0, dp, width))
+    assert sum(g for _, g in slices) == dp
+    assert all(g % 16 == 0 and 0 < g <= width for _, g in slices)
+    if dp > tk.WGMMA_MAX_DP:
+        plan = tk.mxu_launch_geometry(dp, 20)
+        assert plan.slice_width == width
+        assert plan.smem >= plan.stages * (4 * tk.WGMMA_ROWS * width * 2
+                                           + 2 * tk.WGMMA_LANES * 4)
 
 
 def _halves_input(t, dim):
@@ -319,10 +357,10 @@ def test_pack_wgmma_halves_round_trip(dim, t):
     x = _halves_input(t, dim)
     t_pad, dp = round_up(t, tk.WGMMA_LANES), round_up(dim, 16)
     hi, lo = tk.pack_wgmma_halves(x, t_pad, dp)
-    assert hi.shape == lo.shape == (3, t_pad // 8, dp // 8, 8, 8)
+    assert hi.shape == lo.shape == (3, t_pad // 8, 8 * dp)
     assert hi.dtype == lo.dtype == torch.bfloat16 and hi.is_contiguous()
     want = tdist.split_bf16(x)
-    for got, ref in zip(tk.unpack_wgmma_halves(hi, lo), want):
+    for got, ref in zip(tk.unpack_wgmma_halves(hi, lo, dp), want):
         assert got.shape == (3, t_pad, dp)
         assert torch.equal(got[:, :t, :dim].view(torch.int16),
                            ref.view(torch.int16))
@@ -337,7 +375,7 @@ def test_wgmma_chunk_is_one_contiguous_run(dim):
     x = _halves_input(496, dim)
     t_pad, dp, lanes = 512, round_up(dim, 16), tk.WGMMA_LANES
     packed = tk.pack_wgmma_halves(x, t_pad, dp)
-    for half, full in zip(packed, tk.unpack_wgmma_halves(*packed)):
+    for half, full in zip(packed, tk.unpack_wgmma_halves(*packed, dp)):
         flat = half.reshape(-1)
         for pb, c in ((0, 0), (1, 3), (2, 7)):
             e0 = (pb * t_pad + c * lanes) * dp
@@ -348,6 +386,82 @@ def test_wgmma_chunk_is_one_contiguous_run(dim):
                                .view(torch.int16))
 
 
+def _padded_halves(x, t_pad, dp):
+    """split_bf16's halves, zero-padded: bf16[B, t_pad, dp] each."""
+    b, t, dim = x.shape
+    out = []
+    for half in tdist.split_bf16(x):
+        h = torch.zeros((b, t_pad, dp), dtype=torch.bfloat16)
+        h[:, :t, :dim] = half
+        out.append(h)
+    return out
+
+
+def _resident_layout(x, t_pad, dp):
+    """The one-slice layout written out: bf16[B, t_pad/8, dp/8, 8, 8]."""
+    return [h.view(h.shape[0], t_pad // 8, 8, dp // 8, 8).transpose(2, 3)
+            for h in _padded_halves(x, t_pad, dp)]
+
+
+@pytest.mark.parametrize("group", [8, 64, 128])
+@pytest.mark.parametrize("dim", [16, 100, 240])
+def test_full_width_slice_is_the_resident_layout(dim, group):
+    """One slice of Dp (any run length) is the resident route's layout,
+    bit for bit, and so is the default packing."""
+    x = _halves_input(200, dim)
+    dp = round_up(dim, 16)
+    want = _resident_layout(x, 256, dp)
+    for packed in (tk.pack_wgmma_halves(x, 256, dp),
+                   tk.pack_wgmma_halves(x, 256, dp, group, dp)):
+        for got, ref in zip(packed, want):
+            assert torch.equal(got.reshape(-1).view(torch.int16),
+                               ref.reshape(-1).view(torch.int16))
+
+
+@pytest.mark.parametrize("dim", [240, 600, 960, 1000])
+def test_sliced_packing_round_trip(dim):
+    """In the plan's K-slices, in runs of 128 rows (queries) or of a chunk
+    pair's 128 lanes (points), unpacking gives split_bf16's halves bit for
+    bit, zero-padded to t_pad lanes and Dp components."""
+    x = _halves_input(200, dim)
+    dp = round_up(dim, 16)
+    width = tk.mxu_launch_geometry(dim, 20).slice_width
+    assert width and width < dp
+    hi, lo = tk.pack_wgmma_halves(x, 256, dp, 128, width)
+    assert hi.shape == lo.shape == (3, 2, 128 * dp)
+    assert hi.dtype == lo.dtype == torch.bfloat16 and hi.is_contiguous()
+    for got, ref in zip(tk.unpack_wgmma_halves(hi, lo, dp, width),
+                        tdist.split_bf16(x)):
+        assert got.shape == (3, 256, dp)
+        assert torch.equal(got[:, :200, :dim].view(torch.int16),
+                           ref.view(torch.int16))
+        assert not got[:, 200:].any() and not got[:, :, dim:].any()
+
+
+@pytest.mark.parametrize("dim", [240, 600, 960, 1000])
+def test_wgmma_slice_is_one_contiguous_run(dim):
+    """Each (query block, slice) and each (chunk pair, slice) is the
+    ``128 * g`` values the streamed kernel bulk-copies from element
+    ``run0 * 128 * dp + 128 * c0`` (run0 = b * S_pad/128 + block, or
+    pb * T_pad/128 + pair), in core-matrix order: 8-row groups of
+    [g/8][8 rows][8 components]."""
+    x = _halves_input(496, dim)
+    t_pad, dp = 512, round_up(dim, 16)
+    width = tk.wgmma_slice_width(dp)
+    packed = tk.pack_wgmma_halves(x, t_pad, dp, 128, width)
+    runs = t_pad // 128
+    for half, full in zip(packed, _padded_halves(x, t_pad, dp)):
+        flat = half.reshape(-1)
+        for b, r in ((0, 0), (1, 3), (2, 1)):
+            for c0, g in tk.wgmma_slices(dp, width):
+                e0 = (b * runs + r) * 128 * dp + 128 * c0
+                run = flat[e0:e0 + 128 * g].view(16, g // 8, 8, 8)
+                rows_major = run.transpose(1, 2).reshape(128, g)
+                assert torch.equal(rows_major.view(torch.int16),
+                                   full[b, 128 * r:128 * (r + 1), c0:c0 + g]
+                                   .view(torch.int16))
+
+
 def test_padding_lanes_carry_inf_norms_and_zero_halves():
     x = _halves_input(496, 100)
     n2 = tk.padded_norms2(x, 512)
@@ -355,12 +469,13 @@ def test_padding_lanes_carry_inf_norms_and_zero_halves():
     assert torch.equal(n2[:, :496], tdist.norms2(x))
     assert bool(torch.isinf(n2[:, 496:]).all()) and bool((n2[:, 496:] > 0)
                                                           .all())
-    for half in tk.unpack_wgmma_halves(*tk.pack_wgmma_halves(x, 512, 112)):
+    for half in tk.unpack_wgmma_halves(*tk.pack_wgmma_halves(x, 512, 112),
+                                       112):
         assert not half[:, 496:].any()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("dim", [64, 128, 240, 600, 960])
 @pytest.mark.parametrize("k", [1, 10, 100])
 def test_mxu_kernel_matches_plain_on_the_card(k, dim):
     if not torch.cuda.is_available():
