@@ -47,6 +47,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    and a bucket of 1,000 rows at D=600: d2 bitwise and equal to the f32
    kernel's; ids equal, where they differ, only among equally distant
    points (checked exactly); each case's launch on its route;
+3e. the same checks on the query sides the chunked loops give the kernels
+   (``chunk_cases``), cold and without ``skip_self``: phase 13c's
+   device-merge chunk as one query bucket of 4,000 rows (the first chunk
+   and the last, part padding) against a 65,536-point shard coarsened at
+   G=2, k=8, on the D=3 traversal and the flat D=3 kernel; chunk
+   partitions of 16,384 rows against a whole shard at G=2, at D=3 k=100
+   and at D=128 k=10 in f32 (ring kernel) and bf16 (wgmma);
 4. the main path through the CLI: 1,000,000 seeded uniform points at
    k=100 and at k=8, each with ``--selfcheck 1000 --timings`` (in phases
    4-8 every launch must be on the D=3 kernels);
@@ -102,10 +109,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    route at D=600 (65,536 points), at the shapes their first kernels were
    timed at, each against its plain version and both bounds
    (``time_offpath_kernels``);
+13. the chunked and stepwise loops (``chunked_phases``): 13a 8,388,608
+   seeded uniform points at k=100, R=1, through ``UnorderedKNN``
+   unchunked and with ``query_chunk=1,048,576`` (8 chunks, host merge),
+   distances byte-equal, the chunked peak device memory below the
+   unchunked, a selfcheck of 1000, every launch on the D=3 kernel, each
+   chunk's kernel and ``d3_lanes`` timed; 13b phase 5's points through
+   ``ring_knn_stepwise`` cut after 1 round and ``ring_knn_chunked`` cut
+   after 2 chunks of 65,536, each resumed from its checkpoint byte-equal
+   to phase 5's file (and the checkpoint cleared), and the
+   pre-partitioned CLI on phase 8's parts with ``--query-chunk 65536
+   --checkpoint-dir``, byte-equal to phase 8's rank files; 13c the device
+   merge on 262,144 uniform points, R=4, k=8, chunks of 1,000 rows (single
+   query buckets of 4,000 rows), ``auto`` and ``pallas``, distances
+   byte-equal to the host merge and ids equal up to exact ties, and
+   phase 10b's D=128 points in chunks of 65,536 in f32 (ring route) and
+   bf16 (``wgmma``), byte-equal to phase 10b's unchunked run;
 12. phase 10's f32 R=1 run again under ``profile_trace``, byte-equal to
    it: the card's busy share of the run and its top kernels by device
-   time (last, so that no timing runs in a process that has been
-   profiled).
+   time (last, after phase 13, so that no timing runs in a process that
+   has been profiled).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -151,6 +174,10 @@ HD_DIM, HD_K = 128, 10  # phase 10: the SIFT1M shape and its recall@10
 HD_SUB = 262_144        # phase 10b: points cut into 4 .npy slab parts
 GIST_DIM = 960          # phase 10c: GIST1M's width, on HD_SUB points
 PLAIN_BUCKETS = 16      # phase 11: query buckets the plain versions run
+N_WALL, WALL_K = 8_388_608, 100  # phase 13a: the candidate rows' memory wall
+WALL_CHUNK = 1_048_576           # phase 13a: 8 chunks
+CKPT_CHUNK = 65_536              # phase 13b: 4 chunks of a 250,000-row shard
+MERGE_CHUNK = 1_000              # phase 13c: query buckets of 4 x 1,000 rows
 
 
 def fail(msg: str) -> None:
@@ -284,6 +311,33 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
     import torch
 
     from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
+    from mpi_cuda_largescaleknn_torch.ops.partition import (
+        coarsen_buckets,
+        partition_points,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
+
+    pts = torch.from_numpy(pts_np).cuda()
+    q = partition_points(pts, bucket_size=bucket_size)
+    pc = coarsen_buckets(q, group)
+    state = (warm_start_self(pc, k, radius) if warm else
+             init_candidates(q.num_buckets * q.bucket_size, k, radius,
+                             device=pts.device))
+    return check_traversal(name, state, q, pc, pts, skip_self=warm,
+                           group=group, score_dtype=score_dtype, route=route)
+
+
+def check_traversal(name, state, q, pc, pts, *, skip_self, group,
+                    score_dtype="f32", route=None):
+    """The traversal kernel vs its plain version on the card: rows
+    ``state`` of the query side ``q`` folded with the point side ``pc``
+    (``pts`` indexed by its ids). d2 bitwise, visits equal (at most the
+    plain count where a bucket is split over blocks), ids equal (bf16: up
+    to exact ties, and d2 equal to the f32 kernel's), the launch on the
+    ``route`` planned. Returns the max abs difference of the finite d2
+    entries (0.0 when bitwise equal)."""
+    import torch
+
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
         WGMMA_LANES,
         WGMMA_ROWS,
@@ -294,20 +348,10 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
         tiled_launch_plan,
         uses_mxu,
     )
-    from mpi_cuda_largescaleknn_torch.ops.partition import (
-        coarsen_buckets,
-        partition_points,
-    )
-    from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
 
-    pts = torch.from_numpy(pts_np).cuda()
-    dim = pts.shape[1]
-    q = partition_points(pts, bucket_size=bucket_size)
-    pc = coarsen_buckets(q, group)
-    state = (warm_start_self(pc, k, radius) if warm else
-             init_candidates(q.num_buckets * q.bucket_size, k, radius,
-                             device=pts.device))
-    kw = dict(skip_self=warm, self_group=group, with_stats=True,
+    dim = q.pts.shape[-1]
+    k = state.dist2.shape[1]
+    kw = dict(skip_self=skip_self, self_group=group, with_stats=True,
               score_dtype=score_dtype)
     want, want_vis = knn_update_tiled_plain(state, q, pc, **kw)
     before = route_counts()
@@ -350,7 +394,7 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
         # approximate scores, whose last bits depend on the order of
         # accumulation: ids may differ among exact ties, nowhere else
         qrows = q.pts.reshape(-1, dim)
-        exact = knn_update_tiled_cuda(state, q, pc, skip_self=warm,
+        exact = knn_update_tiled_cuda(state, q, pc, skip_self=skip_self,
                                       self_group=group)
         torch.cuda.synchronize()
         if not torch.equal(got.dist2, exact.dist2):
@@ -368,6 +412,97 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
     if not ok:
         fail(f"kernel disagrees with its plain version in case {name}")
     return err
+
+
+def chunk_cases():
+    """Phase 3e: the kernels on the query sides of ``ring_knn_chunked``,
+    built by its own helpers, against their plain versions on the same
+    card tensors, cold and without ``skip_self``, as the chunked loops
+    fold them. Phase 13c's device merge (262,144 uniform points, R=4,
+    chunks of 1,000 rows): the chunk gathered into one query bucket of
+    4,000 rows (``chunk_bucket``), the first chunk and the last (536 real
+    rows a shard), against one shard's resident side (65,536 points
+    coarsened at G=2), k=8, on the D=3 traversal and the flat D=3 kernel.
+    The host merge: a chunk partition (``choose_buckets(16,384)``; the
+    first chunk and the last, part padding) against the whole shard
+    coarsened at G=2, R=1, at D=3 k=100 (phase 13a's route and k), and at
+    D=128 k=10 in f32 (the ring kernel) and bf16 (``wgmma``). Returns the
+    max abs difference of the finite d2 entries."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.models.sharding import (
+        pad_and_flatten,
+        slab_bounds,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
+    from mpi_cuda_largescaleknn_torch.parallel.ring import (
+        _effective_group,
+        _make_ring_fns,
+        _sharded_input,
+        chunk_bucket,
+        chunk_slabs,
+        resolve_bucket_size,
+    )
+
+    def sides(pts_np, num_shards, k, chunk_rows):
+        # ring_knn_chunked's resident sides and a chunk maker
+        bnds = slab_bounds(len(pts_np), num_shards)
+        flat, ids, _counts, npad = pad_and_flatten(
+            [pts_np[b:e] for b, e in bnds], [b for b, _ in bnds],
+            pts_np.shape[1])
+        pts, ids_t, slabs = _sharded_input(flat, ids, num_shards, "cuda")
+        bucket = resolve_bucket_size(0)
+        group = _effective_group(0, npad, bucket)
+        fns = _make_ring_fns(k, float("inf"), "pallas_tiled", 2048, 2048,
+                             bucket, num_shards, point_group=group)
+        resident = [fns.shard_init_fn(p, i)[1] for p, i in slabs]
+        pts3 = pts.view(num_shards, npad, -1)
+        ids2 = ids_t.view(num_shards, npad)
+        last = -(-npad // chunk_rows) - 1
+        return (fns, resident, group, last,
+                lambda c: chunk_slabs(pts3, ids2, c, chunk_rows))
+
+    errs = []
+    uni = seeded_points("uniform", HD_SUB, SEED + 9)   # phase 13c's points
+    every = torch.from_numpy(uni).cuda()
+    _fns, resident, group, last, chunk = sides(uni, 4, 8, MERGE_CHUNK)
+    for c, shard in ((0, 0), (last, 3)):
+        lo, hi, qp, _qi = chunk(c)
+        rows = qp.view(-1, 3)
+        qb = chunk_bucket(rows)
+        cold = init_candidates(rows.shape[0], 8, float("inf"),
+                               device=rows.device)
+        errs.append(check_traversal(
+            f"device-merge chunk {c} ({4 * (hi - lo)} real of "
+            f"{rows.shape[0]} rows, one bucket) vs shard {shard} G{group} "
+            "k=8 cold", cold, qb, resident[shard], every, skip_self=False,
+            group=group, route="d3"))
+        n4 = len(uni) // 4
+        errs.append(compare_bf_case(
+            f"flat device-merge chunk {c} ({4 * (hi - lo)} real of "
+            f"{rows.shape[0]} rows) vs shard {shard} k=8",
+            rows.cpu().numpy(), uni[shard * n4:(shard + 1) * n4], 8,
+            id_base=shard * n4))
+    del every, resident
+    for label, pts_np, k, score, route in (
+            ("D=3", seeded_points("uniform", 126_976, SEED + 40), 100,
+             "f32", "d3"),
+            ("D=128", clustered_nd(32_000, 128, SEED + 41), 10, "f32",
+             "ring"),
+            ("bf16 D=128", clustered_nd(32_000, 128, SEED + 41), 10, "bf16",
+             "wgmma")):
+        fns, resident, group, last, chunk = sides(pts_np, 1, k, 16_384)
+        every = torch.from_numpy(pts_np).cuda()
+        for c in sorted({0, last}):
+            lo, hi, qp, qi = chunk(c)
+            q, cold = fns.query_init_fn(qp[0], qi[0])
+            errs.append(check_traversal(
+                f"{label} chunk {c} ({hi - lo} real of 16,384 rows, "
+                f"{q.num_buckets} buckets) vs the shard G{group} k={k} cold",
+                cold, q, resident[0], every, skip_self=False, group=group,
+                score_dtype=score, route=route))
+        del every, resident
+    return max(errs)
 
 
 def run_cli(args, timeout=900, module="unordered_main"):
@@ -503,15 +638,15 @@ def first_launch_split():
 
 
 def prepartitioned_run(label, list_path, prefix, k, engine, num_parts,
-                       selfcheck=1000, dim3=True):
+                       selfcheck=1000, dim3=True, extra=()):
     """``prepartitioned_main`` over the parts of ``list_path`` (points at
-    D=3 unless ``dim3`` is false); returns (timings, the rank files' bytes
-    joined in rank order)."""
+    D=3 unless ``dim3`` is false) with the arguments ``extra``; returns
+    (timings, the rank files' bytes joined in rank order)."""
     import numpy as np
 
     t, out = run_cli([str(list_path), "-o", str(prefix), "-k", str(k),
-                      "--engine", engine, "--selfcheck", str(selfcheck)],
-                     module="prepartitioned_main")
+                      "--engine", engine, "--selfcheck", str(selfcheck),
+                      *extra], module="prepartitioned_main")
     if f"selfcheck OK ({selfcheck} samples)" not in out:
         fail(f"{label}: no selfcheck line in\n{out}")
     files = [Path(f"{prefix}_{r:06d}.float") for r in range(num_parts)]
@@ -864,15 +999,33 @@ def time_bf_kernel(k, pts, reps=3):
             "warps_per_sm": warps, "planned_warps_per_sm": planned}
 
 
+def reset_counts() -> None:
+    """Every kernel launch count of the traversal and flat wrappers to 0."""
+    from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        knn_update_tiled_cuda,
+    )
+
+    for name in ("launches", "ring_launches", "stream_launches",
+                 "d3_launches", "mxu_launches", "wgmma_launches",
+                 "wgmma_stream_launches"):
+        setattr(knn_update_tiled_cuda, name, 0)
+    for name in ("launches", "d3_launches", "ring_launches"):
+        setattr(knn_update_bf_cuda, name, 0)
+
+
 def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None,
-                  engine="auto"):
+                  engine="auto", neighbors=True, **config):
     """``UnorderedKNN`` in this process on ``pts_np`` (any D) with
-    ``engine``, with every kernel count set to 0 just before the run and
-    read just after; each launch's preparation (the bf16 halves and norms,
-    or the ring layouts) and kernel are timed apart by the wrappers' CUDA
-    events. With ``profile_dir`` the run is traced by ``profile_trace``
-    and its timings also hold the card's busy share and top kernels.
-    Returns (timings, distances f32[N], neighbor ids i32[N, k])."""
+    ``engine`` (and other ``KnnConfig`` fields in ``config``), with every
+    kernel count set to 0 just before the run and read just after; each
+    launch's preparation (the bf16 halves and norms, or the ring layouts,
+    or ``d3_lanes``) and kernel are timed apart by the wrappers' CUDA
+    events (``launch_ms``: [preparation, kernel] of each launch). With
+    ``profile_dir`` the run is traced by ``profile_trace`` and its timings
+    also hold the card's busy share and top kernels. Returns (timings,
+    distances f32[N], neighbor ids i32[N, k] or None without
+    ``neighbors``)."""
     import numpy as np
     import torch
 
@@ -889,15 +1042,10 @@ def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None,
     )
 
     model = UnorderedKNN(KnnConfig(k=k, num_shards=shards, engine=engine,
-                                   score_dtype=score_dtype))
+                                   score_dtype=score_dtype, **config))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for name in ("launches", "ring_launches", "stream_launches",
-                 "d3_launches", "mxu_launches", "wgmma_launches",
-                 "wgmma_stream_launches"):
-        setattr(knn_update_tiled_cuda, name, 0)
-    for name in ("launches", "d3_launches", "ring_launches"):
-        setattr(knn_update_bf_cuda, name, 0)
+    reset_counts()
     events = []
     if score_dtype == "bf16":
         knn_update_tiled_cuda.mxu_events = events
@@ -907,8 +1055,9 @@ def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None,
         knn_update_tiled_cuda.layout_events = events
     with profile_trace(profile_dir) as prof:
         t0 = time.perf_counter()
-        dists, idx = model.run(pts_np, return_neighbors=True)
+        got = model.run(pts_np, return_neighbors=neighbors)
         wall = time.perf_counter() - t0
+    dists, idx = got if neighbors else (got, None)
     knn_update_tiled_cuda.mxu_events = None
     knn_update_tiled_cuda.layout_events = None
     knn_update_bf_cuda.layout_events = None
@@ -956,8 +1105,10 @@ def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None,
                     f"{row['name'][:100]}")
     if events:
         torch.cuda.synchronize()
-        t["prep_ms"] = sum(a.elapsed_time(b) for a, b, _ in events)
-        t["kernel_ms"] = sum(b.elapsed_time(c) for _, b, c in events)
+        t["launch_ms"] = [[a.elapsed_time(b), b.elapsed_time(c)]
+                          for a, b, c in events]
+        t["prep_ms"] = sum(p for p, _ in t["launch_ms"])
+        t["kernel_ms"] = sum(kn for _, kn in t["launch_ms"])
         prep = ("halves, norms" if score_dtype == "bf16" else
                 "d3_lanes" if pts_np.shape[1] == 3 else "ring layouts")
         say(f"    {score_dtype} launches: {len(events)}, kernel "
@@ -1266,6 +1417,169 @@ def time_offpath_kernels(hd_np):
     return res
 
 
+def counted_call(fn):
+    """``fn()`` with every kernel count set to 0 just before it and read
+    just after: (its result, the launch counts and ``run_seconds``)."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.cli.common import launch_counts
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {**launch_counts(), "run_seconds": time.perf_counter() - t0}
+
+
+def chunked_phases(pts_np, parts_list, auto8, sub, d_sub):
+    """Phase 13: the chunked and stepwise loops on the card (13a the
+    memory wall at 8M points and k=100, 13b checkpoint and resume against
+    phases 5 and 8, 13c the device merge and the high-D chunked routes).
+    Returns (details, the main-path runs whose launches count)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.models.sharding import (
+        pad_and_flatten,
+        slab_bounds,
+    )
+    from mpi_cuda_largescaleknn_torch.obs.selfcheck import verify_sample
+    from mpi_cuda_largescaleknn_torch.parallel.ring import (
+        ring_knn_chunked,
+        ring_knn_stepwise,
+    )
+
+    out, runs = {}, {}
+
+    say(f"  13a: the memory wall, {N_WALL} uniform points, k={WALL_K}, R=1")
+    wall = seeded_points("uniform", N_WALL, SEED + 8)
+    label = "13a unchunked"
+    runs[label], d_full, _ = unordered_run(label, wall, WALL_K, 1, "f32",
+                                           neighbors=False)
+    label = f"13a query_chunk={WALL_CHUNK}"
+    runs[label], d_chunk, _ = unordered_run(label, wall, WALL_K, 1, "f32",
+                                            neighbors=False,
+                                            query_chunk=WALL_CHUNK)
+    t_full, t_chunk = runs["13a unchunked"], runs[label]
+    for name, t in runs.items():
+        check_d3_route(name, t)
+    if d_chunk.tobytes() != d_full.tobytes():
+        fail("13a: chunked distances differ from the unchunked run's")
+    if t_chunk["peak_device_bytes"] >= t_full["peak_device_bytes"]:
+        fail(f"13a: chunked peak {t_chunk['peak_device_bytes']} B is not "
+             f"below the unchunked {t_full['peak_device_bytes']} B")
+    n_chunks = -(-N_WALL // WALL_CHUNK)
+    t_chunk["chunks"] = n_chunks
+    say(f"  13a: {n_chunks} chunks; distances byte-equal to the unchunked "
+        f"run; peak device memory {t_chunk['peak_device_bytes']} B vs "
+        f"{t_full['peak_device_bytes']} B "
+        f"({t_chunk['peak_device_bytes'] / t_full['peak_device_bytes']:.4f}"
+        "x)")
+    say("    per chunk (preparation d3_lanes, kernel) ms: " + ", ".join(
+        f"({p:.3f}, {kn:.3f})" for p, kn in t_chunk["launch_ms"]))
+    checked = verify_sample(wall, d_chunk, WALL_K, 1000)
+    say(f"  13a: selfcheck OK ({checked} samples) of the chunked run")
+    out["memory_wall"] = {"unchunked": t_full, "chunked": t_chunk}
+    del wall, d_full, d_chunk
+
+    say("  13b: checkpoint and resume, phase 5's points, R=4, k=8")
+    bounds = slab_bounds(len(pts_np), 4)
+    flat, ids, _counts, _npad = pad_and_flatten(
+        [pts_np[b:e] for b, e in bounds], [b for b, _ in bounds], 3)
+    want = (WORK / "k8_r4.float").read_bytes()
+    resumed = {}
+    for name, kw, cut in (
+            ("ring_knn_stepwise", {}, {"max_rounds": 1}),
+            ("ring_knn_chunked", {"chunk_rows": CKPT_CHUNK},
+             {"max_chunks": 2})):
+        fn = ring_knn_stepwise if name.endswith("stepwise") \
+            else ring_knn_chunked
+        with tempfile.TemporaryDirectory(dir=WORK) as cdir:
+            _, t_cut = counted_call(lambda: fn(flat, ids, 8, 4,
+                                               checkpoint_dir=cdir,
+                                               **kw, **cut))
+            if not (Path(cdir) / "ring_state.npz").exists():
+                fail(f"13b: {name} {cut} left no checkpoint")
+            d, t_res = counted_call(lambda: fn(flat, ids, 8, 4,
+                                               checkpoint_dir=cdir, **kw))
+            if any(Path(cdir).iterdir()):
+                fail(f"13b: {name} did not clear its checkpoint")
+        if d.cpu().numpy().tobytes() != want:
+            fail(f"13b: {name} resumed differs from phase 5's file")
+        for part, t in (("cut", t_cut), ("resumed", t_res)):
+            check_d3_route(f"13b {name} {part}", t)
+            runs[f"13b {name} {part}"] = t
+        resumed[name] = {"cut": t_cut, "resumed": t_res}
+        say(f"  13b: {name} {cut} then resumed: {t_cut['run_seconds']:.3f} "
+            f"+ {t_res['run_seconds']:.3f} s, {t_cut['knn_tiled_launches']} "
+            f"+ {t_res['knn_tiled_launches']} launches; byte-equal to "
+            "phase 5's file, checkpoint cleared")
+    label = (f"13b pre-partitioned CLI --query-chunk {CKPT_CHUNK} "
+             "--checkpoint-dir")
+    t, joined = prepartitioned_run(
+        label, parts_list, WORK / "parts" / "chunk_k8", 8, "auto", 4,
+        extra=["--query-chunk", str(CKPT_CHUNK), "--checkpoint-dir",
+               str(WORK / "ckpt_pre")])
+    if joined != auto8:
+        fail("13b: chunked pre-partitioned rank files differ from phase 8's")
+    say(f"    rounds_per_chunk {t['rounds_per_chunk']}; rank files "
+        "byte-equal to phase 8's")
+    runs[label] = t
+    resumed["prepartitioned_cli"] = t
+    out["checkpoint"] = resumed
+
+    say(f"  13c: the device merge, {HD_SUB} uniform points, R=4, k=8, "
+        f"chunks of {MERGE_CHUNK} rows (single query buckets of "
+        f"{4 * MERGE_CHUNK} rows)")
+    uni = seeded_points("uniform", HD_SUB, SEED + 9)
+    merged = {}
+    for name, engine, merge in (("host auto", "auto", "host"),
+                                ("device auto", "auto", "device"),
+                                ("device pallas", "pallas", "device")):
+        label = f"13c merge={merge} --engine {engine}"
+        t, d, idx = unordered_run(label, uni, 8, 4, "f32", engine=engine,
+                                  query_chunk=MERGE_CHUNK, merge=merge)
+        check_d3_route(label, t)
+        runs[label] = merged[name] = t
+        if name == "host auto":
+            ref_d, ref_idx = d, idx
+            continue
+        if d.tobytes() != ref_d.tobytes():
+            fail(f"13c: {label}: distances differ from the host merge")
+        q = torch.from_numpy(uni).cuda()
+        t["id_rows_differing_by_ties"] = tie_rows(
+            torch.from_numpy(idx).cuda(), torch.from_numpy(ref_idx).cuda(),
+            q, q)
+        del q
+        say(f"  {label}: distances byte-equal to the host merge; ids of "
+            f"{t['id_rows_differing_by_ties']} rows differ only among "
+            "equally distant points")
+    del uni
+    say(f"  13c: D={HD_DIM}, k={HD_K} on phase 10b's points, chunks of "
+        f"{CKPT_CHUNK} rows, R=1")
+    for sd in ("f32", "bf16"):
+        label = f"13c {sd} D={HD_DIM} query_chunk={CKPT_CHUNK}"
+        t, d, _ = unordered_run(label, sub, HD_K, 1, sd, neighbors=False,
+                                query_chunk=CKPT_CHUNK)
+        if sd == "f32":
+            check_ring_route(label, t)
+        elif t["knn_tiled_wgmma_launches"] != t["knn_tiled_mxu_launches"] \
+                or t["knn_tiled_mxu_launches"] < 1:
+            fail(f"13c: {label}: {t['knn_tiled_wgmma_launches']} of "
+                 f"{t['knn_tiled_mxu_launches']} launches on the wgmma "
+                 "kernel")
+        if d.tobytes() != d_sub.tobytes():
+            fail(f"13c: {label}: distances differ from phase 10b's "
+                 "unchunked run")
+        say(f"  {label}: distances byte-equal to the unchunked run")
+        runs[label] = merged[f"{sd} D={HD_DIM}"] = t
+    out["device_merge_and_high_d"] = merged
+    return out, runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -1491,6 +1805,11 @@ def main() -> int:
     ]
     details["phase3d_max_abs_err"] = max(mxu_errs)
     del nd, wide
+
+    # -- phase 3e -----------------------------------------------------------
+    say("[phase 3e] the kernels on the chunked loops' query sides vs plain "
+        "on the card")
+    details["phase3e_max_abs_err"] = chunk_cases()
 
     # -- phase 4 ------------------------------------------------------------
     say(f"[phase 4] main path: {N_MAIN} uniform points through the CLI")
@@ -1779,6 +2098,12 @@ def main() -> int:
     say(f"  phase 11b took {details['offpath_seconds']:.1f} s")
     details["offpath_kernel_timing"] = off_timed
 
+    # -- phase 13 -----------------------------------------------------------
+    say("[phase 13] chunked queries, checkpoint and resume, the device "
+        "merge")
+    details["chunked"], chunk_runs = chunked_phases(pts_np, lst, auto8, sub,
+                                                    d_sub)
+
     # -- phase 12 -----------------------------------------------------------
     say("[phase 12] phase 10's f32 R=1 run again under the profiler")
     label = "f32 R=1 under the profiler"
@@ -1790,7 +2115,7 @@ def main() -> int:
     check_ring_route(f"phase 12: {label}", t)
 
     main_runs = list(runs.values()) + list(pre.values()) \
-        + list(hd_runs.values())
+        + list(hd_runs.values()) + list(chunk_runs.values())
 
     def launched(key):
         return sum(r.get(key, 0) for r in main_runs)

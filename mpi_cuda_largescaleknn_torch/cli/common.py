@@ -35,7 +35,18 @@ Port options (no reference analogue):
                     traversal's matmul-form scores on the tensor cores at
                     D >= 16, survivors rescored exactly; --engine pallas
                     refuses it, the pre-partitioned pipeline scores f32)
-  --timings         print phase timings as JSON to stderr
+  --query-chunk N   stream queries in chunks of N rows a shard: candidate
+                    rows held for N*k a shard (e.g. -k 100 at 100M points)
+  --merge M         chunked runs: host (the ring per chunk, default) |
+                    device (every shard folds the whole chunk, the partial
+                    rows merged on the card) | auto (device at a
+                    power-of-two shard count, else host with a warning)
+  --checkpoint-dir D  snapshot the rounds' state (chunked runs: the
+                    finished chunks) in D; a run relaunched with the same
+                    arguments resumes where it stopped
+  --checkpoint-every N  rounds (chunks) between snapshots (default 1)
+  --timings         print phase timings as JSON to stderr (pre-partitioned
+                    chunked runs: rounds_per_chunk too)
   --selfcheck N     after the run, verify N random outputs against an exact
                     streamed recomputation and fail loudly on mismatch
   --write-indices P  also write the k neighbor ids per point (int32,
@@ -46,12 +57,6 @@ Port options (no reference analogue):
 
 # JAX-package flags not ported yet: flag -> (takes a value, ROADMAP item)
 _NOT_PORTED = {
-    "--query-chunk": (True, "Queue 1, ring_knn_chunked / ring_knn_stepwise"),
-    "--merge": (True, "Queue 1, ring_knn_chunked / ring_knn_stepwise"),
-    "--checkpoint-dir": (True,
-                         "Queue 1, ring_knn_chunked / ring_knn_stepwise"),
-    "--checkpoint-every": (True,
-                           "Queue 1, ring_knn_chunked / ring_knn_stepwise"),
     "--coordinator": (True, "Queue 1, the multi-card torch.distributed ring"),
     "--num-hosts": (True, "Queue 1, the multi-card torch.distributed ring"),
     "--host-id": (True, "Queue 1, the multi-card torch.distributed ring"),
@@ -77,7 +82,9 @@ def parse_args(program: str, argv: list[str]):
     extras = {"device": None, "shards": None, "engine": "auto",
               "query_tile": 2048, "point_tile": 2048, "bucket_size": 0,
               "point_group": 0, "score_dtype": "f32", "timings": False,
-              "selfcheck": 0, "write_indices": None, "profile_dir": None}
+              "selfcheck": 0, "write_indices": None, "profile_dir": None,
+              "query_chunk": 0, "merge": "host", "checkpoint_dir": None,
+              "checkpoint_every": 1}
     i = 0
     try:
         while i < len(argv):
@@ -116,6 +123,14 @@ def parse_args(program: str, argv: list[str]):
                 i += 1; extras["write_indices"] = argv[i]
             elif arg == "--profile-dir":
                 i += 1; extras["profile_dir"] = argv[i]
+            elif arg == "--query-chunk":
+                i += 1; extras["query_chunk"] = int(argv[i])
+            elif arg == "--merge":
+                i += 1; extras["merge"] = argv[i]
+            elif arg == "--checkpoint-dir":
+                i += 1; extras["checkpoint_dir"] = argv[i]
+            elif arg == "--checkpoint-every":
+                i += 1; extras["checkpoint_every"] = int(argv[i])
             elif arg in _NOT_PORTED:
                 raise not_ported(f"option {arg}", _NOT_PORTED[arg][1])
             else:
@@ -139,7 +154,11 @@ def parse_args(program: str, argv: list[str]):
                     point_group=extras["point_group"],
                     num_shards=extras["shards"] or 0,
                     score_dtype=extras["score_dtype"],
-                    profile_dir=extras["profile_dir"])
+                    profile_dir=extras["profile_dir"],
+                    query_chunk=extras["query_chunk"],
+                    merge=extras["merge"],
+                    checkpoint_dir=extras["checkpoint_dir"],
+                    checkpoint_every=extras["checkpoint_every"])
     return cfg, in_path, out_path, extras
 
 

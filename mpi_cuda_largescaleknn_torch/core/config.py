@@ -2,9 +2,8 @@
 
 ``KnnConfig`` carries the reference's 5-flag CLI surface (``-k``, ``-r``,
 ``-g``, input, ``-o``) plus the port's own knobs. Options of the JAX
-package that this port does not implement yet are kept as fields so a
-caller porting a config sees them refused by ``validate`` (with the
-ROADMAP item that will add them) instead of silently ignored.
+package that this port does not implement yet are refused by ``validate``
+(with the ROADMAP item that will add them) instead of silently ignored.
 """
 
 from __future__ import annotations
@@ -66,11 +65,18 @@ class KnnConfig:
     profile_dir: str | None = None   # the CLIs trace the run with
                                      # torch.profiler into this directory
                                      # (obs/trace.py)
-
-    # --- JAX-package options not ported yet (validate refuses them) --------
-    query_chunk: int = 0
-    merge: str = "host"
-    checkpoint_dir: str | None = None
+    query_chunk: int = 0             # >0: stream queries in chunks of this
+                                     # many rows a shard (candidate rows
+                                     # held for chunk*k per shard: the
+                                     # k=100 memory wall)
+    merge: str = "host"              # chunked runs: "host" (the ring per
+                                     # chunk), "device" (every shard folds
+                                     # the whole chunk, the R partial rows
+                                     # merged on the card), "auto" (device
+                                     # at a power-of-two shard count)
+    checkpoint_dir: str | None = None  # round (or chunk) checkpoints and
+                                     # resume (utils/checkpoint.py)
+    checkpoint_every: int = 1        # rounds (chunks) between snapshots
 
     def validate(self) -> None:
         if self.k < 1:
@@ -83,15 +89,13 @@ class KnnConfig:
         if self.score_dtype not in ("f32", "bf16"):
             raise ValueError(f"unknown score_dtype '{self.score_dtype}' "
                              "(expected f32 | bf16)")
-        if self.query_chunk > 0:
-            raise not_ported("query_chunk",
-                             "Queue 1, ring_knn_chunked / ring_knn_stepwise")
-        if self.checkpoint_dir:
-            raise not_ported("checkpoint_dir",
-                             "Queue 1, ring_knn_chunked / ring_knn_stepwise")
-        if self.merge != "host":
-            raise not_ported(f"merge='{self.merge}'",
-                             "Queue 1, ring_knn_chunked / ring_knn_stepwise")
+        if self.merge not in ("host", "device", "auto"):
+            raise ValueError(f"unknown merge mode '{self.merge}' "
+                             "(expected host | device | auto)")
+        if self.query_chunk < 0 or self.checkpoint_every < 1:
+            raise ValueError("query_chunk must be >= 0 and checkpoint_every "
+                             f">= 1, got {self.query_chunk} and "
+                             f"{self.checkpoint_every}")
         if self.num_shards < 0:
             raise ValueError(f"num_shards must be >= 0, got {self.num_shards}")
         if self.query_tile < 1 or self.point_tile < 1:

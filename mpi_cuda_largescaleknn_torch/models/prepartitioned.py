@@ -5,7 +5,11 @@ shard owns one input partition, shards are padded to the largest one, and
 the bounds-pruned early-exit ring (``parallel/demand.py``) refines every
 partition's rows until no shard can improve. Results come back per
 partition (the reference writes one ``prefix_%06d.float`` per rank). The
-shards are virtual: all of them live on the one card.
+shards are virtual: all of them live on the one card. A run with
+``query_chunk`` streams the queries in chunks (``demand_knn_chunked``);
+otherwise ``demand_knn_stepwise`` runs the rounds, with a checkpoint
+between them where ``checkpoint_dir`` is set (without one it is
+``demand_knn``).
 """
 
 from __future__ import annotations
@@ -19,7 +23,10 @@ from mpi_cuda_largescaleknn_torch.models.sharding import (
     trim_per_shard,
 )
 from mpi_cuda_largescaleknn_torch.obs.timers import PhaseTimers
-from mpi_cuda_largescaleknn_torch.parallel.demand import demand_knn
+from mpi_cuda_largescaleknn_torch.parallel.demand import (
+    demand_knn_chunked,
+    demand_knn_stepwise,
+)
 
 
 class PrePartitionedKNN:
@@ -33,7 +40,8 @@ class PrePartitionedKNN:
         self.device = resolve_device(config.device)
         self.timers = PhaseTimers()
         self.last_stats: dict | None = None  # rounds, kernels_run and
-        # rotations_run of the most recent run (parallel/demand.py)
+        # rotations_run of the most recent run (parallel/demand.py), and
+        # rounds_per_chunk of a chunked one
 
     def run(self, partitions: list[np.ndarray],
             return_neighbors: bool = False):
@@ -61,13 +69,29 @@ class PrePartitionedKNN:
                 dim=partitions[0].shape[-1])
 
         with self.timers.phase("demand_ring"):
-            dists, cands, self.last_stats = demand_knn(
+            kwargs = {"checkpoint_dir": cfg.checkpoint_dir,
+                      "checkpoint_every": cfg.checkpoint_every}
+            if cfg.query_chunk > 0:
+                run_fn = demand_knn_chunked
+                kwargs.update(chunk_rows=cfg.query_chunk,
+                              return_candidates=return_neighbors)
+            else:
+                run_fn = demand_knn_stepwise
+            dists, cands, stats = run_fn(
                 flat, ids, cfg.k, num_shards, max_radius=cfg.max_radius,
                 engine=cfg.engine, query_tile=cfg.query_tile,
                 point_tile=cfg.point_tile, bucket_size=cfg.bucket_size,
                 point_group=cfg.point_group, device=self.device,
-                return_stats=True, timers=self.timers)
+                return_stats=True, timers=self.timers, **kwargs)
             dists = dists.cpu().numpy()
+            # a chunked run's rounds are per chunk: "rounds" stays
+            # comparable across the loops as their most
+            rounds = stats["rounds"]
+            self.last_stats = dict(stats, rounds=(
+                max(rounds, default=0) if isinstance(rounds, list)
+                else rounds))
+            if cfg.query_chunk > 0:
+                self.last_stats["rounds_per_chunk"] = rounds
 
         with self.timers.phase("extract"):
             out = trim_per_shard(dists, counts, npad)

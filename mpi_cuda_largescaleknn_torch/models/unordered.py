@@ -3,7 +3,10 @@
 End-to-end equivalent of ``cudaMpiKNN_unorderedData``'s main(): slab-split
 the global point set, run the ring with stationary queries and persistent
 candidate rows, extract per-point k-th-NN distances and return them in
-global point order (the concatenation of slabs in rank order).
+global point order (the concatenation of slabs in rank order). A run with
+``query_chunk`` streams the queries in chunks (``ring_knn_chunked``);
+otherwise ``ring_knn_stepwise`` runs the rounds, with a checkpoint between
+them where ``checkpoint_dir`` is set (without one it is ``ring_knn``).
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ from mpi_cuda_largescaleknn_torch.models.sharding import (
     trim_per_shard,
 )
 from mpi_cuda_largescaleknn_torch.obs.timers import PhaseTimers
-from mpi_cuda_largescaleknn_torch.parallel.ring import ring_knn
+from mpi_cuda_largescaleknn_torch.parallel.ring import (
+    ring_knn_chunked,
+    ring_knn_stepwise,
+)
 
 
 class UnorderedKNN:
@@ -54,14 +60,23 @@ class UnorderedKNN:
 
         # virtual shards stay on the one card: no bytes rotate
         with self.timers.phase("ring"):
-            got = ring_knn(
-                flat, ids, cfg.k, num_shards, max_radius=cfg.max_radius,
-                engine=cfg.engine, query_tile=cfg.query_tile,
-                point_tile=cfg.point_tile, bucket_size=cfg.bucket_size,
-                point_group=cfg.point_group, score_dtype=cfg.score_dtype,
-                device=self.device,
-                return_candidates=return_neighbors, return_stats=True,
-                timers=self.timers)
+            kwargs = dict(max_radius=cfg.max_radius, engine=cfg.engine,
+                          query_tile=cfg.query_tile,
+                          point_tile=cfg.point_tile,
+                          bucket_size=cfg.bucket_size,
+                          point_group=cfg.point_group,
+                          score_dtype=cfg.score_dtype, device=self.device,
+                          checkpoint_dir=cfg.checkpoint_dir,
+                          checkpoint_every=cfg.checkpoint_every,
+                          return_candidates=return_neighbors,
+                          return_stats=True, timers=self.timers)
+            if cfg.query_chunk > 0:
+                got = ring_knn_chunked(flat, ids, cfg.k, num_shards,
+                                       chunk_rows=cfg.query_chunk,
+                                       merge=cfg.merge, **kwargs)
+            else:
+                got = ring_knn_stepwise(flat, ids, cfg.k, num_shards,
+                                        **kwargs)
             if return_neighbors:
                 dists, cands, self.last_stats = got
             else:

@@ -43,6 +43,28 @@ def merge_candidates(state: CandidateState, cand_dist2: torch.Tensor,
                           torch.gather(cat_idx, 1, perm[:, :k]))
 
 
+def tree_merge_candidates(states: list[CandidateState]) -> CandidateState:
+    """The global top-k of R per-shard candidate states for the same query
+    rows, by the JAX package's log2(R) recursive doubling: in round s the
+    states whose shard indices differ in bit s merge. The state covering
+    the LOWER shard block is always the left (existing) operand of
+    ``merge_candidates``, whose stable sort then resolves equal distances
+    in ascending (shard, slot) order: the tie order of a stable sort over
+    the shard-major concatenated rows. Truncating to k each round loses
+    nothing (a global top-k entry is in the top k of every union holding
+    it). R must be a power of two; R == 1 is the identity."""
+    num_shards = len(states)
+    if num_shards & (num_shards - 1):
+        raise ValueError(
+            f"tree merge needs a power-of-two shard count, got {num_shards}")
+    # round s: the blocks of 2^s shards, which every shard of a block
+    # holds alike after the exchange, so one list entry stands for each
+    while len(states) > 1:
+        states = [merge_candidates(states[i], *states[i + 1])
+                  for i in range(0, len(states), 2)]
+    return states[0]
+
+
 def extract_final_result(state: CandidateState) -> torch.Tensor:
     """k-th-NN distance per query: ``sqrt(kth smallest dist2)``; stays
     ``inf`` when fewer than k neighbors were found. The root is taken in

@@ -188,8 +188,10 @@ def scatter_back(values: torch.Tensor, pos: torch.Tensor, n_out: int,
     by ``pos`` hold ``fill``."""
     flat_pos = pos.reshape(-1).long()
     flat_val = values.reshape((flat_pos.shape[0],) + values.shape[2:])
-    keep = flat_pos >= 0
-    out = torch.full((n_out,) + flat_val.shape[1:], fill,
+    # padding rows land on one extra row that is cut off: a boolean mask
+    # would make the host wait for the card to count its rows
+    flat_pos = torch.where(flat_pos >= 0, flat_pos, n_out)
+    out = torch.full((n_out + 1,) + flat_val.shape[1:], fill,
                      dtype=flat_val.dtype, device=flat_val.device)
-    out[flat_pos[keep]] = flat_val[keep]
-    return out
+    out[flat_pos] = flat_val
+    return out[:n_out]

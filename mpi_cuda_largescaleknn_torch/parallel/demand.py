@@ -23,8 +23,12 @@ rotates: a visit folds the arriving shard directly, and the rotations are
 counted exactly as the JAX predicate counts them. Per shard the stats are
 ``[kernels_run, rotations_run]``. Both engine families run: ``auto`` /
 ``pallas_tiled`` (the traversal kernel, ``csrc/knn_tiled.cu``) and
-``pallas`` (the flat brute force, ``csrc/knn_bf.cu``). The chunked and
-stepwise variants are ROADMAP.md Queue 1.
+``pallas`` (the flat brute force, ``csrc/knn_bf.cu``). Two loops share
+the per-round pieces of ``_make_demand_fns``: ``demand_knn_stepwise``
+(checkpoint and resume between rounds; on one card every round is read on
+the host anyway, so ``demand_knn``, JAX's fused loop, is it without a
+checkpoint) and ``demand_knn_chunked`` (the query side streamed in
+chunks).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 
 from mpi_cuda_largescaleknn_torch.core.types import (
     PAD_SENTINEL,
+    CandidateState,
     aabb_box_distance,
     aabb_of_points,
 )
@@ -51,12 +56,19 @@ from mpi_cuda_largescaleknn_torch.ops.partition import (
 from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
 from mpi_cuda_largescaleknn_torch.parallel.ring import (
     _effective_group,
+    _sharded_input,
+    chunk_slabs,
     final_rows,
+    host_rows,
+    load_round,
     resolve_bucket_size,
     resolve_engine,
     ring_total_rounds,
+    save_round,
     timed_stage,
 )
+from mpi_cuda_largescaleknn_torch.utils import checkpoint as ckpt
+from mpi_cuda_largescaleknn_torch.utils.math import cdiv
 
 
 def gathered_bounds_fn(slab_pts: list[torch.Tensor]):
@@ -70,57 +82,76 @@ def gathered_bounds_fn(slab_pts: list[torch.Tensor]):
 class DemandCtx(NamedTuple):
     """What the rounds read and never write."""
 
-    stationary: list   # per shard: BucketedPoints (tiled) or f32[Npad, D]
+    stationary: list   # per shard: BucketedPoints (tiled) or f32[rows, D]
     resident: list     # per shard: coarsened BucketedPoints or (pts, ids)
-    box_dist: torch.Tensor       # f32[R, R] on the host: shard i to box s
+    box_dist: torch.Tensor       # f32[R, R] on the host: the queries of
+                                 # shard i to the box of shard s
     arrival_round: torch.Tensor  # i64[R, R]: round shard s reaches i
     heap_valid: list   # per shard: bool[rows] of real queries
 
 
 def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
-                     num_shards, point_group=1):
-    """The per-round pieces of the demand loop: (init_fn, round_fn,
-    final_fn).
+                     num_shards, *, warm_start=False, point_group=1):
+    """The per-round pieces of the stepwise and chunked demand loops:
+    (shard_init_fn, query_init_fn, rows_fn, round_fn, final_fn).
 
-    - init_fn(slabs, qs) -> (ctx, heaps): ``slabs`` is the list of (points
-      f32[Npad, D], ids i32[Npad]) per shard, ``qs`` their partitions
-      (tiled engine, whose rows are warm-started with their own bucket;
-      None for the flat one).
+    - shard_init_fn(slabs, qs) -> (resident, all_lower, all_upper): the
+      point side of every shard (``qs`` coarsened by ``point_group`` for
+      the tiled engine; the slabs for the flat one) and the shards' boxes
+      f32[R, D]. ``slabs`` are per shard (points f32[Npad, D], ids
+      i32[Npad]), ``qs`` their partitions (None for the flat engine).
+    - query_init_fn(resident, qslabs, qqs, all_lower, all_upper,
+      q_bounds=None) -> ctx: the query side, which may be a chunk of every
+      slab; its prune distances use the query side's boxes, ``q_bounds``
+      where the caller has them (a self-join's are ``all_lower`` and
+      ``all_upper``), else the chunk's own (tighter) ones.
+    - rows_fn(ctx) -> rows: each shard's starting rows, warm-started with
+      their own bucket where ``warm_start``, else cold.
     - round_fn(ctx, heaps, rnd, counts) -> (heaps, counts, keep_going):
       ``counts`` is the per-shard list of [kernels run, direction-rotations
       run]; ``keep_going`` says whether any shard still needs a shard that
       has not arrived yet.
-    - final_fn(ctx, heaps, npad) -> (dists f32[R*Npad], CandidateState) in
+    - final_fn(ctx, heaps, n) -> (dists f32[R*n], CandidateState) in
       slab-row order.
     """
     use_tiled = engine == "pallas_tiled"
+    warm_start = warm_start and use_tiled
     total = ring_total_rounds(num_shards)
     # forward delivers offsets 1..R//2; backward the same except the dup
     # round of even R, which is forward-only
     bwd_total = total - 1 if num_shards % 2 == 0 else total
     shards = torch.arange(num_shards)
 
-    def init_fn(slabs, qs):
+    def shard_init_fn(slabs, qs):
         all_lower, all_upper = gathered_bounds_fn([p for p, _ in slabs])
-        box_dist = aabb_box_distance(all_lower[:, None], all_upper[:, None],
+        # the resident side is a group-coarsened view of the partition
+        resident = ([coarsen_buckets(q, point_group) for q in qs]
+                    if use_tiled else list(slabs))
+        return resident, all_lower, all_upper
+
+    def query_init_fn(resident, qslabs, qqs, all_lower, all_upper,
+                      q_bounds=None):
+        q_lower, q_upper = q_bounds or gathered_bounds_fn(
+            [p for p, _ in qslabs])
+        box_dist = aabb_box_distance(q_lower[:, None], q_upper[:, None],
                                      all_lower[None], all_upper[None]).cpu()
         off = (shards[:, None] - shards[None, :]) % num_shards
         arrival = torch.minimum(off, num_shards - off)
         if use_tiled:
-            # the resident side is a group-coarsened view of the same
-            # partition; warm-started rows come back in fine order
-            resident = [coarsen_buckets(q, point_group) for q in qs]
-            heaps = [warm_start_self(pc, k, max_radius) for pc in resident]
-            valid = [(q.ids >= 0).reshape(-1) for q in qs]
-            stationary = list(qs)
+            valid = [(q.ids >= 0).reshape(-1) for q in qqs]
+            stationary = list(qqs)
         else:
-            resident = list(slabs)
-            heaps = [init_candidates(p.shape[0], k, max_radius,
-                                     device=p.device) for p, _ in slabs]
-            valid = [p[:, 0] < PAD_SENTINEL / 2 for p, _ in slabs]
-            stationary = [p for p, _ in slabs]
-        return DemandCtx(stationary, resident, box_dist, arrival,
-                         valid), heaps
+            valid = [p[:, 0] < PAD_SENTINEL / 2 for p, _ in qslabs]
+            stationary = [p for p, _ in qslabs]
+        return DemandCtx(stationary, resident, box_dist, arrival, valid)
+
+    def rows_fn(ctx):
+        if warm_start:
+            # rows come back in fine order: the coarsening is a view
+            return [warm_start_self(pc, k, max_radius)
+                    for pc in ctx.resident]
+        return [init_candidates(v.numel(), k, max_radius, device=v.device)
+                for v in ctx.heap_valid]
 
     def radius(ctx, heap, i) -> float:
         return current_worst_radius(heap, ctx.heap_valid[i]).item()
@@ -154,7 +185,7 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
             rad = entry[i]
             if visit_f:
                 heaps[i] = fold(ctx, heaps[i], i, src_f,
-                                skip_self=use_tiled and rnd == 0)
+                                skip_self=warm_start and rnd == 0)
                 rad = radius(ctx, heaps[i], i)
             visit_b = src_b != src_f and bool(ctx.box_dist[i, src_b] < rad)
             if visit_b:
@@ -166,11 +197,36 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
                                 & (ctx.box_dist[i] < rad)).any())
         return heaps, counts, keep_going
 
-    def final_fn(ctx, heaps, npad):
-        return final_rows(ctx.stationary if use_tiled else None, heaps, npad,
+    def final_fn(ctx, heaps, n):
+        return final_rows(ctx.stationary if use_tiled else None, heaps, n,
                           True)
 
-    return init_fn, round_fn, final_fn
+    return shard_init_fn, query_init_fn, rows_fn, round_fn, final_fn
+
+
+def _demand_setup(points_sharded, ids_sharded, num_shards, engine,
+                  bucket_size, point_group, device):
+    """(engine, bucket size, point group, points, ids, slabs) of a demand
+    loop, on ``device`` (None = the card)."""
+    engine = resolve_engine(engine)
+    bucket_size = resolve_bucket_size(bucket_size)
+    pts, ids, slabs = _sharded_input(points_sharded, ids_sharded,
+                                     num_shards, device)
+    npad = pts.shape[0] // num_shards
+    point_group = _effective_group(point_group, npad, bucket_size)
+    return engine, bucket_size, point_group, pts, ids, slabs
+
+
+def _partitions(engine, slabs, bucket_size):
+    if engine != "pallas_tiled":
+        return None
+    return [partition_points(p, i, bucket_size=bucket_size)
+            for p, i in slabs]
+
+
+def _demand_stats(rounds, counts) -> dict:
+    return {"rounds": rounds, "kernels_run": [int(c[0]) for c in counts],
+            "rotations_run": [int(c[1]) for c in counts]}
 
 
 def demand_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
@@ -179,7 +235,7 @@ def demand_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
                bucket_size: int = 0, point_group: int = 0, device=None,
                return_stats: bool = False, timers=None):
     """Bounds-pruned kNN over ``num_shards`` pre-partitioned virtual shards
-    on ``device``.
+    on ``device`` (None = the card; without CUDA that raises).
 
     Same data contract as ``ring_knn`` (shard-major, sentinel-padded rows
     f32[R*Npad, D] with ids i32[R*Npad]). Returns f32[R*Npad] distances and
@@ -188,36 +244,210 @@ def demand_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
     ``kernels_run`` and ``rotations_run``. ``timers`` times the stages
     ``partition`` (tiled engine), ``init`` (bounds, schedule, warm start),
     ``traverse`` and ``final``, each ended by a device synchronisation.
+    It is ``demand_knn_stepwise`` without a checkpoint.
     """
-    engine = resolve_engine(engine)
-    bucket_size = resolve_bucket_size(bucket_size)
-    pts = torch.as_tensor(points_sharded, dtype=torch.float32, device=device)
-    ids = torch.as_tensor(ids_sharded, dtype=torch.int32, device=device)
-    npad = pts.shape[0] // num_shards
-    point_group = _effective_group(point_group, npad, bucket_size)
-    init_fn, round_fn, final_fn = _make_demand_fns(
-        k, max_radius, engine, query_tile, point_tile, num_shards,
-        point_group=point_group)
-    slabs = [(pts[r * npad:(r + 1) * npad], ids[r * npad:(r + 1) * npad])
-             for r in range(num_shards)]
+    return demand_knn_stepwise(
+        points_sharded, ids_sharded, k, num_shards, max_radius=max_radius,
+        engine=engine, query_tile=query_tile, point_tile=point_tile,
+        bucket_size=bucket_size, point_group=point_group, device=device,
+        return_stats=return_stats, timers=timers)
 
-    qs = None
-    if engine == "pallas_tiled":
-        with timed_stage(timers, "partition", pts.device):
-            qs = [partition_points(p, i, bucket_size=bucket_size)
-                  for p, i in slabs]
-    with timed_stage(timers, "init", pts.device):
-        ctx, heaps = init_fn(slabs, qs)
-    rounds, keep_going = 0, True
+
+def demand_knn_stepwise(points_sharded, ids_sharded, k: int,
+                        num_shards: int, *, max_radius: float = float("inf"),
+                        engine: str = "auto", query_tile: int = 2048,
+                        point_tile: int = 2048, bucket_size: int = 0,
+                        point_group: int = 0, device=None,
+                        checkpoint_dir: str | None = None,
+                        checkpoint_every: int = 1,
+                        max_rounds: int | None = None,
+                        return_stats: bool = False, timers=None):
+    """``demand_knn`` with a checkpoint between rounds. The early-exit
+    predicate is read on the host after each round; every
+    ``checkpoint_every`` rounds, and when ``max_rounds`` cuts the run,
+    (round, the rotating pair, every shard's rows, the per-shard
+    [kernels, rotations] counts) go to ``checkpoint_dir``; the bounds,
+    schedule and partitions are recomputed on resume, and the saved rows
+    take the warm start's place. A run that completed (early exit, or
+    every shard met) saves nothing and clears its checkpoint. Returns what
+    ``demand_knn`` returns; the counts add up over the interrupted runs.
+    ``timers`` times what ``demand_knn``'s does; ``init`` covers a
+    checkpoint's load and ``traverse`` its writes."""
+    engine, bucket_size, point_group, pts, _ids, slabs = _demand_setup(
+        points_sharded, ids_sharded, num_shards, engine, bucket_size,
+        point_group, device)
+    npad = pts.shape[0] // num_shards
+    fp = None
+    if checkpoint_dir:
+        fp = ckpt.fingerprint(
+            n=int(pts.shape[0]), k=int(k), shards=num_shards, engine=engine,
+            max_radius=float(max_radius), bucket_size=bucket_size,
+            **({"point_group": point_group} if point_group > 1 else {}),
+            query_tile=query_tile, point_tile=point_tile,
+            kind="demand-bidir-rg",
+            data=ckpt.data_digest(points_sharded, ids_sharded))
+    shard_init_fn, query_init_fn, rows_fn, round_fn, final_fn = \
+        _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
+                         num_shards, warm_start=True,
+                         point_group=point_group)
+
+    with timed_stage(timers if engine == "pallas_tiled" else None,
+                     "partition", pts.device):
+        qs = _partitions(engine, slabs, bucket_size)
     counts = [[0, 0] for _ in range(num_shards)]
+    start = 0
+    with timed_stage(timers, "init", pts.device):
+        resident, all_lower, all_upper = shard_init_fn(slabs, qs)
+        # a self-join: the query side's boxes are the shards' own
+        ctx = query_init_fn(resident, slabs, qs, all_lower, all_upper,
+                            q_bounds=(all_lower, all_upper))
+        # a resumed run's rows come from the checkpoint (saved after at
+        # least one round, so round 0's skip_self never meets them)
+        got = (load_round(checkpoint_dir, fp, num_shards, pts.device)
+               if checkpoint_dir else None)
+        if got is not None:
+            start, heaps, (saved_counts,) = got
+            counts = saved_counts.cpu().tolist()
+        else:
+            heaps = rows_fn(ctx)
+
+    total = ring_total_rounds(num_shards)
+    stop = total if max_rounds is None else min(max_rounds, total)
+    rounds_done = start
+    # completed: nothing left to do (early exit, or every shard met), as
+    # opposed to cut by max_rounds
+    completed = start >= total
+    finished = start >= stop
     with timed_stage(timers, "traverse", pts.device):
-        while rounds < ring_total_rounds(num_shards) and keep_going:
-            heaps, counts, keep_going = round_fn(ctx, heaps, rounds, counts)
-            rounds += 1
+        while not finished:
+            heaps, counts, keep_going = round_fn(ctx, heaps, rounds_done,
+                                                 counts)
+            rounds_done += 1
+            completed = not keep_going or rounds_done >= total
+            finished = completed or rounds_done >= stop
+            if checkpoint_dir and not completed and (
+                    rounds_done % checkpoint_every == 0 or finished):
+                save_round(checkpoint_dir, rounds_done, heaps, fp,
+                           (torch.tensor(counts, dtype=torch.int32),))
     with timed_stage(timers, "final", pts.device):
         dists, cands = final_fn(ctx, heaps, npad)
+    if checkpoint_dir and completed:
+        ckpt.clear(checkpoint_dir)
     if return_stats:
-        return dists, cands, {"rounds": rounds,
-                              "kernels_run": [c[0] for c in counts],
-                              "rotations_run": [c[1] for c in counts]}
+        return dists, cands, _demand_stats(rounds_done, counts)
+    return dists, cands
+
+
+def demand_knn_chunked(points_sharded, ids_sharded, k: int,
+                       num_shards: int, *, chunk_rows: int,
+                       max_radius: float = float("inf"),
+                       engine: str = "auto", query_tile: int = 2048,
+                       point_tile: int = 2048, bucket_size: int = 0,
+                       point_group: int = 0, device=None,
+                       checkpoint_dir: str | None = None,
+                       checkpoint_every: int = 1,
+                       return_candidates: bool = False,
+                       return_stats: bool = False, timers=None):
+    """``demand_knn`` with the query side streamed in chunks of
+    ``chunk_rows`` rows a shard: every shard's whole point side stays
+    resident (coarsened by the point group), rows are held for one chunk
+    at a time. Each chunk runs its own early-exit loop from a pristine
+    pair, cold (no warm start), with prune distances from each shard's
+    chunk box. With ``checkpoint_dir``, the finished chunks' results are
+    saved every ``checkpoint_every`` chunks (never after the last) and a
+    relaunch resumes at the first unfinished chunk.
+
+    Returns f32[R*Npad] distances and the CandidateState (None unless
+    ``return_candidates``) as tensors on the host, plus, with
+    ``return_stats``, ``rounds`` (a list: the rounds of each chunk) and
+    ``kernels_run`` and ``rotations_run`` summed over the chunks.
+    ``timers`` times ``partition`` (the resident sides) and ``chunks``."""
+    engine, bucket_size, point_group, pts, ids, slabs = _demand_setup(
+        points_sharded, ids_sharded, num_shards, engine, bucket_size,
+        point_group, device)
+    dev = pts.device
+    npad = pts.shape[0] // num_shards
+    dim = pts.shape[1]
+    n_chunks = max(1, cdiv(npad, chunk_rows))
+    total = ring_total_rounds(num_shards)
+    shard_init_fn, query_init_fn, rows_fn, round_fn, final_fn = \
+        _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
+                         num_shards, point_group=point_group)
+    with timed_stage(timers, "partition", dev):
+        resident, all_lower, all_upper = shard_init_fn(
+            slabs, _partitions(engine, slabs, bucket_size))
+
+    out_d, out_hd2, out_idx = host_rows(num_shards, npad, k,
+                                        return_candidates)
+    rounds_per_chunk: list[int] = []
+    nrun_total = torch.zeros((num_shards, 2), dtype=torch.int64)
+
+    fp = None
+    start_chunk = 0
+    if checkpoint_dir:
+        fp = ckpt.fingerprint(
+            n=int(pts.shape[0]), k=int(k), shards=num_shards,
+            engine=engine, max_radius=float(max_radius),
+            bucket_size=bucket_size, chunk_rows=chunk_rows,
+            query_tile=query_tile, point_tile=point_tile,
+            kind="demand-chunked-rg", candidates=bool(return_candidates),
+            data=ckpt.data_digest(points_sharded, ids_sharded))
+        got = ckpt.load_ring_state(checkpoint_dir, fp)
+        if got is not None:
+            start_chunk, arrs = got
+            out_d = torch.from_numpy(arrs["out_d"])
+            rounds_per_chunk = arrs["rounds_per_chunk"].tolist()
+            nrun_total = torch.from_numpy(arrs["nrun_total"])
+            if return_candidates:
+                out_hd2 = torch.from_numpy(arrs["out_hd2"])
+                out_idx = torch.from_numpy(arrs["out_idx"])
+
+    pts3 = pts.view(num_shards, npad, dim)
+    ids2 = ids.view(num_shards, npad)
+    with timed_stage(timers, "chunks", dev):
+        for c in range(start_chunk, n_chunks):
+            lo, hi, qp, qi = chunk_slabs(pts3, ids2, c, chunk_rows)
+            qslabs = [(qp[s], qi[s]) for s in range(num_shards)]
+            ctx = query_init_fn(
+                resident, qslabs, _partitions(engine, qslabs, bucket_size),
+                all_lower, all_upper)
+            heaps = rows_fn(ctx)
+            counts = [[0, 0] for _ in range(num_shards)]
+            rounds = 0
+            while rounds < total:
+                heaps, counts, keep_going = round_fn(ctx, heaps, rounds,
+                                                     counts)
+                rounds += 1
+                if not keep_going:
+                    break
+            rounds_per_chunk.append(rounds)
+            nrun_total += torch.tensor(counts, dtype=torch.int64)
+            d, cands = final_fn(ctx, heaps, chunk_rows)
+            n = hi - lo
+            out_d[:, lo:hi] = d.view(num_shards, chunk_rows)[:, :n].cpu()
+            if return_candidates:
+                out_hd2[:, lo:hi] = cands.dist2.view(
+                    num_shards, chunk_rows, k)[:, :n].cpu()
+                out_idx[:, lo:hi] = cands.idx.view(
+                    num_shards, chunk_rows, k)[:, :n].cpu()
+            # never after the last chunk: the clear below follows, and a
+            # completed run's checkpoint must not outlive it
+            if checkpoint_dir and (c + 1) % checkpoint_every == 0 \
+                    and c + 1 < n_chunks:
+                arrs = {"out_d": out_d,
+                        "rounds_per_chunk": torch.tensor(rounds_per_chunk,
+                                                         dtype=torch.int64),
+                        "nrun_total": nrun_total}
+                if return_candidates:
+                    arrs.update(out_hd2=out_hd2, out_idx=out_idx)
+                ckpt.save_ring_state(checkpoint_dir, c + 1, arrs, fp)
+    if checkpoint_dir:
+        ckpt.clear(checkpoint_dir)
+    dists = out_d.view(-1)
+    cands = (CandidateState(out_hd2.view(-1, k), out_idx.view(-1, k))
+             if return_candidates else None)
+    if return_stats:
+        return dists, cands, {"rounds": rounds_per_chunk,
+                              "kernels_run": nrun_total[:, 0].tolist(),
+                              "rotations_run": nrun_total[:, 1].tolist()}
     return dists, cands

@@ -1,47 +1,67 @@
 """The ring exchange of the unordered pipeline, on one card.
 
-The port of the JAX package's ``parallel/ring.py`` ``ring_knn`` (fused
-driver, tiled branch). R shards each hold stationary queries with
-persistent candidate rows; every round each shard folds the resident
-point shards it holds, then the point shards rotate. The ring is
-bidirectional: two copies of every point shard counter-rotate, so after
-``ring_total_rounds(R) = R//2 + 1`` rounds every shard has met every other.
-Here the R shards are virtual — a Python loop over them on one card — and
-the schedule is the JAX one exactly, so candidates arrive in the same fold
-order: in round r shard i folds shard (i - r) % R forward, then shard
-(i + r) % R backward, except in round 0 (both copies are its own shard)
-and, for even R, in round R/2 (both are the antipode). Round 0 folds the
-own shard with ``skip_self``: each row was warm-started with its own
-bucket (ops/tiled.py, always exact f32). ``score_dtype`` reaches the
-traversal only. The flat engine ``pallas`` folds whole shards with the
-brute-force kernel (``csrc/knn_bf.cu``) in the same order: queries in
-slab order, no partition, no warm start, and no bf16 path (it raises, as
-the JAX package's ``_engine_fn`` does). The ``torch.distributed`` ring
-across cards is ROADMAP.md Queue 1.
+The port of the JAX package's ``parallel/ring.py``: ``ring_knn``,
+``ring_knn_stepwise`` with checkpoint and resume between rounds, and
+``ring_knn_chunked``, which streams the query side in chunks to bound the
+candidate rows' memory. On one card every round is stepped from the host,
+so JAX's fused and stepwise drivers are one loop here (``ring_knn`` is
+``ring_knn_stepwise`` without a checkpoint); it and the chunked loop run
+the per-round pieces of ``_make_ring_fns``, so they cannot diverge. R shards
+each hold stationary queries with persistent candidate rows; every round
+each shard folds the resident point shards it holds, then the point shards
+rotate. The ring is bidirectional: two copies of every point shard
+counter-rotate, so after ``ring_total_rounds(R) = R//2 + 1`` rounds every
+shard has met every other. Here the R shards are virtual — a Python loop
+over them on one card — and the schedule is the JAX one exactly, so
+candidates arrive in the same fold order: in round r shard i folds shard
+(i - r) % R forward, then shard (i + r) % R backward, except in round 0
+(both copies are its own shard) and, for even R, in round R/2 (both are
+the antipode). The self-join loops' round 0 folds the own shard with
+``skip_self``: each row was warm-started with its own bucket (ops/tiled.py,
+always exact f32). ``score_dtype`` reaches the traversal only. The flat
+engine ``pallas`` folds whole shards with the brute-force kernel
+(``csrc/knn_bf.cu``) in the same order: queries in slab order, no
+partition, no warm start, and no bf16 path (it raises, as the JAX
+package's ``_engine_fn`` does). The ``torch.distributed`` ring across
+cards is ROADMAP.md Queue 1.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+from typing import Callable, NamedTuple
 
 import torch
 
-from mpi_cuda_largescaleknn_torch.core.config import ENGINES, not_ported
-from mpi_cuda_largescaleknn_torch.core.types import CandidateState
+from mpi_cuda_largescaleknn_torch.core.config import (
+    ENGINES,
+    not_ported,
+    resolve_device,
+)
+from mpi_cuda_largescaleknn_torch.core.types import (
+    PAD_SENTINEL,
+    CandidateState,
+    aabb_of_points,
+)
 from mpi_cuda_largescaleknn_torch.ops.candidates import (
     extract_final_result,
     init_candidates,
+    tree_merge_candidates,
 )
 from mpi_cuda_largescaleknn_torch.ops.distance import validate_score_dtype
 from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
 from mpi_cuda_largescaleknn_torch.ops.knn_tiled import knn_update_tiled_cuda
 from mpi_cuda_largescaleknn_torch.ops.partition import (
+    BucketedPoints,
     choose_buckets,
     coarsen_buckets,
     partition_points,
     scatter_back,
 )
 from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
+from mpi_cuda_largescaleknn_torch.utils import checkpoint as ckpt
+from mpi_cuda_largescaleknn_torch.utils.math import cdiv
 
 
 def resolve_engine(engine: str) -> str:
@@ -55,6 +75,75 @@ def resolve_engine(engine: str) -> str:
     return "pallas_tiled" if engine == "auto" else engine
 
 
+def _check_score_dtype(engine: str, score_dtype: str) -> None:
+    if validate_score_dtype(score_dtype) != "f32" and engine == "pallas":
+        raise ValueError(
+            f"engine '{engine}' has no score_dtype='{score_dtype}' path "
+            "(matmul-form scoring exists for the traversal)")
+
+
+def resolve_merge(merge: str, num_shards: int) -> str:
+    """Where a chunked run merges the R shards' candidate rows: ``host``
+    is the ring (each shard's rows end global, no merge), ``device``
+    folds the whole chunk on every shard and merges the R partial rows on
+    the card (``device_merge_final``). ``auto`` picks ``device`` at a
+    power-of-two shard count and falls back to ``host`` with a logged
+    warning otherwise (the tree reduction needs blocks that tile the
+    shards); an explicit ``device`` there raises. Results are the same
+    either way up to the order of exactly tied neighbors."""
+    if merge == "auto":
+        if num_shards & (num_shards - 1) == 0:
+            return "device"
+        if num_shards > 1:
+            logging.getLogger(__name__).warning(
+                "merge='auto': %d shards is not a power of two — "
+                "falling back to the host-side merge (the device "
+                "reduction needs the row blocks to tile the shards)",
+                num_shards)
+        return "host"
+    if merge == "device":
+        if num_shards & (num_shards - 1):
+            raise ValueError(
+                f"merge='device' needs a power-of-two shard count, got "
+                f"{num_shards} (use merge='auto' to fall back to host)")
+        return "device"
+    if merge == "host":
+        return "host"
+    raise ValueError(f"unknown merge mode '{merge}' "
+                     "(expected host | device | auto)")
+
+
+def device_merge_final(states: list[CandidateState], via: str = "a2a"):
+    """The global top-k of R per-shard candidate states for the SAME query
+    rows, on the card: (dists f32[Q], CandidateState f32/i32[Q, k]).
+
+    - ``a2a`` (default): each row's R*k candidates concatenated
+      shard-major, then the k smallest by a stable sort (the JAX package's
+      reduce-scatter and ``lax.top_k``, which prefers the lower column on
+      ties: earlier shard, then earlier slot). ``torch.topk`` documents
+      no tie order, so it is never used.
+    - ``tree``: ``tree_merge_candidates``, the log2(R) recursive doubling,
+      with the same tie order.
+    """
+    if via not in ("a2a", "tree"):
+        raise ValueError(f"unknown device merge reduction '{via}'")
+    num_shards = len(states)
+    if num_shards == 1:
+        st = states[0]
+    elif via == "tree":
+        st = tree_merge_candidates(states)
+    else:
+        rows, k = states[0].dist2.shape
+        cat_d2 = torch.stack([s.dist2 for s in states], 1).view(
+            rows, num_shards * k)
+        cat_idx = torch.stack([s.idx for s in states], 1).view(
+            rows, num_shards * k)
+        top_d2, cols = torch.sort(cat_d2, dim=1, stable=True)
+        st = CandidateState(top_d2[:, :k].contiguous(),
+                            torch.gather(cat_idx, 1, cols[:, :k]))
+    return extract_final_result(st), st
+
+
 def resolve_bucket_size(bucket_size: int) -> int:
     """0 = auto: 256 points per bucket, the JAX package's ``pallas_tiled``
     value (it comes from TPU sweeps; no H100 sweep exists yet)."""
@@ -65,6 +154,76 @@ def ring_total_rounds(num_shards: int) -> int:
     """Rounds for a full bidirectional sweep: the own shard at round 0,
     then offsets +-1, ..., +-floor(R/2)."""
     return num_shards // 2 + 1
+
+
+def _folds_in_rounds(start: int, stop: int, num_shards: int) -> int:
+    """Folds a shard runs in rounds [start, stop): 1 in round 0 and in the
+    even-R antipodal round, else 2."""
+    return sum(1 if (r == 0 or 2 * r == num_shards) else 2
+               for r in range(start, stop))
+
+
+def _ring_pair(rnd: int, num_shards: int) -> torch.Tensor:
+    """i32[R, 2]: the shards that round ``rnd`` folds into shard i,
+    forward and backward — the ring's rotating pair. On one card nothing
+    rotates, so a checkpoint records it and a resume checks it."""
+    i = torch.arange(num_shards, dtype=torch.int32)
+    return torch.stack([(i - rnd) % num_shards, (i + rnd) % num_shards], 1)
+
+
+def save_round(ckpt_dir: str, rnd: int, heaps: list, manifest: dict,
+               extra: tuple = ()) -> None:
+    """A stepwise loop's snapshot after ``rnd`` rounds: the rotating
+    pair of the next round, every shard's rows, then ``extra`` tensors."""
+    ckpt.save_tensors(ckpt_dir, rnd,
+                      [_ring_pair(rnd, len(heaps))]
+                      + [h.dist2 for h in heaps] + [h.idx for h in heaps]
+                      + list(extra), manifest)
+
+
+def load_round(ckpt_dir: str, manifest: dict, num_shards: int, device):
+    """(round, rows, extra tensors) of ``save_round``'s snapshot, or None.
+    Raises ValueError when its pair is not the one of its round."""
+    got = ckpt.load_tensors(ckpt_dir, manifest, device)
+    if got is None:
+        return None
+    rnd, tensors = got
+    if not torch.equal(tensors[0].cpu(), _ring_pair(rnd, num_shards)):
+        raise ValueError(f"checkpoint at {ckpt_dir}: its ring pair does "
+                         "not match its round")
+    rows = tensors[1:1 + 2 * num_shards]
+    heaps = [CandidateState(d2, idx)
+             for d2, idx in zip(rows[:num_shards], rows[num_shards:])]
+    return rnd, heaps, tensors[1 + 2 * num_shards:]
+
+
+def chunk_slabs(pts3: torch.Tensor, ids2: torch.Tensor, c: int,
+                chunk_rows: int):
+    """Chunk ``c`` of every shard's rows, sentinel-padded to
+    ``chunk_rows``: (lo, hi, points f32[R, chunk_rows, D], ids
+    i32[R, chunk_rows]) from the slabs ``pts3`` f32[R, Npad, D] and
+    ``ids2`` i32[R, Npad]; rows [lo, hi) of each slab are real."""
+    num_shards, npad, dim = pts3.shape
+    lo = c * chunk_rows
+    hi = min(lo + chunk_rows, npad)
+    qp = torch.full((num_shards, chunk_rows, dim), PAD_SENTINEL,
+                    device=pts3.device)
+    qi = torch.full((num_shards, chunk_rows), -1, dtype=torch.int32,
+                    device=pts3.device)
+    qp[:, :hi - lo] = pts3[:, lo:hi]
+    qi[:, :hi - lo] = ids2[:, lo:hi]
+    return lo, hi, qp, qi
+
+
+def host_rows(num_shards: int, npad: int, k: int, with_candidates: bool):
+    """A chunked loop's results on the host: (dists f32[R, Npad] inf,
+    and with ``with_candidates`` d2 f32[R, Npad, k] inf and ids
+    i32[R, Npad, k] -1, else None and None)."""
+    out_d = torch.full((num_shards, npad), torch.inf)
+    if not with_candidates:
+        return out_d, None, None
+    return (out_d, torch.full((num_shards, npad, k), torch.inf),
+            torch.full((num_shards, npad, k), -1, dtype=torch.int32))
 
 
 def _effective_group(point_group: int, npad_local: int,
@@ -82,6 +241,37 @@ def _effective_group(point_group: int, npad_local: int,
     return min(point_group, choose_buckets(npad_local, bucket_size)[0])
 
 
+def _warm_tiles(engine: str, npad_local: int, bucket_size: int,
+                num_shards: int) -> int:
+    """[S, group*S] tiles the warm start scores: one a fine bucket, every
+    shard (traversal self-joins only)."""
+    if engine != "pallas_tiled":
+        return 0
+    return num_shards * choose_buckets(npad_local, bucket_size)[0]
+
+
+def _ring_stats(engine: str, tiles_total: int, bucket_size: int,
+                flat_pairs: int, *, q_rows: int, p_rows: int,
+                point_group: int) -> dict:
+    """Executed-work stats: distance pairs scored. One traversal visit is
+    an [S_q, group*S_p] tile, S the padded bucket sizes of the query and
+    point rows; the flat engine scores every pair, ``flat_pairs``."""
+    if engine == "pallas":
+        return {"pair_evals": int(flat_pairs), "tiles": 0,
+                "flops_per_pair": 8}
+    _, s_q = choose_buckets(q_rows, bucket_size)
+    _, s_p = choose_buckets(p_rows, bucket_size)
+    return {"pair_evals": int(tiles_total) * s_q * s_p * point_group,
+            "tiles": int(tiles_total), "flops_per_pair": 8}
+
+
+def _sum_visits(parts: list) -> int:
+    """The visit counts the rounds returned (0-d device tensors, None for
+    the flat engine), summed once at the end."""
+    parts = [v for v in parts if v is not None]
+    return int(torch.stack(parts).sum()) if parts else 0
+
+
 @contextlib.contextmanager
 def timed_stage(timers, name: str, device: torch.device):
     """``timers.phase(name)`` ended by a device synchronisation, so its time
@@ -95,16 +285,106 @@ def timed_stage(timers, name: str, device: torch.device):
             torch.cuda.synchronize(device)
 
 
-def _ring_stats(visits_total: int, bucket_size: int, q_rows: int,
-                num_shards: int, point_group: int) -> dict:
-    """Executed-work stats: distance pairs scored. One visit is an
-    [S, group*S] tile; the warm start scores one [group*S, group*S] tile
-    per coarse bucket, i.e. one [S, group*S] tile per fine bucket. (The
-    flat engine scores every pair: R*R*Npad*Npad, no tiles.)"""
-    num_qb, s = choose_buckets(q_rows, bucket_size)
-    tiles = int(visits_total) + num_shards * num_qb
-    return {"pair_evals": tiles * s * s * point_group, "tiles": tiles,
-            "flops_per_pair": 8}
+def _sharded_input(points_sharded, ids_sharded, num_shards: int, device):
+    """(points f32[R*Npad, D], ids i32[R*Npad]) on ``device`` (None = the
+    card, which raises without CUDA), and the slabs: per shard (points,
+    ids) views."""
+    device = resolve_device(device)
+    pts = torch.as_tensor(points_sharded, dtype=torch.float32, device=device)
+    ids = torch.as_tensor(ids_sharded, dtype=torch.int32, device=device)
+    npad = pts.shape[0] // num_shards
+    slabs = [(pts[r * npad:(r + 1) * npad], ids[r * npad:(r + 1) * npad])
+             for r in range(num_shards)]
+    return pts, ids, slabs
+
+
+class RingFns(NamedTuple):
+    """The per-round pieces every ring loop runs (``_make_ring_fns``)."""
+
+    #: (pts, ids) of one shard -> (stationary, resident): its query side
+    #: (a partition, or the points for the flat engine) and its point side
+    #: (the partition coarsened by the point group, or (pts, ids))
+    shard_init_fn: Callable
+    #: (stationary, resident) -> the shard's starting rows: warm-started
+    #: with each query's own bucket where the caller asks for it
+    rows_init_fn: Callable
+    #: (qpts, qids) of a chunk -> (stationary, cold rows)
+    query_init_fn: Callable
+    #: (rows, stationary, resident, skip_self) -> (rows, visits): one fold
+    fold_fn: Callable
+    #: (stationaries, residents, rows, rnd) -> (rows, visits): round rnd
+    #: for every shard; visits is a 0-d device tensor (None when flat)
+    round_fn: Callable
+    #: (stationaries, rows, n, with_candidates) -> (dists f32[R*n],
+    #: CandidateState or None) in slab-row order
+    final_fn: Callable
+
+
+def _make_ring_fns(k, max_radius, engine, query_tile, point_tile,
+                   bucket_size, num_shards, *, warm_start=False,
+                   point_group=1, score_dtype="f32") -> RingFns:
+    """The per-round pieces of the stepwise and chunked loops.
+    ``warm_start`` applies to self-joins of the traversal, whose query
+    bucket b is point bucket b // group in round 0; chunked queries are
+    partitioned apart and always start cold."""
+    flat = engine == "pallas"
+    warm_start = warm_start and not flat
+
+    def shard_init_fn(pts, ids):
+        if flat:
+            return pts, (pts, ids)
+        q = partition_points(pts, ids, bucket_size=bucket_size)
+        return q, coarsen_buckets(q, point_group)
+
+    def cold_rows(stationary):
+        if flat:
+            return init_candidates(stationary.shape[0], k, max_radius,
+                                   device=stationary.device)
+        return init_candidates(stationary.ids.numel(), k, max_radius,
+                               device=stationary.pts.device)
+
+    def rows_init_fn(stationary, resident):
+        if warm_start:
+            return warm_start_self(resident, k, max_radius)
+        return cold_rows(stationary)
+
+    def query_init_fn(qpts, qids):
+        stationary = (qpts if flat else
+                      partition_points(qpts, qids, bucket_size=bucket_size))
+        return stationary, cold_rows(stationary)
+
+    def fold_fn(rows, stationary, resident, skip_self=False):
+        if flat:
+            return knn_update_bf_cuda(rows, stationary, *resident,
+                                      query_tile=query_tile,
+                                      point_tile=point_tile), None
+        rows, v = knn_update_tiled_cuda(rows, stationary, resident,
+                                        skip_self=skip_self,
+                                        self_group=point_group,
+                                        with_stats=True,
+                                        score_dtype=score_dtype)
+        return rows, v.sum()
+
+    def round_fn(stationary, resident, heaps, rnd):
+        heaps, visits = list(heaps), []
+        dup = rnd == 0 or 2 * rnd == num_shards
+        for i in range(num_shards):
+            heaps[i], v = fold_fn(heaps[i], stationary[i],
+                                  resident[(i - rnd) % num_shards],
+                                  skip_self=warm_start and rnd == 0)
+            visits.append(v)
+            if not dup:
+                heaps[i], v = fold_fn(heaps[i], stationary[i],
+                                      resident[(i + rnd) % num_shards])
+                visits.append(v)
+        return heaps, (None if flat else torch.stack(visits).sum())
+
+    def final_fn(stationary, heaps, n, with_candidates):
+        return final_rows(None if flat else stationary, heaps, n,
+                          with_candidates)
+
+    return RingFns(shard_init_fn, rows_init_fn, query_init_fn, fold_fn,
+                   round_fn, final_fn)
 
 
 def ring_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
@@ -114,7 +394,8 @@ def ring_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
              score_dtype: str = "f32", device=None,
              return_candidates: bool = False, return_stats: bool = False,
              timers=None):
-    """Run the full ring over ``num_shards`` virtual shards on ``device``.
+    """Run the full ring over ``num_shards`` virtual shards on ``device``
+    (None = the card; without CUDA that raises).
 
     Args:
       points_sharded: f32[R*Npad, D] shard-major (shard r owns rows
@@ -132,71 +413,312 @@ def ring_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
     ``timers`` (an ``obs.timers.PhaseTimers``) times the stages
     ``partition`` and ``warm_start`` (tiled engine only), ``traverse`` and
     ``extract``, each ended by a device synchronisation.
+
+    On one card the rounds are stepped from the host either way, so this
+    is ``ring_knn_stepwise`` without a checkpoint: one loop, the same
+    bits and stats.
     """
+    return ring_knn_stepwise(
+        points_sharded, ids_sharded, k, num_shards, max_radius=max_radius,
+        engine=engine, query_tile=query_tile, point_tile=point_tile,
+        bucket_size=bucket_size, point_group=point_group,
+        score_dtype=score_dtype, device=device,
+        return_candidates=return_candidates, return_stats=return_stats,
+        timers=timers)
+
+
+def ring_knn_stepwise(points_sharded, ids_sharded, k: int, num_shards: int,
+                      *, max_radius: float = float("inf"),
+                      engine: str = "auto", query_tile: int = 2048,
+                      point_tile: int = 2048, bucket_size: int = 0,
+                      point_group: int = 0, score_dtype: str = "f32",
+                      device=None, checkpoint_dir: str | None = None,
+                      checkpoint_every: int = 1,
+                      max_rounds: int | None = None,
+                      return_candidates: bool = False,
+                      return_stats: bool = False, timers=None):
+    """``ring_knn`` with a checkpoint between rounds: every
+    ``checkpoint_every`` rounds (and at the last round run) the round
+    index, the rotating pair (``_ring_pair``), and every shard's rows go to
+    ``checkpoint_dir``, and a relaunch with the same arguments resumes at
+    that round, its rows loaded in place of the warm start. The
+    fingerprint holds the run's configuration and a sampled digest of the
+    input; a mismatch raises ValueError. A completed run clears its
+    checkpoint. ``max_rounds`` stops early (state saved), for staged runs
+    and interruption tests.
+
+    Returns what ``ring_knn`` returns, the same bits; its stats count the
+    warm start only in the run that did it. ``timers`` times what
+    ``ring_knn``'s does; ``warm_start`` covers a checkpoint's load and
+    ``traverse`` its writes."""
     engine = resolve_engine(engine)
-    flat = engine == "pallas"
-    if validate_score_dtype(score_dtype) != "f32" and flat:
-        raise ValueError(
-            f"engine '{engine}' has no score_dtype='{score_dtype}' path "
-            "(matmul-form scoring exists for the traversal)")
+    _check_score_dtype(engine, score_dtype)
     bucket_size = resolve_bucket_size(bucket_size)
-    total_rounds = ring_total_rounds(num_shards)
-    pts = torch.as_tensor(points_sharded, dtype=torch.float32, device=device)
-    ids = torch.as_tensor(ids_sharded, dtype=torch.int32, device=device)
+    pts, _ids, slabs = _sharded_input(points_sharded, ids_sharded,
+                                      num_shards, device)
     npad = pts.shape[0] // num_shards
     group = _effective_group(point_group, npad, bucket_size)
-    visits = torch.zeros((), dtype=torch.int64, device=pts.device)
+    fp = None
+    if checkpoint_dir:
+        fp = ckpt.fingerprint(
+            n=int(pts.shape[0]), k=int(k), shards=num_shards, engine=engine,
+            max_radius=float(max_radius), bucket_size=bucket_size,
+            # keys present only when not the JAX package's defaults
+            **({"point_group": group} if group > 1 else {}),
+            **({"score_dtype": score_dtype} if score_dtype != "f32" else {}),
+            query_tile=query_tile, point_tile=point_tile, ring="bidir",
+            data=ckpt.data_digest(points_sharded, ids_sharded))
+    fns = _make_ring_fns(k, max_radius, engine, query_tile, point_tile,
+                         bucket_size, num_shards, warm_start=True,
+                         point_group=group, score_dtype=score_dtype)
+    tiled_timers = None if engine == "pallas" else timers
 
-    if flat:
-        slabs = [(pts[r * npad:(r + 1) * npad], ids[r * npad:(r + 1) * npad])
-                 for r in range(num_shards)]
-        heaps = [init_candidates(npad, k, max_radius, device=pts.device)
-                 for _ in range(num_shards)]
+    with timed_stage(tiled_timers, "partition", pts.device):
+        parts = [fns.shard_init_fn(p, i) for p, i in slabs]
+    stationary = [s for s, _ in parts]
+    resident = [r for _, r in parts]
+    start = 0
+    with timed_stage(tiled_timers, "warm_start", pts.device):
+        # a resumed run's rows come from the checkpoint (saved after at
+        # least one round, so round 0's skip_self never meets them)
+        got = (load_round(checkpoint_dir, fp, num_shards, pts.device)
+               if checkpoint_dir else None)
+        if got is not None:
+            start, heaps, _ = got
+        else:
+            heaps = [fns.rows_init_fn(s, r) for s, r in parts]
 
-        def fold(i, shard, skip_self=False):
-            heaps[i] = knn_update_bf_cuda(heaps[i], slabs[i][0],
-                                          *slabs[shard],
-                                          query_tile=query_tile,
-                                          point_tile=point_tile)
-    else:
-        with timed_stage(timers, "partition", pts.device):
-            qs = [partition_points(pts[r * npad:(r + 1) * npad],
-                                   ids[r * npad:(r + 1) * npad],
-                                   bucket_size=bucket_size)
-                  for r in range(num_shards)]
-            resident = [coarsen_buckets(q, group) for q in qs]
-        with timed_stage(timers, "warm_start", pts.device):
-            heaps = [warm_start_self(pc, k, max_radius) for pc in resident]
-
-        def fold(i, shard, skip_self=False):
-            nonlocal visits
-            heaps[i], v = knn_update_tiled_cuda(heaps[i], qs[i],
-                                                resident[shard],
-                                                skip_self=skip_self,
-                                                self_group=group,
-                                                with_stats=True,
-                                                score_dtype=score_dtype)
-            visits = visits + v.sum()
-
+    total = ring_total_rounds(num_shards)
+    stop = total if max_rounds is None else min(max_rounds, total)
+    visits = []
     with timed_stage(timers, "traverse", pts.device):
-        for rnd in range(total_rounds):
-            dup = rnd == 0 or 2 * rnd == num_shards
-            for i in range(num_shards):
-                fold(i, (i - rnd) % num_shards, skip_self=rnd == 0)
-                if not dup:
-                    fold(i, (i + rnd) % num_shards)
-
+        for r in range(start, stop):
+            heaps, v = fns.round_fn(stationary, resident, heaps, r)
+            visits.append(v)
+            if checkpoint_dir and ((r + 1) % checkpoint_every == 0
+                                   or r + 1 == stop):
+                save_round(checkpoint_dir, r + 1, heaps, fp)
     with timed_stage(timers, "extract", pts.device):
-        dists, cands = final_rows(None if flat else qs, heaps, npad,
-                                  return_candidates)
+        dists, cands = fns.final_fn(stationary, heaps, npad,
+                                    return_candidates)
+    if checkpoint_dir and stop == total:
+        # done: a later run in the same directory never resumes past its
+        # own work
+        ckpt.clear(checkpoint_dir)
     out = (dists,)
     if return_candidates:
         out += (cands,)
     if return_stats:
-        out += ({"pair_evals": num_shards * num_shards * npad * npad,
-                 "tiles": 0, "flops_per_pair": 8} if flat else
-                _ring_stats(int(visits), bucket_size, npad, num_shards,
-                            group),)
+        tiles = _sum_visits(visits)
+        if got is None:
+            # the warm start ran in THIS run
+            tiles += _warm_tiles(engine, npad, bucket_size, num_shards)
+        out += (_ring_stats(
+            engine, tiles, bucket_size,
+            _folds_in_rounds(start, stop, num_shards) * num_shards
+            * npad * npad,
+            q_rows=npad, p_rows=npad, point_group=group),)
+    return out if len(out) > 1 else out[0]
+
+
+def chunk_bucket(q: torch.Tensor) -> BucketedPoints:
+    """A device-merge chunk f32[Q, D] as ONE query bucket of Q rows: ids
+    ``arange(Q)`` on real rows and -1 on sentinel ones, the box of the
+    real rows, ``pos = ids`` (the JAX package's device-merge program)."""
+    rows = q.shape[0]
+    valid = q[:, 0] < PAD_SENTINEL / 2
+    qids = torch.where(valid, torch.arange(rows, dtype=torch.int32,
+                                           device=q.device), -1)
+    box = aabb_of_points(q, valid)
+    return BucketedPoints(q[None], qids[None], box.lower[None],
+                          box.upper[None], qids[None])
+
+
+def ring_knn_chunked(points_sharded, ids_sharded, k: int, num_shards: int,
+                     *, chunk_rows: int, max_radius: float = float("inf"),
+                     engine: str = "auto", query_tile: int = 2048,
+                     point_tile: int = 2048, bucket_size: int = 0,
+                     point_group: int = 0, score_dtype: str = "f32",
+                     device=None, checkpoint_dir: str | None = None,
+                     checkpoint_every: int = 1,
+                     max_chunks: int | None = None, pipeline_depth: int = 2,
+                     merge: str = "host", return_candidates: bool = False,
+                     return_stats: bool = False, timers=None):
+    """``ring_knn`` with the query side streamed in chunks of
+    ``chunk_rows`` rows a shard.
+
+    The memory wall at scale is the candidate rows, N*k*8 bytes (at k=100
+    ~67x the points). Every shard's whole point side stays resident
+    (partitioned once, coarsened by the point group); rows are held for
+    one chunk of queries at a time, so they take R*chunk_rows*k*8 bytes.
+
+    - ``merge="host"``: the ring per chunk. Each shard's chunk is
+      partitioned on its own (``choose_buckets(chunk_rows)``), starts cold
+      (no warm start, no ``skip_self``: a chunk folds its own points once,
+      as neighbors) and meets every shard over the R//2+1 rounds, from a
+      pristine pair (the resident sides never move).
+    - ``merge="device"``: the R shards' chunk rows gathered into ONE
+      query bucket of R*chunk_rows rows (``chunk_bucket``), folded by
+      every shard's resident side, the R partial rows merged by
+      ``device_merge_final``. The flat engine folds the same gathered
+      chunk. ``auto`` resolves by ``resolve_merge``.
+
+    Distances are the same bits either way; at equal distances the two
+    order ids differently (the ring by fold arrival, the device merge by
+    shard then slot), both exact top-k. ``pipeline_depth`` chunks may
+    have their result copies to the host pending: a chunk's rows are
+    fetched only once ``pipeline_depth`` chunks wait, so the card works
+    on the next chunk meanwhile; results are bit-identical at any depth (1
+    is the serialized loop). With ``checkpoint_dir`` the finished chunks'
+    results are saved every ``checkpoint_every`` chunks (after a full
+    drain) and a relaunch resumes at the first unfinished chunk;
+    ``max_chunks`` stops early.
+
+    Returns ``ring_knn``'s outputs as tensors on the HOST (where the rows
+    are gathered): f32[R*Npad] distances, the CandidateState with
+    ``return_candidates``, and stats with ``return_stats``. ``timers``
+    times ``partition`` (the resident sides) and ``chunks`` (the loop and
+    its last fetch).
+    """
+    engine = resolve_engine(engine)
+    _check_score_dtype(engine, score_dtype)
+    bucket_size = resolve_bucket_size(bucket_size)
+    merge = resolve_merge(merge, num_shards)
+    pts, ids, slabs = _sharded_input(points_sharded, ids_sharded,
+                                     num_shards, device)
+    dev = pts.device
+    npad = pts.shape[0] // num_shards
+    dim = pts.shape[1]
+    n_chunks = max(1, cdiv(npad, chunk_rows))
+    group = _effective_group(point_group, npad, bucket_size)
+    fns = _make_ring_fns(k, max_radius, engine, query_tile, point_tile,
+                         bucket_size, num_shards, point_group=group,
+                         score_dtype=score_dtype)
+    with timed_stage(timers, "partition", dev):
+        resident = [fns.shard_init_fn(p, i)[1] for p, i in slabs]
+
+    out_d, out_hd2, out_idx = host_rows(num_shards, npad, k,
+                                        return_candidates)
+    fp = None
+    start_chunk = 0
+    if checkpoint_dir:
+        fp = ckpt.fingerprint(
+            n=num_shards * npad, k=int(k), shards=num_shards,
+            engine=engine, max_radius=float(max_radius),
+            bucket_size=bucket_size, chunk_rows=chunk_rows,
+            query_tile=query_tile, point_tile=point_tile,
+            candidates=bool(return_candidates),
+            **({"merge": merge} if merge == "device" else {}),
+            **({"score_dtype": score_dtype} if score_dtype != "f32" else {}),
+            my_pos=",".join(str(s) for s in range(num_shards)),
+            data=ckpt.data_digest(points_sharded, ids_sharded))
+        got = ckpt.load_ring_state(checkpoint_dir, fp)
+        if got is not None:
+            start_chunk, arrs = got
+            out_d = torch.from_numpy(arrs["out_d"])
+            if return_candidates:
+                out_hd2 = torch.from_numpy(arrs["out_hd2"])
+                out_idx = torch.from_numpy(arrs["out_idx"])
+
+    pts3 = pts.view(num_shards, npad, dim)
+    ids2 = ids.view(num_shards, npad)
+    stop_chunk = n_chunks if max_chunks is None else min(max_chunks,
+                                                         n_chunks)
+    total_rounds = ring_total_rounds(num_shards)
+    depth = max(1, int(pipeline_depth))
+    pending = []  # (lo, hi, host copies, their event): not fetched yet
+    visits = []
+    chunks_run = 0
+
+    def stage(c):
+        # chunk c's query sides on the card: partitions with cold rows
+        # (ring), or the gathered chunk (device merge)
+        lo, hi, qp, qi = chunk_slabs(pts3, ids2, c, chunk_rows)
+        if merge == "device":
+            return lo, hi, qp.view(-1, dim), None
+        parts = [fns.query_init_fn(qp[s], qi[s]) for s in range(num_shards)]
+        return lo, hi, [s for s, _ in parts], [h for _, h in parts]
+
+    def start_fetch(lo, hi, d, cands):
+        ts = [d] + ([cands.dist2, cands.idx] if return_candidates else [])
+        if dev.type != "cuda":
+            return lo, hi, ts, None
+        host = [t.to("cpu", non_blocking=True) for t in ts]
+        done = torch.cuda.Event()
+        done.record()
+        return lo, hi, host, done
+
+    def drain_one():
+        # the OLDEST pending chunk: waits for its copies only, later
+        # chunks' folds stay queued on the card
+        lo, hi, host, done = pending.pop(0)
+        if done is not None:
+            done.synchronize()
+        n = hi - lo
+        out_d[:, lo:hi] = host[0].view(num_shards, chunk_rows)[:, :n]
+        if return_candidates:
+            out_hd2[:, lo:hi] = host[1].view(num_shards, chunk_rows, k)[:, :n]
+            out_idx[:, lo:hi] = host[2].view(num_shards, chunk_rows, k)[:, :n]
+
+    with timed_stage(timers, "chunks", dev):
+        staged = stage(start_chunk) if start_chunk < stop_chunk else None
+        for c in range(start_chunk, stop_chunk):
+            lo, hi, stationary, heaps = staged
+            chunks_run += 1
+            if merge == "device":
+                qb = stationary if engine == "pallas" else \
+                    chunk_bucket(stationary)
+                states = []
+                for s in range(num_shards):
+                    st, v = fns.fold_fn(
+                        init_candidates(stationary.shape[0], k, max_radius,
+                                        device=dev), qb, resident[s])
+                    states.append(st)
+                    visits.append(v)
+                d, cands = device_merge_final(states)
+            else:
+                for rnd in range(total_rounds):
+                    heaps, v = fns.round_fn(stationary, resident, heaps, rnd)
+                    visits.append(v)
+                d, cands = fns.final_fn(stationary, heaps, chunk_rows,
+                                        return_candidates)
+            pending.append(start_fetch(lo, hi, d, cands))
+            del stationary, heaps, d, cands
+            while len(pending) >= depth:
+                drain_one()
+            if c + 1 < stop_chunk:
+                staged = stage(c + 1)
+            ckpt_due = checkpoint_dir and ((c + 1) % checkpoint_every == 0
+                                           or c + 1 == stop_chunk)
+            if ckpt_due:
+                while pending:
+                    drain_one()
+                arrs = {"out_d": out_d}
+                if return_candidates:
+                    arrs.update(out_hd2=out_hd2, out_idx=out_idx)
+                ckpt.save_ring_state(checkpoint_dir, c + 1, arrs, fp)
+        while pending:
+            drain_one()
+    if checkpoint_dir and stop_chunk == n_chunks:
+        ckpt.clear(checkpoint_dir)
+
+    out = (out_d.view(-1),)
+    if return_candidates:
+        out += (CandidateState(out_hd2.view(-1, k), out_idx.view(-1, k)),)
+    if return_stats:
+        tiles = _sum_visits(visits)
+        if merge == "device" and engine != "pallas":
+            # a device-merge visit is a tile of the chunk's single query
+            # bucket (R*chunk_rows rows) by a coarsened point bucket
+            _, s_p = choose_buckets(npad, bucket_size)
+            stats = {"pair_evals": tiles * num_shards * chunk_rows * s_p
+                     * group, "tiles": tiles, "flops_per_pair": 8}
+        else:
+            stats = _ring_stats(
+                engine, tiles, bucket_size,
+                chunks_run * num_shards * num_shards * chunk_rows * npad,
+                q_rows=chunk_rows, p_rows=npad, point_group=group)
+        out += (stats,)
     return out if len(out) > 1 else out[0]
 
 

@@ -21,6 +21,7 @@ from mpi_cuda_largescaleknn_torch.ops import distance as tdist
 from mpi_cuda_largescaleknn_torch.ops import partition as tpart
 from mpi_cuda_largescaleknn_torch.ops import tiled as ttiled
 from mpi_cuda_largescaleknn_torch.utils import math as tmath
+from mpi_cuda_largescaleknn_tpu.core import config as jconfig
 from mpi_cuda_largescaleknn_tpu.core.types import CandidateState as JState
 from mpi_cuda_largescaleknn_tpu.models import sharding as jshard
 from mpi_cuda_largescaleknn_tpu.obs import selfcheck as jcheck
@@ -271,9 +272,8 @@ def test_selfcheck_matches(k, radius):
     ("engine", "bruteforce", NotImplementedError),
     ("engine", "nope", ValueError),
     ("score_dtype", "fp8", ValueError),
-    ("query_chunk", 64, NotImplementedError),
-    ("checkpoint_dir", "ckpt", NotImplementedError),
-    ("merge", "device", NotImplementedError),
+    ("merge", "nope", ValueError),
+    ("checkpoint_every", 0, ValueError),
     ("point_group", 3, ValueError),
     ("query_tile", 0, ValueError),
 ])
@@ -283,6 +283,14 @@ def test_config_refuses_what_is_not_ported(field, value, exc):
         tconfig.KnnConfig(**kw).validate()
     if exc is NotImplementedError:
         assert "ROADMAP.md" in str(err.value)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("query_chunk", 64), ("checkpoint_dir", "ckpt"), ("merge", "device"),
+    ("merge", "auto"), ("checkpoint_every", 3)])
+def test_config_accepts_chunk_merge_and_checkpoint_options(field, value):
+    tconfig.KnnConfig(k=4, **{field: value}).validate()
+    jconfig.KnnConfig(k=4, **{field: value}).validate()
 
 
 @pytest.mark.parametrize("score_dtype", ["f32", "bf16"])

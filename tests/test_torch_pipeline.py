@@ -6,14 +6,20 @@ port's ``auto`` stands for."""
 
 import json
 import math
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
 from mpi_cuda_largescaleknn_torch import kth_neighbor_distances as torch_knn
+from mpi_cuda_largescaleknn_torch.cli import partition_main as torch_part_cli
+from mpi_cuda_largescaleknn_torch.cli import (
+    prepartitioned_main as torch_pre_cli,
+)
 from mpi_cuda_largescaleknn_torch.cli import unordered_main as torch_cli
 from mpi_cuda_largescaleknn_tpu import kth_neighbor_distances as jax_knn
+from mpi_cuda_largescaleknn_tpu.cli import prepartitioned_main as jax_pre_cli
 from mpi_cuda_largescaleknn_tpu.cli import unordered_main as jax_cli
 from tests.oracle import kth_nn_dist, random_points
 from tests.test_torch_ops import assert_bitwise
@@ -88,12 +94,9 @@ def test_cli_sharded_output_is_byte_identical(tmp_path):
     assert outs[1] == outs[4] == jout.read_bytes()
 
 
-@pytest.mark.parametrize("flag", [["--query-chunk", "64"],
-                                  ["--checkpoint-dir", "ckpt"],
-                                  ["--merge", "device"],
+@pytest.mark.parametrize("flag", [["--coordinator", "127.0.0.1:1234"],
                                   ["--num-hosts", "2"],
                                   ["--host-id", "1"],
-                                  ["--checkpoint-every", "2"],
                                   ["--engine", "tree"]])
 def test_cli_refuses_options_not_ported(tmp_path, flag):
     src = tmp_path / "pts.float3"
@@ -101,6 +104,39 @@ def test_cli_refuses_options_not_ported(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_cli.main([str(src), "-o", str(tmp_path / "o.float"), "-k", "2",
                         "--device", "cpu"] + flag)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--query-chunk", "40"],
+    ["--checkpoint-dir", "{ckpt}"],
+    ["--merge", "device", "--query-chunk", "40"],
+    ["--checkpoint-every", "2", "--checkpoint-dir", "{ckpt}",
+     "--query-chunk", "24"]])
+def test_cli_chunk_merge_checkpoint_flags_match_jax(tmp_path, flag):
+    """Each flag on both CLIs, the port's output and id files byte-equal
+    to the JAX package's with the same flags."""
+    src = tmp_path / "in.float3"
+    random_points(280, seed=14).tofile(src)
+    assert torch_part_cli.main([str(src), "-n", "4", "-o",
+                                str(tmp_path / "part")]) == 0
+    common = ["-k", "5", "--bucket-size", "16", "--shards", "4"]
+    for name, cli_j, cli_t, inp, out in (
+            ("u", jax_cli, torch_cli, src, "{}.float"),
+            ("p", jax_pre_cli, torch_pre_cli, tmp_path / "part.txt", "{}")):
+        for side, cli, extra in (("j", cli_j, ["--engine", "pallas_tiled"]),
+                                 ("t", cli_t, ["--device", "cpu"])):
+            tag = tmp_path / f"{name}{side}"
+            args = [a.format(ckpt=f"{tag}_ckpt") for a in flag]
+            assert cli.main([str(inp), "-o", out.format(tag),
+                             "--write-indices", f"{tag}i"] + common + extra
+                            + args) == 0
+            assert not any(Path(f"{tag}_ckpt").glob("*.npz"))
+        outs = [[f for f in sorted(tmp_path.glob(f"{name}{side}*"))
+                 if f.is_file()] for side in "jt"]
+        assert [p.name[2:] for p in outs[0]] == [p.name[2:] for p in outs[1]]
+        for want, got in zip(*outs):
+            assert got.read_bytes() == want.read_bytes(), got.name
+        assert len(outs[0]) == (2 if name == "u" else 8)
 
 
 def test_cli_profile_dir_writes_a_trace(tmp_path):
