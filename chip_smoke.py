@@ -98,8 +98,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    kernel and preparation timed apart; a selfcheck of 200 samples of the
    distances both runs share; and ``UnorderedKNN`` with ``engine="pallas"`` at D=128 on
    phase 10b's points (the flat route of the ring kernel), byte-equal to
-   the ``auto`` run there; stages and peak device memory of each, and each
-   kernel against its bounds on the pairs it scored;
+   the ``auto`` run there; stages and peak device memory of each, each
+   kernel against its bounds on the pairs it scored, and the seconds of
+   each step of the phase on the host's clock;
 11. the f32 ring kernel (with its plan, and its wrapper's layout time
    apart) and the bf16 (wgmma) kernel at phase 10's shape, against both
    bounds and their share of each, and their plain versions' on 16 query
@@ -125,10 +126,29 @@ Phases, each fatal on failure (exit code 1, no result line):
    byte-equal to the host merge and ids equal up to exact ties, and
    phase 10b's D=128 points in chunks of 65,536 in f32 (ring route) and
    bf16 (``wgmma``), byte-equal to phase 10b's unchunked run;
+14. the native out-of-core IO (``io/native.py``, built with g++ into
+   ``build/`` at first use; the phase fails without it) and a job the card
+   can run only in chunks, all from one raw ``.float3`` file of 33,554,432
+   seeded uniform points written in slabs (``out_of_core_phases``): 14a
+   ``read_file_portion`` (native, threaded) and ``np.fromfile`` give equal
+   bytes, both timed; 14b ``partition_main -n 8`` in a child process, a
+   baseline child importing the same modules and a child running
+   ``partition_float3_file_np``, started together through a small
+   intermediate process each (so that ``ru_maxrss`` does not start from
+   this script's peak), each printing its peak RSS: native and
+   numpy parts byte-equal, the native child under the baseline plus a
+   quarter of the file; 14c ``prepartitioned_main`` on the 8 native parts
+   at k=100 (``--query-chunk 524288`` a shard: chunks of 4,194,304 rows,
+   ``--selfcheck 1000``) and ``unordered_main`` on the joined parts with
+   ``--query-chunk 4194304``: rank files byte-equal to the unordered
+   output, every launch on the D=3 kernel, peak device memory and stages
+   printed; 14d one 4,194,304-row chunk against the whole 33.5M-point side
+   on the D=3 kernel (one launch, timed), its first and last 16 query
+   buckets bit for bit against the plain version;
 12. phase 10's f32 R=1 run again under ``profile_trace``, byte-equal to
    it: the card's busy share of the run and its top kernels by device
-   time (last, after phase 13, so that no timing runs in a process that
-   has been profiled).
+   time (last, after phases 13 and 14, so that no timing runs in a
+   process that has been profiled).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -139,10 +159,13 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -178,6 +201,12 @@ N_WALL, WALL_K = 8_388_608, 100  # phase 13a: the candidate rows' memory wall
 WALL_CHUNK = 1_048_576           # phase 13a: 8 chunks
 CKPT_CHUNK = 65_536              # phase 13b: 4 chunks of a 250,000-row shard
 MERGE_CHUNK = 1_000              # phase 13c: query buckets of 4 x 1,000 rows
+N_BIG, BIG_K = 33_554_432, 100   # phase 14: one raw file, run only chunked
+BIG_PARTS = 8                    # phase 14b: Morton parts of that file
+BIG_CHUNK = 4_194_304            # phase 14c: query rows a chunk (8 chunks)
+# the pre-partitioned CLI's --query-chunk counts rows of each shard: 8
+# parts x 524,288 rows make chunks of BIG_CHUNK rows, as the unordered run
+BIG_PART_CHUNK = BIG_CHUNK // BIG_PARTS
 
 
 def fail(msg: str) -> None:
@@ -193,6 +222,15 @@ def say(msg: str) -> None:
     if msg.startswith("[phase "):
         PHASE_STARTS.append((msg[7:msg.index("]")], time.perf_counter()))
     print(msg, flush=True)
+
+
+@contextmanager
+def timed_step(steps: dict, name: str):
+    """Stores the seconds of its block, on the host's clock, in
+    ``steps[name]``."""
+    t0 = time.perf_counter()
+    yield
+    steps[name] = time.perf_counter() - t0
 
 
 def seeded_points(kind: str, n: int, seed: int):
@@ -414,6 +452,42 @@ def check_traversal(name, state, q, pc, pts, *, skip_self, group,
     return err
 
 
+def chunk_sides(pts_np, num_shards, k, chunk_rows):
+    """``ring_knn_chunked``'s pieces on the card for ``pts_np`` in
+    ``num_shards`` slabs, built by its own helpers: (its ``RingFns``, the
+    resident sides, the point group, the last chunk's number, and a
+    function of ``c`` giving chunk ``c`` of every slab as ``chunk_slabs``
+    does)."""
+    from mpi_cuda_largescaleknn_torch.models.sharding import (
+        pad_and_flatten,
+        slab_bounds,
+    )
+    from mpi_cuda_largescaleknn_torch.parallel.ring import (
+        _effective_group,
+        _make_ring_fns,
+        _sharded_input,
+        chunk_slabs,
+        resolve_bucket_size,
+    )
+
+    bnds = slab_bounds(len(pts_np), num_shards)
+    flat, ids, _counts, npad = pad_and_flatten(
+        [pts_np[b:e] for b, e in bnds], [b for b, _ in bnds],
+        pts_np.shape[1])
+    pts, ids_t, slabs = _sharded_input(flat, ids, num_shards, "cuda")
+    del flat, ids
+    bucket = resolve_bucket_size(0)
+    group = _effective_group(0, npad, bucket)
+    fns = _make_ring_fns(k, float("inf"), "pallas_tiled", 2048, 2048,
+                         bucket, num_shards, point_group=group)
+    resident = [fns.shard_init_fn(p, i)[1] for p, i in slabs]
+    pts3 = pts.view(num_shards, npad, -1)
+    ids2 = ids_t.view(num_shards, npad)
+    last = -(-npad // chunk_rows) - 1
+    return (fns, resident, group, last,
+            lambda c: chunk_slabs(pts3, ids2, c, chunk_rows))
+
+
 def chunk_cases():
     """Phase 3e: the kernels on the query sides of ``ring_knn_chunked``,
     built by its own helpers, against their plain versions on the same
@@ -430,42 +504,13 @@ def chunk_cases():
     max abs difference of the finite d2 entries."""
     import torch
 
-    from mpi_cuda_largescaleknn_torch.models.sharding import (
-        pad_and_flatten,
-        slab_bounds,
-    )
     from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
-    from mpi_cuda_largescaleknn_torch.parallel.ring import (
-        _effective_group,
-        _make_ring_fns,
-        _sharded_input,
-        chunk_bucket,
-        chunk_slabs,
-        resolve_bucket_size,
-    )
-
-    def sides(pts_np, num_shards, k, chunk_rows):
-        # ring_knn_chunked's resident sides and a chunk maker
-        bnds = slab_bounds(len(pts_np), num_shards)
-        flat, ids, _counts, npad = pad_and_flatten(
-            [pts_np[b:e] for b, e in bnds], [b for b, _ in bnds],
-            pts_np.shape[1])
-        pts, ids_t, slabs = _sharded_input(flat, ids, num_shards, "cuda")
-        bucket = resolve_bucket_size(0)
-        group = _effective_group(0, npad, bucket)
-        fns = _make_ring_fns(k, float("inf"), "pallas_tiled", 2048, 2048,
-                             bucket, num_shards, point_group=group)
-        resident = [fns.shard_init_fn(p, i)[1] for p, i in slabs]
-        pts3 = pts.view(num_shards, npad, -1)
-        ids2 = ids_t.view(num_shards, npad)
-        last = -(-npad // chunk_rows) - 1
-        return (fns, resident, group, last,
-                lambda c: chunk_slabs(pts3, ids2, c, chunk_rows))
+    from mpi_cuda_largescaleknn_torch.parallel.ring import chunk_bucket
 
     errs = []
     uni = seeded_points("uniform", HD_SUB, SEED + 9)   # phase 13c's points
     every = torch.from_numpy(uni).cuda()
-    _fns, resident, group, last, chunk = sides(uni, 4, 8, MERGE_CHUNK)
+    _fns, resident, group, last, chunk = chunk_sides(uni, 4, 8, MERGE_CHUNK)
     for c, shard in ((0, 0), (last, 3)):
         lo, hi, qp, _qi = chunk(c)
         rows = qp.view(-1, 3)
@@ -491,7 +536,7 @@ def chunk_cases():
              "ring"),
             ("bf16 D=128", clustered_nd(32_000, 128, SEED + 41), 10, "bf16",
              "wgmma")):
-        fns, resident, group, last, chunk = sides(pts_np, 1, k, 16_384)
+        fns, resident, group, last, chunk = chunk_sides(pts_np, 1, k, 16_384)
         every = torch.from_numpy(pts_np).cuda()
         for c in sorted({0, last}):
             lo, hi, qp, qi = chunk(c)
@@ -522,14 +567,15 @@ def run_cli(args, timeout=900, module="unordered_main"):
     return timings, proc.stdout
 
 
-def report_run(label, t, kernel_key):
+def report_run(label, t, kernel_key, selfcheck=True):
     """Print a CLI run's timings: run time, launches, memory and every
     timed stage in the order it ran."""
     say(f"  {label}: run {t['run_seconds']:.3f} s, "
         f"{t['queries_per_second']:.0f} queries/s, knn_tiled launches "
         f"{t['knn_tiled_launches']}, knn_bf launches {t['knn_bf_launches']}, "
         f"peak device memory {t['peak_device_bytes'] / 2**20:.1f} MiB, "
-        f"process {t['process_seconds']:.1f} s, selfcheck OK")
+        f"process {t['process_seconds']:.1f} s"
+        f"{', selfcheck OK' if selfcheck else ''}")
     say("    stages: " + ", ".join(
         f"{name} {v['seconds']:.4f} s" for name, v in t.items()
         if isinstance(v, dict) and "seconds" in v))
@@ -1580,6 +1626,255 @@ def chunked_phases(pts_np, parts_list, auto8, sub, d_sub):
     return out, runs
 
 
+# Phase 14b's children: each imports the same modules and loads the native
+# library, then partitions the file (or not) and prints its peak RSS
+RSS_CHILD = """
+import json, resource, sys, time
+from mpi_cuda_largescaleknn_torch.cli import partition_main
+from mpi_cuda_largescaleknn_torch.io import native, partition_file
+mode, src, prefix, parts = sys.argv[1:5]
+loaded = native.available()
+t0 = time.perf_counter()
+if mode == "native":
+    partition_main.main([src, "-n", parts, "-o", prefix])
+elif mode == "numpy":
+    partition_file.partition_float3_file_np(src, int(parts), prefix)
+print(json.dumps({"native": loaded, "seconds": time.perf_counter() - t0,
+                  "max_rss_kib": resource.getrusage(
+                      resource.RUSAGE_SELF).ru_maxrss}))
+"""
+# A process exec'd straight from this one starts with this one's peak as
+# its ru_maxrss (the peak of the memory it replaced at exec); one started
+# by a small intermediate process starts from that process's peak
+VIA = ("import subprocess, sys; "
+       "sys.exit(subprocess.run(sys.argv[1:]).returncode)")
+
+
+def rss_children(src, prefix):
+    """Phase 14b's three children (baseline, native, numpy) on ``src``,
+    started together, each through a small intermediate process; returns
+    {mode: its JSON line (``native``, ``seconds``, ``max_rss_kib``)} and
+    the native child's partition_main lines. Waits for all three before
+    it fails on any."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs = {mode: subprocess.Popen(
+        [sys.executable, "-c", VIA, sys.executable, "-c", RSS_CHILD, mode,
+         str(src), f"{prefix}_{mode}", str(BIG_PARTS)], cwd=ROOT, env=env,
+        text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        start_new_session=True)
+        for mode in ("baseline", "native", "numpy")}
+    done = {}
+    try:
+        for mode, proc in procs.items():
+            done[mode] = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        for proc in procs.values():
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        fail("14b: a partition child ran past 600 s")
+    out, lines = {}, []
+    for mode, (stdout, stderr) in done.items():
+        if procs[mode].returncode != 0:
+            fail(f"14b: the {mode} child exited {procs[mode].returncode}:\n"
+                 f"{stdout[-2000:]}\n{stderr[-3000:]}")
+        out[mode] = json.loads(stdout.strip().splitlines()[-1])
+        if mode == "native":
+            lines = stdout.strip().splitlines()[:-1]
+    return out, lines
+
+
+def bucket_witness(name, state, q, pc, group):
+    """The D=3 traversal kernel on the whole query side ``q`` (one launch
+    at the main path's shape) against its plain version on the first and
+    the last ``PLAIN_BUCKETS`` query buckets, cold and without
+    ``skip_self``: d2 and ids bitwise, visits at most the plain count (a
+    bucket's rows split over blocks). Returns (the max abs difference of
+    the finite d2 entries, the launch's milliseconds by CUDA events: the
+    wrapper's call, which builds the visit schedule, and within it the
+    point layout ``d3_lanes`` and the kernel)."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.core.types import CandidateState
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        knn_update_tiled_cuda,
+        knn_update_tiled_plain,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.partition import BucketedPoints
+
+    before = route_counts()
+    events = knn_update_tiled_cuda.layout_events = []
+    call_ms, (got, got_vis) = cuda_ms(lambda: knn_update_tiled_cuda(
+        state, q, pc, skip_self=False, self_group=group, with_stats=True))
+    knn_update_tiled_cuda.layout_events = None
+    (a, b, c), = events
+    ms = {"call": call_ms, "d3_lanes": a.elapsed_time(b),
+          "kernel": b.elapsed_time(c)}
+    say(f"  {name}: wrapper {ms['call']:.3f} ms (schedule included), "
+        f"d3_lanes {ms['d3_lanes']:.3f} ms, kernel {ms['kernel']:.3f} ms")
+    ran = {key: n - before[key] for key, n in route_counts().items()}
+    if ran != {key: int(key == "d3") for key in ran}:
+        fail(f"14d: {name}: launches {ran}, not one on the D=3 kernel")
+    nb, s = q.ids.shape
+    errs = []
+    for b0 in (0, nb - PLAIN_BUCKETS):
+        sl = slice(b0, b0 + PLAIN_BUCKETS)
+        rows = slice(b0 * s, (b0 + PLAIN_BUCKETS) * s)
+        want, want_vis = knn_update_tiled_plain(
+            CandidateState(state.dist2[rows], state.idx[rows]),
+            BucketedPoints(q.pts[sl], q.ids[sl], q.lower[sl], q.upper[sl],
+                           q.pos[sl]),
+            pc, skip_self=False, self_group=group, with_stats=True)
+        g_d2, g_idx = got.dist2[rows], got.idx[rows]
+        ok = (torch.equal(g_d2, want.dist2) and torch.equal(g_idx, want.idx)
+              and bool((got_vis[sl] <= want_vis).all()))
+        errs.append(max_abs_err(g_d2, want.dist2))
+        say(f"  {name}: buckets {b0}..{b0 + PLAIN_BUCKETS - 1} of {nb} "
+            f"(rows {rows.start}..{rows.stop - 1}): visits "
+            f"{int(got_vis[sl].sum())} (plain {int(want_vis.sum())}, rows "
+            f"split) max_abs_err={errs[-1]} "
+            f"{'bit-equal' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"14d: {name}: the kernel disagrees with its plain version")
+    return max(errs), ms
+
+
+def out_of_core_phases(smi):
+    """Phase 14: the native out-of-core IO feeding a job the card can run
+    only in chunks, all from one raw ``.float3`` file of ``N_BIG`` seeded
+    uniform points (14a the read, 14b the partition out of core, 14c both
+    pipelines at k=``BIG_K`` in chunks of ``BIG_CHUNK`` rows, 14d the plain
+    witness at the new shape). Returns (details, the CLI runs whose
+    launches count)."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.io import native
+    from mpi_cuda_largescaleknn_torch.io.reader import read_file_portion
+
+    out, runs, steps = {}, {}, {}
+    big = WORK / "big"
+    big.mkdir(parents=True, exist_ok=True)
+    src = big / "pts.float3"
+    file_bytes = N_BIG * 12
+
+    say(f"  14a: {N_BIG} seeded uniform points, one {file_bytes}-byte "
+        ".float3 file written in slabs")
+    with timed_step(steps, "data"):
+        rng = np.random.default_rng(SEED + 11)
+        with open(src, "wb") as f:
+            for lo in range(0, N_BIG, BIG_CHUNK):
+                rng.random((min(BIG_CHUNK, N_BIG - lo), 3),
+                           dtype=np.float32).tofile(f)
+    with timed_step(steps, "native build"):
+        if not native.available():
+            fail("14a: no g++ here: the native IO library cannot be built")
+    lib = native.build_native()
+    with timed_step(steps, "native read"):
+        got, _, total = read_file_portion(str(src), 0, 1)
+    with timed_step(steps, "numpy read"):
+        want = np.fromfile(src, dtype=np.float32).reshape(-1, 3)
+    if total != N_BIG or got.tobytes() != want.tobytes():
+        fail("14a: the native read differs from np.fromfile")
+    del got, want
+    out["read"] = {"native_seconds": steps["native read"],
+                   "numpy_seconds": steps["numpy read"],
+                   "library": lib.name}
+    say(f"  14a: {lib.name} built or loaded in {steps['native build']:.2f} "
+        f"s; read_file_portion (native, 8 threads) "
+        f"{steps['native read']:.3f} s, np.fromfile "
+        f"{steps['numpy read']:.3f} s, equal bytes ({smi})")
+
+    say(f"  14b: partition_main -n {BIG_PARTS} out of core, each child's "
+        "peak RSS")
+    with timed_step(steps, "partition children"):
+        kids, lines = rss_children(src, big / "p")
+    say("  " + " ".join(line.split(" ->")[0] for line in lines
+                        if line.startswith("#")))
+    if not all(kid["native"] for kid in kids.values()):
+        fail("14b: a child could not load the native IO library")
+    for r in range(BIG_PARTS):
+        if Path(f"{big / 'p_native'}_{r:06d}.float3").read_bytes() != \
+                Path(f"{big / 'p_numpy'}_{r:06d}.float3").read_bytes():
+            fail(f"14b: part {r} differs between the native and numpy paths")
+    base = kids["baseline"]["max_rss_kib"] * 1024
+    above = {m: kids[m]["max_rss_kib"] * 1024 - base
+             for m in ("native", "numpy")}
+    out["partition"] = {**kids, "rss_above_baseline": above,
+                        "file_bytes": file_bytes}
+    say(f"  14b: peak RSS (ru_maxrss) baseline {base / 2**20:.1f} MiB; "
+        f"native {above['native'] / 2**20:+.1f} MiB in "
+        f"{kids['native']['seconds']:.2f} s; numpy "
+        f"{above['numpy'] / 2**20:+.1f} MiB in "
+        f"{kids['numpy']['seconds']:.2f} s (the three children together); "
+        f"parts byte-equal ({smi})")
+    if above["native"] >= file_bytes / 4:
+        fail(f"14b: the native partition took {above['native']} B above the "
+             f"baseline, not under a quarter of the {file_bytes}-byte file")
+    # the numpy child's parts are no longer needed
+    for r in range(BIG_PARTS):
+        Path(f"{big / 'p_numpy'}_{r:06d}.float3").unlink()
+
+    say(f"  14c: both pipelines at k={BIG_K}, chunks of {BIG_CHUNK} query "
+        "rows")
+    torch.cuda.empty_cache()    # the children need the card's memory
+    lst = big / "p_native.txt"
+    label = (f"14c pre-partitioned CLI, {BIG_PARTS} parts, --query-chunk "
+             f"{BIG_PART_CHUNK} (a shard)")
+    with timed_step(steps, "pre-partitioned CLI"):
+        runs[label], pre_bytes = prepartitioned_run(
+            label, lst, big / "pre", BIG_K, "auto", BIG_PARTS,
+            extra=["--query-chunk", str(BIG_PART_CHUNK)])
+    say(f"    rounds_per_chunk {runs[label]['rounds_per_chunk']}")
+    joined = big / "joined.float3"
+    with timed_step(steps, "joined file"):
+        with open(joined, "wb") as f:
+            for name in lst.read_text().split():
+                with open(name, "rb") as part:
+                    shutil.copyfileobj(part, f, 1 << 24)
+    label = f"14c unordered CLI on the joined parts, --query-chunk {BIG_CHUNK}"
+    with timed_step(steps, "unordered CLI"):
+        t, _ = run_cli([str(joined), "-o", str(big / "joined.float"), "-k",
+                        str(BIG_K), "--query-chunk", str(BIG_CHUNK)])
+    report_run(label, t, "knn_tiled_launches", selfcheck=False)
+    check_d3_route(label, t)
+    runs[label] = t
+    d = np.fromfile(big / "joined.float", dtype=np.float32)
+    if d.shape != (N_BIG,) or not np.all(np.isfinite(d)) or np.any(d <= 0):
+        fail(f"14c: {label}: output has shape {d.shape} or non-finite/zero "
+             "values")
+    if d.tobytes() != pre_bytes:
+        fail("14c: the pre-partitioned rank files differ from the unordered "
+             "CLI on the joined parts")
+    del d, pre_bytes
+    out["runs"] = runs
+    say(f"  14c: rank files == unordered CLI on the joined parts, byte for "
+        f"byte; peak device memory "
+        + " / ".join(f"{r['peak_device_bytes']} B" for r in runs.values())
+        + f" ({smi})")
+
+    say(f"  14d: the D=3 kernel on one chunk of {BIG_CHUNK} rows against the "
+        f"whole {N_BIG}-point side, k={BIG_K}, vs plain")
+    with timed_step(steps, "witness"):
+        pts, _, _ = read_file_portion(str(joined), 0, 1)
+        fns, resident, group, _last, chunk = chunk_sides(pts, 1, BIG_K,
+                                                         BIG_CHUNK)
+        del pts
+        _lo, _hi, qp, qi = chunk(0)
+        q, cold = fns.query_init_fn(qp[0], qi[0])
+        del qp, qi
+        out["witness_max_abs_err"], out["witness_ms"] = bucket_witness(
+            f"chunk 0 ({q.num_buckets} buckets of {q.bucket_size}) vs the "
+            f"side G{group} ({resident[0].num_buckets} buckets of "
+            f"{resident[0].bucket_size}) k={BIG_K} cold", cold, q,
+            resident[0], group)
+        del fns, resident, chunk, q, cold
+        torch.cuda.empty_cache()
+    out["step_seconds"] = steps
+    say("  phase 14 steps: " + ", ".join(f"{name} {sec:.1f} s"
+                                         for name, sec in steps.items()))
+    return out, runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -1965,10 +2260,12 @@ def main() -> int:
         f"{HD_SUB} points")
     sub = hd[:HD_SUB]
     names = []
+    t0 = time.perf_counter()
     for r in range(4):
         name = parts / f"hd_{r}.npy"
         np.save(name, sub[r * HD_SUB // 4:(r + 1) * HD_SUB // 4])
         names.append(str(name))
+    say(f"  .npy parts written in {time.perf_counter() - t0:.1f} s")
     hd_list = parts / "hd.txt"
     hd_list.write_text("\n".join(names) + "\n")
     pre["highd_auto_k10"], hd_joined = prepartitioned_run(
@@ -1989,13 +2286,17 @@ def main() -> int:
     # -- phase 10c ----------------------------------------------------------
     say(f"[phase 10c] main paths above RESIDENT_MAX_DP4: {HD_SUB} points at "
         f"D={GIST_DIM}; the flat route at D={HD_DIM}")
-    gist = clustered_nd(HD_SUB, GIST_DIM, SEED + 6)
+    steps = {}    # seconds of each step of the phase, on the host's clock
+    with timed_step(steps, "data"):
+        gist = clustered_nd(HD_SUB, GIST_DIM, SEED + 6)
     label = f"f32 R=1 D={GIST_DIM}"
-    t_gist, d_gist, i_gist = unordered_run(label, gist, HD_K, 1, "f32")
+    with timed_step(steps, "f32 run"):
+        t_gist, d_gist, i_gist = unordered_run(label, gist, HD_K, 1, "f32")
     hd_runs[label] = t_gist
     check_ring_route(f"phase 10c: {label}", t_gist, stream=True)
     label = f"bf16 R=1 D={GIST_DIM}"
-    t_gbf, d_gbf, i_gbf = unordered_run(label, gist, HD_K, 1, "bf16")
+    with timed_step(steps, "bf16 run"):
+        t_gbf, d_gbf, i_gbf = unordered_run(label, gist, HD_K, 1, "bf16")
     hd_runs[label] = t_gbf
     n = t_gbf["knn_tiled_mxu_launches"]
     if n < 1 or t_gbf["knn_tiled_wgmma_stream_launches"] != n:
@@ -2006,22 +2307,25 @@ def main() -> int:
     if rows:
         fail(f"phase 10c: {label}: distances differ from the f32 run in "
              f"{rows} rows")
-    gist_pts = torch.from_numpy(gist).cuda()
-    ties = tie_rows(torch.from_numpy(i_gbf).cuda(),
-                    torch.from_numpy(i_gist).cuda(), gist_pts, gist_pts)
-    del gist_pts
+    with timed_step(steps, "tie_rows"):
+        gist_pts = torch.from_numpy(gist).cuda()
+        ties = tie_rows(torch.from_numpy(i_gbf).cuda(),
+                        torch.from_numpy(i_gist).cuda(), gist_pts, gist_pts)
+        del gist_pts
     t_gbf["id_rows_differing_by_ties"] = ties
     say(f"  all {n} bf16 launches on the streamed route; distances "
         f"byte-equal to the f32 run; neighbor ids of {ties} rows differ only "
         "among equally distant points")
     # one selfcheck holds both runs' distances, which are the same bytes
-    checked = verify_sample(gist, d_gbf, HD_K, 200)
+    with timed_step(steps, "selfcheck"):
+        checked = verify_sample(gist, d_gbf, HD_K, 200)
     say(f"  selfcheck OK ({checked} samples) of the distances both runs "
         "share")
     del gist
     label = f"--engine pallas f32 R=1 on the first {HD_SUB}"
-    t_flat, d_flat, _ = unordered_run(label, sub, HD_K, 1, "f32",
-                                      engine="pallas")
+    with timed_step(steps, "flat run"):
+        t_flat, d_flat, _ = unordered_run(label, sub, HD_K, 1, "f32",
+                                          engine="pallas")
     hd_runs[label] = t_flat
     if t_flat["knn_bf_ring_launches"] != t_flat["knn_bf_launches"] or \
             t_flat["knn_tiled_launches"]:
@@ -2058,6 +2362,9 @@ def main() -> int:
         t["kernel_bounds"] = bounds(t["kernel_ms"], *yard, 0)
         say(f"  {what} D={dim}: kernel {t['kernel_ms']:.3f} ms on {pairs} "
             f"pairs (bucket rows x lanes): {bound_txt(t['kernel_bounds'])}")
+    say("  phase 10c steps: " + ", ".join(f"{name} {sec:.1f} s"
+                                          for name, sec in steps.items()))
+    details["phase10c_step_seconds"] = steps
 
     # -- phase 11 -----------------------------------------------------------
     say(f"[phase 11] the high-D kernels' time at phase 10's shape")
@@ -2104,6 +2411,11 @@ def main() -> int:
     details["chunked"], chunk_runs = chunked_phases(pts_np, lst, auto8, sub,
                                                     d_sub)
 
+    # -- phase 14 -----------------------------------------------------------
+    say(f"[phase 14] the native out-of-core IO and a job the card runs only "
+        f"in chunks: {N_BIG} points from one raw file, k={BIG_K}")
+    details["out_of_core"], ooc_runs = out_of_core_phases(smi)
+
     # -- phase 12 -----------------------------------------------------------
     say("[phase 12] phase 10's f32 R=1 run again under the profiler")
     label = "f32 R=1 under the profiler"
@@ -2115,7 +2427,8 @@ def main() -> int:
     check_ring_route(f"phase 12: {label}", t)
 
     main_runs = list(runs.values()) + list(pre.values()) \
-        + list(hd_runs.values()) + list(chunk_runs.values())
+        + list(hd_runs.values()) + list(chunk_runs.values()) \
+        + list(ooc_runs.values())
 
     def launched(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -2131,7 +2444,8 @@ def main() -> int:
         # knn_tiled_d3_kernel, timed in phase 6
         entry("knn_tiled", SOURCE, REPLACES, launched("knn_tiled_d3_launches"),
               (details["phase3_max_abs_err"], timed[8]["max_abs_err"],
-               timed[100]["max_abs_err"]), timed[8]),
+               timed[100]["max_abs_err"],
+               details["out_of_core"]["witness_max_abs_err"]), timed[8]),
         entry("knn_tiled_nd_ring", SOURCE, RING_REPLACES,
               launched("knn_tiled_ring_launches"),
               (details["phase3c_max_abs_err"],

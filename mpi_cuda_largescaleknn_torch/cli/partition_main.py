@@ -5,7 +5,10 @@
         -n 8 -o parts/run [--bits B]
 
 writes ``parts/run_%06d.float3`` (near-equal sizes, Morton-coherent) and
-``parts/run.txt`` (the file list). In memory, with numpy; no card needed.
+``parts/run.txt`` (the file list). Out of core: the native library
+streams the file in three passes in O(8^B) memory (~40 MB at the default
+B = 7), whatever its size; numpy, in memory, only where there is no
+``g++``. No card needed.
 """
 
 from __future__ import annotations

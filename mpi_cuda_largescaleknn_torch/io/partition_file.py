@@ -2,10 +2,13 @@
 
 The reference's pre-partitioned pipeline needs one spatially coherent file
 per rank but ships no tool to make them. ``partition_float3_file`` is that
-tool: Morton (Z-order) binning with equal-count cuts, in memory with numpy.
-Its parts are byte-identical to the JAX package's numpy path (the same
-float32 quantization, the same cut positions). The JAX package's native
-out-of-core streaming partitioner is not ported (ROADMAP.md Queue 1).
+tool: Morton (Z-order) binning with equal-count cuts. It streams the file
+through the native library (``io/native.py`` ``native_partition``: three
+passes, O(8^bits) memory, any input size) where ``g++`` exists;
+``partition_float3_file_np`` is its in-memory numpy twin (about 10x the
+file in memory), taken only where there is no ``g++``. Both give the same
+part files, byte for byte, as the JAX package's two paths (the same
+float32 quantization, the same cut positions).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import os
 
 import numpy as np
 
+from mpi_cuda_largescaleknn_torch.io import native
 from mpi_cuda_largescaleknn_torch.utils.math import _part1by2
 
 
@@ -70,17 +74,26 @@ def partition_float3_file_np(in_path: str, num_parts: int, out_prefix: str,
 
 
 def partition_float3_file(in_path: str, num_parts: int, out_prefix: str,
-                          bits_per_dim: int = 7) -> np.ndarray:
-    """``partition_float3_file_np`` with its arguments checked, plus
-    ``<out_prefix>.txt`` listing the part files (the pre-partitioned CLI's
-    input). Returns the per-part counts."""
+                          bits_per_dim: int = 7,
+                          write_file_list: bool = True) -> np.ndarray:
+    """Split ``in_path`` into ``num_parts`` spatially coherent
+    ``<out_prefix>_%06d.float3`` files, out of core where ``g++`` exists
+    (a native run that fails raises: the in-memory twin would need ~10x
+    the file at exactly the scale the native path exists for). With
+    ``write_file_list``, also ``<out_prefix>.txt`` listing the parts (the
+    pre-partitioned CLI's input). Returns the per-part counts."""
     if not 1 <= bits_per_dim <= 10:
         raise ValueError(f"bits_per_dim must be in [1, 10], got {bits_per_dim}")
     if num_parts < 1:
         raise ValueError(f"num_parts must be >= 1, got {num_parts}")
-    counts = partition_float3_file_np(in_path, num_parts, out_prefix,
-                                      bits_per_dim)
-    with open(f"{out_prefix}.txt", "w") as f:
-        for r in range(num_parts):
-            f.write(f"{out_prefix}_{r:06d}.float3\n")
+    if native.available():
+        counts = native.native_partition(in_path, num_parts, out_prefix,
+                                         bits_per_dim)
+    else:
+        counts = partition_float3_file_np(in_path, num_parts, out_prefix,
+                                          bits_per_dim)
+    if write_file_list:
+        with open(f"{out_prefix}.txt", "w") as f:
+            for r in range(num_parts):
+                f.write(f"{out_prefix}_{r:06d}.float3\n")
     return counts

@@ -4,7 +4,8 @@
 (``readFilePortion<float3>``). A file-of-filenames (the pre-partitioned
 pipeline's input) holds one path per line; every non-empty line counts
 (the reference drops a last line without a trailing newline, a latent bug
-rather than a contract).
+rather than a contract). Slabs are read by the native library's threaded
+positioned reads (``io/native.py``) where ``g++`` exists, else by numpy.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from mpi_cuda_largescaleknn_torch.io import native
 
 _RECORD_BYTES = 12  # one float3
 
@@ -24,6 +27,11 @@ def read_file_portion(path: str, rank: int, size: int):
     num_data = os.path.getsize(path) // _RECORD_BYTES
     begin = num_data * rank // size
     end = num_data * (rank + 1) // size
+    if native.available():
+        # a native read that runs and fails raises: re-reading with numpy
+        # would hide a short read
+        return native.native_read_slab(path, begin, end - begin), begin, \
+            num_data
     with open(path, "rb") as f:
         f.seek(begin * _RECORD_BYTES)
         pts = np.fromfile(f, dtype=np.float32, count=(end - begin) * 3)

@@ -5,7 +5,9 @@ seconds without PyTorch's headers. The shared library goes to ``build/``
 at the root of the checkout, named by a hash of the source, the shared
 ``csrc/*.cuh`` headers and the flags,
 so an edited source rebuilds and an unchanged one loads at once. Nothing is
-built at import time: the first launch builds.
+built at import time: the first launch builds. The naming and the atomic
+compile (``library_path``, ``compile_library``) serve the native IO
+library's ``g++`` build too (``io/native.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,34 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
+def library_path(name: str, text: bytes, flags) -> Path:
+    """``build/<name>-<hash>.so``: named by a hash of the source ``text``
+    and the compiler ``flags``, so an edited source or flag rebuilds."""
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def compile_library(compiler: str, flags, src: Path, lib: Path) -> str:
+    """Compile ``src`` into ``lib`` through a private temporary file
+    renamed into place, so a concurrent loader or compile sees all of it
+    or none. Returns the compiler's output; raises RuntimeError with it
+    when the compiler fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([compiler, *flags, "-o", tmp, str(src)],
+                              capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{Path(compiler).name} failed on "
+                               f"{src.name}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return proc.stdout + proc.stderr
+
+
 def build_library(name: str) -> tuple[Path, str, float]:
     """Compile ``csrc/<name>.cu`` unless its build is current. Returns
     (library path, compiler output, seconds spent compiling — 0 when the
@@ -50,27 +80,12 @@ def build_library(name: str) -> tuple[Path, str, float]:
     # the shared headers count too: an edited header rebuilds every kernel
     text = src.read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    lib = BUILD_DIR / f"{name}-{digest}.so"
+    lib = library_path(name, text, NVCC_FLAGS)
     log = lib.with_suffix(".log")
     if lib.exists():
         return lib, log.read_text() if log.exists() else "", 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)   # atomic: a concurrent loader sees all or none
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    out = proc.stdout + proc.stderr
+    out = compile_library(_nvcc(), NVCC_FLAGS, src, lib)
     log.write_text(out)
     return lib, out, time.perf_counter() - t0
 

@@ -326,6 +326,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import mpi_cuda_largescaleknn_torch.ops.knn_tiled\n"
         "import mpi_cuda_largescaleknn_torch.convert\n"
         "import mpi_cuda_largescaleknn_torch.utils.cuda_build\n"
+        "import mpi_cuda_largescaleknn_torch.io.native\n"
         "bad = [m for m in set(sys.modules) - before"
         " if m.split('.')[0] in ('jax', 'jaxlib',"
         " 'mpi_cuda_largescaleknn_tpu')]\n"
