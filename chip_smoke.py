@@ -165,7 +165,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stderr, redirect_stdout
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -207,6 +207,10 @@ BIG_CHUNK = 4_194_304            # phase 14c: query rows a chunk (8 chunks)
 # the pre-partitioned CLI's --query-chunk counts rows of each shard: 8
 # parts x 524,288 rows make chunks of BIG_CHUNK rows, as the unordered run
 BIG_PART_CHUNK = BIG_CHUNK // BIG_PARTS
+N_ENGINE = 131_072               # phase 15b-d: the flat engines' points
+N_ENGINE_HD = 65_536             # phase 15a-b: D=128 (phase 10b's first;
+                                 # its 262,144 took the twin 104.5 s in f32)
+XLA_ENGINES = ("tiled", "bruteforce", "tree")
 
 
 def fail(msg: str) -> None:
@@ -339,7 +343,8 @@ def route_counts() -> dict:
 
 
 def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
-                 group=2, warm=True, score_dtype="f32", route=None):
+                 group=2, warm=True, score_dtype="f32", route=None,
+                 canonical=False):
     """Traversal kernel vs plain on the card for one input (f32: the D=3
     or the ring kernel; bf16: the tensor-core kernel, whose
     rows must also equal the f32 kernel's up to the order of exact ties);
@@ -362,17 +367,19 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
              init_candidates(q.num_buckets * q.bucket_size, k, radius,
                              device=pts.device))
     return check_traversal(name, state, q, pc, pts, skip_self=warm,
-                           group=group, score_dtype=score_dtype, route=route)
+                           group=group, score_dtype=score_dtype, route=route,
+                           canonical=canonical)
 
 
 def check_traversal(name, state, q, pc, pts, *, skip_self, group,
-                    score_dtype="f32", route=None):
+                    score_dtype="f32", route=None, canonical=False):
     """The traversal kernel vs its plain version on the card: rows
     ``state`` of the query side ``q`` folded with the point side ``pc``
     (``pts`` indexed by its ids). d2 bitwise, visits equal (at most the
     plain count where a bucket is split over blocks), ids equal (bf16: up
-    to exact ties, and d2 equal to the f32 kernel's), the launch on the
-    ``route`` planned. Returns the max abs difference of the finite d2
+    to exact ties, and d2 equal to the f32 kernel's; with ``canonical``,
+    both sides' ``canonical_ties``, ids equal in bf16 too), the launch on
+    the ``route`` planned. Returns the max abs difference of the finite d2
     entries (0.0 when bitwise equal)."""
     import torch
 
@@ -390,7 +397,7 @@ def check_traversal(name, state, q, pc, pts, *, skip_self, group,
     dim = q.pts.shape[-1]
     k = state.dist2.shape[1]
     kw = dict(skip_self=skip_self, self_group=group, with_stats=True,
-              score_dtype=score_dtype)
+              score_dtype=score_dtype, canonical_ties=canonical)
     want, want_vis = knn_update_tiled_plain(state, q, pc, **kw)
     before = route_counts()
     got, got_vis = knn_update_tiled_cuda(state, q, pc, **kw)
@@ -425,15 +432,16 @@ def check_traversal(name, state, q, pc, pts, *, skip_self, group,
                   else (got_vis <= want_vis).all())
     ok = torch.equal(got.dist2, want.dist2) and same_inf and vis_ok
     ties = ""
-    if score_dtype == "f32":
+    if score_dtype == "f32" or canonical:
         ok = ok and torch.equal(got.idx, want.idx)
-    elif ok:
+    if score_dtype != "f32" and ok:
         # under bf16 equal exact distances keep the order of their
         # approximate scores, whose last bits depend on the order of
         # accumulation: ids may differ among exact ties, nowhere else
         qrows = q.pts.reshape(-1, dim)
         exact = knn_update_tiled_cuda(state, q, pc, skip_self=skip_self,
-                                      self_group=group)
+                                      self_group=group,
+                                      canonical_ties=canonical)
         torch.cuda.synchronize()
         if not torch.equal(got.dist2, exact.dist2):
             fail(f"case {name}: bf16 distances differ from the f32 kernel's "
@@ -476,8 +484,8 @@ def chunk_sides(pts_np, num_shards, k, chunk_rows):
         pts_np.shape[1])
     pts, ids_t, slabs = _sharded_input(flat, ids, num_shards, "cuda")
     del flat, ids
-    bucket = resolve_bucket_size(0)
-    group = _effective_group(0, npad, bucket)
+    bucket = resolve_bucket_size(0, "pallas_tiled")
+    group = _effective_group(0, npad, bucket, "pallas_tiled")
     fns = _make_ring_fns(k, float("inf"), "pallas_tiled", 2048, 2048,
                          bucket, num_shards, point_group=group)
     resident = [fns.shard_init_fn(p, i)[1] for p, i in slabs]
@@ -565,6 +573,28 @@ def run_cli(args, timeout=900, module="unordered_main"):
     timings = json.loads(proc.stderr.strip().splitlines()[-1])
     timings["process_seconds"] = wall
     return timings, proc.stdout
+
+
+def cli_in_process(args, module):
+    """One CLI run through its ``main`` in this process (the card's context
+    and the libraries already loaded, so no process start-up: phase 15
+    runs seven of them); returns (timings dict, stdout) as ``run_cli``
+    does, ``process_seconds`` being the call's."""
+    import importlib
+    from io import StringIO
+
+    cli = importlib.import_module(f"mpi_cuda_largescaleknn_torch.cli.{module}")
+    out, err = StringIO(), StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(out), redirect_stderr(err):
+        rc = cli.main([*args, "--timings"])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"CLI {module} {' '.join(args)} returned {rc}:\n"
+             f"{out.getvalue()[-3000:]}\n{err.getvalue()[-3000:]}")
+    timings = json.loads(err.getvalue().strip().splitlines()[-1])
+    timings["process_seconds"] = wall
+    return timings, out.getvalue()
 
 
 def report_run(label, t, kernel_key, selfcheck=True):
@@ -1058,6 +1088,12 @@ def reset_counts() -> None:
         setattr(knn_update_tiled_cuda, name, 0)
     for name in ("launches", "d3_launches", "ring_launches"):
         setattr(knn_update_bf_cuda, name, 0)
+    # the XLA engines' work counters (cli/common.py launch_counts)
+    from mpi_cuda_largescaleknn_torch.ops.tiled import knn_update_tiled
+    from mpi_cuda_largescaleknn_torch.ops.traverse import knn_update_tree
+
+    knn_update_tiled.folds = 0
+    knn_update_tree.folds = knn_update_tree.steps = 0
 
 
 def unordered_run(label, pts_np, k, shards, score_dtype, profile_dir=None,
@@ -1738,6 +1774,206 @@ def bucket_witness(name, state, q, pc, group):
     return max(errs), ms
 
 
+def engine_run(label, pts_np, k, shards, engine, score_dtype="f32"):
+    """``UnorderedKNN`` in this process with ``engine``, every count set to
+    0 just before the run and read just after. The XLA engines launch no
+    kernel of this package (they are PyTorch ops), ``auto`` must launch
+    its traversal kernel. Returns (timings, distances f32[N])."""
+    import numpy as np
+
+    from mpi_cuda_largescaleknn_torch.core.config import KnnConfig
+    from mpi_cuda_largescaleknn_torch.models.unordered import UnorderedKNN
+
+    model = UnorderedKNN(KnnConfig(k=k, num_shards=shards, engine=engine,
+                                   score_dtype=score_dtype))
+    d, t = counted_call(lambda: model.run(pts_np))
+    t.update(model.timers.report())
+    t.update(model.last_stats or {})
+    if d.shape != (len(pts_np),) or not np.all(np.isfinite(d)) \
+            or np.any(d <= 0):
+        fail(f"{label}: output has shape {d.shape} or non-finite/zero "
+             "values")
+    check_engine_launches(label, engine, t)
+    say(f"  {label}: run {t['run_seconds']:.3f} s, "
+        f"{len(pts_np) / t['run_seconds']:.0f} queries/s, "
+        + engine_work(t))
+    return t, d
+
+
+def check_engine_launches(label, engine, t) -> None:
+    kernels = t["knn_tiled_launches"] + t["knn_bf_launches"]
+    if engine in XLA_ENGINES and kernels:
+        fail(f"{label}: the XLA engine '{engine}' launched {kernels} "
+             "kernels of this package")
+    if engine == "auto" and t["knn_tiled_launches"] < 1:
+        fail(f"{label}: auto launched no traversal kernel")
+    if engine == "tiled" and t["tiled_folds"] < 1 or \
+            engine == "tree" and t["tree_folds"] < 1:
+        fail(f"{label}: the '{engine}' engine folded nothing")
+
+
+def engine_work(t) -> str:
+    """The work counters of a run: launches, the twin's tiles and chunk
+    merges, the tree's lockstep steps per fold."""
+    txt = (f"knn_tiled launches {t['knn_tiled_launches']}, knn_bf launches "
+           f"{t['knn_bf_launches']}")
+    if "pair_evals" in t:      # the ring's stats (the demand ring has none)
+        txt += f", pair_evals {t['pair_evals']}, tiles {t['tiles']}"
+    if t["tiled_folds"]:
+        txt += f", twin folds {t['tiled_folds']}"
+    if t["tree_folds"]:
+        txt += (f", tree folds {t['tree_folds']} at "
+                f"{t['tree_steps'] / t['tree_folds']:.1f} lockstep steps "
+                "each")
+    return txt
+
+
+def engine_phases(pts_path, sub):
+    """Phase 15: the JAX package's XLA engines on the card, each output
+    byte-equal to ``auto``'s on the same points (in f32 the k-th distances
+    do not depend on the engine or the visit schedule; bf16 survivors are
+    rescored exactly). 15a ``tiled`` through the unordered CLI on phase 4's
+    file (phase 4/5's outputs) and in process on the first ``N_ENGINE_HD``
+    of phase 10b's points at D=128, f32 and bf16; 15b ``bruteforce`` on
+    ``N_ENGINE`` uniform points, and in bf16 on the same D=128 points;
+    15c ``tree`` on the uniform points; 15d the pre-partitioned CLI on
+    them in 4 Morton parts; 15e ``canonical_ties`` on every traversal
+    route against its plain version. Returns (details, the runs whose
+    launches count)."""
+    import numpy as np
+
+    steps, runs, out = {}, {}, {}
+    say("[phase 15a] engine 'tiled' (the traversal's twin) at the headline "
+        "size")
+    for k, shards, ref in ((8, 1, "k8"), (100, 1, "k100"), (8, 4, "k8_r4")):
+        label = f"tiled k={k} R={shards}"
+        dst = WORK / f"tiled_{ref}.float"
+        with timed_step(steps, label):
+            t, _ = cli_in_process([str(pts_path), "-o", str(dst), "-k",
+                                   str(k), "--shards", str(shards),
+                                   "--engine", "tiled"], "unordered_main")
+        check_engine_launches(label, "tiled", t)
+        if dst.read_bytes() != (WORK / f"{ref}.float").read_bytes():
+            fail(f"phase 15a: {label} differs from the auto file {ref}")
+        say(f"  {label}: run {t['run_seconds']:.3f} s (the CLI's main "
+            f"{t['process_seconds']:.1f} s), byte-equal to auto; "
+            + engine_work(t))
+        say("    stages: " + ", ".join(
+            f"{name} {v['seconds']:.4f} s" for name, v in t.items()
+            if isinstance(v, dict) and "seconds" in v))
+        runs[label] = t
+    hd = sub[:N_ENGINE_HD]
+    label = f"auto f32 k={HD_K} R=1 D={HD_DIM} on {N_ENGINE_HD}"
+    with timed_step(steps, label):
+        t, hd_ref = engine_run(label, hd, HD_K, 1, "auto")
+    runs[label] = t
+    hd_auto_s = t["run_seconds"]
+    for sd in ("f32", "bf16"):
+        label = f"tiled {sd} k={HD_K} R=1 D={HD_DIM}"
+        with timed_step(steps, label):
+            t, d = engine_run(label, hd, HD_K, 1, "tiled", sd)
+        runs[label] = t
+        if d.tobytes() != hd_ref.tobytes():
+            fail(f"phase 15a: {label} differs from auto f32")
+        say(f"    {t['run_seconds'] / hd_auto_s:.1f}x auto's run time, "
+            "byte-equal")
+
+    say(f"[phase 15b] engine 'bruteforce': {N_ENGINE} uniform points, "
+        f"k=8; 15a's {N_ENGINE_HD} points at D={HD_DIM} in bf16")
+    pts = seeded_points("uniform", N_ENGINE, SEED + 15)
+    refs, auto_s = {}, {}
+    for shards in (1, 4):
+        label = f"auto k=8 R={shards} on {N_ENGINE}"
+        with timed_step(steps, label):
+            t, refs[shards] = engine_run(label, pts, 8, shards, "auto")
+        runs[label] = t
+        auto_s[shards] = t["run_seconds"]
+    for shards in (1, 4):
+        label = f"bruteforce k=8 R={shards}"
+        with timed_step(steps, label):
+            t, d = engine_run(label, pts, 8, shards, "bruteforce")
+        runs[label] = t
+        if d.tobytes() != refs[shards].tobytes():
+            fail(f"phase 15b: {label} differs from auto")
+        say(f"    {t['run_seconds'] / auto_s[shards]:.1f}x auto's run "
+            "time, byte-equal")
+    label = f"bruteforce bf16 k={HD_K} R=1 D={HD_DIM}"
+    with timed_step(steps, label):
+        t, d = engine_run(label, hd, HD_K, 1, "bruteforce", "bf16")
+    runs[label] = t
+    if d.tobytes() != hd_ref.tobytes():
+        fail(f"phase 15b: {label} differs from auto f32")
+    say("    byte-equal to auto f32")
+
+    say(f"[phase 15c] engine 'tree': {N_ENGINE} uniform points, k=8")
+    for shards in (1, 4):
+        label = f"tree k=8 R={shards}"
+        with timed_step(steps, label):
+            t, d = engine_run(label, pts, 8, shards, "tree")
+        runs[label] = t
+        if d.tobytes() != refs[shards].tobytes():
+            fail(f"phase 15c: {label} differs from auto")
+        say(f"    {t['run_seconds'] / auto_s[shards]:.1f}x auto's run "
+            "time, byte-equal")
+
+    say(f"[phase 15d] the pre-partitioned CLI on {N_ENGINE} points in 4 "
+        "Morton parts, k=8")
+    src = WORK / "engines.float3"
+    pts.tofile(src)
+    parts = WORK / "parts"
+    parts.mkdir(exist_ok=True)
+    from io import StringIO
+
+    from mpi_cuda_largescaleknn_torch.cli import partition_main
+
+    with timed_step(steps, "partition_main"), redirect_stdout(StringIO()):
+        if partition_main.main([str(src), "-n", "4", "-o",
+                                str(parts / "e4")]) != 0:
+            fail("phase 15d: partition_main failed")
+    lst = parts / "e4.txt"
+    joined = {}
+    for engine in ("auto",) + XLA_ENGINES:
+        label = f"pre-partitioned --engine {engine}"
+        prefix = parts / f"e4_{engine}"
+        with timed_step(steps, label):
+            t, _ = cli_in_process([str(lst), "-o", str(prefix), "-k", "8",
+                                   "--engine", engine], "prepartitioned_main")
+        check_engine_launches(label, engine, t)
+        joined[engine] = b"".join(
+            Path(f"{prefix}_{r:06d}.float").read_bytes() for r in range(4))
+        if joined[engine] != joined["auto"]:
+            fail(f"phase 15d: {label} rank files differ from auto")
+        say(f"  {label}: run {t['run_seconds']:.3f} s (the CLI's main "
+            f"{t['process_seconds']:.1f} s), rounds {t['rounds']}, "
+            f"kernels_run {t['kernels_run']}, rotations_run "
+            f"{t['rotations_run']}; " + engine_work(t))
+        runs[label] = t
+    d = np.frombuffer(joined["auto"], dtype=np.float32)
+    if d.shape != (N_ENGINE,) or not np.all(np.isfinite(d)):
+        fail("phase 15d: the rank files hold no finite distance per point")
+    say("  rank files of every engine byte-equal to auto's")
+
+    say("[phase 15e] canonical_ties on every traversal route vs plain on "
+        "the card")
+    grid = grid_points(32_000, SEED + 7)
+    x128 = clustered_nd(32_000, HD_DIM, SEED + 10 + HD_DIM)
+    canon = dict(canonical=True)
+    with timed_step(steps, "canonical cases"):
+        errs = [compare_case(f"canonical integer grid k={k} (ties)", grid, k,
+                             route="d3", **canon) for k in (8, 100)]
+        errs += [
+            compare_case("canonical D=128 k=10 f32", x128, 10, route="ring",
+                         **canon),
+            compare_case("canonical D=128 k=10 bf16", x128, 10,
+                         score_dtype="bf16", route="wgmma", **canon)]
+    out["phase15e_max_abs_err"] = max(errs)
+    say("  phase 15 steps: " + ", ".join(f"{name} {sec:.1f} s"
+                                         for name, sec in steps.items()))
+    out["step_seconds"] = steps
+    out["runs"] = runs
+    return out, runs
+
+
 def out_of_core_phases(smi):
     """Phase 14: the native out-of-core IO feeding a job the card can run
     only in chunks, all from one raw ``.float3`` file of ``N_BIG`` seeded
@@ -2416,6 +2652,9 @@ def main() -> int:
         f"in chunks: {N_BIG} points from one raw file, k={BIG_K}")
     details["out_of_core"], ooc_runs = out_of_core_phases(smi)
 
+    # -- phase 15 -----------------------------------------------------------
+    details["engines"], engine_runs = engine_phases(pts_path, sub)
+
     # -- phase 12 -----------------------------------------------------------
     say("[phase 12] phase 10's f32 R=1 run again under the profiler")
     label = "f32 R=1 under the profiler"
@@ -2428,7 +2667,7 @@ def main() -> int:
 
     main_runs = list(runs.values()) + list(pre.values()) \
         + list(hd_runs.values()) + list(chunk_runs.values()) \
-        + list(ooc_runs.values())
+        + list(ooc_runs.values()) + list(engine_runs.values())
 
     def launched(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -2440,16 +2679,19 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None}
 
+    # phase 15e: canonical_ties on the d3, ring and wgmma routes
+    canon_err = details["engines"]["phase15e_max_abs_err"]
     kernels = {"kernels": [
         # knn_tiled_d3_kernel, timed in phase 6
         entry("knn_tiled", SOURCE, REPLACES, launched("knn_tiled_d3_launches"),
               (details["phase3_max_abs_err"], timed[8]["max_abs_err"],
                timed[100]["max_abs_err"],
-               details["out_of_core"]["witness_max_abs_err"]), timed[8]),
+               details["out_of_core"]["witness_max_abs_err"], canon_err),
+              timed[8]),
         entry("knn_tiled_nd_ring", SOURCE, RING_REPLACES,
               launched("knn_tiled_ring_launches"),
               (details["phase3c_max_abs_err"],
-               hd_timed["f32"]["max_abs_err"]), hd_timed["f32"]),
+               hd_timed["f32"]["max_abs_err"], canon_err), hd_timed["f32"]),
         # knn_bf_d3_kernel, timed in phase 9
         entry("knn_bf", BF_SOURCE, BF_REPLACES, launched("knn_bf_d3_launches"),
               (details["phase3b_max_abs_err"], bf_timed[8]["max_abs_err"],
@@ -2459,7 +2701,7 @@ def main() -> int:
         entry("knn_tiled_mxu", MXU_SOURCE, MXU_REPLACES,
               launched("knn_tiled_wgmma_launches"),
               (details["phase3d_max_abs_err"],
-               hd_timed["bf16"]["max_abs_err"]), hd_timed["bf16"]),
+               hd_timed["bf16"]["max_abs_err"], canon_err), hd_timed["bf16"]),
         # the ring kernel's streamed traversal and its flat fold, timed in
         # phase 11b, launched by phase 10c's main paths
         entry("knn_tiled_nd_ring_stream", SOURCE, RING_REPLACES,

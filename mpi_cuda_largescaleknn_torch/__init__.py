@@ -7,7 +7,10 @@ its k-th nearest neighbor, by the unordered pipeline of the reference MPI+CUDA s
 median-split bucketing, a warm start of each query's own bucket, then per
 ring round the nearest-first traversal kernel (``csrc/knn_tiled.cu``),
 then extraction in global point order; ``engine="pallas"`` folds whole
-shards with the flat brute-force kernel (``csrc/knn_bf.cu``) instead;
+shards with the flat brute-force kernel (``csrc/knn_bf.cu``) instead, and
+the JAX package's XLA engines run as PyTorch ops: ``tiled`` (the
+traversal's twin), ``bruteforce`` and ``tree`` (the stack-free kd-tree
+traversal);
 ``score_dtype="bf16"`` scores the traversal at D >= 16 on the tensor cores
 (``csrc/knn_tiled_mxu.cu``) and rescores its survivors exactly. The
 pre-partitioned pipeline (``cudaMpiKNN_prePartitionedData``) is
@@ -36,9 +39,10 @@ def kth_neighbor_distances(points, k, *, max_radius=float("inf"),
     (``inf`` where fewer than k neighbors exist within ``max_radius``).
     With ``return_neighbors`` also returns ``i32[N, k]`` neighbor ids.
     ``num_shards`` virtual ring shards run on the one device (0 means 1).
-    ``score_dtype="bf16"`` scores the traversal by the matmul form at
-    D >= 16 and rescores the survivors exactly (``engine="pallas"``
-    refuses it). ``device=None`` is the card; without CUDA that raises.
+    ``engine`` is one of ``core/config.py`` ``ENGINES``.
+    ``score_dtype="bf16"`` scores by the matmul form at D >= 16 and
+    rescores the survivors exactly (``pallas`` and ``tree`` refuse it).
+    ``device=None`` is the card; without CUDA that raises.
     Other ``KnnConfig`` fields pass through (``bucket_size``,
     ``point_group``).
     """

@@ -20,21 +20,28 @@ Port options (no reference analogue):
                     versions; for tests and small inputs)
   --shards N        virtual shards on the one card (default 1; the
                     pre-partitioned CLI: one per listed file)
-  --engine E        auto | pallas_tiled (the nearest-first traversal) |
-                    pallas (the flat brute force)
-  --query-tile N    flat engine at D=3: queries per tile, the kernel's
-                    rows per block (default 2048, clamped; results do not
-                    change; other D take the ring kernel's 128-row blocks)
-  --point-tile N    flat engine at D=3: points per tile, the kernel's
-                    staged lanes (default 2048, clamped; results do not
-                    change; other D take 64-lane chunks)
-  --bucket-size N   points per spatial bucket (default auto: 256)
+  --engine E        auto (= pallas_tiled) | pallas_tiled (the
+                    nearest-first traversal kernel) | tiled (its XLA twin,
+                    PyTorch ops) | pallas (the flat brute-force kernel) |
+                    bruteforce (its XLA twin) | tree (the stack-free
+                    kd-tree traversal, D=3 only)
+  --query-tile N    pallas / bruteforce: queries per tile (default 2048;
+                    results do not change; pallas at D=3: the kernel's
+                    rows per block, clamped; other D take the ring
+                    kernel's 128-row blocks)
+  --point-tile N    pallas / bruteforce: points per tile (default 2048;
+                    results do not change; pallas at D=3: the kernel's
+                    staged lanes, clamped; other D take 64-lane chunks)
+  --bucket-size N   points per spatial bucket (tiled engines; default
+                    auto: 256 for pallas_tiled, 128 for tiled)
   --point-group N   coarsen the resident point side by this power-of-two
-                    factor (default auto: 2; 1 disables)
-  --score-dtype T   f32 (exact elementwise, default) | bf16 (the
-                    traversal's matmul-form scores on the tensor cores at
-                    D >= 16, survivors rescored exactly; --engine pallas
-                    refuses it, the pre-partitioned pipeline scores f32)
+                    factor (tiled engines; default auto: 2 for
+                    pallas_tiled, 1 for tiled; 1 disables)
+  --score-dtype T   f32 (exact elementwise, default) | bf16 (matmul-form
+                    scores at D >= 16, survivors rescored exactly: on the
+                    tensor cores for pallas_tiled, PyTorch matmuls for
+                    tiled and bruteforce; pallas and tree refuse it, the
+                    pre-partitioned pipeline scores f32)
   --query-chunk N   stream queries in chunks of N rows a shard: candidate
                     rows held for N*k a shard (e.g. -k 100 at 100M points)
   --merge M         chunked runs: host (the ring per chunk, default) |
@@ -167,11 +174,15 @@ def launch_counts() -> dict:
     the traversal (any route; the ring kernel with resident queries, with D
     streamed; the D=3 kernel; the bf16 kernel, and of those with resident
     query halves, with D streamed) and the flat fold (any route; the D=3
-    kernel; the ring kernel)."""
+    kernel; the ring kernel); then the work of the engines that launch no
+    kernel of their own: the twin's chunk merges (``tiled``) and the
+    tree's folds and lockstep steps (``tree``)."""
     from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
         knn_update_tiled_cuda,
     )
+    from mpi_cuda_largescaleknn_torch.ops.tiled import knn_update_tiled
+    from mpi_cuda_largescaleknn_torch.ops.traverse import knn_update_tree
 
     kt, bf = knn_update_tiled_cuda, knn_update_bf_cuda
     return {"knn_tiled_launches": kt.launches,
@@ -183,4 +194,7 @@ def launch_counts() -> dict:
             "knn_tiled_wgmma_stream_launches": kt.wgmma_stream_launches,
             "knn_bf_launches": bf.launches,
             "knn_bf_d3_launches": bf.d3_launches,
-            "knn_bf_ring_launches": bf.ring_launches}
+            "knn_bf_ring_launches": bf.ring_launches,
+            "tiled_folds": knn_update_tiled.folds,
+            "tree_folds": knn_update_tree.folds,
+            "tree_steps": knn_update_tree.steps}

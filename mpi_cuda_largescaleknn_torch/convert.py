@@ -34,3 +34,11 @@ def candidate_state(st, device="cpu") -> CandidateState:
     """The port's ``CandidateState`` from (dist2 f32[Q,k], idx i32[Q,k])."""
     return CandidateState(_tensor(st.dist2, np.float32, device),
                           _tensor(st.idx, np.int32, device))
+
+
+def kd_tree(tree, tree_ids, device="cpu"):
+    """The port's kd-tree ``(tree f32[N, 3], tree_ids i32[N])`` from the
+    JAX package's ``build_tree`` output, for ``ops/traverse.py``
+    ``knn_update_tree``."""
+    return (_tensor(tree, np.float32, device),
+            _tensor(tree_ids, np.int32, device))

@@ -2,8 +2,9 @@
 
 ``KnnConfig`` carries the reference's 5-flag CLI surface (``-k``, ``-r``,
 ``-g``, input, ``-o``) plus the port's own knobs. Options of the JAX
-package that this port does not implement yet are refused by ``validate``
-(with the ROADMAP item that will add them) instead of silently ignored.
+package that this port does not implement yet (the multi-host flags) are
+refused by the CLIs with ``not_ported``, which names the ROADMAP item that
+will add them, instead of silently ignored.
 """
 
 from __future__ import annotations
@@ -13,10 +14,13 @@ import math
 
 import torch
 
-#: engines the port runs: ``auto`` resolves to ``pallas_tiled``, the
-#: nearest-first traversal whose kernel is ``csrc/knn_tiled.cu``;
-#: ``pallas`` is the flat brute force of ``csrc/knn_bf.cu``
-ENGINES = ("auto", "pallas_tiled", "pallas")
+#: engines the port runs, the JAX package's six: ``auto`` resolves to
+#: ``pallas_tiled``, the nearest-first traversal whose kernel is
+#: ``csrc/knn_tiled.cu``; ``tiled`` is its XLA twin (``ops/tiled.py``);
+#: ``pallas`` is the flat brute force of ``csrc/knn_bf.cu``,
+#: ``bruteforce`` its XLA twin (``ops/brute_force.py``), and ``tree`` the
+#: stack-free kd-tree traversal (``ops/traverse.py``, D=3 only)
+ENGINES = ("auto", "tiled", "pallas_tiled", "bruteforce", "tree", "pallas")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -46,22 +50,26 @@ class KnnConfig:
     # --- port knobs --------------------------------------------------------
     device: str | None = None        # None = "cuda"; "cpu" runs the plain
                                      # PyTorch versions of the kernels
-    engine: str = "auto"             # "auto" = "pallas_tiled"; or "pallas"
-    query_tile: int = 2048           # flat engine: queries per tile (the
-                                     # kernel's rows per block, clamped)
-    point_tile: int = 2048           # flat engine: points per tile (the
-                                     # kernel's staged lanes, clamped)
+    engine: str = "auto"             # one of ENGINES; "auto" =
+                                     # "pallas_tiled"
+    query_tile: int = 2048           # pallas / bruteforce: queries per tile
+                                     # (the kernel's rows per block, clamped)
+    point_tile: int = 2048           # pallas / bruteforce: points per tile
+                                     # (the kernel's staged lanes, clamped)
     bucket_size: int = 0             # points per spatial bucket; 0 = auto
-                                     # (parallel/ring.py resolve_bucket_size)
+                                     # per engine (parallel/ring.py
+                                     # resolve_bucket_size)
     point_group: int = 0             # coarsen the resident point side by
-                                     # this power-of-two factor; 0 = auto (2)
+                                     # this power-of-two factor; 0 = auto
+                                     # (2 for pallas_tiled, else 1)
     num_shards: int = 1              # virtual shards on the one card (0 =
                                      # 1, or one per pre-partitioned file)
     score_dtype: str = "f32"         # "f32" exact; "bf16" = matmul-form
-                                     # scores on the tensor cores + exact
-                                     # rescore (traversal, D >= 16; the
-                                     # flat engine refuses it, the
-                                     # pre-partitioned pipeline scores f32)
+                                     # scores + exact rescore at D >= 16
+                                     # (pallas_tiled on the tensor cores,
+                                     # tiled, bruteforce; pallas and tree
+                                     # refuse it, the pre-partitioned
+                                     # pipeline scores f32)
     profile_dir: str | None = None   # the CLIs trace the run with
                                      # torch.profiler into this directory
                                      # (obs/trace.py)
@@ -82,9 +90,6 @@ class KnnConfig:
         if self.k < 1:
             raise ValueError("no k specified, or invalid k value")
         if self.engine not in ENGINES:
-            if self.engine in ("tiled", "bruteforce", "tree"):
-                raise not_ported(f"engine '{self.engine}'",
-                                 "Queue 1, the tiled twin and flat engines")
             raise ValueError(f"unknown engine '{self.engine}'")
         if self.score_dtype not in ("f32", "bf16"):
             raise ValueError(f"unknown score_dtype '{self.score_dtype}' "

@@ -50,6 +50,17 @@ def elementwise_dist2(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def gathered_dist2(q: torch.Tensor, pg: torch.Tensor) -> torch.Tensor:
+    """f32[..., Q, D] queries x f32[..., Q, W, D] points gathered per row
+    -> f32[..., Q, W] exact squared distances, in ``elementwise_dist2``'s
+    component order (so the same pair gets the same bits): the exact
+    rescore of a row's survivors."""
+    acc = None
+    for i in range(q.shape[-1]):
+        acc = accumulate_sq(acc, q[..., :, None, i] - pg[..., i])
+    return acc
+
+
 def norms2(pts: torch.Tensor) -> torch.Tensor:
     """f32[..., D] -> f32[...]: squared norm, left-to-right components
     (the exact ``||p||^2`` term of the matmul form)."""
@@ -107,3 +118,53 @@ def mxu_scores(q: torch.Tensor, p: torch.Tensor,
     cross = (torch.matmul(qh, ph) + torch.matmul(qh, pl)
              + torch.matmul(ql, ph))
     return qn2[..., :, None] + pn2[..., None, :] - 2.0 * cross
+
+
+def score_tile(q: torch.Tensor, p: torch.Tensor, pid: torch.Tensor, k: int,
+               *, score_dtype: str = "f32", mask: torch.Tensor | None = None,
+               pn2: torch.Tensor | None = None, skip_rescore: bool = False):
+    """Score one distance tile, ready for ``merge_candidates``: the JAX
+    package's ``score_tile``. ``q`` f32[..., Q, D], ``p`` f32[..., T, D],
+    ``pid`` i32[..., T] (broadcast over the Q rows), ``mask`` bool
+    broadcastable to [..., Q, T] (False lanes are +inf in both modes, also
+    after the rescore), ``pn2`` optional f32[..., T] point norms.
+
+    - f32 (also bf16 below ``mxu_min_dim()``, or where the survivor window
+      would cover every lane): the exact tile, width T.
+    - bf16: width ``rescore_width(k, T)``. The matmul-form scores pick the
+      survivors (lower lane first among ties: a stable sort, as
+      ``lax.top_k``), their lane positions are re-sorted ascending so the
+      tile stays a subsequence of the lane order, and each survivor is
+      rescored exactly (``gathered_dist2``).
+    - ``skip_rescore`` (bf16 at D >= ``mxu_min_dim()``): the raw
+      matmul-form scores at full width, clamped at 0.
+
+    Returns ``(cand_d2, cand_idx)``."""
+    validate_score_dtype(score_dtype)
+    t = p.shape[-2]
+    w = rescore_width(k, t)
+    if (score_dtype == "f32" or q.shape[-1] < mxu_min_dim()
+            or (w >= t and not skip_rescore)):
+        d2 = elementwise_dist2(q, p)
+        if mask is not None:
+            d2 = torch.where(mask, d2, torch.inf)
+        return d2, pid[..., None, :].expand(d2.shape)
+    scores = mxu_scores(q, p, pn2=pn2)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.inf)
+    if skip_rescore:
+        return (torch.clamp_min(scores, 0.0),
+                pid[..., None, :].expand(scores.shape))
+    pos = torch.sort(scores, dim=-1, stable=True).indices[..., :w]
+    pos = torch.sort(pos, dim=-1).values                     # [..., Q, W]
+    dim = q.shape[-1]
+    pg = torch.gather(p[..., None, :, :].expand(*scores.shape, dim), -2,
+                      pos[..., None].expand(*pos.shape, dim))
+    acc = gathered_dist2(q, pg)
+    idx = torch.gather(pid[..., None, :].expand(scores.shape), -1, pos)
+    if mask is not None:
+        # a masked lane that survived only because too few lanes were live
+        # stays +inf: its exact distance may be finite
+        keep = torch.gather(mask.expand(scores.shape), -1, pos)
+        acc = torch.where(keep, acc, torch.inf)
+    return acc, idx

@@ -60,10 +60,13 @@ from typing import NamedTuple
 import torch
 
 from mpi_cuda_largescaleknn_torch.core.types import CandidateState
-from mpi_cuda_largescaleknn_torch.ops.candidates import merge_candidates
+from mpi_cuda_largescaleknn_torch.ops.candidates import (
+    merge_candidates,
+    sort_rows_canonical,
+)
 from mpi_cuda_largescaleknn_torch.ops.distance import (
-    accumulate_sq,
     elementwise_dist2,
+    gathered_dist2,
     mxu_min_dim,
     mxu_scores,
     norms2,
@@ -75,6 +78,7 @@ from mpi_cuda_largescaleknn_torch.ops.partition import (
     BucketedPoints,
     nearest_first_order,
 )
+from mpi_cuda_largescaleknn_torch.ops.tiled import _worst2
 from mpi_cuda_largescaleknn_torch.utils.math import round_up
 
 #: shared memory one block may opt into on sm_90 (227 KB), and an SM's
@@ -113,12 +117,6 @@ def fold_tile_into_candidates(d2: torch.Tensor, ids: torch.Tensor,
                             ids.expand_as(d2))
 
 
-def _worst2(hd2: torch.Tensor, qvalid: torch.Tensor) -> torch.Tensor:
-    """Per query bucket: max over its real rows of their k-th d2
-    (-inf for buckets of padding only)."""
-    return torch.where(qvalid, hd2[:, :, -1], -torch.inf).amax(dim=1)
-
-
 def uses_mxu(score_dtype: str, dim: int) -> bool:
     """Whether a traversal at dimension ``dim`` takes the matmul form:
     bf16 at D >= ``mxu_min_dim()``; below it bf16 scores exactly, as in
@@ -148,11 +146,12 @@ def widen_rows(state: CandidateState, w: int) -> CandidateState:
 
 
 def rescore_rows(rows: CandidateState, q: BucketedPoints,
-                 p: BucketedPoints, k: int) -> CandidateState:
+                 p: BucketedPoints, k: int,
+                 canonical_ties: bool = False) -> CandidateState:
     """Plain epilogue of the bf16 traversal: each entry with an encoded
     position (idx <= -2) gets its exact f32 distance and its id, then each
-    row is sorted stably by d2 and cut to ``k``. Row chunks bound the
-    [rows, W, D] gather."""
+    row is sorted stably by d2 (by (d2, idx) with ``canonical_ties``) and
+    cut to ``k``. Row chunks bound the [rows, W, D] gather."""
     n, w = rows.dist2.shape
     dim = q.pts.shape[-1]
     q_flat = q.pts.reshape(-1, dim)
@@ -166,28 +165,31 @@ def rescore_rows(rows: CandidateState, q: BucketedPoints,
         enc = idx <= -2
         flat = torch.where(enc, -2 - idx, 0).long()
         pg = p_flat[flat]                                   # [c, W, D]
-        qr = q_flat[r0:r0 + step]
-        acc = None
-        for i in range(dim):
-            acc = accumulate_sq(acc, qr[:, None, i] - pg[..., i])
-        d2 = torch.where(enc, acc, d2)
+        d2 = torch.where(enc, gathered_dist2(q_flat[r0:r0 + step], pg), d2)
         idx = torch.where(enc, p_ids[flat], idx)
-        d2, order = torch.sort(d2, dim=1, stable=True)
+        if canonical_ties:
+            d2, idx = sort_rows_canonical(d2, idx)
+        else:
+            d2, order = torch.sort(d2, dim=1, stable=True)
+            idx = torch.gather(idx, 1, order)
         d2_out.append(d2[:, :k])
-        idx_out.append(torch.gather(idx, 1, order)[:, :k])
+        idx_out.append(idx[:, :k])
     return CandidateState(torch.cat(d2_out), torch.cat(idx_out))
 
 
 def knn_update_tiled_plain(state: CandidateState, q: BucketedPoints,
                            p: BucketedPoints, *, skip_self: bool = False,
-                           self_group: int = 1, with_stats: bool = False,
-                           score_dtype: str = "f32"):
+                           self_group: int = 1, with_stats: bool | str = False,
+                           score_dtype: str = "f32",
+                           canonical_ties: bool = False):
     """Plain PyTorch version of the traversal kernels. Step j takes every
     query bucket's j-th nearest point bucket, keeps it where its box d2 is
     below the bucket's radius (and it is not the skipped own bucket),
     scores it (exactly, or by the matmul form under bf16) and
     stable-merges it into the rows. With ``with_stats`` also returns each
-    query bucket's visit count (i64[Bq])."""
+    query bucket's visit count (i64[Bq]); ``with_stats="full"`` also the
+    fold count (``_with_stats``). ``canonical_ties`` sorts the finished rows
+    by (d2, idx), as ``knn_update_tiled_cuda`` does."""
     num_qb, s_q = q.ids.shape
     num_pb, t_p = p.ids.shape
     k = state.dist2.shape[1]
@@ -235,7 +237,19 @@ def knn_update_tiled_plain(state: CandidateState, q: BucketedPoints,
     out = CandidateState(hd2.view(num_qb * s_q, kk),
                          hidx.view(num_qb * s_q, kk))
     if mxu:
-        out = rescore_rows(out, q, p, k)
+        out = rescore_rows(out, q, p, k, canonical_ties)
+    elif canonical_ties:
+        out = CandidateState(*sort_rows_canonical(*out))
+    return _with_stats(out, visits, with_stats)
+
+
+def _with_stats(out: CandidateState, visits: torch.Tensor, with_stats):
+    """The traversal's return: ``with_stats="full"`` adds the folds it
+    ran, one a visited bucket (the port's folds take a bucket in one pass,
+    where the JAX Pallas kernel counts the tile scans of its multi-pass
+    fold), so the visits' sum, a 0-d tensor."""
+    if with_stats == "full":
+        return out, visits, visits.sum()
     return (out, visits) if with_stats else out
 
 
@@ -520,17 +534,27 @@ def _check_inputs(state: CandidateState, q: BucketedPoints,
 
 def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
                           p: BucketedPoints, *, skip_self: bool = False,
-                          self_group: int = 1, with_stats: bool = False,
-                          score_dtype: str = "f32"):
+                          self_group: int = 1, with_stats: bool | str = False,
+                          score_dtype: str = "f32",
+                          canonical_ties: bool = False):
     """Fold every real point of ``p`` into ``state`` (module docstring).
     CPU tensors take ``knn_update_tiled_plain``; CUDA tensors launch a
     kernel or raise. Returns a new state (the input is not modified) and,
-    with ``with_stats``, each query bucket's visit count (i64[Bq])."""
+    with ``with_stats``, each query bucket's visit count (i64[Bq]), and
+    with ``with_stats="full"`` also the fold count (``_with_stats``).
+
+    ``canonical_ties`` re-sorts the finished rows by (d2, idx), one stable
+    two-key sort (of the widened rows, before they are cut to k, under
+    bf16), as the JAX Pallas wrapper does. The kernels keep strict-<
+    adoption, so at an exact equal-distance k-boundary that straddles
+    buckets the kept ids follow the visit order, where the XLA twin's
+    canonical mode keeps the smallest ids."""
     if q.pts.device.type == "cpu":
         return knn_update_tiled_plain(state, q, p, skip_self=skip_self,
                                       self_group=self_group,
                                       with_stats=with_stats,
-                                      score_dtype=score_dtype)
+                                      score_dtype=score_dtype,
+                                      canonical_ties=canonical_ties)
     _check_inputs(state, q, p)
     sorted_d2, order = nearest_first_order(q.lower, q.upper,
                                            p.lower, p.upper)
@@ -540,6 +564,8 @@ def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
         visits = launch_knn_tiled_mxu(order, sorted_d2, q, p, rows,
                                       skip_self=skip_self,
                                       self_group=self_group)
+        if canonical_ties:
+            rows = CandidateState(*sort_rows_canonical(*rows))
         out = CandidateState(rows.dist2[:, :k].contiguous(),
                              rows.idx[:, :k].contiguous())
     else:
@@ -548,7 +574,9 @@ def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
                              state.idx.contiguous().clone())
         visits = launch_knn_tiled(order, sorted_d2, q, p, out,
                                   skip_self=skip_self, self_group=self_group)
-    return (out, visits.long()) if with_stats else out
+        if canonical_ties:
+            out = CandidateState(*sort_rows_canonical(*out))
+    return _with_stats(out, visits.long(), with_stats)
 
 
 def _check_schedule(order, sorted_d2, q, p, rows) -> None:

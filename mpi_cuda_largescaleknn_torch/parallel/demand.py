@@ -21,9 +21,11 @@ strictly closer than the shard's current worst k-th distance:
 Here the R shards are virtual — a Python loop on one card — so nothing
 rotates: a visit folds the arriving shard directly, and the rotations are
 counted exactly as the JAX predicate counts them. Per shard the stats are
-``[kernels_run, rotations_run]``. Both engine families run: ``auto`` /
-``pallas_tiled`` (the traversal kernel, ``csrc/knn_tiled.cu``) and
-``pallas`` (the flat brute force, ``csrc/knn_bf.cu``). Two loops share
+``[kernels_run, rotations_run]``. Every engine of ``parallel/ring.py``
+runs: ``auto`` / ``pallas_tiled`` (the traversal kernel,
+``csrc/knn_tiled.cu``, warm-started), ``tiled`` (its XLA twin, cold) and
+the flat ``pallas``, ``bruteforce`` and ``tree`` (the kd-tree of each
+shard built at shard init), all scoring in f32. Two loops share
 the per-round pieces of ``_make_demand_fns``: ``demand_knn_stepwise``
 (checkpoint and resume between rounds; on one card every round is read on
 the host anyway, so ``demand_knn``, JAX's fused loop, is it without a
@@ -47,18 +49,23 @@ from mpi_cuda_largescaleknn_torch.ops.candidates import (
     current_worst_radius,
     init_candidates,
 )
-from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
 from mpi_cuda_largescaleknn_torch.ops.knn_tiled import knn_update_tiled_cuda
 from mpi_cuda_largescaleknn_torch.ops.partition import (
     coarsen_buckets,
     partition_points,
 )
-from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
+from mpi_cuda_largescaleknn_torch.ops.tiled import (
+    knn_update_tiled,
+    warm_start_self,
+)
 from mpi_cuda_largescaleknn_torch.parallel.ring import (
+    TILED_ENGINES,
     _effective_group,
     _sharded_input,
     chunk_slabs,
     final_rows,
+    flat_fold_fn,
+    flat_resident,
     host_rows,
     load_round,
     resolve_bucket_size,
@@ -97,9 +104,10 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
 
     - shard_init_fn(slabs, qs) -> (resident, all_lower, all_upper): the
       point side of every shard (``qs`` coarsened by ``point_group`` for
-      the tiled engine; the slabs for the flat one) and the shards' boxes
+      the tiled engines; ``flat_resident`` of the slabs for the flat ones)
+      and the shards' boxes
       f32[R, D]. ``slabs`` are per shard (points f32[Npad, D], ids
-      i32[Npad]), ``qs`` their partitions (None for the flat engine).
+      i32[Npad]), ``qs`` their partitions (None for the flat engines).
     - query_init_fn(resident, qslabs, qqs, all_lower, all_upper,
       q_bounds=None) -> ctx: the query side, which may be a chunk of every
       slab; its prune distances use the query side's boxes, ``q_bounds``
@@ -114,8 +122,13 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
     - final_fn(ctx, heaps, n) -> (dists f32[R*n], CandidateState) in
       slab-row order.
     """
-    use_tiled = engine == "pallas_tiled"
-    warm_start = warm_start and use_tiled
+    use_tiled = engine in TILED_ENGINES
+    warm_start = warm_start and engine == "pallas_tiled"
+    if use_tiled:
+        tiled_update = (knn_update_tiled if engine == "tiled" else
+                        knn_update_tiled_cuda)
+    else:
+        flat_fold = flat_fold_fn(engine, query_tile, point_tile)
     total = ring_total_rounds(num_shards)
     # forward delivers offsets 1..R//2; backward the same except the dup
     # round of even R, which is forward-only
@@ -126,7 +139,8 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
         all_lower, all_upper = gathered_bounds_fn([p for p, _ in slabs])
         # the resident side is a group-coarsened view of the partition
         resident = ([coarsen_buckets(q, point_group) for q in qs]
-                    if use_tiled else list(slabs))
+                    if use_tiled else
+                    [flat_resident(engine, p, i) for p, i in slabs])
         return resident, all_lower, all_upper
 
     def query_init_fn(resident, qslabs, qqs, all_lower, all_upper,
@@ -157,14 +171,10 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
         return current_worst_radius(heap, ctx.heap_valid[i]).item()
 
     def fold(ctx, heap, i, src, skip_self=False):
-        if use_tiled:
-            return knn_update_tiled_cuda(heap, ctx.stationary[i],
-                                         ctx.resident[src],
-                                         skip_self=skip_self,
-                                         self_group=point_group)
-        return knn_update_bf_cuda(heap, ctx.stationary[i],
-                                  *ctx.resident[src], query_tile=query_tile,
-                                  point_tile=point_tile)
+        if not use_tiled:
+            return flat_fold(heap, ctx.stationary[i], ctx.resident[src])
+        return tiled_update(heap, ctx.stationary[i], ctx.resident[src],
+                            skip_self=skip_self, self_group=point_group)
 
     def round_fn(ctx, heaps, rnd, counts):
         heaps, counts = list(heaps), [list(c) for c in counts]
@@ -209,16 +219,16 @@ def _demand_setup(points_sharded, ids_sharded, num_shards, engine,
     """(engine, bucket size, point group, points, ids, slabs) of a demand
     loop, on ``device`` (None = the card)."""
     engine = resolve_engine(engine)
-    bucket_size = resolve_bucket_size(bucket_size)
+    bucket_size = resolve_bucket_size(bucket_size, engine)
     pts, ids, slabs = _sharded_input(points_sharded, ids_sharded,
                                      num_shards, device)
     npad = pts.shape[0] // num_shards
-    point_group = _effective_group(point_group, npad, bucket_size)
+    point_group = _effective_group(point_group, npad, bucket_size, engine)
     return engine, bucket_size, point_group, pts, ids, slabs
 
 
 def _partitions(engine, slabs, bucket_size):
-    if engine != "pallas_tiled":
+    if engine not in TILED_ENGINES:
         return None
     return [partition_points(p, i, bucket_size=bucket_size)
             for p, i in slabs]
@@ -242,7 +252,8 @@ def demand_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
     the CandidateState in that row order, plus, with ``return_stats``, a
     dict of ``rounds`` (rounds run) and the per-shard lists
     ``kernels_run`` and ``rotations_run``. ``timers`` times the stages
-    ``partition`` (tiled engine), ``init`` (bounds, schedule, warm start),
+    ``partition`` (tiled engines), ``init`` (bounds, schedule, warm start,
+    the kd-trees),
     ``traverse`` and ``final``, each ended by a device synchronisation.
     It is ``demand_knn_stepwise`` without a checkpoint.
     """
@@ -291,7 +302,7 @@ def demand_knn_stepwise(points_sharded, ids_sharded, k: int,
                          num_shards, warm_start=True,
                          point_group=point_group)
 
-    with timed_stage(timers if engine == "pallas_tiled" else None,
+    with timed_stage(timers if engine in TILED_ENGINES else None,
                      "partition", pts.device):
         qs = _partitions(engine, slabs, bucket_size)
     counts = [[0, 0] for _ in range(num_shards)]

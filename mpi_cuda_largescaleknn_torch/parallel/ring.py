@@ -18,12 +18,22 @@ candidates arrive in the same fold order: in round r shard i folds shard
 (both copies are its own shard) and, for even R, in round R/2 (both are
 the antipode). The self-join loops' round 0 folds the own shard with
 ``skip_self``: each row was warm-started with its own bucket (ops/tiled.py,
-always exact f32). ``score_dtype`` reaches the traversal only. The flat
-engine ``pallas`` folds whole shards with the brute-force kernel
-(``csrc/knn_bf.cu``) in the same order: queries in slab order, no
-partition, no warm start, and no bf16 path (it raises, as the JAX
-package's ``_engine_fn`` does). The ``torch.distributed`` ring across
-cards is ROADMAP.md Queue 1.
+always exact f32). The engines are the JAX package's six:
+
+- ``pallas_tiled`` (what ``auto`` names): the traversal kernels
+  (``ops/knn_tiled.py``), warm-started on self-joins;
+- ``tiled``: the traversal's XLA twin (``ops/tiled.py``), cold, on the
+  same bucketed data;
+- the flat engines fold whole shards in the same order, queries in slab
+  order, with no partition and no warm start: ``pallas`` the brute-force
+  kernel (``csrc/knn_bf.cu``), ``bruteforce`` its XLA twin
+  (``ops/brute_force.py``), ``tree`` the stack-free traversal of each
+  shard's kd-tree (``ops/traverse.py``, built at shard init).
+
+``score_dtype="bf16"`` reaches ``pallas_tiled``, ``tiled`` and
+``bruteforce``; ``pallas`` and ``tree`` raise on it, as the JAX package's
+``_engine_fn`` does. The ``torch.distributed`` ring across cards is
+ROADMAP.md Queue 1.
 """
 
 from __future__ import annotations
@@ -34,11 +44,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from mpi_cuda_largescaleknn_torch.core.config import (
-    ENGINES,
-    not_ported,
-    resolve_device,
-)
+from mpi_cuda_largescaleknn_torch.core.config import ENGINES, resolve_device
 from mpi_cuda_largescaleknn_torch.core.types import (
     PAD_SENTINEL,
     CandidateState,
@@ -49,6 +55,8 @@ from mpi_cuda_largescaleknn_torch.ops.candidates import (
     init_candidates,
     tree_merge_candidates,
 )
+from mpi_cuda_largescaleknn_torch.ops.brute_force import knn_update_bruteforce
+from mpi_cuda_largescaleknn_torch.ops.build_tree import build_tree
 from mpi_cuda_largescaleknn_torch.ops.distance import validate_score_dtype
 from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
 from mpi_cuda_largescaleknn_torch.ops.knn_tiled import knn_update_tiled_cuda
@@ -59,27 +67,60 @@ from mpi_cuda_largescaleknn_torch.ops.partition import (
     partition_points,
     scatter_back,
 )
-from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
+from mpi_cuda_largescaleknn_torch.ops.tiled import (
+    knn_update_tiled,
+    warm_start_self,
+)
+from mpi_cuda_largescaleknn_torch.ops.traverse import knn_update_tree
 from mpi_cuda_largescaleknn_torch.utils import checkpoint as ckpt
 from mpi_cuda_largescaleknn_torch.utils.math import cdiv
 
 
+#: the engines on the bucketed data path (partition, nearest-first walk)
+TILED_ENGINES = ("tiled", "pallas_tiled")
+
+
 def resolve_engine(engine: str) -> str:
     """``auto`` is ``pallas_tiled``: the nearest-first traversal, whose
-    kernel on the card is ``csrc/knn_tiled.cu``; ``pallas`` is the flat
-    brute force (``csrc/knn_bf.cu``). The JAX package's other engines are
-    not ported yet."""
+    kernel on the card is ``csrc/knn_tiled.cu`` (the JAX package's ``auto``
+    is ``tiled`` off a TPU). Every other name of ``ENGINES`` is itself."""
     if engine not in ENGINES:
-        raise not_ported(f"engine '{engine}'",
-                         "Queue 1, the tiled twin and flat engines")
+        raise ValueError(f"unknown engine '{engine}' (expected one of "
+                         f"{ENGINES})")
     return "pallas_tiled" if engine == "auto" else engine
 
 
 def _check_score_dtype(engine: str, score_dtype: str) -> None:
-    if validate_score_dtype(score_dtype) != "f32" and engine == "pallas":
+    if validate_score_dtype(score_dtype) != "f32" \
+            and engine in ("tree", "pallas"):
         raise ValueError(
             f"engine '{engine}' has no score_dtype='{score_dtype}' path "
-            "(matmul-form scoring exists for the traversal)")
+            "(matmul-form scoring exists for bruteforce and the tiled "
+            "engines)")
+
+
+def flat_fold_fn(engine: str, query_tile: int, point_tile: int,
+                 score_dtype: str = "f32") -> Callable:
+    """(rows, queries f32[Q, D], resident) -> rows: the fold of a flat
+    engine (the JAX package's ``_engine_fn``); ``resident`` is what
+    ``flat_resident`` made of a shard."""
+    if engine == "bruteforce":
+        return lambda rows, q, res: knn_update_bruteforce(
+            rows, q, *res, query_tile=query_tile, point_tile=point_tile,
+            score_dtype=score_dtype)
+    if engine == "tree":
+        return lambda rows, q, res: knn_update_tree(rows, q, *res)
+    if engine == "pallas":
+        return lambda rows, q, res: knn_update_bf_cuda(
+            rows, q, *res, query_tile=query_tile, point_tile=point_tile)
+    raise ValueError(f"'{engine}' is not a flat engine")
+
+
+def flat_resident(engine: str, pts: torch.Tensor, ids: torch.Tensor):
+    """A shard's point side for a flat engine: its kd-tree ``(tree,
+    tree_ids)`` for ``tree`` (``build_tree``, which raises unless D is 3),
+    else ``(pts, ids)``."""
+    return build_tree(pts, ids) if engine == "tree" else (pts, ids)
 
 
 def resolve_merge(merge: str, num_shards: int) -> str:
@@ -144,10 +185,14 @@ def device_merge_final(states: list[CandidateState], via: str = "a2a"):
     return extract_final_result(st), st
 
 
-def resolve_bucket_size(bucket_size: int) -> int:
-    """0 = auto: 256 points per bucket, the JAX package's ``pallas_tiled``
-    value (it comes from TPU sweeps; no H100 sweep exists yet)."""
-    return bucket_size or 256
+def resolve_bucket_size(bucket_size: int, engine: str) -> int:
+    """0 = auto per engine, the JAX package's values: 128 for ``tiled``,
+    256 for ``pallas_tiled``, 512 for the flat engines (which do not
+    bucket). They come from the JAX package's tuning; no H100 sweep exists
+    yet (ROADMAP.md Queue 2)."""
+    if bucket_size:
+        return bucket_size
+    return {"tiled": 128, "pallas_tiled": 256}.get(engine, 512)
 
 
 def ring_total_rounds(num_shards: int) -> int:
@@ -227,12 +272,12 @@ def host_rows(num_shards: int, npad: int, k: int, with_candidates: bool):
 
 
 def _effective_group(point_group: int, npad_local: int,
-                     bucket_size: int) -> int:
+                     bucket_size: int, engine: str) -> int:
     """The point-side coarsening factor, clamped to the bucket count (both
-    powers of two, so the clamped value divides). 0 = auto: 2, the JAX
-    package's ``pallas_tiled`` value."""
+    powers of two, so the clamped value divides). 0 = auto per engine, the
+    JAX package's values: 2 for ``pallas_tiled``, 1 for every other."""
     if point_group == 0:
-        point_group = 2
+        point_group = 2 if engine == "pallas_tiled" else 1
     if point_group <= 1:
         return 1
     if point_group & (point_group - 1):
@@ -253,10 +298,16 @@ def _warm_tiles(engine: str, npad_local: int, bucket_size: int,
 def _ring_stats(engine: str, tiles_total: int, bucket_size: int,
                 flat_pairs: int, *, q_rows: int, p_rows: int,
                 point_group: int) -> dict:
-    """Executed-work stats: distance pairs scored. One traversal visit is
-    an [S_q, group*S_p] tile, S the padded bucket sizes of the query and
-    point rows; the flat engine scores every pair, ``flat_pairs``."""
-    if engine == "pallas":
+    """Executed-work stats: distance pairs scored, as the JAX package
+    counts them. One tile of a tiled engine is [S_q, group*S_p], S the
+    padded bucket sizes of the query and point rows (the kernels count the
+    buckets they visited, the twin ``C * V`` tiles for every chunk that
+    ran); ``pallas`` and ``bruteforce`` score every pair, ``flat_pairs``;
+    the tree's pruned work is not counted."""
+    if engine == "tree":
+        return {"pair_evals": 0, "tiles": 0, "flops_per_pair": 8,
+                "note": "tree engine work is pruned and not counted"}
+    if engine not in TILED_ENGINES:
         return {"pair_evals": int(flat_pairs), "tiles": 0,
                 "flops_per_pair": 8}
     _, s_q = choose_buckets(q_rows, bucket_size)
@@ -266,10 +317,10 @@ def _ring_stats(engine: str, tiles_total: int, bucket_size: int,
 
 
 def _sum_visits(parts: list) -> int:
-    """The visit counts the rounds returned (0-d device tensors, None for
-    the flat engine), summed once at the end."""
-    parts = [v for v in parts if v is not None]
-    return int(torch.stack(parts).sum()) if parts else 0
+    """The tile counts the rounds returned (0-d device tensors from the
+    kernels, ints from the twin, None for the flat engines), summed once at
+    the end."""
+    return int(sum(v for v in parts if v is not None))
 
 
 @contextlib.contextmanager
@@ -302,18 +353,19 @@ class RingFns(NamedTuple):
     """The per-round pieces every ring loop runs (``_make_ring_fns``)."""
 
     #: (pts, ids) of one shard -> (stationary, resident): its query side
-    #: (a partition, or the points for the flat engine) and its point side
-    #: (the partition coarsened by the point group, or (pts, ids))
+    #: (a partition, or the points for a flat engine) and its point side
+    #: (the partition coarsened by the point group, or ``flat_resident``)
     shard_init_fn: Callable
     #: (stationary, resident) -> the shard's starting rows: warm-started
     #: with each query's own bucket where the caller asks for it
     rows_init_fn: Callable
     #: (qpts, qids) of a chunk -> (stationary, cold rows)
     query_init_fn: Callable
-    #: (rows, stationary, resident, skip_self) -> (rows, visits): one fold
+    #: (rows, stationary, resident, skip_self) -> (rows, tiles): one fold
     fold_fn: Callable
-    #: (stationaries, residents, rows, rnd) -> (rows, visits): round rnd
-    #: for every shard; visits is a 0-d device tensor (None when flat)
+    #: (stationaries, residents, rows, rnd) -> (rows, tiles): round rnd
+    #: for every shard; tiles is a 0-d device tensor from the kernels, an
+    #: int from the twin, None from the flat engines
     round_fn: Callable
     #: (stationaries, rows, n, with_candidates) -> (dists f32[R*n],
     #: CandidateState or None) in slab-row order
@@ -324,15 +376,18 @@ def _make_ring_fns(k, max_radius, engine, query_tile, point_tile,
                    bucket_size, num_shards, *, warm_start=False,
                    point_group=1, score_dtype="f32") -> RingFns:
     """The per-round pieces of the stepwise and chunked loops.
-    ``warm_start`` applies to self-joins of the traversal, whose query
-    bucket b is point bucket b // group in round 0; chunked queries are
-    partitioned apart and always start cold."""
-    flat = engine == "pallas"
-    warm_start = warm_start and not flat
+    ``warm_start`` applies to self-joins of ``pallas_tiled``, whose query
+    bucket b is point bucket b // group in round 0 (the JAX package keeps
+    the twin cold); chunked queries are partitioned apart and always start
+    cold."""
+    flat = engine not in TILED_ENGINES
+    warm_start = warm_start and engine == "pallas_tiled"
+    if flat:
+        flat_fold = flat_fold_fn(engine, query_tile, point_tile, score_dtype)
 
     def shard_init_fn(pts, ids):
         if flat:
-            return pts, (pts, ids)
+            return pts, flat_resident(engine, pts, ids)
         q = partition_points(pts, ids, bucket_size=bucket_size)
         return q, coarsen_buckets(q, point_group)
 
@@ -355,9 +410,12 @@ def _make_ring_fns(k, max_radius, engine, query_tile, point_tile,
 
     def fold_fn(rows, stationary, resident, skip_self=False):
         if flat:
-            return knn_update_bf_cuda(rows, stationary, *resident,
-                                      query_tile=query_tile,
-                                      point_tile=point_tile), None
+            return flat_fold(rows, stationary, resident), None
+        if engine == "tiled":
+            return knn_update_tiled(rows, stationary, resident,
+                                    with_stats=True, skip_self=skip_self,
+                                    self_group=point_group,
+                                    score_dtype=score_dtype)
         rows, v = knn_update_tiled_cuda(rows, stationary, resident,
                                         skip_self=skip_self,
                                         self_group=point_group,
@@ -377,7 +435,7 @@ def _make_ring_fns(k, max_radius, engine, query_tile, point_tile,
                 heaps[i], v = fold_fn(heaps[i], stationary[i],
                                       resident[(i + rnd) % num_shards])
                 visits.append(v)
-        return heaps, (None if flat else torch.stack(visits).sum())
+        return heaps, (None if flat else sum(visits))
 
     def final_fn(stationary, heaps, n, with_candidates):
         return final_rows(None if flat else stationary, heaps, n,
@@ -401,18 +459,20 @@ def ring_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
       points_sharded: f32[R*Npad, D] shard-major (shard r owns rows
         [r*Npad, (r+1)*Npad)), sentinel-padded; numpy or a tensor.
       ids_sharded: i32[R*Npad] global point ids (-1 for padding).
-      query_tile / point_tile: the flat engine's tiles (results do not
-        depend on them).
-      score_dtype: "f32" or "bf16" (the traversal's matmul-form scores,
-        ops/knn_tiled.py); the flat engine raises ValueError on "bf16".
+      engine: one of ``ENGINES`` (module docstring).
+      query_tile / point_tile: the tiles of ``pallas`` and ``bruteforce``
+        (results do not depend on them).
+      score_dtype: "f32" or "bf16" (matmul-form scores, survivors rescored
+        exactly); ``pallas`` and ``tree`` raise ValueError on "bf16".
 
     Returns f32[R*Npad] k-th-NN distances (a tensor on ``device``; inf for
-    the tiled engine's padding rows, which the flat engine fills with
+    the tiled engines' padding rows, which the flat engines fill with
     sentinel matches), plus the CandidateState in the same row order if
     ``return_candidates``, plus a stats dict if ``return_stats``.
     ``timers`` (an ``obs.timers.PhaseTimers``) times the stages
-    ``partition`` and ``warm_start`` (tiled engine only), ``traverse`` and
-    ``extract``, each ended by a device synchronisation.
+    ``partition`` and ``warm_start`` (tiled engines and ``tree``, whose
+    shard init builds its kd-tree), ``traverse`` and ``extract``, each
+    ended by a device synchronisation.
 
     On one card the rounds are stepped from the host either way, so this
     is ``ring_knn_stepwise`` without a checkpoint: one loop, the same
@@ -453,11 +513,11 @@ def ring_knn_stepwise(points_sharded, ids_sharded, k: int, num_shards: int,
     ``traverse`` its writes."""
     engine = resolve_engine(engine)
     _check_score_dtype(engine, score_dtype)
-    bucket_size = resolve_bucket_size(bucket_size)
+    bucket_size = resolve_bucket_size(bucket_size, engine)
     pts, _ids, slabs = _sharded_input(points_sharded, ids_sharded,
                                       num_shards, device)
     npad = pts.shape[0] // num_shards
-    group = _effective_group(point_group, npad, bucket_size)
+    group = _effective_group(point_group, npad, bucket_size, engine)
     fp = None
     if checkpoint_dir:
         fp = ckpt.fingerprint(
@@ -471,7 +531,9 @@ def ring_knn_stepwise(points_sharded, ids_sharded, k: int, num_shards: int,
     fns = _make_ring_fns(k, max_radius, engine, query_tile, point_tile,
                          bucket_size, num_shards, warm_start=True,
                          point_group=group, score_dtype=score_dtype)
-    tiled_timers = None if engine == "pallas" else timers
+    # shard init partitions (tiled engines) or builds the kd-tree (tree)
+    tiled_timers = (None if engine in ("pallas", "bruteforce") else
+                    timers)
 
     with timed_stage(tiled_timers, "partition", pts.device):
         parts = [fns.shard_init_fn(p, i) for p, i in slabs]
@@ -560,7 +622,7 @@ def ring_knn_chunked(points_sharded, ids_sharded, k: int, num_shards: int,
     - ``merge="device"``: the R shards' chunk rows gathered into ONE
       query bucket of R*chunk_rows rows (``chunk_bucket``), folded by
       every shard's resident side, the R partial rows merged by
-      ``device_merge_final``. The flat engine folds the same gathered
+      ``device_merge_final``. A flat engine folds the same gathered
       chunk. ``auto`` resolves by ``resolve_merge``.
 
     Distances are the same bits either way; at equal distances the two
@@ -582,7 +644,7 @@ def ring_knn_chunked(points_sharded, ids_sharded, k: int, num_shards: int,
     """
     engine = resolve_engine(engine)
     _check_score_dtype(engine, score_dtype)
-    bucket_size = resolve_bucket_size(bucket_size)
+    bucket_size = resolve_bucket_size(bucket_size, engine)
     merge = resolve_merge(merge, num_shards)
     pts, ids, slabs = _sharded_input(points_sharded, ids_sharded,
                                      num_shards, device)
@@ -590,10 +652,11 @@ def ring_knn_chunked(points_sharded, ids_sharded, k: int, num_shards: int,
     npad = pts.shape[0] // num_shards
     dim = pts.shape[1]
     n_chunks = max(1, cdiv(npad, chunk_rows))
-    group = _effective_group(point_group, npad, bucket_size)
+    group = _effective_group(point_group, npad, bucket_size, engine)
     fns = _make_ring_fns(k, max_radius, engine, query_tile, point_tile,
                          bucket_size, num_shards, point_group=group,
                          score_dtype=score_dtype)
+    flat = engine not in TILED_ENGINES
     with timed_stage(timers, "partition", dev):
         resident = [fns.shard_init_fn(p, i)[1] for p, i in slabs]
 
@@ -666,8 +729,7 @@ def ring_knn_chunked(points_sharded, ids_sharded, k: int, num_shards: int,
             lo, hi, stationary, heaps = staged
             chunks_run += 1
             if merge == "device":
-                qb = stationary if engine == "pallas" else \
-                    chunk_bucket(stationary)
+                qb = stationary if flat else chunk_bucket(stationary)
                 states = []
                 for s in range(num_shards):
                     st, v = fns.fold_fn(
@@ -707,7 +769,7 @@ def ring_knn_chunked(points_sharded, ids_sharded, k: int, num_shards: int,
         out += (CandidateState(out_hd2.view(-1, k), out_idx.view(-1, k)),)
     if return_stats:
         tiles = _sum_visits(visits)
-        if merge == "device" and engine != "pallas":
+        if merge == "device" and not flat:
             # a device-merge visit is a tile of the chunk's single query
             # bucket (R*chunk_rows rows) by a coarsened point bucket
             _, s_p = choose_buckets(npad, bucket_size)
@@ -724,10 +786,10 @@ def ring_knn_chunked(points_sharded, ids_sharded, k: int, num_shards: int,
 
 def final_rows(qs, heaps, npad: int, with_candidates: bool):
     """Per-shard heaps to slab-row order: f32[R*npad] k-th-NN distances
-    (inf where the tiled engine has no real query) and, with
+    (inf where a tiled engine has no real query) and, with
     ``with_candidates``, the CandidateState rows (else None). ``qs`` are
     the per-shard partitions of bucket-order heaps; None means the heaps
-    are in slab-row order already (the flat engine)."""
+    are in slab-row order already (the flat engines)."""
     if qs is None:
         cands = (CandidateState(torch.cat([h.dist2 for h in heaps]),
                                 torch.cat([h.idx for h in heaps]))

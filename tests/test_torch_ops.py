@@ -268,8 +268,6 @@ def test_selfcheck_matches(k, radius):
 
 @pytest.mark.parametrize("field,value,exc", [
     ("k", 0, ValueError),
-    ("engine", "tiled", NotImplementedError),
-    ("engine", "bruteforce", NotImplementedError),
     ("engine", "nope", ValueError),
     ("score_dtype", "fp8", ValueError),
     ("merge", "nope", ValueError),

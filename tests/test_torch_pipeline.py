@@ -96,8 +96,7 @@ def test_cli_sharded_output_is_byte_identical(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--coordinator", "127.0.0.1:1234"],
                                   ["--num-hosts", "2"],
-                                  ["--host-id", "1"],
-                                  ["--engine", "tree"]])
+                                  ["--host-id", "1"]])
 def test_cli_refuses_options_not_ported(tmp_path, flag):
     src = tmp_path / "pts.float3"
     random_points(20, seed=0).tofile(src)
