@@ -150,6 +150,38 @@ Phases, each fatal on failure (exit code 1, no result line):
    time (last, after phases 13 and 14, so that no timing runs in a
    process that has been profiled).
 
+Phase 15 (``engine_phases``) runs the XLA engines; then, before phase 12,
+the serving core (``serving_phases``):
+
+3f. the traversal kernels at the shapes the serving engine gives them,
+   the point side resident (``prepare_points``), ``canonical_ties``, per-row
+   init radii mixing +inf, finite seeds and pad rows: D=3 batches of 1024
+   rows in query buckets of 8, 16 and 128 rows against phase 13's
+   8,388,608 points at T=256 in one shard and in each of 4, against the
+   plain traversal bit for bit, and 12 rows over the whole cube in one
+   bucket of 16 at k=100 against the plain traversal of each row alone;
+   D=128 single buckets of 8, 64 and 1024 rows
+   against phase 10's 1M points, f32 (ring kernel) and bf16 (wgmma),
+   against the plain flat fold; each launch on its route;
+16. ``serve/`` on the card, the server on 127.0.0.1:0 in a thread and 8
+   closed-loop client threads (``closed_loop``: batches of 1-1024 rows,
+   one client in four binary, one batch in eight repeated or perturbed):
+   16a those 8,388,608 points at k=100 over 1 shard and at k=8 over 4
+   (about 8 s each), 16b phase 10's points at D=128, k=10, f32 and bf16
+   (about 5 s each). Checks, each fatal: (1) 1,000 sampled served rows
+   byte-equal to the exact answer by a plain version on the card, ids
+   equal up to exact ties; (2) a fixed request list answered in
+   byte-equal bodies at pipeline depth 1 and 2, with the query cache on
+   and off and with the merge on the host (R=4), and with one query
+   bucket (D=3) in byte-equal distances, ids equal up to exact ties; (3) no launch
+   plan built after warmup; (4) no degradation; (5) one traversal launch
+   a shard for each dispatched batch. Printed: queries/s, p50/p99, mean
+   batch rows, tiles executed/skipped, the kernel's time a batch at each
+   shape bucket against its bounds, peak device memory, each beside the
+   card's name and power limit; 16c ``cli/serve_main.main`` in this
+   process on phase 4's file at k=8: one JSON and one binary request,
+   byte-equal to phase 4's k=8 output, then stopped.
+
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``build/smoke/chip_smoke.json``.
@@ -211,6 +243,14 @@ N_ENGINE = 131_072               # phase 15b-d: the flat engines' points
 N_ENGINE_HD = 65_536             # phase 15a-b: D=128 (phase 10b's first;
                                  # its 262,144 took the twin 104.5 s in f32)
 XLA_ENGINES = ("tiled", "bruteforce", "tree")
+SERVE_CLIENTS = 8                # phase 16: closed-loop clients
+SERVE_SECONDS = 8.0              # 16a: traffic a configuration
+SERVE_SECONDS_HD = 5.0           # 16b: traffic a configuration
+SERVE_SAMPLE = 1000              # served rows held against the exact answer
+SERVE_MAX_BATCH = 1024           # the widest shape bucket (the default)
+SERVE_FIXED = 16                 # 16a: requests of the fixed list (check 2)
+SERVE_FIXED_HD = 9               # 16b: the same (a D=128 batch walks all
+                                 # 1M points: ~250 ms in f32 on an H100)
 
 
 def fail(msg: str) -> None:
@@ -372,7 +412,8 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
 
 
 def check_traversal(name, state, q, pc, pts, *, skip_self, group,
-                    score_dtype="f32", route=None, canonical=False):
+                    score_dtype="f32", route=None, canonical=False,
+                    prepared=None):
     """The traversal kernel vs its plain version on the card: rows
     ``state`` of the query side ``q`` folded with the point side ``pc``
     (``pts`` indexed by its ids). d2 bitwise, visits equal (at most the
@@ -380,7 +421,8 @@ def check_traversal(name, state, q, pc, pts, *, skip_self, group,
     to exact ties, and d2 equal to the f32 kernel's; with ``canonical``,
     both sides' ``canonical_ties``, ids equal in bf16 too), the launch on
     the ``route`` planned. Returns the max abs difference of the finite d2
-    entries (0.0 when bitwise equal)."""
+    entries (0.0 when bitwise equal). ``prepared`` (``prepare_points``)
+    is the kernel's resident point side; the plain version ignores it."""
     import torch
 
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
@@ -389,6 +431,7 @@ def check_traversal(name, state, q, pc, pts, *, skip_self, group,
         knn_update_tiled_cuda,
         knn_update_tiled_plain,
         mxu_launch_geometry,
+        prepare_points,
         survivor_width,
         tiled_launch_plan,
         uses_mxu,
@@ -400,7 +443,8 @@ def check_traversal(name, state, q, pc, pts, *, skip_self, group,
               score_dtype=score_dtype, canonical_ties=canonical)
     want, want_vis = knn_update_tiled_plain(state, q, pc, **kw)
     before = route_counts()
-    got, got_vis = knn_update_tiled_cuda(state, q, pc, **kw)
+    got, got_vis = knn_update_tiled_cuda(state, q, pc, prepared=prepared,
+                                         **kw)
     torch.cuda.synchronize()
     same_inf = torch.equal(torch.isinf(got.dist2), torch.isinf(want.dist2))
     err = max_abs_err(got.dist2, want.dist2)
@@ -441,7 +485,9 @@ def check_traversal(name, state, q, pc, pts, *, skip_self, group,
         qrows = q.pts.reshape(-1, dim)
         exact = knn_update_tiled_cuda(state, q, pc, skip_self=skip_self,
                                       self_group=group,
-                                      canonical_ties=canonical)
+                                      canonical_ties=canonical,
+                                      prepared=(None if prepared is None else
+                                                prepare_points(pc)))
         torch.cuda.synchronize()
         if not torch.equal(got.dist2, exact.dist2):
             fail(f"case {name}: bf16 distances differ from the f32 kernel's "
@@ -2111,6 +2157,856 @@ def out_of_core_phases(smi):
     return out, runs
 
 
+def served_batch(rng, n, draw, radius_range):
+    """A served batch of ``n`` rows (the last tenth pad rows at
+    ``PAD_SENTINEL``) and its per-row init radii: a third +inf, the rest
+    finite seeds drawn from ``radius_range`` (some above a row's k-th
+    distance, some below it: underfull rows)."""
+    import numpy as np
+
+    from mpi_cuda_largescaleknn_torch.core.types import PAD_SENTINEL
+
+    q = draw(rng, n)
+    r = rng.uniform(*radius_range, n).astype(np.float32)
+    r[::3] = np.inf
+    pads = n // 10
+    if pads:
+        q[-pads:] = PAD_SENTINEL
+        r[-pads:] = np.inf
+    return q, r
+
+
+def query_side(q_np, r_np, s_q, sort):
+    """The engine's query side of one padded batch on the card
+    (``serve.engine.batch_buckets``): ``s_q``-row buckets of the rows
+    (Morton-sorted over the unit box at D=3); returns it and the per-row
+    radii in its row order, on the card."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.serve.engine import batch_buckets
+    from mpi_cuda_largescaleknn_torch.utils.math import morton_argsort
+
+    if sort:
+        perm = morton_argsort(q_np, np.zeros(3), np.ones(3))
+        q_np, r_np = q_np[perm], r_np[perm]
+    q = torch.from_numpy(np.ascontiguousarray(q_np)).cuda()
+    return (batch_buckets(q, len(q_np) // s_q),
+            torch.from_numpy(np.ascontiguousarray(r_np)).cuda())
+
+
+def served_shape_cases(wall, hd):
+    """Phase 3f: the traversal kernels at the shapes the serving engine
+    gives them, with the point side resident (``prepare_points``) and
+    ``canonical_ties``, per-row init radii mixing +inf, finite seeds and
+    pad rows. D=3: served batches of 1024 rows cut into query buckets of
+    8, 16 and 128 rows (``resolve_query_buckets`` at k=8, 16 and 100), in
+    a sub-cube of side 1/4, against 8,388,608 points at T=256 in one
+    shard and in each of 4, each against the plain traversal, bit for bit
+    (visits equal: a bucket is one block); and a batch of 12 rows over the
+    whole cube at k=100 in one bucket of 16 rows (what 16a serves a
+    narrow request), whose walk visits most buckets, against the plain
+    traversal of the same rows each in a bucket of its own (the same bits
+    under canonical ties, a short walk a row), in one shard and in each
+    of 4.
+    D=128: one query bucket of 8, 64 and 1024 rows against 1M points, f32
+    on the ring kernel and bf16 on ``wgmma``, against the plain flat fold
+    (``knn_update_bruteforce``, the exact k nearest by the same d2 bits:
+    the plain traversal's eager walk of 3,907 buckets would take minutes),
+    d2 bitwise (bf16: equal to f32), ids equal where no exact tie
+    (``tie_rows``). Each launch on its planned route. Returns the max abs
+    error over the cases by route."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.models.sharding import slab_bounds
+    from mpi_cuda_largescaleknn_torch.ops.brute_force import (
+        knn_update_bruteforce,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.candidates import (
+        init_candidates,
+        sort_rows_canonical,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        knn_update_tiled_cuda,
+        knn_update_tiled_plain,
+        prepare_points,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.partition import partition_points
+    from mpi_cuda_largescaleknn_torch.parallel.ring import (
+        resolve_query_buckets,
+    )
+    from mpi_cuda_largescaleknn_torch.serve.engine import batch_buckets
+
+    errs = {"d3": [], "ring": [], "wgmma": []}
+    rng = np.random.default_rng(SEED + 30)
+
+    def uniform(g, n):
+        # a batch in a sub-cube of side 1/4: the plain traversal then walks
+        # hundreds of steps, not the 32,768 of a bucket whose box spans the
+        # cube (the kernels' long walks are phases 3-6's)
+        return (0.375 + 0.25 * g.random((n, 3), dtype=np.float32)).astype(
+            np.float32)
+
+    def whole_cube(name, q, r, side, prep, k):
+        # the kernel's walk of one bucket spanning the cube against the
+        # plain walk of each row alone: canonical ties make the rows the
+        # same bits under any bucketing
+        state = init_candidates(len(r), k, r)
+        before = route_counts()
+        got, vis = knn_update_tiled_cuda(state, q, side, with_stats=True,
+                                         canonical_ties=True, prepared=prep)
+        torch.cuda.synchronize()
+        ran = {rt: c - before[rt] for rt, c in route_counts().items()}
+        if ran["d3"] != 1 or sum(ran.values()) != 1:
+            fail(f"3f {name}: launches by route {ran}, not one on d3")
+        rows = q.pts.reshape(-1, 3)
+        want = knn_update_tiled_plain(state, batch_buckets(rows, len(rows)),
+                                      side, canonical_ties=True)
+        if not (torch.equal(got.dist2, want.dist2)
+                and torch.equal(got.idx, want.idx)):
+            fail(f"3f {name}: differs from the plain traversal in "
+                 f"{int((got.dist2 != want.dist2).any(1).sum())} rows' d2, "
+                 f"{int((got.idx != want.idx).any(1).sum())} rows' ids")
+        if int(vis.max()) > side.num_buckets:
+            fail(f"3f {name}: {int(vis.max())} visits of "
+                 f"{side.num_buckets} buckets")
+        say(f"  served {name}: one bucket of {len(r)} rows over the whole "
+            f"cube, d3, visits {int(vis.sum())} of {side.num_buckets} "
+            "buckets: d2 and ids bit-equal to the plain traversal of each "
+            "row alone")
+        return max_abs_err(got.dist2, want.dist2)
+
+    wall_t = torch.from_numpy(wall).cuda()
+    ids_t = torch.arange(len(wall), dtype=torch.int32).cuda()
+    batches = {k: served_batch(rng, SERVE_MAX_BATCH, uniform, (0.004, 0.02))
+               for k in (8, 16, 100)}
+    # a request of 12 rows over the whole cube, padded to its shape bucket
+    # of 16 rows: one query bucket at k=100, as the engine cuts it
+    narrow_k, narrow_qpad = 100, 16
+    narrow_qb = resolve_query_buckets(0, narrow_qpad, narrow_k)
+    q_np, r_np = served_batch(
+        rng, narrow_qpad,
+        lambda g, n: g.random((n, 3), dtype=np.float32), (0.01, 0.03))
+    q_np[12:] = q_np[-1]
+    r_np[12:] = np.inf
+    narrow = query_side(q_np, r_np, narrow_qpad // narrow_qb, sort=True)
+    for shards in (1, 4):
+        sides = [partition_points(wall_t[b:e], ids_t[b:e], bucket_size=256)
+                 for b, e in slab_bounds(len(wall), shards)]
+        preps = [prepare_points(side) for side in sides]
+        for k, s_q in ((8, 8), (16, 16), (100, 128)):
+            q_np, r_np = batches[k]
+            qb, r = query_side(q_np, r_np, s_q, sort=True)
+            for s, (side, prep) in enumerate(zip(sides, preps)):
+                state = init_candidates(SERVE_MAX_BATCH, k, r)
+                errs["d3"].append(check_traversal(
+                    f"served D=3 k={k} buckets of {s_q} rows, shard {s} of "
+                    f"{shards}", state, qb, side, wall_t, skip_self=False,
+                    group=1, route="d3", canonical=True, prepared=prep))
+        for s, (side, prep) in enumerate(zip(sides, preps)):
+            errs["d3"].append(whole_cube(
+                f"D=3 k={narrow_k} 12 rows, shard {s} of {shards}",
+                *narrow, side, prep, narrow_k))
+        del sides, preps
+    del wall_t, ids_t
+
+    hd_t = torch.from_numpy(hd).cuda()
+    hd_ids = torch.arange(len(hd), dtype=torch.int32).cuda()
+    side = partition_points(hd_t, hd_ids, bucket_size=256)
+
+    def near_index(g, n):
+        rows = g.integers(0, len(hd), n)
+        return hd[rows] + g.normal(0.0, 0.1, (n, HD_DIM)).astype(np.float32)
+
+    cases = {n: served_batch(rng, n, near_index, (10.0, 16.0))
+             for n in (8, 64, 1024)}
+    # the exact rows of all three batches in one plain flat fold
+    q_all = np.concatenate([cases[n][0] for n in cases])
+    r_all = np.concatenate([cases[n][1] for n in cases])
+    ref = knn_update_bruteforce(
+        init_candidates(len(q_all), HD_K, torch.from_numpy(r_all).cuda()),
+        torch.from_numpy(q_all).cuda(), hd_t, hd_ids, query_tile=len(q_all),
+        point_tile=16_384)
+    ref = sort_rows_canonical(ref.dist2, ref.idx)
+    for score_dtype, route in (("f32", "ring"), ("bf16", "wgmma")):
+        prep = prepare_points(side, score_dtype)
+        lo = 0
+        for n, (q_np, r_np) in cases.items():
+            qb, r = query_side(q_np, r_np, n, sort=False)
+            state = init_candidates(n, HD_K, r)
+            before = route_counts()
+            got, vis = knn_update_tiled_cuda(
+                state, qb, side, with_stats=True, canonical_ties=True,
+                score_dtype=score_dtype, prepared=prep)
+            torch.cuda.synchronize()
+            ran = {rt: c - before[rt] for rt, c in route_counts().items()}
+            if ran[route] != 1 or sum(ran.values()) != 1:
+                fail(f"3f D={HD_DIM} {score_dtype} {n} rows: launches by "
+                     f"route {ran}, not one on {route}")
+            # the flat fold's pad rows adopt its pad lanes (d2 0, id -1), the
+            # traversal leaves them at their init: real rows only
+            real = qb.ids.view(n) >= 0
+            want_d2 = ref[0][lo:lo + n][real]
+            want_idx = ref[1][lo:lo + n][real]
+            lo += n
+            pad_rows = got.dist2[~real]
+            if not bool(torch.isinf(pad_rows).all()) or \
+                    not bool((got.idx[~real] == -1).all()):
+                fail(f"3f D={HD_DIM} {score_dtype} {n} rows: a pad row "
+                     "adopted a point")
+            got = type(got)(got.dist2[real], got.idx[real])
+            if not torch.equal(got.dist2, want_d2):
+                fail(f"3f D={HD_DIM} {score_dtype} {n} rows: d2 differ from "
+                     "the plain fold in "
+                     f"{int((got.dist2 != want_d2).any(1).sum())} rows")
+            ties = tie_rows(got.idx, want_idx, qb.pts.view(n, HD_DIM)[real],
+                            hd_t)
+            errs[route].append(max_abs_err(got.dist2, want_d2))
+            say(f"  served D={HD_DIM} {score_dtype} k={HD_K}: one bucket of "
+                f"{n} rows x {side.num_buckets} buckets of "
+                f"{side.bucket_size}, {route}, visits {int(vis.sum())}: d2 "
+                f"bit-equal to the plain fold; ids of {ties} rows differ only "
+                "among equally distant points")
+        del prep
+    return {route: max(v) for route, v in errs.items()}
+
+
+def knn_post(port, q, binary, timeout=300):
+    """One POST /knn of the rows ``q`` (JSON with neighbors, or binary):
+    (status, body bytes, seconds on the host's clock)."""
+    import urllib.error
+    import urllib.request
+
+    if binary:
+        body, ctype = q.astype("<f4").tobytes(), "application/octet-stream"
+    else:
+        body = json.dumps({"queries": q.tolist(),
+                           "neighbors": True}).encode()
+        ctype = "application/json"
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/knn", data=body,
+                                 headers={"Content-Type": ctype})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, out = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, out = e.code, e.read()
+    return status, out, time.perf_counter() - t0
+
+
+def decode_knn(body, binary, n, k):
+    """(dists f32[n], ids i32[n, k] or None) of a /knn response body."""
+    import numpy as np
+
+    if binary:
+        return np.frombuffer(body, "<f4").copy(), None
+    obj = json.loads(body)
+    return (np.asarray(obj["dists"], np.float32),
+            np.asarray(obj["neighbors"], np.int32).reshape(n, k))
+
+
+def closed_loop(port, draw, seconds, k, seed):
+    """``SERVE_CLIENTS`` client threads post batches of 1-1024 rows (sizes
+    log-uniform, drawn from ``seed``) back to back for ``seconds``; one
+    client in four sends binary; one batch in eight repeats or perturbs
+    one of the client's earlier batches (the query cache's hits and
+    seeds). A 429 waits 10 ms and counts. Returns every answered batch
+    ``(queries, dists, ids or None)``, the latencies and the counts."""
+    import threading
+
+    import numpy as np
+
+    deadline = time.perf_counter() + seconds
+    out = [None] * SERVE_CLIENTS
+
+    def client(i):
+        rng = np.random.default_rng(seed + i)
+        binary = i % 4 == 3
+        sent, recs, lats, rejected = [], [], [], 0
+        try:
+            while time.perf_counter() < deadline:
+                if sent and rng.random() < 1 / 8:
+                    q = sent[int(rng.integers(len(sent)))]
+                    if rng.random() < 0.5:
+                        q = q + rng.normal(0.0, 1e-4, q.shape).astype(
+                            np.float32)
+                else:
+                    q = draw(rng, int(SERVE_MAX_BATCH ** rng.uniform(0, 1)))
+                status, body, sec = knn_post(port, q, binary)
+                if status == 429:
+                    rejected += 1
+                    time.sleep(0.01)
+                    continue
+                if status != 200:
+                    raise RuntimeError(f"HTTP {status}: {body[:300]!r}")
+                d, idx = decode_knn(body, binary, len(q), k)
+                sent = (sent + [q])[-32:]
+                recs.append((q, d, idx))
+                lats.append(sec)
+            out[i] = (recs, lats, rejected, None)
+        except Exception as e:  # noqa: BLE001 - reported after the join
+            out[i] = (recs, lats, rejected, e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=seconds + 600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        fail("phase 16: a client did not finish")
+    for o in out:
+        if o[3] is not None:
+            fail(f"phase 16: a client failed: {o[3]}")
+    recs = [r for o in out for r in o[0]]
+    lats = np.array([x for o in out for x in o[1]])
+    return {"records": recs, "latencies": lats, "wall": wall,
+            "rejected": sum(o[2] for o in out)}
+
+
+def exact_reference(ref, q_np, k):
+    """The exact answer for the rows ``q_np`` over the whole index by a
+    plain version on the card: at D=3 the plain traversal with canonical
+    ties over one partition of the index (``ref`` a BucketedPoints, queries
+    in buckets of 8), else the plain flat fold (``ref`` = (points, ids)).
+    Returns (dists f32[n], ids i32[n, k]) as torch tensors on the card."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.ops.brute_force import (
+        knn_update_bruteforce,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.candidates import (
+        extract_final_result,
+        init_candidates,
+        sort_rows_canonical,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        knn_update_tiled_plain,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.partition import (
+        partition_points,
+        scatter_back,
+    )
+
+    q = torch.from_numpy(q_np).cuda()
+    n = len(q_np)
+    if q_np.shape[1] == 3:
+        qb = partition_points(q, bucket_size=8)
+        st = knn_update_tiled_plain(init_candidates(qb.ids.numel(), k,
+                                                    device=q.device),
+                                    qb, ref, canonical_ties=True)
+        d = scatter_back(extract_final_result(st).view(qb.ids.shape),
+                         qb.pos, n)
+        idx = scatter_back(st.idx.view(*qb.ids.shape, k), qb.pos, n)
+        return d, idx
+    st = knn_update_bruteforce(init_candidates(n, k, device=q.device), q,
+                               *ref, query_tile=n, point_tile=16_384)
+    d2, idx = sort_rows_canonical(st.dist2, st.idx)
+    return extract_final_result(type(st)(d2, idx)), idx
+
+
+def check_served_rows(label, traffic, ref, k, points_t, seed):
+    """Check 1: ``SERVE_SAMPLE`` served rows drawn from ``seed``: their
+    distances byte-equal to the exact answer, their ids (JSON answers)
+    equal wherever the row has no tie at the k-th distance
+    (``tie_rows``). Returns (rows checked, id rows checked, id rows
+    differing only among ties)."""
+    import numpy as np
+    import torch
+
+    q = np.concatenate([r[0] for r in traffic["records"]])
+    d = np.concatenate([r[1] for r in traffic["records"]])
+    has = np.concatenate([np.full(len(r[0]), r[2] is not None)
+                          for r in traffic["records"]])
+    idx = np.concatenate([r[2] if r[2] is not None
+                          else np.full((len(r[0]), k), -2, np.int32)
+                          for r in traffic["records"]])
+    pick = np.random.default_rng(seed).choice(
+        len(q), min(SERVE_SAMPLE, len(q)), replace=False)
+    want_d, want_idx = exact_reference(ref, np.ascontiguousarray(q[pick]), k)
+    want_d = want_d.cpu().numpy()
+    bad = int(np.count_nonzero(d[pick].view(np.int32)
+                               != want_d.view(np.int32)))
+    if bad:
+        fail(f"{label}: {bad} of {len(pick)} sampled served distances "
+             "differ from the exact answer")
+    sel = has[pick]
+    ties = tie_rows(torch.from_numpy(idx[pick][sel]).cuda(),
+                    want_idx[torch.from_numpy(sel).cuda()],
+                    torch.from_numpy(q[pick][sel]).cuda(), points_t)
+    return len(pick), int(sel.sum()), ties
+
+
+def fixed_requests(draw, seed, count):
+    """Check 2's request list: ``count`` requests (at least 6) of 1-1024
+    rows, every fourth binary; the last three repeat one earlier batch,
+    send another again as binary and perturb a third."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sizes = [min(n, SERVE_MAX_BATCH) for n in (1, 1024, 9, 100, 513, 8, 16,
+                                               129, 1000, 64, 7, 128)]
+    sizes = (sizes + [int(SERVE_MAX_BATCH ** rng.uniform(0, 1))
+                      for _ in range(count)])[:count - 3]
+    reqs = [(draw(rng, n), i % 4 == 3) for i, n in enumerate(sizes)]
+    reqs += [reqs[1], (reqs[2][0], True),
+             (reqs[0][0] + rng.normal(0.0, 1e-4, reqs[0][0].shape)
+              .astype(np.float32), False)]
+    return reqs
+
+
+def replay(port, reqs):
+    """The fixed list posted one request at a time: the response bodies."""
+    bodies = []
+    for q, binary in reqs:
+        status, body, _ = knn_post(port, q, binary)
+        if status != 200:
+            fail(f"16: fixed request of {len(q)} rows: HTTP {status}")
+        bodies.append(body)
+    return bodies
+
+
+def same_answers(label, reqs, want, got, k, points_t, ties_ok):
+    """Two replays of the fixed list: byte-equal bodies, and nothing else
+    unless ``ties_ok`` (``query_buckets`` 1 against auto): then byte-equal
+    distances and ids that differ only among equally distant points (the
+    kernel keeps strict-< adoption, so at an exact k-th distance tie
+    across query buckets the kept ids follow the visit order). Returns
+    (bodies byte-equal, rows whose ids differ by ties)."""
+    import torch
+
+    equal, ties = 0, 0
+    for (q, binary), a, b in zip(reqs, want, got):
+        if a == b:
+            equal += 1
+            continue
+        if not ties_ok:
+            fail(f"{label}: the response bodies differ on a fixed request "
+                 f"of {len(q)} rows")
+        da, ia = decode_knn(a, binary, len(q), k)
+        db, ib = decode_knn(b, binary, len(q), k)
+        if da.tobytes() != db.tobytes():
+            fail(f"{label}: distances differ on a fixed request of "
+                 f"{len(q)} rows")
+        ties += tie_rows(torch.from_numpy(ib).cuda(),
+                         torch.from_numpy(ia).cuda(),
+                         torch.from_numpy(q).cuda(), points_t)
+    return equal, ties
+
+
+def batch_kernel_times(engine, draw, seed, reps=3):
+    """The per-batch costs at each shape bucket, a full bucket of rows
+    through ``engine.dispatch`` / ``complete``, ``reps`` times (the
+    median): the traversal kernel's CUDA-event time summed over the
+    shards' launches, its query-side layout, the pairs it scored (tile
+    rows x lanes) and its bounds on them; the host's time in ``dispatch``
+    (Morton sort, padding, pinned staging, the enqueue) and over the whole
+    batch; the visit schedule's box distances and sort
+    (``nearest_first_order`` against every shard) and, over R > 1 shards,
+    the device merge (``device_merge_final``) on the card and the host
+    merge (``_merge_shard_candidates``), each on rows of the batch's
+    shape."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.core.types import CandidateState
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        knn_update_tiled_cuda as kt,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.partition import (
+        nearest_first_order,
+    )
+    from mpi_cuda_largescaleknn_torch.parallel.ring import device_merge_final
+    from mpi_cuda_largescaleknn_torch.serve.engine import (
+        _merge_shard_candidates,
+        batch_buckets,
+    )
+
+    rng = np.random.default_rng(seed)
+    mxu = engine.score_mode == "mxu"
+    attr = "mxu_events" if mxu else "layout_events"
+    t_p = engine._buckets[0].ids.shape[1]
+    dim, k, shards = engine.dim, engine.k, engine.num_shards
+    out = {}
+    for qpad in engine.shape_buckets:
+        runs = []
+        for _ in range(reps):
+            q = draw(rng, qpad)
+            setattr(kt, attr, [])
+            tiles0 = engine.timers.counter("tiles_executed")
+            t0 = time.perf_counter()
+            handle = engine.dispatch(q)
+            t1 = time.perf_counter()
+            engine.complete(handle)
+            t2 = time.perf_counter()
+            events = getattr(kt, attr)
+            setattr(kt, attr, None)
+            tile_rows = engine.timers.counter("tiles_executed") - tiles0
+            runs.append((sum(m[1].elapsed_time(m[2]) for m in events),
+                         sum(m[0].elapsed_time(m[1]) for m in events),
+                         tile_rows * t_p, len(events), (t1 - t0) * 1e3,
+                         (t2 - t0) * 1e3))
+        ms, prep_ms, pairs, launches, dispatch_ms, batch_ms = \
+            sorted(runs)[reps // 2]
+        qside = batch_buckets(torch.from_numpy(q).cuda(),
+                              engine.query_buckets[qpad])
+        cuda_ms(lambda: nearest_first_order(
+            qside.lower, qside.upper, engine._buckets[0].lower,
+            engine._buckets[0].upper))
+        schedule_ms, _ = cuda_ms(lambda: [nearest_first_order(
+            qside.lower, qside.upper, b.lower, b.upper)
+            for b in engine._buckets])
+        merge = {}
+        if shards > 1:
+            states = [CandidateState(
+                torch.sort(torch.rand(qpad, k).cuda(), dim=1).values,
+                torch.randint(0, 1 << 24, (qpad, k),
+                              dtype=torch.int32).cuda())
+                for _ in range(shards)]
+            cuda_ms(lambda: device_merge_final(states))
+            merge["device_merge_ms"], _ = cuda_ms(
+                lambda: device_merge_final(states))
+            d2 = torch.cat([st.dist2 for st in states]).cpu().numpy()
+            ids = torch.cat([st.idx for st in states]).cpu().numpy()
+            t0 = time.perf_counter()
+            _merge_shard_candidates(d2, ids, shards, qpad, k)
+            merge["host_merge_ms"] = (time.perf_counter() - t0) * 1e3
+        if mxu:
+            dp = -(-dim // 16) * 16
+            tc, epi = pairs * 3 * 2 * dp, pairs * 4
+            op_s = (max(tc / PEAK_BF16, epi / PEAK_F32),
+                    max(tc / PEAK_BF16, epi / PEAK_F32_ISSUE))
+            lane_bytes = 4 * dim + 4
+        else:
+            ops = pairs * (OPS_PER_PAIR if dim == 3 else 3 * dim + 1)
+            op_s = (ops / PEAK_F32, ops / PEAK_F32_ISSUE)
+            lane_bytes = 16 if dim == 3 else 4 * dim
+        # bytes: the queries and their rows read and written once, and the
+        # lanes of the buckets visited (a bucket visit reads its T lanes)
+        s_q = qpad // engine.query_buckets[qpad]
+        nbytes = (qpad * 4 * dim + 2 * qpad * k * 8
+                  + pairs // max(s_q, 1) * lane_bytes)
+        out[qpad] = {"ms": ms, "query_layout_ms": prep_ms, "pairs": pairs,
+                     "launches": launches, "dispatch_host_ms": dispatch_ms,
+                     "batch_ms": batch_ms, "schedule_ms": schedule_ms,
+                     **merge, **bounds(max(ms, 1e-9), *op_s, nbytes)}
+    return out
+
+
+def serve_config(label, engine_kw, points, draw, seconds, k, ref, points_t,
+                 seed, variants, smi, fixed=SERVE_FIXED, kernel_reps=3):
+    """One served configuration (16a / 16b): the engine built and warmed,
+    the server on 127.0.0.1:0 (pipeline depth 2, the query cache on,
+    ``max_batch`` 1024), ``closed_loop`` traffic with every count set to 0
+    just before it and read just after, then checks 1-5 and the timings.
+    ``variants`` names check 2's other servers: "depth1", "nocache",
+    "qb1" (query_buckets=1), "host" (merge on the host); ``smi`` is the
+    card's name and power limit, printed beside the numbers. Returns (the
+    configuration's record, its launch counts)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.cli.common import launch_counts
+    from mpi_cuda_largescaleknn_torch.serve.engine import ResidentKnnEngine
+    from mpi_cuda_largescaleknn_torch.serve.server import build_server
+
+    def start(engine, **kw):
+        srv = build_server(engine, port=0,
+                           max_queue_rows=SERVE_CLIENTS * SERVE_MAX_BATCH,
+                           **kw)
+        srv.ready = True
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        return srv
+
+    steps = {}
+    torch.cuda.reset_peak_memory_stats()
+    with timed_step(steps, "build"):
+        engine = ResidentKnnEngine(points, k, max_batch=SERVE_MAX_BATCH,
+                                   **engine_kw)
+    with timed_step(steps, "warmup"):
+        warm = engine.warmup()
+    compiles = engine.compile_count
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import prepare_points
+
+    point_side_ms, _ = cuda_ms(lambda: prepare_points(engine._buckets[0],
+                                                      engine.score_dtype))
+    srv = start(engine)
+    port = srv.server_address[1]
+    kt_key = ("knn_tiled_mxu_launches" if engine.score_mode == "mxu"
+              else "knn_tiled_launches")
+    stats0 = engine.stats()
+    b0 = srv.batcher.stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    with timed_step(steps, "traffic"):
+        traffic = closed_loop(port, draw, seconds, k, seed)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    b1 = srv.batcher.stats()
+    stats1 = engine.stats()
+    batches = b1["batches"] - b0["batches"]
+    rows = b1["rows_served"] - b0["rows_served"]
+    served = sum(len(r[0]) for r in traffic["records"])
+    lats = traffic["latencies"]
+    server_lat = json.loads(knn_get(port, "/stats"))["server"][
+        "request_latency"]
+    rec = {
+        "engine": dict(engine_kw, k=k, max_batch=SERVE_MAX_BATCH),
+        "warmup_seconds": warm["per_bucket_s"],
+        "query_buckets": warm["query_buckets"],
+        "requests": len(lats), "rows": served,
+        "rejected_429": traffic["rejected"],
+        "seconds": traffic["wall"],
+        "queries_per_second": served / traffic["wall"],
+        "requests_per_second": len(lats) / traffic["wall"],
+        "p50_ms": float(np.percentile(lats, 50)) * 1e3,
+        "p99_ms": float(np.percentile(lats, 99)) * 1e3,
+        "server_request_latency": server_lat,
+        "batches": batches, "mean_batch_rows": rows / max(batches, 1),
+        "tiles_executed": stats1["tiles_executed"]
+        - stats0["tiles_executed"],
+        "tiles_skipped": stats1["tiles_skipped"] - stats0["tiles_skipped"],
+        "qcache": srv.qcache.stats(),
+        "launches": counts,
+    }
+    # check 5: one traversal launch a shard for every dispatched batch
+    if counts[kt_key] != batches * engine.num_shards:
+        fail(f"{label}: {counts[kt_key]} traversal launches for "
+             f"{batches} batches over {engine.num_shards} shards")
+    route_key = {"d3": "knn_tiled_d3_launches",
+                 "ring": "knn_tiled_ring_launches",
+                 "wgmma": "knn_tiled_wgmma_launches"}
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import prepared_kind
+
+    want_route = route_key[prepared_kind(engine.dim, engine.score_dtype)]
+    if counts[want_route] != counts[kt_key] or counts["knn_bf_launches"]:
+        fail(f"{label}: launches off the planned route: {counts}")
+    # check 1: sampled rows against the exact answer
+    with timed_step(steps, "check 1"):
+        checked, id_rows, ties = check_served_rows(
+            label, traffic, ref, k, points_t, seed + 100)
+    rec["check1"] = {"rows": checked, "id_rows": id_rows,
+                     "id_rows_differing_by_ties": ties}
+    # check 2: the fixed request list through every variant
+    reqs = fixed_requests(draw, seed + 200, fixed)
+    with timed_step(steps, "check 2"):
+        want = replay(port, reqs)
+        rec["check2"] = {}
+        for name in variants:
+            if name in ("depth1", "nocache"):
+                other = start(engine, **({"pipeline_depth": 1}
+                                         if name == "depth1"
+                                         else {"qcache_rows": 0}))
+                eng2 = None
+            else:
+                eng2 = ResidentKnnEngine(
+                    points, k, max_batch=SERVE_MAX_BATCH,
+                    **dict(engine_kw, **({"query_buckets": 1}
+                                         if name == "qb1"
+                                         else {"merge": "host"})))
+                eng2.warmup()
+                other = start(eng2)
+            try:
+                got = replay(other.server_address[1], reqs)
+            finally:
+                other.close()
+            equal, tied = same_answers(f"{label} {name}", reqs, want, got, k,
+                                       points_t, ties_ok=name == "qb1")
+            rec["check2"][name] = {"bodies_equal": equal,
+                                   "requests": len(reqs),
+                                   "id_rows_differing_by_ties": tied}
+            if eng2 is not None:
+                if eng2.stats()["degraded_reason"] is not None:
+                    fail(f"{label} {name}: the engine degraded")
+                del eng2
+    # checks 3 and 4
+    if engine.compile_count != compiles:
+        fail(f"{label}: {engine.compile_count - compiles} launch plans "
+             "built after warmup")
+    st = engine.stats()
+    if st["degraded_reason"] is not None or st["engine"] != "pallas_tiled":
+        fail(f"{label}: engine {st['engine']}, degraded: "
+             f"{st['degraded_reason']}")
+    with timed_step(steps, "kernel times"):
+        rec["kernel_per_batch"] = batch_kernel_times(engine, draw,
+                                                     seed + 300, kernel_reps)
+    rec["point_side_prep_ms"] = point_side_ms
+    rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    rec["device_bytes"] = st["device_bytes"]
+    rec["step_seconds"] = steps
+    srv.close()
+    del engine
+    torch.cuda.empty_cache()
+    say(f"  {label}: {rec['queries_per_second']:.0f} queries/s, "
+        f"{rec['requests_per_second']:.1f} requests/s over "
+        f"{rec['seconds']:.1f} s ({rec['requests']} requests, {served} "
+        f"rows, {rec['rejected_429']} refused 429); client latency p50 "
+        f"{rec['p50_ms']:.2f} ms p99 {rec['p99_ms']:.2f} ms; server "
+        f"p50 {1e3 * (server_lat['p50'] or 0):.2f} ms p99 "
+        f"{1e3 * (server_lat['p99'] or 0):.2f} ms; mean batch "
+        f"{rec['mean_batch_rows']:.1f} rows over {batches} batches; tiles "
+        f"executed/skipped {rec['tiles_executed']}/{rec['tiles_skipped']}; "
+        f"qcache hits {rec['qcache']['hits']} seeds {rec['qcache']['seeds']}"
+        f"; peak device memory {rec['peak_device_bytes'] / 2**20:.1f} MiB "
+        f"({smi})")
+    say(f"    check 1: {checked} sampled rows byte-equal to the exact "
+        f"answer, ids of {id_rows} rows equal up to {ties} rows of exact "
+        "ties; check 2: " + ", ".join(
+            f"{n} {v['bodies_equal']}/{v['requests']} bodies byte-equal "
+            f"({v['id_rows_differing_by_ties']} rows differ by ties)"
+            for n, v in rec["check2"].items())
+        + f"; checks 3-5: {compiles} plans, no degradation, "
+        f"{counts[kt_key]} launches = {batches} batches x "
+        f"{st['num_shards']} shards")
+    say(f"    the resident point side, laid out once at build: "
+        f"{rec['point_side_prep_ms']:.3f} ms a shard (what every launch "
+        "would pay without it)")
+    for qpad, r in rec["kernel_per_batch"].items():
+        merge = ("" if "device_merge_ms" not in r else
+                 f", device merge {r['device_merge_ms']:.3f} ms, host merge "
+                 f"{r['host_merge_ms']:.3f} ms")
+        say(f"    a batch of {qpad}: kernel {r['ms']:.3f} ms over "
+            f"{r['launches']} launches (query-side layout "
+            f"{r['query_layout_ms']:.3f} ms), {r['pairs']} pairs, "
+            f"{bound_txt(r)}; schedule {r['schedule_ms']:.3f} ms{merge}; "
+            f"host in dispatch {r['dispatch_host_ms']:.3f} ms, the batch "
+            f"{r['batch_ms']:.3f} ms")
+    say("    steps: " + ", ".join(f"{name} {sec:.1f} s"
+                                   for name, sec in steps.items()))
+    return rec, counts
+
+
+def knn_get(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as resp:
+        return resp.read()
+
+
+def serving_phases(smi, pts_path, k8_path, hd):
+    """Phases 3f and 16: the serving core on the card. 3f
+    (``served_shape_cases``) holds the kernels at the served shapes; 16a
+    serves phase 13's 8,388,608 uniform points at k=100 over 1 shard and
+    at k=8 over 4 (merged on the card; check 2 also on the host); 16b
+    phase 10's 1M points at D=128, k=10, f32 and bf16; 16c runs
+    ``cli/serve_main.main`` in this process on phase 4's file at k=8 and
+    answers one JSON and one binary request, held against phase 4's k=8
+    output. Returns (details, the served runs' launch counts)."""
+    import queue
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.cli.common import launch_counts
+    from mpi_cuda_largescaleknn_torch.ops.partition import partition_points
+
+    details, runs = {}, {}
+    t0 = time.perf_counter()
+    wall = seeded_points("uniform", N_WALL, SEED + 8)
+    say("[phase 3f] the traversal kernels at the served shapes vs plain on "
+        "the card, the point side resident")
+    details["phase3f_max_abs_err"] = served_shape_cases(wall, hd)
+    details["phase3f_seconds"] = time.perf_counter() - t0
+
+    say(f"[phase 16a] serving {N_WALL} uniform points on the card")
+    wall_t = torch.from_numpy(wall).cuda()
+    ref3 = partition_points(wall_t, bucket_size=256)
+    uniform = lambda g, n: g.random((n, 3), dtype=np.float32)  # noqa: E731
+    for label, k, shards, variants in (
+            ("k=100 R=1", WALL_K, 1, ("depth1", "nocache", "qb1")),
+            ("k=8 R=4", 8, 4, ("depth1", "nocache", "qb1", "host"))):
+        rec, counts = serve_config(
+            f"16a {label}", {"num_shards": shards}, wall, uniform,
+            SERVE_SECONDS, k, ref3, wall_t, SEED + 40 + k, variants, smi)
+        details[f"16a {label}"] = rec
+        runs[f"16a {label}"] = counts
+    del ref3, wall_t, wall
+    torch.cuda.empty_cache()
+
+    say(f"[phase 16b] serving {len(hd)} points at D={HD_DIM} on the card")
+    hd_t = torch.from_numpy(hd).cuda()
+    ref_hd = (hd_t, torch.arange(len(hd), dtype=torch.int32).cuda())
+
+    def near_index(g, n):
+        rows = g.integers(0, len(hd), n)
+        return hd[rows] + g.normal(0.0, 0.1, (n, HD_DIM)).astype(np.float32)
+
+    for sd in ("f32", "bf16"):
+        label = f"D={HD_DIM} k={HD_K} {sd}"
+        rec, counts = serve_config(
+            f"16b {label}", {"score_dtype": sd}, hd, near_index,
+            SERVE_SECONDS_HD, HD_K, ref_hd, hd_t, SEED + 60 + len(sd),
+            ("depth1", "nocache"), smi, fixed=SERVE_FIXED_HD,
+            kernel_reps=1)
+        details[f"16b {label}"] = rec
+        runs[f"16b {label}"] = counts
+    del hd_t, ref_hd
+    torch.cuda.empty_cache()
+
+    say("[phase 16c] the serving CLI in this process on phase 4's file, k=8")
+    from mpi_cuda_largescaleknn_torch.cli import serve_main
+
+    ready = queue.Queue()
+    rc = []
+    t1 = time.perf_counter()
+    reset_counts()
+    th = threading.Thread(target=lambda: rc.append(serve_main.main(
+        [str(pts_path), "-k", "8", "--port", "0"], ready=ready.put)),
+        daemon=True)
+    th.start()
+    try:
+        srv = ready.get(timeout=600)
+    except queue.Empty:
+        fail("16c: the serving CLI did not become ready")
+    try:
+        port = srv.server_address[1]
+        pts = np.fromfile(pts_path, np.float32).reshape(-1, 3)
+        want = np.fromfile(k8_path, np.float32)
+        rows = np.random.default_rng(SEED + 80).choice(len(pts), 200,
+                                                       replace=False)
+        answers = []
+        for binary, sel in ((False, rows[:100]), (True, rows[100:])):
+            status, body, sec = knn_post(port, pts[sel], binary)
+            if status != 200:
+                fail(f"16c: HTTP {status}")
+            d, idx = decode_knn(body, binary, len(sel), 8)
+            # a query on an index point: its k-th distance is the
+            # self-join's (itself at distance 0 the first neighbor)
+            if d.tobytes() != want[sel].tobytes():
+                fail("16c: served distances differ from phase 4's k=8 "
+                     "self-join")
+            if idx is not None and not (idx[:, 0] == sel).all():
+                fail("16c: a query's first neighbor is not its own point")
+            answers.append(sec)
+        st = srv.engine.stats()
+    finally:
+        srv.shutdown()
+    th.join(timeout=120)
+    if th.is_alive() or rc != [0]:
+        fail(f"16c: the serving CLI did not stop cleanly ({rc})")
+    runs["16c serve_main"] = launch_counts()
+    details["16c"] = {"seconds": time.perf_counter() - t1,
+                      "request_seconds": answers,
+                      "engine": st["engine"],
+                      "compile_count": st["compile_count"]}
+    say(f"  16c: serve_main on {len(pts)} points ({st['engine']}, "
+        f"{st['compile_count']} plans): a JSON and a binary request of 100 "
+        f"rows each ({answers[0] * 1e3:.1f} / {answers[1] * 1e3:.1f} ms), "
+        "distances byte-equal to phase 4's k=8 output; stopped in "
+        f"{time.perf_counter() - t1:.1f} s all told")
+    details["seconds"] = time.perf_counter() - t0
+    say(f"  phases 3f and 16 took {details['seconds']:.1f} s")
+    return details, runs
+
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -2655,6 +3551,10 @@ def main() -> int:
     # -- phase 15 -----------------------------------------------------------
     details["engines"], engine_runs = engine_phases(pts_path, sub)
 
+    # -- phases 3f and 16 ---------------------------------------------------
+    details["serving"], serve_runs = serving_phases(smi, pts_path,
+                                                    WORK / "k8.float", hd)
+
     # -- phase 12 -----------------------------------------------------------
     say("[phase 12] phase 10's f32 R=1 run again under the profiler")
     label = "f32 R=1 under the profiler"
@@ -2667,7 +3567,8 @@ def main() -> int:
 
     main_runs = list(runs.values()) + list(pre.values()) \
         + list(hd_runs.values()) + list(chunk_runs.values()) \
-        + list(ooc_runs.values()) + list(engine_runs.values())
+        + list(ooc_runs.values()) + list(engine_runs.values()) \
+        + list(serve_runs.values())
 
     def launched(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -2681,17 +3582,20 @@ def main() -> int:
 
     # phase 15e: canonical_ties on the d3, ring and wgmma routes
     canon_err = details["engines"]["phase15e_max_abs_err"]
+    # phase 3f: the served shapes, the point side resident
+    served_err = details["serving"]["phase3f_max_abs_err"]
     kernels = {"kernels": [
         # knn_tiled_d3_kernel, timed in phase 6
         entry("knn_tiled", SOURCE, REPLACES, launched("knn_tiled_d3_launches"),
               (details["phase3_max_abs_err"], timed[8]["max_abs_err"],
                timed[100]["max_abs_err"],
-               details["out_of_core"]["witness_max_abs_err"], canon_err),
-              timed[8]),
+               details["out_of_core"]["witness_max_abs_err"], canon_err,
+               served_err["d3"]), timed[8]),
         entry("knn_tiled_nd_ring", SOURCE, RING_REPLACES,
               launched("knn_tiled_ring_launches"),
               (details["phase3c_max_abs_err"],
-               hd_timed["f32"]["max_abs_err"], canon_err), hd_timed["f32"]),
+               hd_timed["f32"]["max_abs_err"], canon_err,
+               served_err["ring"]), hd_timed["f32"]),
         # knn_bf_d3_kernel, timed in phase 9
         entry("knn_bf", BF_SOURCE, BF_REPLACES, launched("knn_bf_d3_launches"),
               (details["phase3b_max_abs_err"], bf_timed[8]["max_abs_err"],
@@ -2701,7 +3605,8 @@ def main() -> int:
         entry("knn_tiled_mxu", MXU_SOURCE, MXU_REPLACES,
               launched("knn_tiled_wgmma_launches"),
               (details["phase3d_max_abs_err"],
-               hd_timed["bf16"]["max_abs_err"], canon_err), hd_timed["bf16"]),
+               hd_timed["bf16"]["max_abs_err"], canon_err,
+               served_err["wgmma"]), hd_timed["bf16"]),
         # the ring kernel's streamed traversal and its flat fold, timed in
         # phase 11b, launched by phase 10c's main paths
         entry("knn_tiled_nd_ring_stream", SOURCE, RING_REPLACES,

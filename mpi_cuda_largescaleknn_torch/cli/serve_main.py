@@ -1,0 +1,239 @@
+"""The online serving entry point on one card (no reference analogue).
+
+    python -m mpi_cuda_largescaleknn_torch.cli.serve_main points.float3 \
+        -k 100 [--port 8080] [--engine auto] [--merge auto] [--shards R] \
+        [--max-batch 1024] [--max-delay-ms 2] [--max-queue-rows 4096] \
+        [--timeout-ms 5000] [--device cpu]
+
+Loads a point set, builds the resident index on the card, builds every
+shape bucket's launch plan (and the kernels, at their first launch), and
+serves queries over HTTP until interrupted. Endpoints: POST /knn (JSON or
+binary), GET /healthz, /stats, /metrics (Prometheus text). The port of the
+JAX package's ``cli/serve_main.py`` in its single-host form: the flags of
+pod, routed and standby serving, of the tiered slab index and of tenancy
+raise ``not_ported`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+
+from mpi_cuda_largescaleknn_torch.core.config import not_ported
+
+SERVE_FLAGS = """
+  -k N              neighbors per query (required)
+  -r R              max search radius (default inf)
+  --port P          HTTP port (default 8080; 0 = pick a free port)
+  --host H          bind address (default 127.0.0.1)
+  --device D        cuda (default) | cpu (the kernels' plain PyTorch
+                    versions; for tests and small inputs)
+  --engine E        tiled | pallas_tiled | bruteforce | auto (default auto
+                    = pallas_tiled, the traversal kernel; tiled is its
+                    twin in PyTorch ops, bruteforce the flat twin)
+  --merge M         host | device | auto (default auto): where the R-way
+                    cross-shard top-k merge runs — device merges on the
+                    card (one final [Q,k] fetch, no numpy merge), host
+                    fetches R partials; auto = device at a power-of-two
+                    shard count
+  --shards N        virtual shards on the one card (default 1)
+  --bucket-size N   points per spatial bucket (0 = engine-tuned auto)
+  --score-dtype T   distance scoring: f32 (exact elementwise, the default)
+                    | bf16 (matmul-form score on the tensor cores + exact
+                    f32 rescore of the survivors, at D >= 16)
+  --query-buckets N query-side buckets per padded batch (0 = auto, ~k
+                    queries per bucket; 1 = single whole-batch bucket AND
+                    disables the Morton admission sort). Served batches
+                    are Morton-sorted so the buckets are spatially tight
+  --max-batch N     widest padded query batch / shape bucket (default 1024)
+  --min-batch N     narrowest shape bucket (default 8)
+  --max-delay-ms F  micro-batch flush deadline (default 2.0)
+  --pipeline-depth N  batches in flight between dispatch and demux
+                    (default 2: the next batch's traversal overlaps the
+                    previous batch's fetch and merge; 1 = serialized)
+  --max-queue-rows N  admission cap on queued+running rows (default 4096)
+  --timeout-ms F    default per-request deadline (default 5000)
+  --qcache-rows N   certified query cache capacity in cached rows
+                    (default 4096; 0 disables the cache): byte-identical
+                    exact-hit reuse plus in-flight dedup of concurrent
+                    duplicates
+  --qcache-seed-rows N  triangle-inequality seed pool rows (default 512;
+                    0 disables radius seeding while keeping the hit/dedup
+                    tiers): near-duplicates of a cached query start their
+                    rows at a certified radius
+  --recall-policy PATH  recall-SLO plan table (JSON) replacing the
+                    built-in defaults; requests carrying "recall": 0.95
+                    (or ?recall= for binary) are served by the cheapest
+                    plan whose measured recall meets the target
+  --no-warmup       skip building all shape buckets before serving
+  --timings         print engine phase timings as JSON on shutdown
+  --verbose         log each HTTP request to stderr
+
+Not ported yet (each raises, naming its ROADMAP item): --coordinator,
+--num-hosts, --host-id, --routing, --standby, --wire, --seq-timeout-s
+(pod serving); --num-slabs, --device-slab-budget, --host-pool-bytes,
+--host-pool-slabs, --prefetch-depth, --tenant, --tenant-quota-rows (the
+single-host serving tiers: the slab pool and tenancy).
+"""
+
+_POD = "Queue 1, pod serving"
+_TIERS = "Queue 1, the single-host serving tiers"
+# JAX-package flags not ported yet: flag -> (takes a value, ROADMAP item)
+_NOT_PORTED = {
+    "--coordinator": (True, _POD), "--num-hosts": (True, _POD),
+    "--host-id": (True, _POD), "--routing": (True, _POD),
+    "--standby": (False, _POD), "--wire": (True, _POD),
+    "--seq-timeout-s": (True, _POD),
+    "--num-slabs": (True, _TIERS), "--device-slab-budget": (True, _TIERS),
+    "--host-pool-bytes": (True, _TIERS), "--host-pool-slabs": (True, _TIERS),
+    "--prefetch-depth": (True, _TIERS), "--tenant": (True, _TIERS),
+    "--tenant-quota-rows": (True, _TIERS),
+}
+
+
+def usage(error: str) -> "NoReturn":  # noqa: F821
+    sys.stderr.write(f"Error: {error}\n\n")
+    sys.stderr.write(f"torchknn-serve -k <k> [options] <input>\n{SERVE_FLAGS}")
+    sys.exit(1)
+
+
+def parse_serve_args(argv: list[str]) -> dict:
+    """The JAX CLI's option dict (the refused flags' keys at their
+    defaults) plus ``device``."""
+    opt = {"k": 0, "max_radius": math.inf, "in_path": "", "port": 8080,
+           "host": "127.0.0.1", "engine": "auto", "merge": "auto",
+           "score_dtype": "f32", "shards": None,
+           "bucket_size": 0, "query_buckets": 0,
+           "max_batch": 1024, "min_batch": 8,
+           "num_slabs": 0, "device_slab_budget": 0,
+           "host_pool_slabs": 0, "host_pool_bytes": 0,
+           "tenants": [], "tenant_quota_rows": 0,
+           "prefetch_depth": 1,
+           "max_delay_ms": 2.0, "pipeline_depth": 2,
+           "max_queue_rows": 4096, "seq_timeout_s": None,
+           "qcache_rows": 4096, "qcache_seed_rows": 512,
+           "recall_policy": None,
+           "timeout_ms": 5000.0, "warmup": True, "timings": False,
+           "verbose": False,
+           "coordinator": None, "num_hosts": 1, "host_id": 0,
+           "routing": "off", "standby": False, "wire": "auto",
+           "device": None}
+    i = 0
+    try:
+        while i < len(argv):
+            arg = argv[i]
+            if not arg.startswith("-"):
+                opt["in_path"] = arg
+            elif arg == "-k":
+                i += 1; opt["k"] = int(argv[i])
+            elif arg == "-r":
+                i += 1; opt["max_radius"] = float(argv[i])
+            elif arg == "--port":
+                i += 1; opt["port"] = int(argv[i])
+            elif arg == "--host":
+                i += 1; opt["host"] = argv[i]
+            elif arg == "--device":
+                i += 1; opt["device"] = argv[i]
+            elif arg == "--engine":
+                i += 1; opt["engine"] = argv[i]
+            elif arg == "--merge":
+                i += 1; opt["merge"] = argv[i]
+            elif arg == "--score-dtype":
+                i += 1; opt["score_dtype"] = argv[i]
+            elif arg == "--shards":
+                i += 1; opt["shards"] = int(argv[i])
+            elif arg == "--bucket-size":
+                i += 1; opt["bucket_size"] = int(argv[i])
+            elif arg == "--query-buckets":
+                i += 1; opt["query_buckets"] = int(argv[i])
+            elif arg == "--max-batch":
+                i += 1; opt["max_batch"] = int(argv[i])
+            elif arg == "--min-batch":
+                i += 1; opt["min_batch"] = int(argv[i])
+            elif arg == "--max-delay-ms":
+                i += 1; opt["max_delay_ms"] = float(argv[i])
+            elif arg == "--pipeline-depth":
+                i += 1; opt["pipeline_depth"] = int(argv[i])
+            elif arg == "--max-queue-rows":
+                i += 1; opt["max_queue_rows"] = int(argv[i])
+            elif arg == "--timeout-ms":
+                i += 1; opt["timeout_ms"] = float(argv[i])
+            elif arg == "--qcache-rows":
+                i += 1; opt["qcache_rows"] = int(argv[i])
+            elif arg == "--qcache-seed-rows":
+                i += 1; opt["qcache_seed_rows"] = int(argv[i])
+            elif arg == "--recall-policy":
+                i += 1; opt["recall_policy"] = argv[i]
+            elif arg == "--no-warmup":
+                opt["warmup"] = False
+            elif arg == "--timings":
+                opt["timings"] = True
+            elif arg == "--verbose":
+                opt["verbose"] = True
+            elif arg in _NOT_PORTED:
+                raise not_ported(f"option {arg}", _NOT_PORTED[arg][1])
+            else:
+                usage(f"unknown cmdline arg '{arg}'")
+            i += 1
+    except (IndexError, ValueError):
+        usage(f"invalid or missing value for '{argv[i - 1] if i else ''}'")
+    if not opt["in_path"]:
+        usage("no input file name specified")
+    if opt["k"] < 1:
+        usage("no k specified, or invalid k value")
+    return opt
+
+
+def main(argv: list[str] | None = None, ready=None) -> int:
+    """Serve until interrupted. ``ready`` (for callers that run the CLI in
+    process) is called with the server once it is warm and listening; the
+    caller stops it with ``server.shutdown()`` from another thread."""
+    opt = parse_serve_args(sys.argv[1:] if argv is None else argv)
+
+    from mpi_cuda_largescaleknn_torch.io.reader import read_points
+    from mpi_cuda_largescaleknn_torch.serve.engine import ResidentKnnEngine
+    from mpi_cuda_largescaleknn_torch.serve.server import (
+        build_server,
+        serve_forever,
+    )
+
+    points = read_points(opt["in_path"])
+    print(f"loaded {len(points)} points from {opt['in_path']}")
+    engine = ResidentKnnEngine(
+        points, opt["k"], num_shards=opt["shards"] or 1,
+        engine=opt["engine"], bucket_size=opt["bucket_size"],
+        max_radius=opt["max_radius"], max_batch=opt["max_batch"],
+        min_batch=opt["min_batch"], merge=opt["merge"],
+        query_buckets=opt["query_buckets"],
+        score_dtype=opt["score_dtype"], device=opt["device"])
+    recall_policy = None
+    if opt["recall_policy"]:
+        from mpi_cuda_largescaleknn_torch.serve.recall import RecallPolicy
+
+        recall_policy = RecallPolicy.from_file(opt["recall_policy"])
+        print(f"recall policy from {opt['recall_policy']}: "
+              + ", ".join(f"{p.name} (est {p.recall_estimated:g})"
+                          for p in recall_policy.plans))
+    server = build_server(
+        engine, host=opt["host"], port=opt["port"],
+        max_delay_s=opt["max_delay_ms"] / 1e3,
+        pipeline_depth=opt["pipeline_depth"],
+        max_queue_rows=opt["max_queue_rows"],
+        default_timeout_s=opt["timeout_ms"] / 1e3,
+        verbose=opt["verbose"],
+        recall_policy=recall_policy,
+        qcache_rows=opt["qcache_rows"],
+        qcache_seed_rows=opt["qcache_seed_rows"])
+    try:
+        serve_forever(server, warmup=opt["warmup"], ready=ready)
+    except KeyboardInterrupt:
+        print("shutting down")
+    finally:
+        server.close()
+        if opt["timings"]:
+            sys.stderr.write(engine.timers.dump() + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

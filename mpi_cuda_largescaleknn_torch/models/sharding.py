@@ -48,6 +48,22 @@ def pad_and_flatten(shards: list[np.ndarray], id_bases: list[int],
     return points, ids, counts, npad
 
 
+def slab_aabbs(points: np.ndarray, bounds: list[tuple[int, int]]) -> list[dict]:
+    """Per-slab bounding boxes and point counts, JSON-ready (the serving
+    engine's ``shard_bounds`` on /stats). An empty slab carries ``lo/hi =
+    None`` and count 0."""
+    out = []
+    for b, e in bounds:
+        s = np.asarray(points[b:e], np.float32)
+        if len(s) == 0:
+            out.append({"lo": None, "hi": None, "count": 0})
+        else:
+            out.append({"lo": [float(x) for x in s.min(axis=0)],
+                        "hi": [float(x) for x in s.max(axis=0)],
+                        "count": int(len(s))})
+    return out
+
+
 def trim_per_shard(flat: np.ndarray, counts: list[int], npad: int) -> list[np.ndarray]:
     """Undo the padding: per-shard arrays of true length."""
     return [np.asarray(flat[r * npad:r * npad + c]) for r, c in enumerate(counts)]

@@ -27,6 +27,13 @@ started with their own bucket, ``ops/tiled.py``).
   D streamed in K-slices above it.
 - ``knn_update_tiled_plain`` lock-steps all query buckets through their
   visit schedules and merges each visited bucket with a stable sort.
+- ``prepare_points`` lays a point side out once for the kernels (the D=3
+  lanes, the ring layout, or the bf16 halves and ``|p|^2``), the
+  counterpart of the JAX serving engine's resident ``point_norms2``: a
+  caller that folds many query sides into one resident point side (the
+  serving engine) passes it as ``prepared`` instead of paying the layout
+  at every launch. Its bits are the per-launch preparation's; the plain
+  version ignores it.
 
 Under bf16 (the TPU wrapper's algorithm) the rows are widened to
 ``W = rescore_width(k, lanes)`` slots (``lanes`` counts each point bucket
@@ -491,6 +498,14 @@ def wgmma_slices(dp: int, slice_width: int) -> list[tuple[int, int]]:
             for c0 in range(0, dp, slice_width)]
 
 
+def mxu_dp_slice(dim: int) -> tuple[int, int]:
+    """(Dp, K-slice width) of the bf16 kernel at dimension ``dim``: Dp is D
+    rounded up to 16; the slice width is 0 with the query halves resident
+    (Dp <= ``WGMMA_MAX_DP``), else ``wgmma_slice_width(dp)``."""
+    dp = round_up(dim, 16)
+    return dp, (wgmma_slice_width(dp) if dp > WGMMA_MAX_DP else 0)
+
+
 def mxu_launch_geometry(dim: int, w: int) -> MxuPlan:
     """The bf16 kernel's plan, by Dp = D rounded up to 16: 128 rows a
     block, 64-lane chunks taken in pairs; up to ``WGMMA_MAX_DP`` with the
@@ -499,9 +514,8 @@ def mxu_launch_geometry(dim: int, w: int) -> MxuPlan:
     shared memory where they fit beside a ring of 3 stages, else of 2, and
     otherwise in device memory with the ring as deep as fits, so any W
     plans."""
-    dp = round_up(dim, 16)
-    stream = dp > WGMMA_MAX_DP
-    width = wgmma_slice_width(dp) if stream else 0
+    dp, width = mxu_dp_slice(dim)
+    stream = width > 0
     for rows_in_smem in (True, False):
         for stages in (3, 2):
             smem = wgmma_smem_bytes(dp, w, stages, rows_in_smem, width)
@@ -509,6 +523,84 @@ def mxu_launch_geometry(dim: int, w: int) -> MxuPlan:
                 return MxuPlan("wgmma_stream" if stream else "wgmma", dp,
                                stages, rows_in_smem, smem, width)
     raise AssertionError(f"no wgmma plan fits at Dp={dp}")
+
+
+class PreparedPoints(NamedTuple):
+    """A point side laid out once for the kernels (``prepare_points``).
+    ``kind`` names the layout: "d3" (``lanes``: ``d3_lanes``, f32[Bp,
+    t_pad, 4]), "ring" (``lanes``: ``ring_layout``, either ring route) or
+    "wgmma" (``lanes``: the packed halves (hi, lo) of
+    ``pack_wgmma_halves``, ``norms``: ``padded_norms2``); ``ids`` and
+    ``pts`` are the side's ids and points, contiguous."""
+    kind: str
+    lanes: torch.Tensor | tuple
+    norms: torch.Tensor | None
+    ids: torch.Tensor
+    pts: torch.Tensor
+
+    def nbytes(self) -> int:
+        """Bytes of the layouts beyond the side's own points and ids."""
+        parts = (self.lanes if isinstance(self.lanes, tuple)
+                 else (self.lanes,)) + (() if self.norms is None
+                                        else (self.norms,))
+        return sum(t.numel() * t.element_size() for t in parts)
+
+
+def prepared_kind(dim: int, score_dtype: str = "f32") -> str:
+    """The layout a traversal at ``dim`` and ``score_dtype`` launches on."""
+    if uses_mxu(score_dtype, dim):
+        return "wgmma"
+    return "d3" if dim == 3 else "ring"
+
+
+def prepare_points(p: BucketedPoints,
+                   score_dtype: str = "f32") -> PreparedPoints:
+    """``p`` laid out for the kernel ``knn_update_tiled_cuda`` launches at
+    its D and ``score_dtype``: the one place that decides the point side's
+    layout, made here by every launch not given it (``_prepared_for``):
+    ``d3_lanes`` padded to whole 256-lane chunks at D=3; ``ring_layout``
+    in 64-lane chunks (NaN lanes) at other D; under bf16 at D >=
+    ``mxu_min_dim()`` the packed halves of lanes in pairs of chunks, in
+    the plan's K-slices, and ``padded_norms2``. Runs on the device ``p``
+    lies on."""
+    num_pb, t_p = p.ids.shape
+    dim = p.pts.shape[-1]
+    ids = p.ids.contiguous()
+    pts = p.pts.contiguous()
+    kind = prepared_kind(dim, score_dtype)
+    if kind == "wgmma":
+        dp, width = mxu_dp_slice(dim)
+        t_pad = round_up(t_p, 2 * WGMMA_LANES)
+        return PreparedPoints(
+            kind, pack_wgmma_halves(pts, t_pad, dp, 2 * WGMMA_LANES, width),
+            padded_norms2(pts, t_pad), ids, pts)
+    if kind == "d3":
+        lanes = d3_lanes(pts, ids, round_up(t_p, CHUNK_LANES))
+    else:
+        lanes = ring_layout(pts, round_up(t_p, RING_LANES), RING_LANES,
+                            round_up(dim, 4), float("nan"))
+    return PreparedPoints(kind, lanes, None, ids, pts)
+
+
+def _prepared_for(prepared: PreparedPoints | None, kind: str,
+                  p: BucketedPoints, lanes_shape: tuple) -> PreparedPoints:
+    """A launch's point side: ``prepared`` checked against the layout its
+    plan asks for (``kind`` and the shape of its lanes, the bf16 halves'
+    each), or ``prepare_points(p)`` made here, so every launch takes its
+    point layout from the one place that decides it."""
+    if prepared is None:
+        prepared = prepare_points(p, "bf16" if kind == "wgmma" else "f32")
+    lanes = prepared.lanes[0] if kind == "wgmma" else prepared.lanes
+    if (prepared.kind != kind or prepared.ids.shape != p.ids.shape
+            or prepared.pts.device != p.pts.device
+            or tuple(lanes.shape) != tuple(lanes_shape)):
+        raise ValueError(
+            f"the prepared point side ({prepared.kind}, lanes "
+            f"{tuple(lanes.shape)}, ids {tuple(prepared.ids.shape)} on "
+            f"{prepared.pts.device}) is not this launch's ({kind}, lanes "
+            f"{tuple(lanes_shape)}, ids {tuple(p.ids.shape)} on "
+            f"{p.pts.device})")
+    return prepared
 
 
 def _check_inputs(state: CandidateState, q: BucketedPoints,
@@ -536,12 +628,16 @@ def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
                           p: BucketedPoints, *, skip_self: bool = False,
                           self_group: int = 1, with_stats: bool | str = False,
                           score_dtype: str = "f32",
-                          canonical_ties: bool = False):
+                          canonical_ties: bool = False,
+                          prepared: PreparedPoints | None = None):
     """Fold every real point of ``p`` into ``state`` (module docstring).
     CPU tensors take ``knn_update_tiled_plain``; CUDA tensors launch a
-    kernel or raise. Returns a new state (the input is not modified) and,
-    with ``with_stats``, each query bucket's visit count (i64[Bq]), and
-    with ``with_stats="full"`` also the fold count (``_with_stats``).
+    kernel or raise. ``prepared`` is ``prepare_points(p, score_dtype)``
+    made once by the caller (it must match this launch's layout, or the
+    call raises); without it the launch makes it itself. Returns a new
+    state (the input is not modified) and, with ``with_stats``, each query
+    bucket's visit count (i64[Bq]), and with ``with_stats="full"`` also
+    the fold count (``_with_stats``).
 
     ``canonical_ties`` re-sorts the finished rows by (d2, idx), one stable
     two-key sort (of the widened rows, before they are cut to k, under
@@ -563,7 +659,8 @@ def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
         rows = widen_rows(state, survivor_width(k, p))
         visits = launch_knn_tiled_mxu(order, sorted_d2, q, p, rows,
                                       skip_self=skip_self,
-                                      self_group=self_group)
+                                      self_group=self_group,
+                                      prepared=prepared)
         if canonical_ties:
             rows = CandidateState(*sort_rows_canonical(*rows))
         out = CandidateState(rows.dist2[:, :k].contiguous(),
@@ -573,7 +670,8 @@ def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
         out = CandidateState(state.dist2.contiguous().clone(),
                              state.idx.contiguous().clone())
         visits = launch_knn_tiled(order, sorted_d2, q, p, out,
-                                  skip_self=skip_self, self_group=self_group)
+                                  skip_self=skip_self, self_group=self_group,
+                                  prepared=prepared)
         if canonical_ties:
             out = CandidateState(*sort_rows_canonical(*out))
     return _with_stats(out, visits.long(), with_stats)
@@ -609,7 +707,8 @@ def ring_layout(pts: torch.Tensor, n_pad: int, group: int, dp4: int,
 def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
                      q: BucketedPoints, p: BucketedPoints,
                      rows: CandidateState, *, skip_self: bool,
-                     self_group: int) -> torch.Tensor:
+                     self_group: int,
+                     prepared: PreparedPoints | None = None) -> torch.Tensor:
     """Launch the f32 kernel that ``tiled_launch_plan`` names on PyTorch's
     current stream, folding ``p`` into ``rows`` IN PLACE along the visit
     schedule ``(order, sorted_d2)`` of ``nearest_first_order``
@@ -623,7 +722,8 @@ def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
                              rows.dist2.shape[1], q.pts.shape[-1])
     visits = launch_f32_plan(plan, order, sorted_d2, q, p, rows,
                              skip_self=skip_self, self_group=self_group,
-                             events=knn_update_tiled_cuda.layout_events)
+                             events=knn_update_tiled_cuda.layout_events,
+                             prepared=prepared)
     kt = knn_update_tiled_cuda
     kt.launches += 1
     kt.ring_launches += int(plan.kernel == "ring")
@@ -636,7 +736,8 @@ def launch_f32_plan(plan: TiledPlan, order: torch.Tensor,
                     sorted_d2: torch.Tensor, q: BucketedPoints,
                     p: BucketedPoints, rows: CandidateState, *,
                     skip_self: bool, self_group: int,
-                    events: list | None = None) -> torch.Tensor:
+                    events: list | None = None,
+                    prepared: PreparedPoints | None = None) -> torch.Tensor:
     """Launch ``plan``'s kernel of ``csrc/knn_tiled.cu`` (contiguous rows
     and schedule, as ``_check_schedule`` asks); counts nothing, raises on a
     failed launch. The ring kernel gets both sides in ``ring_layout``
@@ -644,13 +745,13 @@ def launch_f32_plan(plan: TiledPlan, order: torch.Tensor,
     never adopted); the D=3 kernel gets the point buckets as ``d3_lanes``
     padded to whole chunks. With ``events`` (a list) it appends three
     recorded CUDA events: before the layouts, before the kernel and after
-    it. Returns the per-query-bucket visit counts (i32[Bq])."""
+    it. The point side is ``prepared`` (``prepare_points``), made here
+    when not given. Returns the per-query-bucket visit counts (i32[Bq])."""
     num_qb, s_q = q.ids.shape
     num_pb, t_p = p.ids.shape
     k = rows.dist2.shape[1]
     visits = torch.zeros(num_qb, dtype=torch.int32, device=order.device)
     q_ids = q.ids.contiguous()
-    p_ids = p.ids.contiguous()
     flags = (int(bool(skip_self)), self_group)
     lib = _library("knn_tiled")
     with torch.cuda.device(order.device):
@@ -660,7 +761,7 @@ def launch_f32_plan(plan: TiledPlan, order: torch.Tensor,
             marks[0].record()
         if plan.kernel == "d3":
             t_pad = round_up(t_p, CHUNK_LANES)
-            p4 = d3_lanes(p.pts, p_ids, t_pad)
+            p4 = _prepared_for(prepared, "d3", p, (num_pb, t_pad, 4)).lanes
             q_pts = q.pts.contiguous()
             if events is not None:
                 marks[1].record()
@@ -674,8 +775,10 @@ def launch_f32_plan(plan: TiledPlan, order: torch.Tensor,
             s_pad = round_up(s_q, plan.rows)
             t_pad = round_up(t_p, plan.lanes)
             q_ring = ring_layout(q.pts, s_pad, plan.rows, plan.dp4, 0.0)
-            p_ring = ring_layout(p.pts, t_pad, plan.lanes, plan.dp4,
-                                 float("nan"))
+            prepared = _prepared_for(
+                prepared, "ring", p,
+                (num_pb, t_pad // plan.lanes, plan.dp4 // 4, plan.lanes, 4))
+            p_ring, p_ids = prepared.lanes, prepared.ids
             if events is not None:
                 marks[1].record()
             err = lib.knn_tiled_nd_ring_launch(
@@ -769,14 +872,18 @@ def padded_norms2(pts: torch.Tensor, t_pad: int) -> torch.Tensor:
 def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
                          q: BucketedPoints, p: BucketedPoints,
                          rows: CandidateState, *, skip_self: bool,
-                         self_group: int) -> torch.Tensor:
+                         self_group: int,
+                         prepared: PreparedPoints | None = None
+                         ) -> torch.Tensor:
     """Launch ``knn_tiled_wgmma_kernel`` on the route that
     ``mxu_launch_geometry`` names, on PyTorch's current stream, folding
     ``p`` into the WIDENED ``rows`` IN PLACE (module docstring: on return
     each row holds exact d2 and ids, sorted stably). Prepares the bf16
     halves of both sides (``pack_wgmma_halves``: in one slice with the
     queries resident, else in the plan's K-slices in runs of 128 query
-    rows and of a chunk pair's 128 lanes) and the exact ``|p|^2``. Returns
+    rows and of a chunk pair's 128 lanes) and the exact ``|p|^2``, the
+    point side's in ``prepared`` (``prepare_points``, made here when not
+    given). Returns
     the per-query-bucket visit counts (i32[Bq]). Counts one launch in
     ``knn_update_tiled_cuda.mxu_launches``, and also in
     ``wgmma_launches`` (queries resident) or ``wgmma_stream_launches`` (D
@@ -798,12 +905,13 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
     t_pad = round_up(t_p, 2 * WGMMA_LANES)  # the kernel takes chunk pairs
     qh, ql = pack_wgmma_halves(q.pts, s_pad, plan.dp, WGMMA_ROWS,
                                plan.slice_width)
-    ph, pl = pack_wgmma_halves(p.pts, t_pad, plan.dp, 2 * WGMMA_LANES,
-                               plan.slice_width)
-    pn2 = padded_norms2(p.pts, t_pad)
+    prepared = _prepared_for(
+        prepared, "wgmma", p,
+        (num_pb, t_pad // (2 * WGMMA_LANES), 2 * WGMMA_LANES * plan.dp))
+    (ph, pl), pn2 = prepared.lanes, prepared.norms
+    p_pts, p_ids = prepared.pts, prepared.ids
     visits = torch.zeros(num_qb, dtype=torch.int32, device=order.device)
     q_pts, q_ids = q.pts.contiguous(), q.ids.contiguous()
-    p_pts, p_ids = p.pts.contiguous(), p.ids.contiguous()
     lib = _library("knn_tiled_mxu")
     with torch.cuda.device(order.device):
         stream = torch.cuda.current_stream().cuda_stream

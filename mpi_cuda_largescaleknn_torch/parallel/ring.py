@@ -73,7 +73,7 @@ from mpi_cuda_largescaleknn_torch.ops.tiled import (
 )
 from mpi_cuda_largescaleknn_torch.ops.traverse import knn_update_tree
 from mpi_cuda_largescaleknn_torch.utils import checkpoint as ckpt
-from mpi_cuda_largescaleknn_torch.utils.math import cdiv
+from mpi_cuda_largescaleknn_torch.utils.math import cdiv, next_pow2
 
 
 #: the engines on the bucketed data path (partition, nearest-first walk)
@@ -193,6 +193,22 @@ def resolve_bucket_size(bucket_size: int, engine: str) -> int:
     if bucket_size:
         return bucket_size
     return {"tiled": 128, "pallas_tiled": 256}.get(engine, 512)
+
+
+def resolve_query_buckets(query_buckets: int, qpad: int, k: int) -> int:
+    """The serving engine's query-bucket count for one padded batch shape
+    (0 = auto), the JAX package's rule: auto targets ``next_pow2(max(8,
+    k))`` queries a bucket; explicit values round up to a power of two.
+    The result divides ``qpad`` and leaves at least 8 rows a bucket; 1 is
+    the single whole-batch bucket."""
+    if qpad < 16:
+        return 1
+    cap = qpad // 8
+    if query_buckets < 1:
+        b = qpad // next_pow2(max(8, k))
+    else:
+        b = next_pow2(query_buckets)
+    return max(1, min(b, cap))
 
 
 def ring_total_rounds(num_shards: int) -> int:

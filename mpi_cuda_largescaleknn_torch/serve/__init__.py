@@ -1,0 +1,28 @@
+"""Online kNN serving on one card: the port of the JAX package's
+``serve/`` in its single-host form.
+
+- ``engine``    — loads points once, builds the resident partition of R
+                  virtual shards and the kernels' prepared point sides
+                  once, and one fixed-shape launch plan per shape bucket
+                  (powers of two up to ``max_batch``), so steady traffic
+                  never builds another; batches run on the engine's CUDA
+                  stream, merged on the card or on the host.
+- ``batcher``   — dynamic micro-batching with per-request demux;
+                  pipelined at ``pipeline_depth > 1`` (the next batch's
+                  traversal overlaps the previous batch's fetch and merge).
+- ``admission`` — bounded queue, backpressure, deadlines, and the one
+                  counted degradation from the traversal kernel to its
+                  twin ``tiled``.
+- ``server``    — stdlib-HTTP JSON/binary endpoint: /knn, /healthz,
+                  /stats, Prometheus-text /metrics.
+- ``faults``, ``recall``, ``qcache`` — the JAX package's fault injection,
+                  recall-SLO plans (their knobs reach the twin ``tiled``)
+                  and certified query cache (exact hits, in-flight dedup,
+                  radius seeds that reach the engine as per-row radii).
+
+Not ported yet (ROADMAP.md Queue 1): the tiered slab pool (``slabpool``,
+the shared ``ExecutableCache``), ``wire``, ``tenancy``, and pod serving
+(``frontend``, ``health``, ``replica``, the engine's
+``emit="candidates"``, ``complete_candidates``, ``complete_slices`` and
+``refetch_exact``).
+"""

@@ -1,0 +1,113 @@
+"""The port's serving CLI (``cli/serve_main.py``): the same option dict
+as the JAX CLI's for the single-host flags, each flag of pod, routed,
+standby, slab-pool and tenancy serving refused with ``not_ported`` naming
+its ROADMAP item, and ``main`` run in process on the CPU answering a JSON
+and a binary request, then shutting down."""
+
+import json
+import queue
+import threading
+import urllib.request
+
+import numpy as np
+import pytest
+
+from mpi_cuda_largescaleknn_torch.cli import serve_main as t_cli
+from mpi_cuda_largescaleknn_tpu.cli import serve_main as j_cli
+from tests.oracle import assert_dist_equal, kth_nn_dist, random_points
+
+SINGLE_HOST = [
+    ["pts.float3", "-k", "8"],
+    ["-k", "100", "pts.npy", "-r", "0.25", "--port", "0", "--host",
+     "0.0.0.0", "--engine", "pallas_tiled", "--merge", "device",
+     "--shards", "4", "--bucket-size", "128", "--score-dtype", "bf16",
+     "--query-buckets", "1", "--max-batch", "512", "--min-batch", "16",
+     "--max-delay-ms", "0.5", "--pipeline-depth", "3",
+     "--max-queue-rows", "1024", "--timeout-ms", "250",
+     "--qcache-rows", "0", "--qcache-seed-rows", "64",
+     "--recall-policy", "plans.json", "--no-warmup", "--timings",
+     "--verbose"],
+]
+
+
+@pytest.mark.parametrize("argv", SINGLE_HOST)
+def test_parse_serve_args_equals_jax(argv):
+    got = t_cli.parse_serve_args(argv)
+    assert got.pop("device") is None
+    assert got == j_cli.parse_serve_args(argv)
+    assert t_cli.parse_serve_args(argv + ["--device", "cpu"])["device"] \
+        == "cpu"
+
+
+@pytest.mark.parametrize("flag,value,item", [
+    ("--coordinator", "127.0.0.1:9", "pod serving"),
+    ("--num-hosts", "2", "pod serving"),
+    ("--host-id", "1", "pod serving"),
+    ("--routing", "bounds", "pod serving"),
+    ("--standby", None, "pod serving"),
+    ("--wire", "f32", "pod serving"),
+    ("--seq-timeout-s", "5", "pod serving"),
+    ("--num-slabs", "4", "single-host serving tiers"),
+    ("--device-slab-budget", "1g", "single-host serving tiers"),
+    ("--host-pool-bytes", "1g", "single-host serving tiers"),
+    ("--host-pool-slabs", "2", "single-host serving tiers"),
+    ("--prefetch-depth", "2", "single-host serving tiers"),
+    ("--tenant", "a=pts.float3", "single-host serving tiers"),
+    ("--tenant-quota-rows", "64", "single-host serving tiers"),
+])
+def test_refused_flags_name_their_item(flag, value, item):
+    argv = ["pts.float3", "-k", "8", flag] + ([value] if value else [])
+    with pytest.raises(NotImplementedError, match=item):
+        t_cli.parse_serve_args(argv)
+
+
+def test_usage_errors_exit_1():
+    for argv in (["-k", "8"], ["pts.float3"], ["pts.float3", "-k", "8",
+                                               "--bogus"]):
+        with pytest.raises(SystemExit) as e:
+            t_cli.parse_serve_args(argv)
+        assert e.value.code == 1
+
+
+def _post(port, body, ctype):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/knn", data=body,
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return resp.read()
+
+
+def test_main_serves_json_and_binary_then_stops(tmp_path, capsys):
+    pts = random_points(1200, seed=4)
+    path = tmp_path / "pts.float3"
+    pts.tofile(path)
+    ready = queue.Queue()
+    rc = []
+    th = threading.Thread(target=lambda: rc.append(t_cli.main(
+        [str(path), "-k", "8", "--port", "0", "--device", "cpu",
+         "--max-batch", "64", "--shards", "2", "--timings"],
+        ready=ready.put)), daemon=True)
+    th.start()
+    srv = ready.get(timeout=300)
+    try:
+        port = srv.server_address[1]
+        assert srv.engine.engine_name == "pallas_tiled"
+        assert srv.engine.compile_count == len(srv.engine.shape_buckets)
+        q = random_points(20, seed=9)
+        resp = json.loads(_post(port, json.dumps(
+            {"queries": q.tolist(), "neighbors": True}).encode(),
+            "application/json"))
+        want = kth_nn_dist(q, pts, 8)
+        assert_dist_equal(np.asarray(resp["dists"], np.float32), want)
+        assert np.asarray(resp["neighbors"]).shape == (20, 8)
+        got = np.frombuffer(_post(port, q.astype("<f4").tobytes(),
+                                  "application/octet-stream"), "<f4")
+        assert got.tobytes() == np.asarray(resp["dists"],
+                                           np.float32).tobytes()
+    finally:
+        srv.shutdown()
+    th.join(timeout=60)
+    assert not th.is_alive() and rc == [0]
+    out = capsys.readouterr()
+    assert "serving kNN on http://127.0.0.1:" in out.out
+    # the binary request's rows were the query cache's exact hits
+    assert json.loads(out.err.strip().splitlines()[-1])["result_rows"] == 20
