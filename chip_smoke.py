@@ -95,7 +95,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    streamed ring route; ``UnorderedKNN`` in bf16 at R=1 on the same
    points, every launch on the wgmma kernel's streamed route, distances
    byte-equal to the f32 run, ids equal up to the order of exact ties, its
-   kernel and preparation timed apart; a selfcheck of 200 samples of the
+   kernel and preparation timed apart; a selfcheck of 50 samples of the
    distances both runs share; and ``UnorderedKNN`` with ``engine="pallas"`` at D=128 on
    phase 10b's points (the flat route of the ring kernel), byte-equal to
    the ``auto`` run there; stages and peak device memory of each, each
@@ -139,7 +139,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    numpy parts byte-equal, the native child under the baseline plus a
    quarter of the file; 14c ``prepartitioned_main`` on the 8 native parts
    at k=100 (``--query-chunk 524288`` a shard: chunks of 4,194,304 rows,
-   ``--selfcheck 1000``) and ``unordered_main`` on the joined parts with
+   ``--selfcheck 200``) and ``unordered_main`` on the joined parts with
    ``--query-chunk 4194304``: rank files byte-equal to the unordered
    output, every launch on the D=3 kernel, peak device memory and stages
    printed; 14d one 4,194,304-row chunk against the whole 33.5M-point side
@@ -181,6 +181,36 @@ the serving core (``serving_phases``):
    card's name and power limit; 16c ``cli/serve_main.main`` in this
    process on phase 4's file at k=8: one JSON and one binary request,
    byte-equal to phase 4's k=8 output, then stopped.
+
+Then the tiered slab index and tenancy (``tiered_phases``), on 16a's
+8,388,608 points in Morton order written to one raw file:
+
+3g. the D=3 traversal kernel at the slab engines' shapes (a slab engine's
+   own point side: ``emit="candidates"``, global ids, padded to the pool's
+   shape class; a slab of 1,048,576 rows and one 1,000 rows short),
+   sub-batches of 1, 37 and 1024 rows staged as the engine stages them,
+   seeded radii (a third +inf), k=100, against the plain traversal, d2
+   and ids bit for bit;
+16s. ``StreamingKnnEngine`` over the file as 8 slabs behind
+   ``build_server``: a device budget of 2 slabs (4x over it), a host pool
+   of 4 slabs' bytes, prefetch depth 2, the query cache off, k=100, R=1;
+   8 closed-loop clients send a sweep (Gaussian blobs of sigma 0.05
+   whose center drifts along the box diagonal every 4 s) for 8 s.
+   Checks: a 64-row probe before and after the churn byte-equal to a
+   ``ResidentKnnEngine`` over the same points; 1,000 served rows against
+   the exact answer; promotions and evictions during the traffic; no
+   launch plan built after warmup; the pool's device bytes over the
+   budget only by counted overcommit. Printed: queries/s, p50/p99, the
+   stall fraction, promotions, evictions, cold reads, host hits, the
+   pool's high water and ``max_memory_allocated``;
+16t. ``cli/serve_main.main`` in this process with four ``--tenant``
+   indexes of 2,097,152 Morton-sorted points (one ``.npy``),
+   ``--num-slabs 4`` (16 slabs on a budget of 6) and
+   ``--tenant-quota-rows 512``: each tenant's probe byte-equal to its own
+   resident engine, legacy ``/knn`` the default tenant's, an unknown
+   tenant's 404 listing the tenants, a request over the quota a 429 with
+   Retry-After, then zipf-skewed traffic (1/(i+1)^4) through the URL, the
+   JSON field and the binary codec's header, no plan built after warmup.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -228,6 +258,7 @@ PEAK_BF16 = 989e12      # dense bf16 tensor-core FLOP/s (same data sheet)
 HD_DIM, HD_K = 128, 10  # phase 10: the SIFT1M shape and its recall@10
 HD_SUB = 262_144        # phase 10b: points cut into 4 .npy slab parts
 GIST_DIM = 960          # phase 10c: GIST1M's width, on HD_SUB points
+GIST_SELFCHECK = 50     # phase 10c: host samples (200 took 44.8-71.7 s)
 PLAIN_BUCKETS = 16      # phase 11: query buckets the plain versions run
 N_WALL, WALL_K = 8_388_608, 100  # phase 13a: the candidate rows' memory wall
 WALL_CHUNK = 1_048_576           # phase 13a: 8 chunks
@@ -236,6 +267,7 @@ MERGE_CHUNK = 1_000              # phase 13c: query buckets of 4 x 1,000 rows
 N_BIG, BIG_K = 33_554_432, 100   # phase 14: one raw file, run only chunked
 BIG_PARTS = 8                    # phase 14b: Morton parts of that file
 BIG_CHUNK = 4_194_304            # phase 14c: query rows a chunk (8 chunks)
+BIG_SELFCHECK = 200              # phase 14c: host samples (was 1000)
 # the pre-partitioned CLI's --query-chunk counts rows of each shard: 8
 # parts x 524,288 rows make chunks of BIG_CHUNK rows, as the unordered run
 BIG_PART_CHUNK = BIG_CHUNK // BIG_PARTS
@@ -251,6 +283,21 @@ SERVE_MAX_BATCH = 1024           # the widest shape bucket (the default)
 SERVE_FIXED = 16                 # 16a: requests of the fixed list (check 2)
 SERVE_FIXED_HD = 9               # 16b: the same (a D=128 batch walks all
                                  # 1M points: ~250 ms in f32 on an H100)
+TIER_SLABS = 8                   # 16s: N_WALL points in slabs of 1,048,576
+TIER_BUDGET_SLABS = 2            # 16s: the device budget (4x over it)
+TIER_HOST_SLABS = 4              # 16s: the host pool, in slabs' bytes
+TIER_PREFETCH = 2                # 16s: --prefetch-depth
+TIER_PROBE = 64                  # 16s/16t: probe rows held to a resident
+SWEEP_PERIOD = 4.0               # 16s: seconds a sweep of the diagonal
+SWEEP_SIGMA = 0.05               # 16s: the sweep's blob sigma
+TENANTS = 4                      # 16t: tenants, each
+TENANT_POINTS = 2_097_152        # ... this many Morton-sorted points
+TENANT_SLABS = 4                 # ... in this many slabs (16 in all)
+TENANT_BUDGET_SLABS = 6          # 16t: the shared device budget
+TENANT_QUOTA = 512               # 16t: --tenant-quota-rows
+TENANT_SKEW = 4.0                # 16t: rank i gets 1/(i+1)^4 of requests
+TENANT_SECONDS = 4.0             # 16t: traffic
+TENANT_MAX_ROWS = 256            # 16t: rows a request, log-uniform from 1
 
 
 def fail(msg: str) -> None:
@@ -2105,6 +2152,7 @@ def out_of_core_phases(smi):
     with timed_step(steps, "pre-partitioned CLI"):
         runs[label], pre_bytes = prepartitioned_run(
             label, lst, big / "pre", BIG_K, "auto", BIG_PARTS,
+            selfcheck=BIG_SELFCHECK,
             extra=["--query-chunk", str(BIG_PART_CHUNK)])
     say(f"    rounds_per_chunk {runs[label]['rounds_per_chunk']}")
     joined = big / "joined.float3"
@@ -2375,24 +2423,7 @@ def served_shape_cases(wall, hd):
 def knn_post(port, q, binary, timeout=300):
     """One POST /knn of the rows ``q`` (JSON with neighbors, or binary):
     (status, body bytes, seconds on the host's clock)."""
-    import urllib.error
-    import urllib.request
-
-    if binary:
-        body, ctype = q.astype("<f4").tobytes(), "application/octet-stream"
-    else:
-        body = json.dumps({"queries": q.tolist(),
-                           "neighbors": True}).encode()
-        ctype = "application/json"
-    req = urllib.request.Request(f"http://127.0.0.1:{port}/knn", data=body,
-                                 headers={"Content-Type": ctype})
-    t0 = time.perf_counter()
-    try:
-        with urllib.request.urlopen(req, timeout=timeout) as resp:
-            status, out = resp.status, resp.read()
-    except urllib.error.HTTPError as e:
-        status, out = e.code, e.read()
-    return status, out, time.perf_counter() - t0
+    return tier_post(port, "/knn", q, binary, timeout=timeout)[:3]
 
 
 def decode_knn(body, binary, n, k):
@@ -3007,6 +3038,575 @@ def serving_phases(smi, pts_path, k8_path, hd):
 
 
 
+def slab_shape_cases(pts_sorted):
+    """Phase 3g: the D=3 traversal kernel at the slab engines' shapes,
+    against its plain version on the card, bit for bit (d2 and ids). The
+    point side is the one a slab engine keeps: a ``ResidentKnnEngine`` with
+    ``emit="candidates"``, global ids and ``pad_shard_rows`` at the pool's
+    shape class (a slab of 1,048,576 rows, and one 1,000 rows short padded
+    to it); sub-batches of 1, 37 and 1024 rows routed to that slab (a fifth
+    of them outside its box: escalation rows), staged as the engine stages
+    them (Morton-sorted, padded to the shape bucket, in its query buckets),
+    per-row radii a third +inf and the rest seeds, k=100. Returns the max
+    abs error."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.core.types import PAD_SENTINEL
+    from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
+    from mpi_cuda_largescaleknn_torch.serve.engine import (
+        ResidentKnnEngine,
+        batch_buckets,
+    )
+    from mpi_cuda_largescaleknn_torch.utils.math import morton_argsort
+
+    rows_a_slab = N_WALL // TIER_SLABS
+    rng = np.random.default_rng(SEED + 95)
+    errs = []
+    begin = 3 * rows_a_slab
+    for label, end in (("slab 3 of 8", begin + rows_a_slab),
+                       ("a slab 1,000 rows short, padded",
+                        begin + rows_a_slab - 1000)):
+        rows = pts_sorted[begin:end]
+        eng = ResidentKnnEngine(rows, WALL_K, max_batch=SERVE_MAX_BATCH,
+                                id_offset=begin, emit="candidates",
+                                pad_shard_rows=rows_a_slab)
+        side, prep = eng._buckets[0], eng._prepared[0]
+        if side.num_buckets * side.bucket_size < rows_a_slab:
+            fail(f"3g {label}: the point side holds "
+                 f"{side.num_buckets * side.bucket_size} rows, not the "
+                 f"class's {rows_a_slab}")
+        lo, hi = rows.min(axis=0), rows.max(axis=0)
+        for n in (1, 37, 1024):
+            q = (lo + (hi - lo) * rng.random((n, 3))).astype(np.float32)
+            out = rng.random(n) < 0.2
+            q[out] = rng.random((int(out.sum()), 3), dtype=np.float32)
+            r = rng.uniform(0.005, 0.03, n).astype(np.float32)
+            r[::3] = np.inf
+            qpad = eng.bucket_for(n)
+            perm = (morton_argsort(q, eng._index_lo, eng._index_hi)
+                    if n > 1 else np.arange(n))
+            q_st = np.full((qpad, 3), PAD_SENTINEL, np.float32)
+            r_st = np.full(qpad, np.inf, np.float32)
+            q_st[:n], r_st[:n] = q[perm], r[perm]
+            qb = batch_buckets(torch.from_numpy(q_st).cuda(),
+                               eng.query_buckets[qpad])
+            state = init_candidates(qpad, WALL_K,
+                                    torch.from_numpy(r_st).cuda())
+            errs.append(check_traversal(
+                f"3g {label}: {n} rows in {qb.num_buckets} query buckets "
+                f"of {qb.bucket_size}", state, qb, side, None,
+                skip_self=False, group=1, route="d3", canonical=True,
+                prepared=prep))
+        del eng, side, prep
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def tier_post(port, path, q, binary, headers=None, tenant=None,
+              timeout=300):
+    """One POST of the rows ``q`` to ``path`` (JSON with neighbors and,
+    given, the ``tenant`` field; or binary), extra ``headers``: (status,
+    body, seconds, Retry-After)."""
+    import urllib.error
+    import urllib.request
+
+    if binary:
+        body, ctype = q.astype("<f4").tobytes(), "application/octet-stream"
+    else:
+        obj = {"queries": q.tolist(), "neighbors": True}
+        if tenant is not None:
+            obj["tenant"] = tenant
+        body, ctype = json.dumps(obj).encode(), "application/json"
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=body,
+        headers=dict({"Content-Type": ctype}, **(headers or {})))
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, out, retry = resp.status, resp.read(), None
+    except urllib.error.HTTPError as e:
+        status, out, retry = e.code, e.read(), e.headers["Retry-After"]
+    return status, out, time.perf_counter() - t0, retry
+
+
+def probe_rows(pts, seed):
+    """``TIER_PROBE`` fixed rows: a quarter index points (distance 0 to
+    themselves), a quarter around the box's center (where all eight
+    Morton octants meet), half uniform in the box."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n4 = TIER_PROBE // 4
+    own = pts[rng.choice(len(pts), n4, replace=False)]
+    mid = (0.5 + rng.normal(0.0, 0.01, (n4, 3))).astype(np.float32)
+    uni = rng.random((TIER_PROBE - 2 * n4, 3), dtype=np.float32)
+    return np.ascontiguousarray(np.concatenate([own, mid, uni]))
+
+
+def probe_check(label, port, path, q, want, headers=None):
+    """The probe through the server (JSON with neighbors): distances and
+    ids byte-equal to ``want`` (a resident engine's answer)."""
+    import numpy as np
+
+    status, body, _, _ = tier_post(port, path, q, False, headers)
+    if status != 200:
+        fail(f"{label}: HTTP {status}: {body[:300]!r}")
+    d, idx = decode_knn(body, False, len(q), WALL_K)
+    if d.tobytes() != want[0].tobytes() or not np.array_equal(idx, want[1]):
+        fail(f"{label}: {int((d != want[0]).sum())} distances and "
+             f"{int((idx != want[1]).any(1).sum())} rows' ids differ from "
+             "the resident engine's")
+
+
+def promotion_split(rows, begin):
+    """One slab engine's build (a promotion's work) split on the host's
+    clock, each step ending in a synchronise: the boxes on the host (the
+    index box and ``slab_aabbs``, as the build takes them), the host
+    padding (``pad_and_flatten``), the pinned upload, the partition and the
+    kernel's layout (``prepare_points``) on the card, and the whole
+    ``ResidentKnnEngine`` build; the second of two builds (the first pays
+    first uses). Returns {step: seconds}."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.models.sharding import (
+        pad_and_flatten,
+        slab_aabbs,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import prepare_points
+    from mpi_cuda_largescaleknn_torch.ops.partition import partition_points
+    from mpi_cuda_largescaleknn_torch.serve.engine import ResidentKnnEngine
+
+    for _ in range(2):
+        steps = {}
+        with timed_step(steps, "boxes"):
+            rows.min(axis=0), rows.max(axis=0)
+            slab_aabbs(rows, [(0, len(rows))])
+        with timed_step(steps, "pad"):
+            flat, ids, _, _ = pad_and_flatten([rows], [begin], 3,
+                                              pad_to=len(rows))
+        with timed_step(steps, "upload"):
+            f = torch.from_numpy(flat).pin_memory().cuda(non_blocking=True)
+            i = torch.from_numpy(ids).pin_memory().cuda(non_blocking=True)
+            torch.cuda.synchronize()
+        with timed_step(steps, "partition"):
+            side = partition_points(f, i, bucket_size=256)
+            torch.cuda.synchronize()
+        with timed_step(steps, "layout"):
+            prepare_points(side)
+            torch.cuda.synchronize()
+        with timed_step(steps, "engine"):
+            ResidentKnnEngine(rows, WALL_K, max_batch=SERVE_MAX_BATCH,
+                              id_offset=begin, emit="candidates",
+                              pad_shard_rows=len(rows))
+        del f, i, side
+    return steps
+
+
+def tiered_serving(smi, pts_sorted, path):
+    """Phase 16s: ``pts_sorted`` (N_WALL uniform points in Morton order)
+    from the raw file ``path`` as ``TIER_SLABS`` slabs through a
+    ``StreamingKnnEngine`` at k=100, R=1, a device budget of
+    ``TIER_BUDGET_SLABS`` slabs' ``slab_device_bytes`` (one slab's, from
+    ``materialize_slab_engine``), a host pool of ``TIER_HOST_SLABS`` slabs'
+    bytes, prefetch depth ``TIER_PREFETCH``, the query cache off; the
+    server (``build_server``) in this process and ``closed_loop`` traffic
+    of a sweep (blobs of sigma ``SWEEP_SIGMA`` whose center drifts along
+    the box diagonal every ``SWEEP_PERIOD`` s), every launch count set to 0
+    just before and read just after. Checks: a probe before the churn and
+    after it byte-equal to a ``ResidentKnnEngine`` over the same points and
+    knobs; ``SERVE_SAMPLE`` served rows against the exact answer;
+    promotions and evictions during the traffic; ``compile_count`` flat
+    from warmup to the end; the pool's device bytes never over the budget
+    but by counted overcommit; every launch on the D=3 kernel. Returns
+    (record, launch counts)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.cli.common import launch_counts
+    from mpi_cuda_largescaleknn_torch.ops.partition import partition_points
+    from mpi_cuda_largescaleknn_torch.serve.engine import (
+        ResidentKnnEngine,
+        materialize_slab_engine,
+    )
+    from mpi_cuda_largescaleknn_torch.serve.server import build_server
+    from mpi_cuda_largescaleknn_torch.serve.slabpool import (
+        StreamingKnnEngine,
+    )
+
+    steps = {}
+    probe = probe_rows(pts_sorted, SEED + 96)
+    with timed_step(steps, "resident reference"):
+        ref = ResidentKnnEngine(pts_sorted, WALL_K, max_batch=SERVE_MAX_BATCH)
+        want = ref.query(probe)
+        del ref
+        torch.cuda.empty_cache()
+    with timed_step(steps, "slab bytes"):
+        one, _, _ = materialize_slab_engine(str(path), 0, TIER_SLABS,
+                                            k=WALL_K,
+                                            max_batch=SERVE_MAX_BATCH)
+        slab_bytes = one.device_bytes
+        del one
+        torch.cuda.empty_cache()
+    budget = TIER_BUDGET_SLABS * slab_bytes
+    host_bytes = TIER_HOST_SLABS * (N_WALL // TIER_SLABS) * 12
+    torch.cuda.reset_peak_memory_stats()
+    with timed_step(steps, "build"):
+        eng = StreamingKnnEngine(
+            str(path), num_slabs=TIER_SLABS, k=WALL_K,
+            device_slab_budget=budget, host_pool_bytes=host_bytes,
+            prefetch_depth=TIER_PREFETCH, max_batch=SERVE_MAX_BATCH)
+    if eng.slab_device_bytes != slab_bytes:
+        fail(f"16s: a slab engine holds {eng.slab_device_bytes} bytes, "
+             f"materialize_slab_engine's {slab_bytes}")
+    with timed_step(steps, "warmup"):
+        warm = eng.warmup()
+    compiles = eng.stats()["compile_count"]
+    srv = build_server(eng, port=0, qcache_rows=0,
+                       max_queue_rows=SERVE_CLIENTS * SERVE_MAX_BATCH)
+    srv.ready = True
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    port = srv.server_address[1]
+    try:
+        probe_check("16s probe before the churn", port, "/knn", probe, want)
+        t_start = time.perf_counter()
+
+        def sweep(g, n):
+            frac = ((time.perf_counter() - t_start) / SWEEP_PERIOD) % 1.0
+            return np.clip(frac + g.normal(0.0, SWEEP_SIGMA, (n, 3)),
+                           0.0, 1.0).astype(np.float32)
+
+        p0 = eng.stats()["slab_pool"]
+        b0 = srv.batcher.stats()
+        torch.cuda.synchronize()
+        reset_counts()
+        with timed_step(steps, "traffic"):
+            traffic = closed_loop(port, sweep, SERVE_SECONDS, WALL_K,
+                                  SEED + 97)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        b1 = srv.batcher.stats()
+        p1 = eng.stats()["slab_pool"]
+        probe_check("16s probe after the churn", port, "/knn", probe, want)
+        st = eng.stats()
+    finally:
+        srv.close()
+        eng.close()
+    if counts["knn_tiled_launches"] < 1 or \
+            counts["knn_tiled_d3_launches"] != counts["knn_tiled_launches"] \
+            or counts["knn_bf_launches"]:
+        fail(f"16s: launches off the D=3 traversal kernel: {counts}")
+    delta = {key: p1[key] - p0[key] for key in (
+        "promotions", "evictions", "cold_reads", "host_hits",
+        "device_hits", "stream_stalls", "stream_stall_seconds",
+        "overcommits", "prefetch_enqueued")}
+    if delta["promotions"] < 1 or delta["evictions"] < 1:
+        fail(f"16s: the pool did not churn: {delta}")
+    if st["compile_count"] != compiles:
+        fail(f"16s: {st['compile_count'] - compiles} launch plans built "
+             "after warmup")
+    pool = st["slab_pool"]
+    if pool["device_bytes_peak"] > budget and pool["overcommits"] < 1:
+        fail(f"16s: {pool['device_bytes_peak']} device bytes held, over "
+             f"the budget {budget}, with no overcommit counted")
+    if pool["device_bytes_used"] > budget:
+        fail(f"16s: {pool['device_bytes_used']} device bytes held after "
+             f"the traffic, over the budget {budget}")
+    if pool["promotion_errors"] or pool["prefetch_errors"] or \
+            st["degraded_reason"] is not None:
+        fail(f"16s: promotion errors {pool['promotion_errors']}, prefetch "
+             f"errors {pool['prefetch_errors']}, degraded "
+             f"{st['degraded_reason']}: {pool['last_error']}")
+    slab = N_WALL // TIER_SLABS
+    split = promotion_split(pts_sorted[3 * slab:4 * slab], 3 * slab)
+    with timed_step(steps, "check rows"):
+        pts_t = torch.from_numpy(pts_sorted).cuda()
+        ref_side = partition_points(pts_t, bucket_size=256)
+        checked, id_rows, ties = check_served_rows(
+            "16s", traffic, ref_side, WALL_K, pts_t, SEED + 98)
+        del pts_t, ref_side
+        torch.cuda.empty_cache()
+    lats = traffic["latencies"]
+    served = sum(len(r[0]) for r in traffic["records"])
+    build = st["timers"].get("index_build", {})
+    rec = {
+        "slab_device_bytes": slab_bytes, "device_budget_bytes": budget,
+        "host_pool_bytes": host_bytes, "warm_slabs": warm["warm_slabs"],
+        "requests": len(lats), "rows": served,
+        "rejected_429": traffic["rejected"],
+        "seconds": traffic["wall"],
+        "queries_per_second": served / traffic["wall"],
+        "p50_ms": float(np.percentile(lats, 50)) * 1e3,
+        "p99_ms": float(np.percentile(lats, 99)) * 1e3,
+        "batches": b1["batches"] - b0["batches"],
+        "pool_delta": delta,
+        "stall_fraction": delta["stream_stall_seconds"] / traffic["wall"],
+        "device_bytes_peak": pool["device_bytes_peak"],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "promotion_build": build, "promotion_split": split,
+        "streaming": st["streaming"], "compile_count": compiles,
+        "check1": {"rows": checked, "id_rows": id_rows,
+                   "id_rows_differing_by_ties": ties},
+        "launches": counts, "step_seconds": steps,
+    }
+    say(f"  16s: {rec['queries_per_second']:.0f} queries/s over "
+        f"{rec['seconds']:.1f} s ({rec['requests']} requests, {served} rows,"
+        f" {rec['batches']} batches); p50 {rec['p50_ms']:.2f} ms p99 "
+        f"{rec['p99_ms']:.2f} ms; stall fraction {rec['stall_fraction']:.4f}"
+        f" ({delta['stream_stalls']} stalls, "
+        f"{delta['stream_stall_seconds']:.3f} s); promotions "
+        f"{delta['promotions']}, evictions {delta['evictions']}, cold reads "
+        f"{delta['cold_reads']}, host hits {delta['host_hits']}, device hits"
+        f" {delta['device_hits']}, overcommits {delta['overcommits']}; "
+        f"escalation waves {st['streaming']['escalation_waves']}; a slab "
+        f"{slab_bytes} B, budget {budget} B, the pool's high water "
+        f"{pool['device_bytes_peak']} B, max_memory_allocated "
+        f"{rec['max_memory_allocated']} B ({smi})")
+    say(f"    slab builds (index_build): {build.get('calls', 0)} in "
+        f"{build.get('seconds', 0.0):.3f} s; one build split: " + ", ".join(
+            f"{name} {1e3 * sec:.1f} ms" for name, sec in split.items())
+        + f"; probe of {TIER_PROBE} rows "
+        "byte-equal to the resident engine before and after the churn; "
+        f"{checked} sampled rows byte-equal to the exact answer, ids of "
+        f"{id_rows} rows equal up to {ties} rows of exact ties; "
+        f"{compiles} plans, none after warmup; "
+        f"{counts['knn_tiled_d3_launches']} launches on the D=3 kernel")
+    say("    steps: " + ", ".join(f"{name} {sec:.1f} s"
+                                   for name, sec in steps.items()))
+    return rec, counts
+
+
+def tenancy_serving(smi):
+    """Phase 16t: ``cli/serve_main.main`` in this process with
+    ``TENANTS`` ``--tenant NAME=PATH`` flags (``TENANT_POINTS`` Morton-sorted
+    uniform points each from its own seed; the last as ``.npy``),
+    ``--num-slabs TENANT_SLABS``, one ``--device-slab-budget`` of
+    ``TENANT_BUDGET_SLABS`` slabs and ``--tenant-quota-rows TENANT_QUOTA``,
+    k=100. Checks: each tenant's probe through ``/v1/<t>/knn`` byte-equal
+    to its own ``ResidentKnnEngine``; legacy ``/knn`` answering as the
+    default tenant; an unknown tenant's 404 listing the tenants; a request
+    over its tenant's quota a 429 with Retry-After; then zipf-skewed
+    traffic (rank i gets 1/(i+1)^``TENANT_SKEW`` of the requests, each
+    through the URL, the JSON field or the binary codec's header) with
+    every launch count set to 0 just before and read just after, and
+    ``compile_count`` flat. Returns (record, launch counts)."""
+    import queue
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.cli import serve_main
+    from mpi_cuda_largescaleknn_torch.cli.common import launch_counts
+    from mpi_cuda_largescaleknn_torch.serve.engine import (
+        ResidentKnnEngine,
+        materialize_slab_engine,
+    )
+    from mpi_cuda_largescaleknn_torch.utils.math import morton_argsort
+
+    steps = {}
+    names = [f"t{i}" for i in range(TENANTS)]
+    paths, probes, wants = {}, {}, {}
+    with timed_step(steps, "data and resident references"):
+        for i, name in enumerate(names):
+            pts = seeded_points("uniform", TENANT_POINTS, SEED + 110 + i)
+            pts = np.ascontiguousarray(
+                pts[morton_argsort(pts, pts.min(0), pts.max(0))])
+            if i == TENANTS - 1:
+                paths[name] = WORK / f"tenant_{name}.npy"
+                np.save(paths[name], pts)
+            else:
+                paths[name] = WORK / f"tenant_{name}.float3"
+                pts.tofile(paths[name])
+            probes[name] = probe_rows(pts, SEED + 120 + i)
+            ref = ResidentKnnEngine(pts, WALL_K, max_batch=SERVE_MAX_BATCH)
+            wants[name] = ref.query(probes[name])
+            if i == 0:
+                legacy_q = np.ascontiguousarray(probes[name][::-1])
+                legacy_want = ref.query(legacy_q)
+            del ref
+        torch.cuda.empty_cache()
+        one, _, _ = materialize_slab_engine(str(paths[names[0]]), 0,
+                                            TENANT_SLABS, k=WALL_K,
+                                            max_batch=SERVE_MAX_BATCH)
+        budget = TENANT_BUDGET_SLABS * one.device_bytes
+        del one
+        torch.cuda.empty_cache()
+    argv = ["-k", str(WALL_K), "--port", "0", "--num-slabs",
+            str(TENANT_SLABS), "--device-slab-budget", str(budget),
+            "--tenant-quota-rows", str(TENANT_QUOTA)]
+    for name in names:
+        argv += ["--tenant", f"{name}={paths[name]}"]
+    ready, rc = queue.Queue(), []
+    t1 = time.perf_counter()
+    th = threading.Thread(target=lambda: rc.append(serve_main.main(
+        argv, ready=ready.put)), daemon=True)
+    th.start()
+    try:
+        srv = ready.get(timeout=600)
+    except queue.Empty:
+        fail("16t: the serving CLI did not become ready")
+    steps["start"] = time.perf_counter() - t1
+    try:
+        port = srv.server_address[1]
+        compiles = srv.engine.stats()["compile_count"]
+        for name in names:
+            probe_check(f"16t {name}", port, f"/v1/{name}/knn",
+                        probes[name], wants[name])
+        probe_check("16t legacy /knn", port, "/knn", legacy_q, legacy_want)
+        status, body, _, _ = tier_post(port, "/v1/nobody/knn",
+                                       probes[names[0]][:4], False)
+        if status != 404 or json.loads(body).get("tenants") != names:
+            fail(f"16t: an unknown tenant got HTTP {status}: {body[:300]!r}")
+        over = np.random.default_rng(SEED + 130).random(
+            (TENANT_QUOTA + 88, 3), dtype=np.float32)
+        status, body, _, retry = tier_post(port, f"/v1/{names[1]}/knn",
+                                           over, False)
+        if status != 429 or retry is None or float(retry) <= 0:
+            fail(f"16t: a request of {len(over)} rows over the quota "
+                 f"{TENANT_QUOTA} got HTTP {status}, Retry-After {retry}: "
+                 f"{body[:300]!r}")
+        w = np.array([1.0 / (i + 1) ** TENANT_SKEW for i in range(TENANTS)])
+        w /= w.sum()
+        deadline = time.perf_counter() + TENANT_SECONDS
+        out = [None] * SERVE_CLIENTS
+
+        def client(c):
+            g = np.random.default_rng(SEED + 140 + c)
+            n_req, n_rows, rejected, lats = 0, 0, 0, []
+            per = dict.fromkeys(names, 0)
+            try:
+                while time.perf_counter() < deadline:
+                    name = names[int(g.choice(TENANTS, p=w))]
+                    n = int(TENANT_MAX_ROWS ** g.uniform(0, 1))
+                    q = g.random((n, 3), dtype=np.float32)
+                    # the URL, the binary codec's header, the JSON field
+                    route = n_req % 3
+                    if route == 0:
+                        status, _b, sec, _r = tier_post(
+                            port, f"/v1/{name}/knn", q, False)
+                    elif route == 1:
+                        status, _b, sec, _r = tier_post(
+                            port, "/knn", q, True, {"X-Knn-Tenant": name})
+                    else:
+                        status, _b, sec, _r = tier_post(
+                            port, "/knn", q, False, tenant=name)
+                    n_req += 1
+                    if status == 429:
+                        rejected += 1
+                        time.sleep(0.01)
+                        continue
+                    if status != 200:
+                        raise RuntimeError(f"HTTP {status}")
+                    n_rows += n
+                    per[name] += 1
+                    lats.append(sec)
+                out[c] = (n_req, n_rows, rejected, lats, per, None)
+            except Exception as e:  # noqa: BLE001 - reported after join
+                out[c] = (n_req, n_rows, rejected, lats, per, e)
+
+        torch.cuda.synchronize()
+        reset_counts()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=TENANT_SECONDS + 600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if any(t.is_alive() for t in threads):
+            fail("16t: a client did not finish")
+        for o in out:
+            if o[5] is not None:
+                fail(f"16t: a client failed: {o[5]}")
+        st = srv.engine.stats()
+    finally:
+        srv.shutdown()
+    th.join(timeout=120)
+    if th.is_alive() or rc != [0]:
+        fail(f"16t: the serving CLI did not stop cleanly ({rc})")
+    if st["compile_count"] != compiles:
+        fail(f"16t: {st['compile_count'] - compiles} launch plans built "
+             "after warmup")
+    if counts["knn_tiled_launches"] < 1 or \
+            counts["knn_tiled_d3_launches"] != counts["knn_tiled_launches"]:
+        fail(f"16t: launches off the D=3 traversal kernel: {counts}")
+    lats = np.array([x for o in out for x in o[3]])
+    per = {name: sum(o[4][name] for o in out) for name in names}
+    pool = st["slab_pool"]
+    rec = {"device_budget_bytes": budget, "compile_count": compiles,
+           "requests": sum(o[0] for o in out),
+           "rows": sum(o[1] for o in out),
+           "rejected_429": sum(o[2] for o in out),
+           "answered_by_tenant": per, "seconds": wall,
+           "queries_per_second": sum(o[1] for o in out) / wall,
+           "p50_ms": float(np.percentile(lats, 50)) * 1e3,
+           "p99_ms": float(np.percentile(lats, 99)) * 1e3,
+           "pool_tenants": pool.get("tenants", {}),
+           "promotions": pool["promotions"],
+           "evictions": pool["evictions"],
+           "stream_stall_seconds": pool["stream_stall_seconds"],
+           "device_bytes_peak": pool["device_bytes_peak"],
+           "launches": counts, "step_seconds": steps}
+    say(f"  16t: {TENANTS} tenants of {TENANT_POINTS} points "
+        f"({TENANTS * TENANT_SLABS} slabs on a budget of "
+        f"{TENANT_BUDGET_SLABS}): probes byte-equal to each tenant's "
+        "resident engine, legacy /knn the default tenant's, 404 for a "
+        f"stranger, 429 over the quota; {rec['queries_per_second']:.0f} "
+        f"queries/s over {wall:.1f} s ({rec['requests']} requests, "
+        f"{rec['rejected_429']} refused 429, by tenant {per}); p50 "
+        f"{rec['p50_ms']:.2f} ms p99 {rec['p99_ms']:.2f} ms; promotions "
+        f"{pool['promotions']}, evictions {pool['evictions']}, stalls "
+        f"{pool['stream_stall_seconds']:.3f} s; {compiles} plans, none "
+        f"after warmup ({smi})")
+    say("    steps: " + ", ".join(f"{name} {sec:.1f} s"
+                                   for name, sec in steps.items()))
+    return rec, counts
+
+
+def tiered_phases(smi):
+    """Phases 3g, 16s and 16t: the tiered slab index and tenancy on the
+    card. N_WALL seeded uniform points (16a's) in Morton order, written to
+    one raw file under ``build/``; 3g (``slab_shape_cases``) holds the
+    traversal kernel at the slab engines' shapes; 16s
+    (``tiered_serving``) serves the file 4x over its device budget; 16t
+    (``tenancy_serving``) serves four indexes through the CLI. Returns
+    (details, the served runs' launch counts)."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.utils.math import morton_argsort
+
+    details, runs = {}, {}
+    t0 = time.perf_counter()
+    wall = seeded_points("uniform", N_WALL, SEED + 8)
+    wall = np.ascontiguousarray(
+        wall[morton_argsort(wall, wall.min(0), wall.max(0))])
+    WORK.mkdir(parents=True, exist_ok=True)
+    path = WORK / "tier.float3"
+    wall.tofile(path)
+    details["data_seconds"] = time.perf_counter() - t0
+    say("[phase 3g] the traversal kernel at the slab engines' shapes vs "
+        "plain on the card")
+    details["phase3g_max_abs_err"] = slab_shape_cases(wall)
+    say(f"[phase 16s] the tiered slab index: {N_WALL} points in "
+        f"{TIER_SLABS} slabs, {TIER_SLABS // TIER_BUDGET_SLABS}x over the "
+        "device budget")
+    details["16s"], runs["16s"] = tiered_serving(smi, wall, path)
+    del wall
+    torch.cuda.empty_cache()
+    say(f"[phase 16t] tenancy through the serving CLI: {TENANTS} tenants")
+    details["16t"], runs["16t"] = tenancy_serving(smi)
+    details["seconds"] = time.perf_counter() - t0
+    say(f"  phases 3g, 16s and 16t took {details['seconds']:.1f} s")
+    return details, runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -3450,7 +4050,7 @@ def main() -> int:
         "among equally distant points")
     # one selfcheck holds both runs' distances, which are the same bytes
     with timed_step(steps, "selfcheck"):
-        checked = verify_sample(gist, d_gbf, HD_K, 200)
+        checked = verify_sample(gist, d_gbf, HD_K, GIST_SELFCHECK)
     say(f"  selfcheck OK ({checked} samples) of the distances both runs "
         "share")
     del gist
@@ -3555,6 +4155,9 @@ def main() -> int:
     details["serving"], serve_runs = serving_phases(smi, pts_path,
                                                     WORK / "k8.float", hd)
 
+    # -- phases 3g, 16s and 16t ---------------------------------------------
+    details["tiers"], tier_runs = tiered_phases(smi)
+
     # -- phase 12 -----------------------------------------------------------
     say("[phase 12] phase 10's f32 R=1 run again under the profiler")
     label = "f32 R=1 under the profiler"
@@ -3568,7 +4171,7 @@ def main() -> int:
     main_runs = list(runs.values()) + list(pre.values()) \
         + list(hd_runs.values()) + list(chunk_runs.values()) \
         + list(ooc_runs.values()) + list(engine_runs.values()) \
-        + list(serve_runs.values())
+        + list(serve_runs.values()) + list(tier_runs.values())
 
     def launched(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -3584,13 +4187,15 @@ def main() -> int:
     canon_err = details["engines"]["phase15e_max_abs_err"]
     # phase 3f: the served shapes, the point side resident
     served_err = details["serving"]["phase3f_max_abs_err"]
+    # phase 3g: the slab engines' shapes
+    slab_err = details["tiers"]["phase3g_max_abs_err"]
     kernels = {"kernels": [
         # knn_tiled_d3_kernel, timed in phase 6
         entry("knn_tiled", SOURCE, REPLACES, launched("knn_tiled_d3_launches"),
               (details["phase3_max_abs_err"], timed[8]["max_abs_err"],
                timed[100]["max_abs_err"],
                details["out_of_core"]["witness_max_abs_err"], canon_err,
-               served_err["d3"]), timed[8]),
+               served_err["d3"], slab_err), timed[8]),
         entry("knn_tiled_nd_ring", SOURCE, RING_REPLACES,
               launched("knn_tiled_ring_launches"),
               (details["phase3c_max_abs_err"],

@@ -4,14 +4,24 @@
         -k 100 [--port 8080] [--engine auto] [--merge auto] [--shards R] \
         [--max-batch 1024] [--max-delay-ms 2] [--max-queue-rows 4096] \
         [--timeout-ms 5000] [--device cpu]
+    python -m mpi_cuda_largescaleknn_torch.cli.serve_main points.float3 \
+        -k 100 --num-slabs 8 --device-slab-budget 2g [--host-pool-bytes 4g]
+    python -m mpi_cuda_largescaleknn_torch.cli.serve_main -k 100 \
+        --tenant a=a.float3 --tenant b=b.npy [--num-slabs 4] \
+        [--device-slab-budget 2g] [--tenant-quota-rows 1024]
 
 Loads a point set, builds the resident index on the card, builds every
 shape bucket's launch plan (and the kernels, at their first launch), and
 serves queries over HTTP until interrupted. Endpoints: POST /knn (JSON or
-binary), GET /healthz, /stats, /metrics (Prometheus text). The port of the
-JAX package's ``cli/serve_main.py`` in its single-host form: the flags of
-pod, routed and standby serving, of the tiered slab index and of tenancy
-raise ``not_ported`` naming their ROADMAP item.
+binary), GET /healthz, /stats, /metrics (Prometheus text). With
+``--num-slabs`` the index streams through the tiered slab pool
+(serve/slabpool.py): only ``--device-slab-budget`` bytes of slab engines
+live on the card. With ``--tenant`` (repeatable) one process serves many
+indexes from one slab pool (serve/tenancy.py): POST /v1/<tenant>/knn,
+per-tenant /stats and ``{tenant=}`` metrics, per-tenant admission quotas.
+The port of the JAX package's ``cli/serve_main.py`` in its single-host
+form: the flags of pod, routed and standby serving raise ``not_ported``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -47,6 +57,35 @@ SERVE_FLAGS = """
                     are Morton-sorted so the buckets are spatially tight
   --max-batch N     widest padded query batch / shape bucket (default 1024)
   --min-batch N     narrowest shape bucket (default 8)
+  --num-slabs N     tiered slab index (default 0 = fully resident): split
+                    the index into N row slabs and serve them through the
+                    device / host-RAM / file slab pool (serve/slabpool.py),
+                    bit-identical to fully resident at every budget; a
+                    cold slab STALLS, never approximates
+  --device-slab-budget B  device-memory budget in bytes of the resident
+                    slab engines (suffixes k/m/g; 0 = unbounded), counted
+                    against each slab engine's device_bytes; least
+                    recently used slabs evict, pinned ones never
+  --host-pool-bytes B  host-RAM row-pool budget in bytes (suffixes k/m/g;
+                    0 = unbounded); slabs past it are read again from the
+                    file (mmap for .npy)
+  --host-pool-slabs N  the same cap counted in slabs (0 = unbounded);
+                    both caps apply when both are set
+  --tenant NAME=PATH  multi-index tenancy (repeatable; serve/tenancy.py):
+                    serve PATH's index as tenant NAME at POST
+                    /v1/NAME/knn. All tenants share ONE slab pool (the
+                    budgets above), one launch-plan cache and one
+                    admission controller. The FIRST --tenant is the
+                    default tenant: legacy /knn routes to it. Each
+                    tenant's index is split into --num-slabs slabs
+                    (default 1); no positional input in this mode
+  --tenant-quota-rows N  per-tenant admission quota: each tenant may hold
+                    at most N queued+in-flight rows of --max-queue-rows
+                    (0 = global cap only); over quota is a 429 with
+                    Retry-After
+  --prefetch-depth N  next-nearest slabs promoted in the background for
+                    each dispatched batch (default 1; the batcher also
+                    announces the next batch's slabs a batch ahead)
   --max-delay-ms F  micro-batch flush deadline (default 2.0)
   --pipeline-depth N  batches in flight between dispatch and demux
                     (default 2: the next batch's traversal overlaps the
@@ -71,23 +110,16 @@ SERVE_FLAGS = """
 
 Not ported yet (each raises, naming its ROADMAP item): --coordinator,
 --num-hosts, --host-id, --routing, --standby, --wire, --seq-timeout-s
-(pod serving); --num-slabs, --device-slab-budget, --host-pool-bytes,
---host-pool-slabs, --prefetch-depth, --tenant, --tenant-quota-rows (the
-single-host serving tiers: the slab pool and tenancy).
+(pod serving).
 """
 
 _POD = "Queue 1, pod serving"
-_TIERS = "Queue 1, the single-host serving tiers"
 # JAX-package flags not ported yet: flag -> (takes a value, ROADMAP item)
 _NOT_PORTED = {
     "--coordinator": (True, _POD), "--num-hosts": (True, _POD),
     "--host-id": (True, _POD), "--routing": (True, _POD),
     "--standby": (False, _POD), "--wire": (True, _POD),
     "--seq-timeout-s": (True, _POD),
-    "--num-slabs": (True, _TIERS), "--device-slab-budget": (True, _TIERS),
-    "--host-pool-bytes": (True, _TIERS), "--host-pool-slabs": (True, _TIERS),
-    "--prefetch-depth": (True, _TIERS), "--tenant": (True, _TIERS),
-    "--tenant-quota-rows": (True, _TIERS),
 }
 
 
@@ -95,6 +127,13 @@ def usage(error: str) -> "NoReturn":  # noqa: F821
     sys.stderr.write(f"Error: {error}\n\n")
     sys.stderr.write(f"torchknn-serve -k <k> [options] <input>\n{SERVE_FLAGS}")
     sys.exit(1)
+
+
+def parse_bytes(text: str) -> int:
+    """'268435456', '256m', '2g', '64k' -> bytes (suffixes are binary)."""
+    t = text.strip().lower()
+    mult = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30}.get(t[-1:], 1)
+    return int(float(t[:-1] if mult > 1 else t) * mult)
 
 
 def parse_serve_args(argv: list[str]) -> dict:
@@ -150,6 +189,24 @@ def parse_serve_args(argv: list[str]) -> dict:
                 i += 1; opt["max_batch"] = int(argv[i])
             elif arg == "--min-batch":
                 i += 1; opt["min_batch"] = int(argv[i])
+            elif arg == "--num-slabs":
+                i += 1; opt["num_slabs"] = int(argv[i])
+            elif arg == "--device-slab-budget":
+                i += 1; opt["device_slab_budget"] = parse_bytes(argv[i])
+            elif arg == "--host-pool-slabs":
+                i += 1; opt["host_pool_slabs"] = int(argv[i])
+            elif arg == "--host-pool-bytes":
+                i += 1; opt["host_pool_bytes"] = parse_bytes(argv[i])
+            elif arg == "--tenant":
+                i += 1
+                name, sep, path = argv[i].partition("=")
+                if not sep or not name or not path:
+                    usage(f"--tenant wants NAME=PATH, got '{argv[i]}'")
+                opt["tenants"].append((name, path))
+            elif arg == "--tenant-quota-rows":
+                i += 1; opt["tenant_quota_rows"] = int(argv[i])
+            elif arg == "--prefetch-depth":
+                i += 1; opt["prefetch_depth"] = int(argv[i])
             elif arg == "--max-delay-ms":
                 i += 1; opt["max_delay_ms"] = float(argv[i])
             elif arg == "--pipeline-depth":
@@ -177,10 +234,19 @@ def parse_serve_args(argv: list[str]) -> dict:
             i += 1
     except (IndexError, ValueError):
         usage(f"invalid or missing value for '{argv[i - 1] if i else ''}'")
-    if not opt["in_path"]:
+    if opt["tenants"]:
+        if opt["in_path"]:
+            usage("tenancy mode takes its inputs from --tenant NAME=PATH "
+                  f"— drop the positional input '{opt['in_path']}'")
+        names = [n for n, _p in opt["tenants"]]
+        if len(set(names)) != len(names):
+            usage(f"duplicate tenant names in {names}")
+    elif not opt["in_path"]:
         usage("no input file name specified")
     if opt["k"] < 1:
         usage("no k specified, or invalid k value")
+    if opt["num_slabs"] < 0:
+        usage(f"--num-slabs must be >= 0, got {opt['num_slabs']}")
     return opt
 
 
@@ -197,15 +263,58 @@ def main(argv: list[str] | None = None, ready=None) -> int:
         serve_forever,
     )
 
-    points = read_points(opt["in_path"])
-    print(f"loaded {len(points)} points from {opt['in_path']}")
-    engine = ResidentKnnEngine(
-        points, opt["k"], num_shards=opt["shards"] or 1,
-        engine=opt["engine"], bucket_size=opt["bucket_size"],
-        max_radius=opt["max_radius"], max_batch=opt["max_batch"],
-        min_batch=opt["min_batch"], merge=opt["merge"],
-        query_buckets=opt["query_buckets"],
+    engine_kw = dict(
+        num_shards=opt["shards"] or 1, engine=opt["engine"],
+        bucket_size=opt["bucket_size"], max_radius=opt["max_radius"],
+        max_batch=opt["max_batch"], min_batch=opt["min_batch"],
+        merge=opt["merge"], query_buckets=opt["query_buckets"],
         score_dtype=opt["score_dtype"], device=opt["device"])
+    tier_kw = dict(device_slab_budget=opt["device_slab_budget"],
+                   host_pool_slabs=opt["host_pool_slabs"],
+                   host_pool_bytes=opt["host_pool_bytes"],
+                   prefetch_depth=opt["prefetch_depth"])
+    if opt["tenants"]:
+        # many indexes behind ONE slab pool, one plan cache and one
+        # admission controller; each tenant's index streams as
+        # --num-slabs slabs (default 1)
+        from mpi_cuda_largescaleknn_torch.serve.tenancy import (
+            MultiTenantEngine,
+            TenantSpec,
+        )
+
+        engine = MultiTenantEngine(
+            [TenantSpec(name, path=path,
+                        num_slabs=max(1, opt["num_slabs"]))
+             for name, path in opt["tenants"]],
+            k=opt["k"], **tier_kw, **engine_kw)
+        print(f"multi-index tenancy: {len(opt['tenants'])} tenants "
+              f"({', '.join(n for n, _p in opt['tenants'])}), "
+              f"{engine.n_points} points total, default tenant "
+              f"'{engine.default_tenant}', quota "
+              f"{opt['tenant_quota_rows'] or 'unsliced'} rows/tenant")
+    elif opt["num_slabs"] > 0:
+        # the index stays in the source file (the cold tier) and a
+        # bounded host-RAM pool; only --device-slab-budget bytes of slab
+        # engines are on the card at once
+        from mpi_cuda_largescaleknn_torch.serve.slabpool import (
+            StreamingKnnEngine,
+        )
+
+        engine = StreamingKnnEngine(
+            opt["in_path"], num_slabs=opt["num_slabs"], k=opt["k"],
+            **tier_kw, **engine_kw)
+        print(f"tiered index: {engine.n_points} points from "
+              f"{opt['in_path']} in {opt['num_slabs']} slabs "
+              f"({engine.slab_device_bytes} B per resident slab; device "
+              f"budget {opt['device_slab_budget'] or 'unbounded'} B, host "
+              "pool "
+              + (f"{opt['host_pool_bytes']} B" if opt["host_pool_bytes"]
+                 else f"{opt['host_pool_slabs'] or 'unbounded'} slabs")
+              + ")")
+    else:
+        points = read_points(opt["in_path"])
+        print(f"loaded {len(points)} points from {opt['in_path']}")
+        engine = ResidentKnnEngine(points, opt["k"], **engine_kw)
     recall_policy = None
     if opt["recall_policy"]:
         from mpi_cuda_largescaleknn_torch.serve.recall import RecallPolicy
@@ -222,6 +331,7 @@ def main(argv: list[str] | None = None, ready=None) -> int:
         default_timeout_s=opt["timeout_ms"] / 1e3,
         verbose=opt["verbose"],
         recall_policy=recall_policy,
+        tenant_quota_rows=opt["tenant_quota_rows"],
         qcache_rows=opt["qcache_rows"],
         qcache_seed_rows=opt["qcache_seed_rows"])
     try:
@@ -230,6 +340,9 @@ def main(argv: list[str] | None = None, ready=None) -> int:
         print("shutting down")
     finally:
         server.close()
+        close = getattr(engine, "close", None)
+        if close is not None:
+            close()
         if opt["timings"]:
             sys.stderr.write(engine.timers.dump() + "\n")
     return 0

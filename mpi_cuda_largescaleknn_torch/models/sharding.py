@@ -28,17 +28,22 @@ def slab_bounds(num_total: int, num_shards: int) -> list[tuple[int, int]]:
 
 
 def pad_and_flatten(shards: list[np.ndarray], id_bases: list[int],
-                    dim: int):
+                    dim: int, pad_to: int | None = None):
     """Pack per-shard point arrays into the shard-major layout.
 
     Returns (points f32[R*Npad, D], ids i32[R*Npad], counts [R], Npad) with
-    Npad = the largest shard and padding rows = PAD_SENTINEL / id -1.
+    Npad = the largest shard (or ``pad_to``, which must cover it: the slab
+    pool's common shape class) and padding rows = PAD_SENTINEL / id -1.
     ``id_bases[r]`` is shard r's global index offset. Beyond 2^31 points
     ids wrap modulo 2^31 and stay non-negative (the distance path only
     reads an id's sign)."""
     num_shards = len(shards)
     counts = [len(s) for s in shards]
     npad = max(max(counts), 1)
+    if pad_to is not None:
+        if pad_to < npad:
+            raise ValueError(f"pad_to={pad_to} < largest shard {npad}")
+        npad = pad_to
     points = np.full((num_shards * npad, dim), PAD_SENTINEL, np.float32)
     ids = np.full(num_shards * npad, -1, np.int32)
     for r, s in enumerate(shards):

@@ -18,11 +18,18 @@
 - ``faults``, ``recall``, ``qcache`` — the JAX package's fault injection,
                   recall-SLO plans (their knobs reach the twin ``tiled``)
                   and certified query cache (exact hits, in-flight dedup,
-                  radius seeds that reach the engine as per-row radii).
+                  radius seeds that reach the engine as per-row radii),
+                  tenant-keyed.
+- ``slabpool``  — the tiered slab index: an index larger than the device
+                  budget served from a working set of slab engines over a
+                  host-RAM pool over the file, byte-equal to a resident
+                  engine at every budget.
+- ``tenancy``   — many indexes behind one slab pool, one plan cache and
+                  one admission controller, with per-tenant quotas.
+- ``frontend``  — only the certification slack and the canonical fold the
+                  slab pool shares with the pod front end.
 
-Not ported yet (ROADMAP.md Queue 1): the tiered slab pool (``slabpool``,
-the shared ``ExecutableCache``), ``wire``, ``tenancy``, and pod serving
-(``frontend``, ``health``, ``replica``, the engine's
-``emit="candidates"``, ``complete_candidates``, ``complete_slices`` and
-``refetch_exact``).
+Not ported yet (ROADMAP.md Queue 1, pod serving): ``wire``, the rest of
+``frontend``, ``health``, ``replica``, and the engine's
+``complete_slices``.
 """

@@ -160,38 +160,43 @@ class GracefulQueryFn:
                     == self.engine.engine_name):
                 raise e
 
-    def _query(self, queries, plan, seed_radius=None):
-        # exact requests use the legacy single-arg form so engines (and
-        # test doubles) without a plan kwarg keep working — the batcher's
-        # compatibility rule, applied to the degradation shim too.
-        # Certified radius seeds (serve/qcache.py) ride the same
-        # conditional-kwarg rule: only engines actually handed seeds need
-        # to understand ``seed_radius``.
+    def _query(self, queries, plan, tenant=None, seed_radius=None):
+        # exact single-index requests use the legacy single-arg form so
+        # engines (and test doubles) without a plan/tenant kwarg keep
+        # working — the batcher's compatibility rule, applied to the
+        # degradation shim too. Certified radius seeds (serve/qcache.py)
+        # ride the same conditional-kwarg rule: only engines actually
+        # handed seeds need to understand ``seed_radius``.
         kw = {} if seed_radius is None else {"seed_radius": seed_radius}
+        if tenant is not None:
+            return self.engine.query(queries, plan=plan, tenant=tenant, **kw)
         return (self.engine.query(queries, **kw) if plan is None
                 else self.engine.query(queries, plan=plan, **kw))
 
-    def __call__(self, queries, plan=None, seed_radius=None):
+    def __call__(self, queries, plan=None, tenant=None, seed_radius=None):
         try:
-            return self._query(queries, plan, seed_radius)
+            return self._query(queries, plan, tenant, seed_radius)
         except Exception as e:  # noqa: BLE001 - re-raised unless degradable
             self._degrade_or_raise(e)
             # the degraded replay runs UNSEEDED: seeds never change the
             # answer, so dropping them is sound — and it keeps the replay
             # maximally conservative while the engine is already hurt
-            return self._query(queries, plan)
+            return self._query(queries, plan, tenant)
 
-    def _dispatch(self, queries, plan, seed_radius=None):
+    def _dispatch(self, queries, plan, tenant=None, seed_radius=None):
         kw = {} if seed_radius is None else {"seed_radius": seed_radius}
+        if tenant is not None:
+            return self.engine.dispatch(queries, plan=plan, tenant=tenant,
+                                        **kw)
         return (self.engine.dispatch(queries, **kw) if plan is None
                 else self.engine.dispatch(queries, plan=plan, **kw))
 
-    def dispatch(self, queries, plan=None, seed_radius=None):
+    def dispatch(self, queries, plan=None, tenant=None, seed_radius=None):
         try:
-            return self._dispatch(queries, plan, seed_radius)
+            return self._dispatch(queries, plan, tenant, seed_radius)
         except Exception as e:  # noqa: BLE001 - re-raised unless degradable
             self._degrade_or_raise(e)
-            return self._dispatch(queries, plan)
+            return self._dispatch(queries, plan, tenant)
 
     def complete(self, handle):
         try:
@@ -200,5 +205,8 @@ class GracefulQueryFn:
             self._degrade_or_raise(e, handle)
             # replay the retained host queries synchronously on the current
             # (degraded) engine — exact by the twin-engine contract, under
-            # the SAME recall plan the handle was dispatched with
-            return self._query(handle.queries, getattr(handle, "plan", None))
+            # the SAME recall plan (and tenant namespace) the handle was
+            # dispatched with
+            return self._query(handle.queries,
+                               getattr(handle, "plan", None),
+                               getattr(handle, "tenant", None))

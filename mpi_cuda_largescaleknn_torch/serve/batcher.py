@@ -31,6 +31,12 @@ single-worker serialized path bit-for-bit.
 Deadlines: a request whose deadline passed while queued is completed with
 ``DeadlineExceeded`` instead of burning engine time on an answer nobody is
 waiting for.
+
+Tiered and multi-index engines (serve/slabpool.py, serve/tenancy.py): a
+request's ``tenant`` joins the coalescing key, so one engine batch never
+mixes two indexes, and after each dispatch the queued rows are announced
+to the engine's ``prefetch_hint`` (grouped by tenant), so the slab pool
+promotes the next batch's slabs under the batch in flight.
 """
 
 from __future__ import annotations
@@ -57,6 +63,9 @@ class _Request:
     #: Requests only coalesce with plan-compatible neighbors — see
     #: ``_plan_key`` / ``_take_batch``.
     plan: object | None = None
+    #: tenant namespace (serve/tenancy.py; None = single-index serving).
+    #: Joins the coalescing key — one engine batch never mixes indexes.
+    tenant: str | None = None
     #: certified per-row init radii (serve/qcache.py seed_for; None =
     #: unseeded). f32[rows]; +inf rows are unseeded. Exact-tier only.
     seeds: np.ndarray | None = None
@@ -70,11 +79,15 @@ class _Request:
 
 
 def _plan_key(req: _Request):
-    """The coalescing key: requests whose plans execute identical bits may
-    share an engine batch. None (exact, its own key) or the plan's
-    ``batch_key()``, which deliberately EXCLUDES ``recall_target`` — two
-    requests on the same plan at different targets coalesce."""
-    return None if req.plan is None else req.plan.batch_key()
+    """The coalescing key: requests whose plans execute identical bits ON
+    THE SAME INDEX may share an engine batch. The plan part is None (exact,
+    its own key) or the plan's ``batch_key()``, which deliberately EXCLUDES
+    ``recall_target`` — two requests on the same plan at different targets
+    coalesce. The tenant part keeps multi-index traffic in per-tenant
+    sub-batches (None for single-index serving, so legacy keys are
+    unchanged tuples-of-None)."""
+    return (req.tenant,
+            None if req.plan is None else req.plan.batch_key())
 
 
 class DynamicBatcher:
@@ -123,6 +136,16 @@ class DynamicBatcher:
         self.pipelined = (self.pipeline_depth > 1
                           and hasattr(query_fn, "dispatch")
                           and hasattr(query_fn, "complete"))
+        #: streaming engines (serve/slabpool.py) expose ``prefetch_hint``:
+        #: after each dispatch the worker announces the still-QUEUED rows
+        #: — the next batch's content — so the engine's slab pool promotes
+        #: that batch's routed slab set under the in-flight batch's
+        #: compute (the graceful wrapper is looked through: hints go to
+        #: the engine, not the degradation shim)
+        self._prefetch_fn = (
+            getattr(query_fn, "prefetch_hint", None)
+            or getattr(getattr(query_fn, "engine", None),
+                       "prefetch_hint", None))
         self._cond = threading.Condition()
         # queue + counters shared between submitter threads and the
         # dispatch/completion workers: every access is under _cond
@@ -146,9 +169,11 @@ class DynamicBatcher:
         self._inflight_rows: guarded_by("_cond") = 0
         self.dispatch_stalls: guarded_by("_cond") = 0
         self.dispatch_stall_seconds: guarded_by("_cond") = 0.0
+        self.prefetch_hint_errors: guarded_by("_cond") = 0
         self.stall_hist = (timers.hist("pipeline_stall_seconds")
                            if timers is not None else LatencyHistogram())
-        # time spent blocked inside query_fn.complete
+        # time spent blocked inside query_fn.complete (a streaming
+        # engine's escalation waves included)
         self.complete_hist = (timers.hist("batch_complete_seconds")
                               if timers is not None else LatencyHistogram())
         self._workers: list[threading.Thread] = []
@@ -170,13 +195,15 @@ class DynamicBatcher:
     # ------------------------------------------------------------------ submit
 
     def submit(self, queries: np.ndarray, timeout_s: float | None = None,
-               plan=None):
+               plan=None, tenant: str | None = None):
         """Block until the batch containing ``queries`` executes; returns
         ``(dists, neighbors)`` or raises the request's error. ``plan``
         (serve/recall.py RecallPlan, None = exact) rides the request and
         restricts coalescing to plan-compatible neighbors — mixed-SLO
         traffic splits into per-plan sub-batches instead of forcing the
-        strictest plan on everyone.
+        strictest plan on everyone. ``tenant`` (serve/tenancy.py, None =
+        single-index) does the same per index: a flush never mixes two
+        tenants' rows in one engine batch.
 
         With a query cache attached (``qcache``), every row first resolves
         through the reuse tiers: an exact HIT is answered from the LRU
@@ -189,21 +216,22 @@ class DynamicBatcher:
         queries = np.asarray(queries, np.float32).reshape(-1, self.dim)
         qc = self.qcache
         if qc is None or len(queries) == 0:
-            return self._submit_rows(queries, timeout_s, plan, None)
+            return self._submit_rows(queries, timeout_s, plan, tenant, None)
         n = len(queries)
         plan_token = None if plan is None else plan.batch_key()
-        actions = qc.begin(queries, plan_token)
+        actions = qc.begin(queries, plan_token, tenant)
         own_idx = [i for i, a in enumerate(actions) if a[0] == "own"]
         owned_keys = [actions[i][1] for i in own_idx]
         rows: list = [None] * n
         try:
             if own_idx:
                 sub_q = queries[own_idx] if len(own_idx) < n else queries
-                seeds = qc.seed_for(sub_q) if plan is None else None
-                outs = self._submit_rows(sub_q, timeout_s, plan, seeds)
+                seeds = qc.seed_for(sub_q, tenant) if plan is None else None
+                outs = self._submit_rows(sub_q, timeout_s, plan, tenant,
+                                         seeds)
                 # publish BEFORE waiting on other owners' entries: owners
                 # that publish before they park can never deadlock
-                qc.publish(owned_keys, outs, sub_q, plan_token)
+                qc.publish(owned_keys, outs, sub_q, plan_token, tenant)
                 if len(own_idx) == n:
                     return outs  # pure miss: no reassembly needed
                 for j, i in enumerate(own_idx):
@@ -228,7 +256,8 @@ class DynamicBatcher:
                 else:
                     rows[i] = a[1].result
         if retry:
-            outs = self._submit_rows(queries[retry], timeout_s, plan, None)
+            outs = self._submit_rows(queries[retry], timeout_s, plan,
+                                     tenant, None)
             for j, i in enumerate(retry):
                 rows[i] = tuple(a[j] for a in outs)
         for i, a in enumerate(actions):
@@ -238,14 +267,14 @@ class DynamicBatcher:
                      for c in range(len(rows[0])))
 
     def _submit_rows(self, queries: np.ndarray,
-                     timeout_s: float | None, plan,
+                     timeout_s: float | None, plan, tenant,
                      seeds: np.ndarray | None):
         """Enqueue one device sub-batch and block for its result — the
         pre-cache submit path, verbatim."""
         now = time.monotonic()
         req = _Request(queries=queries, enqueued=now,
                        deadline=(now + timeout_s) if timeout_s else None,
-                       plan=plan, seeds=seeds)
+                       plan=plan, tenant=tenant, seeds=seeds)
         with self._cond:
             if self._shutdown:
                 raise RuntimeError("batcher is shut down")
@@ -381,15 +410,18 @@ class DynamicBatcher:
                 t0 = time.perf_counter()
                 merged = (live[0].queries if len(live) == 1 else
                           np.concatenate([r.queries for r in live]))
-                # exact requests call the legacy single-arg form so plain
-                # test doubles (and the pre-tier wire) stay compatible;
-                # the plan kwarg only appears when set
-                plan = live[0].plan
+                # exact single-index requests call the legacy single-arg
+                # form so plain test doubles (and the pre-tier wire) stay
+                # compatible; tenant/plan kwargs only appear when set
+                plan, tenant = live[0].plan, live[0].tenant
                 kw = {}
                 seeds = self._merged_seeds(live)
                 if seeds is not None:
                     kw["seed_radius"] = seeds
-                if plan is None:
+                if tenant is not None:
+                    outs = self._query_fn(merged, plan=plan, tenant=tenant,
+                                          **kw)
+                elif plan is None:
                     outs = self._query_fn(merged, **kw)
                 else:
                     outs = self._query_fn(merged, plan=plan, **kw)
@@ -462,12 +494,15 @@ class DynamicBatcher:
                 self._timers.gauge("pipeline_inflight_batches", inflight)
             try:
                 t0 = time.perf_counter()
-                plan = live[0].plan
+                plan, tenant = live[0].plan, live[0].tenant
                 kw = {}
                 seeds = self._merged_seeds(live)
                 if seeds is not None:
                     kw["seed_radius"] = seeds
-                if plan is None:
+                if tenant is not None:
+                    handle = self._query_fn.dispatch(merged, plan=plan,
+                                                     tenant=tenant, **kw)
+                elif plan is None:
                     handle = self._query_fn.dispatch(merged, **kw)
                 else:
                     handle = self._query_fn.dispatch(merged, plan=plan, **kw)
@@ -483,6 +518,38 @@ class DynamicBatcher:
                 self._slots.release()
                 continue
             self._inflight.put((live, len(merged), handle, t0))
+            self._announce_prefetch()
+
+    def _announce_prefetch(self):
+        """Announce the queued rows — the NEXT batch's likely content —
+        to a streaming engine's prefetcher right after a dispatch, so
+        slab promotions overlap the batch just launched
+        (serve/slabpool.py). Advisory only: a hint failure is counted,
+        never allowed to fail the dispatched batch."""
+        if self._prefetch_fn is None:
+            return
+        with self._cond:
+            if not self._queue:
+                return
+            # group by tenant: each index's prefetcher should only see its
+            # own rows (single-index queues collapse to one None group)
+            groups, rows = {}, 0
+            for r in self._queue:
+                if rows + r.rows > self.max_batch:
+                    break
+                groups.setdefault(r.tenant, []).append(r.queries)
+                rows += r.rows
+        for tenant, pending in groups.items():
+            try:
+                merged = (pending[0] if len(pending) == 1
+                          else np.concatenate(pending))
+                if tenant is None:
+                    self._prefetch_fn(merged)
+                else:
+                    self._prefetch_fn(merged, tenant=tenant)
+            except Exception:  # noqa: BLE001 - advisory; counted below
+                with self._cond:
+                    self.prefetch_hint_errors += 1
 
     def _run_complete(self):
         """Completion loop: block on the oldest in-flight batch, demux.
@@ -559,8 +626,7 @@ class DynamicBatcher:
                 "dispatch_stalls": self.dispatch_stalls,
                 "dispatch_stall_seconds": round(
                     self.dispatch_stall_seconds, 6),
-                # the JAX batcher's slab-pool prefetch hints (not ported)
-                "prefetch_hint_errors": 0,
+                "prefetch_hint_errors": self.prefetch_hint_errors,
                 "complete_seconds_total": round(
                     self.complete_hist.sum_seconds, 6),
             }

@@ -1,7 +1,7 @@
 """Resident query engine: the index lives on the card, queries fly through.
 
 The port of the JAX package's ``serve/engine.py`` (``ResidentKnnEngine``,
-single process, ``emit="final"``). Build once: the point set is cut into R
+single process). Build once: the point set is cut into R
 slabs (``slab_bounds``), each a virtual shard on the one card, and each
 slab is median-split into spatial buckets (``ops/partition.py``
 ``partition_points``, the partition the ring drivers use). For the
@@ -36,6 +36,15 @@ pool stands in for it on backends that execute synchronously).
 ``complete`` waits on that event, merges on the host where asked, and
 undoes the Morton admission sort. On the CPU (``device="cpu"``) dispatch
 computes in place and ``complete`` only finishes.
+
+Slab engines (serve/slabpool.py): ``id_offset`` makes the ids global rows
+of a larger index, ``emit="candidates"`` completes with the full ascending
+(dist2, id) rows (``complete_candidates``) for the pool's fold, ``timers``
+and ``plan_cache`` are shared by every slab engine of a pool, and
+``pad_shard_rows`` pads every shard to the pool's common shape class, so
+one launch plan per shape bucket serves every slab through eviction and
+re-promotion. On the card an engine builds on its own stream (the one its
+batches run on), so a promotion thread can build one while others serve.
 
 Query locality: at D=3 on the tiled engines ``dispatch`` sorts each batch
 by Morton code over the index bounding box (pads last), and the traversal
@@ -105,6 +114,73 @@ class UnservableShapeError(ValueError):
     layer should have rejected or split it)."""
 
 
+class LaunchPlanCache:
+    """Launch plans shared across engines, keyed by resident SHAPE CLASS:
+    the counterpart of the JAX package's ``ExecutableCache``.
+
+    A plan fixes the shapes of a batch's launches, not the values of the
+    resident operands, so engines whose resident sides share a shape class
+    (the same padded shard rows, bucket geometry, dim and dtypes; the slab
+    pool pads every slab engine to one class for exactly this) reuse ONE
+    plan. ``compiles`` counts the plans built, pool-wide: it stays flat
+    through eviction and re-promotion. A concurrent miss on a key that
+    another engine is building waits for it instead of building twice."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        # every read and write under the lock (the promotion thread and
+        # the stall path both build engines)
+        self._cache: guarded_by("_cv") = {}
+        #: keys some caller is building: a concurrent miss waits
+        self._building: guarded_by("_cv") = set()
+        self.compiles: guarded_by("_cv") = 0
+        self.hits: guarded_by("_cv") = 0
+
+    def get(self, key):
+        """The cached plan, or None with the key CLAIMED for building: the
+        caller then MUST ``put`` it (or ``abort`` on failure)."""
+        with self._cv:
+            while True:
+                lp = self._cache.get(key)
+                if lp is not None:
+                    self.hits += 1
+                    return lp
+                if key in self._building:
+                    self._cv.wait(0.05)
+                    continue
+                self._building.add(key)
+                return None
+
+    def put(self, key, lp) -> None:
+        with self._cv:
+            self._cache.setdefault(key, lp)
+            self._building.discard(key)
+            self.compiles += 1
+            self._cv.notify_all()
+
+    def abort(self, key) -> None:
+        """Release a claimed key after a failed build (waiters retry)."""
+        with self._cv:
+            self._building.discard(key)
+            self._cv.notify_all()
+
+    def stats(self) -> dict:
+        with self._cv:
+            return {"programs": len(self._cache),
+                    "compiles": self.compiles, "hits": self.hits,
+                    "shapes": sorted({k[2] for k in self._cache})}
+
+
+def _upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Host rows onto ``dev``: on the card through pinned staging and a
+    non-blocking copy on the current stream (the caching host allocator
+    keeps the pinned block until the copy has run)."""
+    t = torch.from_numpy(arr)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
 def batch_buckets(q: torch.Tensor, qb: int) -> BucketedPoints:
     """The query side of one padded batch f32[qpad, D]: ``qb`` contiguous
     buckets of its rows, each with its own tight box over its real rows
@@ -147,9 +223,10 @@ class _InFlightBatch:
 
     ``result`` holds what ``complete`` reads: (a, b, tiles) host tensors,
     the R partial [R*qpad, k] rows under ``merge="host"``, the final
-    ([qpad], [qpad, k]) under ``merge="device"``; ``done`` is the CUDA
-    event recorded after their copies to pinned host memory (None on the
-    CPU). ``queries`` retains the ORIGINAL (unsorted) host batch, so a
+    ([qpad], [qpad, k]) under ``merge="device"`` (the merged candidate
+    rows ([qpad, k], [qpad, k]) under ``emit="candidates"``); ``done`` is
+    the CUDA event recorded after their copies to pinned host memory (None
+    on the CPU). ``queries`` retains the ORIGINAL (unsorted) host batch, so a
     completion-time failure can be replayed on the degraded twin.
     ``engine_name`` records which engine dispatched it; ``perm`` is the
     Morton admission sort (None when off): staged row i is
@@ -179,16 +256,21 @@ class ResidentKnnEngine:
     and a family of fixed-shape launch plans.
 
     ``device=None`` is the card (it raises without CUDA); ``device="cpu"``
-    runs the kernels' plain versions. Completions carry the final (k-th
-    distance, ids) answer; the JAX engine's ``emit="candidates"`` and
-    ``id_offset`` serve routed pod hosts, which are not ported yet."""
+    runs the kernels' plain versions. ``emit="final"`` completions carry
+    the (k-th distance, ids) answer; ``emit="candidates"`` engines complete
+    with the full candidate rows (``complete_candidates``), the partial a
+    slab pool folds. ``id_offset``, ``timers``, ``plan_cache`` and
+    ``pad_shard_rows`` are what a slab pool hands each slab engine."""
 
     def __init__(self, points: np.ndarray, k: int, *, num_shards: int = 1,
                  engine: str = "auto", bucket_size: int = 0,
                  max_radius: float = math.inf, max_batch: int = 1024,
                  min_batch: int = 8, merge: str = "auto",
                  query_buckets: int = 0, score_dtype: str = "f32",
-                 device=None):
+                 id_offset: int = 0, emit: str = "final",
+                 timers: PhaseTimers | None = None,
+                 plan_cache: LaunchPlanCache | None = None,
+                 pad_shard_rows: int = 0, device=None):
         points = np.asarray(points, np.float32)
         if points.ndim != 2 or points.shape[1] < 1:
             raise ValueError(f"points must be [N, D], got {points.shape}")
@@ -199,15 +281,27 @@ class ResidentKnnEngine:
                              f"one of {SERVE_ENGINES})")
         if num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+        if emit not in ("final", "candidates"):
+            raise ValueError(f"emit must be 'final' or 'candidates', "
+                             f"got {emit!r}")
         self.device = resolve_device(device)
         min_batch = max(8, next_pow2(min_batch))
         max_batch = next_pow2(max_batch)
         self.k = int(k)
         self.n_points = len(points)
-        #: global row of this engine's first point, and what completions
-        #: carry: fixed until routed pod hosts are ported
-        self.id_offset = 0
-        self.emit = "final"
+        #: global row of this engine's first point: a slab engine serves
+        #: one slab of a larger index, and its neighbor ids are GLOBAL
+        #: rows, so the canonical (dist2, id) tie order matches one engine
+        #: over the whole index bit for bit
+        self.id_offset = int(id_offset)
+        #: what completions carry: "final" = (k-th distance, ids);
+        #: "candidates" = the full (dist2[Q, k], ids) rows, a PARTIAL the
+        #: slab pool folds across slabs (``complete_candidates``)
+        self.emit = emit
+        #: a slab engine keeps a reference to its host rows (the caller's
+        #: array, not a copy): an evicted engine demotes them to the slab
+        #: pool's host tier
+        self.host_points = points if emit == "candidates" else None
         self.dim = int(points.shape[1])
         self.max_radius = float(max_radius)
         self.num_shards = int(num_shards)
@@ -253,7 +347,14 @@ class ResidentKnnEngine:
         #: stay below 2**24 (the JAX engine's gate)
         self.canonical_ties = (use_tiled
                                and self.id_offset + self.n_points < (1 << 24))
-        self.timers = PhaseTimers()
+        #: shared timers/counters sink: a slab pool hands every slab engine
+        #: one PhaseTimers, so the counters outlive each evicted engine
+        self.timers = timers if timers is not None else PhaseTimers()
+        #: shared launch plans (None = this engine's own only)
+        self._plan_cache = plan_cache
+        #: pad each shard to at least this many rows: the slab pool's
+        #: common shape class
+        self._pad_shard_rows = int(pad_shard_rows)
         # _lock serializes dispatch, degrade and warmup; the identity
         # scalars live under _meta_lock (never held across a build), so a
         # /stats scrape never waits on a plan build. Order: _lock ->
@@ -267,11 +368,24 @@ class ResidentKnnEngine:
         #: (engine_name, merge_mode, qpad, B, score_dtype[, plan_key]) ->
         #: _LaunchPlan
         self._plans: guarded_by("_lock") = {}
-        #: the launch queue on the card: one stream keeps launches FIFO
+        #: the launch queue on the card: one stream keeps launches FIFO.
+        #: The index is built on it too, so every batch is ordered after
+        #: the build, and the resident tensors belong to the stream that
+        #: reads them (the caching allocator reuses a freed block only on
+        #: the stream it was allocated on)
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         with self.timers.phase("index_build"):
-            self._build_index(points)
+            if self._stream is None:
+                self._build_index(points)
+            else:
+                with torch.cuda.device(self.device), \
+                        torch.cuda.stream(self._stream):
+                    self._build_index(points)
+                # only this stream: a slab built by the promotion thread
+                # waits for its own upload, not for the batches other
+                # engines have in flight
+                self._stream.synchronize()
 
     # ------------------------------------------------------------------ build
 
@@ -285,12 +399,17 @@ class ResidentKnnEngine:
         #: per-shard AABB and point count, computed once from the host slabs
         self.shard_bounds = slab_aabbs(points, bounds)
         self._my_pos = list(range(self.num_shards))
+        shards = [points[b:e] for b, e in bounds]
+        pad_to = None
+        if self._pad_shard_rows:
+            pad_to = max(self._pad_shard_rows, 1,
+                         max((len(s) for s in shards), default=1))
         flat, ids, _counts, self.npad_local = pad_and_flatten(
-            [points[b:e] for b, e in bounds],
-            id_bases=[b + self.id_offset for b, _ in bounds], dim=self.dim)
+            shards, id_bases=[b + self.id_offset for b, _ in bounds],
+            dim=self.dim, pad_to=pad_to)
         npad = self.npad_local
-        self._flat_pts = torch.from_numpy(flat).to(dev)
-        self._flat_ids = torch.from_numpy(ids).to(dev)
+        self._flat_pts = _upload(flat, dev)
+        self._flat_ids = _upload(ids, dev)
         #: per shard: its bucketed partition (the tiled engines' side)
         self._buckets = [
             partition_points(self._flat_pts[r * npad:(r + 1) * npad],
@@ -316,10 +435,9 @@ class ResidentKnnEngine:
         if self._prepared is not None:
             nbytes += sum(p.nbytes() for p in self._prepared)
         #: this engine's resident device bytes: flat arrays, partitions,
-        #: norms and the kernels' prepared point sides
+        #: norms and the kernels' prepared point sides (what a slab pool's
+        #: device budget counts)
         self.device_bytes = int(nbytes)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
 
     # ------------------------------------------------------------ launch plans
 
@@ -343,10 +461,24 @@ class ResidentKnnEngine:
                    else tile_schedule_slots(num_pb))
         return self.num_shards * qpad * per_row
 
+    def _resident_shapes(self, engine_name: str) -> tuple:
+        """The shape class of the resident operands a plan of
+        ``engine_name`` launches against (shapes and dtypes)."""
+        if engine_name in TILED_ENGINES:
+            args = list(self._buckets[0])
+            if self._bucket_norms2 is not None:
+                args.append(self._bucket_norms2[0])
+        else:
+            args = [self._flat_pts, self._flat_ids]
+        return tuple((tuple(a.shape), str(a.dtype)) for a in args)
+
     def _get_plan(self, qpad: int, plan=None) -> _LaunchPlan:  # holds _lock
         """The launch plan of (active engine, qpad), built on a miss;
         ``compile_count`` counts each build. Recall-plan knobs reach only
-        the twin ``tiled``; elsewhere the exact plan runs."""
+        the twin ``tiled``; elsewhere the exact plan runs. With a shared
+        ``plan_cache`` the key adds every other knob the plan depends on
+        and the resident shape class, so every engine of the class (the
+        slab pool's) takes the plan one of them built."""
         qb = self.query_buckets[qpad]
         with self._meta_lock:
             engine_name = self.engine_name
@@ -361,10 +493,31 @@ class ResidentKnnEngine:
         lp = self._plans.get(key)
         if lp is not None:
             return lp
-        with self.timers.phase(f"compile_q{qpad}"):
-            lp = _LaunchPlan(engine_name, qpad, qb, plan_key,
-                             self._tiles_possible(engine_name, qpad))
+        shared_key = None
+        if self._plan_cache is not None:
+            shared_key = key + (
+                self.emit, self.k, self.max_radius, self.canonical_ties,
+                self.dim, self.num_shards,
+                self._resident_shapes(engine_name))
+            lp = self._plan_cache.get(shared_key)
+            if lp is not None:
+                self._plans[key] = lp
+                with self._meta_lock:
+                    self._compiled_shapes.append(qpad)
+                return lp
+            # None: this engine claimed the key; a concurrent miss waits
+            # in get() until the put below, or the abort
+        try:
+            with self.timers.phase(f"compile_q{qpad}"):
+                lp = _LaunchPlan(engine_name, qpad, qb, plan_key,
+                                 self._tiles_possible(engine_name, qpad))
+        except BaseException:
+            if self._plan_cache is not None:
+                self._plan_cache.abort(shared_key)
+            raise
         self._plans[key] = lp
+        if self._plan_cache is not None:
+            self._plan_cache.put(shared_key, lp)
         with self._meta_lock:
             self.compile_count += 1
             self._compiled_shapes.append(qpad)
@@ -413,6 +566,10 @@ class ResidentKnnEngine:
             tiles = torch.zeros(1, dtype=torch.int64, device=q.device)
         if self.merge_mode == "device":
             dists, st = device_merge_final(states)
+            if self.emit == "candidates":
+                # the merged candidate rows, not the k-th distances: the
+                # slab pool's fold needs every candidate
+                return st.dist2, st.idx, tiles
             return dists, st.idx, tiles
         return (torch.cat([st.dist2 for st in states]),
                 torch.cat([st.idx for st in states]), tiles)
@@ -571,6 +728,34 @@ class ResidentKnnEngine:
         if batch.n == 0:
             return (np.zeros(0, np.float32),
                     np.zeros((0, self.k), np.int32))
+        if self.emit == "candidates":
+            raise RuntimeError(
+                "emit='candidates' engines return full candidate rows — "
+                "use complete_candidates (the slab pool's fold)")
+        return self._finish(batch, full=False)
+
+    def complete_candidates(self, batch: _InFlightBatch):
+        """``complete`` for a slab engine: wait for a dispatched batch and
+        return the full merged candidate rows ``(dist2 f32[n, k], idx
+        i32[n, k])`` over THIS engine's points, ascending (dist2, id) per
+        row, -1 ids and radius**2 distances in unfilled slots. Under both
+        merge placements: the device merge emits the candidate rows
+        (``emit='candidates'``), the host merge keeps the full-width
+        variant of its fold."""
+        if batch.n == 0:
+            return (np.full((0, self.k), np.inf, np.float32),
+                    np.full((0, self.k), -1, np.int32))
+        if batch.merge_mode == "device" and self.emit != "candidates":
+            raise RuntimeError(
+                "engine was built with emit='final': its device merge "
+                "emits k-th distances, not candidate rows — construct the "
+                "engine with emit='candidates'")
+        return self._finish(batch, full=True)
+
+    def _finish(self, batch: _InFlightBatch, full: bool):
+        """The rest of ``complete`` / ``complete_candidates``: wait for the
+        batch's event, count, merge the shards on the host where asked
+        (``full``: the whole candidate rows), and undo the Morton sort."""
         if batch.done is not None:
             batch.done.synchronize()
         a, b, t = (x.numpy() for x in batch.result)
@@ -584,7 +769,7 @@ class ResidentKnnEngine:
         else:
             with self.timers.phase("host_merge"):
                 dists, nbrs = _merge_shard_candidates(
-                    a, b, self.num_shards, batch.qpad, self.k)
+                    a, b, self.num_shards, batch.qpad, self.k, full=full)
         dists, nbrs = dists[:batch.n], nbrs[:batch.n]
         if batch.perm is not None:
             out_d = np.empty_like(dists)
@@ -651,10 +836,11 @@ class ResidentKnnEngine:
         }
 
 
-def _merge_shard_candidates(d2, idx, num_shards, qpad, k):
+def _merge_shard_candidates(d2, idx, num_shards, qpad, k, full=False):
     """Merge R per-shard top-k candidate blocks (``d2``/``idx`` [R*qpad,
     k], shard-major) into the global top-k: (sqrt of the k-th f32[qpad],
-    ids i32[qpad, k]). Ties follow a stable sort over the shard-major
+    ids i32[qpad, k]), or with ``full`` the whole merged rows (dist2
+    f32[qpad, k], ids). Ties follow a stable sort over the shard-major
     concatenation (earlier shard, then earlier slot), found without the
     full width-R*k sort: ``np.argpartition`` selects k per row, a
     column-ordered tie-fix picks the boundary ties the stable sort would
@@ -662,6 +848,8 @@ def _merge_shard_candidates(d2, idx, num_shards, qpad, k):
     d2 = d2.reshape(num_shards, qpad, k).transpose(1, 0, 2).reshape(qpad, -1)
     idx = idx.reshape(num_shards, qpad, k).transpose(1, 0, 2).reshape(qpad, -1)
     if num_shards == 1:
+        if full:
+            return d2, idx
         return np.sqrt(d2[:, k - 1]), idx
     part = np.argpartition(d2, k - 1, axis=1)[:, :k]
     kth = np.take_along_axis(d2, part, axis=1).max(axis=1, keepdims=True)
@@ -678,4 +866,56 @@ def _merge_shard_candidates(d2, idx, num_shards, qpad, k):
     top_d2 = np.take_along_axis(sel_d2, order, axis=1)
     top_idx = np.take_along_axis(
         idx, np.take_along_axis(sel_cols, order, axis=1), axis=1)
+    if full:
+        return top_d2, top_idx
     return np.sqrt(top_d2[:, k - 1]), top_idx
+
+
+def load_slab_rows(path: str, slab: int, num_slabs: int):
+    """Load row slab ``[N*i/S, N*(i+1)/S)`` of ``path``; returns
+    ``(points f32[n, D], begin, n_total)``: the one slab split every slab
+    consumer shares (``materialize_slab_engine`` and the slab pool's cold
+    tier, serve/slabpool.py ``SlabSource``), the reference's
+    ``read_file_portion`` for ``.float3`` and an mmap slice for ``.npy``,
+    so every consumer materializes byte-identical rows."""
+    if path.endswith(".npy"):
+        arr = np.load(path, mmap_mode="r")
+        n_total = len(arr)
+        begin, end = slab_bounds(n_total, num_slabs)[slab]
+        return np.asarray(arr[begin:end], np.float32), begin, n_total
+    from mpi_cuda_largescaleknn_torch.io.reader import read_file_portion
+
+    return read_file_portion(path, slab, num_slabs)
+
+
+def materialize_slab_engine(path, slab: int, num_slabs: int, *, k: int,
+                            num_shards: int = 1, engine: str = "auto",
+                            merge: str = "auto", bucket_size: int = 0,
+                            max_radius: float = math.inf,
+                            max_batch: int = 1024, min_batch: int = 8,
+                            query_buckets: int = 0,
+                            score_dtype: str = "f32", points=None,
+                            id_offset: int | None = None,
+                            warmup: bool = False, device=None):
+    """Load row slab ``[N*i/S, N*(i+1)/S)`` and build its candidates
+    engine (global ids from the slab's first row). Pass ``points`` and
+    ``id_offset`` to skip the file read. Returns ``(engine, id_offset,
+    n_total)``, ``n_total`` None when the rows came pre-loaded."""
+    if points is None:
+        if not path:
+            raise ValueError("need an input path or pre-loaded slab rows")
+        points, id_offset, n_total = load_slab_rows(path, slab, num_slabs)
+    else:
+        if id_offset is None:
+            raise ValueError("pre-loaded slab rows need their id_offset "
+                             "(the slab's global row origin)")
+        n_total = None
+    eng = ResidentKnnEngine(
+        points, k, num_shards=num_shards, engine=engine, merge=merge,
+        bucket_size=bucket_size, max_radius=max_radius,
+        max_batch=max_batch, min_batch=min_batch,
+        query_buckets=query_buckets, score_dtype=score_dtype,
+        id_offset=int(id_offset), emit="candidates", device=device)
+    if warmup:
+        eng.warmup()
+    return eng, int(id_offset), n_total

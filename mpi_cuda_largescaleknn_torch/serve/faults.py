@@ -4,8 +4,11 @@ The copy of the JAX package's ``serve/faults.py``, as far as the
 single-host server uses it: ``KnnServer`` builds a ``FaultInjector`` from
 the ``KNN_FAULTS`` environment variable when it starts, and its handler
 consults it once per ``POST /knn`` (``JsonHttpHandler._apply_fault``), so
-a failure drill runs against a served index without killing a process. A
-matching rule makes the handler
+a failure drill runs against a served index without killing a process; a
+tiered slab pool (serve/slabpool.py) consults it once per slab promotion,
+keyed ``PROMOTE /slab/<id>`` or ``PROMOTE /slab/<tenant>/<id>``, where
+``latency`` slows the promotion and any other op fails it. A matching rule
+makes the handler
 
 - ``latency``  : sleep ``delay_s`` before handling normally (slow host),
 - ``error``    : answer ``code`` (default 500) without touching the engine,
@@ -102,20 +105,32 @@ def parse_fault_specs(text: str) -> list[FaultSpec]:
 
 
 class FaultInjector:
-    """Ordered fault rules consulted once per HTTP request.
+    """Ordered fault rules consulted once per HTTP request (and once per
+    slab promotion, as ``PROMOTE /slab/...``: serve/slabpool.py).
 
     ``decide(path)`` returns the first matching spec that fires (or None);
-    thread-safe, and deterministic for a given request order."""
+    thread-safe, and deterministic for a given request order.
+    ``set_specs`` replaces the whole rule set atomically."""
 
     def __init__(self, specs: list[FaultSpec] | None = None):
         self._lock = threading.Lock()
-        # each spec's firing state (seen/fires/_rng) is mutated under this
-        # lock: decide() is its only mutator
+        # the spec list and each spec's firing state (seen/fires/_rng) are
+        # mutated under this lock: set_specs() and decide() are the only
+        # mutators
         self._specs: guarded_by("_lock") = list(specs or [])
 
     @classmethod
     def from_env(cls, env_var: str = FAULTS_ENV) -> "FaultInjector":
         return cls(parse_fault_specs(os.environ.get(env_var, "")))
+
+    def set_specs(self, specs: str | list[FaultSpec]) -> None:
+        if isinstance(specs, str):
+            specs = parse_fault_specs(specs)
+        with self._lock:
+            self._specs = list(specs)
+
+    def clear(self) -> None:
+        self.set_specs([])
 
     def active(self) -> bool:
         with self._lock:

@@ -7,8 +7,8 @@ triangle inequality. This module turns those two facts into three reuse
 tiers, all exactness-preserving, threaded through the batcher
 (serve/batcher.py ``submit``):
 
-1. **Exact-hit LRU** — keyed by (index generation, plan token, query
-   row bytes). A repeat query is served verbatim from the cached
+1. **Exact-hit LRU** — keyed by (tenant, index generation, plan token,
+   query row bytes). A repeat query is served verbatim from the cached
    row: byte-identical response, zero device work. Sound because the
    index is immutable per generation (``invalidate()`` bumps the
    generation and drops everything when an index ever swaps).
@@ -87,8 +87,8 @@ class _InFlightRow:
 
 
 class SeedPool:
-    """Ring of recent (query row, certified kth distance) pairs for the
-    index. Fixed capacity, overwrite-oldest; the vectorized
+    """Ring of recent (query row, certified kth distance) pairs for ONE
+    index (one tenant). Fixed capacity, overwrite-oldest; the vectorized
     nearest-source lookup runs on snapshot copies outside the cache lock.
     Only ever fed full exact rows, so every stored dk is a true kth
     distance certificate."""
@@ -147,10 +147,12 @@ def certified_seeds(qrows: np.ndarray, src_q: np.ndarray,
 
 class QueryCache:
     """The three-tier reuse layer the batcher threads every request
-    through, one instance per server.
+    through. One instance per server; multi-tenant servers share it (the
+    tenant name is part of every key and each tenant has its own seed
+    pool — results and seeds NEVER cross indexes).
 
     ``capacity_rows`` bounds the exact-hit LRU in rows; ``seed_rows``
-    bounds the seed ring. ``fingerprint`` is the serving
+    bounds each tenant's seed ring. ``fingerprint`` is the serving
     index's identity string (informational — the generation counter is
     what actually fences reuse across index swaps via ``invalidate``).
     """
@@ -167,9 +169,8 @@ class QueryCache:
         self._lru: guarded_by("_lock") = OrderedDict()
         #: key -> _InFlightRow owned by some submitter
         self._inflight: guarded_by("_lock") = {}
-        #: the SeedPool, made on the first exact publish (it has its own
-        #: leaf lock)
-        self._seed_pool: guarded_by("_lock") = None
+        #: tenant -> SeedPool (SeedPool has its own leaf lock)
+        self._seed_pools: guarded_by("_lock") = {}
         #: index generation: part of every key; invalidate() bumps it
         self._gen: guarded_by("_lock") = 0
         self.hits: guarded_by("_lock") = 0
@@ -179,8 +180,17 @@ class QueryCache:
         self.evictions: guarded_by("_lock") = 0
         self.inserts: guarded_by("_lock") = 0
         self.inflight_aborts: guarded_by("_lock") = 0
+        #: per-tenant counter twins for the four /metrics series
+        self._tenant_counts: guarded_by("_lock") = {}
 
     # ---------------------------------------------------------------- keys
+
+    def _tcounts(self, tenant):  # lsk: holds[_lock]
+        c = self._tenant_counts.get(tenant)
+        if c is None:
+            c = {"hits": 0, "seeds": 0, "dedup_rows": 0, "evictions": 0}
+            self._tenant_counts[tenant] = c
+        return c
 
     def invalidate(self) -> None:
         """Fence a new index generation: drop every cached row and seed.
@@ -189,11 +199,11 @@ class QueryCache:
         with self._lock:
             self._gen += 1
             self._lru.clear()
-            self._seed_pool = None
+            self._seed_pools = {}
 
     # --------------------------------------------------------------- begin
 
-    def begin(self, queries: np.ndarray, plan_token):
+    def begin(self, queries: np.ndarray, plan_token, tenant):
         """Classify every row of a request under one lock acquisition.
 
         Returns a per-row action list: ``("hit", row_tuple)`` — serve the
@@ -206,11 +216,13 @@ class QueryCache:
         seen = {}
         with self._lock:
             gen = self._gen
+            tc = self._tcounts(tenant)
             for i in range(len(queries)):
-                key = (gen, plan_token, queries[i].tobytes())
+                key = (tenant, gen, plan_token, queries[i].tobytes())
                 j = seen.get(key)
                 if j is not None:
                     self.dedup_rows += 1
+                    tc["dedup_rows"] += 1
                     actions.append(("local", j))
                     continue
                 seen[key] = i
@@ -218,12 +230,14 @@ class QueryCache:
                 if row is not None:
                     self._lru.move_to_end(key)
                     self.hits += 1
+                    tc["hits"] += 1
                     actions.append(("hit", row))
                     continue
                 entry = self._inflight.get(key)
                 if entry is not None:
                     entry.joiners += 1
                     self.dedup_rows += 1
+                    tc["dedup_rows"] += 1
                     actions.append(("join", entry))
                     continue
                 self.misses += 1
@@ -233,14 +247,14 @@ class QueryCache:
 
     # --------------------------------------------------------------- seeds
 
-    def seed_for(self, qrows: np.ndarray) -> np.ndarray | None:
+    def seed_for(self, qrows: np.ndarray, tenant) -> np.ndarray | None:
         """Certified per-row init radii for an EXACT-tier sub-batch, or
-        None when the seed pool is empty. Rows with no useful
+        None when the tenant's seed pool is empty. Rows with no useful
         bound come back +inf (the engine treats them as unseeded)."""
         if len(qrows) == 0:
             return None
         with self._lock:
-            pool = self._seed_pool
+            pool = self._seed_pools.get(tenant)
         snap = pool.snapshot() if pool is not None else None
         if snap is None:
             return None
@@ -250,14 +264,15 @@ class QueryCache:
             return None
         with self._lock:
             self.seeds += finite
+            self._tcounts(tenant)["seeds"] += finite
         return seeds
 
     # ------------------------------------------------------------- publish
 
     def publish(self, keys: list, outs: tuple, queries: np.ndarray,
-                plan_token) -> None:
+                plan_token, tenant) -> None:
         """Deliver a completed sub-batch: wake joiners, insert rows into
-        the LRU, and feed full exact rows to the seed pool.
+        the LRU, and feed full exact rows to the tenant's seed pool.
 
         ``keys`` are the ``("own", key)`` keys in sub-batch row order;
         ``outs`` is the engine result tuple ``(dists, ids)``."""
@@ -267,11 +282,13 @@ class QueryCache:
             rows.append((key, tuple(np.copy(a[j]) for a in outs)))
         exact_plan = plan_token is None
         with self._lock:
+            tc = self._tcounts(tenant)
             pool = None
             if exact_plan:
-                if self._seed_pool is None and self.seed_rows > 0:
-                    self._seed_pool = SeedPool(self.seed_rows)
-                pool = self._seed_pool
+                pool = self._seed_pools.get(tenant)
+                if pool is None and self.seed_rows > 0:
+                    pool = SeedPool(self.seed_rows)
+                    self._seed_pools[tenant] = pool
             for j, (key, row) in enumerate(rows):
                 entry = self._inflight.pop(key, None)
                 if entry is not None:
@@ -283,6 +300,7 @@ class QueryCache:
                 while len(self._lru) > self.capacity_rows:
                     self._lru.popitem(last=False)
                     self.evictions += 1
+                    tc["evictions"] += 1
                 if (pool is not None and np.isfinite(row[0])
                         and np.all(np.asarray(row[1]) >= 0)):
                     pool.add(queries[j], float(row[0]))
@@ -320,7 +338,7 @@ class QueryCache:
                 "evictions": self.evictions,
                 "inserts": self.inserts,
                 "inflight_aborts": self.inflight_aborts,
-                # the JAX cache's per-tenant counters: no tenant
-                # namespaces on a single index
-                "tenants": {},
+                "tenants": {t: dict(c)
+                            for t, c in self._tenant_counts.items()
+                            if t is not None},
             }

@@ -15,10 +15,12 @@ Request formats on POST /knn:
   x,y,z triples; response is raw f32 distances. Options ride the query
   string (``/knn?neighbors=1&timeout_ms=250`` — neighbors only in JSON).
 
-Multi-index tenancy waits with the single-host serving tiers: an engine
-that carries tenants raises ``not_ported``. On a single index the JAX
-server's wire holds: ``POST /v1/<tenant>/knn`` is a 404, and a
-``"tenant"`` JSON field or an ``X-Knn-Tenant`` header is ignored.
+Multi-index tenancy (serve/tenancy.py): when the engine carries a tenant
+registry, ``POST /v1/<tenant>/knn`` (or a ``"tenant"`` JSON field /
+``X-Knn-Tenant`` header for the binary codec) routes to that tenant's
+index; legacy ``/knn`` resolves to the default tenant, unknown tenants
+404, and per-tenant admission quotas 429 with Retry-After. Single-index
+servers are byte-identical to the pre-tenancy wire.
 
 Error mapping: queue full -> 429 + Retry-After (admission backpressure),
 deadline -> 504, batch wider than max_batch -> 413, bad input -> 400.
@@ -36,7 +38,6 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
-from mpi_cuda_largescaleknn_torch.core.config import not_ported
 from mpi_cuda_largescaleknn_torch.obs.timers import LatencyHistogram
 from mpi_cuda_largescaleknn_torch.serve.admission import (
     AdmissionController,
@@ -52,6 +53,7 @@ from mpi_cuda_largescaleknn_torch.serve.faults import (
 )
 from mpi_cuda_largescaleknn_torch.serve.qcache import QueryCache
 from mpi_cuda_largescaleknn_torch.serve.recall import RecallPolicy
+from mpi_cuda_largescaleknn_torch.serve.tenancy import TenantQuotas
 
 
 def parse_knn_body(path: str, headers, rfile, dim: int = 3):
@@ -59,12 +61,20 @@ def parse_knn_body(path: str, headers, rfile, dim: int = 3):
 
     ``dim`` is the serving index's point dimensionality (the engine's
     ``dim`` attribute — the stack is D-generic; 3 is just the default).
-    -> (queries f32[n,dim], want_neighbors, timeout_s, recall, binary).
+    -> (queries f32[n,dim], want_neighbors, timeout_s, recall, tenant,
+    binary).
 
     ``recall`` is the request's recall-SLO target (serve/recall.py): the
     JSON body's ``"recall": 0.95`` key, or ``recall=0.95`` on the query
     string (the binary codec's only option channel). ``None`` — the
-    default — means exact; values outside (0, 1] are a 400."""
+    default — means exact; values outside (0, 1] are a 400.
+
+    ``tenant`` is the request's index namespace (serve/tenancy.py): the
+    JSON body's ``"tenant"`` key, or the ``X-Knn-Tenant`` header — the
+    binary codec's channel. A tenant in the URL (``/v1/<t>/knn``) is
+    resolved by the caller and takes precedence over both. ``None`` on a
+    multi-tenant server means the default tenant; on a single-index
+    server the field is ignored (the pre-tenancy wire is unchanged)."""
     qs = parse_qs(urlparse(path).query)
     length = int(headers.get("Content-Length", 0))
     raw = rfile.read(length)
@@ -73,12 +83,14 @@ def parse_knn_body(path: str, headers, rfile, dim: int = 3):
     neighbors = qs.get("neighbors", ["0"])[0] not in ("0", "", "false")
     recall_qs = qs.get("recall", [None])[0]
     recall = float(recall_qs) if recall_qs not in (None, "") else None
+    tenant = headers.get("X-Knn-Tenant") or None
     if ctype == "application/octet-stream":
         if len(raw) % (4 * dim):
             raise ValueError(
                 f"binary body must be n*{4 * dim} bytes (f32 x{dim})")
         q = np.frombuffer(raw, "<f4").reshape(-1, dim)
-        return q, neighbors, timeout_ms / 1e3, _check_recall(recall), True
+        return (q, neighbors, timeout_ms / 1e3, _check_recall(recall),
+                tenant, True)
     obj = json.loads(raw.decode() or "{}")
     q = np.asarray(obj.get("queries", []), np.float32)
     if q.size == 0:
@@ -90,8 +102,10 @@ def parse_knn_body(path: str, headers, rfile, dim: int = 3):
     timeout_ms = float(obj.get("timeout_ms", timeout_ms) or 0)
     if obj.get("recall") is not None:
         recall = float(obj["recall"])
+    if obj.get("tenant"):
+        tenant = str(obj["tenant"])
     return (q, bool(obj.get("neighbors", neighbors)), timeout_ms / 1e3,
-            _check_recall(recall), False)
+            _check_recall(recall), tenant, False)
 
 
 def _check_recall(recall: float | None) -> float | None:
@@ -100,19 +114,98 @@ def _check_recall(recall: float | None) -> float | None:
     return recall
 
 
+def slab_pool_prometheus_lines(engine_stats: dict) -> list[str]:
+    """Prometheus lines for the tiered slab index (serve/slabpool.py),
+    empty when the engine is fully resident."""
+    pool = engine_stats.get("slab_pool")
+    if not pool:
+        return []
+    return [
+        "# TYPE knn_slab_pool_resident gauge",
+        f'knn_slab_pool_resident{{tier="device"}} '
+        f'{pool["device_resident"]}',
+        f'knn_slab_pool_resident{{tier="host"}} {pool["host_resident"]}',
+        "# TYPE knn_slab_pool_device_bytes gauge",
+        f'knn_slab_pool_device_bytes {pool["device_bytes_used"]}',
+        "# TYPE knn_slab_pool_device_budget_bytes gauge",
+        f'knn_slab_pool_device_budget_bytes '
+        f'{pool["device_budget_bytes"]}',
+        "# TYPE knn_slab_promotions_total counter",
+        f'knn_slab_promotions_total {pool["promotions"]}',
+        "# TYPE knn_slab_evictions_total counter",
+        f'knn_slab_evictions_total {pool["evictions"]}',
+        "# TYPE knn_stream_stalls_total counter",
+        f'knn_stream_stalls_total {pool["stream_stalls"]}',
+        "# TYPE knn_stream_stall_seconds_total counter",
+        f'knn_stream_stall_seconds_total {pool["stream_stall_seconds"]}',
+        "# TYPE knn_slab_pool_hits_total counter",
+        f'knn_slab_pool_hits_total{{tier="device"}} {pool["device_hits"]}',
+        f'knn_slab_pool_hits_total{{tier="host"}} {pool["host_hits"]}',
+        "# TYPE knn_slab_pool_cold_reads_total counter",
+        f'knn_slab_pool_cold_reads_total {pool["cold_reads"]}',
+        "# TYPE knn_slab_prefetch_enqueued_total counter",
+        f'knn_slab_prefetch_enqueued_total {pool["prefetch_enqueued"]}',
+    ] + _streaming_prometheus_lines(engine_stats)
+
+
+def _tenant_prometheus_lines(srv, engine_stats: dict) -> list[str]:
+    """Per-tenant slab-pool occupancy/stall shares and admission-quota
+    state for /metrics (``knn_*{tenant=...}``) — empty on single-index
+    servers, so their text output is byte-identical to pre-tenancy."""
+    if getattr(srv, "tenants", None) is None:
+        return []
+    lines = []
+    pool_t = engine_stats.get("slab_pool", {}).get("tenants") or {}
+    if pool_t:
+        lines += ["# TYPE knn_slab_pool_tenant_resident gauge"]
+        for t in sorted(pool_t):
+            for tier, key in (("device", "device_resident"),
+                              ("host", "host_resident")):
+                lines += [f'knn_slab_pool_tenant_resident{{tenant="{t}",'
+                          f'tier="{tier}"}} {pool_t[t].get(key, 0)}']
+        for metric, key in (
+                ("knn_slab_tenant_promotions_total", "promotions"),
+                ("knn_slab_tenant_evictions_total", "evictions"),
+                ("knn_slab_tenant_cold_reads_total", "cold_reads"),
+                ("knn_stream_tenant_stalls_total", "stream_stalls"),
+                ("knn_stream_tenant_stall_seconds_total",
+                 "stream_stall_seconds")):
+            lines += [f"# TYPE {metric} counter"] + [
+                f'{metric}{{tenant="{t}"}} {pool_t[t].get(key, 0)}'
+                for t in sorted(pool_t)]
+    if srv.quotas is not None:
+        qs = srv.quotas.stats()
+        qt = qs["tenants"]
+        if qt:
+            for metric, key, kind in (
+                    ("knn_tenant_quota_rows", "quota_rows", "gauge"),
+                    ("knn_tenant_inflight_rows", "inflight_rows", "gauge"),
+                    ("knn_tenant_quota_rejected_total", "rejected",
+                     "counter")):
+                lines += [f"# TYPE {metric} {kind}"] + [
+                    f'{metric}{{tenant="{t}"}} {qt[t][key]}'
+                    for t in sorted(qt)]
+    return lines
+
+
 def qcache_prometheus_lines(qcache) -> list[str]:
     """Prometheus lines for the certified query cache (serve/qcache.py):
-    the reuse counters and the size/insert gauges. Empty when the cache is
-    off — cache-off servers' /metrics text is unchanged."""
+    the four reuse counters (+ size/insert gauges), each with a
+    ``{tenant=}`` twin per tenant on multi-tenant servers. Empty when the
+    cache is off — cache-off servers' /metrics text is unchanged."""
     if qcache is None:
         return []
     qs = qcache.stats()
+    tenants = qs["tenants"]
     lines = []
     for metric, key in (("knn_qcache_hits_total", "hits"),
                         ("knn_qcache_seeds_total", "seeds"),
                         ("knn_qcache_dedup_rows_total", "dedup_rows"),
-                        ("knn_qcache_evictions_total", "evictions"),
-                        ("knn_qcache_misses_total", "misses"),
+                        ("knn_qcache_evictions_total", "evictions")):
+        lines += [f"# TYPE {metric} counter", f"{metric} {qs[key]}"]
+        lines += [f'{metric}{{tenant="{t}"}} {tenants[t][key]}'
+                  for t in sorted(tenants)]
+    for metric, key in (("knn_qcache_misses_total", "misses"),
                         ("knn_qcache_inserts_total", "inserts"),
                         ("knn_qcache_inflight_aborts_total",
                          "inflight_aborts")):
@@ -122,6 +215,25 @@ def qcache_prometheus_lines(qcache) -> list[str]:
                         ("knn_qcache_inflight_rows", "inflight_rows")):
         lines += [f"# TYPE {metric} gauge", f"{metric} {qs[key]}"]
     return lines
+
+
+def _streaming_prometheus_lines(engine_stats: dict) -> list[str]:
+    streaming = engine_stats.get("streaming")
+    if not streaming:
+        return []
+    return [
+        # recall-SLO tier (serve/recall.py stream_skip_cold): cold-slab
+        # promotions given up for recall instead of stalled on — the
+        # "stalls into recall" trade as a number
+        "# TYPE knn_stream_skipped_promotions_total counter",
+        f"knn_stream_skipped_promotions_total "
+        f"{streaming['skipped_promotions']}",
+        # drift guard: skip-cold plans refused because the pool
+        # was already stalling above the admission limit
+        "# TYPE knn_stream_skip_cold_refusals_total counter",
+        f"knn_stream_skip_cold_refusals_total "
+        f"{streaming.get('skip_cold_refusals', 0)}",
+    ]
 
 
 #: knn_recall_estimated histogram upper edges (plan-level calibrated
@@ -172,6 +284,11 @@ class ServingMetrics:
         self.recall_hist: guarded_by("_lock") = (
             [0] * (len(RECALL_HIST_EDGES) + 1))
         self.recall_hist_sum: guarded_by("_lock") = 0.0
+        # multi-index tenancy: the same counter families keyed per tenant
+        # ({tenant: {name: count}}) plus a per-tenant latency histogram —
+        # empty (and never rendered) on single-index servers
+        self.tenant_counters: guarded_by("_lock") = {}
+        self.tenant_latency: guarded_by("_lock") = {}
 
     def snapshot(self) -> dict:
         """Locked point-in-time copy — what cross-object readers use
@@ -179,9 +296,34 @@ class ServingMetrics:
         with self._lock:
             return dict(self.counters)
 
-    def inc(self, name: str, by: int = 1):
+    def inc(self, name: str, by: int = 1, tenant: str | None = None):
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + by
+            if tenant is not None:
+                tc = self.tenant_counters.setdefault(tenant, {})
+                tc[name] = tc.get(name, 0) + by
+
+    def record_latency(self, seconds: float, tenant: str | None = None):
+        """Global request-latency observation, plus the tenant's own
+        histogram when the request was tenant-scoped."""
+        self.latency.record(seconds)
+        if tenant is None:
+            return
+        with self._lock:
+            hist = self.tenant_latency.get(tenant)
+            if hist is None:
+                hist = self.tenant_latency[tenant] = LatencyHistogram()
+        hist.record(seconds)
+
+    def tenant_snapshot(self) -> dict:
+        """{tenant: {counter: value}} point-in-time copy."""
+        with self._lock:
+            return {t: dict(c) for t, c in self.tenant_counters.items()}
+
+    def tenant_latency_report(self, tenant: str) -> dict | None:
+        with self._lock:
+            hist = self.tenant_latency.get(tenant)
+        return None if hist is None else hist.report()
 
     def note_recall(self, plan) -> None:
         """Record one request's recall tier (``plan`` is None for exact,
@@ -234,12 +376,16 @@ class KnnServer(ThreadingHTTPServer):
     def __init__(self, addr, engine, *, max_delay_s=0.002,
                  max_queue_rows=4096, default_timeout_s=5.0, query_fn=None,
                  verbose=False, pipeline_depth=2, faults=None,
-                 recall_policy=None, qcache_rows=4096,
-                 qcache_seed_rows=512):
-        if getattr(engine, "tenants", None) is not None:
-            raise not_ported("multi-index tenancy (serve/tenancy.py)",
-                             "Queue 1, the single-host serving tiers")
+                 recall_policy=None, tenant_quota_rows=0,
+                 qcache_rows=4096, qcache_seed_rows=512):
         self.engine = engine
+        #: multi-index tenancy (serve/tenancy.py): a MultiTenantEngine
+        #: exposes a TenantRegistry — its presence switches on the
+        #: /v1/<tenant>/knn surface, per-tenant metrics, and quotas.
+        #: Single-index engines leave all three None/off, keeping the
+        #: wire byte-identical to pre-tenancy servers.
+        self.tenants = getattr(engine, "tenants", None)
+        self.quotas = None
         #: recall-SLO tier (serve/recall.py): maps a request's
         #: ``"recall": 0.95`` target to a calibrated cheaper plan. The
         #: built-in table serves by default, K-CONDITIONED on the
@@ -254,6 +400,11 @@ class KnnServer(ThreadingHTTPServer):
         self.admission = AdmissionController(
             max_queue_rows=max_queue_rows,
             default_timeout_s=default_timeout_s)
+        if self.tenants is not None:
+            # per-tenant row-budget slices of the same controller; 0 =
+            # tenants unsliced (global cap only) until set_quota is called
+            self.quotas = TenantQuotas(
+                self.admission, default_quota_rows=tenant_quota_rows)
         self.graceful = (GracefulQueryFn(engine) if query_fn is None
                          else query_fn)
         #: certified query cache (serve/qcache.py): exact-hit reuse,
@@ -363,19 +514,59 @@ class _Handler(JsonHttpHandler):
             }
             if srv.qcache is not None:
                 out["qcache"] = srv.qcache.stats()
+            if srv.tenants is not None:
+                out["tenants"] = self._tenant_stats(srv)
             self._send_json(200, out)
         elif path == "/metrics":
             self._send(200, self._prometheus(srv).encode(),
                        "text/plain; version=0.0.4")
+        elif (srv.tenants is not None and path.startswith("/v1/")
+                and path.endswith("/stats")
+                and len(path.split("/")) == 4):
+            name = path.split("/")[2]
+            if name not in srv.tenants:
+                self._send_json(404, {"error": f"no such tenant {name!r}",
+                                      "tenants": srv.tenants.names()})
+                return
+            self._send_json(200, dict(self._tenant_stats(srv)[name],
+                                      tenant=name))
         else:
             self._send_json(404, {"error": f"no such path {path}"})
+
+    @staticmethod
+    def _tenant_stats(srv: KnnServer) -> dict:
+        """The per-tenant /stats namespace: each tenant's server-side
+        counters + latency, quota state, and engine view (index geometry
+        plus its pool residency/stall share)."""
+        counters = srv.metrics.tenant_snapshot()
+        quota = srv.quotas.stats()["tenants"] if srv.quotas is not None else {}
+        engine_tenants = srv.engine.stats().get("tenants", {})
+        out = {}
+        for name in srv.tenants.names():
+            out[name] = {
+                "server": dict(
+                    counters.get(name, {}),
+                    request_latency=srv.metrics.tenant_latency_report(name)),
+                "quota": quota.get(name, {
+                    "quota_rows": srv.quotas.quota(name)
+                    if srv.quotas is not None else 0,
+                    "inflight_rows": 0, "rejected": 0}),
+                "engine": engine_tenants.get(name, {}),
+            }
+        return out
 
     @staticmethod
     def _prometheus(srv: KnnServer) -> str:
         e, b, a = srv.engine.stats(), srv.batcher.stats(), srv.admission.stats()
         lines = []
+        # per-tenant twins of each counter family ride as {tenant=}
+        # labels right under the unlabeled (aggregate) series; empty on
+        # single-index servers, so their text output is unchanged
+        tsnap = srv.metrics.tenant_snapshot()
         for name, val in srv.metrics.snapshot().items():
             lines += [f"# TYPE {name} counter", f"{name} {val}"]
+            lines += [f'{name}{{tenant="{t}"}} {tsnap[t][name]}'
+                      for t in sorted(tsnap) if name in tsnap[t]]
         # engine-side cumulative counters: bytes fetched across the host
         # link and result rows completed — the device-vs-host merge
         # placement shows up as fetch_bytes/result_rows shrinking ~R x
@@ -436,8 +627,16 @@ class _Handler(JsonHttpHandler):
         for name, val in gauges.items():
             lines += [f"# TYPE {name} gauge", f"{name} {val}"]
         # certified query cache (serve/qcache.py): the three reuse tiers'
-        # counters — absent when the cache is off
+        # counters with {tenant=} twins on multi-tenant servers — absent
+        # when the cache is off, so those servers' text is unchanged
         lines += qcache_prometheus_lines(srv.qcache)
+        # tiered slab index (serve/slabpool.py): per-tier residency,
+        # promotion/eviction totals, stream-stall accounting — absent for
+        # fully-resident engines
+        lines += slab_pool_prometheus_lines(e)
+        # multi-index tenancy: per-tenant pool occupancy/stall shares and
+        # admission-quota state — absent on single-index servers
+        lines += _tenant_prometheus_lines(srv, e)
         # recall-SLO tier: exact/approx request split plus the calibrated
         # recall_estimated distribution of the approximate responses
         lines += srv.metrics.recall_prometheus_lines()
@@ -454,39 +653,58 @@ class _Handler(JsonHttpHandler):
 
     # ------------------------------------------------------------------ POST
     def _parse_body(self):
-        """-> (queries, want_neighbors, timeout_s, recall, binary)."""
+        """-> (queries, want_neighbors, timeout_s, recall, tenant,
+        binary)."""
         return parse_knn_body(self.path, self.headers, self.rfile,
                               dim=getattr(self.server.engine, "dim", 3))
 
     @staticmethod
-    def _is_tenant_path(path: str) -> bool:
-        """A ``/v1/<tenant>/knn`` POST path."""
+    def _tenant_path(path: str) -> str | None:
+        """The <tenant> of a ``/v1/<tenant>/knn`` POST path (None when
+        the path is not tenant-scoped)."""
         parts = path.split("/")
-        return (len(parts) == 4 and parts[0] == "" and parts[1] == "v1"
-                and bool(parts[2]) and parts[3] == "knn")
+        if (len(parts) == 4 and parts[0] == "" and parts[1] == "v1"
+                and parts[2] and parts[3] == "knn"):
+            return parts[2]
+        return None
 
     def do_POST(self):
         srv: KnnServer = self.server
         path = urlparse(self.path).path
-        if self._is_tenant_path(path):
+        path_tenant = self._tenant_path(path)
+        if path != "/knn" and path_tenant is None:
+            self._send_json(404, {"error": "POST /knn only"})
+            return
+        if path_tenant is not None and srv.tenants is None:
             self._send_json(404, {
                 "error": f"no tenant namespaces on a single-index server "
                          f"(POST /knn); got {path}"})
-            return
-        if path != "/knn":
-            self._send_json(404, {"error": "POST /knn only"})
             return
         if self._apply_fault("/knn"):
             return
         t0 = time.perf_counter()
         try:
-            q, want_nbrs, timeout_s, recall, binary = self._parse_body()
+            q, want_nbrs, timeout_s, recall, tenant, binary = (
+                self._parse_body())
         except (ValueError, json.JSONDecodeError) as e:
             srv.metrics.inc("knn_requests_total")
             srv.metrics.inc("knn_badrequest_total")
             self._send_json(400, {"error": str(e)})
             return
-        srv.metrics.inc("knn_requests_total")
+        # tenant resolution: URL > JSON field / header > default. On a
+        # single-index server the field is ignored entirely (the legacy
+        # wire, byte for byte); on a multi-tenant server every request
+        # lands on exactly one named tenant and strangers are a 404
+        name = None
+        if srv.tenants is not None:
+            name = path_tenant or tenant or srv.engine.default_tenant
+            if name not in srv.tenants:
+                srv.metrics.inc("knn_requests_total")
+                srv.metrics.inc("knn_unknown_tenant_total")
+                self._send_json(404, {"error": f"no such tenant {name!r}",
+                                      "tenants": srv.tenants.names()})
+                return
+        srv.metrics.inc("knn_requests_total", tenant=name)
         # recall-SLO resolution: a target of 1.0 (or one no calibrated plan
         # meets) falls through to plan=None — the exact path, untouched
         plan = (srv.recall_policy.plan_for(recall)
@@ -494,7 +712,7 @@ class _Handler(JsonHttpHandler):
         timeout_s = timeout_s or srv.admission.default_timeout_s
         n = len(q)
         if n > srv.engine.max_batch:
-            srv.metrics.inc("knn_badrequest_total")
+            srv.metrics.inc("knn_badrequest_total", tenant=name)
             self._send_json(413, {
                 "error": f"batch of {n} exceeds max_batch "
                          f"{srv.engine.max_batch}; split the request"})
@@ -506,30 +724,41 @@ class _Handler(JsonHttpHandler):
                 self._send_json(200, {"dists": []})
             return
         try:
-            with srv.admission.admitted_rows(n):
+            # multi-tenant admission reserves the tenant's quota slice
+            # first, then the global row cap (serve/tenancy.py); both
+            # reject with the same OverloadError -> 429 + Retry-After
+            admitted = (srv.quotas.admitted_rows(name, n)
+                        if srv.quotas is not None
+                        else srv.admission.admitted_rows(n))
+            with admitted:
                 dists, nbrs = srv.batcher.submit(q, timeout_s=timeout_s,
-                                                 plan=plan)
+                                                 plan=plan, tenant=name)
         except OverloadError as e:
-            srv.metrics.inc("knn_overload_total")
+            srv.metrics.inc("knn_overload_total", tenant=name)
             self._send_json(429, {"error": str(e)},
                             extra=[("Retry-After", f"{e.retry_after_s:g}")])
             return
         except DeadlineExceeded as e:
-            srv.metrics.inc("knn_deadline_total")
+            srv.metrics.inc("knn_deadline_total", tenant=name)
             self._send_json(504, {"error": str(e)})
             return
         except UnservableShapeError as e:
-            srv.metrics.inc("knn_badrequest_total")
+            srv.metrics.inc("knn_badrequest_total", tenant=name)
             self._send_json(413, {"error": str(e)})
             return
         except Exception as e:  # noqa: BLE001 - the service must not die
-            srv.metrics.inc("knn_error_total")
+            srv.metrics.inc("knn_error_total", tenant=name)
             self._send_json(500, {"error": f"{type(e).__name__}: {e}"})
             return
-        srv.metrics.inc("knn_rows_total", n)
+        srv.metrics.inc("knn_rows_total", n, tenant=name)
         srv.metrics.note_recall(plan)
-        srv.metrics.latency.record(time.perf_counter() - t0)
+        srv.metrics.record_latency(time.perf_counter() - t0, tenant=name)
         fields, hdrs = recall_response_fields(plan, recall)
+        # multi-tenant responses echo the resolved tenant (JSON field /
+        # binary header); single-index responses stay byte-identical
+        if name is not None:
+            fields = dict(fields, tenant=name)
+            hdrs = list(hdrs) + [("X-Knn-Tenant", name)]
         if binary:
             self._send(200, np.asarray(dists, "<f4").tobytes(),
                        "application/octet-stream", extra=hdrs)
@@ -557,10 +786,16 @@ def serve_forever(server: KnnServer, warmup: bool = True,
     eng = server.engine
     if warmup:
         info = eng.warmup()
-        print(f"warmup plans built: {info['per_bucket_s']} "
-              f"(seconds per bucket); query buckets "
-              f"{info['query_buckets']}; tiles executed/skipped "
-              f"{info['tiles_executed']}/{info['tiles_skipped']}")
+        if "tenants" in info:
+            # MultiTenantEngine.warmup: one launch-plan pass covers every
+            # tenant (the compile-count-flat contract)
+            print(f"warmup plans built: {info['compile_count']} plans "
+                  f"shared across {len(info['tenants'])} tenants")
+        else:
+            print(f"warmup plans built: {info['per_bucket_s']} "
+                  f"(seconds per bucket); query buckets "
+                  f"{info['query_buckets']}; tiles executed/skipped "
+                  f"{info['tiles_executed']}/{info['tiles_skipped']}")
     server.ready = True
     host, port = server.server_address[:2]
     print(f"serving kNN on http://{host}:{port} "

@@ -98,3 +98,21 @@ def morton_argsort(points: np.ndarray, lo, hi) -> np.ndarray:
     """Stable permutation sorting ``points`` by Morton code (pads last,
     equal codes keep input order): the serving admission sort."""
     return np.argsort(morton_codes(points, lo, hi), kind="stable")
+
+
+def aabb_lower_bound_dist2(queries: np.ndarray, lo: np.ndarray,
+                           hi: np.ndarray) -> np.ndarray:
+    """f64[n, S] squared lower-bound distance from each query to each
+    axis-aligned box: per axis the distance to the nearest face (0 inside
+    the box), summed over axes. A point inside box s can never be closer
+    to q than ``sqrt(out[q, s])``, so a box whose bound exceeds a query's
+    current k-th distance cannot improve its answer (the slab pool's
+    routing and certification, serve/slabpool.py). Computed in float64 so
+    the bound itself adds no rounding slack (the engines' f32 rounding is
+    covered by the caller's certification slack, not here)."""
+    q = np.asarray(queries, np.float64)
+    lo = np.asarray(lo, np.float64)
+    hi = np.asarray(hi, np.float64)
+    d = np.maximum(np.maximum(lo[None] - q[:, None], q[:, None] - hi[None]),
+                   0.0)
+    return np.einsum("nsd,nsd->ns", d, d)

@@ -1,8 +1,8 @@
 """The port's serving CLI (``cli/serve_main.py``): the same option dict
-as the JAX CLI's for the single-host flags, each flag of pod, routed,
-standby, slab-pool and tenancy serving refused with ``not_ported`` naming
-its ROADMAP item, and ``main`` run in process on the CPU answering a JSON
-and a binary request, then shutting down."""
+as the JAX CLI's for the single-host flags (the slab pool's and tenancy's
+included), each flag of pod, routed and standby serving refused with
+``not_ported`` naming its ROADMAP item, and ``main`` run in process on the
+CPU answering a JSON and a binary request, then shutting down."""
 
 import json
 import queue
@@ -27,7 +27,18 @@ SINGLE_HOST = [
      "--qcache-rows", "0", "--qcache-seed-rows", "64",
      "--recall-policy", "plans.json", "--no-warmup", "--timings",
      "--verbose"],
+    ["pts.float3", "-k", "8", "--num-slabs", "8", "--device-slab-budget",
+     "2g", "--host-pool-bytes", "512m", "--host-pool-slabs", "3",
+     "--prefetch-depth", "2"],
+    ["-k", "8", "--tenant", "a=a.float3", "--tenant", "b=b.npy",
+     "--num-slabs", "4", "--device-slab-budget", "65536k",
+     "--tenant-quota-rows", "64"],
 ]
+
+TIER_FLAGS = [("--num-slabs", "4"), ("--device-slab-budget", "1g"),
+              ("--host-pool-bytes", "1.5m"), ("--host-pool-slabs", "2"),
+              ("--prefetch-depth", "2"), ("--tenant", "a=pts.float3"),
+              ("--tenant-quota-rows", "64")]
 
 
 @pytest.mark.parametrize("argv", SINGLE_HOST)
@@ -47,18 +58,35 @@ def test_parse_serve_args_equals_jax(argv):
     ("--standby", None, "pod serving"),
     ("--wire", "f32", "pod serving"),
     ("--seq-timeout-s", "5", "pod serving"),
-    ("--num-slabs", "4", "single-host serving tiers"),
-    ("--device-slab-budget", "1g", "single-host serving tiers"),
-    ("--host-pool-bytes", "1g", "single-host serving tiers"),
-    ("--host-pool-slabs", "2", "single-host serving tiers"),
-    ("--prefetch-depth", "2", "single-host serving tiers"),
-    ("--tenant", "a=pts.float3", "single-host serving tiers"),
-    ("--tenant-quota-rows", "64", "single-host serving tiers"),
 ])
 def test_refused_flags_name_their_item(flag, value, item):
     argv = ["pts.float3", "-k", "8", flag] + ([value] if value else [])
     with pytest.raises(NotImplementedError, match=item):
         t_cli.parse_serve_args(argv)
+
+
+@pytest.mark.parametrize("flag,value", TIER_FLAGS)
+def test_tier_flags_parse_as_jax(flag, value):
+    """The slab pool's and tenancy's flags, each alone, give the JAX CLI's
+    option dict (a tenant flag drops the positional input, as JAX asks)."""
+    argv = ([] if flag == "--tenant" else ["pts.float3"]) + \
+        ["-k", "8", flag, value]
+    got = t_cli.parse_serve_args(argv)
+    assert got.pop("device") is None
+    assert got == j_cli.parse_serve_args(argv)
+
+
+def test_tier_usage_errors_exit_1():
+    """The JAX CLI's refusals: a positional input beside --tenant, a
+    duplicate tenant, a tenant without '=', a negative --num-slabs."""
+    for argv in (["pts.float3", "-k", "8", "--tenant", "a=x.float3"],
+                 ["-k", "8", "--tenant", "a=x", "--tenant", "a=y"],
+                 ["-k", "8", "--tenant", "a"],
+                 ["pts.float3", "-k", "8", "--num-slabs", "-1"]):
+        for cli in (t_cli, j_cli):
+            with pytest.raises(SystemExit) as e:
+                cli.parse_serve_args(argv)
+            assert e.value.code == 1
 
 
 def test_usage_errors_exit_1():
