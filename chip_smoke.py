@@ -18,6 +18,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    903 (its instances of 16 and 32 slots a lane), a finite
    ``-r``, ``skip_self`` with point group 2, and buckets wider than one
    staged tile with a partial last tile; each case on the D=3 kernel;
+   then the launches split along the grid's y axis (``grid_split_cases``):
+   one D=3 query bucket of 2,097,152 rows at k=8 (65,536 blocks of 32
+   rows, one past the grid's limit: two launches), and a cap of 3 blocks
+   a launch forced on 1,000-row buckets of the D=3, ring (D=16) and
+   wgmma (bf16 D=128) kernels;
 3b. the brute-force kernel against its plain version, bit for bit (d2 and
    ids), on ~32K seeded points: uniform, clustered and integer-grid, k in
    {1, 8, 31, 32, 33, 64, 65, 100, 200, 300, 903}, a finite ``-r``,
@@ -81,24 +86,27 @@ Phases, each fatal on failure (exit code 1, no result line):
 10. the high-D main path: ``UnorderedKNN`` on 1,000,000 seeded points at
    D=128 (32 Gaussian clusters, the SIFT1M shape) and k=10, in bf16 at
    R=1, in f32 at R=1 and in bf16 at R=4: distances byte-equal, ids equal
-   up to the order of exact ties, a selfcheck of 50 samples; every bf16
+   up to the order of exact ties, a selfcheck of 200 samples on the card
+   (``verify_sample_card``: ``kth_distance_card``, the host check's
+   recipe in eager ops, then its tolerance and inf pattern); every bf16
    launch on the wgmma kernel and every f32 one on the ring kernel, bf16
    ``pair_evals`` at most 1.1x f32's, and the bf16 runs' kernel time per
    launch beside the wrapper's preparation time (the packed halves rebuilt
    at every launch);
 10b. ``prepartitioned_main`` on 4 ``.npy`` slab parts of the first
    262,144 of those points, byte-equal to ``UnorderedKNN`` on them, every
-   traversal launch on the ring kernel, ``--selfcheck 50``;
+   traversal launch on the ring kernel, the rank files checked on the
+   card (200 samples);
 10c. the main paths above ``RESIDENT_MAX_DP4``: ``UnorderedKNN`` f32 at R=1
    on 262,144 points at D=960 (GIST1M's width and k=10; 32 Gaussian
    clusters; a quarter of its points), every traversal launch on the
    streamed ring route; ``UnorderedKNN`` in bf16 at R=1 on the same
    points, every launch on the wgmma kernel's streamed route, distances
    byte-equal to the f32 run, ids equal up to the order of exact ties, its
-   kernel and preparation timed apart; a selfcheck of 20 samples of the
-   distances both runs share; and ``UnorderedKNN`` with ``engine="pallas"`` at D=128 on
-   phase 10b's points (the flat route of the ring kernel), byte-equal to
-   the ``auto`` run there; stages and peak device memory of each, each
+   kernel and preparation timed apart; a selfcheck on the card of 50
+   samples of the distances both runs share; and ``UnorderedKNN`` with
+   ``engine="pallas"`` at D=128 on phase 10b's points (the flat route of
+   the ring kernel), byte-equal to the ``auto`` run there; stages and peak device memory of each, each
    kernel against its bounds on the pairs it scored, and the seconds of
    each step of the phase on the host's clock;
 11. the f32 ring kernel (with its plan, and its wrapper's layout time
@@ -239,6 +247,33 @@ fails:
    byte-equal to phase 5's file, and ``demand_knn`` on phase 8's parts,
    byte-equal to its k=8 rank files with its work counts.
 
+Then the routed pod (``routed_pod_phases``), on 16s's points with the 4
+rows after the first slab edge replaced by copies of the 4 before it:
+
+3h. the D=3 traversal kernel at a routed host's shapes: the point side of
+   ``ResidentKnnEngine(emit="candidates", id_offset=4,194,304)`` over a
+   slab of 2,097,152 rows, sub-batches of 1, 7, 300 and 1024 rows staged as
+   the engine stages them, k=100, bit for bit against the plain version;
+   ``refetch_exact`` of 7 of a batch's rows byte-equal to those rows;
+18. 4 ``serve_main --routing bounds --num-hosts 4 --host-id i`` processes
+   (a slab of 2,097,152 rows each) and 3 front ends (``python -m
+   ...serve.frontend``: ``--on-host-loss fail``, the same with ``--wire
+   f32``, ``--on-host-loss degrade``; query cache off), started together,
+   each with a wall-clock limit, all killed on a failure: 18a a fixed
+   list (uniform, blobs, rows on the copies, JSON and binary) byte-equal
+   to one ``ResidentKnnEngine`` over the file, distance-0 ids ascending
+   across hosts; 18b 8 closed-loop clients, a sweep then uniform rows:
+   q/s, p50/p99, waves a batch, the rows certified after one host, wire
+   bytes by codec, each host's sub-batches, 1,000 served rows against the
+   exact answer, every launch in the hosts on the D=3 kernel; 18c the
+   ``--wire f32`` front end byte-equal, ``pull_slab_rows`` with d16, f32
+   and the single-shot body bit-equal to a host's slab; 18d one host
+   answering 503 (``POST /faults``): requests away from it byte-equal,
+   the others 503 with Retry-After (fail) or the surviving slabs' answer
+   with the predicted ``exact`` flags (degrade); the fault cleared, the
+   host rejoined through the front ends' monitors, the list byte-equal
+   again.
+
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``build/smoke/chip_smoke.json``.
@@ -285,9 +320,10 @@ PEAK_BF16 = 989e12      # dense bf16 tensor-core FLOP/s (same data sheet)
 HD_DIM, HD_K = 128, 10  # phase 10: the SIFT1M shape and its recall@10
 HD_SUB = 262_144        # phase 10b: points cut into 4 .npy slab parts
 GIST_DIM = 960          # phase 10c: GIST1M's width, on HD_SUB points
-GIST_SELFCHECK = 20     # phase 10c: host samples (50 took 15.5-60.4 s)
-HD_SELFCHECK = 50       # phases 10, 10b: host samples (with 200, phase 10
-                        # took 39.3-90.1 s, its three runs ~7 s of it)
+GIST_SELFCHECK = 50     # phase 10c: samples checked on the card
+HD_SELFCHECK = 200      # phases 10, 10b: samples checked on the card
+                        # (kth_distance_card; on the host, 200 took phase
+                        # 10 39.3-90.1 s, its three runs ~7 s of it)
 PLAIN_BUCKETS = 16      # phase 11: query buckets the plain versions run
 N_WALL, WALL_K = 8_388_608, 100  # phase 13a: the candidate rows' memory wall
 WALL_CHUNK = 1_048_576           # phase 13a: 8 chunks
@@ -387,6 +423,74 @@ def clustered_nd(n: int, dim: int, seed: int):
     return pts
 
 
+def kth_distance_card(points, query_idx, k, max_radius=float("inf"),
+                      device="cuda", block_elems=1 << 26):
+    """The card's twin of ``obs/selfcheck.py`` ``kth_distance_exact``:
+    the exact k-th-NN distance of ``points[query_idx]`` against every
+    point, by the same recipe, ``((d0*d0 + d1*d1) + d2*d2) ...`` summed
+    left to right, each sub, mul and add its own eager op (its own
+    rounding: no kernel of the port, no FMA). The points stream in blocks
+    of ``block_elems / Q`` columns (components laid out [D, N], so a
+    component's block is contiguous); each block's distances join the
+    running k smallest (radius**2 slots to start) through a stable sort,
+    so ties cannot change the k-th value. The square root is numpy's, on
+    the host. Returns f32[Q]."""
+    import numpy as np
+    import torch
+
+    pts = torch.from_numpy(np.ascontiguousarray(points, np.float32)) \
+        .to(device)
+    q = pts[torch.from_numpy(np.asarray(query_idx, np.int64)).to(device)]
+    cols = pts.t().contiguous()
+    del pts
+    nq, dim = q.shape
+    r2 = float(np.float32(max_radius) ** 2)
+    best = torch.full((nq, k), r2, dtype=torch.float32, device=device)
+    block = max(1024, block_elems // max(1, nq))
+    for lo in range(0, cols.shape[1], block):
+        c = cols[:, lo:lo + block]
+        d2 = q[:, 0:1] - c[0:1]
+        d2.mul_(d2)
+        t = torch.empty_like(d2)
+        for i in range(1, dim):
+            torch.sub(q[:, i:i + 1], c[i:i + 1], out=t)
+            t.mul_(t)
+            d2.add_(t)
+        best = torch.sort(torch.cat([best, d2], 1), dim=1,
+                          stable=True).values[:, :k]
+    return np.sqrt(best[:, k - 1].cpu().numpy())
+
+
+def verify_sample_card(points, dists, k, num_samples,
+                       max_radius=float("inf"), seed=0, rtol=1e-5,
+                       atol=1e-6, device="cuda") -> int:
+    """``obs/selfcheck.py`` ``verify_sample`` with the exact answer from
+    ``kth_distance_card``: the same samples (``seed``), the same
+    tolerance and the same inf pattern; fails the phase on a mismatch.
+    Returns the samples checked."""
+    import numpy as np
+
+    n = len(points)
+    num_samples = min(num_samples, n)
+    idx = np.random.default_rng(seed).choice(n, size=num_samples,
+                                             replace=False)
+    want = kth_distance_card(points, idx, k, max_radius, device=device)
+    got = np.asarray(dists)[idx]
+    inf_mismatch = np.isinf(got) != np.isinf(want)
+    if inf_mismatch.any():
+        i = int(np.argmax(inf_mismatch))
+        fail(f"selfcheck FAILED: point {idx[i]} got {got[i]}, exact "
+             f"{want[i]}")
+    finite = ~np.isinf(want)
+    if not np.allclose(got[finite], want[finite], rtol=rtol, atol=atol):
+        err = np.abs(got[finite] - want[finite])
+        i = int(np.argmax(err))
+        fail(f"selfcheck FAILED: point {idx[finite][i]} got "
+             f"{got[finite][i]}, exact {want[finite][i]} (|err| "
+             f"{err[i]:.3g})")
+    return num_samples
+
+
 def max_abs_err(got, want) -> float:
     """Max abs difference of the entries finite on both sides."""
     import torch
@@ -460,13 +564,14 @@ def route_counts() -> dict:
 
 def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
                  group=2, warm=True, score_dtype="f32", route=None,
-                 canonical=False):
+                 canonical=False, max_grid_y=None):
     """Traversal kernel vs plain on the card for one input (f32: the D=3
     or the ring kernel; bf16: the tensor-core kernel, whose
     rows must also equal the f32 kernel's up to the order of exact ties);
     ``route`` names the kernel the case must plan, and the launch counters
-    show it ran there. Returns the max abs difference of the finite d2
-    entries (0.0 when bitwise equal)."""
+    show it ran there; ``max_grid_y`` caps the blocks of rows a launch
+    takes (a bucket past it goes in several launches). Returns the max abs
+    difference of the finite d2 entries (0.0 when bitwise equal)."""
     import torch
 
     from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
@@ -484,12 +589,12 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
                              device=pts.device))
     return check_traversal(name, state, q, pc, pts, skip_self=warm,
                            group=group, score_dtype=score_dtype, route=route,
-                           canonical=canonical)
+                           canonical=canonical, max_grid_y=max_grid_y)
 
 
 def check_traversal(name, state, q, pc, pts, *, skip_self, group,
                     score_dtype="f32", route=None, canonical=False,
-                    prepared=None):
+                    prepared=None, max_grid_y=None):
     """The traversal kernel vs its plain version on the card: rows
     ``state`` of the query side ``q`` folded with the point side ``pc``
     (``pts`` indexed by its ids). d2 bitwise, visits equal (at most the
@@ -498,10 +603,13 @@ def check_traversal(name, state, q, pc, pts, *, skip_self, group,
     both sides' ``canonical_ties``, ids equal in bf16 too), the launch on
     the ``route`` planned. Returns the max abs difference of the finite d2
     entries (0.0 when bitwise equal). ``prepared`` (``prepare_points``)
-    is the kernel's resident point side; the plain version ignores it."""
+    is the kernel's resident point side; the plain version ignores it.
+    ``max_grid_y`` (default the grid's limit) caps the blocks of rows of a
+    launch, so a smaller cap splits the bucket into several launches."""
     import torch
 
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        MAX_GRID_Y,
         WGMMA_LANES,
         WGMMA_ROWS,
         knn_update_tiled_cuda,
@@ -520,6 +628,7 @@ def check_traversal(name, state, q, pc, pts, *, skip_self, group,
     want, want_vis = knn_update_tiled_plain(state, q, pc, **kw)
     before = route_counts()
     got, got_vis = knn_update_tiled_cuda(state, q, pc, prepared=prepared,
+                                         max_grid_y=max_grid_y or MAX_GRID_Y,
                                          **kw)
     torch.cuda.synchronize()
     same_inf = torch.equal(torch.isinf(got.dist2), torch.isinf(want.dist2))
@@ -571,6 +680,8 @@ def check_traversal(name, state, q, pc, pts, *, skip_self, group,
         ties = (f", ids: {tie_rows(got.idx, want.idx, qrows, pts)} rows vs "
                 f"plain and {tie_rows(got.idx, exact.idx, qrows, pts)} vs the "
                 "f32 kernel differ only among equally distant points")
+    if max_grid_y:
+        plan_txt += f" grid-y cap {max_grid_y}"
     say(f"  {name}: D={dim} B={q.num_buckets} S={q.bucket_size} "
         f"T={pc.bucket_size} k={k}{plan_txt} rows/block={rows} "
         f"lanes/tile={lanes} visits={int(got_vis.sum())} "
@@ -580,6 +691,50 @@ def check_traversal(name, state, q, pc, pts, *, skip_self, group,
     if not ok:
         fail(f"kernel disagrees with its plain version in case {name}")
     return err
+
+
+FAULT_ROWS = 2_097_152  # phase 3: a D=3 bucket of 65,536 blocks of 32 rows
+
+
+def grid_split_cases(uni):
+    """Phase 3's cases of launches split along the grid's y axis (at most
+    65,535 blocks of rows a launch), each against its plain version bit
+    for bit: the fault's shape, one D=3 query bucket of ``FAULT_ROWS``
+    uniform rows at k=8 (65,536 blocks of 32 rows: two launches) against
+    16 point buckets of 256, cold; and the split forced by a cap of 3
+    blocks on buckets of 1,000 rows, on each kernel: D=3 (32 blocks), the
+    ring kernel at D=16 and the wgmma kernel in bf16 at D=128 (8 blocks of
+    128 each). Returns the max abs error."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
+    from mpi_cuda_largescaleknn_torch.ops.partition import partition_points
+
+    q_np = seeded_points("uniform", FAULT_ROWS, SEED + 120)
+    q = partition_points(torch.from_numpy(q_np).cuda(),
+                         bucket_size=FAULT_ROWS)
+    p_t = torch.from_numpy(uni[:4096]).cuda()
+    pc = partition_points(p_t, bucket_size=256)
+    state = init_candidates(FAULT_ROWS, 8, device=p_t.device)
+    errs = [check_traversal(
+        f"one D=3 bucket of {FAULT_ROWS} rows, k=8 (65,536 blocks)", state,
+        q, pc, p_t, skip_self=False, group=1, route="d3")]
+    del q, state
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 121)
+    errs += [
+        compare_case("D=3 S=1000 k=33, grid-y cap 3 (11 launches)",
+                     uni[:16_000], 33, bucket_size=1000, max_grid_y=3,
+                     route="d3"),
+        compare_case("ring D=16 S=1000 k=10, grid-y cap 3 (3 launches)",
+                     rng.normal(size=(16_000, 16)).astype(np.float32), 10,
+                     bucket_size=1000, max_grid_y=3, route="ring"),
+        compare_case("wgmma bf16 D=128 S=1000 k=10, grid-y cap 3 (3 "
+                     "launches)", clustered_nd(16_000, 128, SEED + 122), 10,
+                     bucket_size=1000, max_grid_y=3, score_dtype="bf16",
+                     route="wgmma")]
+    return max(errs)
 
 
 def chunk_sides(pts_np, num_shards, k, chunk_rows):
@@ -838,14 +993,17 @@ def first_launch_split():
 def prepartitioned_run(label, list_path, prefix, k, engine, num_parts,
                        selfcheck=1000, dim3=True, extra=()):
     """``prepartitioned_main`` over the parts of ``list_path`` (points at
-    D=3 unless ``dim3`` is false) with the arguments ``extra``; returns
-    (timings, the rank files' bytes joined in rank order)."""
+    D=3 unless ``dim3`` is false) with the arguments ``extra`` and the
+    CLI's own ``--selfcheck`` (none when ``selfcheck`` is 0: the caller
+    checks the rank files); returns (timings, the rank files' bytes
+    joined in rank order)."""
     import numpy as np
 
+    check = ["--selfcheck", str(selfcheck)] if selfcheck else []
     t, out = run_cli([str(list_path), "-o", str(prefix), "-k", str(k),
-                      "--engine", engine, "--selfcheck", str(selfcheck),
-                      *extra], module="prepartitioned_main")
-    if f"selfcheck OK ({selfcheck} samples)" not in out:
+                      "--engine", engine, *check, *extra],
+                     module="prepartitioned_main")
+    if selfcheck and f"selfcheck OK ({selfcheck} samples)" not in out:
         fail(f"{label}: no selfcheck line in\n{out}")
     files = [Path(f"{prefix}_{r:06d}.float") for r in range(num_parts)]
     joined = b"".join(f.read_bytes() for f in files)
@@ -855,7 +1013,7 @@ def prepartitioned_run(label, list_path, prefix, k, engine, num_parts,
     if not 1 <= t["rounds"] <= num_parts // 2 + 1:
         fail(f"{label}: {t['rounds']} rounds, not in 1..{num_parts // 2 + 1}")
     report_run(label, t, "knn_bf_launches" if engine == "pallas"
-               else "knn_tiled_launches")
+               else "knn_tiled_launches", selfcheck=bool(selfcheck))
     if dim3:
         check_d3_route(label, t)
     say(f"    rounds {t['rounds']}, kernels_run {t['kernels_run']}, "
@@ -3651,24 +3809,31 @@ def free_port() -> int:
 
 def start_hosts(label, module, args, hosts, groups):
     """``hosts`` copies of a CLI joined through ``--coordinator`` on a
-    free port, all started at once, their output in files under
-    ``build/smoke/multihost``; the group is appended to ``groups`` (every
-    group still running, which a failure kills)."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    free port (``start_children``, output under ``build/smoke/multihost``)."""
     cmd = [sys.executable, "-m", f"mpi_cuda_largescaleknn_torch.cli.{module}",
            *args, "--timings", "--coordinator", f"127.0.0.1:{free_port()}",
            "--num-hosts", str(hosts)]
-    logs = WORK / "multihost"
+    return start_children(label, [cmd + ["--host-id", str(i)]
+                                  for i in range(hosts)], groups,
+                          "multihost")
+
+
+def start_children(label, cmds, groups, logs_dir):
+    """One process a command, all started at once with the port on
+    ``PYTHONPATH``, their output in files under ``build/smoke/<logs_dir>``
+    named by ``label``; the group is appended to ``groups`` (every group
+    still running, which a failure kills)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    logs = WORK / logs_dir
     logs.mkdir(parents=True, exist_ok=True)
     tag = label.replace(" ", "_").replace("=", "").replace("-", "")
     procs, files = [], []
-    for i in range(hosts):
+    for i, cmd in enumerate(cmds):
         out = open(logs / f"{tag}_{i}.out", "w+")
         err = open(logs / f"{tag}_{i}.err", "w+")
         files.append((out, err))
-        procs.append(subprocess.Popen(cmd + ["--host-id", str(i)], cwd=ROOT,
-                                      env=env, stdout=out, stderr=err,
-                                      text=True))
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                      stderr=err, text=True))
     group = (label, procs, files, time.perf_counter())
     groups.append(group)
     return group
@@ -3984,6 +4149,511 @@ def multihost_phases(smi, pts_path, k8_r4, parts_list, auto8, pre):
     return details, runs
 
 
+POD_HOSTS = 4                    # phase 18: routed hosts, a slab each
+POD_DUPS = 4                     # 18a: rows copied across the slab 0/1 edge
+POD_SECONDS = 4.0                # 18b: closed-loop traffic a mix
+POD_CHILD_SECONDS = 300          # phase 18: a child's wall-clock limit
+POD_FIXED = 12                   # 18a: requests of each mix's fixed list
+
+
+def routed_shape_cases(pts, slab, begin):
+    """Phase 3h: the D=3 traversal kernel at a routed host's shapes, against
+    its plain version on the card, bit for bit (d2 and ids): the point side
+    of the host's engine (``ResidentKnnEngine(emit="candidates",
+    id_offset=begin)``, as ``serve_main --routing bounds`` builds it, a slab
+    of ``slab`` rows), sub-batches of 1, 7, 300 and 1024 rows staged as the
+    engine stages them (Morton-sorted, padded to the shape bucket, in its
+    query buckets; radii +inf, the routed host's), k=100; then the engine's
+    ``refetch_exact`` of a subset of a batch's rows, byte-equal to those
+    rows of the batch. Returns the max abs error."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.core.types import PAD_SENTINEL
+    from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
+    from mpi_cuda_largescaleknn_torch.serve.engine import (
+        ResidentKnnEngine,
+        batch_buckets,
+    )
+    from mpi_cuda_largescaleknn_torch.utils.math import morton_argsort
+
+    rows = pts[begin:begin + slab]
+    eng = ResidentKnnEngine(rows, WALL_K, max_batch=SERVE_MAX_BATCH,
+                            id_offset=begin, emit="candidates")
+    side, prep = eng._buckets[0], eng._prepared[0]
+    rng = np.random.default_rng(SEED + 130)
+    lo, hi = rows.min(axis=0), rows.max(axis=0)
+    errs = []
+    for n in (1, 7, 300, 1024):
+        q = (lo + (hi - lo) * rng.random((n, 3))).astype(np.float32)
+        q[::5] = rng.random((len(q[::5]), 3), dtype=np.float32)
+        qpad = eng.bucket_for(n)
+        perm = (morton_argsort(q, eng._index_lo, eng._index_hi)
+                if n > 1 else np.arange(n))
+        q_st = np.full((qpad, 3), PAD_SENTINEL, np.float32)
+        q_st[:n] = q[perm]
+        qb = batch_buckets(torch.from_numpy(q_st).cuda(),
+                           eng.query_buckets[qpad])
+        state = init_candidates(qpad, WALL_K, device=qb.pts.device)
+        errs.append(check_traversal(
+            f"3h slab of {slab} rows at id_offset {begin}: {n} rows in "
+            f"{qb.num_buckets} query buckets of {qb.bucket_size}", state,
+            qb, side, None, skip_self=False, group=1, route="d3",
+            canonical=True, prepared=prep))
+    q = (lo + (hi - lo) * rng.random((300, 3))).astype(np.float32)
+    d2, idx = eng.complete_candidates(eng.dispatch(q))
+    sub = np.sort(rng.choice(300, 7, replace=False))
+    rd2, ridx = eng.refetch_exact(q[sub])
+    if rd2.tobytes() != d2[sub].tobytes() or \
+            ridx.tobytes() != idx[sub].tobytes():
+        fail("3h: refetch_exact of 7 rows differs from their batch's rows")
+    say("  3h refetch_exact of 7 of a batch's 300 rows: byte-equal to "
+        "those rows")
+    del eng, side, prep
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def child_tail(group, i) -> str:
+    out, err = group[2][i]
+    texts = []
+    for f in (out, err):
+        f.flush()
+        f.seek(0)
+        texts.append(f.read()[-3000:])
+    return "\n".join(texts)
+
+
+def wait_serving(group, urls, groups):
+    """Polls each child's /healthz until it answers 200, within
+    ``POD_CHILD_SECONDS`` of the group's start; a child that exits or
+    outlives it kills every child of ``groups`` and fails the phase.
+    Returns the seconds each took."""
+    import urllib.request
+
+    label, procs, _files, t0 = group
+    took = [None] * len(urls)
+    while None in took:
+        for i, (p, url) in enumerate(zip(procs, urls)):
+            if took[i] is not None:
+                continue
+            if p.poll() is not None:
+                kill_groups(groups)
+                fail(f"{label} {i} exited {p.returncode}:\n"
+                     f"{child_tail(group, i)}")
+            try:
+                with urllib.request.urlopen(url + "/healthz",
+                                            timeout=5) as r:
+                    if r.status == 200:
+                        took[i] = time.perf_counter() - t0
+            except OSError:
+                pass
+        if time.perf_counter() - t0 > POD_CHILD_SECONDS:
+            kill_groups(groups)
+            fail(f"{label}: not serving after {POD_CHILD_SECONDS} s")
+        time.sleep(0.2)
+    return took
+
+
+def stop_children(groups) -> None:
+    """SIGINT every child (the CLIs shut down on it), then kill what is
+    left after 30 s, and reap all."""
+    for _label, procs, files, _t0 in groups:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGINT)
+    deadline = time.perf_counter() + 30
+    for _label, procs, files, _t0 in groups:
+        for p in procs:
+            try:
+                p.wait(timeout=max(0.1, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for out, err in files:
+            out.close()
+            err.close()
+    groups.clear()
+
+
+def get_json(url, timeout=30):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def post_json(url, obj):
+    """POST ``obj`` as JSON to ``url``; the decoded answer."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps(obj).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def pod_launches(host_urls) -> dict:
+    """Every host process's kernel launch counts (its /stats
+    ``launches``), summed."""
+    total = {}
+    for url in host_urls:
+        for key, n in get_json(url + "/stats")["launches"].items():
+            total[key] = total.get(key, 0) + n
+    return total
+
+
+def replay_port(port, reqs):
+    """The list posted one request at a time to the front end on
+    ``port``: [(status, body, Retry-After)]."""
+    out = []
+    for q, binary in reqs:
+        status, body, _sec, retry = tier_post(port, "/knn", q, binary)
+        out.append((status, body, retry))
+    return out
+
+
+def routed_pod_phases(smi):
+    """Phases 3h and 18: the routed pod on the card. 16s's N_WALL
+    Morton-sorted points (its raw file), with the ``POD_DUPS`` rows after
+    the first slab edge replaced by copies of the rows before it; four
+    ``serve_main --routing bounds --num-hosts 4 --host-id i`` processes on
+    the one card (a slab of 2,097,152 rows each) and three front ends
+    (``python -m ...serve.frontend``: ``--on-host-loss fail``, the same
+    with ``--wire f32``, and ``--on-host-loss degrade``; the query cache
+    off, so every request reaches the hosts), all started together, each
+    with a wall-clock limit, every child killed on a failure. 18a: a fixed
+    list of requests (uniform, clustered, rows ON the copies; JSON and
+    binary) answered as one ``ResidentKnnEngine`` over the whole file
+    answers, ids among distance-0 ties ascending, ``exact`` true; 18b:
+    closed-loop clients, a sweep then uniform rows, 1,000 served rows
+    against the exact answer, every launch on the D=3 kernel; 18c: the
+    ``--wire f32`` front end byte-equal, and ``pull_slab_rows`` with d16,
+    f32 and the single-shot body bit-equal; 18d: one host answering 503
+    (``POST /faults``): bodies of requests whose certified set misses it
+    byte-equal to 18a, the others 503 with Retry-After (fail) or the
+    surviving slabs' exact answer flagged ``exact: false`` (degrade), then
+    the fault cleared, the host back through the monitor's rejoin and the
+    list byte-equal again. Returns (details, the hosts' summed launch
+    counts during 18b)."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.ops.partition import partition_points
+    from mpi_cuda_largescaleknn_torch.serve.engine import ResidentKnnEngine
+    from mpi_cuda_largescaleknn_torch.serve.frontend import (
+        PodBoundsTable,
+        pod_config_from_hosts,
+        routing_cert_slack,
+    )
+    from mpi_cuda_largescaleknn_torch.serve.replica import pull_slab_rows
+
+    details, steps = {}, {}
+    t_phase = time.perf_counter()
+    slab = N_WALL // POD_HOSTS
+    with timed_step(steps, "data"):
+        pts = np.fromfile(WORK / "tier.float3", np.float32).reshape(-1, 3)
+        pts[slab:slab + POD_DUPS] = pts[slab - POD_DUPS:slab]
+        path = WORK / "pod.float3"
+        pts.tofile(path)
+    groups = []
+    host_ports = [free_port() for _ in range(POD_HOSTS)]
+    host_urls = [f"http://127.0.0.1:{p}" for p in host_ports]
+    fe_ports = [free_port() for _ in range(3)]
+    fe_urls = [f"http://127.0.0.1:{p}" for p in fe_ports]
+    py = sys.executable
+    hosts = start_children("host", [
+        [py, "-m", "mpi_cuda_largescaleknn_torch.cli.serve_main", str(path),
+         "-k", str(WALL_K), "--routing", "bounds", "--num-hosts",
+         str(POD_HOSTS), "--host-id", str(i), "--port", str(p)]
+        for i, p in enumerate(host_ports)], groups, "pod")
+    fe_cmd = [py, "-m", "mpi_cuda_largescaleknn_torch.serve.frontend",
+              "--hosts", ",".join(host_urls), "--qcache-rows", "0",
+              "--probe-interval-s", "1",
+              "--wait-ready-s", str(POD_CHILD_SECONDS)]
+    fes = start_children("frontend", [
+        fe_cmd + ["--port", str(fe_ports[0])],
+        fe_cmd + ["--port", str(fe_ports[1]), "--wire", "f32"],
+        fe_cmd + ["--port", str(fe_ports[2]), "--on-host-loss", "degrade"]],
+        groups, "pod")
+    try:
+        # meanwhile, in this process: phase 3h and the references
+        say("[phase 3h] the traversal kernel at a routed host's shapes vs "
+            "plain on the card")
+        with timed_step(steps, "3h"):
+            details["phase3h_max_abs_err"] = routed_shape_cases(
+                pts, slab, 2 * slab)
+        say(f"[phase 18] the routed pod: {POD_HOSTS} host processes of "
+            f"{slab} rows and 3 front ends on the card, k={WALL_K}")
+        with timed_step(steps, "references"):
+            ref = ResidentKnnEngine(pts, WALL_K, max_batch=SERVE_MAX_BATCH)
+            surv = ResidentKnnEngine(pts[:3 * slab], WALL_K,
+                                     max_batch=SERVE_MAX_BATCH,
+                                     emit="candidates")
+        with timed_step(steps, "start-up"):
+            took = wait_serving(hosts, host_urls, groups)
+            fe_took = wait_serving(fes, fe_urls, groups)
+        say(f"  hosts serving after {', '.join(f'{t:.1f}' for t in took)} s"
+            f", front ends after {', '.join(f'{t:.1f}' for t in fe_took)} "
+            "s (started together)")
+        details["host_start_seconds"] = took
+        details["frontend_start_seconds"] = fe_took
+
+        # -- 18a: the fixed list against one engine ------------------------
+        rng = np.random.default_rng(SEED + 131)
+
+        def uniform(g, n):
+            return g.random((n, 3), dtype=np.float32)
+
+        def blobs(g, n):
+            c = g.random(3)
+            return np.clip(c + g.normal(0.0, SWEEP_SIGMA / 2, (n, 3)), 0.0,
+                           1.0).astype(np.float32)
+
+        edge = pts[slab - POD_DUPS:slab + POD_DUPS]
+        reqs = (fixed_requests(uniform, SEED + 132, POD_FIXED)
+                + fixed_requests(blobs, SEED + 133, POD_FIXED)
+                + [(edge.copy(), False), (edge.copy(), True),
+                   (np.concatenate([edge, uniform(rng, 24)]), False),
+                   (np.clip(0.2 + rng.normal(0.0, 0.02, (64, 3)), 0, 1)
+                    .astype(np.float32), False)])
+        with timed_step(steps, "18a"):
+            base = replay_port(fe_ports[0], reqs)
+            for (q, binary), (status, body, _r) in zip(reqs, base):
+                if status != 200:
+                    fail(f"18a: a request of {len(q)} rows: HTTP {status}: "
+                         f"{body[:300]!r}")
+                want_d, want_i = ref.query(q)
+                if binary:
+                    if body != want_d.tobytes():
+                        fail(f"18a: the binary body of {len(q)} rows differs"
+                             " from one engine's")
+                    continue
+                obj = json.loads(body)
+                if obj.get("exact") is not True or \
+                        np.asarray(obj["dists"], np.float32).tobytes() \
+                        != want_d.tobytes() or not np.array_equal(
+                            np.asarray(obj["neighbors"], np.int32), want_i):
+                    fail(f"18a: the JSON body of {len(q)} rows differs from "
+                         "one engine's")
+            # the copies: each answers itself and its twin at distance 0,
+            # ids ascending across the slab edge
+            obj = json.loads(base[2 * POD_FIXED][1])
+            for row, nb in zip(edge, obj["neighbors"]):
+                zero = [j for j in nb if np.array_equal(pts[j], row)]
+                if len(zero) < 2 or zero != sorted(zero) or \
+                        not (zero[0] < slab <= zero[-1]):
+                    fail(f"18a: distance-0 ids {zero} of a row on the "
+                         "slab edge are not its two copies, ascending")
+        say(f"  18a: {len(reqs)} requests ({sum(len(q) for q, _ in reqs)} "
+            "rows; uniform, blobs, rows on the copies across the slab "
+            "edge), JSON and binary bodies byte-equal to one "
+            "ResidentKnnEngine over all the points, exact true, distance-0 "
+            "ids ascending across hosts")
+
+        # -- 18b: closed-loop traffic --------------------------------------
+        traffic = {}
+        fe0 = fe_urls[0]
+        st0 = get_json(fe0 + "/stats")["fanout"]
+        hs0 = [get_json(u + "/stats") for u in host_urls]
+        l0 = pod_launches(host_urls)
+        t_start = time.perf_counter()
+
+        def sweep(g, n):
+            frac = ((time.perf_counter() - t_start) / SWEEP_PERIOD) % 1.0
+            return np.clip(frac + g.normal(0.0, SWEEP_SIGMA, (n, 3)),
+                           0.0, 1.0).astype(np.float32)
+
+        mixes = {}
+        for name, draw, seed in (("sweep", sweep, SEED + 134),
+                                 ("uniform", uniform, SEED + 135)):
+            a = get_json(fe0 + "/stats")["fanout"]
+            with timed_step(steps, f"18b {name}"):
+                traffic[name] = closed_loop(fe_ports[0], draw, POD_SECONDS,
+                                            WALL_K, seed)
+            b = get_json(fe0 + "/stats")["fanout"]
+            lats = traffic[name]["latencies"]
+            rows = sum(len(r[0]) for r in traffic[name]["records"])
+            batches = b["batches"] - a["batches"]
+            hpq = {c: b["routing"]["hosts_per_query"].get(c, 0)
+                   - a["routing"]["hosts_per_query"].get(c, 0)
+                   for c in b["routing"]["hosts_per_query"]}
+            wire = {c: v["bytes"] - a["wire"]["traffic"].get(
+                        "candidates", {}).get(c, {}).get("bytes", 0)
+                    for c, v in b["wire"]["traffic"]
+                    .get("candidates", {}).items()}
+            mixes[name] = {
+                "requests": len(lats), "rows": rows,
+                "seconds": traffic[name]["wall"],
+                "queries_per_second": rows / traffic[name]["wall"],
+                "p50_ms": float(np.percentile(lats, 50)) * 1e3,
+                "p99_ms": float(np.percentile(lats, 99)) * 1e3,
+                "batches": batches,
+                "waves_per_batch": 1 + (b["routing"]["escalation_waves"]
+                                        - a["routing"]["escalation_waves"])
+                / max(1, batches),
+                "certified_after_one_host": hpq.get("1", 0)
+                / max(1, sum(hpq.values())),
+                "hosts_per_query": hpq, "wire_bytes": wire,
+                "rejected_429": traffic[name]["rejected"]}
+            m = mixes[name]
+            say(f"  18b {name}: {m['queries_per_second']:.0f} queries/s "
+                f"over "
+                f"{m['seconds']:.1f} s ({m['requests']} requests, {rows} "
+                f"rows, {batches} batches); p50 {m['p50_ms']:.2f} ms p99 "
+                f"{m['p99_ms']:.2f} ms; {m['waves_per_batch']:.3f} waves a "
+                f"batch; {m['certified_after_one_host']:.4f} of rows "
+                f"certified after one host; wire bytes {wire} ({smi})")
+        l1 = pod_launches(host_urls)
+        hs1 = [get_json(u + "/stats") for u in host_urls]
+        counts = {key: l1[key] - l0.get(key, 0) for key in l1}
+        per_host = [h1["server"].get("knn_requests_total", 0)
+                    - h0["server"].get("knn_requests_total", 0)
+                    for h0, h1 in zip(hs0, hs1)]
+        say(f"  18b: sub-batches each host served {per_host}; launches in "
+            f"the host processes {counts['knn_tiled_launches']}, on the D=3 "
+            f"kernel {counts['knn_tiled_d3_launches']}")
+        if counts["knn_tiled_launches"] < 1 or \
+                counts["knn_tiled_d3_launches"] \
+                != counts["knn_tiled_launches"] or counts["knn_bf_launches"]:
+            fail(f"18b: launches off the D=3 traversal kernel: {counts}")
+        with timed_step(steps, "check rows"):
+            pts_t = torch.from_numpy(pts).cuda()
+            ref_side = partition_points(pts_t, bucket_size=256)
+            both = {"records": traffic["sweep"]["records"]
+                    + traffic["uniform"]["records"]}
+            checked, id_rows, ties = check_served_rows(
+                "18b", both, ref_side, WALL_K, pts_t, SEED + 136)
+            del pts_t, ref_side
+            torch.cuda.empty_cache()
+        say(f"  18b: {checked} sampled served rows byte-equal to the exact "
+            f"answer, ids of {id_rows} rows equal up to {ties} rows of exact"
+            " ties")
+        details["18b"] = {"mixes": mixes, "host_sub_batches": per_host,
+                          "launches": counts,
+                          "check": {"rows": checked, "id_rows": id_rows,
+                                    "id_rows_differing_by_ties": ties}}
+
+        # -- 18c: the wire --------------------------------------------------
+        with timed_step(steps, "18c"):
+            f32 = replay_port(fe_ports[1], reqs)
+            if [b for _s, b, _r in f32] != [b for _s, b, _r in base]:
+                fail("18c: the --wire f32 front end's bodies differ from "
+                     "the auto front end's")
+            wst = get_json(fe_urls[1] + "/stats")["fanout"]["wire"]
+            if set(wst["traffic"].get("candidates", {})) != {"f32"}:
+                fail(f"18c: the f32 front end moved {wst['traffic']}")
+            pulls = {}
+            for wire in ("d16", "f32", "none"):
+                t0 = time.perf_counter()
+                rows, off = pull_slab_rows(host_urls[1], wire=wire)
+                pulls[wire] = time.perf_counter() - t0
+                if off != slab or rows.tobytes() != \
+                        pts[slab:2 * slab].tobytes():
+                    fail(f"18c: pull_slab_rows(wire={wire}) differs from "
+                         "host 1's slab")
+            slab_wire = get_json(host_urls[1] + "/stats")["wire_traffic"][
+                "slab_rows"]
+        d16, raw = slab_wire["d16"]["bytes"], slab * 12
+        say(f"  18c: the --wire f32 front end byte-equal on all "
+            f"{len(reqs)} requests; pull_slab_rows d16 / f32 / single-shot "
+            f"bit-equal to host 1's {slab} rows: d16 {d16} B "
+            f"({d16 / raw:.3f} of the f32 rows' {raw} B), seconds "
+            + ", ".join(f"{w} {s:.2f}" for w, s in pulls.items()))
+        details["18c"] = {"slab_wire": slab_wire, "pull_seconds": pulls}
+
+        # -- 18d: failover --------------------------------------------------
+        with timed_step(steps, "18d"):
+            cfg = pod_config_from_hosts(host_urls)
+            table = PodBoundsTable(cfg["bounds_hosts"], 3)
+            slack = routing_cert_slack(3)
+            flags, surv_out = [], []
+            for q, _binary in reqs:
+                d2, idx = surv.complete_candidates(surv.dispatch(q))
+                lb = table.lower_bounds(q)[:, POD_HOSTS - 1] * (1.0 - slack)
+                flags.append(np.isfinite(lb) & (
+                    lb <= d2[:, WALL_K - 1].astype(np.float64)))
+                surv_out.append((np.sqrt(d2[:, WALL_K - 1]), idx))
+            touched = [bool(f.any()) for f in flags]
+            if all(touched) or not any(touched):
+                fail(f"18d: the list does not split on host "
+                     f"{POD_HOSTS - 1}: {touched}")
+            lost = host_urls[POD_HOSTS - 1]
+            post_json(lost + "/faults", {"spec": "error:code=503"})
+            got_fail = replay_port(fe_ports[0], reqs)
+            got_deg = replay_port(fe_ports[2], reqs)
+            for i, ((q, binary), hit) in enumerate(zip(reqs, touched)):
+                if not hit:
+                    for got in (got_fail[i], got_deg[i]):
+                        if got[:2] != base[i][:2]:
+                            fail(f"18d: a request of {len(q)} rows away "
+                                 "from the lost host changed")
+                    continue
+                status, body, retry = got_fail[i]
+                if status != 503 or retry is None:
+                    fail(f"18d fail: a request touching the lost host got "
+                         f"HTTP {status}, Retry-After {retry}")
+                status, body, _r = got_deg[i]
+                sd, si = surv_out[i]
+                if status != 200:
+                    fail(f"18d degrade: HTTP {status}")
+                if binary:
+                    if body != sd.tobytes():
+                        fail("18d degrade: binary body is not the "
+                             "surviving slabs' answer")
+                    continue
+                obj = json.loads(body)
+                if obj["exact"] is not False or obj["exact_per_query"] != \
+                        [not f for f in flags[i].tolist()] or \
+                        np.asarray(obj["dists"], np.float32).tobytes() != \
+                        sd.tobytes() or not np.array_equal(
+                            np.asarray(obj["neighbors"], np.int32), si):
+                    fail("18d degrade: body is not the surviving slabs' "
+                         "answer with the predicted exact flags")
+            drained = [get_json(u + "/stats")["pod"]["health"][lost]["state"]
+                       for u in (fe_urls[0], fe_urls[2])]
+            post_json(lost + "/faults", {"spec": ""})
+            t_clear = time.perf_counter()
+            while True:
+                states = [get_json(u + "/stats")["pod"]["health"][lost]
+                          ["state"] for u in (fe_urls[0], fe_urls[2])]
+                if states == ["healthy", "healthy"]:
+                    break
+                if time.perf_counter() - t_clear > 60:
+                    fail(f"18d: the host did not rejoin in 60 s: {states}")
+                time.sleep(0.25)
+            rejoin = time.perf_counter() - t_clear
+            for port in (fe_ports[0], fe_ports[2]):
+                again = replay_port(port, reqs)
+                if [g[:2] for g in again] != [b[:2] for b in base]:
+                    fail("18d: after the rejoin the bodies differ from 18a")
+        say(f"  18d: host {POD_HOSTS - 1} answering 503: "
+            f"{touched.count(False)} of {len(reqs)} requests away from it "
+            f"byte-equal; {touched.count(True)} touching it 503 with "
+            "Retry-After (fail) and the surviving slabs' answer flagged "
+            f"exact:false as predicted (degrade); the host {drained} in the "
+            f"front ends; rejoined {rejoin:.2f} s after the fault cleared, "
+            "the list byte-equal again")
+        details["18d"] = {"touched": touched, "rejoin_seconds": rejoin,
+                          "drained_states": drained}
+        fstats = get_json(fe0 + "/stats")
+        details["frontend_stats"] = {"fanout": fstats["fanout"],
+                                     "batcher": fstats["batcher"]}
+    except BaseException:
+        kill_groups(groups)
+        raise
+    stop_children(groups)
+    del ref, surv
+    torch.cuda.empty_cache()
+    details["step_seconds"] = steps
+    details["seconds"] = time.perf_counter() - t_phase
+    say("  steps: " + ", ".join(f"{name} {sec:.1f} s"
+                                for name, sec in steps.items()))
+    say(f"  phases 3h and 18 took {details['seconds']:.1f} s")
+    return details, counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -4056,6 +4726,7 @@ def main() -> int:
         compare_case("uniform k=903 (32 slots a lane, the largest k)",
                      uni[:16_000], 903, **d3),
     ]
+    errs.append(grid_split_cases(uni))
     details["phase3_max_abs_err"] = max(errs)
 
     # -- phase 3b -----------------------------------------------------------
@@ -4325,8 +4996,6 @@ def main() -> int:
     # -- phase 10 -----------------------------------------------------------
     say(f"[phase 10] high-D main path: {N_MAIN} points, D={HD_DIM}, "
         f"k={HD_K}, 32 Gaussian clusters")
-    from mpi_cuda_largescaleknn_torch.obs.selfcheck import verify_sample
-
     hd = clustered_nd(N_MAIN, HD_DIM, SEED + 5)
     hd_runs, hd_out = {}, {}
     for label, shards, sd in (("bf16 R=1", 1, "bf16"), ("f32 R=1", 1, "f32"),
@@ -4360,8 +5029,10 @@ def main() -> int:
     say(f"  bf16 R=1 pair_evals are {ratio:.4f}x f32 R=1's")
     if ratio > 1.1:
         fail(f"phase 10: bf16 pair_evals are {ratio:.4f}x f32's (> 1.1x)")
-    checked = verify_sample(hd, ref_d, HD_K, HD_SELFCHECK)
-    say(f"  selfcheck OK ({checked} samples)")
+    t0 = time.perf_counter()
+    checked = verify_sample_card(hd, ref_d, HD_K, HD_SELFCHECK)
+    say(f"  selfcheck OK ({checked} samples, on the card, "
+        f"{time.perf_counter() - t0:.1f} s)")
     details["high_d"] = hd_runs
 
     # -- phase 10b ----------------------------------------------------------
@@ -4379,8 +5050,12 @@ def main() -> int:
     hd_list.write_text("\n".join(names) + "\n")
     pre["highd_auto_k10"], hd_joined = prepartitioned_run(
         f"R=4 .npy D={HD_DIM} --engine auto k={HD_K}", hd_list,
-        parts / "hd_k10", HD_K, "auto", 4, selfcheck=HD_SELFCHECK,
-        dim3=False)
+        parts / "hd_k10", HD_K, "auto", 4, selfcheck=0, dim3=False)
+    t0 = time.perf_counter()
+    checked = verify_sample_card(sub, np.frombuffer(hd_joined, np.float32),
+                                 HD_K, HD_SELFCHECK)
+    say(f"  rank files: selfcheck OK ({checked} samples, on the card, "
+        f"{time.perf_counter() - t0:.1f} s)")
     t_sub, d_sub, _ = unordered_run(f"f32 R=1 on the first {HD_SUB}", sub,
                                     HD_K, 1, "f32")
     hd_runs["f32 R=1 sub"] = t_sub
@@ -4428,9 +5103,9 @@ def main() -> int:
         "among equally distant points")
     # one selfcheck holds both runs' distances, which are the same bytes
     with timed_step(steps, "selfcheck"):
-        checked = verify_sample(gist, d_gbf, HD_K, GIST_SELFCHECK)
-    say(f"  selfcheck OK ({checked} samples) of the distances both runs "
-        "share")
+        checked = verify_sample_card(gist, d_gbf, HD_K, GIST_SELFCHECK)
+    say(f"  selfcheck OK ({checked} samples, on the card) of the distances "
+        "both runs share")
     del gist
     label = f"--engine pallas f32 R=1 on the first {HD_SUB}"
     with timed_step(steps, "flat run"):
@@ -4540,6 +5215,9 @@ def main() -> int:
     details["multihost"], mh_runs = multihost_phases(
         smi, pts_path, WORK / "k8_r4.float", lst, auto8, pre)
 
+    # -- phases 3h and 18 ---------------------------------------------------
+    details["pod"], pod_counts = routed_pod_phases(smi)
+
     # -- phase 12 -----------------------------------------------------------
     say("[phase 12] phase 10's f32 R=1 run again under the profiler")
     label = "f32 R=1 under the profiler"
@@ -4554,7 +5232,7 @@ def main() -> int:
         + list(hd_runs.values()) + list(chunk_runs.values()) \
         + list(ooc_runs.values()) + list(engine_runs.values()) \
         + list(serve_runs.values()) + list(tier_runs.values()) \
-        + list(mh_runs.values())
+        + list(mh_runs.values()) + [pod_counts]
 
     def launched(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -4570,15 +5248,16 @@ def main() -> int:
     canon_err = details["engines"]["phase15e_max_abs_err"]
     # phase 3f: the served shapes, the point side resident
     served_err = details["serving"]["phase3f_max_abs_err"]
-    # phase 3g: the slab engines' shapes
+    # phase 3g: the slab engines' shapes; 3h: a routed host's
     slab_err = details["tiers"]["phase3g_max_abs_err"]
+    routed_err = details["pod"]["phase3h_max_abs_err"]
     kernels = {"kernels": [
         # knn_tiled_d3_kernel, timed in phase 6
         entry("knn_tiled", SOURCE, REPLACES, launched("knn_tiled_d3_launches"),
               (details["phase3_max_abs_err"], timed[8]["max_abs_err"],
                timed[100]["max_abs_err"],
                details["out_of_core"]["witness_max_abs_err"], canon_err,
-               served_err["d3"], slab_err), timed[8]),
+               served_err["d3"], slab_err, routed_err), timed[8]),
         entry("knn_tiled_nd_ring", SOURCE, RING_REPLACES,
               launched("knn_tiled_ring_launches"),
               (details["phase3c_max_abs_err"],

@@ -9,6 +9,9 @@
     python -m mpi_cuda_largescaleknn_torch.cli.serve_main -k 100 \
         --tenant a=a.float3 --tenant b=b.npy [--num-slabs 4] \
         [--device-slab-budget 2g] [--tenant-quota-rows 1024]
+    python -m mpi_cuda_largescaleknn_torch.cli.serve_main points.float3 \
+        -k 100 --routing bounds --num-hosts 4 --host-id I [--wire auto] \
+        [--num-slabs 2 --device-slab-budget 2g]
 
 Loads a point set, builds the resident index on the card, builds every
 shape bucket's launch plan (and the kernels, at their first launch), and
@@ -19,9 +22,14 @@ binary), GET /healthz, /stats, /metrics (Prometheus text). With
 live on the card. With ``--tenant`` (repeatable) one process serves many
 indexes from one slab pool (serve/tenancy.py): POST /v1/<tenant>/knn,
 per-tenant /stats and ``{tenant=}`` metrics, per-tenant admission quotas.
-The port of the JAX package's ``cli/serve_main.py`` in its single-host
-form: the flags of pod, routed and standby serving raise ``not_ported``
-naming their ROADMAP item.
+With ``--routing bounds`` the process is one host of a routed pod: it
+loads only its row slab ``[N*i/H, N*(i+1)/H)`` and serves full candidate
+rows on ``POST /route_knn`` to the pod front end (``python -m
+mpi_cuda_largescaleknn_torch.serve.frontend --hosts ...``). The port of
+the JAX package's ``cli/serve_main.py``; the flags of the replicate pod
+(``--coordinator``, ``--num-hosts`` without ``--routing bounds``,
+``--seq-timeout-s``) and of warm standbys (``--standby``) raise
+``not_ported`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -108,19 +116,34 @@ SERVE_FLAGS = """
   --timings         print engine phase timings as JSON on shutdown
   --verbose         log each HTTP request to stderr
 
-Not ported yet (each raises, naming its ROADMAP item): --coordinator,
---num-hosts, --host-id, --routing, --standby, --wire, --seq-timeout-s
-(pod serving).
+Routed pod — launch ONE copy per host with the same arguments plus
+--host-id; the hosts stay independent (no coordinator, no shared mesh),
+each serving its row slab to the pod front end
+(python -m mpi_cuda_largescaleknn_torch.serve.frontend --hosts ...):
+  --routing M       off | bounds (default off). bounds = shard-local
+                    routing: this process loads only its row slab
+                    [N*i/H, N*(i+1)/H) of the input, serves full candidate
+                    rows on POST /route_knn, and the front end routes each
+                    query by the hosts' shard bounding boxes. Routing wins
+                    need a spatially-ordered input file (Morton order); an
+                    unordered file stays exact but routes every query
+                    everywhere. With --num-slabs the host streams its slab
+                    through the tiered slab pool
+  --num-hosts N     hosts of the pod (slabs of the input)
+  --host-id I       this process's slab in [0, N)
+  --wire M          auto | f32 (default auto). Host-side wire-codec
+                    capability: auto advertises the compressed codecs
+                    (q16 candidate rows, d16 slab transfer — served only
+                    when the peer asks); f32 advertises and serves only
+                    the uncompressed codec
+
+Not ported yet (each raises, naming its ROADMAP item): the replicate pod
+(--coordinator, --num-hosts without --routing bounds, --seq-timeout-s;
+Queue 1 item 3c) and warm standbys (--standby; Queue 1 item 3b).
 """
 
-_POD = "Queue 1 item 3, pod serving"
-# JAX-package flags not ported yet: flag -> (takes a value, ROADMAP item)
-_NOT_PORTED = {
-    "--coordinator": (True, _POD), "--num-hosts": (True, _POD),
-    "--host-id": (True, _POD), "--routing": (True, _POD),
-    "--standby": (False, _POD), "--wire": (True, _POD),
-    "--seq-timeout-s": (True, _POD),
-}
+_REPLICATE = "Queue 1 item 3c, the replicate pod"
+_HANDOFF = "Queue 1 item 3b, standbys and slab handoff"
 
 
 def usage(error: str) -> "NoReturn":  # noqa: F821
@@ -215,20 +238,32 @@ def parse_serve_args(argv: list[str]) -> dict:
                 i += 1; opt["max_queue_rows"] = int(argv[i])
             elif arg == "--timeout-ms":
                 i += 1; opt["timeout_ms"] = float(argv[i])
+            elif arg == "--seq-timeout-s":
+                raise not_ported("option --seq-timeout-s", _REPLICATE)
             elif arg == "--qcache-rows":
                 i += 1; opt["qcache_rows"] = int(argv[i])
             elif arg == "--qcache-seed-rows":
                 i += 1; opt["qcache_seed_rows"] = int(argv[i])
             elif arg == "--recall-policy":
                 i += 1; opt["recall_policy"] = argv[i]
+            elif arg == "--coordinator":
+                i += 1; opt["coordinator"] = argv[i]
+            elif arg == "--num-hosts":
+                i += 1; opt["num_hosts"] = int(argv[i])
+            elif arg == "--host-id":
+                i += 1; opt["host_id"] = int(argv[i])
+            elif arg == "--routing":
+                i += 1; opt["routing"] = argv[i]
+            elif arg == "--standby":
+                opt["standby"] = True
+            elif arg == "--wire":
+                i += 1; opt["wire"] = argv[i]
             elif arg == "--no-warmup":
                 opt["warmup"] = False
             elif arg == "--timings":
                 opt["timings"] = True
             elif arg == "--verbose":
                 opt["verbose"] = True
-            elif arg in _NOT_PORTED:
-                raise not_ported(f"option {arg}", _NOT_PORTED[arg][1])
             else:
                 usage(f"unknown cmdline arg '{arg}'")
             i += 1
@@ -238,6 +273,10 @@ def parse_serve_args(argv: list[str]) -> dict:
         if opt["in_path"]:
             usage("tenancy mode takes its inputs from --tenant NAME=PATH "
                   f"— drop the positional input '{opt['in_path']}'")
+        if opt["num_hosts"] > 1 or opt["routing"] != "off" or opt["standby"]:
+            usage("--tenant (multi-index tenancy) is single-process "
+                  "serving — it does not combine with pod, routed, or "
+                  "standby modes")
         names = [n for n, _p in opt["tenants"]]
         if len(set(names)) != len(names):
             usage(f"duplicate tenant names in {names}")
@@ -245,8 +284,36 @@ def parse_serve_args(argv: list[str]) -> dict:
         usage("no input file name specified")
     if opt["k"] < 1:
         usage("no k specified, or invalid k value")
+    if opt["routing"] not in ("off", "bounds"):
+        usage(f"--routing must be off or bounds, got '{opt['routing']}'")
+    if opt["wire"] not in ("auto", "f32"):
+        usage(f"--wire must be auto or f32, got '{opt['wire']}'")
+    if opt["routing"] == "bounds" and opt["coordinator"]:
+        usage("--routing bounds hosts are independent processes — they "
+              "never join a global mesh, so --coordinator is a config "
+              "error (use --routing off for the pod-collective mode)")
+    if opt["standby"] and opt["routing"] != "bounds":
+        usage("--standby is the routed tier's slab-handoff target — "
+              "launch with --routing bounds")
     if opt["num_slabs"] < 0:
         usage(f"--num-slabs must be >= 0, got {opt['num_slabs']}")
+    if opt["num_slabs"] > 0:
+        if opt["num_hosts"] > 1 and opt["routing"] != "bounds":
+            usage("--num-slabs (tiered slab streaming) does not combine "
+                  "with the pod-collective mode — the streamed slab set "
+                  "varies per batch, a pod-wide SPMD program cannot; use "
+                  "--routing bounds hosts (each streams its own slab)")
+        if opt["standby"]:
+            usage("--standby hosts materialize their engine at adoption "
+                  "time — launch the adopted engine without --num-slabs")
+    # the JAX CLI's checks above come first; what passes them and needs a
+    # part not ported yet raises, naming its item
+    if opt["standby"]:
+        raise not_ported("option --standby (a warm standby host)", _HANDOFF)
+    if opt["routing"] == "off" and (opt["coordinator"]
+                                    or opt["num_hosts"] > 1):
+        raise not_ported("the replicate pod (--coordinator, --num-hosts "
+                         "without --routing bounds)", _REPLICATE)
     return opt
 
 
@@ -273,6 +340,8 @@ def main(argv: list[str] | None = None, ready=None) -> int:
                    host_pool_slabs=opt["host_pool_slabs"],
                    host_pool_bytes=opt["host_pool_bytes"],
                    prefetch_depth=opt["prefetch_depth"])
+    if opt["routing"] == "bounds":
+        return serve_routed_host(opt, engine_kw, tier_kw, ready)
     if opt["tenants"]:
         # many indexes behind ONE slab pool, one plan cache and one
         # admission controller; each tenant's index streams as
@@ -336,6 +405,71 @@ def main(argv: list[str] | None = None, ready=None) -> int:
         qcache_seed_rows=opt["qcache_seed_rows"])
     try:
         serve_forever(server, warmup=opt["warmup"], ready=ready)
+    except KeyboardInterrupt:
+        print("shutting down")
+    finally:
+        server.close()
+        close = getattr(engine, "close", None)
+        if close is not None:
+            close()
+        if opt["timings"]:
+            sys.stderr.write(engine.timers.dump() + "\n")
+    return 0
+
+
+def serve_routed_host(opt: dict, engine_kw: dict, tier_kw: dict,
+                      ready=None) -> int:
+    """One host of a routed pod: this process owns row slab ``host_id`` of
+    ``num_hosts`` and serves it independently (no shared mesh), with
+    global neighbor ids through the engine's id offset and full candidate
+    rows for the front end's cross-host fold. Only the slab is read. With
+    ``--num-slabs`` the slab streams through the tiered pool as that many
+    sub-slabs, so the card's budget no longer caps the slab's size."""
+    from mpi_cuda_largescaleknn_torch.serve.engine import (
+        load_slab_rows,
+        materialize_slab_engine,
+    )
+    from mpi_cuda_largescaleknn_torch.serve.frontend import HostSliceServer
+
+    host_id, num_hosts = opt["host_id"], opt["num_hosts"]
+    if not (0 <= host_id < num_hosts):
+        usage(f"--host-id {host_id} outside [0, {num_hosts})")
+    if opt["num_slabs"] > 0:
+        from mpi_cuda_largescaleknn_torch.serve.slabpool import (
+            StreamingKnnEngine,
+        )
+
+        rows, id_offset, n_total = load_slab_rows(opt["in_path"], host_id,
+                                                  num_hosts)
+        engine = StreamingKnnEngine(
+            points=rows, num_slabs=opt["num_slabs"], k=opt["k"],
+            id_offset=id_offset, emit="candidates", **tier_kw, **engine_kw)
+        print(f"routed host {host_id}/{num_hosts}: streaming rows "
+              f"[{id_offset}:{id_offset + engine.n_points}) of {n_total} as "
+              f"{opt['num_slabs']} slabs (device budget "
+              f"{opt['device_slab_budget'] or 'unbounded'} B)")
+    else:
+        engine, id_offset, n_total = materialize_slab_engine(
+            opt["in_path"], host_id, num_hosts, k=opt["k"], **engine_kw)
+        print(f"routed host {host_id}/{num_hosts}: loaded rows "
+              f"[{id_offset}:{id_offset + engine.n_points}) of {n_total} "
+              f"from {opt['in_path']}")
+    server = HostSliceServer((opt["host"], opt["port"]), engine,
+                             routing="bounds", wire=opt["wire"],
+                             verbose=opt["verbose"])
+    try:
+        if opt["warmup"]:
+            info = engine.warmup()
+            print(f"warmup plans built: {info['per_bucket_s']}")
+        server.ready = True
+        host, port = server.server_address[:2]
+        print(f"serving routed slab host {host_id}/{num_hosts} on "
+              f"http://{host}:{port} (rows "
+              f"[{id_offset}:{id_offset + engine.n_points}) of {n_total})",
+              flush=True)
+        if ready is not None:
+            ready(server)
+        server.serve_forever()
     except KeyboardInterrupt:
         print("shutting down")
     finally:

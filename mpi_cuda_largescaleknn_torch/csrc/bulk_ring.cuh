@@ -16,6 +16,11 @@
 
 namespace knn {
 
+// Blocks a launch may have along the grid's y axis (the rows of a query
+// bucket): a bucket with more goes in several launches, each given the
+// block it starts at (ops/knn_tiled.py grid_y_pieces).
+constexpr int kMaxGridY = 65535;
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

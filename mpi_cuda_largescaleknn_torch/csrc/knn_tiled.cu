@@ -39,7 +39,7 @@
 // - There a block held all 248 rows of a bucket up to k=100 (198 KB of
 //   slots), one block of 8 warps an SM. Here a warp folds 4 rows whose
 //   slots lie across its 32 lanes (knn_rows.cuh, the warp fold), a block
-//   holds 8 warps (32 rows; blockIdx.y splits the bucket), and the plan
+//   holds 8 warps (32 rows; blockIdx.y + y0 splits the bucket), and the plan
 //   (ops/knn_tiled.py tiled_launch_plan) keeps at least two blocks on an
 //   SM: 32 warps at k=100 (64 registers a thread).
 // - There every adoption shifted the row one slot at a time through
@@ -123,7 +123,7 @@ __global__ void __launch_bounds__(knn::kD3MaxThreads, 2) knn_tiled_d3_kernel(
     int* __restrict__ idx,             // [Bq*S, k] in/out
     int* __restrict__ visits,          // [Bq] buckets scored, max over blocks
     int s_q, int num_pb, int t_pad, int k, int skip_self, int self_group,
-    int tile_lanes) {
+    int tile_lanes, int y0) {
   using knn::kWarpRows;
   extern __shared__ __align__(16) unsigned char sbuf[];
   const int rows = (blockDim.x >> 5) * kWarpRows;
@@ -169,7 +169,9 @@ __global__ void __launch_bounds__(knn::kD3MaxThreads, 2) knn_tiled_d3_kernel(
   int v = next_pos(-1);
   if (tid == 0 && v < num_pb) issue(v, 0, 0);
 
-  const int r0 = blockIdx.y * rows + warp * kWarpRows;  // in the bucket
+  // in the bucket: a launch of more than 65,535 blocks of rows goes in
+  // pieces, each starting at block y0 (ops/knn_tiled.py grid_y_pieces)
+  const int r0 = (blockIdx.y + y0) * rows + warp * kWarpRows;
   const long long row0 = (long long)b * s_q + r0;
   float* wd2 = rd2 + warp * kWarpRows * S * 32;
   int* widx = ridx + warp * kWarpRows * S * 32;
@@ -316,7 +318,7 @@ __global__ void __launch_bounds__(kRingThreads, 1) knn_tiled_nd_ring_kernel(
     int* __restrict__ visits,            // [Bq] buckets scored, max over blocks
     int s_q, int s_pad, int num_pb, int t_p, int t_pad, int d4n, int k,
     int skip_self, int self_group, int stages, int rows_in_smem,
-    int slice_groups) {
+    int slice_groups, int y0) {
   extern __shared__ __align__(128) unsigned char sbuf[];
   const uint32_t qbytes = kStream ? 0u : kRingRows * d4n * 16;  // resident
   const uint32_t sbytes = ring_stage_bytes(d4n, kStream ? slice_groups : 0);
@@ -334,7 +336,8 @@ __global__ void __launch_bounds__(kRingThreads, 1) knn_tiled_nd_ring_kernel(
       reinterpret_cast<volatile int*>(red + kRingConsumers / 16);
 
   const int b = blockIdx.x;
-  const int r0 = blockIdx.y * kRingRows;
+  const int yb = blockIdx.y + y0;  // the block of rows in the bucket
+  const int r0 = yb * kRingRows;
   const int nrows = min(kRingRows, s_q - r0);
   const int tid = threadIdx.x;
   const int own = b / self_group;
@@ -361,7 +364,7 @@ __global__ void __launch_bounds__(kRingThreads, 1) knn_tiled_nd_ring_kernel(
     if (tid != kRingConsumers) return;
     // the block's queries, [d4n][128]
     const float4* q_blk =
-        q_ring + ((long long)b * (s_pad / kRingRows) + blockIdx.y) *
+        q_ring + ((long long)b * (s_pad / kRingRows) + yb) *
                      kRingRows * d4n;
     if (!kStream) {
       knn::mbar_expect_tx(qbar, qbytes);
@@ -572,37 +575,42 @@ int ring_launch(const int* order, const float* boxd2, const float* q_ring,
                 float* d2, int* idx, int* visits, int num_qb, int s_q,
                 int s_pad, int num_pb, int t_p, int t_pad, int dp4, int k,
                 int skip_self, int self_group, int stages, int rows_in_smem,
-                int slice_groups, size_t smem, cudaStream_t stream) {
+                int slice_groups, int y0, int ny, size_t smem,
+                cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       knn_tiled_nd_ring_kernel<kStream>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(num_qb, s_pad / kRingRows);
+  const dim3 grid(num_qb, ny);
   knn_tiled_nd_ring_kernel<kStream><<<grid, kRingThreads, smem, stream>>>(
       order, boxd2, reinterpret_cast<const float4*>(q_ring), q_ids,
       reinterpret_cast<const float4*>(p_ring), p_ids, d2, idx, visits, s_q,
       s_pad, num_pb, t_p, t_pad, dp4 / 4, k, skip_self, self_group, stages,
-      rows_in_smem, slice_groups);
+      rows_in_smem, slice_groups, y0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches knn_tiled_nd_ring_kernel on `stream`: with the queries resident
-// when slice_groups is 0, else with D streamed in slices of slice_groups
-// float4 groups. Returns the CUDA error code of the launch (0 = ok), or
-// cudaErrorInvalidValue for a shape it does not take (Dp4 not a multiple
-// of 4, S_pad not of 128, T_pad not of 64, a ring of other than 2 or 3
-// stages, or more than 65,535 blocks of 128 rows a bucket).
+// Launches knn_tiled_nd_ring_kernel on `stream` over the ny blocks of 128
+// rows of each bucket from block y0 (a bucket of more than 65,535 such
+// blocks, the grid's y limit, goes in several launches): with the queries
+// resident when slice_groups is 0, else with D streamed in slices of
+// slice_groups float4 groups. Returns the CUDA error code of the launch
+// (0 = ok), or cudaErrorInvalidValue for a shape it does not take (Dp4 not
+// a multiple of 4, S_pad not of 128, T_pad not of 64, a ring of other than
+// 2 or 3 stages, or a piece [y0, y0 + ny) empty, above 65,535 blocks or
+// past the bucket).
 extern "C" int knn_tiled_nd_ring_launch(
     const int* order, const float* boxd2, const float* q_ring,
     const int* q_ids, const float* p_ring, const int* p_ids, float* d2,
     int* idx, int* visits, int num_qb, int s_q, int s_pad, int num_pb,
     int t_p, int t_pad, int dp4, int k, int skip_self, int self_group,
-    int stages, int rows_in_smem, int slice_groups, void* stream) {
+    int stages, int rows_in_smem, int slice_groups, int y0, int ny,
+    void* stream) {
   if (dp4 % 4 || s_pad % kRingRows || t_pad % kRingLanes || stages < 2 ||
-      stages > kRingMaxStages || slice_groups < 0 ||
-      s_pad / kRingRows > 65535)
+      stages > kRingMaxStages || slice_groups < 0 || y0 < 0 || ny < 1 ||
+      ny > knn::kMaxGridY || y0 + ny > s_pad / kRingRows)
     return (int)cudaErrorInvalidValue;
   const size_t smem = ring_smem(dp4, k, stages, rows_in_smem, slice_groups);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -610,11 +618,12 @@ extern "C" int knn_tiled_nd_ring_launch(
              ? ring_launch<true>(order, boxd2, q_ring, q_ids, p_ring, p_ids,
                                  d2, idx, visits, num_qb, s_q, s_pad, num_pb,
                                  t_p, t_pad, dp4, k, skip_self, self_group,
-                                 stages, rows_in_smem, slice_groups, smem, st)
+                                 stages, rows_in_smem, slice_groups, y0, ny,
+                                 smem, st)
              : ring_launch<false>(order, boxd2, q_ring, q_ids, p_ring, p_ids,
                                   d2, idx, visits, num_qb, s_q, s_pad, num_pb,
                                   t_p, t_pad, dp4, k, skip_self, self_group,
-                                  stages, rows_in_smem, 0, smem, st);
+                                  stages, rows_in_smem, 0, y0, ny, smem, st);
 }
 
 namespace {
@@ -624,16 +633,16 @@ int tiled_d3_launch(const int* order, const float* boxd2, const float* q_pts,
                     const int* q_ids, const float4* p4, float* d2, int* idx,
                     int* visits, int num_qb, int s_q, int num_pb, int t_pad,
                     int k, int skip_self, int self_group, int threads,
-                    int tile_lanes, size_t smem, cudaStream_t stream) {
-  const int rows = threads / 32 * knn::kWarpRows;
+                    int tile_lanes, int y0, int ny, size_t smem,
+                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       knn_tiled_d3_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(num_qb, (s_q + rows - 1) / rows);
+  const dim3 grid(num_qb, ny);
   knn_tiled_d3_kernel<S><<<grid, threads, smem, stream>>>(
       order, boxd2, q_pts, q_ids, p4, d2, idx, visits, s_q, num_pb, t_pad, k,
-      skip_self, self_group, tile_lanes);
+      skip_self, self_group, tile_lanes, y0);
   return (int)cudaGetLastError();
 }
 
@@ -655,25 +664,31 @@ int tiled_d3_blocks_per_sm(int threads, size_t smem) {
 // tiled_launch_plan: `slots` a lane for a row of k (d3_slots), `threads` a
 // block (4 query rows a warp), point buckets of t_pad lanes (a multiple of
 // 256) staged in tiles of `tile_lanes` (a multiple of 256), `smem` bytes of
-// dynamic shared memory (d3_smem_bytes). Returns the CUDA error code of the
+// dynamic shared memory (d3_smem_bytes), over the ny blocks of rows of each
+// bucket from block y0 (a bucket of more than 65,535 blocks, the grid's y
+// limit, goes in several launches). Returns the CUDA error code of the
 // launch (0 = ok), or cudaErrorInvalidValue for a shape it does not take.
 extern "C" int knn_tiled_launch(
     const int* order, const float* boxd2, const float* q_pts,
     const int* q_ids, const float* p4, float* d2, int* idx, int* visits,
     int num_qb, int s_q, int num_pb, int t_pad, int k, int skip_self,
     int self_group, int slots, int threads, int tile_lanes, int smem,
-    void* stream) {
-  if (threads % 32 || threads > knn::kD3MaxThreads ||
+    int y0, int ny, void* stream) {
+  if (threads % 32 || threads > knn::kD3MaxThreads || threads < 32 ||
       tile_lanes % knn::kChunkLanes || t_pad % knn::kChunkLanes || k < 1 ||
       k > 32 * slots)
+    return (int)cudaErrorInvalidValue;
+  const int rows = threads / 32 * knn::kWarpRows;
+  if (y0 < 0 || ny < 1 || ny > knn::kMaxGridY ||
+      y0 + ny > (s_q + rows - 1) / rows)
     return (int)cudaErrorInvalidValue;
   const float4* p = reinterpret_cast<const float4*>(p4);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return knn::with_d3_slots(slots, (int)cudaErrorInvalidValue, [&](auto s) {
     return tiled_d3_launch<decltype(s)::value>(
         order, boxd2, q_pts, q_ids, p, d2, idx, visits, num_qb, s_q, num_pb,
-        t_pad, k, skip_self, self_group, threads, tile_lanes, (size_t)smem,
-        st);
+        t_pad, k, skip_self, self_group, threads, tile_lanes, y0, ny,
+        (size_t)smem, st);
   });
 }
 

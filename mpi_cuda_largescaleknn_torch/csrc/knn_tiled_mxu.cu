@@ -283,7 +283,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) knn_tiled_wgmma_kernel(
     int* __restrict__ visits,                // [Bq] max over blocks
     int s_q, int s_pad, int num_pb, int t_p, int t_pad, int dim, int dp,
     int w, int skip_self, int self_group, int stages, int rows_in_smem,
-    int slice) {
+    int slice, int y0) {
   extern __shared__ __align__(128) unsigned char smem[];
   // one half of the queries (resident)
   const uint32_t qbytes = kStream ? 0u : kWgRows * dp * 2;
@@ -303,7 +303,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) knn_tiled_wgmma_kernel(
   volatile int* stop = reinterpret_cast<volatile int*>(red + 16);
 
   const int b = blockIdx.x;
-  const int r0 = blockIdx.y * kWgRows;
+  // a bucket of more than 65,535 blocks goes in launches from block y0
+  const int r0 = (blockIdx.y + y0) * kWgRows;
   const int nrows = min(kWgRows, s_q - r0);
   const int tid = threadIdx.x;
   const int own = b / self_group;
@@ -670,52 +671,56 @@ int wgmma_launch(const int* order, const float* boxd2, const float* q_pts,
                  int* visits, int num_qb, int s_q, int s_pad, int num_pb,
                  int t_p, int t_pad, int dim, int dp, int w, int skip_self,
                  int self_group, int stages, int rows_in_smem, int slice,
-                 cudaStream_t stream) {
+                 int y0, int ny, cudaStream_t stream) {
   const size_t smem = wgmma_smem(dp, w, stages, rows_in_smem, slice);
   cudaError_t err = cudaFuncSetAttribute(
       knn_tiled_wgmma_kernel<kStream>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(num_qb, s_pad / kWgRows);
+  const dim3 grid(num_qb, ny);
   knn_tiled_wgmma_kernel<kStream><<<grid, kWgThreads, smem, stream>>>(
       order, boxd2, q_pts, q_ids, static_cast<const __nv_bfloat16*>(qh),
       static_cast<const __nv_bfloat16*>(ql), p_pts, p_ids,
       static_cast<const __nv_bfloat16*>(ph),
       static_cast<const __nv_bfloat16*>(pl), pn2, d2, idx, visits, s_q,
       s_pad, num_pb, t_p, t_pad, dim, dp, w, skip_self, self_group, stages,
-      rows_in_smem, slice);
+      rows_in_smem, slice, y0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches knn_tiled_wgmma_kernel on `stream`: with the query halves
-// resident when slice is 0, else with D streamed in K-slices of `slice`
-// components (the halves packed in that slicing). Returns the CUDA error
-// code of the launch (0 = ok), or cudaErrorInvalidValue for a shape it does
-// not take (Dp not a multiple of 16, S_pad not of 128, T_pad not of 128, a
-// ring of other than 2 or 3 stages, a slice not a multiple of 16 or above
-// Dp, or more than 65,535 blocks of 128 rows a bucket).
+// Launches knn_tiled_wgmma_kernel on `stream` over the ny blocks of 128
+// rows of each bucket from block y0 (a bucket of more than 65,535 such
+// blocks, the grid's y limit, goes in several launches): with the query
+// halves resident when slice is 0, else with D streamed in K-slices of
+// `slice` components (the halves packed in that slicing). Returns the CUDA
+// error code of the launch (0 = ok), or cudaErrorInvalidValue for a shape
+// it does not take (Dp not a multiple of 16, S_pad not of 128, T_pad not of
+// 128, a ring of other than 2 or 3 stages, a slice not a multiple of 16 or
+// above Dp, or a piece [y0, y0 + ny) empty, above 65,535 blocks or past
+// the bucket).
 extern "C" int knn_tiled_wgmma_launch(
     const int* order, const float* boxd2, const float* q_pts,
     const int* q_ids, const void* qh, const void* ql, const float* p_pts,
     const int* p_ids, const void* ph, const void* pl, const float* pn2,
     float* d2, int* idx, int* visits, int num_qb, int s_q, int s_pad,
     int num_pb, int t_p, int t_pad, int dim, int dp, int w, int skip_self,
-    int self_group, int stages, int rows_in_smem, int slice, void* stream) {
+    int self_group, int stages, int rows_in_smem, int slice, int y0, int ny,
+    void* stream) {
   if (dp % 16 || s_pad % kWgRows || t_pad % (2 * kWgLanes) || stages < 2 ||
       stages > kMaxStages || slice % 16 || slice < 0 || slice > dp ||
-      s_pad / kWgRows > 65535)
+      y0 < 0 || ny < 1 || ny > knn::kMaxGridY || y0 + ny > s_pad / kWgRows)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return slice ? wgmma_launch<true>(order, boxd2, q_pts, q_ids, qh, ql,
                                     p_pts, p_ids, ph, pl, pn2, d2, idx,
                                     visits, num_qb, s_q, s_pad, num_pb, t_p,
                                     t_pad, dim, dp, w, skip_self, self_group,
-                                    stages, rows_in_smem, slice, st)
+                                    stages, rows_in_smem, slice, y0, ny, st)
                : wgmma_launch<false>(order, boxd2, q_pts, q_ids, qh, ql,
                                      p_pts, p_ids, ph, pl, pn2, d2, idx,
                                      visits, num_qb, s_q, s_pad, num_pb, t_p,
                                      t_pad, dim, dp, w, skip_self, self_group,
-                                     stages, rows_in_smem, 0, st);
+                                     stages, rows_in_smem, 0, y0, ny, st);
 }

@@ -86,6 +86,22 @@ class LatencyHistogram:
         return lines
 
 
+def labeled_metric_lines(name: str, rows, kind: str = "counter"):
+    """One Prometheus text-format metric family with labels: ``rows`` is
+    an iterable of ``(labels_dict, value)`` pairs, emitted in the
+    caller's order (callers iterate sorted snapshots, so scrapes are
+    deterministic); no rows, no lines. One place owns the label
+    quoting (the wire codecs' traffic, serve/wire.py)."""
+    rows = list(rows)
+    if not rows:
+        return []
+    lines = [f"# TYPE {name} {kind}"]
+    for labels, value in rows:
+        lab = ",".join(f'{k}="{v}"' for k, v in labels.items())
+        lines.append(f"{name}{{{lab}}} {value}")
+    return lines
+
+
 @dataclass
 class PhaseRecord:
     seconds: float = 0.0

@@ -332,6 +332,9 @@ def launch_geometry(s_q: int, t_p: int, k: int) -> tuple[int, int, int]:
     return rows, threads, lanes
 
 
+#: blocks a launch may have along the grid's y axis, the blocks of rows of
+#: one query bucket (csrc/bulk_ring.cuh ``kMaxGridY``)
+MAX_GRID_Y = 65_535
 #: the ring kernel's block: 128 query rows against chunks of 64 point
 #: lanes, in 8 consumer warps (each thread a register tile of 8 rows x 4
 #: lanes) and one producer warp
@@ -629,12 +632,15 @@ def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
                           self_group: int = 1, with_stats: bool | str = False,
                           score_dtype: str = "f32",
                           canonical_ties: bool = False,
-                          prepared: PreparedPoints | None = None):
+                          prepared: PreparedPoints | None = None,
+                          max_grid_y: int = MAX_GRID_Y):
     """Fold every real point of ``p`` into ``state`` (module docstring).
     CPU tensors take ``knn_update_tiled_plain``; CUDA tensors launch a
     kernel or raise. ``prepared`` is ``prepare_points(p, score_dtype)``
     made once by the caller (it must match this launch's layout, or the
-    call raises); without it the launch makes it itself. Returns a new
+    call raises); without it the launch makes it itself. A query bucket
+    of more than ``max_grid_y`` blocks of rows goes in several launches
+    (``grid_y_pieces``; a smaller cap forces the split). Returns a new
     state (the input is not modified) and, with ``with_stats``, each query
     bucket's visit count (i64[Bq]), and with ``with_stats="full"`` also
     the fold count (``_with_stats``).
@@ -660,7 +666,8 @@ def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
         visits = launch_knn_tiled_mxu(order, sorted_d2, q, p, rows,
                                       skip_self=skip_self,
                                       self_group=self_group,
-                                      prepared=prepared)
+                                      prepared=prepared,
+                                      max_grid_y=max_grid_y)
         if canonical_ties:
             rows = CandidateState(*sort_rows_canonical(*rows))
         out = CandidateState(rows.dist2[:, :k].contiguous(),
@@ -671,7 +678,7 @@ def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
                              state.idx.contiguous().clone())
         visits = launch_knn_tiled(order, sorted_d2, q, p, out,
                                   skip_self=skip_self, self_group=self_group,
-                                  prepared=prepared)
+                                  prepared=prepared, max_grid_y=max_grid_y)
         if canonical_ties:
             out = CandidateState(*sort_rows_canonical(*out))
     return _with_stats(out, visits.long(), with_stats)
@@ -685,6 +692,17 @@ def _check_schedule(order, sorted_d2, q, p, rows) -> None:
     if order.shape != (q.ids.shape[0], p.ids.shape[0]) \
             or order.dtype != torch.int32 or sorted_d2.shape != order.shape:
         raise ValueError("the visit schedule must be i32/f32 [Bq, Bp]")
+
+
+def grid_y_pieces(blocks: int, cap: int = MAX_GRID_Y) -> list[tuple[int, int]]:
+    """The launches that cover ``blocks`` blocks of rows of a bucket, at
+    most ``cap`` a launch: ``[(y0, ny), ...]`` in order, the first block
+    and the count of each. The kernels' blocks of one bucket share nothing
+    but the ``visits`` ``atomicMax``, and the pieces run in order on one
+    stream, so a split launch gives the bits of an unsplit one."""
+    if cap < 1 or cap > MAX_GRID_Y:
+        raise ValueError(f"grid-y cap {cap} outside [1, {MAX_GRID_Y}]")
+    return [(y0, min(cap, blocks - y0)) for y0 in range(0, blocks, cap)]
 
 
 def ring_layout(pts: torch.Tensor, n_pad: int, group: int, dp4: int,
@@ -708,7 +726,8 @@ def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
                      q: BucketedPoints, p: BucketedPoints,
                      rows: CandidateState, *, skip_self: bool,
                      self_group: int,
-                     prepared: PreparedPoints | None = None) -> torch.Tensor:
+                     prepared: PreparedPoints | None = None,
+                     max_grid_y: int = MAX_GRID_Y) -> torch.Tensor:
     """Launch the f32 kernel that ``tiled_launch_plan`` names on PyTorch's
     current stream, folding ``p`` into ``rows`` IN PLACE along the visit
     schedule ``(order, sorted_d2)`` of ``nearest_first_order``
@@ -723,7 +742,7 @@ def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
     visits = launch_f32_plan(plan, order, sorted_d2, q, p, rows,
                              skip_self=skip_self, self_group=self_group,
                              events=knn_update_tiled_cuda.layout_events,
-                             prepared=prepared)
+                             prepared=prepared, max_grid_y=max_grid_y)
     kt = knn_update_tiled_cuda
     kt.launches += 1
     kt.ring_launches += int(plan.kernel == "ring")
@@ -737,16 +756,19 @@ def launch_f32_plan(plan: TiledPlan, order: torch.Tensor,
                     p: BucketedPoints, rows: CandidateState, *,
                     skip_self: bool, self_group: int,
                     events: list | None = None,
-                    prepared: PreparedPoints | None = None) -> torch.Tensor:
+                    prepared: PreparedPoints | None = None,
+                    max_grid_y: int = MAX_GRID_Y) -> torch.Tensor:
     """Launch ``plan``'s kernel of ``csrc/knn_tiled.cu`` (contiguous rows
     and schedule, as ``_check_schedule`` asks); counts nothing, raises on a
-    failed launch. The ring kernel gets both sides in ``ring_layout``
-    (points padded to whole chunks with NaN lanes, whose d2 is NaN and
-    never adopted); the D=3 kernel gets the point buckets as ``d3_lanes``
-    padded to whole chunks. With ``events`` (a list) it appends three
-    recorded CUDA events: before the layouts, before the kernel and after
-    it. The point side is ``prepared`` (``prepare_points``), made here
-    when not given. Returns the per-query-bucket visit counts (i32[Bq])."""
+    failed launch. A bucket of more than ``max_grid_y`` blocks of rows goes
+    in several launches on the same stream (``grid_y_pieces``). The ring
+    kernel gets both sides in ``ring_layout`` (points padded to whole
+    chunks with NaN lanes, whose d2 is NaN and never adopted); the D=3
+    kernel gets the point buckets as ``d3_lanes`` padded to whole chunks.
+    With ``events`` (a list) it appends three recorded CUDA events: before
+    the layouts, before the kernel and after it. The point side is
+    ``prepared`` (``prepare_points``), made here when not given. Returns
+    the per-query-bucket visit counts (i32[Bq])."""
     num_qb, s_q = q.ids.shape
     num_pb, t_p = p.ids.shape
     k = rows.dist2.shape[1]
@@ -754,6 +776,7 @@ def launch_f32_plan(plan: TiledPlan, order: torch.Tensor,
     q_ids = q.ids.contiguous()
     flags = (int(bool(skip_self)), self_group)
     lib = _library("knn_tiled")
+    err = 0
     with torch.cuda.device(order.device):
         stream = torch.cuda.current_stream().cuda_stream
         if events is not None:
@@ -765,12 +788,16 @@ def launch_f32_plan(plan: TiledPlan, order: torch.Tensor,
             q_pts = q.pts.contiguous()
             if events is not None:
                 marks[1].record()
-            err = lib.knn_tiled_launch(
-                order.data_ptr(), sorted_d2.data_ptr(), q_pts.data_ptr(),
-                q_ids.data_ptr(), p4.data_ptr(), rows.dist2.data_ptr(),
-                rows.idx.data_ptr(), visits.data_ptr(), num_qb, s_q, num_pb,
-                t_pad, k, *flags, d3_slots(k), plan.threads, plan.lanes,
-                plan.smem, stream)
+            blocks = -(-s_q // (plan.threads // 32 * WARP_ROWS))
+            for y0, ny in grid_y_pieces(blocks, max_grid_y):
+                err = lib.knn_tiled_launch(
+                    order.data_ptr(), sorted_d2.data_ptr(), q_pts.data_ptr(),
+                    q_ids.data_ptr(), p4.data_ptr(), rows.dist2.data_ptr(),
+                    rows.idx.data_ptr(), visits.data_ptr(), num_qb, s_q,
+                    num_pb, t_pad, k, *flags, d3_slots(k), plan.threads,
+                    plan.lanes, plan.smem, y0, ny, stream)
+                if err:
+                    break
         else:
             s_pad = round_up(s_q, plan.rows)
             t_pad = round_up(t_p, plan.lanes)
@@ -781,13 +808,16 @@ def launch_f32_plan(plan: TiledPlan, order: torch.Tensor,
             p_ring, p_ids = prepared.lanes, prepared.ids
             if events is not None:
                 marks[1].record()
-            err = lib.knn_tiled_nd_ring_launch(
-                order.data_ptr(), sorted_d2.data_ptr(), q_ring.data_ptr(),
-                q_ids.data_ptr(), p_ring.data_ptr(), p_ids.data_ptr(),
-                rows.dist2.data_ptr(), rows.idx.data_ptr(),
-                visits.data_ptr(), num_qb, s_q, s_pad, num_pb, t_p, t_pad,
-                plan.dp4, k, *flags, plan.stages, int(plan.rows_in_smem),
-                plan.slice_groups, stream)
+            for y0, ny in grid_y_pieces(s_pad // plan.rows, max_grid_y):
+                err = lib.knn_tiled_nd_ring_launch(
+                    order.data_ptr(), sorted_d2.data_ptr(), q_ring.data_ptr(),
+                    q_ids.data_ptr(), p_ring.data_ptr(), p_ids.data_ptr(),
+                    rows.dist2.data_ptr(), rows.idx.data_ptr(),
+                    visits.data_ptr(), num_qb, s_q, s_pad, num_pb, t_p, t_pad,
+                    plan.dp4, k, *flags, plan.stages, int(plan.rows_in_smem),
+                    plan.slice_groups, y0, ny, stream)
+                if err:
+                    break
         if events is not None:
             marks[2].record()
             events.append(marks)
@@ -873,8 +903,8 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
                          q: BucketedPoints, p: BucketedPoints,
                          rows: CandidateState, *, skip_self: bool,
                          self_group: int,
-                         prepared: PreparedPoints | None = None
-                         ) -> torch.Tensor:
+                         prepared: PreparedPoints | None = None,
+                         max_grid_y: int = MAX_GRID_Y) -> torch.Tensor:
     """Launch ``knn_tiled_wgmma_kernel`` on the route that
     ``mxu_launch_geometry`` names, on PyTorch's current stream, folding
     ``p`` into the WIDENED ``rows`` IN PLACE (module docstring: on return
@@ -884,7 +914,9 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
     rows and of a chunk pair's 128 lanes) and the exact ``|p|^2``, the
     point side's in ``prepared`` (``prepare_points``, made here when not
     given). Returns
-    the per-query-bucket visit counts (i32[Bq]). Counts one launch in
+    the per-query-bucket visit counts (i32[Bq]). A bucket of more than
+    ``max_grid_y`` blocks of 128 rows goes in several launches on the same
+    stream (``grid_y_pieces``). Counts one launch in
     ``knn_update_tiled_cuda.mxu_launches``, and also in
     ``wgmma_launches`` (queries resident) or ``wgmma_stream_launches`` (D
     streamed)."""
@@ -913,6 +945,7 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
     visits = torch.zeros(num_qb, dtype=torch.int32, device=order.device)
     q_pts, q_ids = q.pts.contiguous(), q.ids.contiguous()
     lib = _library("knn_tiled_mxu")
+    err = 0
     with torch.cuda.device(order.device):
         stream = torch.cuda.current_stream().cuda_stream
         if events is not None:
@@ -922,10 +955,13 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
                 p_pts.data_ptr(), p_ids.data_ptr(), ph.data_ptr(),
                 pl.data_ptr(), pn2.data_ptr(), rows.dist2.data_ptr(),
                 rows.idx.data_ptr(), visits.data_ptr())
-        err = lib.knn_tiled_wgmma_launch(
-            *ptrs, num_qb, s_q, s_pad, num_pb, t_p, t_pad, dim, plan.dp, w,
-            int(bool(skip_self)), self_group, plan.stages,
-            int(plan.rows_in_smem), plan.slice_width, stream)
+        for y0, ny in grid_y_pieces(s_pad // WGMMA_ROWS, max_grid_y):
+            err = lib.knn_tiled_wgmma_launch(
+                *ptrs, num_qb, s_q, s_pad, num_pb, t_p, t_pad, dim, plan.dp,
+                w, int(bool(skip_self)), self_group, plan.stages,
+                int(plan.rows_in_smem), plan.slice_width, y0, ny, stream)
+            if err:
+                break
         if events is not None:
             marks[2].record()
             events.append(marks)
@@ -964,10 +1000,10 @@ knn_update_tiled_cuda.layout_events = None
 
 #: per library, its launchers' arguments: p = pointer, i = int
 _SIGNATURES = {
-    "knn_tiled": {"knn_tiled_launch": 8 * "p" + 11 * "i" + "p",
+    "knn_tiled": {"knn_tiled_launch": 8 * "p" + 13 * "i" + "p",
                   "knn_tiled_blocks_per_sm": "iii",
-                  "knn_tiled_nd_ring_launch": 9 * "p" + 13 * "i" + "p"},
-    "knn_tiled_mxu": {"knn_tiled_wgmma_launch": 14 * "p" + 14 * "i" + "p"},
+                  "knn_tiled_nd_ring_launch": 9 * "p" + 15 * "i" + "p"},
+    "knn_tiled_mxu": {"knn_tiled_wgmma_launch": 14 * "p" + 16 * "i" + "p"},
 }
 
 

@@ -1,5 +1,6 @@
-"""Online kNN serving on one card: the port of the JAX package's
-``serve/`` in its single-host form.
+"""Online kNN serving: the port of the JAX package's ``serve/``, one card
+a process, in its single-host form and as a routed pod of host
+processes.
 
 - ``engine``    — loads points once, builds the resident partition of R
                   virtual shards and the kernels' prepared point sides
@@ -26,10 +27,19 @@
                   engine at every budget.
 - ``tenancy``   — many indexes behind one slab pool, one plan cache and
                   one admission controller, with per-tenant quotas.
-- ``frontend``  — only the certification slack and the canonical fold the
-                  slab pool shares with the pod front end.
+- ``frontend``  — the routed pod: ``HostSliceServer`` (one independent
+                  slab engine a host, ``POST /route_knn``), the
+                  bounds-routed fan-out with certified escalation waves,
+                  and the public ``FrontendServer`` (``python -m
+                  ...serve.frontend``); also the certification slack and
+                  the canonical fold the slab pool shares.
+- ``health``    — the hosts' lifecycle (healthy, suspect, drained,
+                  rejoining) and the monitor that drains and rejoins them.
+- ``replica``   — replica groups of a slab and ``pull_slab_rows``.
+- ``wire``      — the q16 candidate and d16 slab codecs, byte for byte the
+                  JAX package's, and their negotiation.
 
-Not ported yet (ROADMAP.md Queue 1, pod serving): ``wire``, the rest of
-``frontend``, ``health``, ``replica``, and the engine's
-``complete_slices``.
+Not ported yet (ROADMAP.md Queue 1 items 3b and 3c): the replicate pod
+(``/shard_knn``, the engine's ``complete_slices``) and slab handoff
+(``ReplicaManager``, warm standbys).
 """

@@ -369,8 +369,10 @@ class DynamicBatcher:
 
     @staticmethod
     def _deliver(live: list[_Request], outs: tuple) -> None:
-        """Offset-demux every array of the result tuple ``(dists,
-        neighbors)`` per request."""
+        """Offset-demux every array of the result tuple per request:
+        ``(dists, neighbors)`` for engines, ``(dists, neighbors, exact)``
+        for a routed pod's fan-out (the per-row exactness mask under
+        degraded serving)."""
         off = 0
         for r in live:
             r.result = tuple(a[off:off + r.rows] for a in outs)

@@ -302,6 +302,8 @@ class ResidentKnnEngine:
         #: array, not a copy): an evicted engine demotes them to the slab
         #: pool's host tier
         self.host_points = points if emit == "candidates" else None
+        #: one process: the pod surfaces (serve/frontend.py) read these
+        self.process_index, self.process_count = 0, 1
         self.dim = int(points.shape[1])
         self.max_radius = float(max_radius)
         self.num_shards = int(num_shards)
@@ -751,6 +753,14 @@ class ResidentKnnEngine:
                 "emits k-th distances, not candidate rows — construct the "
                 "engine with emit='candidates'")
         return self._finish(batch, full=True)
+
+    def refetch_exact(self, queries):
+        """Exact f32 candidate rows for ``queries``, byte-equal to any
+        earlier batch that held these rows: a row's top-k over this
+        engine's points depends on the row alone, not on the batch it came
+        in, so a routed pod's exact re-fetch (``?wire=x32``) after a
+        quantized wave costs a round trip, never bits."""
+        return self.complete_candidates(self.dispatch(queries))
 
     def _finish(self, batch: _InFlightBatch, full: bool):
         """The rest of ``complete`` / ``complete_candidates``: wait for the

@@ -22,10 +22,12 @@ Determinism: each spec carries its own ``random.Random(seed)`` and fires by
 (a) a skip count ``after``, (b) a fire budget ``n`` (-1 = unlimited), and
 (c) probability ``p`` drawn from that seeded stream — so for a given
 sequence of matching requests the decision sequence is a pure function of
-the spec. The JAX package's admin endpoint ``POST /faults`` and the pod
-tiers that consult the same injector wait with pod serving.
+the spec. A routed pod's host servers (serve/frontend.py) consult the same
+injector, and their admin endpoint ``POST /faults`` (``{"spec": ...}``,
+always exempt from injection) replaces the rules at runtime; ``GET
+/faults`` reads them back with their firing counts (``config``).
 
-Spec string grammar (the ``KNN_FAULTS`` value)::
+Spec string grammar (the ``KNN_FAULTS`` value or the admin body)::
 
     spec      := rule (';' rule)*
     rule      := op [':' kv (',' kv)*]
@@ -74,6 +76,13 @@ class FaultSpec:
         self.fires = 0
         self._rng = random.Random(self.seed)
 
+    def config(self) -> dict:
+        return {"op": self.op, "path": self.path, "method": self.method,
+                "p": self.p, "n": self.n,
+                "after": self.after, "code": self.code,
+                "delay_s": self.delay_s, "seed": self.seed,
+                "seen": self.seen, "fires": self.fires}
+
 
 def parse_fault_specs(text: str) -> list[FaultSpec]:
     """Parse the ``op:key=val,...;op2:...`` grammar into specs.
@@ -110,13 +119,14 @@ class FaultInjector:
 
     ``decide(path)`` returns the first matching spec that fires (or None);
     thread-safe, and deterministic for a given request order.
-    ``set_specs`` replaces the whole rule set atomically."""
+    ``set_specs`` replaces the whole rule set atomically (the admin
+    endpoint's contract: a POST replaces, an empty POST clears)."""
 
     def __init__(self, specs: list[FaultSpec] | None = None):
         self._lock = threading.Lock()
         # the spec list and each spec's firing state (seen/fires/_rng) are
         # mutated under this lock: set_specs() and decide() are the only
-        # mutators
+        # mutators, config() the only reader of the counters
         self._specs: guarded_by("_lock") = list(specs or [])
 
     @classmethod
@@ -157,6 +167,10 @@ class FaultInjector:
                 spec.fires += 1
                 return spec
         return None
+
+    def config(self) -> list[dict]:
+        with self._lock:
+            return [s.config() for s in self._specs]
 
 
 def apply_http_fault(handler, spec: FaultSpec | None) -> bool:

@@ -275,7 +275,11 @@ class QueryCache:
         the LRU, and feed full exact rows to the tenant's seed pool.
 
         ``keys`` are the ``("own", key)`` keys in sub-batch row order;
-        ``outs`` is the engine result tuple ``(dists, ids)``."""
+        ``outs`` is the engine result tuple — ``(dists, ids)`` or
+        ``(dists, ids, exact)`` (a routed pod's degraded serving). A row
+        with ``exact == False`` wakes its joiners (they asked for THESE
+        bytes) but is never inserted: a degraded partial answer must not
+        outlive the outage that produced it."""
         rows = []
         for j, key in enumerate(keys):
             # copy per-cell: an LRU row must not pin the batch arrays
@@ -294,6 +298,8 @@ class QueryCache:
                 if entry is not None:
                     entry.result = row
                     entry.event.set()
+                if len(row) > 2 and not bool(row[2]):
+                    continue
                 self._lru[key] = row
                 self._lru.move_to_end(key)
                 self.inserts += 1

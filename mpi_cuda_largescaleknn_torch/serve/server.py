@@ -460,7 +460,8 @@ class KnnServer(ThreadingHTTPServer):
 
 class JsonHttpHandler(BaseHTTPRequestHandler):
     """Handler plumbing (keep-alive, quiet logging, body helpers, fault
-    injection)."""
+    injection) of every serving endpoint: this server, the pod front end
+    and the routed host servers (serve/frontend.py)."""
 
     protocol_version = "HTTP/1.1"
 
@@ -479,6 +480,27 @@ class JsonHttpHandler(BaseHTTPRequestHandler):
 
     def _send_json(self, code: int, obj, extra=()):
         self._send(code, json.dumps(obj).encode(), "application/json", extra)
+
+    # chunked-response writer: ``_send`` always sets Content-Length, which
+    # materializes the whole body up front, the transient copy a routed
+    # host's /slab_rows avoids. These three stream an HTTP/1.1 chunked
+    # body instead (http.client reassembles it on the pull side).
+    def _start_chunked(self, code: int, ctype: str, extra=()):
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Transfer-Encoding", "chunked")
+        for k, v in extra:
+            self.send_header(k, v)
+        self.end_headers()
+
+    def _write_chunk(self, data: bytes):
+        if data:
+            self.wfile.write(b"%x\r\n" % len(data))
+            self.wfile.write(data)
+            self.wfile.write(b"\r\n")
+
+    def _end_chunked(self):
+        self.wfile.write(b"0\r\n\r\n")
 
     def _apply_fault(self, path: str) -> bool:
         """Consult the server's FaultInjector (if any) for this request;

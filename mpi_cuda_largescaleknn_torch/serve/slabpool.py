@@ -55,7 +55,6 @@ import time
 
 import numpy as np
 
-from mpi_cuda_largescaleknn_torch.core.config import not_ported
 from mpi_cuda_largescaleknn_torch.obs.timers import PhaseTimers
 from mpi_cuda_largescaleknn_torch.serve.faults import FaultInjector
 from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
@@ -69,26 +68,48 @@ class SlabSource:
     A file's rows come from ``serve/engine.py load_slab_rows``: the
     reference's integer split ``[N*s/S, N*(s+1)/S)`` through
     ``read_file_portion`` for ``.float3``, an mmap slice for ``.npy``; an
-    in-memory array's from a plain slice. ``url=`` (rows pulled from a
-    host serving the full index) is pod serving and raises
-    ``not_ported``. Reads are stateless; the pool's locking lives above
-    this."""
+    in-memory array's from a plain slice (a routed streaming host hands
+    its loaded slab here); with ``url=`` a row sub-range pulled over HTTP
+    from a host serving the full index (``GET
+    /slab_rows?wire=d16&begin=&end=``, serve/replica.py
+    ``pull_slab_rows``: the d16 delta codec, verified lossless by its
+    crc32 fingerprint after decode; a host without the codec answers the
+    single-shot f32 body). Reads are stateless; the pool's locking lives
+    above this."""
 
     def __init__(self, *, path: str | None = None, points=None,
-                 url: str | None = None, num_slabs: int):
+                 url: str | None = None, num_slabs: int,
+                 wire: str = "d16", timeout_s: float = 120.0,
+                 throttle_bps: float | None = None):
         from mpi_cuda_largescaleknn_torch.models.sharding import slab_bounds
 
         if sum(x is not None for x in (path, points, url)) != 1:
             raise ValueError("need exactly one of path=, points= or url=")
         if num_slabs < 1:
             raise ValueError(f"num_slabs must be >= 1, got {num_slabs}")
-        if url is not None:
-            raise not_ported("SlabSource(url=...), slab rows pulled over "
-                             "HTTP", "Queue 1, pod serving")
         self.path = path
         self.num_slabs = int(num_slabs)
         self._points = None
-        if points is not None:
+        self._url = None
+        if url is not None:
+            import json as _json
+            import urllib.request as _rq
+
+            self._url = url.rstrip("/")
+            self._wire = wire
+            self._timeout_s = float(timeout_s)
+            self._throttle_bps = throttle_bps
+            with _rq.urlopen(self._url + "/stats",
+                             timeout=self._timeout_s) as r:
+                est = _json.loads(r.read()).get("engine") or {}
+            self.n_total = int(est.get("n_points", -1))
+            self.dim = int(est.get("dim", 0))
+            off = int(est.get("row_offset", -1))
+            if self.n_total < 0 or self.dim < 1 or off != 0:
+                raise ValueError(
+                    f"{url}: not a full-index source host (n_points="
+                    f"{self.n_total} dim={self.dim} row_offset={off})")
+        elif points is not None:
             self._points = np.asarray(points, np.float32)
             if self._points.ndim != 2 or self._points.shape[1] < 1:
                 raise ValueError(f"points must be [N, D], got "
@@ -112,6 +133,19 @@ class SlabSource:
         from mpi_cuda_largescaleknn_torch.serve.engine import load_slab_rows
 
         b, e = self.bounds[slab]
+        if self._url is not None:
+            from mpi_cuda_largescaleknn_torch.serve.replica import (
+                pull_slab_rows,
+            )
+
+            rows, off = pull_slab_rows(
+                self._url, timeout_s=self._timeout_s, wire=self._wire,
+                begin=b, end=e, throttle_bps=self._throttle_bps)
+            if off != b or len(rows) != e - b:
+                raise ValueError(
+                    f"{self._url}: slab {slab} range drifted: got "
+                    f"[{off}, {off + len(rows)}) want [{b}, {e})")
+            return rows
         if self._points is not None:
             return np.asarray(self._points[b:e], np.float32)
         # an .npy slab copies exactly its pages into RAM: the cold tier
@@ -672,6 +706,9 @@ class StreamingKnnEngine:
                  query_buckets: int = 0, score_dtype: str = "f32",
                  id_offset: int = 0, emit: str = "final",
                  faults: FaultInjector | None = None,
+                 source_url: str | None = None,
+                 source_wire: str = "d16",
+                 source_throttle_bps: float | None = None,
                  skip_cold_stall_limit: float = 0.25,
                  source: SlabSource | None = None,
                  pool: SlabPool | None = None,
@@ -697,7 +734,9 @@ class StreamingKnnEngine:
             self._source = source
         else:
             self._source = SlabSource(path=path, points=points,
-                                      num_slabs=num_slabs)
+                                      url=source_url, num_slabs=num_slabs,
+                                      wire=source_wire,
+                                      throttle_bps=source_throttle_bps)
         self.num_slabs = self._source.num_slabs
         self.n_points = self._source.n_total
         self.dim = self._source.dim
@@ -1160,6 +1199,14 @@ class StreamingKnnEngine:
     def query(self, queries: np.ndarray, plan=None, seed_radius=None):
         return self.complete(self.dispatch(queries, plan=plan,
                                            seed_radius=seed_radius))
+
+    def refetch_exact(self, queries):
+        """A routed pod's exact re-fetch: the candidate rows, byte-equal to
+        any earlier batch holding these rows (the streaming fold is
+        deterministic for each query row: a commutative fold closed by
+        certification), so re-asking costs a promotion at worst, never
+        bits."""
+        return self.complete_candidates(self.dispatch(queries))
 
     def close(self) -> None:
         if self._owns_pool:

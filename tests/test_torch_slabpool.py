@@ -151,8 +151,51 @@ class TestSlabSource:
             SlabSource(num_slabs=2)  # neither path nor points
         with pytest.raises(ValueError):
             SlabSource(points=np.zeros((4, 3)), num_slabs=0)
-        with pytest.raises(NotImplementedError, match="pod serving"):
+        # url= asks the host's /stats first: nothing listening raises
+        with pytest.raises(OSError):
             SlabSource(url="http://127.0.0.1:1", num_slabs=2)
+
+    @pytest.mark.parametrize("wire", ["d16", "f32"])
+    def test_url_source_reads_equal_jax(self, wire):
+        """``url=``: slabs pulled from a routed host serving the whole
+        index (row offset 0), byte-equal to the in-memory source and to
+        the JAX package's ``SlabSource(url=)``, and a streaming engine
+        over it answers like one over the rows."""
+        from mpi_cuda_largescaleknn_torch.serve.frontend import (
+            HostSliceServer,
+        )
+        from mpi_cuda_largescaleknn_tpu.serve.slabpool import (
+            SlabSource as JaxSource,
+        )
+
+        pts = _streaming_points()
+        eng = ResidentKnnEngine(pts, K, bucket_size=64, max_batch=32,
+                                emit="candidates", device="cpu")
+        srv = HostSliceServer(("127.0.0.1", 0), eng, routing="bounds")
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        srv.ready = True
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            src = SlabSource(url=url, num_slabs=4, wire=wire)
+            jsrc = JaxSource(url=url, num_slabs=4, wire=wire)
+            mem = SlabSource(points=pts, num_slabs=4)
+            assert (src.n_total, src.dim, src.bounds) == (
+                jsrc.n_total, jsrc.dim, jsrc.bounds)
+            for s in range(4):
+                assert src.read(s).tobytes() == mem.read(s).tobytes() \
+                    == jsrc.read(s).tobytes()
+            st = StreamingKnnEngine(k=K, source_url=url, source_wire=wire,
+                                    num_slabs=4, max_batch=32,
+                                    device="cpu")
+            q = random_points(9, seed=31)
+            want = ResidentKnnEngine(pts, K, max_batch=32,
+                                     device="cpu").query(q)
+            got = st.query(q)
+            assert got[0].tobytes() == want[0].tobytes()
+            assert np.array_equal(got[1], want[1])
+            st.close()
+        finally:
+            srv.close()
 
 
 # ----------------------------------------------------------------- SlabPool
