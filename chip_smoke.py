@@ -272,7 +272,32 @@ rows after the first slab edge replaced by copies of the 4 before it:
    the others 503 with Retry-After (fail) or the surviving slabs' answer
    with the predicted ``exact`` flags (degrade); the fault cleared, the
    host rejoined through the front ends' monitors, the list byte-equal
-   again.
+   again; 18e a ``serve_main --routing bounds --standby`` process (started
+   with the hosts) and one more front end (``serve.frontend.main`` in this
+   process, ``--standbys`` it, ``--handoff-floor 1``, its monitor
+   running): host 2 answering 503 is drained, the standby adopts slab 2
+   from the file and is bound after its fingerprint matches; with host 2
+   still down the list is byte-equal to 18a, ``exact`` true on every row,
+   ``knn_handoffs_total 1``.
+
+Then the replicate pod (``replicate_pod_phases``; its processes start
+when 18b's traffic ends, so their start-up overlaps 18c-18e):
+
+19. 4 ``serve_main --merge device --coordinator 127.0.0.1:C --num-hosts 4
+   --host-id i`` processes on the same points (one gloo group, staged
+   through pinned host memory: the processes share the card; one ring
+   position of 2,097,152 rows each) and one front end (``--qcache-rows
+   0``), each with a wall-clock limit, all killed on a failure: 19a a
+   fixed list of 1, 7, 300 and 1024 rows, with rows on the copies across
+   the first position edge, JSON and binary, byte-equal to one in-process
+   ``ResidentKnnEngine(num_shards=4, merge="device")``, distance-0 ids
+   ascending across the edge, and the hosts' fetched bytes one result a
+   batch, a quarter each; 19b 8 closed-loop clients of uniform rows:
+   q/s, p50/p99, straggler seconds, each host's fetched bytes a batch,
+   1,000 served rows against the exact answer, every launch in the hosts
+   on the D=3 kernel; 19c host 3 sent SIGTERM: the next request answers
+   503 naming ``PodBrokenError`` and /healthz reports the break, then
+   every child is killed.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -4154,6 +4179,10 @@ POD_DUPS = 4                     # 18a: rows copied across the slab 0/1 edge
 POD_SECONDS = 4.0                # 18b: closed-loop traffic a mix
 POD_CHILD_SECONDS = 300          # phase 18: a child's wall-clock limit
 POD_FIXED = 12                   # 18a: requests of each mix's fixed list
+HANDOFF_SECONDS = 120            # 18e: the drain, adoption and bind
+REP_HOSTS = 4                    # phase 19: processes, one position each
+REP_SECONDS = 4.0                # 19b: closed-loop traffic
+REP_REQUEST_TIMEOUT_MS = 10_000  # 19: the front end's per-try budget
 
 
 def routed_shape_cases(pts, slab, begin):
@@ -4304,6 +4333,105 @@ def pod_launches(host_urls) -> dict:
     return total
 
 
+def wait_standby(group, url, groups):
+    """Polls a standby's /healthz until it answers (503 with status
+    ``standby``: no slab yet), within ``POD_CHILD_SECONDS`` of the group's
+    start; returns the seconds it took."""
+    import urllib.error
+    import urllib.request
+
+    label, procs, _files, t0 = group
+    while True:
+        if procs[0].poll() is not None:
+            kill_groups(groups)
+            fail(f"{label} exited {procs[0].returncode}:\n"
+                 f"{child_tail(group, 0)}")
+        try:
+            urllib.request.urlopen(url + "/healthz", timeout=5)
+        except urllib.error.HTTPError as e:
+            if e.code == 503 and json.loads(e.read())["status"] == "standby":
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > POD_CHILD_SECONDS:
+            kill_groups(groups)
+            fail(f"{label}: not waiting for an adoption after "
+                 f"{POD_CHILD_SECONDS} s")
+        time.sleep(0.2)
+
+
+def handoff_phase(smi, host_urls, sb_url, reqs, base, steps):
+    """Phase 18e: one more front end (``serve.frontend.main`` in this
+    process, ``--standbys sb_url --handoff-floor 1``, its monitor running)
+    over the routed hosts; host 2 made to answer 503; the monitor drains
+    it, its replica manager directs the standby to adopt slab 2 (from the
+    file: no member of the slab is live) and binds it once its fingerprint
+    matches; then, with host 2 still down, the fixed list answered as 18a
+    answered it. Returns the details."""
+    import queue
+    import threading
+
+    from mpi_cuda_largescaleknn_torch.serve import frontend
+
+    lost = host_urls[2]
+    ready = queue.Queue()
+    rc = []
+    th = threading.Thread(target=lambda: rc.append(frontend.main(
+        ["--hosts", ",".join(host_urls), "--port", "0", "--qcache-rows",
+         "0", "--probe-interval-s", "1", "--standbys", sb_url,
+         "--handoff-floor", "1", "--wait-ready-s", "60"],
+        ready=ready.put)), daemon=True)
+    th.start()
+    try:
+        fe = ready.get(timeout=120)
+    except queue.Empty:
+        fail("18e: the front end with a standby did not start")
+    try:
+        post_json(lost + "/faults", {"spec": "error:code=503"})
+        t0 = time.perf_counter()
+        with timed_step(steps, "18e handoff"):
+            while True:
+                ho = fe.monitor.stats()["handoff"]
+                if ho["handoffs"] == 1:
+                    break
+                if ho["handoff_failures"] or ho["handoff_rejections"] or \
+                        time.perf_counter() - t0 > HANDOFF_SECONDS:
+                    fail(f"18e: no handoff: {ho}")
+                time.sleep(0.1)
+        handoff_wall = time.perf_counter() - t0
+        adopt = get_json(sb_url + "/healthz")["adopt"]
+        state = fe.fanout.health_snapshot()[lost]["state"]
+        if state != "drained" or ho["standbys"][0]["slab"] != 2:
+            fail(f"18e: host 2 {state}, the standby adopted "
+                 f"{ho['standbys'][0]}")
+        with timed_step(steps, "18e list"):
+            got = replay_port(fe.server_address[1], reqs)
+        if [g[:2] for g in got] != [b[:2] for b in base]:
+            fail("18e: with host 2 down and the standby bound, the bodies "
+                 "differ from 18a's")
+        metrics = knn_get(fe.server_address[1], "/metrics").decode()
+        if "knn_handoffs_total 1\n" not in metrics:
+            fail("18e: /metrics does not read knn_handoffs_total 1")
+        members = fe.fanout.stats()["routing"]["replicas"]["per_slab"][2]
+    finally:
+        post_json(lost + "/faults", {"spec": ""})
+        fe.shutdown()
+        th.join(timeout=60)
+    if th.is_alive() or rc != [0]:
+        fail(f"18e: the front end did not stop cleanly ({rc})")
+    say(f"  18e: host 2 answering 503, drained; the standby adopted slab 2 "
+        f"from the file in {adopt['seconds']:.2f} s and was bound "
+        f"{handoff_wall:.2f} s after the fault (handoff_seconds_total "
+        f"{ho['handoff_seconds_total']}); with host 2 down the list of "
+        f"{len(reqs)} requests byte-equal to 18a, exact true on every row; "
+        f"knn_handoffs_total 1; slab 2's members {members['members']} "
+        f"({smi})")
+    return {"adopt_seconds": adopt["seconds"],
+            "handoff_seconds_total": ho["handoff_seconds_total"],
+            "fault_to_bound_seconds": handoff_wall, "handoff": ho,
+            "slab2": members}
+
+
 def replay_port(port, reqs):
     """The list posted one request at a time to the front end on
     ``port``: [(status, body, Retry-After)]."""
@@ -4314,7 +4442,7 @@ def replay_port(port, reqs):
     return out
 
 
-def routed_pod_phases(smi):
+def routed_pod_phases(smi, next_groups):
     """Phases 3h and 18: the routed pod on the card. 16s's N_WALL
     Morton-sorted points (its raw file), with the ``POD_DUPS`` rows after
     the first slab edge replaced by copies of the rows before it; four
@@ -4335,8 +4463,13 @@ def routed_pod_phases(smi):
     byte-equal to 18a, the others 503 with Retry-After (fail) or the
     surviving slabs' exact answer flagged ``exact: false`` (degrade), then
     the fault cleared, the host back through the monitor's rejoin and the
-    list byte-equal again. Returns (details, the hosts' summed launch
-    counts during 18b)."""
+    list byte-equal again; 18e (``handoff_phase``): a warm standby started
+    with the hosts adopts slab 2 for a front end with ``--standbys`` while
+    host 2 answers 503, and the list stays byte-equal to 18a. When 18b's
+    traffic ends, phase 19's processes start (``start_replicate_pod``,
+    into ``next_groups``, which a failure here kills too). Returns
+    (details, the hosts' summed launch counts during 18b, phase 19's
+    started processes)."""
     import numpy as np
     import torch
 
@@ -4362,12 +4495,17 @@ def routed_pod_phases(smi):
     host_urls = [f"http://127.0.0.1:{p}" for p in host_ports]
     fe_ports = [free_port() for _ in range(3)]
     fe_urls = [f"http://127.0.0.1:{p}" for p in fe_ports]
+    sb_url = f"http://127.0.0.1:{free_port()}"
     py = sys.executable
+    host_cmd = [py, "-m", "mpi_cuda_largescaleknn_torch.cli.serve_main",
+                str(path), "-k", str(WALL_K), "--routing", "bounds",
+                "--num-hosts", str(POD_HOSTS)]
     hosts = start_children("host", [
-        [py, "-m", "mpi_cuda_largescaleknn_torch.cli.serve_main", str(path),
-         "-k", str(WALL_K), "--routing", "bounds", "--num-hosts",
-         str(POD_HOSTS), "--host-id", str(i), "--port", str(p)]
+        host_cmd + ["--host-id", str(i), "--port", str(p)]
         for i, p in enumerate(host_ports)], groups, "pod")
+    standby = start_children("standby", [
+        host_cmd + ["--standby", "--port", sb_url.rsplit(":", 1)[1]]],
+        groups, "pod")
     fe_cmd = [py, "-m", "mpi_cuda_largescaleknn_torch.serve.frontend",
               "--hosts", ",".join(host_urls), "--qcache-rows", "0",
               "--probe-interval-s", "1",
@@ -4394,11 +4532,14 @@ def routed_pod_phases(smi):
         with timed_step(steps, "start-up"):
             took = wait_serving(hosts, host_urls, groups)
             fe_took = wait_serving(fes, fe_urls, groups)
+            sb_took = wait_standby(standby, sb_url, groups)
         say(f"  hosts serving after {', '.join(f'{t:.1f}' for t in took)} s"
             f", front ends after {', '.join(f'{t:.1f}' for t in fe_took)} "
-            "s (started together)")
+            f"s, the standby waiting after {sb_took:.1f} s (started "
+            "together)")
         details["host_start_seconds"] = took
         details["frontend_start_seconds"] = fe_took
+        details["standby_start_seconds"] = sb_took
 
         # -- 18a: the fixed list against one engine ------------------------
         rng = np.random.default_rng(SEED + 131)
@@ -4508,6 +4649,8 @@ def routed_pod_phases(smi):
         l1 = pod_launches(host_urls)
         hs1 = [get_json(u + "/stats") for u in host_urls]
         counts = {key: l1[key] - l0.get(key, 0) for key in l1}
+        # phase 19's processes start now: their start-up overlaps 18c-18e
+        started = start_replicate_pod(path, next_groups)
         per_host = [h1["server"].get("knn_requests_total", 0)
                     - h0["server"].get("knn_requests_total", 0)
                     for h0, h1 in zip(hs0, hs1)]
@@ -4638,10 +4781,14 @@ def routed_pod_phases(smi):
         details["18d"] = {"touched": touched, "rejoin_seconds": rejoin,
                           "drained_states": drained}
         fstats = get_json(fe0 + "/stats")
+        with timed_step(steps, "18e"):
+            details["18e"] = handoff_phase(smi, host_urls, sb_url, reqs,
+                                           base, steps)
         details["frontend_stats"] = {"fanout": fstats["fanout"],
                                      "batcher": fstats["batcher"]}
     except BaseException:
         kill_groups(groups)
+        kill_groups(next_groups)
         raise
     stop_children(groups)
     del ref, surv
@@ -4651,7 +4798,243 @@ def routed_pod_phases(smi):
     say("  steps: " + ", ".join(f"{name} {sec:.1f} s"
                                 for name, sec in steps.items()))
     say(f"  phases 3h and 18 took {details['seconds']:.1f} s")
+    return details, counts, started
+
+
+def start_replicate_pod(path, groups):
+    """Phase 19's processes, started together: ``REP_HOSTS`` ``serve_main
+    --merge device --coordinator`` hosts on ``path`` (one gloo group on
+    the one card) and their front end (``--qcache-rows 0``, a per-try
+    budget of ``REP_REQUEST_TIMEOUT_MS``), into ``groups``. Returns
+    (hosts' group, front end's group, host urls, front-end port)."""
+    py = sys.executable
+    host_ports = [free_port() for _ in range(REP_HOSTS)]
+    host_urls = [f"http://127.0.0.1:{p}" for p in host_ports]
+    fe_port = free_port()
+    cmd = [py, "-m", "mpi_cuda_largescaleknn_torch.cli.serve_main",
+           str(path), "-k", str(WALL_K), "--merge", "device",
+           "--coordinator", f"127.0.0.1:{free_port()}", "--num-hosts",
+           str(REP_HOSTS)]
+    hosts = start_children("replicate host", [
+        cmd + ["--host-id", str(i), "--port", str(p)]
+        for i, p in enumerate(host_ports)], groups, "replicate")
+    fe = start_children("replicate frontend", [[
+        py, "-m", "mpi_cuda_largescaleknn_torch.serve.frontend", "--hosts",
+        ",".join(host_urls), "--qcache-rows", "0", "--port", str(fe_port),
+        "--request-timeout-ms", str(REP_REQUEST_TIMEOUT_MS),
+        "--wait-ready-s", str(POD_CHILD_SECONDS)]], groups, "replicate")
+    return hosts, fe, host_urls, fe_port
+
+
+def replicate_pod_phases(smi, started, groups):
+    """Phase 19: the replicate pod on the card (see the module's
+    docstring); ``started`` and ``groups`` from ``start_replicate_pod``.
+    Returns (details, the hosts' summed launch counts during 19b)."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.ops.partition import partition_points
+    from mpi_cuda_largescaleknn_torch.serve.engine import ResidentKnnEngine
+
+    hosts, fe, host_urls, fe_port = started
+    fe_url = f"http://127.0.0.1:{fe_port}"
+    details, steps = {}, {}
+    t_phase = time.perf_counter()
+    say(f"[phase 19] the replicate pod: {REP_HOSTS} processes of one "
+        f"position each and a front end on the card, k={WALL_K}")
+    try:
+        with timed_step(steps, "reference"):
+            pts = np.fromfile(WORK / "pod.float3", np.float32).reshape(-1, 3)
+            edge_at = len(pts) // REP_HOSTS
+            ref = ResidentKnnEngine(pts, WALL_K, num_shards=REP_HOSTS,
+                                    merge="device",
+                                    max_batch=SERVE_MAX_BATCH)
+        with timed_step(steps, "start-up"):
+            took = wait_serving(hosts, host_urls, groups)
+            fe_took = wait_serving(fe, [fe_url], groups)
+        say(f"  hosts serving {', '.join(f'{t:.1f}' for t in took)} s after"
+            f" their start, the front end {fe_took[0]:.1f} s")
+        details["host_start_seconds"] = took
+        details["frontend_start_seconds"] = fe_took[0]
+        cfg = get_json(host_urls[0] + "/stats")["engine"]
+        if cfg["merge"] != "device" or not cfg["multihost"] or \
+                [get_json(u + "/stats")["engine"]["my_positions"]
+                 for u in host_urls] != [[i] for i in range(REP_HOSTS)]:
+            fail(f"19: the hosts do not own one position each: {cfg}")
+
+        # -- 19a: the fixed list against one engine ------------------------
+        rng = np.random.default_rng(SEED + 140)
+        edge = pts[edge_at - POD_DUPS:edge_at + POD_DUPS]
+
+        def uniform(g, n):
+            return g.random((n, 3), dtype=np.float32)
+
+        def with_edge(n):
+            q = uniform(rng, n)
+            q[rng.choice(n, len(edge), replace=False)] = edge
+            return q
+
+        reqs = [(uniform(rng, 1), False), (uniform(rng, 7), True),
+                (with_edge(300), False), (with_edge(1024), True),
+                (with_edge(1024), False), (uniform(rng, 300), True),
+                (edge.copy(), False), (uniform(rng, 1), True),
+                (with_edge(7 + len(edge)), False)]
+        f0 = [get_json(u + "/stats")["engine"] for u in host_urls]
+        with timed_step(steps, "19a"):
+            base = replay_port(fe_port, reqs)
+        f1 = [get_json(u + "/stats")["engine"] for u in host_urls]
+        for (q, binary), (status, body, _r) in zip(reqs, base):
+            if status != 200:
+                fail(f"19a: a request of {len(q)} rows: HTTP {status}: "
+                     f"{body[:300]!r}")
+            want_d, want_i = ref.query(q)
+            if binary:
+                if body != want_d.tobytes():
+                    fail(f"19a: the binary body of {len(q)} rows differs "
+                         "from one engine's")
+                continue
+            obj = json.loads(body)
+            if np.asarray(obj["dists"], np.float32).tobytes() \
+                    != want_d.tobytes() or not np.array_equal(
+                        np.asarray(obj["neighbors"], np.int32), want_i):
+                fail(f"19a: the JSON body of {len(q)} rows differs from one "
+                     "engine's")
+        obj = json.loads(base[6][1])
+        for row, nb in zip(edge, obj["neighbors"]):
+            zero = [j for j in nb if np.array_equal(pts[j], row)]
+            if len(zero) < 2 or zero != sorted(zero) or \
+                    not (zero[0] < edge_at <= zero[-1]):
+                fail(f"19a: distance-0 ids {zero} of a row on the position "
+                     "edge are not its two copies, ascending")
+        fetched = [b["fetch_bytes"] - a["fetch_bytes"]
+                   for a, b in zip(f0, f1)]
+        one = sum(ref.bucket_for(len(q)) for q, _b in reqs) \
+            * 4 * (1 + WALL_K)
+        if sum(fetched) != one or len(set(fetched)) != 1:
+            fail(f"19a: the hosts fetched {fetched} B for {len(reqs)} "
+                 f"batches, one result each is {one} B in all")
+        say(f"  19a: {len(reqs)} requests ({sum(len(q) for q, _ in reqs)} "
+            "rows: 1, 7, 300 and 1024, rows on the copies across the first "
+            "position edge), JSON and binary bodies byte-equal to one "
+            f"ResidentKnnEngine(num_shards={REP_HOSTS}, merge='device'), "
+            "distance-0 ids ascending across the edge; the hosts fetched "
+            f"{fetched} B, one result a batch ({one} B) in all")
+        details["19a"] = {"requests": len(reqs), "host_fetch_bytes": fetched,
+                          "one_result_bytes": one}
+
+        # -- 19b: closed-loop traffic --------------------------------------
+        a = get_json(fe_url + "/stats")["fanout"]
+        hs0 = [get_json(u + "/stats")["engine"] for u in host_urls]
+        l0 = pod_launches(host_urls)
+        with timed_step(steps, "19b"):
+            traffic = closed_loop(fe_port, uniform, REP_SECONDS, WALL_K,
+                                  SEED + 141)
+        b = get_json(fe_url + "/stats")["fanout"]
+        hs1 = [get_json(u + "/stats")["engine"] for u in host_urls]
+        l1 = pod_launches(host_urls)
+        counts = {key: l1[key] - l0.get(key, 0) for key in l1}
+        lats = traffic["latencies"]
+        rows = sum(len(r[0]) for r in traffic["records"])
+        batches = b["batches"] - a["batches"]
+        fetched = [h1["fetch_bytes"] - h0["fetch_bytes"]
+                   for h0, h1 in zip(hs0, hs1)]
+        returned = sum(h1["result_rows"] - h0["result_rows"]
+                       for h0, h1 in zip(hs0, hs1))
+        straggler = b["straggler_seconds_total"] \
+            - a["straggler_seconds_total"]
+        exchange = [h1["exchange_seconds"] - h0["exchange_seconds"]
+                    for h0, h1 in zip(hs0, hs1)]
+        m = {"requests": len(lats), "rows": rows, "seconds": traffic["wall"],
+             "queries_per_second": rows / traffic["wall"],
+             "p50_ms": float(np.percentile(lats, 50)) * 1e3,
+             "p99_ms": float(np.percentile(lats, 99)) * 1e3,
+             "batches": batches, "straggler_seconds": straggler,
+             "host_exchange_seconds_per_batch": [e / max(1, batches)
+                                                 for e in exchange],
+             "host_fetch_bytes_per_batch": [f / max(1, batches)
+                                            for f in fetched],
+             "rejected_429": traffic["rejected"], "launches": counts}
+        if len(set(fetched)) != 1 or returned != rows or \
+                sum(fetched) < rows * 4 * (1 + WALL_K):
+            fail(f"19b: the hosts fetched {fetched} B and returned "
+                 f"{returned} of {rows} rows")
+        say(f"  19b: {m['queries_per_second']:.0f} queries/s over "
+            f"{m['seconds']:.1f} s ({m['requests']} requests, {rows} rows, "
+            f"{batches} batches); p50 {m['p50_ms']:.2f} ms p99 "
+            f"{m['p99_ms']:.2f} ms; straggler {straggler:.3f} s in all; "
+            f"each host fetched {fetched[0] / max(1, batches):.0f} B a batch"
+            f" (a quarter of a result each), rows returned once; the "
+            "merge's all_to_all took "
+            + "/".join(f"{e * 1e3:.1f}" for e in
+                       m["host_exchange_seconds_per_batch"])
+            + f" ms a batch in hosts 0-3 ({smi})")
+        say(f"  19b: launches in the host processes "
+            f"{counts['knn_tiled_launches']}, on the D=3 kernel "
+            f"{counts['knn_tiled_d3_launches']}")
+        if counts["knn_tiled_launches"] < 1 or \
+                counts["knn_tiled_d3_launches"] \
+                != counts["knn_tiled_launches"] or counts["knn_bf_launches"]:
+            fail(f"19b: launches off the D=3 traversal kernel: {counts}")
+        with timed_step(steps, "check rows"):
+            pts_t = torch.from_numpy(pts).cuda()
+            ref_side = partition_points(pts_t, bucket_size=256)
+            checked, id_rows, ties = check_served_rows(
+                "19b", traffic, ref_side, WALL_K, pts_t, SEED + 142)
+            del pts_t, ref_side
+            torch.cuda.empty_cache()
+        say(f"  19b: {checked} sampled served rows byte-equal to the exact "
+            f"answer, ids of {id_rows} rows equal up to {ties} rows of exact"
+            " ties")
+        m["check"] = {"rows": checked, "id_rows": id_rows,
+                      "id_rows_differing_by_ties": ties}
+        details["19b"] = m
+
+        # -- 19c: a host lost --------------------------------------------
+        with timed_step(steps, "19c"):
+            lost = hosts[1][REP_HOSTS - 1]
+            lost.send_signal(signal.SIGTERM)
+            lost.wait(timeout=30)
+            status, body, sec, retry = tier_post(fe_port, "/knn",
+                                                 uniform(rng, 16), False,
+                                                 timeout=120)
+            if status != 503 or b"PodBrokenError" not in body or \
+                    retry is None:
+                fail(f"19c: after SIGTERM to host {REP_HOSTS - 1}: HTTP "
+                     f"{status}, {body[:300]!r}")
+            hz = get_json_any(fe_url + "/healthz")
+            if hz[0] != 503 or hz[1]["status"] != "broken" or \
+                    not hz[1]["broken"]:
+                fail(f"19c: /healthz after the loss: {hz}")
+            kill_groups(groups)
+        say(f"  19c: host {REP_HOSTS - 1} sent SIGTERM: the next request "
+            f"answered 503 in {sec:.2f} s ({json.loads(body)['error'][:80]}"
+            "...), /healthz status broken; every child killed")
+        details["19c"] = {"request_seconds": sec,
+                          "error": json.loads(body)["error"]}
+    except BaseException:
+        kill_groups(groups)
+        raise
+    stop_children(groups)
+    del ref
+    torch.cuda.empty_cache()
+    details["step_seconds"] = steps
+    details["seconds"] = time.perf_counter() - t_phase
+    say("  steps: " + ", ".join(f"{name} {sec:.1f} s"
+                                for name, sec in steps.items()))
+    say(f"  phase 19 took {details['seconds']:.1f} s")
     return details, counts
+
+
+def get_json_any(url):
+    """(status, decoded body) of a GET, an HTTP error status included."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
 
 
 def main() -> int:
@@ -5215,8 +5598,12 @@ def main() -> int:
     details["multihost"], mh_runs = multihost_phases(
         smi, pts_path, WORK / "k8_r4.float", lst, auto8, pre)
 
-    # -- phases 3h and 18 ---------------------------------------------------
-    details["pod"], pod_counts = routed_pod_phases(smi)
+    # -- phases 3h, 18 and 19 -----------------------------------------------
+    rep_groups = []
+    details["pod"], pod_counts, rep_started = routed_pod_phases(smi,
+                                                                rep_groups)
+    details["replicate_pod"], rep_counts = replicate_pod_phases(
+        smi, rep_started, rep_groups)
 
     # -- phase 12 -----------------------------------------------------------
     say("[phase 12] phase 10's f32 R=1 run again under the profiler")
@@ -5232,7 +5619,7 @@ def main() -> int:
         + list(hd_runs.values()) + list(chunk_runs.values()) \
         + list(ooc_runs.values()) + list(engine_runs.values()) \
         + list(serve_runs.values()) + list(tier_runs.values()) \
-        + list(mh_runs.values()) + [pod_counts]
+        + list(mh_runs.values()) + [pod_counts, rep_counts]
 
     def launched(key):
         return sum(r.get(key, 0) for r in main_runs)

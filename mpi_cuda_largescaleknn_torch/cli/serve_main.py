@@ -12,6 +12,11 @@
     python -m mpi_cuda_largescaleknn_torch.cli.serve_main points.float3 \
         -k 100 --routing bounds --num-hosts 4 --host-id I [--wire auto] \
         [--num-slabs 2 --device-slab-budget 2g]
+    python -m mpi_cuda_largescaleknn_torch.cli.serve_main points.float3 \
+        -k 100 --routing bounds --num-hosts 4 --standby
+    python -m mpi_cuda_largescaleknn_torch.cli.serve_main points.float3 \
+        -k 100 --merge device --coordinator 127.0.0.1:C --num-hosts 4 \
+        --host-id I [--shards 4] [--seq-timeout-s 120]
 
 Loads a point set, builds the resident index on the card, builds every
 shape bucket's launch plan (and the kernels, at their first launch), and
@@ -25,19 +30,21 @@ per-tenant /stats and ``{tenant=}`` metrics, per-tenant admission quotas.
 With ``--routing bounds`` the process is one host of a routed pod: it
 loads only its row slab ``[N*i/H, N*(i+1)/H)`` and serves full candidate
 rows on ``POST /route_knn`` to the pod front end (``python -m
-mpi_cuda_largescaleknn_torch.serve.frontend --hosts ...``). The port of
-the JAX package's ``cli/serve_main.py``; the flags of the replicate pod
-(``--coordinator``, ``--num-hosts`` without ``--routing bounds``,
-``--seq-timeout-s``) and of warm standbys (``--standby``) raise
-``not_ported`` naming their ROADMAP item.
+mpi_cuda_largescaleknn_torch.serve.frontend --hosts ...``); with
+``--standby`` it holds no slab until the front end's replica manager
+directs it to adopt one (``POST /adopt_slab``). With ``--coordinator``
+and ``--num-hosts`` (no ``--routing bounds``) it is one process of a
+replicate pod: the processes join one ``torch.distributed`` group before
+any work on the card, each uploads the slabs of its own ring positions,
+and the device merge of every batch runs across them; each serves its
+rows of the pod-final answer on ``POST /shard_knn?seq=N``. The port of
+the JAX package's ``cli/serve_main.py``.
 """
 
 from __future__ import annotations
 
 import math
 import sys
-
-from mpi_cuda_largescaleknn_torch.core.config import not_ported
 
 SERVE_FLAGS = """
   -k N              neighbors per query (required)
@@ -112,16 +119,30 @@ SERVE_FLAGS = """
                     built-in defaults; requests carrying "recall": 0.95
                     (or ?recall= for binary) are served by the cheapest
                     plan whose measured recall meets the target
+  --seq-timeout-s F how long a pod host waits for its turn in the
+                    /shard_knn sequence order before answering 503 +
+                    Retry-After (default 120; replicate mode only — a
+                    lower seq that never arrives means the pod stream is
+                    stalled). Fault injection for failure drills rides the
+                    KNN_FAULTS env var / POST /faults (serve/faults.py)
   --no-warmup       skip building all shape buckets before serving
   --timings         print engine phase timings as JSON on shutdown
   --verbose         log each HTTP request to stderr
 
-Routed pod — launch ONE copy per host with the same arguments plus
---host-id; the hosts stay independent (no coordinator, no shared mesh),
-each serving its row slab to the pod front end
-(python -m mpi_cuda_largescaleknn_torch.serve.frontend --hosts ...):
+Pod mode — launch ONE copy per host with the same arguments plus
+--host-id. The replicate pod (default --routing off): the processes join
+one torch.distributed group (NCCL when each has a card of its own, gloo
+when they share one or run on the CPU) and each serves its rows of the
+pod-final answer over POST /shard_knn to the pod front end
+(python -m mpi_cuda_largescaleknn_torch.serve.frontend --hosts ...);
+--shards (default: one per host) must be a power of two of at least
+--num-hosts, and --merge device is the only merge:
+  --coordinator A   coordinator address host:port
+  --num-hosts N     number of cooperating serving processes
+  --host-id I       this process's id in [0, N)
   --routing M       off | bounds (default off). bounds = shard-local
-                    routing: this process loads only its row slab
+                    routing: the hosts stay INDEPENDENT (no coordinator,
+                    no shared mesh) — each loads only its row slab
                     [N*i/H, N*(i+1)/H) of the input, serves full candidate
                     rows on POST /route_knn, and the front end routes each
                     query by the hosts' shard bounding boxes. Routing wins
@@ -129,21 +150,20 @@ each serving its row slab to the pod front end
                     unordered file stays exact but routes every query
                     everywhere. With --num-slabs the host streams its slab
                     through the tiered slab pool
-  --num-hosts N     hosts of the pod (slabs of the input)
-  --host-id I       this process's slab in [0, N)
+  --standby         routed mode only: start as a WARM STANDBY — load no
+                    slab, build no engine, and wait for the pod front
+                    end's replica manager to direct an adoption (POST
+                    /adopt_slab). The standby then builds the named slab
+                    from this process's input file (or pulls it from a
+                    surviving replica), warms every shape bucket on its
+                    card, and serves it — fingerprint-gated by the front
+                    end before any query routes here
   --wire M          auto | f32 (default auto). Host-side wire-codec
                     capability: auto advertises the compressed codecs
                     (q16 candidate rows, d16 slab transfer — served only
                     when the peer asks); f32 advertises and serves only
                     the uncompressed codec
-
-Not ported yet (each raises, naming its ROADMAP item): the replicate pod
-(--coordinator, --num-hosts without --routing bounds, --seq-timeout-s;
-Queue 1 item 3c) and warm standbys (--standby; Queue 1 item 3b).
 """
-
-_REPLICATE = "Queue 1 item 3c, the replicate pod"
-_HANDOFF = "Queue 1 item 3b, standbys and slab handoff"
 
 
 def usage(error: str) -> "NoReturn":  # noqa: F821
@@ -160,8 +180,7 @@ def parse_bytes(text: str) -> int:
 
 
 def parse_serve_args(argv: list[str]) -> dict:
-    """The JAX CLI's option dict (the refused flags' keys at their
-    defaults) plus ``device``."""
+    """The JAX CLI's option dict plus ``device``."""
     opt = {"k": 0, "max_radius": math.inf, "in_path": "", "port": 8080,
            "host": "127.0.0.1", "engine": "auto", "merge": "auto",
            "score_dtype": "f32", "shards": None,
@@ -239,7 +258,7 @@ def parse_serve_args(argv: list[str]) -> dict:
             elif arg == "--timeout-ms":
                 i += 1; opt["timeout_ms"] = float(argv[i])
             elif arg == "--seq-timeout-s":
-                raise not_ported("option --seq-timeout-s", _REPLICATE)
+                i += 1; opt["seq_timeout_s"] = float(argv[i])
             elif arg == "--qcache-rows":
                 i += 1; opt["qcache_rows"] = int(argv[i])
             elif arg == "--qcache-seed-rows":
@@ -306,14 +325,6 @@ def parse_serve_args(argv: list[str]) -> dict:
         if opt["standby"]:
             usage("--standby hosts materialize their engine at adoption "
                   "time — launch the adopted engine without --num-slabs")
-    # the JAX CLI's checks above come first; what passes them and needs a
-    # part not ported yet raises, naming its item
-    if opt["standby"]:
-        raise not_ported("option --standby (a warm standby host)", _HANDOFF)
-    if opt["routing"] == "off" and (opt["coordinator"]
-                                    or opt["num_hosts"] > 1):
-        raise not_ported("the replicate pod (--coordinator, --num-hosts "
-                         "without --routing bounds)", _REPLICATE)
     return opt
 
 
@@ -341,7 +352,11 @@ def main(argv: list[str] | None = None, ready=None) -> int:
                    host_pool_bytes=opt["host_pool_bytes"],
                    prefetch_depth=opt["prefetch_depth"])
     if opt["routing"] == "bounds":
+        if opt["standby"]:
+            return serve_standby(opt, ready)
         return serve_routed_host(opt, engine_kw, tier_kw, ready)
+    if opt["num_hosts"] > 1:
+        return serve_pod_host(opt, engine_kw, ready)
     if opt["tenants"]:
         # many indexes behind ONE slab pool, one plan cache and one
         # admission controller; each tenant's index streams as
@@ -417,6 +432,105 @@ def main(argv: list[str] | None = None, ready=None) -> int:
     return 0
 
 
+def _serve_host(server, engine, opt: dict, banner: str, ready) -> int:
+    """Warm the engine (a standby has none yet), flip ready, print
+    ``banner`` and serve until interrupted."""
+    try:
+        if opt["warmup"] and engine is not None:
+            info = engine.warmup()
+            print(f"warmup plans built: {info['per_bucket_s']}")
+        server.ready = engine is not None
+        host, port = server.server_address[:2]
+        print(banner.replace("{url}", f"http://{host}:{port}"), flush=True)
+        if ready is not None:
+            ready(server)
+        server.serve_forever()
+    except KeyboardInterrupt:
+        print("shutting down")
+    finally:
+        server.close()
+        engine = server.engine
+        close = getattr(engine, "close", None)
+        if close is not None:
+            close()
+        if opt["timings"] and engine is not None:
+            sys.stderr.write(engine.timers.dump() + "\n")
+    return 0
+
+
+def serve_standby(opt: dict, ready=None) -> int:
+    """A warm standby of a routed pod: no slab and no engine, only the
+    engine's knobs, until the front end's replica manager directs an
+    adoption (``POST /adopt_slab``); then it builds the named slab on its
+    card from ``in_path`` (or pulls it from a surviving replica), warms
+    every shape bucket and serves it (serve/frontend.py)."""
+    from mpi_cuda_largescaleknn_torch.serve.frontend import HostSliceServer
+
+    standby_config = {
+        "path": opt["in_path"], "num_hosts": opt["num_hosts"],
+        "k": opt["k"], "shards": opt["shards"],
+        "engine": opt["engine"], "merge": opt["merge"],
+        "bucket_size": opt["bucket_size"],
+        "max_radius": opt["max_radius"],
+        "max_batch": opt["max_batch"], "min_batch": opt["min_batch"],
+        "query_buckets": opt["query_buckets"],
+        "score_dtype": opt["score_dtype"], "device": opt["device"]}
+    server = HostSliceServer((opt["host"], opt["port"]), None,
+                             routing="bounds",
+                             standby_config=standby_config,
+                             wire=opt["wire"], verbose=opt["verbose"])
+    return _serve_host(
+        server, None, opt,
+        "standby host on {url} — no slab adopted yet; waiting for POST "
+        f"/adopt_slab ({opt['in_path']}, {opt['num_hosts']} slabs)", ready)
+
+
+def serve_pod_host(opt: dict, engine_kw: dict, ready=None) -> int:
+    """One process of a replicate pod: check the ring positions (the same
+    arithmetic on every process), join the process group BEFORE any work
+    on the card, load the whole point set, upload the slabs of this
+    process's positions, warm every shape bucket in lock-step with the
+    other hosts (each warmup batch is a collective) and serve this
+    process's rows of every batch on ``POST /shard_knn`` in ``seq``
+    order."""
+    import torch.distributed as dist
+
+    from mpi_cuda_largescaleknn_torch.io.reader import read_points
+    from mpi_cuda_largescaleknn_torch.parallel.mesh import (
+        Mesh,
+        initialize_distributed,
+        my_mesh_positions,
+    )
+    from mpi_cuda_largescaleknn_torch.serve.engine import ResidentKnnEngine
+    from mpi_cuda_largescaleknn_torch.serve.frontend import HostSliceServer
+
+    num_hosts, host_id = opt["num_hosts"], opt["host_id"]
+    num_shards = opt["shards"] or num_hosts
+    positions = my_mesh_positions(num_shards, num_hosts, host_id)
+    device, backend, why = initialize_distributed(
+        opt["coordinator"], num_hosts, host_id, device=opt["device"])
+    print(f"# host {host_id} of {num_hosts}: torch.distributed {backend} "
+          f"({why}) on {device}, positions {positions} of {num_shards}",
+          flush=True)
+    try:
+        points = read_points(opt["in_path"])
+        print(f"loaded {len(points)} points from {opt['in_path']}")
+        engine = ResidentKnnEngine(
+            points, opt["k"], mesh=Mesh(num_shards, device),
+            **dict(engine_kw, num_shards=num_shards, device=device))
+        server = HostSliceServer((opt["host"], opt["port"]), engine,
+                                 routing="off",
+                                 seq_timeout_s=opt["seq_timeout_s"],
+                                 wire=opt["wire"], verbose=opt["verbose"])
+        return _serve_host(
+            server, engine, opt,
+            f"serving pod slice {engine.process_index}/"
+            f"{engine.process_count} on {{url}} (mesh positions "
+            f"{engine.stats()['my_positions']})", ready)
+    finally:
+        dist.destroy_process_group()
+
+
 def serve_routed_host(opt: dict, engine_kw: dict, tier_kw: dict,
                       ready=None) -> int:
     """One host of a routed pod: this process owns row slab ``host_id`` of
@@ -457,29 +571,10 @@ def serve_routed_host(opt: dict, engine_kw: dict, tier_kw: dict,
     server = HostSliceServer((opt["host"], opt["port"]), engine,
                              routing="bounds", wire=opt["wire"],
                              verbose=opt["verbose"])
-    try:
-        if opt["warmup"]:
-            info = engine.warmup()
-            print(f"warmup plans built: {info['per_bucket_s']}")
-        server.ready = True
-        host, port = server.server_address[:2]
-        print(f"serving routed slab host {host_id}/{num_hosts} on "
-              f"http://{host}:{port} (rows "
-              f"[{id_offset}:{id_offset + engine.n_points}) of {n_total})",
-              flush=True)
-        if ready is not None:
-            ready(server)
-        server.serve_forever()
-    except KeyboardInterrupt:
-        print("shutting down")
-    finally:
-        server.close()
-        close = getattr(engine, "close", None)
-        if close is not None:
-            close()
-        if opt["timings"]:
-            sys.stderr.write(engine.timers.dump() + "\n")
-    return 0
+    return _serve_host(
+        server, engine, opt,
+        f"serving routed slab host {host_id}/{num_hosts} on {{url}} (rows "
+        f"[{id_offset}:{id_offset + engine.n_points}) of {n_total})", ready)
 
 
 if __name__ == "__main__":

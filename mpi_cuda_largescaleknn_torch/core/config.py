@@ -1,10 +1,7 @@
 """Run configuration and device selection.
 
 ``KnnConfig`` carries the reference's 5-flag CLI surface (``-k``, ``-r``,
-``-g``, input, ``-o``) plus the port's own knobs. Options of the JAX
-package that this port does not implement yet (the serving CLI's pod
-flags) are refused with ``not_ported``, which names the ROADMAP item that
-will add them, instead of silently ignored.
+``-g``, input, ``-o``) plus the port's own knobs.
 """
 
 from __future__ import annotations
@@ -21,12 +18,6 @@ import torch
 #: ``bruteforce`` its XLA twin (``ops/brute_force.py``), and ``tree`` the
 #: stack-free kd-tree traversal (``ops/traverse.py``, D=3 only)
 ENGINES = ("auto", "tiled", "pallas_tiled", "bruteforce", "tree", "pallas")
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet "
-        f"(ROADMAP.md: {item})")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -46,6 +46,21 @@ one launch plan per shape bucket serves every slab through eviction and
 re-promotion. On the card an engine builds on its own stream (the one its
 batches run on), so a promotion thread can build one while others serve.
 
+Pod mode: given a ``Mesh`` (parallel/mesh.py) that spans processes, the
+SAME engine runs on every host of a replicate pod: every host loads the
+whole point set but uploads only the slabs of its own ring positions,
+traverses the (front-end-replicated) batch against them, and the device
+merge runs across the processes (``parallel/ring.py`` ``merge_over_mesh``:
+one ``all_to_all`` of the partial rows a batch, then the same stable merge
+as in one process), after which each host holds the final rows of its
+positions' 1/R row slices and fetches only those (``complete_slices``),
+so the pod's fetched result bytes equal one result. The merge is a
+collective: every host must dispatch identical batches in the same order
+(the front end's contract, serve/frontend.py), and ``dispatch`` validates
+a batch before the collective, so a bad batch fails on every host alike.
+Host merge would need partial rows no process holds, so pod mode requires
+``merge="device"``. A mesh inside one process changes nothing.
+
 Query locality: at D=3 on the tiled engines ``dispatch`` sorts each batch
 by Morton code over the index bounding box (pads last), and the traversal
 walks ``query_buckets`` contiguous slices of the sorted batch, each with
@@ -95,6 +110,7 @@ from mpi_cuda_largescaleknn_torch.ops.tiled import (
 from mpi_cuda_largescaleknn_torch.parallel.ring import (
     TILED_ENGINES,
     device_merge_final,
+    merge_over_mesh,
     resolve_bucket_size,
     resolve_engine,
     resolve_merge,
@@ -260,9 +276,13 @@ class ResidentKnnEngine:
     the (k-th distance, ids) answer; ``emit="candidates"`` engines complete
     with the full candidate rows (``complete_candidates``), the partial a
     slab pool folds. ``id_offset``, ``timers``, ``plan_cache`` and
-    ``pad_shard_rows`` are what a slab pool hands each slab engine."""
+    ``pad_shard_rows`` are what a slab pool hands each slab engine.
+    ``mesh`` (parallel/mesh.py ``Mesh``) sets the shard count and the
+    device; a mesh across processes puts the engine in pod mode (see the
+    module's docstring)."""
 
     def __init__(self, points: np.ndarray, k: int, *, num_shards: int = 1,
+                 mesh=None,
                  engine: str = "auto", bucket_size: int = 0,
                  max_radius: float = math.inf, max_batch: int = 1024,
                  min_batch: int = 8, merge: str = "auto",
@@ -279,6 +299,13 @@ class ResidentKnnEngine:
         if engine not in SERVE_ENGINES:
             raise ValueError(f"unknown serving engine '{engine}' (expected "
                              f"one of {SERVE_ENGINES})")
+        if mesh is not None:
+            if num_shards not in (1, mesh.num_shards):
+                raise ValueError(f"num_shards={num_shards} disagrees with "
+                                 f"the mesh's {mesh.num_shards} positions")
+            num_shards = mesh.num_shards
+            if device is None:
+                device = mesh.device
         if num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got {num_shards}")
         if emit not in ("final", "candidates"):
@@ -302,14 +329,27 @@ class ResidentKnnEngine:
         #: array, not a copy): an evicted engine demotes them to the slab
         #: pool's host tier
         self.host_points = points if emit == "candidates" else None
-        #: one process: the pod surfaces (serve/frontend.py) read these
-        self.process_index, self.process_count = 0, 1
+        #: pod mode: the mesh spans processes — every host runs ONE
+        #: engine over the same mesh, dispatches IDENTICAL batches in the
+        #: same order (the front end's contract) and fetches only its 1/R
+        #: row slices of the pod-final answer (``complete_slices``)
+        self.mesh = mesh
+        self._multi = mesh is not None and mesh.world > 1
+        self.process_index = mesh.rank if self._multi else 0
+        self.process_count = mesh.world if self._multi else 1
         self.dim = int(points.shape[1])
         self.max_radius = float(max_radius)
         self.num_shards = int(num_shards)
         engine_name = resolve_engine(engine)
         self.bucket_size = resolve_bucket_size(bucket_size, engine_name)
         self.merge_mode = resolve_merge(merge, self.num_shards)
+        if self._multi and self.merge_mode != "device":
+            raise ValueError(
+                "multi-host serving requires the device-side merge (the R "
+                "partial candidate blocks live in processes this one "
+                "cannot address) — got merge="
+                f"'{self.merge_mode}' on a {self.num_shards}-shard pod "
+                "mesh; use merge='device' on a power-of-two mesh")
         #: "f32" exact; "bf16" the matmul-form score with an exact rescore,
         #: effective (``score_mode`` "mxu") at D >= ``mxu_min_dim()``
         self.score_dtype = validate_score_dtype(score_dtype)
@@ -317,9 +357,8 @@ class ResidentKnnEngine:
                                      and self.dim >= mxu_min_dim())
                            else "vpu")
         if self.merge_mode == "device":
-            # the JAX engine's device merge emits 1/R row slices, so every
-            # shape bucket must hold R rows; kept so that the buckets are
-            # the same
+            # the device merge hands each position a 1/R row slice, so
+            # every shape bucket must hold R rows (both powers of two)
             if self.num_shards > max_batch and merge == "auto":
                 self.merge_mode = "host"
             else:
@@ -355,7 +394,8 @@ class ResidentKnnEngine:
         #: shared launch plans (None = this engine's own only)
         self._plan_cache = plan_cache
         #: pad each shard to at least this many rows: the slab pool's
-        #: common shape class
+        #: common shape class (single-process engines only: pod mode pads
+        #: to the widest slab already)
         self._pad_shard_rows = int(pad_shard_rows)
         # _lock serializes dispatch, degrade and warmup; the identity
         # scalars live under _meta_lock (never held across a build), so a
@@ -400,24 +440,31 @@ class ResidentKnnEngine:
         bounds = slab_bounds(len(points), self.num_shards)
         #: per-shard AABB and point count, computed once from the host slabs
         self.shard_bounds = slab_aabbs(points, bounds)
-        self._my_pos = list(range(self.num_shards))
-        shards = [points[b:e] for b, e in bounds]
-        pad_to = None
-        if self._pad_shard_rows:
-            pad_to = max(self._pad_shard_rows, 1,
-                         max((len(s) for s in shards), default=1))
+        if self._multi:
+            # pod mode: every host holds the whole point set but uploads
+            # only the slabs of its own positions, padded to the widest
+            # slab (the batch CLIs' process-ownership discipline)
+            self._my_pos = list(self.mesh.positions)
+            pad_to = max(max(e - b for b, e in bounds), 1)
+        else:
+            self._my_pos = list(range(self.num_shards))
+            pad_to = None
+            if self._pad_shard_rows:
+                pad_to = max(self._pad_shard_rows, 1,
+                             max((e - b for b, e in bounds), default=1))
         flat, ids, _counts, self.npad_local = pad_and_flatten(
-            shards, id_bases=[b + self.id_offset for b, _ in bounds],
+            [points[bounds[s][0]:bounds[s][1]] for s in self._my_pos],
+            id_bases=[bounds[s][0] + self.id_offset for s in self._my_pos],
             dim=self.dim, pad_to=pad_to)
         npad = self.npad_local
         self._flat_pts = _upload(flat, dev)
         self._flat_ids = _upload(ids, dev)
-        #: per shard: its bucketed partition (the tiled engines' side)
+        #: per local shard: its bucketed partition (the tiled engines' side)
         self._buckets = [
             partition_points(self._flat_pts[r * npad:(r + 1) * npad],
                              self._flat_ids[r * npad:(r + 1) * npad],
                              bucket_size=self.bucket_size)
-            for r in range(self.num_shards)]
+            for r in range(len(self._my_pos))]
         resident = [self._flat_pts, self._flat_ids]
         for b in self._buckets:
             resident += list(b)
@@ -453,15 +500,16 @@ class ResidentKnnEngine:
 
     def _tiles_possible(self, engine_name: str, qpad: int) -> int:
         """Static ceiling of one batch's traversal in TILE-ROW units (query
-        row x point-bucket visit), summed over shards: the twin counts
-        every schedule slot (``tile_schedule_slots``), the kernel only the
-        buckets it kept, so its ceiling is the bucket count."""
+        row x point-bucket visit), summed over this process's shards (pod
+        mode counts per host): the twin counts every schedule slot
+        (``tile_schedule_slots``), the kernel only the buckets it kept, so
+        its ceiling is the bucket count."""
         if engine_name not in TILED_ENGINES:
             return 0
         num_pb = self._buckets[0].ids.shape[0]
         per_row = (num_pb if engine_name == "pallas_tiled"
                    else tile_schedule_slots(num_pb))
-        return self.num_shards * qpad * per_row
+        return len(self._my_pos) * qpad * per_row
 
     def _resident_shapes(self, engine_name: str) -> tuple:
         """The shape class of the resident operands a plan of
@@ -527,12 +575,15 @@ class ResidentKnnEngine:
 
     def _run(self, lp: _LaunchPlan, q: torch.Tensor, r: torch.Tensor):
         """The batch's device work under plan ``lp``: (a, b, tiles) device
-        tensors, as ``_InFlightBatch.result`` describes them."""
+        tensors, as ``_InFlightBatch.result`` describes them. In pod mode
+        the device merge is the collective: (a, b) are then the final
+        rows of this process's positions only."""
         heap = init_candidates(lp.qpad, self.k, r)
         states, tiles = [], []
+        n_local = len(self._my_pos)
         if lp.engine_name in TILED_ENGINES:
             qbk = batch_buckets(q, lp.qb)
-            for s in range(self.num_shards):
+            for s in range(n_local):
                 if lp.engine_name == "tiled":
                     kw = {}
                     if lp.plan_key is not None:
@@ -560,14 +611,18 @@ class ResidentKnnEngine:
             tiles = torch.stack([t.to(q.device) for t in tiles])
         else:
             npad = self.npad_local
-            for s in range(self.num_shards):
+            for s in range(n_local):
                 states.append(knn_update_bruteforce(
                     heap, q, self._flat_pts[s * npad:(s + 1) * npad],
                     self._flat_ids[s * npad:(s + 1) * npad],
                     score_dtype=self.score_dtype))
             tiles = torch.zeros(1, dtype=torch.int64, device=q.device)
         if self.merge_mode == "device":
-            dists, st = device_merge_final(states)
+            if self._multi:
+                dists, st = merge_over_mesh(self.mesh, states,
+                                            lp.qpad // self.num_shards)
+            else:
+                dists, st = device_merge_final(states)
             if self.emit == "candidates":
                 # the merged candidate rows, not the k-th distances: the
                 # slab pool's fold needs every candidate
@@ -730,6 +785,10 @@ class ResidentKnnEngine:
         if batch.n == 0:
             return (np.zeros(0, np.float32),
                     np.zeros((0, self.k), np.int32))
+        if self._multi:
+            raise RuntimeError(
+                "pod-mode engines emit per-host row slices — use "
+                "complete_slices (the front end assembles the full batch)")
         if self.emit == "candidates":
             raise RuntimeError(
                 "emit='candidates' engines return full candidate rows — "
@@ -747,6 +806,10 @@ class ResidentKnnEngine:
         if batch.n == 0:
             return (np.full((0, self.k), np.inf, np.float32),
                     np.full((0, self.k), -1, np.int32))
+        if self._multi:
+            raise RuntimeError(
+                "pod-mode engines emit per-host row slices — routed "
+                "(independent-host) serving never joins a process group")
         if batch.merge_mode == "device" and self.emit != "candidates":
             raise RuntimeError(
                 "engine was built with emit='final': its device merge "
@@ -789,6 +852,41 @@ class ResidentKnnEngine:
             dists, nbrs = out_d, out_n
         return dists, nbrs
 
+    def complete_slices(self, batch: _InFlightBatch):
+        """Pod-mode ``complete``: wait for a dispatched batch and return
+        ONLY this process's row slices of the pod-final answer.
+
+        Under the device merge, mesh position r holds rows [r*qpad/R,
+        (r+1)*qpad/R) of the final [qpad] + [qpad, k] result, and this
+        process's positions are contiguous, so it holds one row range and
+        fetches 1/P of the result: the POD's fetched bytes equal ONE
+        result (``fetch_bytes``). Returns ``(rows i32[m], dists f32[m],
+        nbrs i32[m, k])``: ``rows`` are CALLER-order row indices (the
+        Morton admission sort undone row by row through ``batch.perm``)
+        and ``m`` counts only the real (non-pad) rows this host owns. The
+        front end scatters each host's triple into the full batch, bitwise
+        equal to one process's ``complete`` of the same batch, ties
+        included. The rows are picked by their range, on the host copy,
+        so nothing here waits on the card again."""
+        if batch.n == 0:
+            return (np.zeros(0, np.int32), np.zeros(0, np.float32),
+                    np.zeros((0, self.k), np.int32))
+        if batch.done is not None:
+            batch.done.synchronize()
+        d, nb, t = (x.numpy() for x in batch.result)
+        self.timers.hist("engine_batch_seconds").record(
+            time.perf_counter() - batch.t0)
+        self.timers.count("fetch_bytes", d.nbytes + nb.nbytes)
+        self._count_tiles(int(t.sum()), batch.tiles_possible)
+        lo = self._my_pos[0] * (batch.qpad // self.num_shards)
+        # pad rows sort and stay last, so the real rows are one prefix
+        m = max(0, min(batch.n - lo, len(d)))
+        staged = np.arange(lo, lo + m)
+        rows = (batch.perm[staged] if batch.perm is not None
+                else staged).astype(np.int32)
+        self.timers.count("result_rows", m)
+        return rows, d[:m], nb[:m]
+
     def query(self, queries: np.ndarray, plan=None, seed_radius=None):
         """f32[n, D] -> (f32[n] k-th-NN distances, i32[n, k] neighbor ids),
         ``dispatch`` then ``complete``. ``n`` may be anything in [0,
@@ -804,7 +902,7 @@ class ResidentKnnEngine:
             degraded_reason = self.degraded_reason
             compile_count = self.compile_count
             compiled_shapes = sorted(self._compiled_shapes)
-        return {
+        out = {
             "engine": engine_name,
             "merge": self.merge_mode,
             "score_dtype": self.score_dtype,
@@ -814,9 +912,11 @@ class ResidentKnnEngine:
             "n_points": self.n_points,
             "k": self.k,
             "num_shards": self.num_shards,
-            "multihost": False,
-            "process_index": 0,
-            "process_count": 1,
+            # pod-mode surface: which slice of the mesh this process owns
+            # (the front end checks the hosts' coverage)
+            "multihost": self._multi,
+            "process_index": self.process_index,
+            "process_count": self.process_count,
             "my_positions": list(self._my_pos),
             "row_offset": self.id_offset,
             "emit": self.emit,
@@ -844,6 +944,12 @@ class ResidentKnnEngine:
             "approx_batches": self.timers.counter("approx_batches"),
             "timers": self.timers.report(),
         }
+        if self._multi:
+            # pod mode: seconds and bytes this process spent in the merge's
+            # all_to_all (its staging included), all batches so far
+            out["exchange_seconds"] = self.mesh.exchange_seconds
+            out["exchange_bytes"] = self.mesh.exchange_bytes
+        return out
 
 
 def _merge_shard_candidates(d2, idx, num_shards, qpad, k, full=False):

@@ -1,42 +1,62 @@
-"""Pod serving, the routed half: per-host slab servers and the front end.
+"""Pod serving: per-host servers and the front end that fans out to them.
 
-The port of the JAX package's ``serve/frontend.py`` in its routed form
-(``--routing bounds``). The hosts are INDEPENDENT engines (no shared mesh,
-no collectives, no sequence order): each owns one row slab of the index
-with GLOBAL neighbor ids (``id_offset``) and serves full candidate rows
-from ``POST /route_knn`` (``engine.emit='candidates'``), its kernels on
-its card. The front end builds a ``PodBoundsTable`` from every host's
-per-shard AABBs at startup and, per batch: (wave 1) sends each query to
-its nearest-bounds slab (and to every slab whose boxes contain it); folds
-the returned partials with the canonical (dist2, id) merge, commutative,
-so arrival order never changes bits; and (escalation waves) re-dispatches
-exactly the (query, slab) pairs whose box lower bound can still beat the
-query's current k-th distance, until every skipped slab is CERTIFIED
-unable to contribute (``lb * (1 - slack) > kth_dist2``; the slack covers
-the engines' f32 rounding, so certification never skips a true neighbor,
-ties included). Slab sharding keeps ids ascending by host, so the answer
-is bitwise equal to one engine over all the points.
+The port of the JAX package's ``serve/frontend.py``. Two pods:
+
+- The routed pod (``--routing bounds``). The hosts are INDEPENDENT engines
+  (no shared mesh, no collectives, no sequence order): each owns one row
+  slab of the index with GLOBAL neighbor ids (``id_offset``) and serves
+  full candidate rows from ``POST /route_knn`` (``engine.emit=
+  'candidates'``), its kernels on its card. The front end builds a
+  ``PodBoundsTable`` from every host's per-shard AABBs at startup and, per
+  batch: (wave 1) sends each query to its nearest-bounds slab (and to
+  every slab whose boxes contain it); folds the returned partials with the
+  canonical (dist2, id) merge, commutative, so arrival order never changes
+  bits; and (escalation waves) re-dispatches exactly the (query, slab)
+  pairs whose box lower bound can still beat the query's current k-th
+  distance, until every skipped slab is CERTIFIED unable to contribute
+  (``lb * (1 - slack) > kth_dist2``; the slack covers the engines' f32
+  rounding, so certification never skips a true neighbor, ties included).
+  Slab sharding keeps ids ascending by host, so the answer is bitwise
+  equal to one engine over all the points.
+- The replicate pod (``--routing off``). H serving processes, joined into
+  one ``torch.distributed`` group (``parallel/mesh.py``, the batch CLIs'
+  lifecycle), each run ONE ``ResidentKnnEngine`` over the process-spanning
+  ``Mesh`` with ``merge="device"``: a host traverses the batch against the
+  shards of its own positions, and one ``all_to_all`` a batch
+  (``parallel/ring.py`` ``merge_over_mesh``) hands each host the partial
+  rows of its positions' row slices, which it merges and fetches alone
+  (``engine.complete_slices``), so the pod's fetched result bytes equal
+  ONE final answer. The merge is a collective, so every host must dispatch
+  IDENTICAL batches in the SAME order: ``PodFanout`` replicates each
+  admitted batch to every host's ``POST /shard_knn?seq=N``, and each
+  ``HostSliceServer`` dispatches strictly in ``seq`` order. The fan-out
+  exposes the engine's ``dispatch`` / ``complete`` split, so the front
+  end's ``DynamicBatcher`` pipelines pod batches, and it records the
+  straggler spread (last host minus first host a batch).
 
 Failure handling: each host is supervised through a ``healthy -> suspect
 -> drained -> rejoining`` lifecycle (serve/health.py) fed by dispatch
-outcomes and the background ``HealthMonitor``'s /healthz probes. Dispatch
-retries transient failures (connect errors, timeouts, 5xx) with capped
-exponential deterministic backoff; a host that keeps failing is drained
-and routed around. ``on_host_loss`` decides the queries whose certified
-routing set touches a drained slab: ``fail`` answers them 503 +
+outcomes and the background ``HealthMonitor``'s /healthz probes. Routed:
+dispatch retries transient failures (connect errors, timeouts, 5xx) with
+capped exponential deterministic backoff; a host that keeps failing is
+drained and routed around. ``on_host_loss`` decides the queries whose
+certified routing set touches a drained slab: ``fail`` answers them 503 +
 Retry-After (unaffected queries keep serving bit-identical), ``degrade``
 serves the fold of the surviving hosts flagged ``exact: false``. A drained
 host rejoins only after the monitor matches its config/bounds fingerprint
 against the pod table captured at startup. Hosts claiming the same row
 range are replicas of one slab (serve/replica.py ``ReplicaSet``); the
-wire between front end and hosts negotiates the q16 candidate codec
-(serve/wire.py), whose exact f32 re-merge keeps served bits identical.
-
-Not ported yet: the replicate pod (``--routing off``: the strict-sequence
-``POST /shard_knn``, ``PodFanout.dispatch`` / ``complete``), ROADMAP.md
-Queue 1 item 3c; warm standbys and slab handoff (``POST /adopt_slab``,
-the front end's ``--standbys`` / ``--handoff-floor``), item 3b. Each
-raises ``not_ported`` naming its item.
+monitor's ``ReplicaManager`` directs a warm ``--standby`` host to adopt a
+slab that fell below ``handoff_floor`` live replicas (``POST
+/adopt_slab``: the slab read again from the source file or pulled from a
+surviving replica) and binds it only after its fingerprint matches the
+pod table. The wire between front end and routed hosts negotiates the q16
+candidate codec (serve/wire.py), whose exact f32 re-merge keeps served
+bits identical. Replicate: the pod is one program, so a lost host is not
+degradable: the first failed post marks the stream broken
+(``PodBrokenError``), requests answer 503, and the monitor resets the
+stream once every host probes healthy again with a matching fingerprint
+and one ``next_seq``.
 """
 
 from __future__ import annotations
@@ -54,7 +74,6 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from mpi_cuda_largescaleknn_torch.core.config import not_ported
 from mpi_cuda_largescaleknn_torch.obs.timers import (
     LatencyHistogram,
     PhaseTimers,
@@ -95,31 +114,40 @@ from mpi_cuda_largescaleknn_torch.serve.wire import (
 from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
 from mpi_cuda_largescaleknn_torch.utils.math import aabb_lower_bound_dist2
 
-#: ROADMAP.md items of the pod serving not ported yet
-REPLICATE_ITEM = "Queue 1 item 3c, the replicate pod"
-HANDOFF_ITEM = "Queue 1 item 3b, standbys and slab handoff"
-
 # -------------------------------------------------------------- host side
 
 
 class HostSliceServer(ThreadingHTTPServer):
-    """One routed host of the pod: an independent slab engine
-    (``emit='candidates'``) behind ``POST /route_knn``, which dispatches
-    any sub-batch in arrival order and answers with the full candidate
-    rows (d2[m, k] + ids[m, k]) the front end folds across hosts (``?wire=
-    q16`` compressed, ``?wire=x32`` the exact re-fetch). Serves the front
-    end only (no public /knn). /healthz, /stats (the per-shard AABB table,
-    ``row_offset``, the ``wire`` caps) and /metrics mirror the single-host
-    server's surface; ``GET /slab_rows`` streams the host's slab rows;
-    ``GET|POST /faults`` read and replace the fault rules at runtime.
+    """One serving process of a pod. Serves the front end only (no public
+    /knn). Two modes:
 
-    ``routing="off"`` (the replicate pod) and ``standby_config`` (a warm
-    standby) raise ``not_ported`` naming their ROADMAP items.
+    - ``routing="off"`` (the replicate pod): ``POST /shard_knn?seq=N``
+      with a raw little-endian f32 body dispatches the batch on the
+      process-spanning mesh, in strict ``seq`` order (the merge is a
+      collective every host must enter identically), and answers with this
+      host's row slices of the pod-final result.
+    - ``routing="bounds"`` (the routed pod): an independent slab engine
+      (``emit='candidates'``) behind ``POST /route_knn``, which dispatches
+      any sub-batch in arrival order and answers with the full candidate
+      rows (d2[m, k] + ids[m, k]) the front end folds across hosts
+      (``?wire=q16`` compressed, ``?wire=x32`` the exact re-fetch).
+      ``standby_config`` makes it a warm standby: no engine until ``POST
+      /adopt_slab`` materializes one.
+
+    /healthz, /stats (the per-shard AABB table, ``row_offset``, the
+    ``wire`` caps) and /metrics mirror the single-host server's surface;
+    ``GET /slab_rows`` streams a routed host's slab rows; ``GET|POST
+    /faults`` read and replace the fault rules at runtime.
     """
 
     daemon_threads = True
+    #: how long a handler thread waits for ITS turn in the seq order before
+    #: giving up (a lost lower seq means the pod is wedged anyway); the
+    #: default of the constructor's knob
+    seq_timeout_s = 120.0
 
-    def __init__(self, addr, engine, *, routing: str = "bounds",
+    def __init__(self, addr, engine, *, routing: str = "off",
+                 seq_timeout_s: float | None = None,
                  faults: FaultInjector | None = None,
                  standby_config: dict | None = None,
                  wire: str = "auto",
@@ -127,23 +155,14 @@ class HostSliceServer(ThreadingHTTPServer):
         if routing not in ("off", "bounds"):
             raise ValueError(f"routing must be 'off' or 'bounds', "
                              f"got {routing!r}")
-        if routing == "off":
-            raise not_ported("the replicate pod's host (POST /shard_knn)",
-                             REPLICATE_ITEM)
-        if standby_config is not None:
-            raise not_ported("a warm standby host", HANDOFF_ITEM)
         if wire not in ("auto", "f32"):
             raise ValueError(f"host wire mode must be 'auto' or 'f32', "
                              f"got {wire!r}")
-        if getattr(engine, "emit", "final") != "candidates":
-            raise ValueError(
-                "routed host serving needs an engine built with "
-                "emit='candidates' — the front end's partial merge "
-                "folds full candidate rows, not kth distances")
-        if getattr(engine, "process_count", 1) > 1:
-            raise ValueError(
-                "routed hosts are independent processes — do not join "
-                "a global mesh (launch without --coordinator)")
+        if seq_timeout_s is not None:
+            if seq_timeout_s <= 0:
+                raise ValueError(f"seq_timeout_s must be > 0, "
+                                 f"got {seq_timeout_s}")
+            self.seq_timeout_s = float(seq_timeout_s)
         #: "f32" = advertise and serve only the uncompressed codecs (the
         #: old-binary emulation / codec kill switch; serve_main --wire)
         self.wire_mode = wire
@@ -151,8 +170,30 @@ class HostSliceServer(ThreadingHTTPServer):
         #: or KNN_FAULTS at start, or POST /faults at runtime
         self.faults = (faults if faults is not None
                        else FaultInjector.from_env())
-        # the front end pipelines depth-2 sub-batches per host
-        engine.set_launch_workers(2)
+        #: warm-standby mode (slab handoff, serve/replica.py): the server
+        #: starts with NO engine and materializes one on POST /adopt_slab
+        #: from the engine-construction knobs recorded here (path, k,
+        #: shards, bucket geometry, device: serve_main --standby fills it)
+        self.standby_config = dict(standby_config) if standby_config else None
+        if self.standby_config is not None:
+            if routing != "bounds":
+                raise ValueError("standby hosts serve the routed tier — "
+                                 "launch with --routing bounds")
+            if engine is not None:
+                raise ValueError("a standby starts empty; its engine is "
+                                 "materialized by POST /adopt_slab")
+        elif routing == "bounds":
+            if getattr(engine, "emit", "final") != "candidates":
+                raise ValueError(
+                    "routed host serving needs an engine built with "
+                    "emit='candidates' — the front end's partial merge "
+                    "folds full candidate rows, not kth distances")
+            if getattr(engine, "process_count", 1) > 1:
+                raise ValueError(
+                    "routed hosts are independent processes — do not join "
+                    "a global mesh (launch without --coordinator)")
+            # the front end pipelines depth-2 sub-batches per host
+            engine.set_launch_workers(2)
         self.engine = engine
         self.routing = routing
         self.ready = False
@@ -162,6 +203,17 @@ class HostSliceServer(ThreadingHTTPServer):
         #: per-(path, codec) wire byte accounting (serve/wire.py) behind
         #: /stats wire_traffic and the /metrics knn_wire_* families
         self.wire_stats = WireStats()
+        self._seq_cond = threading.Condition()
+        self.next_seq: guarded_by("_seq_cond") = 0
+        self._adopt_lock = threading.Lock()
+        # the adoption lifecycle, written by the adopt handler and its
+        # background thread and read by /healthz scrapes (the replica
+        # manager polls it): all access under _adopt_lock
+        self.adopt_state: guarded_by("_adopt_lock") = (
+            "standby" if self.standby_config is not None else None)
+        self.adopt_error: guarded_by("_adopt_lock") = None
+        self.adopt_slab: guarded_by("_adopt_lock") = None
+        self.adopt_seconds: guarded_by("_adopt_lock") = None
         super().__init__(addr, _HostHandler)
 
     def serve_forever(self, poll_interval=0.5):
@@ -173,13 +225,131 @@ class HostSliceServer(ThreadingHTTPServer):
             self.shutdown()
         self.server_close()
 
+    def run_in_order(self, seq: int, queries: np.ndarray):
+        """Dispatch ``queries`` as pod batch ``seq`` and fetch this host's
+        slices. Dispatch (the traversal and the merge's ``all_to_all``) is
+        serialized in ascending ``seq``, the pod-wide program order;
+        completes overlap freely."""
+        with self._seq_cond:
+            deadline = time.monotonic() + self.seq_timeout_s
+            while seq != self.next_seq:
+                if seq < self.next_seq:
+                    raise ValueError(f"seq {seq} already dispatched "
+                                     f"(next is {self.next_seq})")
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError(
+                        f"seq {seq} waited {self.seq_timeout_s:.0f}s for "
+                        f"seq {self.next_seq} to arrive — pod stream broken")
+                self._seq_cond.wait(remaining)
+            try:
+                handle = self.engine.dispatch(queries)
+            finally:
+                # advance even on a dispatch error: the engine validates a
+                # batch before its collective, so the same failure raises
+                # on EVERY host (same bytes, same config) and the pod stays
+                # aligned at seq+1
+                self.next_seq += 1
+                self._seq_cond.notify_all()
+        return self.engine.complete_slices(handle)
+
+    def next_seq_snapshot(self) -> int:
+        """Locked read of the stream position for handler threads (the
+        monitor's seq-consensus reset reads it through /healthz)."""
+        with self._seq_cond:
+            return self.next_seq
+
     def run_routed(self, queries: np.ndarray):
-        """Dispatch a sub-batch in arrival order (the engine's own lock
-        and its CUDA stream serialize the card; nothing is collective, so
-        concurrent handler threads are fine) and return the full candidate
-        rows ``(d2[m, k], idx[m, k])``."""
+        """Routed mode: dispatch a sub-batch in arrival order (the
+        engine's own lock and its CUDA stream serialize the card; nothing
+        is collective, so concurrent handler threads are fine) and return
+        the full candidate rows ``(d2[m, k], idx[m, k])``."""
         handle = self.engine.dispatch(queries)
         return self.engine.complete_candidates(handle)
+
+    # ------------------------------------------------------------- handoff
+
+    def adopt_snapshot(self) -> dict:
+        """Locked view of the adoption lifecycle (None state = not a
+        standby): what /healthz reports and the replica manager polls."""
+        with self._adopt_lock:
+            return {"state": self.adopt_state, "slab": self.adopt_slab,
+                    "error": self.adopt_error,
+                    "seconds": self.adopt_seconds}
+
+    def start_adoption(self, req: dict, host_id: int,
+                       num_hosts: int) -> bool:
+        """Begin adopting slab ``host_id`` of ``num_hosts`` on a background
+        thread (an engine build and its warmup take seconds: the handler
+        answers 202 at once and the manager polls /healthz). False when an
+        adoption is already running or done (409 upstream); ``failed``
+        may retry."""
+        with self._adopt_lock:
+            if self.adopt_state not in ("standby", "failed"):
+                return False
+            self.adopt_state = "adopting"
+            self.adopt_slab = int(host_id)
+            self.adopt_error = None
+        threading.Thread(target=self._run_adoption,
+                         args=(dict(req), int(host_id), int(num_hosts)),
+                         daemon=True, name="knn-adopt").start()
+        return True
+
+    def _run_adoption(self, req: dict, host_id: int, num_hosts: int):
+        """Materialize and warm the adopted slab, then flip ready. The
+        engine is assigned BEFORE ``ready``, so a handler that sees ready
+        always sees the engine; any failure (a kernel's build or launch on
+        the card included) parks the server in ``failed`` with the reason
+        on /healthz, so the manager's fingerprint gate never sees a
+        half-built host."""
+        from mpi_cuda_largescaleknn_torch.serve.engine import (
+            materialize_slab_engine,
+        )
+        from mpi_cuda_largescaleknn_torch.serve.replica import pull_slab_rows
+
+        t0 = time.perf_counter()
+        try:
+            cfg = dict(self.standby_config)
+            points = id_offset = None
+            if req.get("source_url"):
+                points, id_offset = pull_slab_rows(req["source_url"])
+            eng, id_offset, _n_total = materialize_slab_engine(
+                cfg.get("path"), host_id, num_hosts,
+                k=cfg["k"], num_shards=cfg.get("shards") or 1,
+                engine=cfg.get("engine", "auto"),
+                merge=cfg.get("merge", "auto"),
+                bucket_size=cfg.get("bucket_size", 0),
+                max_radius=cfg.get("max_radius", float("inf")),
+                max_batch=cfg.get("max_batch", 1024),
+                min_batch=cfg.get("min_batch", 8),
+                query_buckets=cfg.get("query_buckets", 0),
+                score_dtype=cfg.get("score_dtype", "f32"),
+                points=points, id_offset=id_offset, warmup=True,
+                device=cfg.get("device"))
+            # the adopt request carries the pod table's slab identity: a
+            # file / num_hosts mismatch fails HERE, loudly, and never
+            # reaches the (fingerprint-gated) bind downstream
+            want_off = req.get("row_offset")
+            if want_off is not None and int(want_off) != id_offset:
+                raise ValueError(
+                    f"adopted slab starts at row {id_offset}, the pod "
+                    f"table expects {want_off} — input file or num_hosts "
+                    "disagrees with the pod's split")
+            want_n = req.get("n_points")
+            if want_n is not None and int(want_n) != eng.n_points:
+                raise ValueError(
+                    f"adopted slab holds {eng.n_points} rows, the pod "
+                    f"table expects {want_n}")
+            eng.set_launch_workers(2)
+            self.engine = eng
+            self.ready = True
+            with self._adopt_lock:
+                self.adopt_state = "adopted"
+                self.adopt_seconds = round(time.perf_counter() - t0, 3)
+        except Exception as e:  # noqa: BLE001 - surfaced on /healthz
+            with self._adopt_lock:
+                self.adopt_state = "failed"
+                self.adopt_error = f"{type(e).__name__}: {e}"
 
 
 class _HostHandler(JsonHttpHandler):
@@ -192,11 +362,43 @@ class _HostHandler(JsonHttpHandler):
             return
         if self._apply_fault(path):
             return
+        if srv.engine is None:
+            # warm standby (slab handoff): no slab adopted yet. /healthz
+            # reports the adoption lifecycle so the replica manager can
+            # poll it; everything else answers 503 until adoption lands
+            snap = srv.adopt_snapshot()
+            status = {"standby": "standby", "adopting": "adopting",
+                      "failed": "adopt-failed"}.get(snap["state"],
+                                                    "standby")
+            if path == "/healthz":
+                body = {"status": status, "role": "standby",
+                        "routing": srv.routing, "adopt": snap}
+                if snap["error"]:
+                    body["adopt_error"] = snap["error"]
+                self._send_json(503, body)
+            elif path == "/stats":
+                self._send_json(200, {"routing": srv.routing,
+                                      "standby": True, "adopt": snap,
+                                      "wire": wire_caps(srv.wire_mode),
+                                      "server": srv.metrics.snapshot()})
+            elif path == "/metrics":
+                self._send(200, "# TYPE knn_ready gauge\nknn_ready 0\n"
+                           .encode(), "text/plain; version=0.0.4")
+            else:
+                self._send_json(503, {"error": "standby host: no slab "
+                                               "adopted yet"},
+                                extra=[("Retry-After", "1")])
+            return
         if path == "/healthz":
             body = {"status": "ok" if srv.ready else "warming",
-                    "role": "host-routed",
+                    "role": ("host-routed" if srv.routing == "bounds"
+                             else "host-slice"),
                     "routing": srv.routing,
-                    "process_index": srv.engine.process_index}
+                    "process_index": srv.engine.process_index,
+                    "next_seq": srv.next_seq_snapshot()}
+            adopt = srv.adopt_snapshot()
+            if adopt["state"] is not None:
+                body["adopt"] = adopt
             self._send_json(200 if srv.ready else 503, body)
         elif path == "/stats":
             from mpi_cuda_largescaleknn_torch.cli.common import (
@@ -208,6 +410,7 @@ class _HostHandler(JsonHttpHandler):
             # fingerprint; ``launches``: this process's kernel launches
             self._send_json(200, {"engine": srv.engine.stats(),
                                   "routing": srv.routing,
+                                  "next_seq": srv.next_seq_snapshot(),
                                   "wire": wire_caps(srv.wire_mode),
                                   "wire_traffic": srv.wire_stats.snapshot(),
                                   "server": srv.metrics.snapshot(),
@@ -244,13 +447,14 @@ class _HostHandler(JsonHttpHandler):
                     ("knn_tiles_skipped_total", e["tiles_skipped"])):
                 lines += [f"# TYPE {name} counter", f"{name} {val}"]
             # server-side request counters (incl. the routed-row counter
-            # knn_routed_rows_total)
+            # knn_routed_rows_total in routed mode)
             for name, val in sorted(srv.metrics.snapshot().items()):
                 lines += [f"# TYPE {name} counter", f"{name} {val}"]
             for name, val in (("knn_ready", int(srv.ready)),
                               ("knn_compile_count", e["compile_count"]),
                               ("knn_num_shards", e["num_shards"]),
                               ("knn_host_process_index", e["process_index"]),
+                              ("knn_host_next_seq", srv.next_seq_snapshot()),
                               ("knn_host_row_offset", e["row_offset"]),
                               ("knn_host_routed",
                                int(srv.routing == "bounds"))):
@@ -334,15 +538,45 @@ class _HostHandler(JsonHttpHandler):
             return
         if self._apply_fault(parsed.path):
             return
-        if parsed.path in ("/adopt_slab", "/shard_knn"):
-            item = (HANDOFF_ITEM if parsed.path == "/adopt_slab"
-                    else REPLICATE_ITEM)
-            self._send_json(501, {"error": str(not_ported(
-                f"POST {parsed.path}", item))})
+        if parsed.path == "/adopt_slab":
+            # slab handoff (serve/replica.py): direct a warm standby to
+            # materialize and warm one slab. 202 = adoption started; the
+            # caller polls /healthz and fingerprint-gates before binding
+            if srv.standby_config is None:
+                self._send_json(409, {
+                    "error": "not a standby host — adopt_slab only "
+                             "applies to --standby processes"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                obj = json.loads(self.rfile.read(length).decode() or "{}")
+                host_id = int(obj["host_id"])
+                num_hosts = int(obj.get(
+                    "num_hosts", srv.standby_config.get("num_hosts", 1)))
+                if not (0 <= host_id < num_hosts):
+                    raise ValueError(f"host_id {host_id} outside "
+                                     f"[0, {num_hosts})")
+            except (KeyError, ValueError, json.JSONDecodeError) as e:
+                self._send_json(400, {"error": f"bad adopt request: {e}"})
+                return
+            if not srv.start_adoption(obj, host_id, num_hosts):
+                self._send_json(409, {
+                    "error": "adoption already in progress or done",
+                    "adopt": srv.adopt_snapshot()})
+                return
+            self._send_json(202, {"status": "adopting",
+                                  "host_id": host_id,
+                                  "num_hosts": num_hosts})
             return
-        if parsed.path != "/route_knn":
+        if srv.engine is None:
+            self._send_json(503, {"error": "standby host: no slab "
+                                           "adopted yet"},
+                            extra=[("Retry-After", "1")])
+            return
+        want = "/route_knn" if srv.routing == "bounds" else "/shard_knn"
+        if parsed.path != want:
             self._send_json(404, {
-                "error": f"this host serves POST /route_knn only "
+                "error": f"this host serves POST {want} only "
                          f"(routing={srv.routing})"})
             return
         srv.metrics.inc("knn_requests_total")
@@ -352,6 +586,10 @@ class _HostHandler(JsonHttpHandler):
             dim = getattr(srv.engine, "dim", 3)
             if len(raw) % (4 * dim):
                 raise ValueError(f"need an n*{4 * dim}-byte f32 body")
+            if srv.routing == "off":
+                seq = int(parse_qs(parsed.query).get("seq", ["-1"])[0])
+                if seq < 0:
+                    raise ValueError("need ?seq=N (the pod program order)")
             q = np.frombuffer(raw, "<f4").reshape(-1, dim)
         except ValueError as e:
             srv.metrics.inc("knn_badrequest_total")
@@ -359,18 +597,37 @@ class _HostHandler(JsonHttpHandler):
             return
         wire_req = parse_qs(parsed.query).get("wire", ["f32"])[0]
         try:
-            if wire_req == "x32":
+            if srv.routing == "off":
+                rows, dists, nbrs = srv.run_in_order(seq, q)
+            elif wire_req == "x32":
                 # survivor re-fetch: the engine hook re-derives the exact
                 # rows (batch-composition independent, so they are
                 # byte-equal to the quantized wave's)
                 d2, idx = srv.engine.refetch_exact(q)
             else:
                 d2, idx = srv.run_routed(q)
+        except TimeoutError as e:
+            # seq-order wait expired: the pod stream is stalled, not this
+            # request's fault — 503 + Retry-After, so a well-behaved
+            # client backs off instead of treating it as a server bug
+            srv.metrics.inc("knn_seq_timeout_total")
+            self._send_json(503, {"error": f"TimeoutError: {e}"},
+                            extra=[("Retry-After", "1")])
+            return
         except Exception as e:  # noqa: BLE001 - the front end retries/fails
             # a kernel failure on the card lands here: the request fails,
             # the front end's health cycle takes over
             srv.metrics.inc("knn_error_total")
             self._send_json(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        if srv.routing == "off":
+            srv.metrics.inc("knn_rows_total", len(rows))
+            body = (np.ascontiguousarray(rows, "<i4").tobytes()
+                    + np.ascontiguousarray(dists, "<f4").tobytes()
+                    + np.ascontiguousarray(nbrs, "<i4").tobytes())
+            self._send(200, body, "application/octet-stream",
+                       extra=[("X-Knn-Rows", str(len(rows))),
+                              ("X-Knn-K", str(srv.engine.k))])
             return
         srv.metrics.inc("knn_rows_total", len(q))
         srv.metrics.inc("knn_routed_rows_total", len(q))
@@ -410,6 +667,12 @@ class _HostHandler(JsonHttpHandler):
 # ---------------------------------------------------------- front-end side
 
 
+class PodBrokenError(RuntimeError):
+    """A host failed mid-stream: the pod's collective program order is
+    unrecoverable without restarting the host processes together (the
+    monitor's pod-reset path clears it once they do)."""
+
+
 class HostCallError(RuntimeError):
     """One HTTP call to one host failed. ``transient`` distinguishes
     retry-worthy failures (connect errors, timeouts, 5xx, torn payloads)
@@ -442,11 +705,20 @@ class _HostEndpoint:
 
 
 class PodFanout:
-    """The fan-out's host table: one ``_HostEndpoint`` a host, per-thread
-    keep-alive connections, health probes, stats scrapes, and the
-    accounting the routed fan-out (``RoutedPodFanout``) inherits. Its own
-    ``dispatch`` / ``complete`` (the replicate pod, every batch to every
-    host in a strict sequence) raise ``not_ported``."""
+    """Replicate each batch to every host; assemble the per-host slices.
+
+    The ``dispatch``/``complete`` split mirrors the engine's, so the front
+    end's ``DynamicBatcher`` pipelines pod batches: ``dispatch`` assigns
+    the next pod-wide sequence number and posts the batch to all hosts
+    concurrently (returning a handle of in-flight HTTP futures);
+    ``complete`` joins them, scatters each host's ``(rows, dists, nbrs)``
+    slices into the full batch, and records the straggler spread (last
+    host minus first host wall-clock a batch). Row coverage is asserted: a
+    missing row means the pod's mesh ownership disagrees with the front
+    end's host list, never something to paper over. The host table,
+    per-thread keep-alive connections, probes, scrapes and accounting are
+    what the routed fan-out (``RoutedPodFanout``) inherits.
+    """
 
     def __init__(self, host_urls: list[str], *, k: int, max_batch: int,
                  timeout_s: float = 120.0, timers: PhaseTimers | None = None,
@@ -456,6 +728,9 @@ class PodFanout:
                  health_config: dict | None = None):
         if not host_urls:
             raise ValueError("need at least one host URL")
+        #: retained so endpoints bound at runtime (slab handoff's
+        #: bind_replica) get the same health lifecycle knobs
+        self._health_cfg = health_config
         self.endpoints = [_HostEndpoint(u, health_config)
                           for u in host_urls]
         self.k = int(k)
@@ -467,7 +742,8 @@ class PodFanout:
         #: per attempt instead of the whole fan-out timeout
         self.request_timeout_s = (float(request_timeout_s)
                                   if request_timeout_s else None)
-        #: bounded retries on TRANSIENT per-host failures
+        #: bounded retries on TRANSIENT per-host failures (routed mode; the
+        #: replicate stream is a collective and cannot re-send a seq)
         self.retries = int(retries)
         self.retry_backoff = Backoff(base_s=retry_backoff_s, cap_s=2.0,
                                      jitter=0.1, seed=0)
@@ -476,10 +752,11 @@ class PodFanout:
         self._lock = threading.Lock()
         # stream state + accounting shared between the batcher's dispatch/
         # completion workers, handler threads (/stats), and the health
-        # monitor — all access under _lock
+        # monitor's reset path — all access under _lock
         #: the replicate pod's broken-stream marker: a routed pod never
         #: sets it (its hosts fail alone), the surfaces still read it
         self.broken: guarded_by("_lock") = None
+        self._seq: guarded_by("_lock") = 0
         self.batches: guarded_by("_lock") = 0
         self.straggler_seconds: guarded_by("_lock") = 0.0
         self._tls = threading.local()
@@ -511,16 +788,111 @@ class PodFanout:
             except Exception:  # noqa: BLE001
                 pass
 
+    def _post_shard(self, ep: _HostEndpoint, seq: int, body: bytes):
+        """POST one batch to one host; parse its slice triple. Returns
+        (rows, dists, nbrs, seconds)."""
+        t0 = time.perf_counter()
+        try:
+            conn = self._conn(ep)
+            conn.request("POST", f"{ep.prefix}/shard_knn?seq={seq}",
+                         body=body,
+                         headers={"Content-Type":
+                                  "application/octet-stream"})
+            resp = conn.getresponse()
+            payload = resp.read()
+            if resp.status != 200:
+                raise PodBrokenError(
+                    f"host {ep.url} answered {resp.status} for seq {seq}: "
+                    f"{payload[:300].decode(errors='replace')}")
+            m = int(resp.getheader("X-Knn-Rows", "-1"))
+            kk = int(resp.getheader("X-Knn-K", str(self.k)))
+            if m < 0 or kk != self.k or len(payload) != 4 * m * (2 + kk):
+                raise PodBrokenError(
+                    f"host {ep.url} slice malformed: rows={m} k={kk} "
+                    f"bytes={len(payload)}")
+            rows = np.frombuffer(payload, "<i4", count=m)
+            dists = np.frombuffer(payload, "<f4", count=m, offset=4 * m)
+            nbrs = np.frombuffer(payload, "<i4", count=m * kk,
+                                 offset=8 * m).reshape(m, kk)
+        except PodBrokenError:
+            self._drop_conn(ep)
+            raise
+        except Exception as e:
+            self._drop_conn(ep)
+            raise PodBrokenError(
+                f"host {ep.url} unreachable for seq {seq}: "
+                f"{type(e).__name__}: {e}") from e
+        return rows, dists, nbrs, time.perf_counter() - t0
+
     # ---------------------------------------------------------- query_fn API
 
     def dispatch(self, queries: np.ndarray):
-        """The replicate pod's fan-out of one batch to every host."""
-        raise not_ported("PodFanout.dispatch (the replicate pod)",
-                         REPLICATE_ITEM)
+        """Fan one admitted batch out to every host (non-blocking)."""
+        q = np.ascontiguousarray(np.asarray(queries, np.float32)
+                                 .reshape(-1, self.dim))
+        with self._lock:
+            # broken-check and seq-assignment are ONE atomic step: a
+            # reset_stream racing between them could otherwise hand this
+            # batch a stale stream position
+            if self.broken:
+                raise PodBrokenError(self.broken)
+            seq = self._seq
+            self._seq += 1
+        body = q.astype("<f4").tobytes()
+        futs = [self._pool.submit(self._post_shard, ep, seq, body)
+                for ep in self.endpoints]
+        return {"seq": seq, "n": len(q), "futs": futs,
+                "t0": time.perf_counter()}
 
     def complete(self, handle):
-        raise not_ported("PodFanout.complete (the replicate pod)",
-                         REPLICATE_ITEM)
+        """Join every host's slice and assemble the full batch."""
+        n = handle["n"]
+        out_d = np.full(n, np.nan, np.float32)
+        out_n = np.full((n, self.k), -1, np.int32)
+        filled = np.zeros(n, bool)
+        dts = []
+        err: PodBrokenError | None = None
+        for ep, fut in zip(self.endpoints, handle["futs"]):
+            try:
+                rows, dists, nbrs, dt = fut.result()
+            except PodBrokenError as e:
+                with self._lock:
+                    ep.errors += 1
+                    ep.last_error = str(e)
+                # drain-then-fail: the health state records WHICH host took
+                # the pod down, and the monitor's pod-reset path undrains
+                # it once the whole pod restarts consistently
+                ep.health.force_drain(str(e))
+                err = err or e
+                continue
+            with self._lock:
+                ep.ok += 1
+                ep.latency.record(dt)
+            ep.health.note_success()
+            dts.append(dt)
+            out_d[rows] = dists
+            out_n[rows] = nbrs
+            filled[rows] = True
+        if err is not None:
+            # one program across the pod: a lost host slice is not
+            # degradable
+            with self._lock:
+                self.broken = self.broken or str(err)
+            raise err
+        if not filled.all():
+            missing = int((~filled).sum())
+            raise PodBrokenError(
+                f"assembled batch seq {handle['seq']} is missing {missing} "
+                f"of {n} rows — host list does not cover the pod mesh")
+        with self._lock:
+            self.batches += 1
+            if len(dts) > 1:
+                spread = max(dts) - min(dts)
+                self.straggler_seconds += spread
+                self.timers.hist("fanout_straggler_seconds").record(spread)
+        self.timers.hist("fanout_batch_seconds").record(
+            time.perf_counter() - handle["t0"])
+        return out_d, out_n
 
     def __call__(self, queries):
         return self.complete(self.dispatch(queries))
@@ -570,6 +942,15 @@ class PodFanout:
         with self._lock:
             return self.broken
 
+    def reset_stream(self, next_seq: int) -> None:
+        """Clean-restart path (replicate mode): clear the broken marker and
+        re-align the front end's sequence counter with the (restarted)
+        hosts' consistent ``next_seq``. Only the health monitor calls
+        this, after validating every host's fingerprint."""
+        with self._lock:
+            self.broken = None
+            self._seq = int(next_seq)
+
     def drained_mask(self) -> np.ndarray:
         """bool[H]: which endpoints are currently drained/rejoining."""
         return np.array([ep.health.is_drained() for ep in self.endpoints],
@@ -593,6 +974,7 @@ class PodFanout:
             return {
                 "hosts": [ep.url for ep in self.endpoints],
                 "batches": self.batches,
+                "next_seq": self._seq,
                 "broken": self.broken,
                 "straggler_seconds_total": round(self.straggler_seconds, 6),
                 "per_host": {
@@ -707,9 +1089,9 @@ class RoutedPodFanout(PodFanout):
                          health_config=health_config)
         #: per-host negotiated wire codec (serve/wire.py): ``wire`` is the
         #: frontend knob (auto|f32|q16); caps come from each host's /stats
-        #: root as scraped at startup (pod_config_from_hosts) — a host
-        #: with no caps negotiates f32, so mixed pods interop without
-        #: config
+        #: root as scraped at startup (pod_config_from_hosts) and on
+        #: adoption (ReplicaManager) — a host with no caps negotiates f32,
+        #: so mixed pods interop without config
         self.negotiator = WireNegotiator(
             "f32" if wire == "f32" else ("q16" if wire == "q16" else "auto"))
         for url, caps in (wire_host_caps or {}).items():
@@ -743,6 +1125,19 @@ class RoutedPodFanout(PodFanout):
         self.wire_refetch_failed_rows: guarded_by("_lock") = 0
         for ep in self.endpoints:
             ep.routed_rows = 0
+
+    def bind_replica(self, slab: int, url: str) -> _HostEndpoint:
+        """Runtime re-bind of a slab's endpoint set: add a NEW endpoint
+        (a handoff-validated adopted standby) as a replica of ``slab``.
+        Only the replica manager calls this, AFTER the fingerprint gate:
+        an unproven slab must never enter the routing tables. The
+        endpoint list only ever grows (append is atomic under the GIL;
+        dispatch threads iterate by index)."""
+        ep = _HostEndpoint(url, self._health_cfg)
+        ep.routed_rows = 0
+        self.endpoints.append(ep)
+        self.replicas.rebind(slab, len(self.endpoints) - 1)
+        return ep
 
     # ------------------------------------------------------------- transport
 
@@ -1588,6 +1983,14 @@ class _FrontendHandler(JsonHttpHandler):
             srv.metrics.inc("knn_deadline_total")
             self._send_json(504, {"error": str(e)})
             return
+        except PodBrokenError as e:
+            # drain-then-fail: the pod stream is down until the hosts
+            # restart together (the monitor's reset path) — an operational
+            # state, not a server bug, so 503 + Retry-After, never 500
+            srv.metrics.inc("knn_unavailable_total")
+            self._send_json(503, {"error": f"PodBrokenError: {e}"},
+                            extra=[("Retry-After", "1")])
+            return
         except Exception as e:  # noqa: BLE001 - the service must not die
             srv.metrics.inc("knn_error_total")
             self._send_json(500, {"error": f"{type(e).__name__}: {e}"})
@@ -1673,18 +2076,18 @@ def pod_config_from_hosts(host_urls: list[str],
     the pod is coherent.
 
     ``routing="auto"`` adopts whatever mode the hosts were launched in
-    (they must all agree); "bounds" additionally asserts it. Routed mode
-    validates: every host independent (process_count 1) with
-    emit='candidates', same k / dim / score config / radius cap, and the
-    hosts' row slabs tiling [0, N) with no gap or overlap — a hole would
-    silently drop real neighbors. Returns the front-end construction
-    config (``host_urls`` re-ordered ascending by row offset plus the
-    bounds-table inputs). Hosts of the replicate pod (``routing off``)
-    raise ``not_ported``."""
+    (they must all agree); "off"/"bounds" additionally assert it. The
+    replicate pod (off) validates: the same k / max_batch / shape buckets
+    / merge=device and every other launch-plan knob, process_count
+    matching the host list, mesh positions covering the whole axis. The
+    routed pod (bounds) validates: every host independent (process_count
+    1) with emit='candidates', same k / dim / score config / radius cap,
+    and the hosts' row slabs tiling [0, N) with no gap or overlap — a hole
+    would silently drop real neighbors. Returns the front-end construction
+    config (routed configs carry ``host_urls`` re-ordered ascending by row
+    offset plus the bounds-table inputs)."""
     if routing not in ("auto", "off", "bounds"):
         raise ValueError(f"routing must be auto|off|bounds, got {routing!r}")
-    if routing == "off":
-        raise not_ported("the replicate pod's front end", REPLICATE_ITEM)
     raw = []
     for url in host_urls:
         with urllib.request.urlopen(url.rstrip("/") + "/stats",
@@ -1698,8 +2101,6 @@ def pod_config_from_hosts(host_urls: list[str],
     if routing != "auto" and routing != mode:
         raise ValueError(f"front end asked for routing='{routing}' but the "
                          f"hosts serve routing='{mode}'")
-    if mode != "bounds":
-        raise not_ported("the replicate pod's front end", REPLICATE_ITEM)
     stats = [s["engine"] for s in raw]
     # per-host config/bounds fingerprints, captured at validation time: the
     # health monitor's rejoin gate compares a RETURNING host against these
@@ -1707,6 +2108,43 @@ def pod_config_from_hosts(host_urls: list[str],
     fingerprints = {url: host_fingerprint(e, mode)
                     for url, e in zip(host_urls, stats)}
     ref = stats[0]
+    if mode == "off":
+        covered: set[int] = set()
+        for url, e in zip(host_urls, stats):
+            # every key that feeds the launch plan's identity must agree,
+            # or the hosts would enter the pod-wide merge with different
+            # operands (engine and buckets change the traversal;
+            # query_buckets / sort_queries change the staged batch and the
+            # Morton permutation each host computes locally)
+            for key in ("k", "max_batch", "num_shards", "shape_buckets",
+                        "merge", "n_points", "engine", "bucket_size",
+                        "query_buckets", "sort_queries", "score_dtype",
+                        "dim"):
+                if e.get(key) != ref.get(key):
+                    raise ValueError(
+                        f"pod mismatch: host {url} has {key}={e.get(key)!r},"
+                        f" host {host_urls[0]} has {ref.get(key)!r}")
+            if e.get("merge") != "device":
+                raise ValueError(f"host {url} serves merge="
+                                 f"{e.get('merge')!r}; the pod front end "
+                                 "needs merge='device'")
+            if e.get("process_count") != len(host_urls):
+                raise ValueError(
+                    f"host {url} reports process_count="
+                    f"{e.get('process_count')} but the front end was given "
+                    f"{len(host_urls)} hosts")
+            covered.update(e.get("my_positions", []))
+        if covered != set(range(ref["num_shards"])):
+            raise ValueError(
+                f"host list covers mesh positions {sorted(covered)} of "
+                f"{ref['num_shards']} — slices would be missing rows")
+        return {"routing": "off",
+                "host_urls": list(host_urls),
+                "fingerprints": fingerprints,
+                "k": ref["k"], "max_batch": ref["max_batch"],
+                "min_batch": ref["shape_buckets"][0],
+                "num_shards": ref["num_shards"],
+                "n_points": ref["n_points"], "dim": ref.get("dim", 3)}
     for url, e in zip(host_urls, stats):
         # routed hosts answer independently, so only the result CONTRACT
         # must agree — k, dim, radius semantics, score dtype (distances
@@ -1768,37 +2206,53 @@ def build_frontend(host_urls: list[str], *, host: str = "127.0.0.1",
                    health_config: dict | None = None,
                    start_monitor: bool = True,
                    standbys: list[str] | None = None,
-                   wire: str = "auto",
+                   handoff_floor: int = 1, wire: str = "auto",
                    qcache_rows: int = 4096, qcache_seed_rows: int = 512,
                    verbose: bool = False) -> FrontendServer:
-    """Validate the routed pod and construct (but do not start) a
+    """Validate the pod and construct (but do not start) a
     FrontendServer; ``port=0`` picks a free port
-    (``server.server_address[1]``). ``on_host_loss`` picks the
-    drained-slab policy (fail = 503 affected queries, degrade = serve them
-    flagged ``exact: false``); the health monitor starts supervising
-    immediately unless ``start_monitor=False`` (tests drive
-    ``server.monitor.check_once()`` by hand instead). Hosts claiming the
-    same row range are REPLICAS of one slab (exactness degrades only when
-    all of a slab's replicas are down). ``wire`` picks the
-    candidate-exchange codec policy: "auto" negotiates the compressed q16
-    exchange with every capable host (the exact f32 re-merge keeps served
-    bits identical), "f32" forces the uncompressed wire everywhere, "q16"
-    is auto said explicitly. ``standbys`` (slab handoff) raises
-    ``not_ported``."""
-    if standbys:
-        raise not_ported("standby hosts (--standbys)", HANDOFF_ITEM)
+    (``server.server_address[1]``). ``routing`` selects the fan-out:
+    "off" = the replicate pod, "bounds" = shard-local routing, "auto" =
+    whatever the hosts serve. ``on_host_loss`` picks the drained-slab
+    policy (fail = 503 affected queries, degrade = serve them flagged
+    ``exact: false``); the health monitor starts supervising immediately
+    unless ``start_monitor=False`` (tests drive
+    ``server.monitor.check_once()`` by hand instead). Routed pods: hosts
+    claiming the same row range are REPLICAS of one slab (exactness
+    degrades only when all of a slab's replicas are down); ``standbys``
+    lists warm ``--standby`` hosts the monitor's replica manager directs
+    to adopt a slab whose live-replica count falls below
+    ``handoff_floor``. ``wire`` picks the candidate-exchange codec policy
+    (routed pods): "auto" negotiates the compressed q16 exchange with
+    every capable host (the exact f32 re-merge keeps served bits
+    identical), "f32" forces the uncompressed wire everywhere, "q16" is
+    auto said explicitly."""
+    from mpi_cuda_largescaleknn_torch.serve.replica import ReplicaManager
+
     cfg = pod_config_from_hosts(host_urls, routing=routing)
     hc = dict(fail_threshold=fail_threshold,
               probe_interval_s=probe_interval_s)
     hc.update(health_config or {})
-    table = PodBoundsTable(cfg["bounds_hosts"], cfg["dim"])
-    fanout = RoutedPodFanout(
-        cfg["host_urls"], k=cfg["k"], max_batch=cfg["max_batch"],
-        bounds=table, timeout_s=timeout_s, dim=cfg["dim"],
-        retries=retries, retry_backoff_s=retry_backoff_s,
-        request_timeout_s=request_timeout_s, health_config=hc,
-        replica_groups=cfg["replica_groups"], wire=wire,
-        wire_host_caps=cfg.get("wire_host_caps"))
+    if cfg["routing"] == "bounds":
+        table = PodBoundsTable(cfg["bounds_hosts"], cfg["dim"])
+        fanout: PodFanout = RoutedPodFanout(
+            cfg["host_urls"], k=cfg["k"], max_batch=cfg["max_batch"],
+            bounds=table, timeout_s=timeout_s, dim=cfg["dim"],
+            retries=retries, retry_backoff_s=retry_backoff_s,
+            request_timeout_s=request_timeout_s, health_config=hc,
+            replica_groups=cfg["replica_groups"], wire=wire,
+            wire_host_caps=cfg.get("wire_host_caps"))
+    else:
+        if standbys:
+            raise ValueError("standby hosts (slab handoff) apply to "
+                             "routed pods only — a replicate-mode pod is "
+                             "one program across its hosts")
+        fanout = PodFanout(cfg["host_urls"], k=cfg["k"],
+                           max_batch=cfg["max_batch"],
+                           timeout_s=timeout_s, dim=cfg["dim"],
+                           retries=retries, retry_backoff_s=retry_backoff_s,
+                           request_timeout_s=request_timeout_s,
+                           health_config=hc)
     server = FrontendServer((host, port), fanout, max_delay_s=max_delay_s,
                             pipeline_depth=pipeline_depth,
                             max_queue_rows=max_queue_rows,
@@ -1811,15 +2265,27 @@ def build_frontend(host_urls: list[str], *, host: str = "127.0.0.1",
     server.monitor = HealthMonitor(fanout,
                                    fingerprints=cfg["fingerprints"],
                                    mode=cfg["routing"])
+    if cfg["routing"] == "bounds":
+        # the handoff brain rides the monitor's check_once cadence; a
+        # bound standby is registered in the monitor's fingerprint table
+        # so its own later drain/rejoin cycles get the same gate
+        server.monitor.replica_manager = ReplicaManager(
+            fanout, slabs=cfg["replica_groups"],
+            slab_fingerprints=cfg["slab_fingerprints"],
+            standbys=standbys or [], handoff_floor=handoff_floor,
+            fingerprint_registry=server.monitor.fingerprints)
     if start_monitor:
         server.monitor.start()
     return server
 
 
 FRONTEND_FLAGS = """
-  --hosts U1,U2,... routed host servers (required; serve_main --routing
-                    bounds, one per slab or several per slab as replicas,
-                    in any order — slab tiling is validated at startup)
+  --hosts U1,U2,... per-host servers (required): the replicate pod's
+                    (serve_main --coordinator, one per process, in any
+                    order — mesh coverage is validated at startup) or the
+                    routed pod's (serve_main --routing bounds, one per
+                    slab or several per slab as replicas, in any order —
+                    slab tiling is validated at startup)
   --port P          HTTP port (default 8080; 0 = pick a free port)
   --host H          bind address (default 127.0.0.1)
   --max-delay-ms F  micro-batch flush deadline (default 2.0)
@@ -1828,10 +2294,11 @@ FRONTEND_FLAGS = """
   --max-queue-rows N  admission cap on queued+running rows (default 4096)
   --timeout-ms F    default per-request deadline (default 5000)
   --wait-ready-s F  how long to wait for host warmup (default 600)
-  --routing M       auto | bounds (default auto = adopt the hosts' mode):
-                    bounds routes each query only to hosts whose shard
-                    AABBs can beat its current k-th distance, with
-                    certified escalation
+  --routing M       auto | off | bounds (default auto = adopt the hosts'
+                    mode): off replicates every batch pod-wide; bounds
+                    routes each query only to hosts whose shard AABBs can
+                    beat its current k-th distance, with certified
+                    escalation
   --on-host-loss P  fail | degrade (default fail): what happens to queries
                     whose certified routing set touches a DRAINED host —
                     fail answers them 503 + Retry-After (exactness
@@ -1848,8 +2315,17 @@ FRONTEND_FLAGS = """
                     (default 5; drained hosts re-probe on capped
                     exponential backoff + jitter)
   --fail-threshold N  consecutive failures that drain a host (default 3)
+  --standbys U1,U2,...  warm standby hosts (serve_main --standby; routed
+                    pods only): when a slab's live-replica count falls
+                    below --handoff-floor the monitor directs one to
+                    ADOPT the slab (POST /adopt_slab), fingerprint-gated
+                    before it serves
+  --handoff-floor N live replicas per slab below which a handoff starts
+                    (default 1 = hand off only when a slab is fully
+                    down; R with --handoff-floor R keeps full replication
+                    through any single loss)
   --wire M          auto | f32 | q16 (default auto): candidate-exchange
-                    codec policy — auto negotiates the compressed q16 wire
+                    codec policy for routed pods — auto negotiates the compressed q16 wire
                     per host (served bits stay identical: exact f32
                     re-merge), f32 forces the uncompressed exchange
   --qcache-rows N   certified query cache capacity in cached rows
@@ -1858,16 +2334,11 @@ FRONTEND_FLAGS = """
                     by construction
   --qcache-seed-rows N  triangle-inequality seed pool rows per tenant
                     (default 512; 0 disables radius seeding while
-                    keeping the hit/dedup tiers)
+                    keeping the hit/dedup tiers). Seeding applies on
+                    routed pods only — a replicate pod folds every host
+                    regardless
   --verbose         log each HTTP request to stderr
-
-Not ported yet (each raises, naming its ROADMAP item): --routing off (the
-replicate pod, Queue 1 item 3c), --standbys and --handoff-floor (slab
-handoff, Queue 1 item 3b).
 """
-
-# front-end flags not ported yet: flag -> ROADMAP item
-_NOT_PORTED = {"--standbys": HANDOFF_ITEM, "--handoff-floor": HANDOFF_ITEM}
 
 
 def main(argv: list[str] | None = None, ready=None) -> int:
@@ -1886,7 +2357,8 @@ def main(argv: list[str] | None = None, ready=None) -> int:
            "on_host_loss": "fail", "retries": 2,
            "retry_backoff_ms": 50.0, "request_timeout_ms": 0.0,
            "probe_interval_s": 5.0, "fail_threshold": 3,
-           "wire": "auto", "qcache_rows": 4096, "qcache_seed_rows": 512,
+           "standbys": "", "handoff_floor": 1, "wire": "auto",
+           "qcache_rows": 4096, "qcache_seed_rows": 512,
            "verbose": False}
     i = 0
     try:
@@ -1922,6 +2394,10 @@ def main(argv: list[str] | None = None, ready=None) -> int:
                 i += 1; opt["probe_interval_s"] = float(args[i])
             elif a == "--fail-threshold":
                 i += 1; opt["fail_threshold"] = int(args[i])
+            elif a == "--standbys":
+                i += 1; opt["standbys"] = args[i]
+            elif a == "--handoff-floor":
+                i += 1; opt["handoff_floor"] = int(args[i])
             elif a == "--wire":
                 i += 1; opt["wire"] = args[i]
             elif a == "--qcache-rows":
@@ -1930,8 +2406,6 @@ def main(argv: list[str] | None = None, ready=None) -> int:
                 i += 1; opt["qcache_seed_rows"] = int(args[i])
             elif a == "--verbose":
                 opt["verbose"] = True
-            elif a in _NOT_PORTED:
-                raise not_ported(f"option {a}", _NOT_PORTED[a])
             else:
                 raise ValueError(f"unknown cmdline arg '{a}'")
             i += 1
@@ -1957,14 +2431,17 @@ def main(argv: list[str] | None = None, ready=None) -> int:
         request_timeout_s=(opt["request_timeout_ms"] / 1e3
                            if opt["request_timeout_ms"] > 0 else None),
         probe_interval_s=opt["probe_interval_s"],
-        fail_threshold=opt["fail_threshold"], wire=opt["wire"],
+        fail_threshold=opt["fail_threshold"],
+        standbys=[s for s in opt["standbys"].split(",") if s],
+        handoff_floor=opt["handoff_floor"], wire=opt["wire"],
         qcache_rows=opt["qcache_rows"],
         qcache_seed_rows=opt["qcache_seed_rows"],
         verbose=opt["verbose"])
     server.ready = True
     h, p = server.server_address[:2]
+    mode = getattr(server.fanout, "routing_mode", "off")
     print(f"pod front end on http://{h}:{p} fanning to {len(hosts)} host(s) "
-          f"(routing={server.fanout.routing_mode}, "
+          f"(routing={mode}, "
           f"on-host-loss={opt['on_host_loss']})", flush=True)
     if ready is not None:
         ready(server)

@@ -1,8 +1,8 @@
-"""Replica groups and slab pulls of a routed pod.
+"""Replica groups, slab pulls and slab handoff of a routed pod.
 
-The part of the JAX package's ``serve/replica.py`` that the routed
-fan-out (serve/frontend.py ``RoutedPodFanout``) and the tiered slab
-pool's ``url=`` source use:
+The port of the JAX package's ``serve/replica.py``, used by the routed
+fan-out (serve/frontend.py ``RoutedPodFanout``), its health monitor and
+the tiered slab pool's ``url=`` source:
 
 - ``ReplicaSet`` — the slab -> endpoint-group table the routed fan-out
   dispatches through. Each slab (one contiguous row range of the global
@@ -21,13 +21,30 @@ pool's ``url=`` source use:
   slabs and checks that the slabs tile the index.
 - ``pull_slab_rows`` — a host's slab rows over ``GET /slab_rows`` (the
   d16 codec or chunked f32, crc32-verified after decode).
+- ``ReplicaManager`` — the slab-HANDOFF brain, driven from the
+  ``HealthMonitor``'s ``check_once`` loop. When a slab's live-replica
+  count falls below ``handoff_floor``, an idle WARM STANDBY host (a
+  ``serve_main --standby`` process holding no slab) is directed to adopt
+  the rows through ``POST /adopt_slab``: the standby reads the slab again
+  from the source file (the reference's ``read_file_portion`` split, the
+  same integer arithmetic, so the adopted rows are byte-equal to the lost
+  host's) or pulls them from a surviving replica (``pull_slab_rows``),
+  builds the slab engine on its card, and warms every shape bucket (the
+  kernels built and launched once) before it reports ready. The adopted
+  slab NEVER serves unproven: the manager compares its /stats fingerprint
+  with the pod table captured when the front end was built, and only an
+  exact match is bound into the ``ReplicaSet``
+  (``fanout.bind_replica``); a standby that came up on the wrong slab or
+  config stays out of rotation with the difference in ``last_error``.
 
-The slab-handoff manager (``ReplicaManager``: warm standbys adopting an
-under-replicated slab) is not ported yet (ROADMAP.md Queue 1 item 3b).
+All transports are injectable (``probe_fn`` / ``stats_fn`` / ``adopt_fn``)
+and time rides an injectable monotonic clock, so every handoff transition
+is testable without HTTP or sleeps.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 import urllib.request
@@ -36,7 +53,10 @@ import zlib
 import numpy as np
 
 from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
-from mpi_cuda_largescaleknn_torch.serve.health import STATE_CODE
+from mpi_cuda_largescaleknn_torch.serve.health import (
+    STATE_CODE,
+    host_fingerprint,
+)
 from mpi_cuda_largescaleknn_torch.serve.wire import (
     WireError,
     decode_slab_chunk,
@@ -327,3 +347,200 @@ def pull_slab_rows(url: str, *, timeout_s: float = 120.0,
     out = (np.concatenate(parts, axis=0) if parts
            else np.zeros((0, dim), "<f4"))
     return np.ascontiguousarray(out, "<f4"), off
+
+
+def _http_adopt(url: str, req: dict, timeout_s: float) -> dict:
+    r = urllib.request.Request(
+        url.rstrip("/") + "/adopt_slab", data=json.dumps(req).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(r, timeout=timeout_s) as resp:
+        return json.loads(resp.read().decode())
+
+
+# ---------------------------------------------------------- handoff manager
+
+
+class ReplicaManager:
+    """The slab-handoff supervisor, driven from ``HealthMonitor.check_once``.
+
+    ``check_once(now)`` is the whole brain: it first advances in-flight
+    adoptions (probing the adopting standby and, once it is ready,
+    scraping its /stats and holding its fingerprint against the slab's
+    pod-table entry before ``fanout.bind_replica`` brings it into
+    rotation), then starts a new handoff for any slab whose live-replica
+    count sits below ``handoff_floor`` with no adoption in flight.
+    Standbys are single-shot: a bound standby IS a replica from then on
+    (supervised by the health monitor like any other), and a failed or
+    rejected one stays out with the reason in ``last_error``.
+    """
+
+    def __init__(self, fanout, *, slabs: list[dict],
+                 slab_fingerprints: list[dict],
+                 standbys: list[str] | None = None,
+                 handoff_floor: int = 1, adopt_timeout_s: float = 600.0,
+                 probe_timeout_s: float = 5.0, probe_fn=None, stats_fn=None,
+                 adopt_fn=None, fingerprint_registry: dict | None = None,
+                 clock=time.monotonic):
+        from mpi_cuda_largescaleknn_torch.serve.health import (
+            _http_probe,
+            _http_stats,
+        )
+
+        self.fanout = fanout
+        self.slabs = [dict(s) for s in slabs]
+        self.slab_fingerprints = list(slab_fingerprints)
+        self.handoff_floor = int(handoff_floor)
+        self.adopt_timeout_s = float(adopt_timeout_s)
+        #: the monitor's url -> fingerprint table: a bound standby is
+        #: registered here, so its own later drain/rejoin cycles get the
+        #: same fingerprint gate as an original member
+        self.fingerprint_registry = fingerprint_registry
+        self._probe = probe_fn or (
+            lambda url: _http_probe(url, probe_timeout_s))
+        self._stats = stats_fn or (
+            lambda url: _http_stats(url, probe_timeout_s))
+        self._adopt = adopt_fn or (
+            lambda url, req: _http_adopt(url, req, probe_timeout_s))
+        self._clock = clock
+        self._lock = threading.Lock()
+        # standby records and handoff counters are written by the monitor
+        # thread and read by /stats scrapes: all access under _lock
+        self.standbys: guarded_by("_lock") = [
+            {"url": u, "state": "idle", "slab": None, "last_error": None,
+             "t0": None} for u in (standbys or [])]
+        self.inflight: guarded_by("_lock") = set()
+        self.handoffs: guarded_by("_lock") = 0
+        self.handoff_failures: guarded_by("_lock") = 0
+        self.handoff_rejections: guarded_by("_lock") = 0
+        self.handoff_seconds_total: guarded_by("_lock") = 0.0
+        self.starved: guarded_by("_lock") = 0
+
+    # ------------------------------------------------------------------ brain
+
+    def check_once(self, now: float | None = None) -> None:
+        now = now if now is not None else self._clock()
+        with self._lock:
+            adopting = [dict(sb) for sb in self.standbys
+                        if sb["state"] == "adopting"]
+        for sb in adopting:
+            self._check_adoption(sb, now)
+        live = self.fanout.replicas.live_counts()
+        for slab, count in enumerate(live):
+            if count >= self.handoff_floor:
+                continue
+            with self._lock:
+                if slab in self.inflight:
+                    continue
+                idle = next((sb for sb in self.standbys
+                             if sb["state"] == "idle"), None)
+                if idle is None:
+                    self.starved += 1
+                    continue
+                idle["state"] = "adopting"
+                idle["slab"] = slab
+                idle["t0"] = now
+                idle["last_error"] = None
+                url = idle["url"]
+                self.inflight.add(slab)
+            self._start_handoff(url, slab)
+
+    def _start_handoff(self, standby_url: str, slab: int) -> None:
+        """Direct the standby at ``slab``: with ``source_url`` (a live
+        member's) when there is one, so the standby pulls the rows from
+        it; without, so it reads them again from the file."""
+        src = None
+        for i in self.fanout.replicas.members(slab):
+            ep = self.fanout.endpoints[i]
+            if not ep.health.is_drained():
+                src = ep.url
+                break
+        meta = self.slabs[slab]
+        req = {"host_id": slab, "num_hosts": len(self.slabs),
+               "row_offset": meta["row_offset"],
+               "n_points": meta["n_points"]}
+        if src is not None:
+            req["source_url"] = src
+        try:
+            self._adopt(standby_url, req)
+        except Exception as e:  # noqa: BLE001 - recorded, handoff retried
+            self._fail_standby(standby_url, slab,
+                               f"adopt request failed: "
+                               f"{type(e).__name__}: {e}")
+
+    def _check_adoption(self, sb: dict, now: float) -> None:
+        url, slab = sb["url"], sb["slab"]
+        ok, info = self._probe(url)
+        if ok:
+            try:
+                stats = self._stats(url)
+                fp = host_fingerprint(stats.get("engine", {}), "bounds")
+            except Exception as e:  # noqa: BLE001 - recorded, not swallowed
+                self._fail_standby(url, slab,
+                                   f"adopted-slab stats scrape failed: "
+                                   f"{type(e).__name__}: {e}")
+                return
+            want = self.slab_fingerprints[slab]
+            if want is not None and fp != want:
+                diff = sorted(k for k in want if fp.get(k) != want.get(k))
+                self._fail_standby(
+                    url, slab,
+                    f"handoff rejected: fingerprint mismatch on {diff} — "
+                    "the adopted slab does not serve the rows/config the "
+                    "pod table was built from", rejected=True)
+                return
+            self.fanout.bind_replica(slab, url)
+            # register the adoptee's wire caps (the /stats ROOT block) so
+            # the fan-out negotiates its codec like any host at startup; a
+            # host without caps negotiates f32
+            negotiator = getattr(self.fanout, "negotiator", None)
+            if negotiator is not None:
+                negotiator.set_caps(url, stats.get("wire"))
+            if self.fingerprint_registry is not None:
+                self.fingerprint_registry[url] = (want if want is not None
+                                                  else fp)
+            with self._lock:
+                for x in self.standbys:
+                    if x["url"] == url:
+                        x["state"] = "bound"
+                self.inflight.discard(slab)
+                self.handoffs += 1
+                if sb["t0"] is not None:
+                    self.handoff_seconds_total += max(0.0, now - sb["t0"])
+            return
+        if info.get("status") == "adopt-failed":
+            self._fail_standby(url, slab,
+                               info.get("adopt_error") or "adoption failed")
+        elif sb["t0"] is not None and now - sb["t0"] > self.adopt_timeout_s:
+            self._fail_standby(url, slab,
+                               f"adoption timed out after "
+                               f"{self.adopt_timeout_s:.0f}s")
+        # else: still materializing or warming — check again next cycle
+
+    def _fail_standby(self, url: str, slab: int, msg: str,
+                      rejected: bool = False) -> None:
+        with self._lock:
+            for x in self.standbys:
+                if x["url"] == url:
+                    x["state"] = "failed"
+                    x["last_error"] = msg
+            self.inflight.discard(slab)
+            if rejected:
+                self.handoff_rejections += 1
+            else:
+                self.handoff_failures += 1
+
+    def stats(self) -> dict:
+        live = self.fanout.replicas.live_counts()
+        with self._lock:
+            return {
+                "handoff_floor": self.handoff_floor,
+                "slab_live": list(live),
+                "standbys": [dict(sb) for sb in self.standbys],
+                "inflight_slabs": sorted(self.inflight),
+                "handoffs": self.handoffs,
+                "handoff_failures": self.handoff_failures,
+                "handoff_rejections": self.handoff_rejections,
+                "handoff_seconds_total": round(self.handoff_seconds_total,
+                                               3),
+                "starved": self.starved,
+            }

@@ -290,8 +290,13 @@ def test_pod_config_equals_jax(pods):
     for key in ("k", "dim", "max_batch", "min_batch", "n_points",
                 "bounds_hosts", "slab_fingerprints"):
         assert got[key] == want[key], key
-    with pytest.raises(NotImplementedError, match="3c"):
-        pod_config_from_hosts(built["torch"][1], routing="off")
+    # asking a routed pod for the replicate fan-out: the same refusal
+    errors = []
+    for config in (pod_config_from_hosts, jax_config):
+        with pytest.raises(ValueError, match="routing='off'") as e:
+            config(built["torch"][1], routing="off")
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
     with pytest.raises(ValueError, match="tile the index"):
         pod_config_from_hosts([built["torch"][1][1]], routing="bounds")
 
@@ -358,35 +363,74 @@ def test_fold_radius_capped_rows_equal_jax():
         assert np.array_equal(n, want_n)
 
 
-def test_pieces_not_ported_name_their_item(pods):
-    """The replicate pod (3c) and slab handoff (3b) raise or answer 501
-    naming their ROADMAP item."""
+def test_pieces_not_ported_name_their_item(pods, capsys):
+    """The pieces of the replicate pod and slab handoff that were refused
+    before they were ported behave as the JAX package's: a replicate host
+    builds over any engine; a standby needs ``routing='bounds'``; a
+    front end with ``standbys`` gets a replica manager holding them idle;
+    ``--standbys`` / ``--handoff-floor`` parse; a ``PodFanout`` whose host
+    is gone breaks its stream with ``PodBrokenError`` and drains the host;
+    a routed host answers ``/adopt_slab`` 409 and ``/shard_knn`` 404."""
     from mpi_cuda_largescaleknn_torch.serve import frontend as tf
+    from mpi_cuda_largescaleknn_tpu.serve import frontend as jf
 
     points, built, _ref = pods
-    eng = built["torch"][2][0].engine
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        tf.HostSliceServer(("127.0.0.1", 0), eng, routing="off")
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        tf.HostSliceServer(("127.0.0.1", 0), None,
-                           standby_config={"path": "x"})
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        tf.build_frontend(built["torch"][1], standbys=["http://x:1"])
-    for flag in ("--standbys", "--handoff-floor"):
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            tf.main(["--hosts", "http://x:1", flag, "1"])
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        tf.PodFanout(["http://x:1"], k=K, max_batch=8).dispatch(
-            np.zeros((1, 3), np.float32))
-    url = built["torch"][1][0]
-    for path, item in (("/adopt_slab", "3b"), ("/shard_knn?seq=0", "3c")):
-        req = urllib.request.Request(url + path, data=b"{}",
-                                     headers={"Content-Type":
-                                              "application/json"})
-        with pytest.raises(urllib.error.HTTPError) as e:
-            urllib.request.urlopen(req, timeout=30)
-        assert e.value.code == 501
-        assert f"item {item}" in json.loads(e.value.read())["error"]
+    for mod, pkg in ((tf, "torch"), (jf, "jax")):
+        eng = built[pkg][2][0].engine
+        srv = mod.HostSliceServer(("127.0.0.1", 0), eng, routing="off")
+        assert srv.routing == "off" and srv.next_seq_snapshot() == 0
+        srv.close()
+        with pytest.raises(ValueError, match="routed tier"):
+            mod.HostSliceServer(("127.0.0.1", 0), None,
+                                standby_config={"path": "x"})
+    handoff = []
+    for mod, pkg in ((tf, "torch"), (jf, "jax")):
+        fe = mod.build_frontend(built[pkg][1], port=0,
+                                standbys=["http://127.0.0.1:9"],
+                                handoff_floor=2, start_monitor=False)
+        try:
+            handoff.append(fe.monitor.stats()["handoff"])
+        finally:
+            fe.close()
+    assert handoff[0] == handoff[1]
+    assert handoff[0]["standbys"][0]["state"] == "idle"
+    assert handoff[0]["handoff_floor"] == 2
+    for argv, said in (
+            (["--standbys", "http://x:1", "--handoff-floor", "2"],
+             "--hosts is required"),
+            (["--standbys", "http://x:1", "--handoff-floor", "two"],
+             "invalid literal")):
+        lines = []
+        for mod in (tf, jf):
+            assert mod.main(argv) == 1
+            lines.append(capsys.readouterr().err.splitlines()[0])
+        assert lines[0] == lines[1] and said in lines[0]
+    broken = []
+    for mod in (tf, jf):
+        fan = mod.PodFanout(["http://127.0.0.1:9"], k=K, max_batch=8)
+        try:
+            h = fan.dispatch(np.zeros((1, 3), np.float32))
+            assert h["seq"] == 0
+            with pytest.raises(mod.PodBrokenError, match="unreachable"):
+                fan.complete(h)
+            assert fan.endpoints[0].health.state == "drained"
+            with pytest.raises(mod.PodBrokenError):
+                fan.dispatch(np.zeros((1, 3), np.float32))
+            broken.append(fan.stats()["next_seq"])
+        finally:
+            fan.close()
+    assert broken == [1, 1]
+    for path, code in (("/adopt_slab", 409), ("/shard_knn?seq=0", 404)):
+        bodies = []
+        for pkg in ("torch", "jax"):
+            req = urllib.request.Request(
+                built[pkg][1][0] + path, data=b'{"host_id": 0}',
+                headers={"Content-Type": "application/json"})
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(req, timeout=30)
+            assert e.value.code == code
+            bodies.append(e.value.read())
+        assert bodies[0] == bodies[1]
 
 
 def test_streaming_routed_hosts_equal_one_engine(tmp_path):

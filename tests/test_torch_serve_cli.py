@@ -1,11 +1,11 @@
 """The port's serving CLI (``cli/serve_main.py``): the same option dict
 as the JAX CLI's for the single-host flags (the slab pool's and tenancy's
 included) and the routed pod's (``--routing bounds --num-hosts --host-id
---wire``), the JAX CLI's usage errors word for word, the replicate pod's
-and standby's flags refused with ``not_ported`` naming their ROADMAP item,
-``main`` run in process on the CPU answering a JSON and a binary request,
-and a routed pod of ``main`` hosts plus ``serve.frontend.main`` answering
-byte-equal to the JAX package's CLI pod."""
+--wire``), the replicate pod's and the standby's, the JAX CLI's usage
+errors word for word, ``main`` run in process on the CPU answering a JSON
+and a binary request, and a routed pod of ``main`` hosts plus
+``serve.frontend.main`` answering byte-equal to the JAX package's CLI
+pod."""
 
 import json
 import os
@@ -59,36 +59,30 @@ def test_parse_serve_args_equals_jax(argv):
         == "cpu"
 
 
-@pytest.mark.parametrize("flag,value,item", [
-    # ids as before the routed pod was ported; ``item`` None: ported
-    pytest.param("--coordinator", "127.0.0.1:9", "item 3c",
+@pytest.mark.parametrize("flag,value", [
+    # ids as before the pod flags were ported
+    pytest.param("--coordinator", "127.0.0.1:9",
                  id="--coordinator-127.0.0.1:9-pod serving"),
-    pytest.param("--num-hosts", "2", "item 3c",
-                 id="--num-hosts-2-pod serving"),
-    pytest.param("--host-id", "1", None, id="--host-id-1-pod serving"),
-    pytest.param("--routing", "bounds", None,
-                 id="--routing-bounds-pod serving"),
-    pytest.param("--standby", None, "item 3b",
-                 id="--standby-None-pod serving"),
-    pytest.param("--wire", "f32", None, id="--wire-f32-pod serving"),
-    pytest.param("--seq-timeout-s", "5", "item 3c",
+    pytest.param("--num-hosts", "2", id="--num-hosts-2-pod serving"),
+    pytest.param("--host-id", "1", id="--host-id-1-pod serving"),
+    pytest.param("--routing", "bounds", id="--routing-bounds-pod serving"),
+    pytest.param("--standby", None, id="--standby-None-pod serving"),
+    pytest.param("--wire", "f32", id="--wire-f32-pod serving"),
+    pytest.param("--seq-timeout-s", "5",
                  id="--seq-timeout-s-5-pod serving"),
 ])
-def test_refused_flags_name_their_item(flag, value, item):
-    """Each pod flag alone: the routed pod's parse to the JAX CLI's option
-    dict; the replicate pod's (``--coordinator``, ``--num-hosts`` without
-    ``--routing bounds``, ``--seq-timeout-s``) and ``--standby`` (given
-    ``--routing bounds``, which JAX asks of it) raise naming their item."""
+def test_refused_flags_name_their_item(flag, value):
+    """Each pod flag alone parses to the JAX CLI's option dict (plus
+    ``device``): the replicate pod's (``--coordinator``, ``--num-hosts``
+    without ``--routing bounds``, ``--seq-timeout-s``), the routed pod's
+    and ``--standby`` (given ``--routing bounds``, which JAX asks of
+    it). These flags were refused before the pods were ported."""
     argv = ["pts.float3", "-k", "8", flag] + ([value] if value else [])
     if flag == "--standby":
         argv += ["--routing", "bounds"]
-    if item is None:
-        got = t_cli.parse_serve_args(argv)
-        assert got.pop("device") is None
-        assert got == j_cli.parse_serve_args(argv)
-    else:
-        with pytest.raises(NotImplementedError, match=item):
-            t_cli.parse_serve_args(argv)
+    got = t_cli.parse_serve_args(argv)
+    assert got.pop("device") is None
+    assert got == j_cli.parse_serve_args(argv)
 
 
 ROUTED = [["pts.float3", "-k", "8", "--routing", "bounds", "--num-hosts",
