@@ -299,6 +299,24 @@ when 18b's traffic ends, so their start-up overlaps 18c-18e):
    503 naming ``PodBrokenError`` and /healthz reports the break, then
    every child is killed.
 
+Then the port's tools (``tooling_phases``), a ``serve_main`` child on
+16s's raw file (k=100, R=1, ``--port 0``) and a ``tools/torch_lskcheck.py``
+child started together:
+
+20c. ``obs/cost.py`` ``cost_report`` over phase 4's two ``--timings`` runs
+   (their ``pair_evals`` and ring seconds), the peak by the card's name;
+20b. ``tools/torch_recall_harness.py`` on the card at its defaults (16,384
+   points, k=16, 512 queries, three workloads): every measured recall in
+   [0, 1], the policy file loaded by ``RecallPolicy.from_file``, and the
+   exact plan's recall 1.0 on every workload against the plain traversal;
+20d. the analyzer's full gate in its child: exit 0, zero findings;
+20a. ``tools/torch_loadgen.py`` in a child process against the server,
+   closed loop, 8 workers, binary rows of 1024, ``--server-stats``: 8 s
+   uniform, then 8 s sweep, no errors; a 64-row probe before and after
+   byte-equal and exact (ids up to ties); /stats: no plan built after
+   warmup, one traversal launch a dispatched batch, all on the D=3
+   kernel; q/s and p50/p99 a workload beside 16a's in-thread q/s.
+
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``build/smoke/chip_smoke.json``.
@@ -5025,6 +5043,300 @@ def replicate_pod_phases(smi, started, groups):
     return details, counts
 
 
+TOOL_SECONDS = 8.0               # 20a: loadgen traffic a workload
+TOOL_CLIENTS = 8                 # 20a: loadgen's closed-loop workers
+TOOL_BATCH = 1024                # 20a: rows a request
+TOOL_CHILD_SECONDS = 300         # phase 20: a child's wall-clock limit
+RECALL_K = 16                    # 20b: the recall harness's defaults
+RECALL_POINTS, RECALL_QUERIES = 16_384, 512
+
+
+def load_tool(name):
+    """A script of ``tools/`` as a module (the tools are not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"tools_{name}", ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def finish_child(group, groups, seconds):
+    """Waits for a group's one child within ``seconds`` of the group's
+    start; a child that fails or outlives it kills every child of
+    ``groups`` and fails the phase. Returns its stdout."""
+    label, procs, files, t0 = group
+    try:
+        procs[0].wait(timeout=max(1.0, seconds - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        kill_groups(groups)
+        fail(f"{label}: outlived {seconds} s")
+    out = child_tail(group, 0)
+    if procs[0].returncode != 0:
+        kill_groups(groups)
+        fail(f"{label} exited {procs[0].returncode}:\n{out}")
+    files[0][0].seek(0)
+    text = files[0][0].read()
+    for f in files[0]:
+        f.close()
+    groups.remove(group)
+    return text
+
+
+def wait_url(group, groups):
+    """The URL a ``serve_main`` child prints once it serves (``--port 0``:
+    ``serving kNN on http://127.0.0.1:<port>``), within
+    ``TOOL_CHILD_SECONDS``; returns (url, seconds it took)."""
+    label, procs, files, t0 = group
+    while True:
+        if procs[0].poll() is not None:
+            kill_groups(groups)
+            fail(f"{label} exited {procs[0].returncode}:\n"
+                 f"{child_tail(group, 0)}")
+        files[0][0].flush()
+        files[0][0].seek(0)
+        for line in files[0][0].read().splitlines():
+            if line.startswith("serving kNN on http://"):
+                return (line.split()[3], time.perf_counter() - t0)
+        if time.perf_counter() - t0 > TOOL_CHILD_SECONDS:
+            kill_groups(groups)
+            fail(f"{label}: not serving after {TOOL_CHILD_SECONDS} s")
+        time.sleep(0.2)
+
+
+def tooling_phases(smi, in_thread_qps, phase4):
+    """Phase 20: the port's tools on the card. A ``serve_main`` child
+    serves 16s's raw file (16a's N_WALL points, in Morton order) at
+    k=WALL_K, R=1, on 127.0.0.1:0, and ``tools/torch_lskcheck.py`` runs in
+    another child, both started at once; meanwhile, in this process, 20c
+    (``obs/cost.py`` over phase 4's two runs) and 20b
+    (``tools/torch_recall_harness.py`` on the card at its defaults); then
+    20d (the gate's exit) and 20a: a 64-row probe, ``tools/
+    torch_loadgen.py`` in a child process twice (closed loop, 8 workers,
+    binary rows of 1024, uniform then sweep), the probe again, both
+    answers byte-equal and exact. ``in_thread_qps`` is 16a's in-thread
+    q/s at the same configuration, printed beside 20a's. Returns
+    (details, the server's launch counts during 20a's traffic)."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.obs.cost import cost_report
+    from mpi_cuda_largescaleknn_torch.ops.partition import partition_points
+    from mpi_cuda_largescaleknn_torch.serve.engine import ResidentKnnEngine
+    from mpi_cuda_largescaleknn_torch.serve.recall import (
+        RecallPolicy,
+        measured_recall,
+    )
+
+    details, steps = {}, {}
+    t_phase = time.perf_counter()
+    say(f"[phase 20] the port's tools: serve_main and torch_loadgen in "
+        f"processes of their own, the recall harness, the cost model, the "
+        "analyzer")
+    path = WORK / "tier.float3"
+    logs = WORK / "tools"
+    logs.mkdir(parents=True, exist_ok=True)
+    py = sys.executable
+    groups = []
+    server = start_children("serve_main", [[
+        py, "-u", "-m", "mpi_cuda_largescaleknn_torch.cli.serve_main",
+        str(path), "-k", str(WALL_K), "--port", "0",
+        "--max-queue-rows", str(TOOL_CLIENTS * TOOL_BATCH),
+        "--timeout-ms", "60000"]], groups, "tools")
+    lint = start_children("torch_lskcheck", [[
+        py, str(ROOT / "tools" / "torch_lskcheck.py"), "-q"]], groups,
+        "tools")
+    try:
+        # -- 20c: the cost model over phase 4's runs ------------------------
+        say("[phase 20c] obs/cost.py cost_report over phase 4's --timings "
+            "runs")
+        kind = torch.cuda.get_device_name()
+        details["20c"] = {}
+        for label in ("k100", "k8"):
+            t = phase4[label]
+            rep = cost_report(t["pair_evals"], t["ring"]["seconds"], "gpu",
+                              kind)
+            if not 0.0 < rep["mfu_estimate"] <= 1.0 or (
+                    "h100" in kind.lower()
+                    and rep["assumed_peak_flops"] != 67e12):
+                fail(f"20c: {label}: {rep}")
+            details["20c"][label] = rep
+            say(f"  phase 4 {label}: {rep['pair_evals']} pair evaluations "
+                f"in {t['ring']['seconds']:.4f} s of ring, "
+                f"{rep['pair_evals_per_sec']:.4e} pairs/s, mfu_estimate "
+                f"{rep['mfu_estimate']} of {rep['assumed_peak_flops']:.3e} "
+                f"FP32 FLOP/s ({rep['device_kind']}; {smi})")
+
+        # -- 20b: the recall harness on the card ----------------------------
+        say(f"[phase 20b] tools/torch_recall_harness.py on the card: "
+            f"{RECALL_POINTS} points, k={RECALL_K}, {RECALL_QUERIES} queries")
+        harness = load_tool("torch_recall_harness")
+        policy_path = logs / "recall_policy.json"
+        with timed_step(steps, "20b harness"), redirect_stdout(io.StringIO()):
+            rc = harness.main(["--out", str(policy_path)])
+        report = json.loads(policy_path.read_text())
+        if rc != 0 or report["fixture"]["device"].split(":")[0] != "cuda":
+            fail(f"20b: the harness returned {rc} on "
+                 f"{report['fixture']['device']}")
+        for plan, per in report["measured"].items():
+            if not all(0.0 <= v <= 1.0 for v in per.values()):
+                fail(f"20b: {plan}: a measured recall outside [0, 1]: {per}")
+        policy = RecallPolicy.from_file(str(policy_path))
+        if [p.name for p in policy.plans] != [
+                p["name"] for p in report["plans"]]:
+            fail("20b: the policy file loads other plans than it holds")
+        # the exact plan: the harness's oracle against the plain traversal
+        with timed_step(steps, "20b exact plan"):
+            pts = np.random.default_rng(0).random(
+                (RECALL_POINTS, 3)).astype(np.float32)
+            exact = ResidentKnnEngine(pts, RECALL_K, engine="tiled",
+                                      bucket_size=64, max_batch=256,
+                                      min_batch=16)
+            ref = partition_points(torch.from_numpy(pts).cuda(),
+                                   bucket_size=256)
+            exact_recall = {}
+            for wl in report["fixture"]["workloads"]:
+                q = harness.workload_queries(wl, RECALL_QUERIES, 0)
+                got = np.concatenate([exact.query(q[i:i + 256])[1]
+                                      for i in range(0, len(q), 256)])
+                want = exact_reference(ref, q, RECALL_K)[1].cpu().numpy()
+                exact_recall[wl] = measured_recall(got, want)
+            del exact, ref
+        if any(v != 1.0 for v in exact_recall.values()):
+            fail(f"20b: the exact plan's recall is {exact_recall}")
+        details["20b"] = {"measured": report["measured"],
+                          "plans": report["plans"],
+                          "exact_plan_recall": exact_recall}
+        say("  measured recall (worst workload): " + ", ".join(
+            f"{name} {min(per.values()):.4f}"
+            for name, per in report["measured"].items())
+            + f"; the exact plan 1.0 on {', '.join(exact_recall)}; the "
+            f"policy file loads {len(policy.plans)} plans "
+            f"({steps['20b harness']:.1f} s; {smi})")
+
+        # -- 20d: the analyzer's full gate ----------------------------------
+        say("[phase 20d] tools/torch_lskcheck.py, the full gate")
+        lint_out = finish_child(lint, groups, TOOL_CHILD_SECONDS)
+        summary = lint_out.strip().splitlines()[-1]
+        if not (summary.startswith("torch_lskcheck: ")
+                and " 0 finding(s)" in summary and summary.endswith("OK")):
+            fail(f"20d: {summary}")
+        details["20d"] = summary
+        say(f"  exit 0: {summary}")
+
+        # -- 20a: serve_main driven by torch_loadgen ------------------------
+        url, ready_s = wait_url(server, groups)
+        port = int(url.rsplit(":", 1)[1])
+        say(f"[phase 20a] serve_main on {N_WALL} points, k={WALL_K}, R=1, "
+            f"at {url} (serving {ready_s:.1f} s after its start), driven by "
+            "tools/torch_loadgen.py in a process of its own")
+        with timed_step(steps, "20a reference"):
+            pts = np.fromfile(path, np.float32).reshape(-1, 3)
+            pts_t = torch.from_numpy(pts).cuda()
+            ref = partition_points(pts_t, bucket_size=256)
+            probe = probe_rows(pts, SEED + 500)
+            want_d, want_idx = exact_reference(ref, probe, WALL_K)
+            del ref
+
+        def probe_body(label):
+            status, body, _, _ = tier_post(port, "/knn", probe, False)
+            if status != 200:
+                fail(f"20a: {label} probe: HTTP {status}: {body[:300]!r}")
+            return body
+
+        before = probe_body("first")
+        s0 = get_json(url + "/stats")
+        if "launches" not in s0:
+            fail("20a: the server's engine is not on the card")
+        runs = {}
+        for wl in ("uniform", "sweep"):
+            out = logs / f"loadgen_{wl}.json"
+            g = start_children(f"loadgen {wl}", [[
+                py, str(ROOT / "tools" / "torch_loadgen.py"), "--url", url,
+                "--duration", str(TOOL_SECONDS), "--concurrency",
+                str(TOOL_CLIENTS), "--batch", str(TOOL_BATCH), "--binary",
+                "--server-stats", "--workload", wl, "--seed",
+                str(SEED + 510), "--timeout", "60", "--out", str(out)]],
+                groups, "tools")
+            with timed_step(steps, f"20a {wl}"):
+                finish_child(g, groups, TOOL_SECONDS + 120)
+            rep = json.loads(out.read_text())
+            errors = {key: rep[key] for key in (
+                "net_error", "http_error", "overload", "deadline",
+                "unavailable", "degraded") if rep[key]}
+            if errors or rep["requests"] < 1 or rep["ok"] != rep["requests"]:
+                fail(f"20a {wl}: errors {errors} in {rep['requests']} "
+                     f"requests: {rep['status_counts']}")
+            runs[wl] = rep
+        s1 = get_json(url + "/stats")
+        after = probe_body("second")
+        d, idx = decode_knn(before, False, len(probe), WALL_K)
+        if after != before:
+            fail("20a: the probe's answers before and after the traffic "
+                 "differ")
+        if d.tobytes() != want_d.cpu().numpy().tobytes():
+            fail("20a: the probe's distances differ from the exact answer")
+        ties = tie_rows(torch.from_numpy(idx).cuda(), want_idx,
+                        torch.from_numpy(probe).cuda(), pts_t)
+        del pts_t
+        batches = s1["batcher"]["batches"] - s0["batcher"]["batches"]
+        counts = {key: s1["launches"][key] - s0["launches"].get(key, 0)
+                  for key in s1["launches"]}
+        if s1["engine"]["compile_count"] != s0["engine"]["compile_count"] \
+                or s0["engine"]["compile_count"] != len(
+                    s0["engine"]["shape_buckets"]):
+            fail(f"20a: {s0['engine']['compile_count']} plans at warmup, "
+                 f"{s1['engine']['compile_count']} after the traffic, "
+                 f"{len(s0['engine']['shape_buckets'])} shape buckets")
+        if batches < 1 or counts["knn_tiled_launches"] != batches or \
+                counts["knn_tiled_d3_launches"] != batches or \
+                counts["knn_bf_launches"] or \
+                s1["engine"]["engine"] != "pallas_tiled":
+            fail(f"20a: {batches} batches, launches {counts}, engine "
+                 f"{s1['engine']['engine']}")
+        peak = s1["device_memory"]["peak_allocated_bytes"]
+        details["20a"] = {
+            "url": url, "ready_seconds": ready_s, "runs": runs,
+            "batches": batches, "launches": counts,
+            "compile_count": s1["engine"]["compile_count"],
+            "probe_id_rows_differing_by_ties": ties,
+            "peak_device_bytes": peak,
+            "device_bytes": s1["engine"]["device_bytes"],
+            "in_thread_16a_queries_per_second": in_thread_qps}
+        for wl, rep in runs.items():
+            say(f"  20a {wl}: {rep['rows_per_s']:.0f} queries/s "
+                f"({rep['qps']:.2f} requests/s of {TOOL_BATCH} rows, "
+                f"{rep['requests']} requests, 0 errors) over "
+                f"{rep['duration_s']:.1f} s; client latency p50 "
+                f"{rep['p50_ms']} ms p99 {rep['p99_ms']} ms; mean batch "
+                f"{rep['server']['mean_batch_rows']} rows ({smi})")
+        say(f"  16a in-thread, k={WALL_K} R=1: {in_thread_qps:.0f} queries/s "
+            f"({smi}); the server's peak device memory "
+            f"{peak / 2**20:.1f} MiB ({smi})")
+        say(f"  {batches} batches dispatched, {counts['knn_tiled_launches']} "
+            f"traversal launches, all {counts['knn_tiled_d3_launches']} on "
+            f"knn_tiled_d3; {s1['engine']['compile_count']} plans, none "
+            f"built after warmup; the {len(probe)}-row probe byte-equal "
+            f"before and after, distances equal to the exact answer, ids up "
+            f"to {ties} rows of exact ties")
+    except BaseException:
+        kill_groups(groups)
+        raise
+    stop_children(groups)
+    if server[1][0].returncode != 0:
+        fail(f"20a: serve_main exited {server[1][0].returncode} on SIGINT")
+    torch.cuda.empty_cache()
+    details["step_seconds"] = steps
+    details["seconds"] = time.perf_counter() - t_phase
+    say("  steps: " + ", ".join(f"{name} {sec:.1f} s"
+                                for name, sec in steps.items()))
+    say(f"  phase 20 took {details['seconds']:.1f} s")
+    return details, counts
+
+
 def get_json_any(url):
     """(status, decoded body) of a GET, an HTTP error status included."""
     import urllib.error
@@ -5605,6 +5917,10 @@ def main() -> int:
     details["replicate_pod"], rep_counts = replicate_pod_phases(
         smi, rep_started, rep_groups)
 
+    # -- phase 20 -----------------------------------------------------------
+    details["tools"], tool_counts = tooling_phases(
+        smi, details["serving"]["16a k=100 R=1"]["queries_per_second"], runs)
+
     # -- phase 12 -----------------------------------------------------------
     say("[phase 12] phase 10's f32 R=1 run again under the profiler")
     label = "f32 R=1 under the profiler"
@@ -5619,7 +5935,7 @@ def main() -> int:
         + list(hd_runs.values()) + list(chunk_runs.values()) \
         + list(ooc_runs.values()) + list(engine_runs.values()) \
         + list(serve_runs.values()) + list(tier_runs.values()) \
-        + list(mh_runs.values()) + [pod_counts, rep_counts]
+        + list(mh_runs.values()) + [pod_counts, rep_counts, tool_counts]
 
     def launched(key):
         return sum(r.get(key, 0) for r in main_runs)

@@ -25,7 +25,15 @@ which runs the kernels' plain PyTorch versions.
 
 __version__ = "0.1.0"
 
-from mpi_cuda_largescaleknn_torch.core.config import KnnConfig  # noqa: F401
+
+def __getattr__(name):
+    # ``KnnConfig`` on first use: importing a module of the package (the
+    # load generator's ``obs/timers.py``) does not import torch
+    if name == "KnnConfig":
+        from mpi_cuda_largescaleknn_torch.core.config import KnnConfig
+
+        return KnnConfig
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def kth_neighbor_distances(points, k, *, max_radius=float("inf"),
@@ -46,6 +54,7 @@ def kth_neighbor_distances(points, k, *, max_radius=float("inf"),
     Other ``KnnConfig`` fields pass through (``bucket_size``,
     ``point_group``).
     """
+    from mpi_cuda_largescaleknn_torch.core.config import KnnConfig
     from mpi_cuda_largescaleknn_torch.models.unordered import UnorderedKNN
 
     cfg = KnnConfig(k=k, max_radius=max_radius, engine=engine,

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import threading
 
-from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
+from mpi_cuda_largescaleknn_torch.analysis.annotations import guarded_by
 
 
 class OverloadError(RuntimeError):

@@ -80,6 +80,7 @@ import time
 import numpy as np
 import torch
 
+from mpi_cuda_largescaleknn_torch.analysis.annotations import guarded_by
 from mpi_cuda_largescaleknn_torch.core.config import resolve_device
 from mpi_cuda_largescaleknn_torch.core.types import PAD_SENTINEL
 from mpi_cuda_largescaleknn_torch.models.sharding import (
@@ -116,7 +117,6 @@ from mpi_cuda_largescaleknn_torch.parallel.ring import (
     resolve_merge,
     resolve_query_buckets,
 )
-from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
 from mpi_cuda_largescaleknn_torch.utils.math import morton_argsort, next_pow2
 
 #: the engines a served batch can take: the traversal kernel (``auto``),
@@ -471,13 +471,15 @@ class ResidentKnnEngine:
         #: per-bucket ||p||^2, computed once, under the matmul-form score:
         #: the twin's ``point_norms2`` (the JAX engine's resident norms)
         self._bucket_norms2 = None
-        if self.score_mode == "mxu" and self.engine_name in TILED_ENGINES:
+        # lsk: allow[lock-guard] _build_index runs from __init__ only —
+        engine_name = self.engine_name  # unshared
+        if self.score_mode == "mxu" and engine_name in TILED_ENGINES:
             self._bucket_norms2 = [norms2(b.pts) for b in self._buckets]
             resident += self._bucket_norms2
         #: per shard: the point side laid out once for the traversal
         #: kernel (``prepare_points``)
         self._prepared = None
-        if self.engine_name == "pallas_tiled":
+        if engine_name == "pallas_tiled":
             self._prepared = [prepare_points(b, self.score_dtype)
                               for b in self._buckets]
         nbytes = sum(t.numel() * t.element_size() for t in resident)
@@ -522,7 +524,8 @@ class ResidentKnnEngine:
             args = [self._flat_pts, self._flat_ids]
         return tuple((tuple(a.shape), str(a.dtype)) for a in args)
 
-    def _get_plan(self, qpad: int, plan=None) -> _LaunchPlan:  # holds _lock
+    # lsk: holds[_lock]
+    def _get_plan(self, qpad: int, plan=None) -> _LaunchPlan:
         """The launch plan of (active engine, qpad), built on a miss;
         ``compile_count`` counts each build. Recall-plan knobs reach only
         the twin ``tiled``; elsewhere the exact plan runs. With a shared
@@ -616,7 +619,8 @@ class ResidentKnnEngine:
                     heap, q, self._flat_pts[s * npad:(s + 1) * npad],
                     self._flat_ids[s * npad:(s + 1) * npad],
                     score_dtype=self.score_dtype))
-            tiles = torch.zeros(1, dtype=torch.int64, device=q.device)
+            # one (zero) count per local shard, as the tiled engines give
+            tiles = torch.zeros(n_local, dtype=torch.int64, device=q.device)
         if self.merge_mode == "device":
             if self._multi:
                 dists, st = merge_over_mesh(self.mesh, states,
@@ -974,7 +978,8 @@ def _merge_shard_candidates(d2, idx, num_shards, qpad, k, full=False):
     # stable sort keeps the first (k - m) in column order
     below = d2 < kth
     m = below.sum(axis=1, keepdims=True)
-    tied = d2 == kth
+    # lsk: allow[float-eq] the boundary tie-fix IS bitwise: kth is an element
+    tied = d2 == kth  # of d2, so exact equality finds exactly the tied class
     mask = below | (tied & (np.cumsum(tied, axis=1) <= k - m))
     sel_cols = np.sort(np.argpartition(~mask, k - 1, axis=1)[:, :k], axis=1)
     sel_d2 = np.take_along_axis(d2, sel_cols, axis=1)

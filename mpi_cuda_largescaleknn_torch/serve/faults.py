@@ -48,7 +48,7 @@ import random
 import threading
 import time
 
-from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
+from mpi_cuda_largescaleknn_torch.analysis.annotations import guarded_by
 
 FAULT_OPS = ("latency", "error", "drop", "close_mid_body")
 FAULTS_ENV = "KNN_FAULTS"

@@ -74,6 +74,7 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from mpi_cuda_largescaleknn_torch.analysis.annotations import guarded_by
 from mpi_cuda_largescaleknn_torch.obs.timers import (
     LatencyHistogram,
     PhaseTimers,
@@ -94,6 +95,7 @@ from mpi_cuda_largescaleknn_torch.serve.health import (
 from mpi_cuda_largescaleknn_torch.serve.qcache import QueryCache
 from mpi_cuda_largescaleknn_torch.serve.recall import RecallPolicy
 from mpi_cuda_largescaleknn_torch.serve.server import (
+    LISTEN_BACKLOG,
     JsonHttpHandler,
     ServingMetrics,
     parse_knn_body,
@@ -111,7 +113,6 @@ from mpi_cuda_largescaleknn_torch.serve.wire import (
     frame_chunk,
     wire_caps,
 )
-from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
 from mpi_cuda_largescaleknn_torch.utils.math import aabb_lower_bound_dist2
 
 # -------------------------------------------------------------- host side
@@ -784,8 +785,8 @@ class PodFanout:
         if c is not None:
             try:
                 c.close()
-            # teardown of an already-failed connection: nothing to record
-            except Exception:  # noqa: BLE001
+            # lsk: allow[except-swallow] teardown of an already-failed
+            except Exception:  # noqa: BLE001 - connection: nothing to record
                 pass
 
     def _post_shard(self, ep: _HostEndpoint, seq: int, body: bytes):
@@ -1660,6 +1661,7 @@ class FrontendServer(ThreadingHTTPServer):
     backpressure and the same pipelined ``DynamicBatcher``."""
 
     daemon_threads = True
+    request_queue_size = LISTEN_BACKLOG
 
     def __init__(self, addr, fanout: PodFanout, *, max_delay_s=0.002,
                  max_queue_rows=4096, default_timeout_s=5.0,

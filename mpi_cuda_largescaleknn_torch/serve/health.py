@@ -40,7 +40,7 @@ import time
 import urllib.request
 import zlib
 
-from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
+from mpi_cuda_largescaleknn_torch.analysis.annotations import guarded_by
 
 STATES = ("healthy", "suspect", "drained", "rejoining")
 STATE_CODE = {s: i for i, s in enumerate(STATES)}
@@ -137,7 +137,7 @@ class HostHealth:
 
     # ------------------------------------------------------------ transitions
 
-    def _enter(self, state: str) -> None:  # holds _lock
+    def _enter(self, state: str) -> None:  # lsk: holds[_lock]
         if state == self.state:
             return
         now = self._clock()

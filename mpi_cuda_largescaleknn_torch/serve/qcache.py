@@ -62,7 +62,7 @@ from collections import OrderedDict
 
 import numpy as np
 
-from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
+from mpi_cuda_largescaleknn_torch.analysis.annotations import guarded_by
 
 #: smallest admissible seed radius: its f32 square (~1e-36) is still a
 #: normal-ish positive float, so distance-0 candidates (d2 == 0.0) stay

@@ -43,7 +43,7 @@ import threading
 from collections import Counter
 from dataclasses import asdict, dataclass, replace
 
-from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
+from mpi_cuda_largescaleknn_torch.analysis.annotations import guarded_by
 
 
 @dataclass(frozen=True)

@@ -52,7 +52,7 @@ import zlib
 
 import numpy as np
 
-from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
+from mpi_cuda_largescaleknn_torch.analysis.annotations import guarded_by
 from mpi_cuda_largescaleknn_torch.serve.health import (
     STATE_CODE,
     host_fingerprint,

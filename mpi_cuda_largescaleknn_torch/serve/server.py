@@ -37,7 +37,7 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
+from mpi_cuda_largescaleknn_torch.analysis.annotations import guarded_by
 from mpi_cuda_largescaleknn_torch.obs.timers import LatencyHistogram
 from mpi_cuda_largescaleknn_torch.serve.admission import (
     AdmissionController,
@@ -370,8 +370,17 @@ class ServingMetrics:
         return lines
 
 
+#: the listen backlog of the public servers (this one and the pod front
+#: end): ``socketserver``'s default of 5 overflows when a client opens
+#: more than ~6 connections at once (8 loadgen workers do), and the
+#: kernel then resets the first request of each connection past it about
+#: a second later
+LISTEN_BACKLOG = 128
+
+
 class KnnServer(ThreadingHTTPServer):
     daemon_threads = True
+    request_queue_size = LISTEN_BACKLOG
 
     def __init__(self, addr, engine, *, max_delay_s=0.002,
                  max_queue_rows=4096, default_timeout_s=5.0, query_fn=None,
@@ -512,6 +521,24 @@ class JsonHttpHandler(BaseHTTPRequestHandler):
             self, inj.decide(path, getattr(self, "command", "") or ""))
 
 
+def _card_stats(engine) -> dict:
+    """What an engine on the card adds to /stats (nothing on the CPU, so
+    the keys stay the JAX server's there): ``launches``, this process's
+    kernel launches so far by their ``--timings`` keys, and
+    ``device_memory``, the card's allocated and peak allocated bytes."""
+    dev = getattr(engine, "device", None)
+    if getattr(dev, "type", None) != "cuda":
+        return {}
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.cli.common import launch_counts
+
+    return {"launches": launch_counts(),
+            "device_memory": {
+                "allocated_bytes": torch.cuda.memory_allocated(dev),
+                "peak_allocated_bytes": torch.cuda.max_memory_allocated(dev)}}
+
+
 class _Handler(JsonHttpHandler):
 
     # ------------------------------------------------------------------ GET
@@ -538,6 +565,7 @@ class _Handler(JsonHttpHandler):
                 out["qcache"] = srv.qcache.stats()
             if srv.tenants is not None:
                 out["tenants"] = self._tenant_stats(srv)
+            out.update(_card_stats(srv.engine))
             self._send_json(200, out)
         elif path == "/metrics":
             self._send(200, self._prometheus(srv).encode(),

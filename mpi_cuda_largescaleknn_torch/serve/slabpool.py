@@ -55,9 +55,9 @@ import time
 
 import numpy as np
 
+from mpi_cuda_largescaleknn_torch.analysis.annotations import guarded_by
 from mpi_cuda_largescaleknn_torch.obs.timers import PhaseTimers
 from mpi_cuda_largescaleknn_torch.serve.faults import FaultInjector
-from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
 
 _RECORD_BYTES = 12  # one float3 (io/reader.py)
 
@@ -274,7 +274,7 @@ class SlabPool:
         with self._cv:
             self._routes[tenant] = (source, engine_factory)
 
-    def _route(self, key):  # holds _cv
+    def _route(self, key):  # lsk: holds[_cv]
         """(tenant, local slab, source, factory) of a pool key."""
         if isinstance(key, tuple):
             tenant, slab = key
@@ -283,7 +283,7 @@ class SlabPool:
         src, fac = self._routes[tenant]
         return tenant, slab, src, fac
 
-    def _tacct(self, key):  # holds _cv
+    def _tacct(self, key):  # lsk: holds[_cv]
         """The per-tenant counter dict of a tuple key (made on first use);
         None for int keys."""
         if not isinstance(key, tuple):
@@ -298,11 +298,11 @@ class SlabPool:
 
     # ----------------------------------------------------------- accounting
 
-    def _next_tick(self) -> int:  # holds _cv
+    def _next_tick(self) -> int:  # lsk: holds[_cv]
         self._tick += 1
         return self._tick
 
-    def _note_stall(self, seconds: float, key=None):  # holds _cv
+    def _note_stall(self, seconds: float, key=None):  # lsk: holds[_cv]
         self.stream_stalls += 1
         self.stream_stall_seconds += max(0.0, float(seconds))
         acct = self._tacct(key)
@@ -321,7 +321,7 @@ class SlabPool:
                 return 0, 0.0
             return acct["stream_stalls"], acct["stream_stall_seconds"]
 
-    def _host_put(self, key, rows) -> None:  # holds _cv
+    def _host_put(self, key, rows) -> None:  # lsk: holds[_cv]
         """Insert or refresh a slab's rows in the host tier; trim the
         oldest past the slab cap and the byte cap (the newest insert always
         stays). A device-resident slab keeps its own reference to its rows
@@ -342,7 +342,7 @@ class SlabPool:
             del self._host[victim]
             self.host_evictions += 1
 
-    def _evict_to_fit(self, new_bytes: int) -> None:  # holds _cv
+    def _evict_to_fit(self, new_bytes: int) -> None:  # lsk: holds[_cv]
         """Evict the least recently used unpinned device slabs until
         ``new_bytes`` more fit the budget (0 = unbounded); an evicted
         engine's rows demote to the host tier. With nothing evictable the

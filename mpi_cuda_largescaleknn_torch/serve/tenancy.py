@@ -37,7 +37,7 @@ from __future__ import annotations
 import threading
 import time
 
-from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
+from mpi_cuda_largescaleknn_torch.analysis.annotations import guarded_by
 from mpi_cuda_largescaleknn_torch.obs.timers import PhaseTimers
 from mpi_cuda_largescaleknn_torch.serve.admission import (
     AdmissionController,

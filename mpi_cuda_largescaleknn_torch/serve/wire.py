@@ -58,7 +58,7 @@ import zlib
 
 import numpy as np
 
-from mpi_cuda_largescaleknn_torch.utils.annotations import guarded_by
+from mpi_cuda_largescaleknn_torch.analysis.annotations import guarded_by
 
 #: codec names by path, in preference order (index 0 = the compressed
 #: codec ``wire=auto`` negotiates when both sides support it)
