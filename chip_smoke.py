@@ -17,7 +17,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    33, 64, 65, 100, 200} (the lane borders of the warp fold) and 300 and
    903 (its instances of 16 and 32 slots a lane), a finite
    ``-r``, ``skip_self`` with point group 2, and buckets wider than one
-   staged tile with a partial last tile; each case on the D=3 kernel;
+   staged tile with a partial last tile; above k=903 the wide fold
+   (``large_k_cases``, on 16,000 points): k in {904, 1000, 1024, 1025,
+   2048, 4096} with its rows in shared memory and 8192 (cold, a finite
+   ``-r``) and 12,000 (on 13,000 points) in device memory, a bucket of
+   1,000 rows over blocks; each case on the D=3 kernels;
    then the launches split along the grid's y axis (``grid_split_cases``):
    one D=3 query bucket of 2,097,152 rows at k=8 (65,536 blocks of 32
    rows, one past the grid's limit: two launches), and a cap of 3 blocks
@@ -25,7 +29,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    wgmma (bf16 D=128) kernels;
 3b. the brute-force kernel against its plain version, bit for bit (d2 and
    ids), on ~32K seeded points: uniform, clustered and integer-grid, k in
-   {1, 8, 31, 32, 33, 64, 65, 100, 200, 300, 903}, a finite ``-r``,
+   {1, 8, 31, 32, 33, 64, 65, 100, 200, 300, 903}, and on the wide fold
+   (``large_k_bf_cases``) {904, 1000, 1024, 1025, 2048, 4096, 8192,
+   12,000}, a finite ``-r``,
    sentinel-padded points and queries, ids with an offset, two incremental
    calls against one, a point count that is not a multiple of the staged
    tile, and other tiles giving the same bits; each case on its route by
@@ -56,8 +62,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    (``chunk_cases``), cold and without ``skip_self``: phase 13c's
    device-merge chunk as one query bucket of 4,000 rows (the first chunk
    and the last, part padding) against a 65,536-point shard coarsened at
-   G=2, k=8, on the D=3 traversal and the flat D=3 kernel; chunk
-   partitions of 16,384 rows against a whole shard at G=2, at D=3 k=100
+   G=2, k=8 and (the first chunk) k=1000, on the D=3 traversal and the
+   flat D=3 kernels; chunk partitions of 16,384 rows against a whole shard
+   at G=2, at D=3 k=100
    and at D=128 k=10 in f32 (ring kernel) and bf16 (wgmma);
 4. the main path through the CLI: 1,000,000 seeded uniform points at
    k=100 and at k=8, each with ``--selfcheck 1000 --timings`` (in phases
@@ -155,7 +162,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    buckets bit for bit against the plain version;
 12. phase 10's f32 R=1 run again under ``profile_trace``, byte-equal to
    it: the card's busy share of the run and its top kernels by device
-   time (last, after phases 13 and 14, so that no timing runs in a
+   time (last, after phases 13, 14 and 21, so that no timing runs in a
    process that has been profiled).
 
 Phase 15 (``engine_phases``) runs the XLA engines; then, before phase 12,
@@ -317,6 +324,24 @@ child started together:
    warmup, one traversal launch a dispatched batch, all on the D=3
    kernel; q/s and p50/p99 a workload beside 16a's in-thread q/s.
 
+Then, before phase 12, the D=3 slice at a large k (``large_k_phase``), on
+phase 4's 1,000,000 points at k=1000 (the wide fold's kernels):
+
+21. 21a ``unordered_main`` at R=1 with ``--selfcheck 1000 --timings``;
+   21b in this process, each byte-equal to 21a's file: ``UnorderedKNN``
+   at R=4, chunked (32,768 rows a shard) with the device merge, and
+   ``engine="pallas"`` at R=1, and ``PrePartitionedKNN`` on phase 8's 4
+   Morton parts (by point); every launch of 21a-21b on the D=3 kernels,
+   none on the ring kernel or the twin; 21c a ``ResidentKnnEngine`` over
+   the points answering 3 batches of 1024 uniform rows, one D=3 launch a
+   batch, 256 sampled rows byte-equal to the exact answer on the card, ids
+   up to exact ties; 21d the traversal's one fold after the warm start
+   timed by CUDA events, held bit for bit against the walk of its blocks
+   (whose pairs give both bounds) and the plain version on 16 query
+   buckets (timed there), and 21b's flat launch (1M x 1M) against both
+   bounds, its plain version on 2,048 queries; warps resident per SM and
+   peak device memory, beside the card's name and power limit.
+
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``build/smoke/chip_smoke.json``.
@@ -383,6 +408,14 @@ N_ENGINE = 131_072               # phase 15b-d: the flat engines' points
 N_ENGINE_HD = 65_536             # phase 15a-b: D=128 (phase 10b's first;
                                  # its 262,144 took the twin 104.5 s in f32)
 XLA_ENGINES = ("tiled", "bruteforce", "tree")
+LARGE_K = 1000                   # phases 3e, 21: the slice's k at N_MAIN
+LARGE_CHUNK = 32_768             # phase 21: the device merge's chunk (rows
+                                 # a shard: 131,072 gathered rows a chunk)
+LARGE_BATCHES = 3                # phase 21: 1024-row batches served
+LARGE_SAMPLE = 256               # phase 21: served rows held to the exact
+                                 # answer
+LARGE_WALK_SLICES = 8            # phase 21: query-bucket slices of the
+                                 # block walk (its merges stay a few GB)
 SERVE_CLIENTS = 8                # phase 16: closed-loop clients
 SERVE_SECONDS = 8.0              # 16a: traffic a configuration
 SERVE_SECONDS_HD = 5.0           # 16b: traffic a configuration
@@ -736,6 +769,64 @@ def check_traversal(name, state, q, pc, pts, *, skip_self, group,
     return err
 
 
+def large_k_cases(uni, clu, grid):
+    """Phase 3's D=3 cases above the 903 the first kernels took, each on
+    16,000 points (13,000 at k=12,000) against the plain traversal bit for
+    bit, on the D=3 kernel: the instance of 32 slots a lane (k=904, 1000,
+    1024), the wide fold with its rows in shared memory (k=1025, 2048,
+    4096; a bucket of 1,000 rows over blocks, two tiles a bucket) and in
+    place in device memory (k=8192 cold with a finite ``-r``, k=12,000),
+    on uniform, clustered and integer-grid (tie) points. Returns their
+    max abs errors."""
+    d3 = dict(route="d3")
+    return [
+        compare_case("uniform k=904 (32 slots a lane)", uni[:16_000], 904,
+                     **d3),
+        compare_case("integer grid k=1000 (ties)", grid[:16_000], 1000, **d3),
+        compare_case("clustered k=1024 -r 1.5 (the instances' largest k)",
+                     clu[:16_000], 1024, radius=1.5, **d3),
+        compare_case("uniform k=1025 (the wide fold, rows in shared memory)",
+                     uni[:16_000], 1025, **d3),
+        compare_case("integer grid k=1025 S=1000 T=2000 (ties, rows over "
+                     "blocks, two tiles)", grid[:16_000], 1025,
+                     bucket_size=1000, **d3),
+        compare_case("integer grid k=2048 (ties)", grid[:16_000], 2048, **d3),
+        compare_case("clustered k=4096", clu[:16_000], 4096, **d3),
+        compare_case("uniform k=8192 -r 0.5 cold G1 (rows in device memory)",
+                     uni[:16_000], 8192, radius=0.5, group=1, warm=False,
+                     **d3),
+        compare_case("integer grid k=12000 on 13,000 points (rows in device "
+                     "memory, ties)", grid[:13_000], 12_000, **d3),
+    ]
+
+
+def large_k_bf_cases(uni, clu, grid):
+    """Phase 3b's cases above k=903 on the flat D=3 kernel, 2,048 queries
+    against 20,000 points (1,024 against 14,000 at k=12,000), bit for bit
+    against the plain flat fold: the instance of 32 slots a lane (904,
+    1000, 1024), the wide fold with its rows in shared memory (1025 with a
+    finite ``-r``, 2048, 4096) and in device memory (8192, 12,000), on
+    uniform, clustered and integer-grid points. Returns their max abs
+    errors."""
+    return [
+        compare_bf_case("uniform k=904 (32 slots a lane)", uni[:2048],
+                        uni[:20_000], 904),
+        compare_bf_case("integer grid k=1000 (ties)", grid[:2048],
+                        grid[:20_000], 1000),
+        compare_bf_case("clustered k=1024", clu[:2048], clu[:20_000], 1024),
+        compare_bf_case("uniform k=1025 -r 0.3 (the wide fold, rows in "
+                        "shared memory)", uni[:2048], uni[:20_000], 1025,
+                        radius=0.3),
+        compare_bf_case("clustered k=2048", clu[:2048], clu[:20_000], 2048),
+        compare_bf_case("integer grid k=4096 (ties)", grid[:2048],
+                        grid[:20_000], 4096),
+        compare_bf_case("uniform k=8192 (rows in device memory)", uni[:2048],
+                        uni[:20_000], 8192),
+        compare_bf_case("integer grid k=12000 (rows in device memory, ties)",
+                        grid[:1024], grid[:14_000], 12_000),
+    ]
+
+
 FAULT_ROWS = 2_097_152  # phase 3: a D=3 bucket of 65,536 blocks of 32 rows
 
 
@@ -824,8 +915,8 @@ def chunk_cases():
     chunks of 1,000 rows): the chunk gathered into one query bucket of
     4,000 rows (``chunk_bucket``), the first chunk and the last (536 real
     rows a shard), against one shard's resident side (65,536 points
-    coarsened at G=2), k=8, on the D=3 traversal and the flat D=3 kernel.
-    The host merge: a chunk partition (``choose_buckets(16,384)``; the
+    coarsened at G=2), k=8, on the D=3 traversal and the flat D=3 kernel,
+    and the first chunk again at k=1000 (phase 21's k). The host merge: a chunk partition (``choose_buckets(16,384)``; the
     first chunk and the last, part padding) against the whole shard
     coarsened at G=2, R=1, at D=3 k=100 (phase 13a's route and k), and at
     D=128 k=10 in f32 (the ring kernel) and bf16 (``wgmma``). Returns the
@@ -856,7 +947,19 @@ def chunk_cases():
             f"{rows.shape[0]} rows) vs shard {shard} k=8",
             rows.cpu().numpy(), uni[shard * n4:(shard + 1) * n4], 8,
             id_base=shard * n4))
-    del every, resident
+    # the same chunk at phase 21's k: the largest instance of slots a lane
+    _lo, _hi, qp, _qi = chunk(0)
+    rows = qp.view(-1, 3)
+    cold = init_candidates(rows.shape[0], LARGE_K, float("inf"),
+                           device=rows.device)
+    errs.append(check_traversal(
+        f"device-merge chunk 0 ({rows.shape[0]} rows, one bucket) vs shard 0 "
+        f"G{group} k={LARGE_K} cold", cold, chunk_bucket(rows), resident[0],
+        every, skip_self=False, group=group, route="d3"))
+    errs.append(compare_bf_case(
+        f"flat device-merge chunk 0 ({rows.shape[0]} rows) vs shard 0 "
+        f"k={LARGE_K}", rows.cpu().numpy(), uni[:len(uni) // 4], LARGE_K))
+    del every, resident, cold
     for label, pts_np, k, score, route in (
             ("D=3", seeded_points("uniform", 126_976, SEED + 40), 100,
              "f32", "d3"),
@@ -1091,10 +1194,10 @@ def compare_bf_case(name, q_np, p_np, k, *, radius=float("inf"), id_base=0,
     from mpi_cuda_largescaleknn_torch.core.types import PAD_SENTINEL
     from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
     from mpi_cuda_largescaleknn_torch.ops.knn_bf import (
+        flat_d3_plan,
         flat_plan,
         knn_update_bf_cuda,
         knn_update_bf_plain,
-        launch_geometry,
     )
 
     q = torch.from_numpy(q_np).cuda()
@@ -1125,8 +1228,9 @@ def compare_bf_case(name, q_np, p_np, k, *, radius=float("inf"), id_base=0,
     err = max_abs_err(got.dist2, want.dist2)
     ok = torch.equal(got.dist2, want.dist2) and torch.equal(got.idx, want.idx)
     if dim == 3:
-        rows, lanes = launch_geometry(qt, pt, k)
-        plan_txt = f"rows/block={rows} lanes/tile={lanes}"
+        plan = flat_d3_plan(qt, pt, k)
+        plan_txt = (f"rows/block={plan.rows} lanes/tile={plan.lanes} "
+                    f"rows_in_smem={plan.rows_in_smem}")
     else:
         plan = flat_plan(k, dim)
         plan_txt = (f"ring kernel, {plan.kernel} stages={plan.stages} "
@@ -1351,7 +1455,6 @@ def time_bf_kernel(k, pts, reps=3):
         resident_warps,
     )
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
-        CHUNK_LANES,
         d3_blocks_per_sm,
         d3_smem_bytes,
     )
@@ -1383,19 +1486,27 @@ def time_bf_kernel(k, pts, reps=3):
     if warps < planned:
         fail(f"knn_bf k={k}: the card holds {warps} warps an SM, the plan "
              f"counted on {planned}")
-    blocks = -(-n // rows)
+    return {"k": k, "ms": ms, "plain_ms": plain_ms,
+            "plain_shape": f"{nq} queries x {n} points", "max_abs_err": err,
+            **flat_bounds(ms, n, k, rows),
+            "rows_per_block": rows, "lanes": lanes,
+            "warps_per_sm": warps, "planned_warps_per_sm": planned}
+
+
+def flat_bounds(ms, n, k, rows) -> dict:
+    """The bounds of a flat fold of ``n`` queries against the same ``n``
+    points at ``k`` in blocks of ``rows`` rows: its pairs, operations and
+    bytes, and ``bounds`` of them."""
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import CHUNK_LANES
+
     pairs = n * n
     ops = pairs * OPS_PER_PAIR
     np_pad = -(-n // CHUNK_LANES) * CHUNK_LANES
-    nbytes = (blocks * np_pad * 16        # the staged point set per block
-              + n * 12                    # query coordinates
-              + 2 * n * k * 8)            # candidate rows in and out
-    return {"k": k, "ms": ms, "plain_ms": plain_ms,
-            "plain_shape": f"{nq} queries x {n} points", "max_abs_err": err,
-            "pairs": pairs, "ops": ops, "bytes": nbytes,
-            **bounds(ms, ops / PEAK_F32, ops / PEAK_F32_ISSUE, nbytes),
-            "rows_per_block": rows, "lanes": lanes,
-            "warps_per_sm": warps, "planned_warps_per_sm": planned}
+    nbytes = (-(-n // rows) * np_pad * 16  # the staged point set per block
+              + n * 12                     # query coordinates
+              + 2 * n * k * 8)             # candidate rows in and out
+    return {"pairs": pairs, "ops": ops, "bytes": nbytes,
+            **bounds(ms, ops / PEAK_F32, ops / PEAK_F32_ISSUE, nbytes)}
 
 
 def reset_counts() -> None:
@@ -1406,10 +1517,11 @@ def reset_counts() -> None:
     )
 
     for name in ("launches", "ring_launches", "stream_launches",
-                 "d3_launches", "mxu_launches", "wgmma_launches",
-                 "wgmma_stream_launches"):
+                 "d3_launches", "d3_wide_launches", "mxu_launches",
+                 "wgmma_launches", "wgmma_stream_launches"):
         setattr(knn_update_tiled_cuda, name, 0)
-    for name in ("launches", "d3_launches", "ring_launches"):
+    for name in ("launches", "d3_launches", "d3_wide_launches",
+                 "ring_launches"):
         setattr(knn_update_bf_cuda, name, 0)
     # the XLA engines' work counters (cli/common.py launch_counts)
     from mpi_cuda_largescaleknn_torch.ops.tiled import knn_update_tiled
@@ -5337,6 +5449,364 @@ def tooling_phases(smi, in_thread_qps, phase4):
     return details, counts
 
 
+def same_by_point(label, pts_a, d_a, pts_b, d_b) -> None:
+    """Fails unless two outputs over the same points in two orders give
+    every point the same bytes: both sorted by (x, y, z); equal points
+    have equal k-th distances, so their order among themselves does not
+    matter."""
+    import numpy as np
+
+    oa, ob = np.lexsort(pts_a.T[::-1]), np.lexsort(pts_b.T[::-1])
+    if not np.array_equal(pts_a[oa], pts_b[ob]):
+        fail(f"{label}: the two outputs are not over the same points")
+    bad = int(np.count_nonzero(d_a[oa].view(np.int32)
+                               != d_b[ob].view(np.int32)))
+    if bad:
+        fail(f"{label}: {bad} points' distances differ")
+
+
+def sliced_block_walk(state, q, p, rows, self_group, slices):
+    """``block_walk`` over all query buckets in ``slices`` runs of buckets,
+    so that each plain merge holds a slice's rows, not all of them: each
+    run sees the whole query side with the rows outside its buckets made
+    padding (ids -1: they are never live, and each sub-bucket keeps its
+    own point bucket). Returns the rows (in ``q``'s layout) and the visits
+    (i64[Bq * blocks a bucket]), as one ``block_walk`` gives them, and the
+    pairs those visits score (``visited_pairs``)."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.core.types import CandidateState
+    from mpi_cuda_largescaleknn_torch.ops.partition import (
+        BucketedPoints,
+        nearest_first_order,
+    )
+
+    bq, s = q.ids.shape
+    k = state.dist2.shape[1]
+    out_d2 = torch.empty_like(state.dist2)
+    out_idx = torch.empty_like(state.idx)
+    visits = pairs = None
+    step = -(-bq // slices)
+    for b0 in range(0, bq, step):
+        b1 = min(bq, b0 + step)
+        ids = torch.full_like(q.ids, -1)
+        ids[b0:b1] = q.ids[b0:b1]
+        walked, sub, v = block_walk(
+            state, BucketedPoints(q.pts, ids, q.lower, q.upper, q.pos), p,
+            rows, self_group)
+        out_d2[b0 * s:b1 * s] = walked.dist2[b0 * s:b1 * s]
+        out_idx[b0 * s:b1 * s] = walked.idx[b0 * s:b1 * s]
+        _, order = nearest_first_order(sub.lower, sub.upper, p.lower,
+                                       p.upper)
+        n = visited_pairs(order, v, sub, p)
+        visits = v if visits is None else visits + v
+        pairs = n if pairs is None else pairs + n
+        del walked, sub, v, order
+        torch.cuda.empty_cache()
+    return CandidateState(out_d2, out_idx), visits, pairs
+
+
+def time_large_kernels(pts, k):
+    """Phase 21d: the two D=3 kernels at phase 21's k on its 1M points.
+    The traversal's one fold of a 1-shard run (after the warm start): one
+    launch timed by CUDA events, held bit for bit against the walk of its
+    blocks (``sliced_block_walk``: each block of ``plan.rows`` rows on its
+    own radius), whose pairs give both bounds as in phase 6, and against
+    the plain version on ``PLAIN_BUCKETS`` query buckets (timed there).
+    The flat fold: its plain version on the first ``PLAIN_QUERIES // 8``
+    queries against all the points, timed, and the kernel's rows there
+    bit for bit; the kernel's own 1M x 1M time is phase 21b's launch.
+    Also the warps each kernel's plan keeps resident per SM, as the card
+    reports it. Returns (the traversal's record, the flat one's)."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.core.types import CandidateState
+    from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
+    from mpi_cuda_largescaleknn_torch.ops.knn_bf import (
+        flat_d3_plan,
+        knn_update_bf_cuda,
+        knn_update_bf_plain,
+        resident_warps,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        d3_blocks_per_sm,
+        d3_resident_warps,
+        knn_update_tiled_plain,
+        launch_knn_tiled,
+        tiled_launch_plan,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.partition import (
+        BucketedPoints,
+        coarsen_buckets,
+        nearest_first_order,
+        partition_points,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
+
+    torch.cuda.reset_peak_memory_stats()
+    q = partition_points(pts, bucket_size=256)
+    pc = coarsen_buckets(q, 2)
+    warm = warm_start_self(pc, k)
+    sorted_d2, order = nearest_first_order(q.lower, q.upper,
+                                           pc.lower, pc.upper)
+    rows = CandidateState(warm.dist2.clone(), warm.idx.clone())
+    before = route_counts()
+    ms, visits = cuda_ms(lambda: launch_knn_tiled(
+        order, sorted_d2, q, pc, rows, skip_self=True, self_group=2))
+    ran = {key: n - before[key] for key, n in route_counts().items()}
+    if ran != {key: int(key == "d3") for key in ran}:
+        fail(f"21d: the timed fold's launches {ran}, not one on the D=3 "
+             "kernel")
+    peak = torch.cuda.max_memory_allocated()
+    bq, s = q.ids.shape
+    bp, t = pc.ids.shape
+    plan = tiled_launch_plan(s, t, k, 3)
+    t0 = time.perf_counter()
+    walked, block_visits, pairs = sliced_block_walk(
+        warm, q, pc, plan.rows, 2, LARGE_WALK_SLICES)
+    walk_s = time.perf_counter() - t0
+    if not (torch.equal(walked.dist2, rows.dist2)
+            and torch.equal(walked.idx, rows.idx)):
+        fail(f"21d: k={k}: the walk of the kernel's blocks gives other rows")
+    if not torch.equal(block_visits.view(bq, -1).amax(1), visits.long()):
+        fail(f"21d: k={k}: the kernel's visits are not the most of its "
+             "blocks' walks")
+    del walked
+    nb = PLAIN_BUCKETS
+    sl, rs = slice(0, nb), slice(0, nb * s)
+    plain_ms, plain = cuda_ms(lambda: knn_update_tiled_plain(
+        CandidateState(warm.dist2[rs], warm.idx[rs]),
+        BucketedPoints(q.pts[sl], q.ids[sl], q.lower[sl], q.upper[sl],
+                       q.pos[sl]), pc, skip_self=True, self_group=2))
+    if not (torch.equal(plain.dist2, rows.dist2[rs])
+            and torch.equal(plain.idx, rows.idx[rs])):
+        fail(f"21d: k={k}: kernel and plain differ on the first {nb} "
+             "query buckets")
+    err = max_abs_err(rows.dist2[rs], plain.dist2)
+    ops = pairs * OPS_PER_PAIR
+    nbytes = (bq * s * 16                 # query coords + ids
+              + 2 * bq * s * k * 8        # candidate rows in and out
+              + bp * t * 16               # point coords + ids
+              + (int(visits.sum()) + bq) * 8)  # the visited schedule prefix
+    warps = d3_resident_warps(s, t, k)
+    planned = d3_blocks_per_sm(plan.threads, plan.smem) * plan.threads // 32
+    if warps < planned:
+        fail(f"21d: k={k}: the card holds {warps} warps an SM, the plan "
+             f"counted on {planned}")
+    trav = {"k": k, "ms": ms, "plain_ms": plain_ms,
+            "plain_shape": f"{nb} of {bq} query buckets",
+            "max_abs_err": err, "kernel_visits": int(visits.sum()),
+            "block_visits": int(block_visits.sum()), "pairs": pairs,
+            "ops": ops, "bytes": nbytes,
+            **bounds(ms, ops / PEAK_F32, ops / PEAK_F32_ISSUE, nbytes),
+            "plan": plan._asdict(), "warps_per_sm": warps,
+            "planned_warps_per_sm": planned, "peak_device_bytes": peak,
+            "block_walk_seconds": walk_s, "Bq": bq, "S": s, "Bp": bp,
+            "T": t}
+    del warm, rows, plain, q, pc, order, sorted_d2, visits, block_visits
+    torch.cuda.empty_cache()
+
+    n = pts.shape[0]
+    nq = PLAIN_QUERIES // 8
+    ids = torch.arange(n, dtype=torch.int32, device=pts.device)
+    init = init_candidates(nq, k, device=pts.device)
+    plain_flat_ms, want = cuda_ms(lambda: knn_update_bf_plain(
+        init, pts[:nq], pts, ids))
+    before = route_counts()
+    got = knn_update_bf_cuda(init, pts[:nq], pts, ids)
+    torch.cuda.synchronize()
+    ran = {key: m - before[key] for key, m in route_counts().items()}
+    if ran != {key: int(key == "bf_d3") for key in ran}:
+        fail(f"21d: the flat check's launches {ran}, not one on the D=3 "
+             "kernel")
+    if not (torch.equal(got.dist2, want.dist2)
+            and torch.equal(got.idx, want.idx)):
+        fail(f"21d: knn_bf k={k}: kernel and plain differ on the first "
+             f"{nq} queries")
+    fplan = flat_d3_plan(2048, 2048, k)
+    fwarps = resident_warps(k)
+    fplanned = d3_blocks_per_sm(fplan.threads, fplan.smem) \
+        * fplan.threads // 32
+    if fwarps < fplanned:
+        fail(f"21d: knn_bf k={k}: the card holds {fwarps} warps an SM, the "
+             f"plan counted on {fplanned}")
+    flat = {"k": k, "plain_ms": plain_flat_ms,
+            "plain_shape": f"{nq} queries x {n} points",
+            "max_abs_err": max_abs_err(got.dist2, want.dist2),
+            "plan": fplan._asdict(), "warps_per_sm": fwarps,
+            "planned_warps_per_sm": fplanned}
+    return trav, flat
+
+
+def large_k_phase(smi, pts_path, pts_np, parts_list):
+    """Phase 21: the D=3 slice at k=``LARGE_K`` on phase 4's 1,000,000
+    points. 21a ``unordered_main`` at R=1 with ``--selfcheck 1000``; 21b
+    in this process (no CLI start-up): ``UnorderedKNN`` at R=4, chunked
+    with the device merge (``LARGE_CHUNK`` rows a shard), ``--engine
+    pallas`` at R=1, and ``PrePartitionedKNN`` on phase 8's 4 Morton
+    parts, each byte-equal to 21a's file (the parts by point), every launch
+    on the D=3 kernels and none on the ring kernel or the twin; 21c a
+    ``ResidentKnnEngine`` over the points at ``LARGE_K`` answering
+    ``LARGE_BATCHES`` batches of 1024 uniform rows, ``LARGE_SAMPLE`` of
+    them against the exact answer on the card (distances byte-equal, ids
+    up to exact ties), one D=3 launch a batch; 21d the kernels' times
+    (``time_large_kernels``), the flat one from 21b's launch. Each step's
+    seconds on the host's clock, and peak device memory, beside the card's
+    name and power limit. Returns (details, the runs' launch counts)."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.cli.common import launch_counts
+    from mpi_cuda_largescaleknn_torch.core.config import KnnConfig
+    from mpi_cuda_largescaleknn_torch.models.prepartitioned import (
+        PrePartitionedKNN,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.partition import partition_points
+    from mpi_cuda_largescaleknn_torch.serve.engine import ResidentKnnEngine
+
+    k = LARGE_K
+    details, runs, steps = {"nvidia_smi": smi}, {}, {}
+
+    def no_twin(label, t):
+        # besides check_d3_route: nothing on the ring kernel or the twin
+        if t["knn_tiled_ring_launches"] or t["knn_bf_ring_launches"] \
+                or t["tiled_folds"] or t["tree_folds"]:
+            fail(f"{label}: launches off the D=3 kernels: {t}")
+
+    say(f"  21a: unordered_main, {N_MAIN} points, k={k}, R=1")
+    out = WORK / f"k{k}.float"
+    with timed_step(steps, "21a CLI R=1"):
+        runs["21a R=1"] = t = main_path_run(f"k={k} R=1", pts_path, out, k,
+                                            1, N_MAIN)
+    no_twin("21a", t)
+    ref = np.fromfile(out, dtype=np.float32)
+    for label, shards, kw in (
+            ("R=4", 4, {}),
+            (f"R=4 --query-chunk {LARGE_CHUNK} --merge device", 4,
+             {"query_chunk": LARGE_CHUNK, "merge": "device"}),
+            ("--engine pallas R=1", 1, {"engine": "pallas"})):
+        with timed_step(steps, f"21b {label}"):
+            t, d, _ = unordered_run(f"21b k={k} {label}", pts_np, k, shards,
+                                    "f32", neighbors=False, **kw)
+        runs[f"21b {label}"] = t
+        check_d3_route(f"21b {label}", t)
+        no_twin(f"21b {label}", t)
+        if d.tobytes() != ref.tobytes():
+            fail(f"21b: {label}: distances differ from 21a's R=1 file")
+        say("    byte-equal to 21a's R=1 file")
+    flat_ms = runs["21b --engine pallas R=1"]["kernel_ms"]
+    with timed_step(steps, "21b pre-partitioned"):
+        files = parts_list.read_text().split()
+        parts = [np.fromfile(f, dtype=np.float32).reshape(-1, 3)
+                 for f in files]
+        model = PrePartitionedKNN(KnnConfig(k=k, num_shards=len(parts)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = model.run(parts)
+        wall = time.perf_counter() - t0
+        t = {"run_seconds": wall, **launch_counts(),
+             "peak_device_bytes": torch.cuda.max_memory_allocated(),
+             **(model.last_stats or {})}
+        runs["21b pre-partitioned"] = t
+    check_d3_route("21b pre-partitioned", t)
+    no_twin("21b pre-partitioned", t)
+    same_by_point("21b pre-partitioned", np.concatenate(parts),
+                  np.concatenate(got), pts_np, ref)
+    say(f"  21b pre-partitioned on {len(parts)} Morton parts: run "
+        f"{wall:.3f} s, knn_tiled launches {t['knn_tiled_launches']}, "
+        f"rounds {t.get('rounds')}, peak device memory "
+        f"{t['peak_device_bytes'] / 2**20:.1f} MiB; every point's distance "
+        "byte-equal to 21a's file")
+    del parts, got, model
+
+    say(f"  21c: ResidentKnnEngine over the {N_MAIN} points, k={k}")
+    with timed_step(steps, "21c build+warmup"):
+        torch.cuda.reset_peak_memory_stats()
+        engine = ResidentKnnEngine(pts_np, k, max_batch=SERVE_MAX_BATCH)
+        warm = engine.warmup()
+    rng = np.random.default_rng(SEED + 210)
+    qs = [rng.random((SERVE_MAX_BATCH, 3), dtype=np.float32)
+          for _ in range(LARGE_BATCHES)]
+    torch.cuda.synchronize()
+    reset_counts()
+    batch_s, served = [], []
+    with timed_step(steps, "21c batches"):
+        for qb in qs:
+            t0 = time.perf_counter()
+            served.append(engine.query(qb))
+            batch_s.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    runs["21c served"] = counts
+    if counts["knn_tiled_d3_launches"] != LARGE_BATCHES \
+            or counts["knn_tiled_launches"] != LARGE_BATCHES \
+            or counts["knn_bf_launches"] or counts["tiled_folds"]:
+        fail(f"21c: {LARGE_BATCHES} batches, launches {counts}")
+    serve_peak = torch.cuda.max_memory_allocated()
+    del engine
+    torch.cuda.empty_cache()
+    with timed_step(steps, "21c exact"):
+        q_all = np.concatenate(qs)
+        d_all = np.concatenate([d for d, _ in served])
+        i_all = np.concatenate([i for _, i in served])
+        pick = np.random.default_rng(SEED + 211).choice(
+            len(q_all), LARGE_SAMPLE, replace=False)
+        pts_t = torch.from_numpy(pts_np).cuda()
+        want_d, want_idx = exact_reference(
+            partition_points(pts_t, bucket_size=256),
+            np.ascontiguousarray(q_all[pick]), k)
+        want_d = want_d.cpu().numpy()
+        bad = int(np.count_nonzero(d_all[pick].view(np.int32)
+                                   != want_d.view(np.int32)))
+        if bad:
+            fail(f"21c: {bad} of {LARGE_SAMPLE} sampled served distances "
+                 "differ from the exact answer")
+        ties = tie_rows(torch.from_numpy(i_all[pick]).cuda(), want_idx,
+                        torch.from_numpy(q_all[pick]).cuda(), pts_t)
+        del pts_t, want_idx
+    details["21c"] = {"batch_seconds": batch_s,
+                      "warmup_seconds": warm["per_bucket_s"],
+                      "peak_device_bytes": serve_peak,
+                      "sampled_rows": LARGE_SAMPLE,
+                      "id_rows_differing_by_ties": ties}
+    say(f"  21c: {LARGE_BATCHES} batches of {SERVE_MAX_BATCH} rows in "
+        + ", ".join(f"{s:.3f}" for s in batch_s)
+        + f" s, one D=3 launch each; {LARGE_SAMPLE} sampled rows byte-equal "
+        f"to the exact answer, ids of {ties} differ only among equally "
+        f"distant points; peak device memory {serve_peak / 2**20:.1f} MiB")
+
+    say(f"  21d: the D=3 kernels at k={k}, {N_MAIN} points ({smi})")
+    pts = torch.from_numpy(pts_np).cuda()
+    with timed_step(steps, "21d kernels"):
+        trav, flat = time_large_kernels(pts, k)
+    del pts
+    torch.cuda.empty_cache()
+    flat.update({"ms": flat_ms, "shape": f"{N_MAIN} x {N_MAIN}",
+                 **flat_bounds(flat_ms, N_MAIN, k, flat["plan"]["rows"])})
+    details["traversal"], details["flat"] = trav, flat
+    say(f"    knn_tiled_d3 (one fold after the warm start): kernel "
+        f"{trav['ms']:.3f} ms, plain {trav['plain_ms']:.3f} ms on "
+        f"{trav['plain_shape']}, max_abs_err {trav['max_abs_err']}; pairs "
+        f"the kernel's blocks scored {trav['pairs']} ({trav['block_visits']} "
+        f"block visits, the walk of its blocks in "
+        f"{trav['block_walk_seconds']:.1f} s): {bound_txt(trav)}; plan "
+        f"{trav['plan']}, {trav['warps_per_sm']} warps resident per SM (the "
+        f"plan counted on {trav['planned_warps_per_sm']}), peak device "
+        f"memory {trav['peak_device_bytes'] / 2**20:.1f} MiB")
+    say(f"    knn_bf_d3 ({flat['shape']}, 21b's launch): kernel "
+        f"{flat['ms']:.3f} ms, {bound_txt(flat)}, plain "
+        f"{flat['plain_ms']:.3f} ms on {flat['plain_shape']}, max_abs_err "
+        f"{flat['max_abs_err']}; plan {flat['plan']}, {flat['warps_per_sm']} "
+        f"warps resident per SM (the plan counted on "
+        f"{flat['planned_warps_per_sm']})")
+    details["runs"] = runs
+    details["step_seconds"] = steps
+    say("  phase 21 steps: " + ", ".join(f"{name} {sec:.1f} s"
+                                         for name, sec in steps.items()))
+    return details, runs
+
+
 def get_json_any(url):
     """(status, decoded body) of a GET, an HTTP error status included."""
     import urllib.error
@@ -5418,9 +5888,10 @@ def main() -> int:
                      "tile)", grid, 33, bucket_size=1000, **d3),
         compare_case("integer grid k=300 (16 slots a lane)", grid[:16_000],
                      300, **d3),
-        compare_case("uniform k=903 (32 slots a lane, the largest k)",
-                     uni[:16_000], 903, **d3),
+        compare_case("uniform k=903 (32 slots a lane, the first kernels' "
+                     "largest k)", uni[:16_000], 903, **d3),
     ]
+    errs += large_k_cases(uni, clu, grid)
     errs.append(grid_split_cases(uni))
     details["phase3_max_abs_err"] = max(errs)
 
@@ -5455,9 +5926,10 @@ def main() -> int:
                         uni, 100, tiles=(96, 300)),
         compare_bf_case("integer grid k=300 (16 slots a lane)", grid[:4096],
                         grid, 300),
-        compare_bf_case("uniform k=903 (32 slots a lane, the largest k)",
-                        uni[:2048], uni[:20_000], 903),
+        compare_bf_case("uniform k=903 (32 slots a lane, the first kernel's "
+                        "largest k)", uni[:2048], uni[:20_000], 903),
     ]
+    bf_errs += large_k_bf_cases(uni, clu, grid)
     details["phase3b_max_abs_err"] = max(bf_errs)
 
     # -- phase 3c -----------------------------------------------------------
@@ -5921,6 +6393,11 @@ def main() -> int:
     details["tools"], tool_counts = tooling_phases(
         smi, details["serving"]["16a k=100 R=1"]["queries_per_second"], runs)
 
+    # -- phase 21 -----------------------------------------------------------
+    say(f"[phase 21] the D=3 slice at k={LARGE_K}: {N_MAIN} uniform points")
+    details["large_k"], large_runs = large_k_phase(smi, pts_path, pts_np,
+                                                   lst)
+
     # -- phase 12 -----------------------------------------------------------
     say("[phase 12] phase 10's f32 R=1 run again under the profiler")
     label = "f32 R=1 under the profiler"
@@ -5935,7 +6412,8 @@ def main() -> int:
         + list(hd_runs.values()) + list(chunk_runs.values()) \
         + list(ooc_runs.values()) + list(engine_runs.values()) \
         + list(serve_runs.values()) + list(tier_runs.values()) \
-        + list(mh_runs.values()) + [pod_counts, rep_counts, tool_counts]
+        + list(mh_runs.values()) + [pod_counts, rep_counts, tool_counts] \
+        + list(large_runs.values())
 
     def launched(key):
         return sum(r.get(key, 0) for r in main_runs)
@@ -5954,22 +6432,37 @@ def main() -> int:
     # phase 3g: the slab engines' shapes; 3h: a routed host's
     slab_err = details["tiers"]["phase3g_max_abs_err"]
     routed_err = details["pod"]["phase3h_max_abs_err"]
+    large = details["large_k"]
     kernels = {"kernels": [
-        # knn_tiled_d3_kernel, timed in phase 6
-        entry("knn_tiled", SOURCE, REPLACES, launched("knn_tiled_d3_launches"),
+        # knn_tiled_d3_kernel (k up to 903), timed in phase 6
+        entry("knn_tiled", SOURCE, REPLACES,
+              launched("knn_tiled_d3_launches")
+              - launched("knn_tiled_d3_wide_launches"),
               (details["phase3_max_abs_err"], timed[8]["max_abs_err"],
                timed[100]["max_abs_err"],
                details["out_of_core"]["witness_max_abs_err"], canon_err,
                served_err["d3"], slab_err, routed_err), timed[8]),
+        # knn_tiled_d3_wide_kernel (k above 903), timed in phase 21
+        entry("knn_tiled_d3_wide", SOURCE, REPLACES,
+              launched("knn_tiled_d3_wide_launches"),
+              (details["phase3_max_abs_err"], details["phase3e_max_abs_err"],
+               large["traversal"]["max_abs_err"]), large["traversal"]),
         entry("knn_tiled_nd_ring", SOURCE, RING_REPLACES,
               launched("knn_tiled_ring_launches"),
               (details["phase3c_max_abs_err"],
                hd_timed["f32"]["max_abs_err"], canon_err,
                served_err["ring"]), hd_timed["f32"]),
-        # knn_bf_d3_kernel, timed in phase 9
-        entry("knn_bf", BF_SOURCE, BF_REPLACES, launched("knn_bf_d3_launches"),
+        # knn_bf_d3_kernel (k up to 903), timed in phase 9
+        entry("knn_bf", BF_SOURCE, BF_REPLACES,
+              launched("knn_bf_d3_launches")
+              - launched("knn_bf_d3_wide_launches"),
               (details["phase3b_max_abs_err"], bf_timed[8]["max_abs_err"],
                bf_timed[100]["max_abs_err"]), bf_timed[8]),
+        # knn_bf_d3_wide_kernel (k above 903), timed in phase 21
+        entry("knn_bf_d3_wide", BF_SOURCE, BF_REPLACES,
+              launched("knn_bf_d3_wide_launches"),
+              (details["phase3b_max_abs_err"], details["phase3e_max_abs_err"],
+               large["flat"]["max_abs_err"]), large["flat"]),
         # knn_tiled_wgmma_kernel with the query halves resident, timed in
         # phase 11
         entry("knn_tiled_mxu", MXU_SOURCE, MXU_REPLACES,

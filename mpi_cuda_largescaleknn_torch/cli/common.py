@@ -177,9 +177,10 @@ def parse_args(program: str, argv: list[str]):
 def launch_counts() -> dict:
     """The process's kernel launches so far, by their ``--timings`` keys:
     the traversal (any route; the ring kernel with resident queries, with D
-    streamed; the D=3 kernel; the bf16 kernel, and of those with resident
-    query halves, with D streamed) and the flat fold (any route; the D=3
-    kernel; the ring kernel); then the work of the engines that launch no
+    streamed; the D=3 kernels, and of those the wide fold's; the bf16
+    kernel, and of those with resident query halves, with D streamed) and
+    the flat fold (any route; the D=3 kernels, and of those the wide
+    fold's; the ring kernel); then the work of the engines that launch no
     kernel of their own: the twin's chunk merges (``tiled``) and the
     tree's folds and lockstep steps (``tree``)."""
     from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
@@ -194,11 +195,13 @@ def launch_counts() -> dict:
             "knn_tiled_ring_launches": kt.ring_launches,
             "knn_tiled_stream_launches": kt.stream_launches,
             "knn_tiled_d3_launches": kt.d3_launches,
+            "knn_tiled_d3_wide_launches": kt.d3_wide_launches,
             "knn_tiled_mxu_launches": kt.mxu_launches,
             "knn_tiled_wgmma_launches": kt.wgmma_launches,
             "knn_tiled_wgmma_stream_launches": kt.wgmma_stream_launches,
             "knn_bf_launches": bf.launches,
             "knn_bf_d3_launches": bf.d3_launches,
+            "knn_bf_d3_wide_launches": bf.d3_wide_launches,
             "knn_bf_ring_launches": bf.ring_launches,
             "tiled_folds": knn_update_tiled.folds,
             "tree_folds": knn_update_tree.folds,

@@ -45,6 +45,10 @@
 //   adopted), and one thread bulk-copies the next tile (cp.async.bulk on an
 //   mbarrier, bulk_ring.cuh) while the block folds this one: one barrier a
 //   tile.
+// - There k stopped at 903, where a block's rows beside one tile filled
+//   its shared memory. knn_bf_d3_wide_kernel takes every k above it with
+//   the wide fold (knn_rows.cuh): a row in its own order, in place in
+//   device memory, each adoption buffered and merged 32 at a time.
 //
 // Points of any other dimension D take knn_tiled.cu's
 // knn_tiled_nd_ring_kernel (ops/knn_bf.py launch_knn_bf): the flat fold is
@@ -119,38 +123,103 @@ __global__ void __launch_bounds__(knn::kD3MaxThreads, 2) knn_bf_d3_kernel(
   knn::store_warp_rows<S>(d2, idx, row0, valid, wd2, widx, k);
 }
 
-template <int S>
-int bf_d3_launch(const float* q_pts, const float4* p4, float* d2, int* idx,
-                 int nq, int np_pad, int k, int threads, int tile_lanes,
-                 size_t smem, cudaStream_t stream) {
+// knn_bf_d3_kernel with the wide fold (knn_rows.cuh) for k above
+// knn::kSlotsMaxK: the same staged tiles, the rows folded in place in
+// d2 / idx.
+__global__ void __launch_bounds__(knn::kD3MaxThreads, 2)
+    knn_bf_d3_wide_kernel(const float* __restrict__ q_pts,  // [nq, 3]
+                          const float4* __restrict__ p4,    // [np_pad]
+                          float* __restrict__ d2,           // [nq, k]
+                          int* __restrict__ idx,            // [nq, k]
+                          int nq, int np_pad, int k, int tile_lanes) {
+  using knn::kWarpRows;
+  extern __shared__ __align__(16) unsigned char sbuf[];
+  const int rows = (blockDim.x >> 5) * kWarpRows;
+  float4* tiles = reinterpret_cast<float4*>(sbuf);                // [2][lanes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + 2 * tile_lanes);  // [2]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int ntiles = (np_pad + tile_lanes - 1) / tile_lanes;
+  auto issue = [&](int t) {
+    const int l0 = t * tile_lanes;
+    const uint32_t bytes = (uint32_t)min(tile_lanes, np_pad - l0) * 16u;
+    knn::mbar_expect_tx(full + (t & 1), bytes);
+    knn::bulk_load(tiles + (t & 1) * tile_lanes, p4 + l0, bytes,
+                   full + (t & 1));
+  };
+  if (tid == 0) {
+    knn::mbar_init(full, 1);
+    knn::mbar_init(full + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) issue(0);
+
+  const long long row0 = (long long)blockIdx.x * rows + warp * kWarpRows;
+  float* wd2 = d2 + row0 * k;
+  int* widx = idx + row0 * k;
+  bool valid[kWarpRows];
+  knn::WarpQueries wq;
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) {
+    const long long row = row0 + r;
+    valid[r] = row < nq;
+    wq.x[r] = valid[r] ? q_pts[row * 3 + 0] : 0.f;
+    wq.y[r] = valid[r] ? q_pts[row * 3 + 1] : 0.f;
+    wq.z[r] = valid[r] ? q_pts[row * 3 + 2] : 0.f;
+  }
+  knn::wide_kth(wd2, k, valid, wq);
+  knn::WidePending pend;
+  knn::wide_pending_init(pend);
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t) __syncthreads();  // every warp is done with tile t-1's buffer
+    if (tid == 0 && t + 1 < ntiles) issue(t + 1);
+    knn::mbar_wait(full + (t & 1), (t >> 1) & 1);
+    knn::fold_tile_wide(tiles + (t & 1) * tile_lanes,
+                        min(tile_lanes, np_pad - t * tile_lanes), wq, pend,
+                        wd2, widx, k);
+  }
+  knn::wide_flush(wq, pend, wd2, widx, k);
+}
+
+// Sets the kernel's shared-memory attribute and launches it over nq rows
+// (either kernel of this file).
+template <class Kernel>
+int bf_launch(Kernel kernel, const float* q_pts, const float4* p4, float* d2,
+              int* idx, int nq, int np_pad, int k, int threads,
+              int tile_lanes, size_t smem, cudaStream_t stream) {
   const int rows = threads / 32 * knn::kWarpRows;
   cudaError_t err = cudaFuncSetAttribute(
-      knn_bf_d3_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)(((long long)nq + rows - 1) / rows);
-  knn_bf_d3_kernel<S><<<blocks, threads, smem, stream>>>(
-      q_pts, p4, d2, idx, nq, np_pad, k, tile_lanes);
+  kernel<<<blocks, threads, smem, stream>>>(q_pts, p4, d2, idx, nq, np_pad,
+                                             k, tile_lanes);
   return (int)cudaGetLastError();
 }
 
-template <int S>
-int bf_d3_blocks_per_sm(int threads, size_t smem) {
+// Blocks of `kernel` an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or minus a CUDA error.
+template <class Kernel>
+int bf_blocks_per_sm(Kernel kernel, int threads, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      knn_bf_d3_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int n = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, knn_bf_d3_kernel<S>, threads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                        smem);
   return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace
 
 // Launches knn_bf_d3_kernel on `stream` with the plan of ops/knn_bf.py
-// launch_geometry: `slots` a lane for a row of k (d3_slots), `threads` a
-// block (4 query rows a warp), tiles of `tile_lanes` (a multiple of 256, as
+// flat_d3_plan: `slots` a lane for a row of k (d3_slots), or 0 for
+// knn_bf_d3_wide_kernel (k above knn::kSlotsMaxK, its rows in place in
+// d2 / idx); `threads` a block
+// (4 query rows a warp), tiles of `tile_lanes` (a multiple of 256, as
 // np_pad is) staged lanes, `smem` bytes of dynamic shared memory
 // (d3_smem_bytes). Returns the CUDA error code of the launch (0 = ok), or
 // cudaErrorInvalidValue for a shape it does not take.
@@ -160,21 +229,28 @@ extern "C" int knn_bf_launch(const float* q_pts, const float* p4, float* d2,
                              void* stream) {
   if (threads % 32 || threads > knn::kD3MaxThreads ||
       tile_lanes % knn::kChunkLanes || np_pad % knn::kChunkLanes || k < 1 ||
-      k > 32 * slots)
+      (slots ? k > 32 * slots : k <= knn::kSlotsMaxK))
     return (int)cudaErrorInvalidValue;
   const float4* p = reinterpret_cast<const float4*>(p4);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto kernel) {
+    return bf_launch(kernel, q_pts, p, d2, idx, nq, np_pad, k, threads,
+                     tile_lanes, (size_t)smem, st);
+  };
+  if (slots == 0) return launch(knn_bf_d3_wide_kernel);
   return knn::with_d3_slots(slots, (int)cudaErrorInvalidValue, [&](auto s) {
-    return bf_d3_launch<decltype(s)::value>(q_pts, p, d2, idx, nq, np_pad, k,
-                                            threads, tile_lanes,
-                                            (size_t)smem, st);
+    return launch(knn_bf_d3_kernel<decltype(s)::value>);
   });
 }
 
-// Blocks of knn_bf_d3_kernel an SM holds at this plan
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a CUDA error.
+// Blocks of knn_bf_d3_kernel (or, with slots 0, knn_bf_d3_wide_kernel) an
+// SM holds at this plan (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or
+// minus a CUDA error.
 extern "C" int knn_bf_blocks_per_sm(int slots, int threads, int smem) {
+  if (slots == 0)
+    return bf_blocks_per_sm(knn_bf_d3_wide_kernel, threads, (size_t)smem);
   return knn::with_d3_slots(slots, -(int)cudaErrorInvalidValue, [&](auto s) {
-    return bf_d3_blocks_per_sm<decltype(s)::value>(threads, (size_t)smem);
+    return bf_blocks_per_sm(knn_bf_d3_kernel<decltype(s)::value>, threads,
+                            (size_t)smem);
   });
 }

@@ -65,12 +65,18 @@ __device__ __forceinline__ float insert_sorted(float* cd2, int* cidx, int bd,
 // after it shift one place up, across lane borders with one shuffle. So
 // the fold is the sequential one, lane by lane, with no serial chain
 // through shared memory.
+//
+// Above kSlotsMaxK the kernels fold with the wide fold instead (below:
+// knn_bf_d3_wide_kernel, knn_tiled_d3_wide_kernel).
 
 constexpr int kWarpRows = 4;      // query rows a warp folds
 constexpr int kChunkGroups = 8;   // lanes a thread scores per row a chunk
 constexpr int kChunkLanes = 32 * kChunkGroups;
 constexpr int kD3MaxThreads = 512;  // __launch_bounds__(512, 2): 64 registers
 constexpr unsigned kFull = 0xffffffffu;
+// the largest k of the instances of S slots a lane that the launch plans
+// take (ops/knn_tiled.py D3_SLOTS_MAX_K): the first D=3 kernels' 903
+constexpr int kSlotsMaxK = 903;
 
 // Calls f(std::integral_constant<int, S>{}) for S = `slots`, the slots a
 // lane holds for a row (ops/knn_tiled.py d3_slots: a power of two >= k/32,
@@ -240,6 +246,219 @@ __device__ __forceinline__ void store_warp_rows(float* d2, int* idx,
           idx[(row0 + r) * k + i] = ridx[(r * S + s) * 32 + lane];
         }
       }
+}
+
+// ---------------------------------------------------------------------------
+// The wide fold of the D=3 kernels, for k above kSlotsMaxK.
+//
+// Slot i of a row sits at row[i], in place in the [*, k] rows in device
+// memory (a warp's 4 rows are consecutive there), so a block's rows take no
+// shared memory and an SM holds 32 warps whatever k; in shared memory they
+// would leave it one to six warps from k=904 on, which ran slower on the
+// card at every such k tried. Each access of a merge step is one coalesced
+// run of 32 slots, and a warp's rows stay in L1 and L2 while it folds them.
+// The gate is the warp fold's. A passing lane is not inserted at once: each
+// row keeps a pending buffer of up to 32 entries in registers (lane j holds
+// entry j), filled in lane order against the row's k-th d2 as of its last
+// merge (a superset of what the sequential fold adopts: its k-th only
+// shrinks). The buffer is merged into the row when the next group of lanes
+// would overflow it, and at the end: of the fold (the flat kernel) or of
+// each staged tile (the traversal, so that a row's k-th d2 after a tile is
+// the sequential fold's and the radius and visits stay the warp fold's). A merge sorts the buffer by (d2,
+// arrival) (a bitonic sort across the lanes), walks the row from its end
+// down, 32 slots a step and kWideSteps steps a round (their reads before
+// their writes), moving each entry up by the number of pending entries
+// strictly below it (row entries win ties) and noting where each pending
+// entry lands, then writes the pending entries into the slots left free;
+// whatever lands at k or beyond drops. That leaves the k smallest of (the
+// row, then the lanes) by (d2, arrival): the sequential fold's bits. A
+// merge costs O((k - p) / 32) steps, p the rank of its smallest entry, for
+// up to 32 adoptions, where one insert of the warp fold costs that for one;
+// a cold row (every lane passes) fills in k / 32 merges.
+
+constexpr int kWideSteps = 4;  // 32-slot steps a merge round reads
+
+// The number of entries of `sorted` (ascending across the warp's lanes,
+// +inf past its end) below v (kLess), or at most v (!kLess): a binary
+// search by shuffles, each lane for its own v.
+template <bool kLess>
+__device__ __forceinline__ int warp_rank(float sorted, float v) {
+  int n = 0;
+#pragma unroll
+  for (int step = 16; step; step >>= 1) {
+    const float t = __shfl_sync(kFull, sorted, n + step - 1);
+    if (kLess ? t < v : t <= v) n += step;
+  }
+  const float t = __shfl_sync(kFull, sorted, n);
+  return (kLess ? t < v : t <= v) ? n + 1 : n;
+}
+
+// Sorts (d, key) ascending across the warp's lanes (keys distinct), id
+// travelling with them.
+__device__ __forceinline__ void warp_sort(float& d, int& key, int& id) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int stride = size >> 1; stride; stride >>= 1) {
+      const float od = __shfl_xor_sync(kFull, d, stride);
+      const int okey = __shfl_xor_sync(kFull, key, stride);
+      const int oid = __shfl_xor_sync(kFull, id, stride);
+      const bool other_less = od < d || (od == d && okey < key);
+      // ascending runs of `size`: the lower lane of a pair keeps the less
+      const bool lower = (lane & stride) == 0;
+      const bool ascending = (lane & size) == 0;
+      if (lower == ascending ? other_less : !other_less) {
+        d = od;
+        key = okey;
+        id = oid;
+      }
+    }
+}
+
+// Merges the n pending entries (pd, pid: lane j holds entry j, in
+// arrival order) into the warp's row (rd2, ridx) of k entries, as above.
+// Every pending d2 is below the row's k-th. Returns the new k-th d2. All
+// 32 lanes call it with the same row and n.
+__device__ __forceinline__ float wide_merge(float* rd2, int* ridx, int k,
+                                            float pd, int pid, int n) {
+  const int lane = threadIdx.x & 31;
+  float d = lane < n ? pd : CUDART_INF_F;
+  int key = lane, id = pid;
+  warp_sort(d, key, id);
+  int rank = 0;  // this lane's pending entry: the row entries <= it
+  int c = ((k - 1) >> 5) << 5;
+  for (bool done = false; !done; c -= 32 * kWideSteps) {
+    float v[kWideSteps];
+    int w[kWideSteps];
+#pragma unroll
+    for (int g = 0; g < kWideSteps; ++g) {
+      const int i = c - 32 * g + lane;
+      const bool real = i >= 0 && i < k;
+      v[g] = real ? rd2[i] : CUDART_INF_F;
+      w[g] = real ? ridx[i] : -1;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int g = 0; g < kWideSteps; ++g) {
+      if (!done) {
+        const int i0 = c - 32 * g;
+        const int i = i0 + lane;
+        const int up = warp_rank<true>(d, v[g]);   // pending below v
+        const int le = warp_rank<false>(v[g], d);  // step entries <= d
+        if (le < 32) rank = i0 + le;
+        if (i >= 0 && i < k && up && i + up < k) {
+          rd2[i + up] = v[g];
+          ridx[i + up] = w[g];
+        }
+        done = i0 <= 0 || __shfl_sync(kFull, up, 0) == 0;
+      }
+    }
+  }
+  __syncwarp();
+  if (lane < n && lane + rank < k) {
+    rd2[lane + rank] = d;
+    ridx[lane + rank] = id;
+  }
+  __syncwarp();
+  return rd2[k - 1];
+}
+
+// Folds the kChunkLanes lanes of `chunk` into one row of the warp through
+// its pending buffer (pd, pid, pn), merging it first where a group of 32
+// lanes would overflow it; kth is the row's k-th d2 as of its last merge.
+__device__ __forceinline__ void fold_row_chunk_wide(
+    const float4* chunk, float qx, float qy, float qz, float* rd2, int* ridx,
+    int k, float& kth, float& pd, int& pid, int& pn) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (int j = 0; j < kChunkGroups; ++j) {
+    const float4 p = chunk[j * 32 + lane];
+    const float dd = dist2_3(qx, qy, qz, p);
+    unsigned m = __ballot_sync(kFull, dd < kth);
+    if (pn + __popc(m) > 32) {
+      kth = wide_merge(rd2, ridx, k, pd, pid, pn);
+      pn = 0;
+      m = __ballot_sync(kFull, dd < kth);
+    }
+    // pending slot pn + q takes the group's q-th passing lane
+    const int src = __fns(m, 0, lane - pn + 1) & 31;
+    const float val = __shfl_sync(kFull, dd, src);
+    const int id = __shfl_sync(kFull, __float_as_int(p.w), src);
+    if (lane >= pn && lane < pn + __popc(m)) {
+      pd = val;
+      pid = id;
+    }
+    pn += __popc(m);
+  }
+}
+
+// The pending buffers of the warp's rows: row r's entries at lanes 0 ..
+// n[r] - 1 of d[r] / id[r].
+struct WidePending {
+  float d[kWarpRows];
+  int id[kWarpRows], n[kWarpRows];
+};
+
+__device__ __forceinline__ void wide_pending_init(WidePending& pend) {
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) {
+    pend.d[r] = 0.f;
+    pend.id[r] = -1;
+    pend.n[r] = 0;
+  }
+}
+
+// Folds the `nl` staged lanes of `tile` (a multiple of kChunkLanes) into
+// the warp's rows (row r at rd2 + r * k), each through its pending buffer.
+__device__ __forceinline__ void fold_tile_wide(const float4* tile, int nl,
+                                               WarpQueries& wq,
+                                               WidePending& pend, float* rd2,
+                                               int* ridx, int k) {
+  const int lane = threadIdx.x & 31;
+  for (int c0 = 0; c0 < nl; c0 += kChunkLanes) {
+    float mn[kWarpRows];
+#pragma unroll
+    for (int r = 0; r < kWarpRows; ++r) mn[r] = CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < kChunkGroups; ++j) {
+      const float4 p = tile[c0 + j * 32 + lane];
+#pragma unroll
+      for (int r = 0; r < kWarpRows; ++r)
+        mn[r] = fminf(mn[r], dist2_3(wq.x[r], wq.y[r], wq.z[r], p));
+    }
+#pragma unroll
+    for (int r = 0; r < kWarpRows; ++r)
+      if (__any_sync(kFull, mn[r] < wq.kth[r]))
+        fold_row_chunk_wide(tile + c0, wq.x[r], wq.y[r], wq.z[r],
+                            rd2 + r * k, ridx + r * k, k, wq.kth[r],
+                            pend.d[r], pend.id[r], pend.n[r]);
+  }
+}
+
+// Merges every non-empty pending buffer into its row: the traversal after
+// each tile (its radius is the rows' k-th d2), the flat fold once at its
+// end.
+__device__ __forceinline__ void wide_flush(WarpQueries& wq, WidePending& pend,
+                                           float* rd2, int* ridx, int k) {
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r)
+    if (pend.n[r]) {
+      wq.kth[r] = wide_merge(rd2 + r * k, ridx + r * k, k, pend.d[r],
+                             pend.id[r], pend.n[r]);
+      pend.n[r] = 0;
+    }
+}
+
+// The k-th d2 of the warp's rows for the wide fold (row r at rd2 + r * k,
+// in place), into wq.kth; -inf for a row with valid[r] false, which folds
+// nothing.
+__device__ __forceinline__ void wide_kth(const float* rd2, int k,
+                                         const bool (&valid)[kWarpRows],
+                                         WarpQueries& wq) {
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r)
+    wq.kth[r] = valid[r] ? rd2[r * k + k - 1] : -CUDART_INF_F;
 }
 
 }  // namespace knn

@@ -59,6 +59,11 @@
 //   on it) while the block folds this one; and each warp adds its rows'
 //   largest k-th d2 to a shared atomicMax on the float bits (d2 >= 0), so
 //   one barrier a tile both frees the other buffer and settles the radius.
+// - There k stopped at 903, where a block's rows filled its shared
+//   memory. knn_tiled_d3_wide_kernel takes every k above it with the wide
+//   fold (knn_rows.cuh): a row in its own order, in place in device
+//   memory, each adoption buffered and merged 32 at a time, the buffers
+//   merged at every tile's end so the radius stays the warp fold's.
 //
 // Points of any other dimension D go through knn_tiled_nd_ring_kernel: the
 // same walk, prune and fold, with each pair scored left to right over all
@@ -229,6 +234,128 @@ __global__ void __launch_bounds__(knn::kD3MaxThreads, 2) knn_tiled_d3_kernel(
   // lands before the block exits
   if (tid == 0 && v < num_pb) knn::mbar_wait(full + (n & 1), (n >> 1) & 1);
   knn::store_warp_rows<S>(d2, idx, row0, valid, wd2, widx, k);
+  if (tid == 0 && nvis) atomicMax(visits + b, nvis);
+}
+
+// knn_tiled_d3_kernel with the wide fold (knn_rows.cuh) for k above
+// knn::kSlotsMaxK: the same walk, tiles and radius, the rows folded in
+// place in d2 / idx.
+__global__ void __launch_bounds__(knn::kD3MaxThreads, 2)
+    knn_tiled_d3_wide_kernel(
+    const int* __restrict__ order,     // [Bq, Bp] nearest-first bucket ids
+    const float* __restrict__ boxd2,   // [Bq, Bp] ascending box d2
+    const float* __restrict__ q_pts,   // [Bq, S, 3]
+    const int* __restrict__ q_ids,     // [Bq, S]
+    const float4* __restrict__ p4,     // [Bp, t_pad] {x, y, z, id bits}
+    float* __restrict__ d2,            // [Bq*S, k] in/out, ascending rows
+    int* __restrict__ idx,             // [Bq*S, k] in/out
+    int* __restrict__ visits,          // [Bq] buckets scored, max over blocks
+    int s_q, int num_pb, int t_pad, int k, int skip_self, int self_group,
+    int tile_lanes, int y0) {
+  using knn::kWarpRows;
+  extern __shared__ __align__(16) unsigned char sbuf[];
+  const int rows = (blockDim.x >> 5) * kWarpRows;
+  float4* tiles = reinterpret_cast<float4*>(sbuf);                // [2][lanes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + 2 * tile_lanes);  // [2]
+  // the block's radius, as float bits: tile n's atomics go to red[(n+1)%3],
+  // read after the next barrier; red[(n+2)%3] is cleared meanwhile
+  int* red = reinterpret_cast<int*>(full + 2);  // [3]
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int own = b / self_group;
+  const int* ord = order + (long long)b * num_pb;
+  const float* bx = boxd2 + (long long)b * num_pb;
+  const int pieces = (t_pad + tile_lanes - 1) / tile_lanes;
+  // the schedule position after v that the walk scores (skip_self masks
+  // the own bucket out)
+  auto next_pos = [&](int v) {
+    ++v;
+    while (v < num_pb && skip_self && ord[v] == own) ++v;
+    return v;
+  };
+  // tile n of the walk (piece c of the bucket at position v) goes to
+  // buffer n & 1 and completes on full[n & 1]
+  auto issue = [&](int v, int c, int n) {
+    const int l0 = c * tile_lanes;
+    const uint32_t bytes = (uint32_t)min(tile_lanes, t_pad - l0) * 16u;
+    knn::mbar_expect_tx(full + (n & 1), bytes);
+    knn::bulk_load(tiles + (n & 1) * tile_lanes,
+                   p4 + (long long)ord[v] * t_pad + l0, bytes, full + (n & 1));
+  };
+  if (tid == 0) {
+    knn::mbar_init(full, 1);
+    knn::mbar_init(full + 1, 1);
+    red[0] = red[1] = red[2] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int v = next_pos(-1);
+  if (tid == 0 && v < num_pb) issue(v, 0, 0);
+
+  // in the bucket: a launch of more than 65,535 blocks of rows goes in
+  // pieces, each starting at block y0 (ops/knn_tiled.py grid_y_pieces)
+  const int r0 = (blockIdx.y + y0) * rows + warp * kWarpRows;
+  const long long row0 = (long long)b * s_q + r0;
+  float* wd2 = d2 + row0 * k;
+  int* widx = idx + row0 * k;
+  bool valid[kWarpRows];
+  knn::WarpQueries wq;
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) {
+    const long long row = row0 + r;
+    valid[r] = r0 + r < s_q && q_ids[row] >= 0;
+    wq.x[r] = valid[r] ? q_pts[row * 3 + 0] : 0.f;
+    wq.y[r] = valid[r] ? q_pts[row * 3 + 1] : 0.f;
+    wq.z[r] = valid[r] ? q_pts[row * 3 + 2] : 0.f;
+  }
+  knn::wide_kth(wd2, k, valid, wq);
+  knn::WidePending pend;
+  knn::wide_pending_init(pend);
+  // the largest k-th d2 of the warp's rows, as float bits (0 when none
+  // folds: no box d2 is below it)
+  auto radius_bits = [&]() {
+    float m = 0.f;
+#pragma unroll
+    for (int r = 0; r < kWarpRows; ++r) m = fmaxf(m, wq.kth[r]);
+    return __float_as_int(m);
+  };
+  if (lane == 0) atomicMax(red, radius_bits());
+
+  int n = 0;  // tiles scored
+  int c = 0;  // piece of the bucket at position v
+  int nvis = 0;
+  while (v < num_pb) {
+    // every warp is done with tile n-1 (its buffer is free) and has added
+    // its radius to red[n % 3]
+    __syncthreads();
+    const float worst = __int_as_float(red[n % 3]);
+    if (tid == 0) red[(n + 2) % 3] = 0;
+    // ascending box d2 and a radius that only shrinks: nothing later can
+    // be adopted either
+    if (c == 0 && !(bx[v] < worst)) break;
+    int vn = v, cn = c + 1;
+    if (cn == pieces) {
+      vn = next_pos(v);
+      cn = 0;
+    }
+    if (tid == 0 && vn < num_pb) issue(vn, cn, n + 1);
+    knn::mbar_wait(full + (n & 1), (n >> 1) & 1);
+    knn::fold_tile_wide(tiles + (n & 1) * tile_lanes,
+                        min(tile_lanes, t_pad - c * tile_lanes), wq, pend,
+                        wd2, widx, k);
+    knn::wide_flush(wq, pend, wd2, widx, k);
+    if (lane == 0) atomicMax(red + (n + 1) % 3, radius_bits());
+    if (cn == 0) ++nvis;
+    v = vn;
+    c = cn;
+    ++n;
+  }
+  // the walk stopped at a bucket whose first tile was already copied: it
+  // lands before the block exits
+  if (tid == 0 && v < num_pb) knn::mbar_wait(full + (n & 1), (n >> 1) & 1);
   if (tid == 0 && nvis) atomicMax(visits + b, nvis);
 }
 
@@ -628,42 +755,46 @@ extern "C" int knn_tiled_nd_ring_launch(
 
 namespace {
 
-template <int S>
-int tiled_d3_launch(const int* order, const float* boxd2, const float* q_pts,
-                    const int* q_ids, const float4* p4, float* d2, int* idx,
-                    int* visits, int num_qb, int s_q, int num_pb, int t_pad,
-                    int k, int skip_self, int self_group, int threads,
-                    int tile_lanes, int y0, int ny, size_t smem,
-                    cudaStream_t stream) {
+// Sets a D=3 kernel's shared-memory attribute and launches it over the ny
+// blocks of rows of each query bucket from block y0.
+template <class Kernel>
+int tiled_launch(Kernel kernel, const int* order, const float* boxd2,
+                 const float* q_pts, const int* q_ids, const float4* p4,
+                 float* d2, int* idx, int* visits, int num_qb, int s_q,
+                 int num_pb, int t_pad, int k, int skip_self, int self_group,
+                 int threads, int tile_lanes, int y0, int ny, size_t smem,
+                 cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      knn_tiled_d3_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(num_qb, ny);
-  knn_tiled_d3_kernel<S><<<grid, threads, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       order, boxd2, q_pts, q_ids, p4, d2, idx, visits, s_q, num_pb, t_pad, k,
       skip_self, self_group, tile_lanes, y0);
   return (int)cudaGetLastError();
 }
 
-template <int S>
-int tiled_d3_blocks_per_sm(int threads, size_t smem) {
+// Blocks of `kernel` an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or minus a CUDA error.
+template <class Kernel>
+int tiled_blocks_per_sm(Kernel kernel, int threads, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      knn_tiled_d3_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int n = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, knn_tiled_d3_kernel<S>, threads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                        smem);
   return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace
 
 // Launches knn_tiled_d3_kernel on `stream` with the plan of ops/knn_tiled.py
-// tiled_launch_plan: `slots` a lane for a row of k (d3_slots), `threads` a
-// block (4 query rows a warp), point buckets of t_pad lanes (a multiple of
-// 256) staged in tiles of `tile_lanes` (a multiple of 256), `smem` bytes of
+// tiled_launch_plan: `slots` a lane for a row of k (d3_slots), or 0 for
+// knn_tiled_d3_wide_kernel (k above knn::kSlotsMaxK, its rows in place in
+// d2 / idx); `threads` a block
+// (4 query rows a warp), point buckets of t_pad lanes (a multiple of 256)
+// staged in tiles of `tile_lanes` (a multiple of 256), `smem` bytes of
 // dynamic shared memory (d3_smem_bytes), over the ny blocks of rows of each
 // bucket from block y0 (a bucket of more than 65,535 blocks, the grid's y
 // limit, goes in several launches). Returns the CUDA error code of the
@@ -672,11 +803,11 @@ extern "C" int knn_tiled_launch(
     const int* order, const float* boxd2, const float* q_pts,
     const int* q_ids, const float* p4, float* d2, int* idx, int* visits,
     int num_qb, int s_q, int num_pb, int t_pad, int k, int skip_self,
-    int self_group, int slots, int threads, int tile_lanes, int smem,
-    int y0, int ny, void* stream) {
+    int self_group, int slots, int threads, int tile_lanes, int smem, int y0,
+    int ny, void* stream) {
   if (threads % 32 || threads > knn::kD3MaxThreads || threads < 32 ||
       tile_lanes % knn::kChunkLanes || t_pad % knn::kChunkLanes || k < 1 ||
-      k > 32 * slots)
+      (slots ? k > 32 * slots : k <= knn::kSlotsMaxK))
     return (int)cudaErrorInvalidValue;
   const int rows = threads / 32 * knn::kWarpRows;
   if (y0 < 0 || ny < 1 || ny > knn::kMaxGridY ||
@@ -684,18 +815,27 @@ extern "C" int knn_tiled_launch(
     return (int)cudaErrorInvalidValue;
   const float4* p = reinterpret_cast<const float4*>(p4);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto kernel) {
+    return tiled_launch(kernel, order, boxd2, q_pts, q_ids, p, d2, idx,
+                        visits, num_qb, s_q, num_pb, t_pad, k, skip_self,
+                        self_group, threads, tile_lanes, y0, ny,
+                        (size_t)smem, st);
+  };
+  if (slots == 0) return launch(knn_tiled_d3_wide_kernel);
   return knn::with_d3_slots(slots, (int)cudaErrorInvalidValue, [&](auto s) {
-    return tiled_d3_launch<decltype(s)::value>(
-        order, boxd2, q_pts, q_ids, p, d2, idx, visits, num_qb, s_q, num_pb,
-        t_pad, k, skip_self, self_group, threads, tile_lanes, y0, ny,
-        (size_t)smem, st);
+    return launch(knn_tiled_d3_kernel<decltype(s)::value>);
   });
 }
 
-// Blocks of knn_tiled_d3_kernel an SM holds at this plan
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a CUDA error.
+// Blocks of knn_tiled_d3_kernel (or, with slots 0, knn_tiled_d3_wide_kernel)
+// an SM holds at this plan (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or minus a CUDA error.
 extern "C" int knn_tiled_blocks_per_sm(int slots, int threads, int smem) {
+  if (slots == 0)
+    return tiled_blocks_per_sm(knn_tiled_d3_wide_kernel, threads,
+                               (size_t)smem);
   return knn::with_d3_slots(slots, -(int)cudaErrorInvalidValue, [&](auto s) {
-    return tiled_d3_blocks_per_sm<decltype(s)::value>(threads, (size_t)smem);
+    return tiled_blocks_per_sm(knn_tiled_d3_kernel<decltype(s)::value>,
+                               threads, (size_t)smem);
   });
 }

@@ -13,7 +13,8 @@ every equal entry, so existing entries win ties, then lower point rows.
 - ``knn_update_bf_cuda`` is the entry point: on a CUDA tensor it launches
   a kernel or raises, on a CPU tensor it runs ``knn_update_bf_plain``. At
   D=3 the kernel is ``csrc/knn_bf.cu``'s ``knn_bf_d3_kernel`` (the warp
-  fold of ``csrc/knn_rows.cuh``); at other D it is the traversal's
+  fold of ``csrc/knn_rows.cuh``; above ``D3_SLOTS_MAX_K``
+  ``knn_bf_d3_wide_kernel``, the wide fold); at other D it is the traversal's
   ``knn_tiled_nd_ring_kernel`` (``csrc/knn_tiled.cu``) on
   ``flat_buckets``: one query bucket of every row and one point bucket of
   every point, visited once, which folds the points in the same order.
@@ -97,9 +98,21 @@ def launch_geometry(query_tile: int, point_tile: int,
     ``query_tile`` rows a block in warps of 4 (``d3_block``: at most 16
     warps, fewer where two blocks would not fit on an SM) and tiles of
     ``point_tile`` lanes rounded up to whole 256-lane chunks, at most 1024
-    (``d3_tile_lanes``); a block has 8 threads a row."""
+    (``d3_tile_lanes``); a block has 8 threads a row. The whole plan,
+    where the rows sit included: ``flat_d3_plan``."""
     lanes = d3_tile_lanes(point_tile)
     return d3_block(query_tile, lanes, k)[0], lanes
+
+
+def flat_d3_plan(query_tile: int, point_tile: int, k: int) -> TiledPlan:
+    """How the flat D=3 kernel launches, as the traversal's D=3 plan says
+    it: ``launch_geometry``'s block and tiles (two in flight), the rows in
+    shared memory (``knn_bf_d3_kernel``, slots a lane) or in place in
+    device memory (``knn_bf_d3_wide_kernel``, k above ``D3_SLOTS_MAX_K``),
+    and the block's shared memory."""
+    rows, lanes = launch_geometry(query_tile, point_tile, k)
+    return TiledPlan("d3", rows, lanes, 8 * rows, 4, 2, d3_slots(k) > 0,
+                     d3_smem_bytes(rows, lanes, k))
 
 
 def flat_plan(k: int, dim: int) -> TiledPlan:
@@ -202,7 +215,11 @@ def launch_knn_bf(queries: torch.Tensor, points: torch.Tensor,
     ``d3_lanes`` padded to whole 256-lane chunks; at other D the ring
     kernel (``flat_plan``) folds ``flat_buckets``, ignoring the tiles.
     Counts each launch in ``knn_update_bf_cuda.launches``, and in
-    ``d3_launches`` or ``ring_launches`` by its kernel."""
+    ``d3_launches`` or ``ring_launches`` by its kernel (the wide fold's,
+    k above ``D3_SLOTS_MAX_K``, also in ``d3_wide_launches``). With
+    ``knn_update_bf_cuda.layout_events`` a list, each launch appends three
+    recorded CUDA events: before its layouts, before the kernel and after
+    it."""
     num_q, k = rows.dist2.shape
     dim = queries.shape[-1]
     if not (rows.dist2.is_contiguous() and rows.idx.is_contiguous()):
@@ -222,23 +239,32 @@ def launch_knn_bf(queries: torch.Tensor, points: torch.Tensor,
             bf.launches += 1
             bf.ring_launches += 1
         return
-    block_rows, lanes = launch_geometry(query_tile, point_tile, k)
-    p, pid = points.contiguous(), point_ids.contiguous()
-    q = queries.contiguous()
-    np_pad = round_up(p.shape[0], CHUNK_LANES)
-    p4 = d3_lanes(p, pid, np_pad)
-    lib = _library()
-    with torch.cuda.device(p.device):
+    plan = flat_d3_plan(query_tile, point_tile, k)
+    events = bf.layout_events
+    with torch.cuda.device(points.device):
+        if events is not None:
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            marks[0].record()
+        p, pid = points.contiguous(), point_ids.contiguous()
+        q = queries.contiguous()
+        np_pad = round_up(p.shape[0], CHUNK_LANES)
+        p4 = d3_lanes(p, pid, np_pad)
+        lib = _library()
+        if events is not None:
+            marks[1].record()
         err = lib.knn_bf_launch(q.data_ptr(), p4.data_ptr(),
                                 rows.dist2.data_ptr(), rows.idx.data_ptr(),
-                                num_q, np_pad, k, d3_slots(k),
-                                8 * block_rows, lanes,
-                                d3_smem_bytes(block_rows, lanes, k),
+                                num_q, np_pad, k, d3_slots(k), plan.threads,
+                                plan.lanes, plan.smem,
                                 torch.cuda.current_stream().cuda_stream)
+        if events is not None:
+            marks[2].record()
+            events.append(marks)
     if err:
         raise RuntimeError(f"knn_bf kernel launch failed: CUDA error {err}")
     bf.launches += 1
     bf.d3_launches += 1
+    bf.d3_wide_launches += int(d3_slots(k) == 0)
 
 
 def resident_warps(k: int, query_tile: int = 2048,
@@ -246,24 +272,26 @@ def resident_warps(k: int, query_tile: int = 2048,
     """Warps of ``knn_bf_d3_kernel`` an SM holds at the plan for these
     knobs, as the card reports it (cudaOccupancyMaxActiveBlocksPerMultiprocessor;
     builds the library)."""
-    rows, lanes = launch_geometry(query_tile, point_tile, k)
-    blocks = _library().knn_bf_blocks_per_sm(
-        d3_slots(k), 8 * rows, d3_smem_bytes(rows, lanes, k))
+    plan = flat_d3_plan(query_tile, point_tile, k)
+    blocks = _library().knn_bf_blocks_per_sm(d3_slots(k), plan.threads,
+                                             plan.smem)
     if blocks < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-blocks}")
-    return blocks * rows // 4
+    return blocks * plan.rows // 4
 
 
 #: flat kernel launches made by this process (read by chip_smoke.py and the
 #: CLIs): ``launches`` of either kernel, ``d3_launches`` of those that went
-#: to csrc/knn_bf.cu's D=3 kernel, ``ring_launches`` of those that went to
-#: csrc/knn_tiled.cu's ring kernel (D != 3)
+#: to csrc/knn_bf.cu's D=3 kernels, ``d3_wide_launches`` of those to its
+#: ``knn_bf_d3_wide_kernel`` (k above ``D3_SLOTS_MAX_K``), ``ring_launches``
+#: of those that went to csrc/knn_tiled.cu's ring kernel (D != 3)
 knn_update_bf_cuda.launches = 0
 knn_update_bf_cuda.d3_launches = 0
+knn_update_bf_cuda.d3_wide_launches = 0
 knn_update_bf_cuda.ring_launches = 0
-#: None, or a list to which every ring-kernel launch appends three recorded
-#: CUDA events (``launch_f32_plan``): before the layouts, before the kernel
-#: and after it
+#: None, or a list to which every launch appends three recorded CUDA
+#: events: before the layouts (the ring layouts, ``launch_f32_plan``, or
+#: ``d3_lanes``), before the kernel and after it
 knn_update_bf_cuda.layout_events = None
 
 

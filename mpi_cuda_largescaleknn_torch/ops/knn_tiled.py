@@ -16,7 +16,8 @@ started with their own bucket, ``ops/tiled.py``).
   launches a kernel (or raises), on a CPU tensor it runs
   ``knn_update_tiled_plain``. In f32 the kernel is one of
   ``csrc/knn_tiled.cu``, named by ``tiled_launch_plan``:
-  ``knn_tiled_d3_kernel`` at D=3 (the warp fold of ``csrc/knn_rows.cuh``),
+  ``knn_tiled_d3_kernel`` at D=3 (the warp fold of ``csrc/knn_rows.cuh``;
+  above ``D3_SLOTS_MAX_K`` ``knn_tiled_d3_wide_kernel``, the wide fold),
   ``knn_tiled_nd_ring_kernel`` (a ring of bulk-copied chunks) at every
   other D, with the queries resident up to Dp4 = ``RESIDENT_MAX_DP4`` and
   D streamed in slices above it; with
@@ -96,16 +97,18 @@ SMEM_SM = 233_472
 #: WARP_ROWS query rows, scoring chunks of CHUNK_LANES point lanes staged as
 #: float4 in tiles of at most D3_MAX_TILE_LANES, two tiles at once; a block
 #: has at most D3_MAX_WARPS warps of at most D3_REGS registers a thread
-#: (__launch_bounds__(512, 2)); a row keeps d3_slots(k) slots a lane, and
-#: k is at most D3_MAX_K: the largest k the first D=3 kernels took (8 bytes
-#: a slot beside one 16-byte lane, (SMEM_OPTIN - 1024 - 16) // 256), in
-#: the instance of 32 slots a lane
+#: (__launch_bounds__(512, 2)); a row keeps d3_slots(k) slots a lane up to
+#: D3_SLOTS_MAX_K, the largest k the first D=3 kernels took (8 bytes a slot
+#: beside one 16-byte lane, (SMEM_OPTIN - 1024 - 16) // 256), so that no k
+#: they took changes its plan; above it the kernels take the wide fold
+#: (csrc/knn_rows.cuh): the row in its own order, in place in device
+#: memory, so any k plans
 WARP_ROWS = 4
 CHUNK_LANES = 256
 D3_MAX_TILE_LANES = 1024
 D3_MAX_WARPS = 16
 D3_REGS = 64
-D3_MAX_K = 903
+D3_SLOTS_MAX_K = 903
 #: warps of a traversal block at D=3: 32 rows, so a bucket of S=248 rows
 #: splits over 8 blocks that prune on their own rows
 D3_TILED_WARPS = 8
@@ -262,8 +265,11 @@ def _with_stats(out: CandidateState, visits: torch.Tensor, with_stats):
 
 def d3_slots(k: int) -> int:
     """Slots a lane holds for a row of ``k`` entries in the warp fold: a
-    power of two >= k/32 (the kernels have an instance for each, and the
-    launchers take it from here)."""
+    power of two >= k/32 up to ``D3_SLOTS_MAX_K`` (the kernels have an
+    instance for each, and the launchers take it from here), 0 above it:
+    the wide fold, a row in its own order."""
+    if k > D3_SLOTS_MAX_K:
+        return 0
     s = 1
     while 32 * s < k:
         s *= 2
@@ -273,8 +279,8 @@ def d3_slots(k: int) -> int:
 def d3_smem_bytes(rows: int, lanes: int, k: int) -> int:
     """Dynamic shared memory of a D=3 kernel's block, as the launchers get
     it: two staged tiles of ``lanes`` float4, ``rows`` candidate rows of
-    32 * d3_slots(k) slots (d2 and id), and 32 bytes of mbarriers and
-    radius slots."""
+    32 * d3_slots(k) slots (d2 and id; none in the wide fold), and 32 bytes
+    of mbarriers and radius slots."""
     return 2 * 16 * lanes + rows * d3_slots(k) * 32 * 8 + 32
 
 
@@ -288,12 +294,10 @@ def d3_blocks_per_sm(threads: int, smem: int) -> int:
 def d3_block(rows: int, lanes: int, k: int) -> tuple[int, int]:
     """(rows per block, threads) of a D=3 kernel: ``WARP_ROWS`` rows a
     warp, as many warps as ``rows`` asks for up to ``D3_MAX_WARPS``, fewer
-    where two blocks would no longer fit on an SM. Raises above
-    ``D3_MAX_K``."""
-    if not 1 <= k <= D3_MAX_K:
-        raise NotImplementedError(
-            f"k={k}, D=3: the warp fold holds at most {D3_MAX_K} entries a "
-            "row (larger k: ROADMAP.md Queue 2)")
+    where two blocks would no longer fit on an SM (never in the wide fold,
+    whose rows take no shared memory). Raises for k < 1."""
+    if k < 1:
+        raise ValueError(f"k={k}: a row holds at least one entry")
     warps = max(1, min(D3_MAX_WARPS, -(-rows // WARP_ROWS)))
     while warps > 1 and d3_blocks_per_sm(
             32 * warps, d3_smem_bytes(WARP_ROWS * warps, lanes, k)) < 2:
@@ -399,8 +403,10 @@ def tiled_launch_plan(s_q: int, t_p: int, k: int, dim: int) -> TiledPlan:
     """The f32 kernel and its plan, by D and Dp4 = D rounded up to 4.
 
     D=3 takes ``knn_tiled_d3_kernel`` (``launch_geometry``'s block, two
-    tiles in flight). Every other D takes the ring kernel: 128 rows a
-    block, 64-lane chunks; up to ``RESIDENT_MAX_DP4`` with the queries
+    tiles in flight), its rows in shared memory; above ``D3_SLOTS_MAX_K``
+    ``knn_tiled_d3_wide_kernel``, its rows in place in device memory, so
+    any k plans. Every other D takes the ring kernel: 128 rows a block,
+    64-lane chunks; up to ``RESIDENT_MAX_DP4`` with the queries
     resident, above it with D streamed in slices
     (``stream_slice_groups``). The candidate rows sit in shared memory
     where they fit beside a ring of 3 stages, else of 2, and otherwise in
@@ -408,7 +414,7 @@ def tiled_launch_plan(s_q: int, t_p: int, k: int, dim: int) -> TiledPlan:
     dp4 = round_up(dim, 4)
     if dim == 3:
         rows, threads, lanes = launch_geometry(s_q, t_p, k)
-        return TiledPlan("d3", rows, lanes, threads, dp4, 2, True,
+        return TiledPlan("d3", rows, lanes, threads, dp4, 2, d3_slots(k) > 0,
                          d3_smem_bytes(rows, lanes, k))
     stream = dp4 > RESIDENT_MAX_DP4
     groups = stream_slice_groups(dp4) if stream else 0
@@ -734,8 +740,9 @@ def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
     (``launch_f32_plan``). Returns the per-query-bucket visit counts
     (i32[Bq]). Counts one launch in ``knn_update_tiled_cuda.launches``, and
     the ring kernel's also in ``ring_launches`` (queries resident) or
-    ``stream_launches`` (D streamed), the D=3 kernel's in
-    ``d3_launches``."""
+    ``stream_launches`` (D streamed), the D=3 kernels' in ``d3_launches``
+    and of those the wide fold's (k above ``D3_SLOTS_MAX_K``) also in
+    ``d3_wide_launches``."""
     _check_schedule(order, sorted_d2, q, p, rows)
     plan = tiled_launch_plan(q.ids.shape[1], p.ids.shape[1],
                              rows.dist2.shape[1], q.pts.shape[-1])
@@ -748,6 +755,8 @@ def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
     kt.ring_launches += int(plan.kernel == "ring")
     kt.stream_launches += int(plan.kernel == "stream")
     kt.d3_launches += int(plan.kernel == "d3")
+    kt.d3_wide_launches += int(plan.kernel == "d3"
+                               and d3_slots(rows.dist2.shape[1]) == 0)
     return visits
 
 
@@ -979,7 +988,8 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
 #: CLIs): ``launches`` of csrc/knn_tiled.cu (any route), ``ring_launches``,
 #: ``stream_launches`` and ``d3_launches`` of those that went to its ring
 #: kernel with the queries resident, with D streamed, and to its D=3
-#: kernel, ``mxu_launches`` of
+#: kernels, ``d3_wide_launches`` of the last to ``knn_tiled_d3_wide_kernel``
+#: (k above ``D3_SLOTS_MAX_K``), ``mxu_launches`` of
 #: csrc/knn_tiled_mxu.cu (either route), ``wgmma_launches`` and
 #: ``wgmma_stream_launches`` of those with the query halves resident and
 #: with D streamed
@@ -987,6 +997,7 @@ knn_update_tiled_cuda.launches = 0
 knn_update_tiled_cuda.ring_launches = 0
 knn_update_tiled_cuda.stream_launches = 0
 knn_update_tiled_cuda.d3_launches = 0
+knn_update_tiled_cuda.d3_wide_launches = 0
 knn_update_tiled_cuda.mxu_launches = 0
 knn_update_tiled_cuda.wgmma_launches = 0
 knn_update_tiled_cuda.wgmma_stream_launches = 0

@@ -282,9 +282,26 @@ def test_flat_schedule_is_the_flat_fold(kind, k):
         assert bool((got.idx[60:, :min(k, 60)] == -1).all())
 
 
-def test_launch_geometry_refuses_huge_k():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.launch_geometry(2048, 2048, 1000)
+@pytest.mark.parametrize("k", [904, 1000, 1024, 1025, 2048, 4096, 4097,
+                               8192, 16384])
+def test_flat_d3_plans_large_k(k):
+    """k above 903 plans the flat D=3 kernel's wide fold: its rows in
+    place in device memory, so the block is as wide as at k=8 and its
+    shared memory holds two tiles; the plan fits what a block may opt into
+    and says where its rows sit."""
+    for query_tile, point_tile in ((2048, 2048), (96, 300), (50, 5000)):
+        plan = tb.flat_d3_plan(query_tile, point_tile, k)
+        rows, lanes = tb.launch_geometry(query_tile, point_tile, k)
+        assert (plan.kernel, plan.rows, plan.lanes, plan.threads,
+                plan.dp4, plan.stages) == ("d3", rows, lanes, 8 * rows, 4, 2)
+        assert not plan.rows_in_smem
+        assert (rows, lanes) == tb.launch_geometry(query_tile, point_tile, 8)
+        assert plan.smem == tk.d3_smem_bytes(rows, lanes, k) \
+            == 2 * 16 * lanes + 32 <= tk.SMEM_OPTIN - 1024
+        assert tk.d3_blocks_per_sm(plan.threads, plan.smem) >= 2
+    # the plans of the k the first kernel took stand as they were
+    small = tb.flat_d3_plan(2048, 2048, 100)
+    assert (small.rows, small.lanes, small.rows_in_smem) == (64, 1024, True)
 
 
 @pytest.mark.cuda

@@ -375,26 +375,69 @@ def test_launch_geometry_general_d(s_q, t_p, k, dim, want):
     assert plan.smem <= tk.SMEM_OPTIN - 1024
 
 
-def test_launch_geometry_refuses_huge_k():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.launch_geometry(248, 496, 2000)
+#: k above the 903 the first D=3 kernels took (the wide fold), across the
+#: borders of the instances' slots a lane (1024, 2048, 4096) and beyond
+LARGE_K = [904, 1000, 1024, 1025, 2048, 4096, 4097, 8192, 16384]
+
+
+def first_d3_block(rows, lanes, k):
+    """The D=3 plan as it stood for the k the first kernels took (up to
+    903): a power of two of slots a lane, its rows beside two tiles, warps
+    shed until two blocks fit on an SM. Returns (rows, threads, smem)."""
+    slots = 1
+    while 32 * slots < k:
+        slots *= 2
+
+    def smem(r):
+        return 2 * 16 * lanes + r * slots * 32 * 8 + 32
+
+    warps = max(1, min(tk.D3_MAX_WARPS, -(-rows // tk.WARP_ROWS)))
+    while warps > 1 and min(2048 // (32 * warps),
+                            65_536 // (32 * warps * tk.D3_REGS),
+                            tk.SMEM_SM // (smem(4 * warps) + 1024)) < 2:
+        warps -= 1
+    return 4 * warps, 32 * warps, smem(4 * warps)
+
+
+@pytest.mark.parametrize("k", LARGE_K)
+def test_d3_plans_large_k(k):
+    """k above 903 plans on the D=3 kernels: the wide fold (no slots a
+    lane), whose rows sit in place in device memory, so a block's shared
+    memory holds its two tiles and the block is as wide as at k=8; every
+    plan fits what a block may opt into, and says where its rows sit."""
+    assert tk.d3_slots(k) == 0
+    for s_q, t_p in ((248, 496), (4000, 256), (16, 4096), (1, 1)):
+        plan = tk.tiled_launch_plan(s_q, t_p, k, 3)
+        rows, threads, lanes = tk.launch_geometry(s_q, t_p, k)
+        assert (plan.kernel, plan.rows, plan.threads, plan.lanes,
+                plan.stages) == ("d3", rows, threads, lanes, 2)
+        assert not plan.rows_in_smem
+        assert (rows, threads, lanes) == tk.launch_geometry(s_q, t_p, 8)
+        assert plan.smem == tk.d3_smem_bytes(rows, lanes, k) \
+            == 2 * 16 * lanes + 32 <= tk.SMEM_OPTIN - 1024
+        assert tk.d3_blocks_per_sm(threads, plan.smem) >= 2
+    for rows_wanted, lanes in ((248, 512), (2048, 1024)):
+        rows, threads = tk.d3_block(rows_wanted, lanes, k)
+        assert (rows, threads) == tk.d3_block(rows_wanted, lanes, 8)
+        assert tk.d3_smem_bytes(rows, lanes, k) <= tk.SMEM_OPTIN - 1024
 
 
 @pytest.mark.parametrize("k", [1, 8, 32, 33, 100, 200, 500, 873, 896, 903])
 def test_d3_plans_take_every_k_the_first_kernels_took(k):
-    """Every k up to D3_MAX_K (the 903 the first D=3 kernels took with
-    the smallest tile, 873 of them at T=496) plans a block that fits twice
-    on an SM; above it the plan raises."""
-    assert tk.D3_MAX_K == (tk.SMEM_OPTIN - 1024 - 16) // 256
-    for rows_wanted, lanes in ((248, 512), (2048, 1024)):
+    """Every k the first D=3 kernels took (up to 903 with the smallest
+    tile, 873 of them at T=496) plans a block that fits twice on an SM,
+    its rows in shared memory, and the plan is the one these k had before
+    the wide fold (``first_d3_block``)."""
+    for rows_wanted, lanes in ((248, 512), (2048, 1024), (16, 256)):
         rows, threads = tk.d3_block(rows_wanted, lanes, k)
         assert rows % tk.WARP_ROWS == 0 and threads == 8 * rows
         assert tk.d3_blocks_per_sm(threads,
                                    tk.d3_smem_bytes(rows, lanes, k)) >= 2
+        assert (rows, threads, tk.d3_smem_bytes(rows, lanes, k)) \
+            == first_d3_block(rows_wanted, lanes, k)
     slots = tk.d3_slots(k)
     assert 32 * slots >= k and (slots == 1 or 16 * slots < k)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.d3_block(32, 512, tk.D3_MAX_K + 1)
+    assert tk.tiled_launch_plan(248, 496, k, 3).rows_in_smem
 
 
 def test_d3_lanes_layout():
