@@ -14,14 +14,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    is one block, at most the plain count where its rows split over
    blocks, as they do at D=3), on ~32K seeded uniform, clustered and
    integer-grid points (exact ties at the k-th slot): k in {1, 8, 31, 32,
-   33, 64, 65, 100, 200} (the lane borders of the warp fold) and 300 and
-   903 (its instances of 16 and 32 slots a lane), a finite
+   33, 64, 65, 100, 200} (the lane borders of the warp fold), 300 and
+   903, a finite
    ``-r``, ``skip_self`` with point group 2, and buckets wider than one
-   staged tile with a partial last tile; above k=903 the wide fold
+   staged tile with a partial last tile; the wide fold
    (``large_k_cases``, on 16,000 points): k in {904, 1000, 1024, 1025,
-   2048, 4096} with its rows in shared memory and 8192 (cold, a finite
-   ``-r``) and 12,000 (on 13,000 points) in device memory, a bucket of
-   1,000 rows over blocks; each case on the D=3 kernels;
+   2048, 4096}, 8192 (cold, a finite ``-r``) and 12,000 (on 13,000
+   points), a bucket of 1,000 rows over blocks; at its smallest k
+   (``wide_edge_cases``, uniform and integer-grid points) a tile that
+   brings a cold row exactly a full pending buffer and one lane more, and
+   warm buckets of 32 whose walk needs the lazy flush (shown by
+   ``wide_walk_model``); each case on the D=3 kernels;
    then the launches split along the grid's y axis (``grid_split_cases``):
    one D=3 query bucket of 2,097,152 rows at k=8 (65,536 blocks of 32
    rows, one past the grid's limit: two launches), and a cap of 3 blocks
@@ -31,7 +34,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    ids), on ~32K seeded points: uniform, clustered and integer-grid, k in
    {1, 8, 31, 32, 33, 64, 65, 100, 200, 300, 903}, and on the wide fold
    (``large_k_bf_cases``) {904, 1000, 1024, 1025, 2048, 4096, 8192,
-   12,000}, a finite ``-r``,
+   12,000} and a full pending buffer and one lane more at its smallest k
+   (``wide_edge_bf_cases``), a finite ``-r``,
    sentinel-padded points and queries, ids with an offset, two incremental
    calls against one, a point count that is not a multiple of the staged
    tile, and other tiles giving the same bits; each case on its route by
@@ -338,9 +342,12 @@ phase 4's 1,000,000 points at k=1000 (the wide fold's kernels):
    up to exact ties; 21d the traversal's one fold after the warm start
    timed by CUDA events, held bit for bit against the walk of its blocks
    (whose pairs give both bounds) and the plain version on 16 query
-   buckets (timed there), and 21b's flat launch (1M x 1M) against both
-   bounds, its plain version on 2,048 queries; warps resident per SM and
-   peak device memory, beside the card's name and power limit.
+   buckets (timed there), 21b's flat launch (1M x 1M) against both
+   bounds, its plain version on 2,048 queries, and one launch of 21b's
+   device merge (a cold gathered chunk of 131,072 rows against one
+   shard) against both bounds, held to the plain version on its first
+   256 rows; warps resident per SM against the plan's, and peak device
+   memory, beside the card's name and power limit.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
@@ -769,62 +776,291 @@ def check_traversal(name, state, q, pc, pts, *, skip_self, group,
     return err
 
 
+def fold_txt(k) -> str:
+    """Which fold the D=3 kernels' plan takes at ``k``: slots a lane, or the
+    wide fold."""
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import d3_slots
+
+    s = d3_slots(k)
+    return f"{s} slots a lane" if s else "the wide fold"
+
+
 def large_k_cases(uni, clu, grid):
-    """Phase 3's D=3 cases above the 903 the first kernels took, each on
-    16,000 points (13,000 at k=12,000) against the plain traversal bit for
-    bit, on the D=3 kernel: the instance of 32 slots a lane (k=904, 1000,
-    1024), the wide fold with its rows in shared memory (k=1025, 2048,
-    4096; a bucket of 1,000 rows over blocks, two tiles a bucket) and in
-    place in device memory (k=8192 cold with a finite ``-r``, k=12,000),
-    on uniform, clustered and integer-grid (tie) points. Returns their
-    max abs errors."""
+    """Phase 3's D=3 cases at k from 904 to 12,000, each on 16,000 points
+    (13,000 at k=12,000) against the plain traversal bit for bit, on the
+    D=3 route and the wide fold (rows in place in device memory, their
+    pending buffers in shared memory): a bucket of 1,000 rows over blocks
+    with two tiles a bucket, a finite ``-r``, a cold start, on uniform,
+    clustered and integer-grid (tie) points. Returns their max abs
+    errors."""
     d3 = dict(route="d3")
     return [
-        compare_case("uniform k=904 (32 slots a lane)", uni[:16_000], 904,
-                     **d3),
+        compare_case("uniform k=904", uni[:16_000], 904, **d3),
         compare_case("integer grid k=1000 (ties)", grid[:16_000], 1000, **d3),
-        compare_case("clustered k=1024 -r 1.5 (the instances' largest k)",
-                     clu[:16_000], 1024, radius=1.5, **d3),
-        compare_case("uniform k=1025 (the wide fold, rows in shared memory)",
-                     uni[:16_000], 1025, **d3),
+        compare_case("clustered k=1024 -r 1.5", clu[:16_000], 1024,
+                     radius=1.5, **d3),
+        compare_case("uniform k=1025", uni[:16_000], 1025, **d3),
         compare_case("integer grid k=1025 S=1000 T=2000 (ties, rows over "
                      "blocks, two tiles)", grid[:16_000], 1025,
                      bucket_size=1000, **d3),
         compare_case("integer grid k=2048 (ties)", grid[:16_000], 2048, **d3),
         compare_case("clustered k=4096", clu[:16_000], 4096, **d3),
-        compare_case("uniform k=8192 -r 0.5 cold G1 (rows in device memory)",
-                     uni[:16_000], 8192, radius=0.5, group=1, warm=False,
-                     **d3),
-        compare_case("integer grid k=12000 on 13,000 points (rows in device "
-                     "memory, ties)", grid[:13_000], 12_000, **d3),
+        compare_case("uniform k=8192 -r 0.5 cold G1", uni[:16_000], 8192,
+                     radius=0.5, group=1, warm=False, **d3),
+        compare_case("integer grid k=12000 on 13,000 points (ties)",
+                     grid[:13_000], 12_000, **d3),
     ]
 
 
 def large_k_bf_cases(uni, clu, grid):
-    """Phase 3b's cases above k=903 on the flat D=3 kernel, 2,048 queries
-    against 20,000 points (1,024 against 14,000 at k=12,000), bit for bit
-    against the plain flat fold: the instance of 32 slots a lane (904,
-    1000, 1024), the wide fold with its rows in shared memory (1025 with a
-    finite ``-r``, 2048, 4096) and in device memory (8192, 12,000), on
-    uniform, clustered and integer-grid points. Returns their max abs
-    errors."""
+    """Phase 3b's cases at k from 904 to 12,000 on the flat D=3 kernel's
+    wide fold, 2,048 queries against 20,000 points (1,024 against 14,000 at
+    k=12,000), bit for bit against the plain flat fold, with a finite
+    ``-r``, on uniform, clustered and integer-grid points. Returns their
+    max abs errors."""
     return [
-        compare_bf_case("uniform k=904 (32 slots a lane)", uni[:2048],
-                        uni[:20_000], 904),
+        compare_bf_case("uniform k=904", uni[:2048], uni[:20_000], 904),
         compare_bf_case("integer grid k=1000 (ties)", grid[:2048],
                         grid[:20_000], 1000),
         compare_bf_case("clustered k=1024", clu[:2048], clu[:20_000], 1024),
-        compare_bf_case("uniform k=1025 -r 0.3 (the wide fold, rows in "
-                        "shared memory)", uni[:2048], uni[:20_000], 1025,
-                        radius=0.3),
+        compare_bf_case("uniform k=1025 -r 0.3", uni[:2048], uni[:20_000],
+                        1025, radius=0.3),
         compare_bf_case("clustered k=2048", clu[:2048], clu[:20_000], 2048),
         compare_bf_case("integer grid k=4096 (ties)", grid[:2048],
                         grid[:20_000], 4096),
-        compare_bf_case("uniform k=8192 (rows in device memory)", uni[:2048],
-                        uni[:20_000], 8192),
-        compare_bf_case("integer grid k=12000 (rows in device memory, ties)",
-                        grid[:1024], grid[:14_000], 12_000),
+        compare_bf_case("uniform k=8192", uni[:2048], uni[:20_000], 8192),
+        compare_bf_case("integer grid k=12000 (ties)", grid[:1024],
+                        grid[:14_000], 12_000),
     ]
+
+
+EDGE_BUCKETS = 64  # the wide fold's edge cases: point buckets of each
+
+
+def exact_buckets(pts_t, per):
+    """A traversal's point side of ``pts_t`` (a multiple of ``per``
+    points) cut in x order into buckets of exactly ``per`` real points,
+    each its own box: every tile then brings a cold row ``per`` passing
+    lanes."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.ops.partition import BucketedPoints
+
+    order = torch.argsort(pts_t[:, 0], stable=True).to(torch.int32)
+    pts = pts_t[order.long()].view(-1, per, 3)
+    ids = order.view(-1, per)
+    return BucketedPoints(pts, ids, pts.amin(1), pts.amax(1), ids)
+
+
+def wide_edge_cases():
+    """Phase 3's cases at the wide fold's edges, at its smallest k
+    (``D3_SLOTS_MAX_K`` + 1), each on uniform and on integer-grid (tie)
+    points, bit for bit against the plain traversal: cold rows against
+    point buckets of exactly ``WIDE_BUFFER`` and ``WIDE_BUFFER`` + 1
+    points (``exact_buckets``), so one tile brings a row exactly a full
+    buffer, or one lane more than it holds; and warm rows in buckets of 32
+    whose walk needs the lazy flush: ``wide_walk_model`` replays query
+    bucket 0's block, equals the plain rows and visits, and fails the case
+    unless a bucket's box d2 fell between its radius bounds there. Returns
+    their max abs errors."""
+    import numpy as np
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        D3_SLOTS_MAX_K,
+        WIDE_BUFFER,
+        knn_update_tiled_plain,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.partition import partition_points
+    from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
+
+    k = D3_SLOTS_MAX_K + 1
+    errs = []
+    for kind in ("uniform", "integer grid"):
+        for per in (WIDE_BUFFER, WIDE_BUFFER + 1):
+            n = EDGE_BUCKETS * per
+            pts_np = (seeded_points("uniform", n, SEED + 50 + per)
+                      if kind == "uniform" else
+                      grid_points(n, SEED + 60 + per))
+            pts = torch.from_numpy(pts_np).cuda()
+            q = partition_points(pts, bucket_size=256)
+            cold = init_candidates(q.num_buckets * q.bucket_size, k,
+                                   device=pts.device)
+            errs.append(check_traversal(
+                f"{kind} k={k} cold, point buckets of exactly {per} (a "
+                f"tile brings a row {per} passing lanes, the buffer holds "
+                f"{WIDE_BUFFER})", cold, q, exact_buckets(pts, per), pts,
+                skip_self=False, group=1, route="d3"))
+        pts_np = (seeded_points("uniform", 4096, SEED + 70)
+                  if kind == "uniform" else grid_points(4096, SEED + 71))
+        pts = torch.from_numpy(pts_np).cuda()
+        q = partition_points(pts, bucket_size=32)
+        warm = warm_start_self(q, k)
+        errs.append(check_traversal(
+            f"{kind} k={k} S=32 warm G1 (the lazy flush)", warm, q, q, pts,
+            skip_self=True, group=1, route="d3"))
+        want, vis = knn_update_tiled_plain(warm, q, q, skip_self=True,
+                                           self_group=1, with_stats=True)
+        d2, ids, nvis, lazy, merges = wide_walk_model(
+            warm, q, q, 0, self_group=1, skip_self=True)
+        s = q.bucket_size
+        if not (np.array_equal(d2, want.dist2[:s].cpu().numpy())
+                and np.array_equal(ids, want.idx[:s].cpu().numpy())
+                and nvis == int(vis[0])):
+            fail(f"the wide fold's model disagrees with the plain rows "
+                 f"({kind}, k={k})")
+        if lazy < 1:
+            fail(f"{kind} k={k}: no decision of bucket 0's block needed the "
+                 "lazy flush")
+        say(f"    bucket 0's block, replayed: {nvis} visits, {merges} "
+            f"merges, {lazy} lazy flush(es), its rows the plain ones")
+    return errs
+
+
+def wide_edge_bf_cases():
+    """Phase 3b's cases at the wide fold's buffer edge, at its smallest k:
+    2,048 queries against exactly ``WIDE_BUFFER`` and ``WIDE_BUFFER`` + 1
+    points, cold (one tile brings every row a full buffer, or one lane
+    more), on uniform and integer-grid points. Returns their max abs
+    errors."""
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        D3_SLOTS_MAX_K,
+        WIDE_BUFFER,
+    )
+
+    k = D3_SLOTS_MAX_K + 1
+    errs = []
+    for kind in ("uniform", "integer grid"):
+        pts = (seeded_points("uniform", 2048, SEED + 80)
+               if kind == "uniform" else grid_points(2048, SEED + 81))
+        for per in (WIDE_BUFFER, WIDE_BUFFER + 1):
+            errs.append(compare_bf_case(
+                f"{kind} k={k}, {per} points (a tile of {per} passing "
+                f"lanes, the buffer holds {WIDE_BUFFER})", pts, pts[:per], k))
+    return errs
+
+
+def wide_walk_model(state, q, p, b, *, self_group, skip_self):
+    """The D=3 wide traversal kernel's first block of query bucket ``b``
+    (``knn_tiled_d3_wide_kernel``, its first ``plan.rows`` rows), step for
+    step in numpy: the gate, each row's pending buffer of ``WIDE_BUFFER``
+    entries filled in lane order against its k-th d2 as of its last merge,
+    a merge where a group of 32 lanes would overflow it, and at each
+    bucket's start the prune on the block's radius bounds, with a lazy
+    flush (every row merged) only where the box d2 lies between them.
+    Returns (the block's rows d2 and ids as numpy [rows, k], its visits,
+    the lazy flushes, the merges), so a case can show that the kernel's
+    lazy flush ran where it must."""
+    import numpy as np
+
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        CHUNK_LANES,
+        WIDE_BUFFER,
+        tiled_launch_plan,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.partition import (
+        nearest_first_order,
+    )
+
+    num_qb, s = q.ids.shape
+    num_pb, t_p = p.ids.shape
+    k = state.dist2.shape[1]
+    plan = tiled_launch_plan(s, t_p, k, 3)
+    nr = min(plan.rows, s)
+    rows = slice(b * s, b * s + nr)
+    d2 = state.dist2[rows].cpu().numpy().copy()
+    ids = state.idx[rows].cpu().numpy().copy()
+    qp = q.pts[b, :nr].cpu().numpy()
+    valid = q.ids[b, :nr].cpu().numpy() >= 0
+    sorted_d2, order = nearest_first_order(q.lower, q.upper, p.lower,
+                                           p.upper)
+    bx = sorted_d2[b].cpu().numpy()
+    ordb = order[b].cpu().numpy()
+    pp = p.pts.cpu().numpy()
+    pid = p.ids.cpu().numpy()
+    t_pad = -(-t_p // CHUNK_LANES) * CHUNK_LANES
+    pieces = -(-t_pad // plan.lanes)
+    kth = np.where(valid, d2[:, k - 1], -np.inf).astype(np.float32)
+    pend = [[] for _ in range(nr)]
+    counts = {"lazy": 0, "merges": 0}
+
+    def merge(r):
+        if not pend[r]:
+            return
+        pd = np.array([e[0] for e in pend[r]], np.float32)
+        pi = np.array([e[1] for e in pend[r]], np.int32)
+        allv = np.concatenate([d2[r], pd])
+        alli = np.concatenate([ids[r], pi])
+        keep = np.argsort(allv, kind="stable")[:k]
+        d2[r], ids[r] = allv[keep], alli[keep]
+        kth[r] = d2[r, k - 1]
+        pend[r] = []
+        counts["merges"] += 1
+
+    def bounds():
+        lo = hi = np.float32(0.0)
+        for r in range(nr):
+            n = len(pend[r])
+            hi = max(hi, kth[r])
+            lo = max(lo, kth[r] if n == 0 else
+                     d2[r, k - 1 - n] if n < k else np.float32(0.0))
+        return lo, hi
+
+    def scores(bucket, l0, l1):
+        # the kernel's lanes: the bucket's points, NaN past T
+        lanes = np.full((l1 - l0, 3), np.nan, np.float32)
+        lid = np.full(l1 - l0, -1, np.int32)
+        real = max(0, min(l1, t_p) - l0)
+        lanes[:real] = pp[bucket, l0:l0 + real]
+        lid[:real] = pid[bucket, l0:l0 + real]
+        diff = qp[:, None, :] - lanes[None]
+        sq = diff * diff
+        return (sq[..., 0] + sq[..., 1]) + sq[..., 2], lid
+
+    own = b // self_group
+
+    def next_pos(v):
+        v += 1
+        while v < num_pb and skip_self and ordb[v] == own:
+            v += 1
+        return v
+
+    v, c, nvis = next_pos(-1), 0, 0
+    lo, hi = bounds()
+    with np.errstate(over="ignore", invalid="ignore"):
+        while v < num_pb:
+            if c == 0 and not bx[v] < hi:
+                break
+            if c == 0 and not bx[v] < lo:
+                counts["lazy"] += 1
+                for r in range(nr):
+                    merge(r)
+                if not bx[v] < max(np.float32(0.0), kth.max()):
+                    break
+            l0 = c * plan.lanes
+            dd, lid = scores(ordb[v], l0, min(l0 + plan.lanes, t_pad))
+            for c0 in range(0, dd.shape[1], CHUNK_LANES):
+                for r in range(nr):
+                    chunk = dd[r, c0:c0 + CHUNK_LANES]
+                    if not np.fmin.reduce(chunk, initial=np.inf) < kth[r]:
+                        continue
+                    for g in range(0, CHUNK_LANES, 32):
+                        grp = chunk[g:g + 32]
+                        m = grp < kth[r]
+                        if len(pend[r]) + int(m.sum()) > WIDE_BUFFER:
+                            merge(r)
+                            m = grp < kth[r]
+                        pend[r] += [(grp[j], lid[c0 + g + j])
+                                    for j in np.flatnonzero(m)]
+            lo, hi = bounds()
+            c += 1
+            if c == pieces:
+                v, c = next_pos(v), 0
+                nvis += 1
+    for r in range(nr):
+        merge(r)
+    return d2, ids, nvis, counts["lazy"], counts["merges"]
 
 
 FAULT_ROWS = 2_097_152  # phase 3: a D=3 bucket of 65,536 blocks of 32 rows
@@ -947,7 +1183,7 @@ def chunk_cases():
             f"{rows.shape[0]} rows) vs shard {shard} k=8",
             rows.cpu().numpy(), uni[shard * n4:(shard + 1) * n4], 8,
             id_base=shard * n4))
-    # the same chunk at phase 21's k: the largest instance of slots a lane
+    # the same chunk at phase 21's k: the wide fold
     _lo, _hi, qp, _qi = chunk(0)
     rows = qp.view(-1, 3)
     cold = init_candidates(rows.shape[0], LARGE_K, float("inf"),
@@ -1360,6 +1596,7 @@ def time_kernel(k, pts, reps=5):
     from mpi_cuda_largescaleknn_torch.core.types import CandidateState
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
         d3_blocks_per_sm,
+        d3_regs,
         d3_resident_warps,
         knn_update_tiled_plain,
         launch_knn_tiled,
@@ -1421,7 +1658,7 @@ def time_kernel(k, pts, reps=5):
     plain_ops = plain_pairs * OPS_PER_PAIR
     plain_walk = bounds(ms, plain_ops / PEAK_F32, plain_ops / PEAK_F32_ISSUE,
                         nbytes)
-    blocks = d3_blocks_per_sm(plan.threads, plan.smem)
+    blocks = d3_blocks_per_sm(plan.threads, plan.smem, d3_regs(k))
     warps = d3_resident_warps(s, t, k)
     if warps < blocks * plan.threads // 32:
         fail(f"k={k}: the card holds {warps} warps an SM, the plan counted "
@@ -1449,14 +1686,14 @@ def time_bf_kernel(k, pts, reps=3):
     from mpi_cuda_largescaleknn_torch.core.types import CandidateState
     from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
     from mpi_cuda_largescaleknn_torch.ops.knn_bf import (
+        flat_d3_plan,
         knn_update_bf_plain,
-        launch_geometry,
         launch_knn_bf,
         resident_warps,
     )
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
         d3_blocks_per_sm,
-        d3_smem_bytes,
+        d3_regs,
     )
 
     n = pts.shape[0]
@@ -1479,32 +1716,29 @@ def time_bf_kernel(k, pts, reps=3):
         fail(f"knn_bf k={k}: kernel and plain differ at the flat shape")
     err = max_abs_err(rows.dist2[:nq], plain.dist2)
 
-    rows, lanes = launch_geometry(2048, 2048, k)
+    fplan = flat_d3_plan(2048, 2048, k)
     warps = resident_warps(k)
-    planned = d3_blocks_per_sm(8 * rows, d3_smem_bytes(rows, lanes, k)) \
-        * rows // 4
+    planned = d3_blocks_per_sm(fplan.threads, fplan.smem, d3_regs(k)) \
+        * fplan.rows // 4
     if warps < planned:
         fail(f"knn_bf k={k}: the card holds {warps} warps an SM, the plan "
              f"counted on {planned}")
     return {"k": k, "ms": ms, "plain_ms": plain_ms,
             "plain_shape": f"{nq} queries x {n} points", "max_abs_err": err,
-            **flat_bounds(ms, n, k, rows),
-            "rows_per_block": rows, "lanes": lanes,
+            **flat_bounds(ms, n, k),
+            "rows_per_block": fplan.rows, "lanes": fplan.lanes,
             "warps_per_sm": warps, "planned_warps_per_sm": planned}
 
 
-def flat_bounds(ms, n, k, rows) -> dict:
+def flat_bounds(ms, n, k) -> dict:
     """The bounds of a flat fold of ``n`` queries against the same ``n``
-    points at ``k`` in blocks of ``rows`` rows: its pairs, operations and
-    bytes, and ``bounds`` of them."""
-    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import CHUNK_LANES
-
+    points at ``k``: its pairs, operations and bytes (each input read once,
+    each output written once), and ``bounds`` of them."""
     pairs = n * n
     ops = pairs * OPS_PER_PAIR
-    np_pad = -(-n // CHUNK_LANES) * CHUNK_LANES
-    nbytes = (-(-n // rows) * np_pad * 16  # the staged point set per block
-              + n * 12                     # query coordinates
-              + 2 * n * k * 8)             # candidate rows in and out
+    nbytes = (n * 16         # the point lanes {x, y, z, id}
+              + n * 12       # query coordinates
+              + 2 * n * k * 8)  # candidate rows in and out
     return {"pairs": pairs, "ops": ops, "bytes": nbytes,
             **bounds(ms, ops / PEAK_F32, ops / PEAK_F32_ISSUE, nbytes)}
 
@@ -5506,6 +5740,78 @@ def sliced_block_walk(state, q, p, rows, self_group, slices):
     return CandidateState(out_d2, out_idx), visits, pairs
 
 
+def time_device_merge_launch(pts_np, k):
+    """Phase 21d: one launch of phase 21b's chunked device merge, timed
+    by CUDA events: the first gathered chunk (4 x ``LARGE_CHUNK`` rows of
+    ``chunk_sides``, one query bucket whose box spans the cube, so no
+    bucket prunes) folded cold into one of the 4 shards' resident sides,
+    as ``ring_knn_chunked`` folds it; its rows bit for bit against the
+    plain version on the chunk's first ``PLAIN_QUERIES // 64`` rows (the
+    chunk's box kept, so the same walk), which is timed; the pairs the walk
+    scores give both bounds, the rows in and out the bytes. Returns its
+    record."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.core.types import CandidateState
+    from mpi_cuda_largescaleknn_torch.ops.candidates import init_candidates
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        knn_update_tiled_plain,
+        launch_knn_tiled,
+        tiled_launch_plan,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.partition import (
+        BucketedPoints,
+        nearest_first_order,
+    )
+    from mpi_cuda_largescaleknn_torch.parallel.ring import chunk_bucket
+
+    _fns, resident, group, _last, chunk = chunk_sides(pts_np, 4, k,
+                                                      LARGE_CHUNK)
+    p = resident[0]
+    del resident
+    _lo, _hi, qp, _qi = chunk(0)
+    qb = chunk_bucket(qp.reshape(-1, 3))
+    nrows = qb.ids.shape[1]
+    cold = init_candidates(nrows, k, device=qp.device)
+    sorted_d2, order = nearest_first_order(qb.lower, qb.upper, p.lower,
+                                           p.upper)
+    rows = CandidateState(cold.dist2.clone(), cold.idx.clone())
+    before = route_counts()
+    ms, visits = cuda_ms(lambda: launch_knn_tiled(
+        order, sorted_d2, qb, p, rows, skip_self=False, self_group=group))
+    ran = {key: n - before[key] for key, n in route_counts().items()}
+    if ran != {key: int(key == "d3") for key in ran}:
+        fail(f"21d: the device merge's launch {ran}, not one on the D=3 "
+             "kernel")
+    nq = PLAIN_QUERIES // 64
+    sub = BucketedPoints(qb.pts[:, :nq], qb.ids[:, :nq], qb.lower,
+                         qb.upper, qb.pos[:, :nq])
+    plain_ms, plain = cuda_ms(lambda: knn_update_tiled_plain(
+        CandidateState(cold.dist2[:nq], cold.idx[:nq]), sub, p,
+        skip_self=False, self_group=group))
+    if not (torch.equal(plain.dist2, rows.dist2[:nq])
+            and torch.equal(plain.idx, rows.idx[:nq])):
+        fail(f"21d: the device merge's launch, k={k}: kernel and plain "
+             f"differ on the chunk's first {nq} rows")
+    bp, t = p.ids.shape
+    pairs = visited_pairs(order, visits, qb, p)
+    ops = pairs * OPS_PER_PAIR
+    nbytes = (nrows * 16 + 2 * nrows * k * 8 + bp * t * 16
+              + (int(visits.sum()) + 1) * 8)
+    plan = tiled_launch_plan(nrows, t, k, 3)
+    rec = {"k": k, "ms": ms, "plain_ms": plain_ms,
+           "plain_shape": f"{nq} of {nrows} rows",
+           "max_abs_err": max_abs_err(rows.dist2[:nq], plain.dist2),
+           "rows": nrows, "real_rows": int((qb.ids >= 0).sum()),
+           "point_buckets": bp, "T": t, "visits": int(visits.sum()),
+           "pairs": pairs, "ops": ops, "bytes": nbytes,
+           **bounds(ms, ops / PEAK_F32, ops / PEAK_F32_ISSUE, nbytes),
+           "plan": plan._asdict()}
+    del rows, cold, plain, qb, p, order, sorted_d2
+    torch.cuda.empty_cache()
+    return rec
+
+
 def time_large_kernels(pts, k):
     """Phase 21d: the two D=3 kernels at phase 21's k on its 1M points.
     The traversal's one fold of a 1-shard run (after the warm start): one
@@ -5517,7 +5823,8 @@ def time_large_kernels(pts, k):
     queries against all the points, timed, and the kernel's rows there
     bit for bit; the kernel's own 1M x 1M time is phase 21b's launch.
     Also the warps each kernel's plan keeps resident per SM, as the card
-    reports it. Returns (the traversal's record, the flat one's)."""
+    reports it, against the warps the plan counts on. Returns (the
+    traversal's record, the flat one's)."""
     import torch
 
     from mpi_cuda_largescaleknn_torch.core.types import CandidateState
@@ -5530,6 +5837,7 @@ def time_large_kernels(pts, k):
     )
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
         d3_blocks_per_sm,
+        d3_regs,
         d3_resident_warps,
         knn_update_tiled_plain,
         launch_knn_tiled,
@@ -5589,7 +5897,8 @@ def time_large_kernels(pts, k):
               + bp * t * 16               # point coords + ids
               + (int(visits.sum()) + bq) * 8)  # the visited schedule prefix
     warps = d3_resident_warps(s, t, k)
-    planned = d3_blocks_per_sm(plan.threads, plan.smem) * plan.threads // 32
+    planned = d3_blocks_per_sm(plan.threads, plan.smem, d3_regs(k)) \
+        * plan.threads // 32
     if warps < planned:
         fail(f"21d: k={k}: the card holds {warps} warps an SM, the plan "
              f"counted on {planned}")
@@ -5625,7 +5934,7 @@ def time_large_kernels(pts, k):
              f"{nq} queries")
     fplan = flat_d3_plan(2048, 2048, k)
     fwarps = resident_warps(k)
-    fplanned = d3_blocks_per_sm(fplan.threads, fplan.smem) \
+    fplanned = d3_blocks_per_sm(fplan.threads, fplan.smem, d3_regs(k)) \
         * fplan.threads // 32
     if fwarps < fplanned:
         fail(f"21d: knn_bf k={k}: the card holds {fwarps} warps an SM, the "
@@ -5650,7 +5959,8 @@ def large_k_phase(smi, pts_path, pts_np, parts_list):
     ``LARGE_BATCHES`` batches of 1024 uniform rows, ``LARGE_SAMPLE`` of
     them against the exact answer on the card (distances byte-equal, ids
     up to exact ties), one D=3 launch a batch; 21d the kernels' times
-    (``time_large_kernels``), the flat one from 21b's launch. Each step's
+    (``time_large_kernels``), the flat one from 21b's launch, and the
+    device merge's launch (``time_device_merge_launch``). Each step's
     seconds on the host's clock, and peak device memory, beside the card's
     name and power limit. Returns (details, the runs' launch counts)."""
     import numpy as np
@@ -5782,8 +6092,11 @@ def large_k_phase(smi, pts_path, pts_np, parts_list):
         trav, flat = time_large_kernels(pts, k)
     del pts
     torch.cuda.empty_cache()
+    with timed_step(steps, "21d device merge launch"):
+        merge = time_device_merge_launch(pts_np, k)
+    details["device_merge_launch"] = merge
     flat.update({"ms": flat_ms, "shape": f"{N_MAIN} x {N_MAIN}",
-                 **flat_bounds(flat_ms, N_MAIN, k, flat["plan"]["rows"])})
+                 **flat_bounds(flat_ms, N_MAIN, k)})
     details["traversal"], details["flat"] = trav, flat
     say(f"    knn_tiled_d3 (one fold after the warm start): kernel "
         f"{trav['ms']:.3f} ms, plain {trav['plain_ms']:.3f} ms on "
@@ -5800,6 +6113,12 @@ def large_k_phase(smi, pts_path, pts_np, parts_list):
         f"{flat['max_abs_err']}; plan {flat['plan']}, {flat['warps_per_sm']} "
         f"warps resident per SM (the plan counted on "
         f"{flat['planned_warps_per_sm']})")
+    say(f"    knn_tiled_d3 (the device merge's launch: {merge['real_rows']} "
+        f"cold rows x {merge['point_buckets']} point buckets of "
+        f"{merge['T']}, {merge['visits']} visited): kernel "
+        f"{merge['ms']:.3f} ms, {bound_txt(merge)}, pairs {merge['pairs']}; "
+        f"plain {merge['plain_ms']:.3f} ms on {merge['plain_shape']}, "
+        f"max_abs_err {merge['max_abs_err']}")
     details["runs"] = runs
     details["step_seconds"] = steps
     say("  phase 21 steps: " + ", ".join(f"{name} {sec:.1f} s"
@@ -5886,12 +6205,13 @@ def main() -> int:
                      bucket_size=1024, **d3),
         compare_case("integer grid k=33 S=1000 T=2000 (ties, partial last "
                      "tile)", grid, 33, bucket_size=1000, **d3),
-        compare_case("integer grid k=300 (16 slots a lane)", grid[:16_000],
-                     300, **d3),
-        compare_case("uniform k=903 (32 slots a lane, the first kernels' "
+        compare_case(f"integer grid k=300 ({fold_txt(300)})",
+                     grid[:16_000], 300, **d3),
+        compare_case(f"uniform k=903 ({fold_txt(903)}; the first kernels' "
                      "largest k)", uni[:16_000], 903, **d3),
     ]
     errs += large_k_cases(uni, clu, grid)
+    errs += wide_edge_cases()
     errs.append(grid_split_cases(uni))
     details["phase3_max_abs_err"] = max(errs)
 
@@ -5924,12 +6244,13 @@ def main() -> int:
                         "tile)", grid_odd, grid_odd, 65),
         compare_bf_case("uniform k=100 query_tile=96 point_tile=300", uni,
                         uni, 100, tiles=(96, 300)),
-        compare_bf_case("integer grid k=300 (16 slots a lane)", grid[:4096],
-                        grid, 300),
-        compare_bf_case("uniform k=903 (32 slots a lane, the first kernel's "
+        compare_bf_case(f"integer grid k=300 ({fold_txt(300)})",
+                        grid[:4096], grid, 300),
+        compare_bf_case(f"uniform k=903 ({fold_txt(903)}; the first kernel's "
                         "largest k)", uni[:2048], uni[:20_000], 903),
     ]
     bf_errs += large_k_bf_cases(uni, clu, grid)
+    bf_errs += wide_edge_bf_cases()
     details["phase3b_max_abs_err"] = max(bf_errs)
 
     # -- phase 3c -----------------------------------------------------------
@@ -6434,7 +6755,7 @@ def main() -> int:
     routed_err = details["pod"]["phase3h_max_abs_err"]
     large = details["large_k"]
     kernels = {"kernels": [
-        # knn_tiled_d3_kernel (k up to 903), timed in phase 6
+        # knn_tiled_d3_kernel (k up to D3_SLOTS_MAX_K), timed in phase 6
         entry("knn_tiled", SOURCE, REPLACES,
               launched("knn_tiled_d3_launches")
               - launched("knn_tiled_d3_wide_launches"),
@@ -6442,7 +6763,7 @@ def main() -> int:
                timed[100]["max_abs_err"],
                details["out_of_core"]["witness_max_abs_err"], canon_err,
                served_err["d3"], slab_err, routed_err), timed[8]),
-        # knn_tiled_d3_wide_kernel (k above 903), timed in phase 21
+        # knn_tiled_d3_wide_kernel (k above it), timed in phase 21
         entry("knn_tiled_d3_wide", SOURCE, REPLACES,
               launched("knn_tiled_d3_wide_launches"),
               (details["phase3_max_abs_err"], details["phase3e_max_abs_err"],
@@ -6452,13 +6773,13 @@ def main() -> int:
               (details["phase3c_max_abs_err"],
                hd_timed["f32"]["max_abs_err"], canon_err,
                served_err["ring"]), hd_timed["f32"]),
-        # knn_bf_d3_kernel (k up to 903), timed in phase 9
+        # knn_bf_d3_kernel (k up to D3_SLOTS_MAX_K), timed in phase 9
         entry("knn_bf", BF_SOURCE, BF_REPLACES,
               launched("knn_bf_d3_launches")
               - launched("knn_bf_d3_wide_launches"),
               (details["phase3b_max_abs_err"], bf_timed[8]["max_abs_err"],
                bf_timed[100]["max_abs_err"]), bf_timed[8]),
-        # knn_bf_d3_wide_kernel (k above 903), timed in phase 21
+        # knn_bf_d3_wide_kernel (k above it), timed in phase 21
         entry("knn_bf_d3_wide", BF_SOURCE, BF_REPLACES,
               launched("knn_bf_d3_wide_launches"),
               (details["phase3b_max_abs_err"], details["phase3e_max_abs_err"],

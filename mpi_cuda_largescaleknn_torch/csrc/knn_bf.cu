@@ -46,9 +46,11 @@
 //   mbarrier, bulk_ring.cuh) while the block folds this one: one barrier a
 //   tile.
 // - There k stopped at 903, where a block's rows beside one tile filled
-//   its shared memory. knn_bf_d3_wide_kernel takes every k above it with
-//   the wide fold (knn_rows.cuh): a row in its own order, in place in
-//   device memory, each adoption buffered and merged 32 at a time.
+//   its shared memory. knn_bf_d3_wide_kernel takes every k above
+//   knn::kSlotsMaxK with the wide fold (knn_rows.cuh): a row in its own
+//   order, in place in device memory, its adoptions buffered in shared
+//   memory and merged up to kWideBuffer at a time, its tiles on a ring no
+//   barrier of the block holds.
 //
 // Points of any other dimension D take knn_tiled.cu's
 // knn_tiled_nd_ring_kernel (ops/knn_bf.py launch_knn_bf): the flat fold is
@@ -124,41 +126,63 @@ __global__ void __launch_bounds__(knn::kD3MaxThreads, 2) knn_bf_d3_kernel(
 }
 
 // knn_bf_d3_kernel with the wide fold (knn_rows.cuh) for k above
-// knn::kSlotsMaxK: the same staged tiles, the rows folded in place in
-// d2 / idx.
-__global__ void __launch_bounds__(knn::kD3MaxThreads, 2)
+// knn::kSlotsMaxK: the rows folded in place in d2 / idx through pending
+// buffers in shared memory, merged when full and once at the end. The
+// tiles go round a ring of kWideStages stages that no barrier of the block
+// holds: each warp waits for a tile's copy on its stage's mbarrier, counts
+// itself done with it after folding it, and the last warp done refills the
+// stage with the tile kWideStages on. So a warp whose rows merge more in a
+// stretch of tiles holds the others back only when it falls kWideStages - 1
+// tiles behind, where a barrier a tile made the block wait for its slowest
+// warp at every tile.
+__global__ void __launch_bounds__(knn::kD3MaxThreads, 1)
     knn_bf_d3_wide_kernel(const float* __restrict__ q_pts,  // [nq, 3]
                           const float4* __restrict__ p4,    // [np_pad]
                           float* __restrict__ d2,           // [nq, k]
                           int* __restrict__ idx,            // [nq, k]
                           int nq, int np_pad, int k, int tile_lanes) {
   using knn::kWarpRows;
+  using knn::kWideStages;
+  constexpr int kSteps = knn::kWideStepsFlat;
   extern __shared__ __align__(16) unsigned char sbuf[];
-  const int rows = (blockDim.x >> 5) * kWarpRows;
-  float4* tiles = reinterpret_cast<float4*>(sbuf);                // [2][lanes]
-  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + 2 * tile_lanes);  // [2]
+  const int warps = blockDim.x >> 5;
+  const int rows = warps * kWarpRows;
+  float4* tiles = reinterpret_cast<float4*>(sbuf);  // [kWideStages][lanes]
+  unsigned char* wide =
+      reinterpret_cast<unsigned char*>(tiles + kWideStages * tile_lanes);
+  uint64_t* full =  // [kWideStages]
+      reinterpret_cast<uint64_t*>(wide + warps * knn::kWideWarpBytes);
+  // warps done with each stage, over all its tiles
+  unsigned* used = reinterpret_cast<unsigned*>(full + kWideStages);
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
   const int warp = tid >> 5;
   const int ntiles = (np_pad + tile_lanes - 1) / tile_lanes;
+  // tile t goes to stage t % kWideStages and completes on its mbarrier
   auto issue = [&](int t) {
+    const int s = t % kWideStages;
     const int l0 = t * tile_lanes;
     const uint32_t bytes = (uint32_t)min(tile_lanes, np_pad - l0) * 16u;
-    knn::mbar_expect_tx(full + (t & 1), bytes);
-    knn::bulk_load(tiles + (t & 1) * tile_lanes, p4 + l0, bytes,
-                   full + (t & 1));
+    knn::mbar_expect_tx(full + s, bytes);
+    knn::bulk_load(tiles + s * tile_lanes, p4 + l0, bytes, full + s);
   };
   if (tid == 0) {
-    knn::mbar_init(full, 1);
-    knn::mbar_init(full + 1, 1);
+    for (int s = 0; s < kWideStages; ++s) {
+      knn::mbar_init(full + s, 1);
+      used[s] = 0;
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0) issue(0);
+  if (tid == 0)
+    for (int t = 0; t < min(kWideStages, ntiles); ++t) issue(t);
 
   const long long row0 = (long long)blockIdx.x * rows + warp * kWarpRows;
   float* wd2 = d2 + row0 * k;
   int* widx = idx + row0 * k;
+  const knn::WideWarp ww =
+      knn::wide_warp(wide + warp * knn::kWideWarpBytes, false);
   bool valid[kWarpRows];
   knn::WarpQueries wq;
 #pragma unroll
@@ -170,18 +194,22 @@ __global__ void __launch_bounds__(knn::kD3MaxThreads, 2)
     wq.z[r] = valid[r] ? q_pts[row * 3 + 2] : 0.f;
   }
   knn::wide_kth(wd2, k, valid, wq);
-  knn::WidePending pend;
-  knn::wide_pending_init(pend);
+  int pn[kWarpRows] = {};  // entries pending in each row's buffer
 
   for (int t = 0; t < ntiles; ++t) {
-    if (t) __syncthreads();  // every warp is done with tile t-1's buffer
-    if (tid == 0 && t + 1 < ntiles) issue(t + 1);
-    knn::mbar_wait(full + (t & 1), (t >> 1) & 1);
-    knn::fold_tile_wide(tiles + (t & 1) * tile_lanes,
-                        min(tile_lanes, np_pad - t * tile_lanes), wq, pend,
-                        wd2, widx, k);
+    const int s = t % kWideStages;
+    knn::mbar_wait(full + s, (t / kWideStages) & 1);
+    knn::fold_tile_wide<kSteps>(tiles + s * tile_lanes,
+                                min(tile_lanes, np_pad - t * tile_lanes), wq,
+                                pn, wd2, widx, k, ww);
+    __syncwarp();
+    // the last warp done with the stage refills it, kWideStages on
+    const unsigned last = (unsigned)warps * (t / kWideStages + 1) - 1;
+    if (lane == 0 && atomicAdd(used + s, 1u) == last &&
+        t + kWideStages < ntiles)
+      issue(t + kWideStages);
   }
-  knn::wide_flush(wq, pend, wd2, widx, k);
+  knn::wide_flush<kSteps>(wq, pn, wd2, widx, k, ww);
 }
 
 // Sets the kernel's shared-memory attribute and launches it over nq rows
@@ -229,7 +257,8 @@ extern "C" int knn_bf_launch(const float* q_pts, const float* p4, float* d2,
                              void* stream) {
   if (threads % 32 || threads > knn::kD3MaxThreads ||
       tile_lanes % knn::kChunkLanes || np_pad % knn::kChunkLanes || k < 1 ||
-      (slots ? k > 32 * slots : k <= knn::kSlotsMaxK))
+      (slots ? k > 32 * slots || k > knn::kSlotsMaxK
+             : k <= knn::kSlotsMaxK))
     return (int)cudaErrorInvalidValue;
   const float4* p = reinterpret_cast<const float4*>(p4);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -67,7 +67,8 @@ __device__ __forceinline__ float insert_sorted(float* cd2, int* cidx, int bd,
 // through shared memory.
 //
 // Above kSlotsMaxK the kernels fold with the wide fold instead (below:
-// knn_bf_d3_wide_kernel, knn_tiled_d3_wide_kernel).
+// knn_bf_d3_wide_kernel, knn_tiled_d3_wide_kernel), which is faster there
+// (tools/torch_d3_k_sweep.py).
 
 constexpr int kWarpRows = 4;      // query rows a warp folds
 constexpr int kChunkGroups = 8;   // lanes a thread scores per row a chunk
@@ -75,23 +76,21 @@ constexpr int kChunkLanes = 32 * kChunkGroups;
 constexpr int kD3MaxThreads = 512;  // __launch_bounds__(512, 2): 64 registers
 constexpr unsigned kFull = 0xffffffffu;
 // the largest k of the instances of S slots a lane that the launch plans
-// take (ops/knn_tiled.py D3_SLOTS_MAX_K): the first D=3 kernels' 903
-constexpr int kSlotsMaxK = 903;
+// take (ops/knn_tiled.py D3_SLOTS_MAX_K): above it the wide fold is faster
+// (tools/torch_d3_k_sweep.py), so the launchers refuse slots a lane there
+constexpr int kSlotsMaxK = 128;
 
 // Calls f(std::integral_constant<int, S>{}) for S = `slots`, the slots a
 // lane holds for a row (ops/knn_tiled.py d3_slots: a power of two >= k/32,
-// so the kernels have one instance each for S in 1, 2, 4, 8, 16, 32), and
-// returns its result; `out_of_range` for any other S. Host code: the
-// launchers dispatch on it.
+// so the kernels have one instance each for S in 1, 2, 4, up to
+// kSlotsMaxK), and returns its result; `out_of_range` for any other S.
+// Host code: the launchers dispatch on it.
 template <class F>
 int with_d3_slots(int slots, int out_of_range, F&& f) {
   switch (slots) {
     case 1: return f(std::integral_constant<int, 1>{});
     case 2: return f(std::integral_constant<int, 2>{});
     case 4: return f(std::integral_constant<int, 4>{});
-    case 8: return f(std::integral_constant<int, 8>{});
-    case 16: return f(std::integral_constant<int, 16>{});
-    case 32: return f(std::integral_constant<int, 32>{});
   }
   return out_of_range;
 }
@@ -252,201 +251,329 @@ __device__ __forceinline__ void store_warp_rows(float* d2, int* idx,
 // The wide fold of the D=3 kernels, for k above kSlotsMaxK.
 //
 // Slot i of a row sits at row[i], in place in the [*, k] rows in device
-// memory (a warp's 4 rows are consecutive there), so a block's rows take no
-// shared memory and an SM holds 32 warps whatever k; in shared memory they
-// would leave it one to six warps from k=904 on, which ran slower on the
-// card at every such k tried. Each access of a merge step is one coalesced
-// run of 32 slots, and a warp's rows stay in L1 and L2 while it folds them.
-// The gate is the warp fold's. A passing lane is not inserted at once: each
-// row keeps a pending buffer of up to 32 entries in registers (lane j holds
-// entry j), filled in lane order against the row's k-th d2 as of its last
-// merge (a superset of what the sequential fold adopts: its k-th only
-// shrinks). The buffer is merged into the row when the next group of lanes
-// would overflow it, and at the end: of the fold (the flat kernel) or of
-// each staged tile (the traversal, so that a row's k-th d2 after a tile is
-// the sequential fold's and the radius and visits stay the warp fold's). A merge sorts the buffer by (d2,
-// arrival) (a bitonic sort across the lanes), walks the row from its end
-// down, 32 slots a step and kWideSteps steps a round (their reads before
-// their writes), moving each entry up by the number of pending entries
-// strictly below it (row entries win ties) and noting where each pending
-// entry lands, then writes the pending entries into the slots left free;
-// whatever lands at k or beyond drops. That leaves the k smallest of (the
-// row, then the lanes) by (d2, arrival): the sequential fold's bits. A
-// merge costs O((k - p) / 32) steps, p the rank of its smallest entry, for
-// up to 32 adoptions, where one insert of the warp fold costs that for one;
-// a cold row (every lane passes) fills in k / 32 merges.
+// memory (a warp's 4 rows are consecutive there), so any k runs. A passing
+// lane is not inserted at once: each row keeps a pending buffer of up to
+// kWideBuffer entries in shared memory, filled in lane order against the
+// row's k-th d2 as of its last merge (a superset of what the sequential
+// fold adopts: its k-th only shrinks). The gate scores a chunk against the
+// warp's 4 rows and keeps, per row, which groups of 32 lanes hold a lane
+// below the row's k-th; the row then goes over those groups only, and a
+// passing lane writes its (d2, id) to slot pn + (the passing lanes below
+// it in its group): a ballot and a population count, no shuffle. The
+// buffer is merged into the row when the next group would overflow it,
+// and at the end of the fold; the traversal merges it besides where a
+// prune decision needs a row's exact k-th d2 (the kernel's lazy flush).
+//
+// A merge (a call of its own, so that the gate's loop keeps its registers)
+// sorts the buffer once by the key (d2 bits, slot) (a bitonic sort of
+// 64-bit keys in registers, left in the warp's scratch in shared memory:
+// slot order is arrival order), then walks the row from its end down, 32
+// slots a step and kSteps steps a round, their reads before their writes
+// (kWideStepsTraversal or kWideStepsFlat: each kernel's best of 1 to 8
+// steps as measured on the card, PERF.md). Each row entry moves up by
+// the number of pending entries strictly below it (row entries win
+// ties), and each pending entry lands after the row entries <= it: ranks
+// taken by ballots against the step's entries, one for each of the few
+// pending entries whose place falls in the step. The walk stops at the
+// step below which no pending entry falls.
+// So each slot of the affected tail is read once and written once a
+// merge, for up to kWideBuffer adoptions, and whatever lands at k or
+// beyond drops. That leaves the k smallest of (the row, then the lanes) by
+// (d2, arrival): the sequential fold's bits.
+//
+// The kernels take 128 registers a thread (__launch_bounds__(512, 1)):
+// with 64 the gate's loop spilled, and their buffers hold an SM to 16
+// warps either way (PERF.md records the choices measured on the card).
 
-constexpr int kWideSteps = 4;  // 32-slot steps a merge round reads
+// entries of a row's pending buffer (ops/knn_tiled.py WIDE_BUFFER), and the
+// length of the sort's scratch, a power of two >= it (WIDE_SORT)
+constexpr int kWideBuffer = 248;
+constexpr int kWideSort = 256;
+// 32-slot steps a merge round reads: each wide kernel's own
+constexpr int kWideStepsTraversal = 2;
+constexpr int kWideStepsFlat = 4;
+// the flat kernel's ring: staged tiles in flight (WIDE_STAGES), each stage
+// refilled by the last warp done with it, so a warp may run up to
+// kWideStages - 1 tiles ahead of the block's slowest; and the shared
+// memory of the kernels' barriers, counts and radius slots
+// (WIDE_CTRL_BYTES)
+constexpr int kWideStages = 8;
+constexpr int kWideCtrlBytes = 1024;
+// shared memory of a warp's buffers: the sort's keys and its rows' pending
+// d2 and ids (ops/knn_tiled.py WIDE_WARP_BYTES)
+constexpr int kWideWarpBytes = kWideSort * 8 + kWarpRows * kWideBuffer * 8;
+static_assert(kWideBuffer <= kWideSort && kWideSort >= 32 &&
+                  (kWideSort & (kWideSort - 1)) == 0,
+              "the sort's scratch is a power of two of at least a key a "
+              "lane that holds a buffer");
+// the traversal keeps, beside each row's buffer, the row's last
+// kWideBuffer + 1 entries' d2 as of its last merge (its bounds' source),
+// a warp's taking kWideTailBytes more (WIDE_TAIL_BYTES)
+constexpr int kWideTailBytes =
+    (kWarpRows * (kWideBuffer + 1) * 4 + 15) / 16 * 16;
+static_assert(kWideWarpBytes % 16 == 0, "warp stretches stay 16-aligned");
 
-// The number of entries of `sorted` (ascending across the warp's lanes,
-// +inf past its end) below v (kLess), or at most v (!kLess): a binary
-// search by shuffles, each lane for its own v.
-template <bool kLess>
-__device__ __forceinline__ int warp_rank(float sorted, float v) {
-  int n = 0;
-#pragma unroll
-  for (int step = 16; step; step >>= 1) {
-    const float t = __shfl_sync(kFull, sorted, n + step - 1);
-    if (kLess ? t < v : t <= v) n += step;
-  }
-  const float t = __shfl_sync(kFull, sorted, n);
-  return (kLess ? t < v : t <= v) ? n + 1 : n;
+// A warp's stretch of shared memory for the wide fold.
+struct WideWarp {
+  unsigned long long* key;  // [kWideSort] the sort's scratch
+  float* d2;                // [kWarpRows][kWideBuffer] pending d2, by arrival
+  int* id;                  // [kWarpRows][kWideBuffer] their ids
+  float* tail;  // [kWarpRows][kWideBuffer + 1] the rows' tails, or null
+};
+
+// The warp's buffers at base, and with `tails` the rows' tails after them.
+__device__ __forceinline__ WideWarp wide_warp(unsigned char* base,
+                                              bool tails) {
+  WideWarp w;
+  w.key = reinterpret_cast<unsigned long long*>(base);
+  w.d2 = reinterpret_cast<float*>(w.key + kWideSort);
+  w.id = reinterpret_cast<int*>(w.d2 + kWarpRows * kWideBuffer);
+  w.tail = tails ? reinterpret_cast<float*>(base + kWideWarpBytes) : nullptr;
+  return w;
 }
 
-// Sorts (d, key) ascending across the warp's lanes (keys distinct), id
-// travelling with them.
-__device__ __forceinline__ void warp_sort(float& d, int& key, int& id) {
+// Row r's tail (entries k-1-kWideBuffer .. k-1 of its d2; 0 before the
+// row's start), or null.
+__device__ __forceinline__ float* wide_tail(const WideWarp& ww, int r) {
+  return ww.tail ? ww.tail + r * (kWideBuffer + 1) : nullptr;
+}
+
+// Copies the row's last kWideBuffer + 1 d2 into its tail. All 32 lanes
+// call it.
+__device__ __forceinline__ void wide_keep_tail(const float* rd2, int k,
+                                               float* tail) {
+  for (int j = threadIdx.x & 31; j <= kWideBuffer; j += 32) {
+    const int i = k - 1 - kWideBuffer + j;
+    tail[j] = i >= 0 ? rd2[i] : 0.f;
+  }
+  __syncwarp();
+}
+
+// A sort key that orders d2 >= 0 (never NaN) and, among equal d2, slots.
+__device__ __forceinline__ unsigned long long wide_key(float d, unsigned s) {
+  return (unsigned long long)__float_as_uint(d) << 32 | s;
+}
+
+// Sorts the n pending entries' keys (d2 bits, slot) ascending into
+// keys[0, kWideSort), padded with ~0: a bitonic sort in registers, lane l
+// holding keys l * kPer .. l * kPer + kPer - 1, so a compare-exchange
+// across fewer than kPer keys stays in a lane and a wider one is a shuffle.
+// All 32 lanes call it.
+__device__ __forceinline__ void wide_sort(unsigned long long* keys,
+                                          const float* pd2, int n) {
+  constexpr int kPer = kWideSort / 32;
   const int lane = threadIdx.x & 31;
+  unsigned long long key[kPer];
 #pragma unroll
-  for (int size = 2; size <= 32; size <<= 1)
+  for (int e = 0; e < kPer; ++e) {
+    const int j = lane * kPer + e;
+    key[e] = j < n ? wide_key(pd2[j], j) : ~0ull;
+  }
+#pragma unroll
+  for (int size = 2; size <= kWideSort; size <<= 1)
 #pragma unroll
     for (int stride = size >> 1; stride; stride >>= 1) {
-      const float od = __shfl_xor_sync(kFull, d, stride);
-      const int okey = __shfl_xor_sync(kFull, key, stride);
-      const int oid = __shfl_xor_sync(kFull, id, stride);
-      const bool other_less = od < d || (od == d && okey < key);
-      // ascending runs of `size`: the lower lane of a pair keeps the less
-      const bool lower = (lane & stride) == 0;
-      const bool ascending = (lane & size) == 0;
-      if (lower == ascending ? other_less : !other_less) {
-        d = od;
-        key = okey;
-        id = oid;
+      if (stride < kPer) {
+#pragma unroll
+        for (int e = 0; e < kPer; ++e)
+          if ((e & stride) == 0) {
+            // ascending in runs of size
+            const bool up = ((lane * kPer + e) & size) == 0;
+            const unsigned long long a = key[e], b = key[e | stride];
+            if ((a > b) == up) {
+              key[e] = b;
+              key[e | stride] = a;
+            }
+          }
+      } else {
+        const int across = stride / kPer;
+        const bool lower = (lane & across) == 0;
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) {
+          const bool up = ((lane * kPer + e) & size) == 0;
+          const unsigned long long o = __shfl_xor_sync(kFull, key[e], across);
+          // the lower index keeps the smaller key where the run ascends
+          key[e] = (lower == up) == (o < key[e]) ? o : key[e];
+        }
       }
     }
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) keys[lane * kPer + e] = key[e];
+  __syncwarp();
 }
 
-// Merges the n pending entries (pd, pid: lane j holds entry j, in
-// arrival order) into the warp's row (rd2, ridx) of k entries, as above.
-// Every pending d2 is below the row's k-th. Returns the new k-th d2. All
-// 32 lanes call it with the same row and n.
-__device__ __forceinline__ float wide_merge(float* rd2, int* ridx, int k,
-                                            float pd, int pid, int n) {
+// Merges the n pending entries (pd2, pid, in arrival order) into the
+// warp's row (rd2, ridx) of k entries, as above. Every pending d2 is below
+// the row's k-th. Returns the new k-th d2. All 32 lanes call it with the
+// same row and n.
+//
+// A step holds the row's slots i0 .. i0 + 31 (+inf past k). The pending
+// entries that land among them are the sorted keys [lo, hi): hi carries
+// over from the step above (n at the top: every pending d2 is below the
+// row's k-th), and lo is hi less the run of keys just below it that are
+// not below the entry under the step (one load a lane and a ballot: the
+// keys are sorted). For each of those few entries in turn (a broadcast
+// load), one ballot of the step's entries above it gives both its place
+// (after the step's others) and the shift it adds to the entries above.
+template <int kSteps>
+__device__ __noinline__ float wide_merge(float* rd2, int* ridx, int k,
+                                            const float* pd2, const int* pid,
+                                            int n, unsigned long long* keys,
+                                            float* tail) {
   const int lane = threadIdx.x & 31;
-  float d = lane < n ? pd : CUDART_INF_F;
-  int key = lane, id = pid;
-  warp_sort(d, key, id);
-  int rank = 0;  // this lane's pending entry: the row entries <= it
+  __syncwarp();  // the buffer's entries, written by every lane
+  wide_sort(keys, pd2, n);
+  int hi = n;
   int c = ((k - 1) >> 5) << 5;
-  for (bool done = false; !done; c -= 32 * kWideSteps) {
-    float v[kWideSteps];
-    int w[kWideSteps];
+  for (bool done = false; !done; c -= 32 * kSteps) {
+    float v[kSteps], prev[kSteps];
+    int w[kSteps];
 #pragma unroll
-    for (int g = 0; g < kWideSteps; ++g) {
-      const int i = c - 32 * g + lane;
+    for (int g = 0; g < kSteps; ++g) {
+      const int i0 = c - 32 * g;
+      const int i = i0 + lane;
       const bool real = i >= 0 && i < k;
       v[g] = real ? rd2[i] : CUDART_INF_F;
       w[g] = real ? ridx[i] : -1;
+      // the entry under the step (the same for every lane)
+      prev[g] = i0 > 0 ? rd2[i0 - 1] : 0.f;
     }
     __syncwarp();
 #pragma unroll
-    for (int g = 0; g < kWideSteps; ++g) {
+    for (int g = 0; g < kSteps; ++g) {
       if (!done) {
         const int i0 = c - 32 * g;
         const int i = i0 + lane;
-        const int up = warp_rank<true>(d, v[g]);   // pending below v
-        const int le = warp_rank<false>(v[g], d);  // step entries <= d
-        if (le < 32) rank = i0 + le;
-        if (i >= 0 && i < k && up && i + up < k) {
+        int lo = 0;
+        if (i0 > 0) {
+          const unsigned long long under = wide_key(prev[g], 0);
+          for (lo = hi;;) {
+            const int j = lo - 1 - lane;
+            const unsigned run =
+                __ballot_sync(kFull, j >= 0 && keys[j] >= under);
+            lo -= __popc(run);
+            if (run != kFull) break;
+          }
+        }
+        int up = lo;  // pending entries below this lane's entry
+        for (int j0 = lo; j0 < hi; j0 += 32) {
+          const int m = min(32, hi - j0);
+          int place = 0;  // lane t: the step's entries <= entry j0 + t
+          for (int t = 0; t < m; ++t) {
+            const float d =
+                __uint_as_float((unsigned)(keys[j0 + t] >> 32));
+            const unsigned above = __ballot_sync(kFull, v[g] > d);
+            up += (above >> lane) & 1u;
+            if (lane == t) place = 32 - __popc(above);
+          }
+          if (lane < m) {
+            const unsigned long long key = keys[j0 + lane];
+            const int pos = j0 + lane + i0 + place;
+            if (pos < k) {
+              rd2[pos] = __uint_as_float((unsigned)(key >> 32));
+              ridx[pos] = pid[(unsigned)key];
+            }
+          }
+        }
+        if (up && i < k && i + up < k) {
           rd2[i + up] = v[g];
           ridx[i + up] = w[g];
         }
-        done = i0 <= 0 || __shfl_sync(kFull, up, 0) == 0;
+        hi = lo;
+        done = lo == 0;
       }
     }
   }
   __syncwarp();
-  if (lane < n && lane + rank < k) {
-    rd2[lane + rank] = d;
-    ridx[lane + rank] = id;
-  }
-  __syncwarp();
+  if (tail) wide_keep_tail(rd2, k, tail);
   return rd2[k - 1];
 }
 
-// Folds the kChunkLanes lanes of `chunk` into one row of the warp through
-// its pending buffer (pd, pid, pn), merging it first where a group of 32
-// lanes would overflow it; kth is the row's k-th d2 as of its last merge.
+// Folds the groups of 32 lanes of `chunk` that `groups` flags (bit j:
+// lanes j * 32 .. j * 32 + 31) into one row of the warp, in lane order,
+// through its pending buffer (pd2, pid, pn entries), merging it first where
+// a group would overflow it; kth is the row's k-th d2 as of its last
+// merge. A group left out has no lane below kth.
+template <int kSteps>
 __device__ __forceinline__ void fold_row_chunk_wide(
-    const float4* chunk, float qx, float qy, float qz, float* rd2, int* ridx,
-    int k, float& kth, float& pd, int& pid, int& pn) {
+    const float4* chunk, unsigned groups, float qx, float qy, float qz,
+    float* rd2, int* ridx, int k, float& kth, float* pd2, int* pid, int& pn,
+    unsigned long long* keys, float* tail) {
   const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;  // the lanes below this one
 #pragma unroll 1
-  for (int j = 0; j < kChunkGroups; ++j) {
+  for (; groups; groups &= groups - 1) {
+    const int j = __ffs(groups) - 1;
     const float4 p = chunk[j * 32 + lane];
     const float dd = dist2_3(qx, qy, qz, p);
     unsigned m = __ballot_sync(kFull, dd < kth);
-    if (pn + __popc(m) > 32) {
-      kth = wide_merge(rd2, ridx, k, pd, pid, pn);
+    if (pn + __popc(m) > kWideBuffer) {
+      kth = wide_merge<kSteps>(rd2, ridx, k, pd2, pid, pn, keys, tail);
       pn = 0;
       m = __ballot_sync(kFull, dd < kth);
     }
-    // pending slot pn + q takes the group's q-th passing lane
-    const int src = __fns(m, 0, lane - pn + 1) & 31;
-    const float val = __shfl_sync(kFull, dd, src);
-    const int id = __shfl_sync(kFull, __float_as_int(p.w), src);
-    if (lane >= pn && lane < pn + __popc(m)) {
-      pd = val;
-      pid = id;
+    if ((m >> lane) & 1u) {
+      const int slot = pn + __popc(m & lower);
+      pd2[slot] = dd;
+      pid[slot] = __float_as_int(p.w);
     }
     pn += __popc(m);
   }
 }
 
-// The pending buffers of the warp's rows: row r's entries at lanes 0 ..
-// n[r] - 1 of d[r] / id[r].
-struct WidePending {
-  float d[kWarpRows];
-  int id[kWarpRows], n[kWarpRows];
-};
-
-__device__ __forceinline__ void wide_pending_init(WidePending& pend) {
-#pragma unroll
-  for (int r = 0; r < kWarpRows; ++r) {
-    pend.d[r] = 0.f;
-    pend.id[r] = -1;
-    pend.n[r] = 0;
-  }
-}
-
 // Folds the `nl` staged lanes of `tile` (a multiple of kChunkLanes) into
-// the warp's rows (row r at rd2 + r * k), each through its pending buffer.
+// the warp's rows (row r at rd2 + r * k), each through its pending buffer
+// (pn[r] entries). The gate scores a chunk's lanes against the warp's 4
+// rows (one float4 load feeds them) and keeps, per row, which of its
+// groups of 32 lanes hold a lane below the row's k-th d2: the row folds
+// those groups only.
+template <int kSteps>
 __device__ __forceinline__ void fold_tile_wide(const float4* tile, int nl,
                                                WarpQueries& wq,
-                                               WidePending& pend, float* rd2,
-                                               int* ridx, int k) {
+                                               int (&pn)[kWarpRows],
+                                               float* rd2, int* ridx, int k,
+                                               const WideWarp& ww) {
   const int lane = threadIdx.x & 31;
   for (int c0 = 0; c0 < nl; c0 += kChunkLanes) {
-    float mn[kWarpRows];
+    unsigned pass[kWarpRows];
 #pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) mn[r] = CUDART_INF_F;
+    for (int r = 0; r < kWarpRows; ++r) pass[r] = 0u;
 #pragma unroll
     for (int j = 0; j < kChunkGroups; ++j) {
       const float4 p = tile[c0 + j * 32 + lane];
 #pragma unroll
       for (int r = 0; r < kWarpRows; ++r)
-        mn[r] = fminf(mn[r], dist2_3(wq.x[r], wq.y[r], wq.z[r], p));
+        pass[r] |= (unsigned)(dist2_3(wq.x[r], wq.y[r], wq.z[r], p) <
+                              wq.kth[r]) << j;
     }
 #pragma unroll
-    for (int r = 0; r < kWarpRows; ++r)
-      if (__any_sync(kFull, mn[r] < wq.kth[r]))
-        fold_row_chunk_wide(tile + c0, wq.x[r], wq.y[r], wq.z[r],
-                            rd2 + r * k, ridx + r * k, k, wq.kth[r],
-                            pend.d[r], pend.id[r], pend.n[r]);
+    for (int r = 0; r < kWarpRows; ++r) {
+      const unsigned groups = __reduce_or_sync(kFull, pass[r]);
+      if (groups)
+        fold_row_chunk_wide<kSteps>(
+            tile + c0, groups, wq.x[r], wq.y[r], wq.z[r], rd2 + r * k,
+            ridx + r * k, k, wq.kth[r], ww.d2 + r * kWideBuffer,
+            ww.id + r * kWideBuffer, pn[r], ww.key, wide_tail(ww, r));
+    }
   }
 }
 
-// Merges every non-empty pending buffer into its row: the traversal after
-// each tile (its radius is the rows' k-th d2), the flat fold once at its
-// end.
-__device__ __forceinline__ void wide_flush(WarpQueries& wq, WidePending& pend,
-                                           float* rd2, int* ridx, int k) {
+// Merges every non-empty pending buffer into its row, so that wq.kth holds
+// the rows' exact k-th d2: the flat fold once at its end; the traversal at
+// its end and where a prune decision needs the exact radius.
+template <int kSteps>
+__device__ __forceinline__ void wide_flush(WarpQueries& wq,
+                                           int (&pn)[kWarpRows], float* rd2,
+                                           int* ridx, int k,
+                                           const WideWarp& ww) {
 #pragma unroll
   for (int r = 0; r < kWarpRows; ++r)
-    if (pend.n[r]) {
-      wq.kth[r] = wide_merge(rd2 + r * k, ridx + r * k, k, pend.d[r],
-                             pend.id[r], pend.n[r]);
-      pend.n[r] = 0;
+    if (pn[r]) {
+      wq.kth[r] = wide_merge<kSteps>(rd2 + r * k, ridx + r * k, k,
+                             ww.d2 + r * kWideBuffer,
+                             ww.id + r * kWideBuffer, pn[r], ww.key,
+                             wide_tail(ww, r));
+      pn[r] = 0;
     }
 }
 
@@ -459,6 +586,25 @@ __device__ __forceinline__ void wide_kth(const float* rd2, int k,
 #pragma unroll
   for (int r = 0; r < kWarpRows; ++r)
     wq.kth[r] = valid[r] ? rd2[r * k + k - 1] : -CUDART_INF_F;
+}
+
+// Bounds on the largest exact k-th d2 of the warp's rows (0 where none
+// folds), what a merge of their buffers would leave: (lower, upper). A row
+// with n pending entries keeps at least its k - n smallest entries, so its
+// (k - n)-th is at most the exact k-th (+inf there means the row stays
+// short of k finite entries: the k-th is +inf; 0 where n >= k), read from
+// its tail; its k-th as of its last merge is at least it.
+__device__ __forceinline__ float2 wide_bounds(const WideWarp& ww,
+                                              const int (&pn)[kWarpRows],
+                                              const WarpQueries& wq) {
+  float lo = 0.f, hi = 0.f;
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) {
+    hi = fmaxf(hi, wq.kth[r]);
+    lo = fmaxf(lo, pn[r] == 0 ? wq.kth[r]
+                              : wide_tail(ww, r)[kWideBuffer - pn[r]]);
+  }
+  return make_float2(lo, hi);
 }
 
 }  // namespace knn

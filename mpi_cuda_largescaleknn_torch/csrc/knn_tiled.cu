@@ -60,10 +60,11 @@
 //   largest k-th d2 to a shared atomicMax on the float bits (d2 >= 0), so
 //   one barrier a tile both frees the other buffer and settles the radius.
 // - There k stopped at 903, where a block's rows filled its shared
-//   memory. knn_tiled_d3_wide_kernel takes every k above it with the wide
-//   fold (knn_rows.cuh): a row in its own order, in place in device
-//   memory, each adoption buffered and merged 32 at a time, the buffers
-//   merged at every tile's end so the radius stays the warp fold's.
+//   memory. knn_tiled_d3_wide_kernel takes every k above knn::kSlotsMaxK
+//   with the wide fold (knn_rows.cuh): a row in its own order, in place in
+//   device memory, its adoptions buffered in shared memory and merged up
+//   to kWideBuffer at a time, its warps reading their lanes themselves and
+//   meeting only where a prune decision needs the block's radius.
 //
 // Points of any other dimension D go through knn_tiled_nd_ring_kernel: the
 // same walk, prune and fold, with each pair scored left to right over all
@@ -237,10 +238,55 @@ __global__ void __launch_bounds__(knn::kD3MaxThreads, 2) knn_tiled_d3_kernel(
   if (tid == 0 && nvis) atomicMax(visits + b, nvis);
 }
 
+// A float bound (or a count) tagged with the decision (or flush) it
+// belongs to, so that an atomicMax keeps the latest tag's largest value:
+// d2 >= 0, whose bits order as the floats do.
+__device__ __forceinline__ unsigned long long tagged_bits(int tag,
+                                                          unsigned bits) {
+  return (unsigned long long)(unsigned)tag << 32 | bits;
+}
+
+__device__ __forceinline__ unsigned long long tagged(int tag, float v) {
+  return tagged_bits(tag, __float_as_uint(v));
+}
+
+__device__ __forceinline__ float untagged(unsigned long long t) {
+  return __uint_as_float((unsigned)t);
+}
+
+template <class T>
+__device__ __forceinline__ T shared_read(const T* p) {
+  return *const_cast<const volatile T*>(p);
+}
+
+// decisions whose radius bounds the wide traversal holds at once: a warp
+// publishing bounds waits for the block's slowest warp to be within this
+// many buckets of it
+constexpr int kWideSlots = 32;
+
 // knn_tiled_d3_kernel with the wide fold (knn_rows.cuh) for k above
-// knn::kSlotsMaxK: the same walk, tiles and radius, the rows folded in
-// place in d2 / idx.
-__global__ void __launch_bounds__(knn::kD3MaxThreads, 2)
+// knn::kSlotsMaxK: the same walk and prune, the rows folded in place in
+// d2 / idx through pending buffers in shared memory.
+//
+// No tile is staged: each warp reads its lanes from the point buckets in
+// device memory (a shard's buckets stay in L2, and each block walks its
+// own stretch of them), so no warp waits for another to finish a tile.
+// A block's warps meet only where a prune decision needs them.
+//
+// A row's buffer outlives the bucket, so the block's radius (the largest
+// exact k-th d2 of its rows) is known only between two bounds: a warp's
+// rows' k-th d2 as of their last merges (an upper bound) and their
+// (k - n)-th entries, n pending (a lower bound; wide_bounds, from the
+// rows' tails in shared memory). At a bucket's start a warp whose own
+// lower bound is above the box d2 visits at once (the radius is at least
+// that) and says so to the block. Any other publishes its bounds and
+// waits for such a warp, or for every warp's bounds: a box d2 below the
+// block's lower bound visits and one at or above its upper bound stops,
+// whatever the merges give; only one between them has every warp (each is
+// then waiting there) merge its buffers and the block decide on the exact
+// radius. So the decisions, the radius the block exits on and the visits
+// are the warp fold's, bit for bit.
+__global__ void __launch_bounds__(knn::kD3MaxThreads, 1)
     knn_tiled_d3_wide_kernel(
     const int* __restrict__ order,     // [Bq, Bp] nearest-first bucket ids
     const float* __restrict__ boxd2,   // [Bq, Bp] ascending box d2
@@ -252,14 +298,33 @@ __global__ void __launch_bounds__(knn::kD3MaxThreads, 2)
     int* __restrict__ visits,          // [Bq] buckets scored, max over blocks
     int s_q, int num_pb, int t_pad, int k, int skip_self, int self_group,
     int tile_lanes, int y0) {
+  using knn::kFull;
   using knn::kWarpRows;
+  constexpr int kSteps = knn::kWideStepsTraversal;
   extern __shared__ __align__(16) unsigned char sbuf[];
-  const int rows = (blockDim.x >> 5) * kWarpRows;
-  float4* tiles = reinterpret_cast<float4*>(sbuf);                // [2][lanes]
-  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + 2 * tile_lanes);  // [2]
-  // the block's radius, as float bits: tile n's atomics go to red[(n+1)%3],
-  // read after the next barrier; red[(n+2)%3] is cleared meanwhile
-  int* red = reinterpret_cast<int*>(full + 2);  // [3]
+  const int warps = blockDim.x >> 5;
+  const int rows = warps * kWarpRows;
+  // [warps][kWideWarpBytes + kWideTailBytes]: buffers, then rows' tails
+  constexpr int kWarpBytes = knn::kWideWarpBytes + knn::kWideTailBytes;
+  unsigned char* wide = sbuf;
+  // the bounds published for decision q, tagged q, in slot q % kWideSlots,
+  // and how many warps published them (the count tagged q)
+  unsigned long long* lower =
+      reinterpret_cast<unsigned long long*>(wide + warps * kWarpBytes);
+  unsigned long long* upper = lower + kWideSlots;
+  unsigned long long* posted = upper + kWideSlots;
+  // the exact radius after the f-th lazy flush, tagged f
+  unsigned long long* exact = posted + kWideSlots;
+  // the last decision each warp is past
+  int* at = reinterpret_cast<int*>(exact + 1);  // [kD3MaxThreads / 32]
+  // the last decision a warp's own rows settled (a visit), by slot
+  int* visit = at + knn::kD3MaxThreads / 32;
+  // warps done with the lazy flushes
+  unsigned* flushed = reinterpret_cast<unsigned*>(visit + kWideSlots);
+  static_assert(kWideSlots * 24 + 8 + knn::kD3MaxThreads / 32 * 4 +
+                        kWideSlots * 4 + 4 <=
+                    knn::kWideCtrlBytes,
+                "the decisions' slots fit their shared memory");
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -276,24 +341,16 @@ __global__ void __launch_bounds__(knn::kD3MaxThreads, 2)
     while (v < num_pb && skip_self && ord[v] == own) ++v;
     return v;
   };
-  // tile n of the walk (piece c of the bucket at position v) goes to
-  // buffer n & 1 and completes on full[n & 1]
-  auto issue = [&](int v, int c, int n) {
-    const int l0 = c * tile_lanes;
-    const uint32_t bytes = (uint32_t)min(tile_lanes, t_pad - l0) * 16u;
-    knn::mbar_expect_tx(full + (n & 1), bytes);
-    knn::bulk_load(tiles + (n & 1) * tile_lanes,
-                   p4 + (long long)ord[v] * t_pad + l0, bytes, full + (n & 1));
-  };
   if (tid == 0) {
-    knn::mbar_init(full, 1);
-    knn::mbar_init(full + 1, 1);
-    red[0] = red[1] = red[2] = 0;
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < kWideSlots; ++s) {
+      lower[s] = upper[s] = posted[s] = 0ull;
+      visit[s] = -1;
+    }
+    for (int w = 0; w < warps; ++w) at[w] = -1;
+    *exact = 0ull;
+    *flushed = 0;
   }
   __syncthreads();
-  int v = next_pos(-1);
-  if (tid == 0 && v < num_pb) issue(v, 0, 0);
 
   // in the bucket: a launch of more than 65,535 blocks of rows goes in
   // pieces, each starting at block y0 (ops/knn_tiled.py grid_y_pieces)
@@ -301,6 +358,7 @@ __global__ void __launch_bounds__(knn::kD3MaxThreads, 2)
   const long long row0 = (long long)b * s_q + r0;
   float* wd2 = d2 + row0 * k;
   int* widx = idx + row0 * k;
+  const knn::WideWarp ww = knn::wide_warp(wide + warp * kWarpBytes, true);
   bool valid[kWarpRows];
   knn::WarpQueries wq;
 #pragma unroll
@@ -310,53 +368,87 @@ __global__ void __launch_bounds__(knn::kD3MaxThreads, 2)
     wq.x[r] = valid[r] ? q_pts[row * 3 + 0] : 0.f;
     wq.y[r] = valid[r] ? q_pts[row * 3 + 1] : 0.f;
     wq.z[r] = valid[r] ? q_pts[row * 3 + 2] : 0.f;
+    if (valid[r]) knn::wide_keep_tail(wd2 + r * k, k, knn::wide_tail(ww, r));
   }
   knn::wide_kth(wd2, k, valid, wq);
-  knn::WidePending pend;
-  knn::wide_pending_init(pend);
-  // the largest k-th d2 of the warp's rows, as float bits (0 when none
-  // folds: no box d2 is below it)
-  auto radius_bits = [&]() {
-    float m = 0.f;
-#pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) m = fmaxf(m, wq.kth[r]);
-    return __float_as_int(m);
-  };
-  if (lane == 0) atomicMax(red, radius_bits());
-
-  int n = 0;  // tiles scored
-  int c = 0;  // piece of the bucket at position v
-  int nvis = 0;
-  while (v < num_pb) {
-    // every warp is done with tile n-1 (its buffer is free) and has added
-    // its radius to red[n % 3]
-    __syncthreads();
-    const float worst = __int_as_float(red[n % 3]);
-    if (tid == 0) red[(n + 2) % 3] = 0;
-    // ascending box d2 and a radius that only shrinks: nothing later can
-    // be adopted either
-    if (c == 0 && !(bx[v] < worst)) break;
-    int vn = v, cn = c + 1;
-    if (cn == pieces) {
-      vn = next_pos(v);
-      cn = 0;
+  int pn[kWarpRows] = {};  // entries pending in each row's buffer
+  // decision q on the bucket whose box d2 is `box`: 1 visit, -1 stop, 2 the
+  // exact radius decides (every warp is then here). Lane 0 decides.
+  auto decide = [&](int q, float box) {
+    const float2 bnd = knn::wide_bounds(ww, pn, wq);
+    const int s = q % kWideSlots;
+    if (box < bnd.x) {
+      atomicMax(visit + s, q);
+      return 1;
     }
-    if (tid == 0 && vn < num_pb) issue(vn, cn, n + 1);
-    knn::mbar_wait(full + (n & 1), (n >> 1) & 1);
-    knn::fold_tile_wide(tiles + (n & 1) * tile_lanes,
-                        min(tile_lanes, t_pad - c * tile_lanes), wq, pend,
-                        wd2, widx, k);
-    knn::wide_flush(wq, pend, wd2, widx, k);
-    if (lane == 0) atomicMax(red + (n + 1) % 3, radius_bits());
-    if (cn == 0) ++nvis;
-    v = vn;
-    c = cn;
-    ++n;
+    // publish this warp's bounds once every warp is past the decision
+    // that last used the slot
+    for (int w = 0; w < warps; ++w)
+      while (shared_read(at + w) < q - kWideSlots) __nanosleep(64);
+    atomicMax(lower + s, tagged(q, bnd.x));
+    atomicMax(upper + s, tagged(q, bnd.y));
+    __threadfence_block();
+    for (unsigned long long old = shared_read(posted + s);;) {
+      const unsigned long long want =
+          (int)(old >> 32) == q ? old + 1 : tagged_bits(q, 1u);
+      const unsigned long long seen = atomicCAS(posted + s, old, want);
+      if (seen == old) break;
+      old = seen;
+    }
+    // a warp that visits on its own rows (it may be past this decision
+    // already), or every warp's bounds
+    for (;;) {
+      if (shared_read(visit + s) >= q) return 1;
+      if (shared_read(posted + s) == tagged_bits(q, warps)) {
+        __threadfence_block();
+        return box < untagged(shared_read(lower + s))      ? 1
+               : !(box < untagged(shared_read(upper + s))) ? -1
+                                                           : 2;
+      }
+      __nanosleep(32);
+    }
+  };
+
+  int q = 0;  // decisions made: buckets visited
+  int v = next_pos(-1);
+  int c = 0;  // piece of the bucket at position v
+  int f = 0;  // lazy flushes
+  while (v < num_pb) {
+    if (c == 0) {
+      // ascending box d2 and a radius that only shrinks: nothing later
+      // can be adopted either
+      int verdict = lane == 0 ? decide(q, bx[v]) : 0;
+      verdict = __shfl_sync(kFull, verdict, 0);
+      if (verdict == 2) {
+        knn::wide_flush<kSteps>(wq, pn, wd2, widx, k, ww);
+        ++f;
+        if (lane == 0) {
+          float m = 0.f;
+#pragma unroll
+          for (int r = 0; r < kWarpRows; ++r) m = fmaxf(m, wq.kth[r]);
+          atomicMax(exact, tagged(f, m));
+          __threadfence_block();
+          atomicAdd(flushed, 1u);
+          while (shared_read(flushed) < (unsigned)warps * f) __nanosleep(32);
+          __threadfence_block();
+          verdict = bx[v] < untagged(shared_read(exact)) ? 1 : -1;
+        }
+        verdict = __shfl_sync(kFull, verdict, 0);
+      }
+      if (lane == 0) *const_cast<volatile int*>(at + warp) = q;
+      if (verdict < 0) break;
+    }
+    knn::fold_tile_wide<kSteps>(
+        p4 + (long long)ord[v] * t_pad + c * tile_lanes,
+        min(tile_lanes, t_pad - c * tile_lanes), wq, pn, wd2, widx, k, ww);
+    if (++c == pieces) {
+      v = next_pos(v);
+      c = 0;
+      ++q;
+    }
   }
-  // the walk stopped at a bucket whose first tile was already copied: it
-  // lands before the block exits
-  if (tid == 0 && v < num_pb) knn::mbar_wait(full + (n & 1), (n >> 1) & 1);
-  if (tid == 0 && nvis) atomicMax(visits + b, nvis);
+  knn::wide_flush<kSteps>(wq, pn, wd2, widx, k, ww);
+  if (tid == 0 && q) atomicMax(visits + b, q);
 }
 
 // ---------------------------------------------------------------------------
@@ -794,7 +886,8 @@ int tiled_blocks_per_sm(Kernel kernel, int threads, size_t smem) {
 // knn_tiled_d3_wide_kernel (k above knn::kSlotsMaxK, its rows in place in
 // d2 / idx); `threads` a block
 // (4 query rows a warp), point buckets of t_pad lanes (a multiple of 256)
-// staged in tiles of `tile_lanes` (a multiple of 256), `smem` bytes of
+// staged in tiles of `tile_lanes` (a multiple of 256; the wide kernel
+// stages none and reads that many lanes a step), `smem` bytes of
 // dynamic shared memory (d3_smem_bytes), over the ny blocks of rows of each
 // bucket from block y0 (a bucket of more than 65,535 blocks, the grid's y
 // limit, goes in several launches). Returns the CUDA error code of the
@@ -807,7 +900,8 @@ extern "C" int knn_tiled_launch(
     int ny, void* stream) {
   if (threads % 32 || threads > knn::kD3MaxThreads || threads < 32 ||
       tile_lanes % knn::kChunkLanes || t_pad % knn::kChunkLanes || k < 1 ||
-      (slots ? k > 32 * slots : k <= knn::kSlotsMaxK))
+      (slots ? k > 32 * slots || k > knn::kSlotsMaxK
+             : k <= knn::kSlotsMaxK))
     return (int)cudaErrorInvalidValue;
   const int rows = threads / 32 * knn::kWarpRows;
   if (y0 < 0 || ny < 1 || ny > knn::kMaxGridY ||

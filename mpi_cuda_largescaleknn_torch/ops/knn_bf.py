@@ -51,6 +51,7 @@ from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
     d3_lanes,
     d3_slots,
     d3_smem_bytes,
+    d3_stages,
     d3_tile_lanes,
     launch_f32_plan,
     tiled_launch_plan,
@@ -98,21 +99,23 @@ def launch_geometry(query_tile: int, point_tile: int,
     ``query_tile`` rows a block in warps of 4 (``d3_block``: at most 16
     warps, fewer where two blocks would not fit on an SM) and tiles of
     ``point_tile`` lanes rounded up to whole 256-lane chunks, at most 1024
-    (``d3_tile_lanes``); a block has 8 threads a row. The whole plan,
-    where the rows sit included: ``flat_d3_plan``."""
-    lanes = d3_tile_lanes(point_tile)
-    return d3_block(query_tile, lanes, k)[0], lanes
+    (``d3_tile_lanes``; ``WIDE_TILE_LANES`` on the wide fold's ring); a
+    block has 8 threads a row. The whole plan, where the rows sit
+    included: ``flat_d3_plan``."""
+    lanes = d3_tile_lanes(point_tile, k)
+    return d3_block(query_tile, lanes, k, "flat")[0], lanes
 
 
 def flat_d3_plan(query_tile: int, point_tile: int, k: int) -> TiledPlan:
     """How the flat D=3 kernel launches, as the traversal's D=3 plan says
-    it: ``launch_geometry``'s block and tiles (two in flight), the rows in
-    shared memory (``knn_bf_d3_kernel``, slots a lane) or in place in
-    device memory (``knn_bf_d3_wide_kernel``, k above ``D3_SLOTS_MAX_K``),
-    and the block's shared memory."""
+    it: ``launch_geometry``'s block and tiles, the rows in shared memory
+    beside two tiles in flight (``knn_bf_d3_kernel``, slots a lane) or in
+    place in device memory beside a ring of ``WIDE_STAGES`` tiles and the
+    pending buffers (``knn_bf_d3_wide_kernel``, k above
+    ``D3_SLOTS_MAX_K``), and the block's shared memory."""
     rows, lanes = launch_geometry(query_tile, point_tile, k)
-    return TiledPlan("d3", rows, lanes, 8 * rows, 4, 2, d3_slots(k) > 0,
-                     d3_smem_bytes(rows, lanes, k))
+    return TiledPlan("d3", rows, lanes, 8 * rows, 4, d3_stages(k, "flat"),
+                     d3_slots(k) > 0, d3_smem_bytes(rows, lanes, k, "flat"))
 
 
 def flat_plan(k: int, dim: int) -> TiledPlan:

@@ -98,17 +98,32 @@ SMEM_SM = 233_472
 #: float4 in tiles of at most D3_MAX_TILE_LANES, two tiles at once; a block
 #: has at most D3_MAX_WARPS warps of at most D3_REGS registers a thread
 #: (__launch_bounds__(512, 2)); a row keeps d3_slots(k) slots a lane up to
-#: D3_SLOTS_MAX_K, the largest k the first D=3 kernels took (8 bytes a slot
-#: beside one 16-byte lane, (SMEM_OPTIN - 1024 - 16) // 256), so that no k
-#: they took changes its plan; above it the kernels take the wide fold
-#: (csrc/knn_rows.cuh): the row in its own order, in place in device
-#: memory, so any k plans
+#: D3_SLOTS_MAX_K (csrc/knn_rows.cuh kSlotsMaxK), the k above which
+#: tools/torch_d3_k_sweep.py measured the wide fold faster; above it the
+#: kernels take the wide fold (csrc/knn_rows.cuh): the row in its own
+#: order, in place in device memory, so any k plans, each row's passing
+#: lanes buffered WIDE_BUFFER at a time in shared memory (kWideBuffer),
+#: sorted in a scratch of WIDE_SORT keys (kWideSort), a warp's buffers taking
+#: WIDE_WARP_BYTES (kWideWarpBytes), the traversal's warps keeping their
+#: rows' tails (WIDE_TAIL_BYTES, kWideTailBytes) beside; a warp folds
+#: WIDE_TILE_LANES lanes between two decisions, the flat kernel staging
+#: them in a ring of WIDE_STAGES (kWideStages); WIDE_CTRL_BYTES of
+#: barriers, counts and radius slots (kWideCtrlBytes); the wide kernels
+#: take WIDE_REGS registers a thread (__launch_bounds__(512, 1))
 WARP_ROWS = 4
 CHUNK_LANES = 256
 D3_MAX_TILE_LANES = 1024
 D3_MAX_WARPS = 16
 D3_REGS = 64
-D3_SLOTS_MAX_K = 903
+D3_SLOTS_MAX_K = 128
+WIDE_BUFFER = 248
+WIDE_SORT = 256
+WIDE_WARP_BYTES = WIDE_SORT * 8 + WARP_ROWS * WIDE_BUFFER * 8
+WIDE_TAIL_BYTES = round_up(WARP_ROWS * (WIDE_BUFFER + 1) * 4, 16)
+WIDE_TILE_LANES = 256
+WIDE_STAGES = 8
+WIDE_CTRL_BYTES = 1024
+WIDE_REGS = 128
 #: warps of a traversal block at D=3: 32 rows, so a bucket of S=248 rows
 #: splits over 8 blocks that prune on their own rows
 D3_TILED_WARPS = 8
@@ -276,38 +291,70 @@ def d3_slots(k: int) -> int:
     return s
 
 
-def d3_smem_bytes(rows: int, lanes: int, k: int) -> int:
-    """Dynamic shared memory of a D=3 kernel's block, as the launchers get
-    it: two staged tiles of ``lanes`` float4, ``rows`` candidate rows of
-    32 * d3_slots(k) slots (d2 and id; none in the wide fold), and 32 bytes
-    of mbarriers and radius slots."""
-    return 2 * 16 * lanes + rows * d3_slots(k) * 32 * 8 + 32
+def d3_stages(k: int, kernel: str) -> int:
+    """Tiles a block of the D=3 ``kernel`` (``"traversal"``:
+    ``knn_tiled_d3_*``; ``"flat"``: ``knn_bf_d3_*``) stages for rows of
+    ``k``: two on slots a lane; on the wide fold (``d3_slots`` 0) none in
+    the traversal, whose warps read their lanes from device memory, and
+    the flat fold's ring of ``WIDE_STAGES``."""
+    if kernel not in ("traversal", "flat"):
+        raise ValueError(f"kernel={kernel!r}: 'traversal' or 'flat'")
+    if d3_slots(k):
+        return 2
+    return WIDE_STAGES if kernel == "flat" else 0
 
 
-def d3_blocks_per_sm(threads: int, smem: int) -> int:
+def d3_smem_bytes(rows: int, lanes: int, k: int, kernel: str) -> int:
+    """Dynamic shared memory of a block of the D=3 ``kernel``
+    (``d3_stages``), as the launchers get it: two staged tiles of
+    ``lanes`` float4, ``rows`` candidate rows of 32 * d3_slots(k) slots
+    (d2 and id) and 32 bytes of mbarriers and radius slots; or in the
+    wide fold (``d3_slots`` 0) the pending buffers of ``rows / WARP_ROWS``
+    warps beside the flat fold's ring of staged tiles, or beside the rows'
+    tails in the traversal, which stages none; and ``WIDE_CTRL_BYTES``."""
+    stages = d3_stages(k, kernel)
+    slots = d3_slots(k)
+    if slots == 0:
+        warp = WIDE_WARP_BYTES + (0 if stages else WIDE_TAIL_BYTES)
+        return stages * 16 * lanes + rows // WARP_ROWS * warp + WIDE_CTRL_BYTES
+    return 2 * 16 * lanes + rows * slots * 32 * 8 + 32
+
+
+def d3_regs(k: int) -> int:
+    """Registers a thread of the D=3 kernel that takes ``k``: ``D3_REGS``
+    on slots a lane, ``WIDE_REGS`` on the wide fold."""
+    return D3_REGS if d3_slots(k) else WIDE_REGS
+
+
+def d3_blocks_per_sm(threads: int, smem: int, regs: int = D3_REGS) -> int:
     """Blocks of a D=3 kernel an SM can hold: the least of its 64 warps,
-    its 65,536 registers at ``D3_REGS`` a thread, and its shared memory."""
-    return min(2048 // threads, 65_536 // (threads * D3_REGS),
+    its 65,536 registers at ``regs`` a thread, and its shared memory."""
+    return min(2048 // threads, 65_536 // (threads * regs),
                SMEM_SM // (smem + 1024))
 
 
-def d3_block(rows: int, lanes: int, k: int) -> tuple[int, int]:
-    """(rows per block, threads) of a D=3 kernel: ``WARP_ROWS`` rows a
-    warp, as many warps as ``rows`` asks for up to ``D3_MAX_WARPS``, fewer
-    where two blocks would no longer fit on an SM (never in the wide fold,
-    whose rows take no shared memory). Raises for k < 1."""
+def d3_block(rows: int, lanes: int, k: int,
+             kernel: str) -> tuple[int, int]:
+    """(rows per block, threads) of the D=3 ``kernel`` (``d3_stages``):
+    ``WARP_ROWS`` rows a warp, as many warps as ``rows`` asks for up to
+    ``D3_MAX_WARPS``, fewer where two blocks would no longer fit on an SM
+    (``d3_smem_bytes``). Raises for k < 1."""
     if k < 1:
         raise ValueError(f"k={k}: a row holds at least one entry")
     warps = max(1, min(D3_MAX_WARPS, -(-rows // WARP_ROWS)))
     while warps > 1 and d3_blocks_per_sm(
-            32 * warps, d3_smem_bytes(WARP_ROWS * warps, lanes, k)) < 2:
+            32 * warps, d3_smem_bytes(WARP_ROWS * warps, lanes, k, kernel),
+            d3_regs(k)) < 2:
         warps -= 1
     return WARP_ROWS * warps, 32 * warps
 
 
-def d3_tile_lanes(lanes: int) -> int:
+def d3_tile_lanes(lanes: int, k: int = 1) -> int:
     """Lanes of a D=3 kernel's staged tile for ``lanes`` asked for: whole
-    chunks, at most ``D3_MAX_TILE_LANES``."""
+    chunks, at most ``D3_MAX_TILE_LANES``; the wide fold's ring (k above
+    ``D3_SLOTS_MAX_K``) stages ``WIDE_TILE_LANES`` a tile."""
+    if d3_slots(k) == 0:
+        return WIDE_TILE_LANES
     return min(round_up(max(lanes, 1), CHUNK_LANES), D3_MAX_TILE_LANES)
 
 
@@ -327,12 +374,14 @@ def d3_lanes(pts: torch.Tensor, ids: torch.Tensor,
 
 
 def launch_geometry(s_q: int, t_p: int, k: int) -> tuple[int, int, int]:
-    """(rows per block, threads per block, staged lanes) of
+    """(rows per block, threads per block, lanes a tile) of
     ``knn_tiled_d3_kernel``: ``D3_TILED_WARPS`` warps of 4 rows
     (``d3_block``) and tiles of whole 256-lane chunks of the bucket padded
-    to a multiple of 256 lanes."""
-    lanes = d3_tile_lanes(t_p)
-    rows, threads = d3_block(min(s_q, WARP_ROWS * D3_TILED_WARPS), lanes, k)
+    to a multiple of 256 lanes, two staged; or of
+    ``knn_tiled_d3_wide_kernel`` (``d3_slots`` 0), which stages none."""
+    lanes = d3_tile_lanes(t_p, k)
+    rows, threads = d3_block(min(s_q, WARP_ROWS * D3_TILED_WARPS), lanes, k,
+                             "traversal")
     return rows, threads, lanes
 
 
@@ -404,8 +453,9 @@ def tiled_launch_plan(s_q: int, t_p: int, k: int, dim: int) -> TiledPlan:
 
     D=3 takes ``knn_tiled_d3_kernel`` (``launch_geometry``'s block, two
     tiles in flight), its rows in shared memory; above ``D3_SLOTS_MAX_K``
-    ``knn_tiled_d3_wide_kernel``, its rows in place in device memory, so
-    any k plans. Every other D takes the ring kernel: 128 rows a block,
+    ``knn_tiled_d3_wide_kernel``, no tile staged, its rows in place in
+    device memory and their pending buffers in shared memory, so any k
+    plans. Every other D takes the ring kernel: 128 rows a block,
     64-lane chunks; up to ``RESIDENT_MAX_DP4`` with the queries
     resident, above it with D streamed in slices
     (``stream_slice_groups``). The candidate rows sit in shared memory
@@ -414,8 +464,9 @@ def tiled_launch_plan(s_q: int, t_p: int, k: int, dim: int) -> TiledPlan:
     dp4 = round_up(dim, 4)
     if dim == 3:
         rows, threads, lanes = launch_geometry(s_q, t_p, k)
-        return TiledPlan("d3", rows, lanes, threads, dp4, 2, d3_slots(k) > 0,
-                         d3_smem_bytes(rows, lanes, k))
+        return TiledPlan("d3", rows, lanes, threads, dp4,
+                         d3_stages(k, "traversal"), d3_slots(k) > 0,
+                         d3_smem_bytes(rows, lanes, k, "traversal"))
     stream = dp4 > RESIDENT_MAX_DP4
     groups = stream_slice_groups(dp4) if stream else 0
     for rows_in_smem in (True, False):

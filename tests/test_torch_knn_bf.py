@@ -196,24 +196,26 @@ def test_plain_is_k_smallest_by_d2_then_arrival(k):
 @pytest.mark.parametrize("query_tile,point_tile,k,want", [
     (2048, 2048, 8, (64, 1024)),
     (2048, 2048, 100, (64, 1024)),
-    (2048, 2048, 200, (40, 1024)),
+    # above D3_SLOTS_MAX_K: the wide fold's ring of WIDE_TILE_LANES tiles
+    (2048, 2048, 200, (32, 256)),
     (96, 300, 100, (64, 512)),
     (50, 5000, 1, (52, 1024)),
 ])
 def test_launch_geometry(query_tile, point_tile, k, want):
     """D=3: warps of 4 query rows, at most 16 a block, fewer where two
     blocks would not fit on an SM; tiles of whole 256-lane chunks, at most
-    1024 lanes. Two blocks fit in shared memory and in registers (64 a
-    thread, 8 threads a row): 32 warps resident at k=8 and k=100."""
+    1024 lanes. Two blocks fit in shared memory and in registers (8
+    threads a row; 64 registers a thread on slots a lane: 32 warps
+    resident at k=8 and k=100; 128 on the wide fold)."""
     rows, lanes = tb.launch_geometry(query_tile, point_tile, k)
     assert (rows, lanes) == want
     assert rows % tk.WARP_ROWS == 0
     assert rows <= tk.WARP_ROWS * tk.D3_MAX_WARPS
     assert lanes % tk.CHUNK_LANES == 0 and lanes <= tk.D3_MAX_TILE_LANES
-    smem = tk.d3_smem_bytes(rows, lanes, k)
+    smem = tb.flat_d3_plan(query_tile, point_tile, k).smem
     assert smem <= tk.SMEM_OPTIN - 1024
     assert 2 * (smem + 1024) <= tk.SMEM_SM
-    assert 2 * 8 * rows * tk.D3_REGS <= 65_536
+    assert 2 * 8 * rows * tk.d3_regs(k) <= 65_536
 
 
 @pytest.mark.parametrize("query_tile,point_tile,k,dim,want", [
@@ -282,23 +284,35 @@ def test_flat_schedule_is_the_flat_fold(kind, k):
         assert bool((got.idx[60:, :min(k, 60)] == -1).all())
 
 
-@pytest.mark.parametrize("k", [904, 1000, 1024, 1025, 2048, 4096, 4097,
-                               8192, 16384])
+@pytest.mark.parametrize("k", sorted({904, 1000, 1024, 1025, 2048, 4096,
+                                      4097, 8192, 16384,
+                                      tk.D3_SLOTS_MAX_K + 1}))
 def test_flat_d3_plans_large_k(k):
-    """k above 903 plans the flat D=3 kernel's wide fold: its rows in
-    place in device memory, so the block is as wide as at k=8 and its
-    shared memory holds two tiles; the plan fits what a block may opt into
-    and says where its rows sit."""
+    """k above ``D3_SLOTS_MAX_K`` plans the flat D=3 kernel's wide fold:
+    its rows in place in device memory, a block's shared memory its ring of
+    ``WIDE_STAGES`` tiles of ``WIDE_TILE_LANES`` and its warps' pending
+    buffers (``WIDE_WARP_BYTES`` a warp), counted by ``d3_smem_bytes``,
+    whatever the engine's point tile; the plan fits what a block may opt
+    into, says where its rows sit and keeps two blocks on an SM: 16 warps
+    at the engine's default tiles (its registers and buffers bound
+    both)."""
     for query_tile, point_tile in ((2048, 2048), (96, 300), (50, 5000)):
         plan = tb.flat_d3_plan(query_tile, point_tile, k)
         rows, lanes = tb.launch_geometry(query_tile, point_tile, k)
         assert (plan.kernel, plan.rows, plan.lanes, plan.threads,
-                plan.dp4, plan.stages) == ("d3", rows, lanes, 8 * rows, 4, 2)
+                plan.dp4, plan.stages) == ("d3", rows, lanes, 8 * rows, 4,
+                                           tk.WIDE_STAGES)
+        assert lanes == tk.WIDE_TILE_LANES
         assert not plan.rows_in_smem
-        assert (rows, lanes) == tb.launch_geometry(query_tile, point_tile, 8)
-        assert plan.smem == tk.d3_smem_bytes(rows, lanes, k) \
-            == 2 * 16 * lanes + 32 <= tk.SMEM_OPTIN - 1024
-        assert tk.d3_blocks_per_sm(plan.threads, plan.smem) >= 2
+        assert plan.smem == tk.d3_smem_bytes(rows, lanes, k, "flat") \
+            == (tk.WIDE_STAGES * 16 * lanes + rows // 4 * tk.WIDE_WARP_BYTES
+                + tk.WIDE_CTRL_BYTES)
+        assert plan.smem <= tk.SMEM_OPTIN - 1024
+        assert tk.d3_blocks_per_sm(plan.threads, plan.smem,
+                                   tk.WIDE_REGS) >= 2
+    plan = tb.flat_d3_plan(2048, 2048, k)
+    assert tk.d3_blocks_per_sm(plan.threads, plan.smem, tk.WIDE_REGS) \
+        * plan.rows // 4 == 16
     # the plans of the k the first kernel took stand as they were
     small = tb.flat_d3_plan(2048, 2048, 100)
     assert (small.rows, small.lanes, small.rows_in_smem) == (64, 1024, True)

@@ -8,6 +8,8 @@ kernel folds padding lanes into them, the port leaves them untouched, and
 ``scatter_back`` drops them either way."""
 
 import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -331,24 +333,32 @@ def test_plain_visit_stats_count_scored_buckets():
     (248, 496, 8, (32, 256, 512)),
     (248, 496, 100, (32, 256, 512)),
     (256, 512, 1, (32, 256, 512)),
-    (248, 496, 200, (32, 256, 512)),
+    # above D3_SLOTS_MAX_K: the wide fold, a step of WIDE_TILE_LANES
+    (248, 496, 200, (32, 256, 256)),
     (16, 4096, 8, (16, 128, 1024)),
 ])
 def test_launch_geometry(s_q, t_p, k, want):
     """D=3: warps of 4 query rows (8 threads a row), 8 warps a block (a
     bucket's rows split over blocks), whole 256-lane chunks a tile; at least
     two blocks fit on an SM in shared memory and in registers (64 a
-    thread): at k=100 four, 32 warps resident."""
+    thread on slots a lane: at k=100 four blocks, 32 warps resident; 128
+    on the wide fold, which stages no tile)."""
     rows, threads, lanes = tk.launch_geometry(s_q, t_p, k)
     assert (rows, threads, lanes) == want
     assert threads == 8 * rows and threads % 32 == 0
     assert lanes % tk.CHUNK_LANES == 0 and lanes <= tk.D3_MAX_TILE_LANES
-    smem = tk.d3_smem_bytes(rows, lanes, k)
-    assert smem == 2 * 16 * lanes + rows * 32 * tk.d3_slots(k) * 8 + 32
+    slots = tk.d3_slots(k)
+    smem = tk.d3_smem_bytes(rows, lanes, k, "traversal")
+    if slots:
+        assert smem == 2 * 16 * lanes + rows * 32 * slots * 8 + 32
+    else:
+        assert smem == (rows // 4 * (tk.WIDE_WARP_BYTES + tk.WIDE_TAIL_BYTES)
+                        + tk.WIDE_CTRL_BYTES)
+    assert smem == tk.tiled_launch_plan(s_q, t_p, k, 3).smem
     assert smem <= tk.SMEM_OPTIN - 1024
     assert 2 * (smem + 1024) <= tk.SMEM_SM
-    assert 2 * threads * tk.D3_REGS <= 65_536
-    assert tk.d3_blocks_per_sm(threads, smem) >= 2
+    assert 2 * threads * tk.d3_regs(k) <= 65_536
+    assert tk.d3_blocks_per_sm(threads, smem, tk.d3_regs(k)) >= 2
 
 
 @pytest.mark.parametrize("s_q,t_p,k,dim,want", [
@@ -378,6 +388,8 @@ def test_launch_geometry_general_d(s_q, t_p, k, dim, want):
 #: k above the 903 the first D=3 kernels took (the wide fold), across the
 #: borders of the instances' slots a lane (1024, 2048, 4096) and beyond
 LARGE_K = [904, 1000, 1024, 1025, 2048, 4096, 4097, 8192, 16384]
+#: the smallest k of the wide fold, where the plans change kernel
+CROSSOVER_K = [tk.D3_SLOTS_MAX_K, tk.D3_SLOTS_MAX_K + 1]
 
 
 def first_d3_block(rows, lanes, k):
@@ -399,45 +411,184 @@ def first_d3_block(rows, lanes, k):
     return 4 * warps, 32 * warps, smem(4 * warps)
 
 
-@pytest.mark.parametrize("k", LARGE_K)
+def wide_d3_block(rows, stages):
+    """The wide fold's plan, written out: a warp's pending buffers
+    (``WIDE_WARP_BYTES``: the sort's keys and four rows' buffers of d2 and
+    ids) beside ``stages`` staged tiles of ``WIDE_TILE_LANES`` (the flat
+    fold's ring) or, with none (the traversal), the rows' tails of
+    ``WIDE_BUFFER + 1`` d2 each, and ``WIDE_CTRL_BYTES`` of barriers,
+    counts and radius slots, warps shed until two blocks of
+    ``WIDE_REGS`` registers a thread fit on an SM. Returns (rows, threads,
+    smem)."""
+    warp_bytes = tk.WIDE_SORT * 8 + tk.WARP_ROWS * tk.WIDE_BUFFER * 8
+    if not stages:
+        warp_bytes += -(-4 * (tk.WIDE_BUFFER + 1) * 4 // 16) * 16
+
+    def smem(r):
+        return (stages * 16 * tk.WIDE_TILE_LANES + r // 4 * warp_bytes
+                + tk.WIDE_CTRL_BYTES)
+
+    warps = max(1, min(tk.D3_MAX_WARPS, -(-rows // tk.WARP_ROWS)))
+    while warps > 1 and min(2048 // (32 * warps),
+                            65_536 // (32 * warps * tk.WIDE_REGS),
+                            tk.SMEM_SM // (smem(4 * warps) + 1024)) < 2:
+        warps -= 1
+    return 4 * warps, 32 * warps, smem(4 * warps)
+
+
+@pytest.mark.parametrize("k", sorted(set(LARGE_K + CROSSOVER_K[1:])))
 def test_d3_plans_large_k(k):
-    """k above 903 plans on the D=3 kernels: the wide fold (no slots a
-    lane), whose rows sit in place in device memory, so a block's shared
-    memory holds its two tiles and the block is as wide as at k=8; every
-    plan fits what a block may opt into, and says where its rows sit."""
+    """k above ``D3_SLOTS_MAX_K`` plans on the D=3 kernels' wide fold (no
+    slots a lane): its rows in place in device memory, no tile staged (a
+    warp reads its lanes, ``WIDE_TILE_LANES`` between two decisions, from
+    device memory), a block's shared memory its warps' pending buffers,
+    counted by ``d3_smem_bytes``, whatever the bucket sizes; every plan
+    fits what a block may opt into, says where its rows sit, and keeps at
+    least two blocks on an SM."""
     assert tk.d3_slots(k) == 0
     for s_q, t_p in ((248, 496), (4000, 256), (16, 4096), (1, 1)):
         plan = tk.tiled_launch_plan(s_q, t_p, k, 3)
         rows, threads, lanes = tk.launch_geometry(s_q, t_p, k)
         assert (plan.kernel, plan.rows, plan.threads, plan.lanes,
-                plan.stages) == ("d3", rows, threads, lanes, 2)
+                plan.stages) == ("d3", rows, threads, lanes, 0)
+        assert lanes == tk.WIDE_TILE_LANES
         assert not plan.rows_in_smem
-        assert (rows, threads, lanes) == tk.launch_geometry(s_q, t_p, 8)
-        assert plan.smem == tk.d3_smem_bytes(rows, lanes, k) \
-            == 2 * 16 * lanes + 32 <= tk.SMEM_OPTIN - 1024
-        assert tk.d3_blocks_per_sm(threads, plan.smem) >= 2
-    for rows_wanted, lanes in ((248, 512), (2048, 1024)):
-        rows, threads = tk.d3_block(rows_wanted, lanes, k)
-        assert (rows, threads) == tk.d3_block(rows_wanted, lanes, 8)
-        assert tk.d3_smem_bytes(rows, lanes, k) <= tk.SMEM_OPTIN - 1024
+        assert (rows, threads, plan.smem) == wide_d3_block(
+            min(s_q, 4 * tk.D3_TILED_WARPS), 0)
+        assert plan.smem == tk.d3_smem_bytes(rows, lanes, k, "traversal") \
+            == (rows // 4 * (tk.WIDE_WARP_BYTES + tk.WIDE_TAIL_BYTES)
+                + tk.WIDE_CTRL_BYTES)
+        assert plan.smem <= tk.SMEM_OPTIN - 1024
+        assert tk.d3_blocks_per_sm(threads, plan.smem, tk.WIDE_REGS) >= 2
+    for rows_wanted in (248, 2048):
+        lanes = tk.d3_tile_lanes(1024, k)
+        for kernel, stages in (("traversal", 0), ("flat", tk.WIDE_STAGES)):
+            assert tk.d3_stages(k, kernel) == stages
+            rows, threads = tk.d3_block(rows_wanted, lanes, k, kernel)
+            smem = tk.d3_smem_bytes(rows, lanes, k, kernel)
+            assert (rows, threads, smem) == wide_d3_block(rows_wanted, stages)
+            assert smem <= tk.SMEM_OPTIN - 1024
 
 
 @pytest.mark.parametrize("k", [1, 8, 32, 33, 100, 200, 500, 873, 896, 903])
 def test_d3_plans_take_every_k_the_first_kernels_took(k):
-    """Every k the first D=3 kernels took (up to 903 with the smallest
-    tile, 873 of them at T=496) plans a block that fits twice on an SM,
-    its rows in shared memory, and the plan is the one these k had before
-    the wide fold (``first_d3_block``)."""
-    for rows_wanted, lanes in ((248, 512), (2048, 1024), (16, 256)):
-        rows, threads = tk.d3_block(rows_wanted, lanes, k)
-        assert rows % tk.WARP_ROWS == 0 and threads == 8 * rows
-        assert tk.d3_blocks_per_sm(threads,
-                                   tk.d3_smem_bytes(rows, lanes, k)) >= 2
-        assert (rows, threads, tk.d3_smem_bytes(rows, lanes, k)) \
-            == first_d3_block(rows_wanted, lanes, k)
+    """Every k the first D=3 kernels took (up to 903) plans blocks of both
+    kernels that fit twice on an SM: up to ``D3_SLOTS_MAX_K`` (where the
+    wide fold stops winning, ``tools/torch_d3_k_sweep.py``) the plan these
+    k had before the wide fold (``first_d3_block``), its rows in shared
+    memory beside two tiles; above it the wide fold's (``wide_d3_block``),
+    its rows in device memory, with no tile staged in the traversal
+    (``tiled_launch_plan``) and the ring of ``WIDE_STAGES`` in the flat
+    fold (``flat_d3_plan``)."""
+    from mpi_cuda_largescaleknn_torch.ops.knn_bf import flat_d3_plan
+
+    wide = k > tk.D3_SLOTS_MAX_K
+    for rows_wanted, asked in ((248, 512), (2048, 1024), (16, 256)):
+        lanes = tk.d3_tile_lanes(asked, k)
+        assert lanes == (tk.WIDE_TILE_LANES if wide else asked)
+        tplan = tk.tiled_launch_plan(rows_wanted, asked, k, 3)
+        fplan = flat_d3_plan(rows_wanted, asked, k)
+        for kernel, plan, wanted in (
+                ("traversal", tplan, min(rows_wanted,
+                                         4 * tk.D3_TILED_WARPS)),
+                ("flat", fplan, rows_wanted)):
+            stages = (tk.WIDE_STAGES if kernel == "flat" else 0) if wide \
+                else 2
+            rows, threads = tk.d3_block(wanted, lanes, k, kernel)
+            smem = tk.d3_smem_bytes(rows, lanes, k, kernel)
+            assert rows % tk.WARP_ROWS == 0 and threads == 8 * rows
+            assert tk.d3_blocks_per_sm(threads, smem, tk.d3_regs(k)) >= 2
+            assert (rows, threads, smem) \
+                == (wide_d3_block(wanted, stages) if wide
+                    else first_d3_block(wanted, lanes, k))
+            assert (plan.rows, plan.threads, plan.lanes, plan.stages,
+                    plan.smem) == (rows, threads, lanes, stages, smem)
     slots = tk.d3_slots(k)
-    assert 32 * slots >= k and (slots == 1 or 16 * slots < k)
-    assert tk.tiled_launch_plan(248, 496, k, 3).rows_in_smem
+    if wide:
+        assert slots == 0
+    else:
+        assert 32 * slots >= k and (slots == 1 or 16 * slots < k)
+    assert tk.tiled_launch_plan(248, 496, k, 3).rows_in_smem is not wide
+
+
+def _header_constants():
+    text = (Path(tk.__file__).resolve().parents[1] / "csrc"
+            / "knn_rows.cuh").read_text()
+    names = ("kSlotsMaxK", "kWideBuffer", "kWideSort", "kWideStages",
+             "kWideCtrlBytes", "kWarpRows", "kChunkLanes", "kChunkGroups")
+    found = {}
+    for name in names:
+        m = re.search(rf"constexpr int {name} = ([^;]+);", text)
+        assert m, name
+        found[name] = m.group(1).strip()
+    return found
+
+
+def test_the_header_holds_the_plans_constants():
+    """``csrc/knn_rows.cuh`` and the Python plan agree: the largest k of
+    the instances of slots a lane (``kSlotsMaxK`` / ``D3_SLOTS_MAX_K``),
+    the wide fold's buffer (``kWideBuffer`` / ``WIDE_BUFFER``), its sort's
+    scratch (``kWideSort`` / ``WIDE_SORT``, a power of two that holds a
+    buffer), a warp's shared memory (``kWideWarpBytes`` /
+    ``WIDE_WARP_BYTES``), the ring's stages and control bytes
+    (``kWideStages`` / ``WIDE_STAGES``, ``kWideCtrlBytes`` /
+    ``WIDE_CTRL_BYTES``), the warp fold's rows and chunks, and the
+    instances of slots a lane the launchers dispatch to."""
+    c = _header_constants()
+    assert int(c["kSlotsMaxK"]) == tk.D3_SLOTS_MAX_K
+    assert int(c["kWideBuffer"]) == tk.WIDE_BUFFER
+    assert int(c["kWideSort"]) == tk.WIDE_SORT
+    assert int(c["kWideStages"]) == tk.WIDE_STAGES
+    assert int(c["kWideCtrlBytes"]) == tk.WIDE_CTRL_BYTES
+    assert int(c["kWarpRows"]) == tk.WARP_ROWS
+    assert c["kChunkLanes"] == "32 * kChunkGroups"
+    assert 32 * int(c["kChunkGroups"]) == tk.CHUNK_LANES
+    assert tk.WIDE_BUFFER <= tk.WIDE_SORT
+    assert tk.WIDE_SORT & (tk.WIDE_SORT - 1) == 0
+    assert tk.WIDE_WARP_BYTES == (tk.WIDE_SORT * 8
+                                  + tk.WARP_ROWS * tk.WIDE_BUFFER * 8)
+    assert tk.WIDE_WARP_BYTES % 16 == 0
+    assert tk.WIDE_TAIL_BYTES == -(-tk.WARP_ROWS * (tk.WIDE_BUFFER + 1) * 4
+                                   // 16) * 16
+    assert tk.WIDE_TILE_LANES % tk.CHUNK_LANES == 0
+    # the wide kernels' __launch_bounds__(kD3MaxThreads, blocks) give each
+    # thread WIDE_REGS registers; the instances of slots a lane D3_REGS
+    csrc = Path(tk.__file__).resolve().parents[1] / "csrc"
+    assert int(re.search(r"constexpr int kD3MaxThreads = (\d+);",
+                         (csrc / "knn_rows.cuh").read_text()).group(1)) \
+        == tk.D3_MAX_WARPS * 32
+    for src, kern in (("knn_tiled.cu", "knn_tiled_d3_wide_kernel"),
+                      ("knn_bf.cu", "knn_bf_d3_wide_kernel")):
+        m = re.search(r"__launch_bounds__\(knn::kD3MaxThreads, (\d)\)\s*"
+                      + kern, (csrc / src).read_text())
+        assert m, kern
+        assert 65_536 // (tk.D3_MAX_WARPS * 32 * int(m.group(1))) \
+            == tk.WIDE_REGS
+    # the launchers' instances of slots a lane (with_d3_slots's cases) are
+    # the slots the plans give up to kSlotsMaxK, and no more
+    body = re.search(r"int with_d3_slots\(.*?\n}\n",
+                     (csrc / "knn_rows.cuh").read_text(), re.S).group(0)
+    cases = {int(s) for s in re.findall(r"case (\d+):", body)}
+    assert cases == {tk.d3_slots(k)
+                     for k in range(1, tk.D3_SLOTS_MAX_K + 1)}
+
+
+#: warps an SM holds on the wide fold's plans (two blocks of 8 warps:
+#: its registers and its buffers bound both)
+WIDE_WARPS_PER_SM = 16
+
+
+@pytest.mark.parametrize("k", sorted(set(LARGE_K + CROSSOVER_K[1:])))
+def test_d3_plans_hold_the_planned_warps(k):
+    """The main paths' wide-fold plans keep ``WIDE_WARPS_PER_SM`` warps on
+    an SM, their pending buffers and tails included: the traversal's
+    8-warp blocks at a bucket of 248 rows against coarsened buckets of 496
+    lanes and at the device merge's one bucket of 131,072 rows."""
+    for s_q in (248, 131_072):
+        plan = tk.tiled_launch_plan(s_q, 496, k, 3)
+        assert plan.threads == 32 * tk.D3_TILED_WARPS
+        assert tk.d3_blocks_per_sm(plan.threads, plan.smem, tk.d3_regs(k)) \
+            * plan.threads // 32 == WIDE_WARPS_PER_SM
 
 
 def test_d3_lanes_layout():
@@ -481,7 +632,8 @@ def test_tiled_launch_plan(s_q, t_p, k, dim, want):
     plan = tk.tiled_launch_plan(s_q, t_p, k, dim)
     assert tuple(plan[:7]) == want
     if plan.kernel == "d3":
-        assert plan.smem == tk.d3_smem_bytes(plan.rows, plan.lanes, k)
+        assert plan.smem == tk.d3_smem_bytes(plan.rows, plan.lanes, k,
+                                             "traversal")
         rows, threads, lanes = tk.launch_geometry(s_q, t_p, k)
         assert (plan.rows, plan.threads, plan.lanes) == (rows, threads,
                                                          lanes)
