@@ -1,0 +1,9 @@
+"""Percent of the traced serving window in which no operation ran on the
+card."""
+
+
+def read(record: dict) -> float | None:
+    t = record.get("trace")
+    if not t or t["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
