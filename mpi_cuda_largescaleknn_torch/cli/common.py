@@ -58,7 +58,11 @@ Port options (no reference analogue):
   --write-indices P  also write the k neighbor ids per point (int32,
                     ascending by distance, -1 = fewer than k found)
   --profile-dir P   trace the run with torch.profiler (host operators and
-                    the card's kernels) into P as a Chrome trace
+                    the card's kernels) into P as a Chrome trace; the
+                    program's phases are spans in it, lsk.<phase>:
+                    shard_and_pad, upload, partition, warm_start,
+                    traverse (box_order: each fold's bucket order),
+                    extract, download, trim (obs/trace.py)
   --coordinator A   several processes (the reference's mpirun): host:port
                     of process 0's store. Launch ONE copy of this CLI per
                     process with the same arguments plus --host-id; each

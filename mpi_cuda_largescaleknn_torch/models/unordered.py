@@ -92,7 +92,8 @@ class UnorderedKNN:
                 dists, cands, self.last_stats = got
             else:
                 dists, self.last_stats = got
-            dists = dists.cpu().numpy()
+            with self.timers.phase("download"):
+                dists = dists.cpu().numpy()
 
         with self.timers.phase("trim"):
             out = np.concatenate(trim_per_shard(dists, counts, npad))

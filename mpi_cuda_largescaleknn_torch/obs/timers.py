@@ -5,6 +5,13 @@ phase, monotonic counters, point-in-time gauges, and log-bucketed latency
 histograms (p50/p95/p99) shared by ``--timings`` and the serving layer's
 ``/stats`` and ``/metrics``. A phase that runs device work must end in a
 synchronisation (the ring's stages do) for its time to cover that work.
+
+While ``torch.profiler`` records, each phase and device span is also a
+``record_function`` named ``lsk.<phase>``, so a trace nests the card's
+kernels and idle gaps under the program phase that launched them; without
+a profiler a phase costs one flag check more. The module imports torch
+only when a profiler or a device span needs it (the load generator
+imports it without torch).
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ import bisect
 import contextlib
 import json
 import math
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -102,6 +110,67 @@ def labeled_metric_lines(name: str, rows, kind: str = "counter"):
     return lines
 
 
+def profiling() -> bool:
+    """A ``torch.profiler`` records in this process (never before torch
+    is imported)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+@contextlib.contextmanager
+def profiled(name: str):
+    """``record_function(name)`` while a profiler records, else nothing."""
+    if not profiling():
+        yield
+        return
+    import torch
+
+    with torch.profiler.record_function(name):
+        yield
+
+
+class EventPairs:
+    """CUDA event pairs recorded on the current stream around device work
+    the host does not wait for; ``settle`` reads the pairs that have
+    finished, so timing them adds no synchronisation. Thread-safe: a
+    ``/stats`` reader may settle while a worker records."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._pending: list = []
+
+    @contextlib.contextmanager
+    def span(self, key):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        with self._lock:
+            self._pending.append((key, start, end))
+
+    def settle(self, wait: bool = False) -> list[tuple[object, float]]:
+        """(key, seconds) of each pair finished since the last call, in
+        record order; with ``wait`` every pair, waiting for those still
+        running."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        done, keep = [], []
+        for key, start, end in pending:
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                keep.append((key, start, end))
+                continue
+            done.append((key, start.elapsed_time(end) / 1e3))
+        if keep:
+            with self._lock:
+                self._pending[:0] = keep
+        return done
+
+
 @dataclass
 class PhaseRecord:
     seconds: float = 0.0
@@ -121,19 +190,43 @@ class PhaseTimers:
     counters: dict[str, int] = field(default_factory=dict)
     _counter_lock: threading.Lock = field(default_factory=threading.Lock,
                                           repr=False)
+    _events: EventPairs = field(default_factory=EventPairs, repr=False)
 
     @contextlib.contextmanager
     def phase(self, name: str, bytes_moved: int = 0):
         """Time a phase; ``bytes_moved`` (the ring's rotated bytes) gives
-        its report a ``GB/s``."""
+        its report a ``GB/s``. Under a profiler it is the span
+        ``lsk.<name>``."""
         rec = self.phases.setdefault(name, PhaseRecord())
         t0 = time.perf_counter()
         try:
-            yield rec
+            with profiled(f"lsk.{name}"):
+                yield rec
         finally:
             rec.seconds += time.perf_counter() - t0
             rec.calls += 1
             rec.bytes_moved += bytes_moved
+
+    @contextlib.contextmanager
+    def device_span(self, name: str, device):
+        """Time device work the host does not wait for: on the card a CUDA
+        event pair on the current stream, folded into ``phases[name]`` by
+        ``settle``; on the CPU the host clock, at once. Under a profiler
+        it is the span ``lsk.<name>`` as well."""
+        if device.type != "cuda":
+            with self.phase(name):
+                yield
+            return
+        with profiled(f"lsk.{name}"), self._events.span(name):
+            yield
+
+    def settle(self) -> None:
+        """Fold the finished device spans into their phases' seconds and
+        calls (all of them after a synchronisation)."""
+        for name, seconds in self._events.settle():
+            rec = self.phases.setdefault(name, PhaseRecord())
+            rec.seconds += seconds
+            rec.calls += 1
 
     def hist(self, name: str) -> LatencyHistogram:
         """Named latency histogram (created on first use), reported beside

@@ -21,7 +21,26 @@ def profile_trace(profile_dir: str | None):
     """Profile the region when a directory is given: host operators, and
     the card's kernels and copies where there is a card. On a normal exit
     the trace goes to ``<profile_dir>/trace-<time>-<pid>.json``. Yields
-    the profiler (``None`` without a directory)."""
+    the profiler (``None`` without a directory).
+
+    The trace also holds the program's phases as ``lsk.<phase>`` spans
+    (``obs/timers.py``), each enclosing the host operators, kernel
+    launches and idle gaps of its phase:
+
+    - ``lsk.shard_and_pad``, ``lsk.ring``, ``lsk.download``, ``lsk.trim``:
+      ``UnorderedKNN.run``'s host padding, the ring, the distances' copy
+      to the host, and the cut back to the input's rows;
+    - ``lsk.upload``, ``lsk.partition``, ``lsk.warm_start``,
+      ``lsk.traverse``, ``lsk.extract``, ``lsk.chunks``: the ring
+      driver's stages (``parallel/ring.py``): the input onto the card,
+      the buckets, each query's own bucket, the rounds, the final rows,
+      and a chunked run's loop;
+    - ``lsk.box_order``: each traversal's nearest-first order of the point
+      buckets (``ops/partition.py`` ``nearest_first_order``) under the
+      ring's folds;
+    - serving's ``lsk.index_build``, ``lsk.compile_q<rows>``,
+      ``lsk.morton_sort``, ``lsk.host_merge``; the pre-partitioned
+      pipeline's ``lsk.pad``, ``lsk.demand_ring`` and its stages."""
     if not profile_dir:
         yield None
         return

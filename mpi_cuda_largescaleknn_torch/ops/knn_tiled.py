@@ -62,6 +62,7 @@ most any block scored, at most the plain version's count.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import NamedTuple
 
@@ -206,7 +207,7 @@ def knn_update_tiled_plain(state: CandidateState, q: BucketedPoints,
                            p: BucketedPoints, *, skip_self: bool = False,
                            self_group: int = 1, with_stats: bool | str = False,
                            score_dtype: str = "f32",
-                           canonical_ties: bool = False):
+                           canonical_ties: bool = False, timers=None):
     """Plain PyTorch version of the traversal kernels. Step j takes every
     query bucket's j-th nearest point bucket, keeps it where its box d2 is
     below the bucket's radius (and it is not the skipped own bucket),
@@ -214,7 +215,8 @@ def knn_update_tiled_plain(state: CandidateState, q: BucketedPoints,
     stable-merges it into the rows. With ``with_stats`` also returns each
     query bucket's visit count (i64[Bq]); ``with_stats="full"`` also the
     fold count (``_with_stats``). ``canonical_ties`` sorts the finished rows
-    by (d2, idx), as ``knn_update_tiled_cuda`` does."""
+    by (d2, idx), as ``knn_update_tiled_cuda`` does; ``timers`` times the
+    box order as it does."""
     num_qb, s_q = q.ids.shape
     num_pb, t_p = p.ids.shape
     k = state.dist2.shape[1]
@@ -225,8 +227,7 @@ def knn_update_tiled_plain(state: CandidateState, q: BucketedPoints,
         qn2, pn2 = norms2(q.pts), norms2(p.pts)
         lanes = torch.arange(t_p, dtype=torch.int32, device=dev)
     kk = state.dist2.shape[1]
-    sorted_d2, order = nearest_first_order(q.lower, q.upper,
-                                           p.lower, p.upper)
+    sorted_d2, order = _box_order(q, p, timers)
     qvalid = q.ids >= 0
     hd2 = state.dist2.reshape(num_qb, s_q, kk).clone()
     hidx = state.idx.reshape(num_qb, s_q, kk).clone()
@@ -266,6 +267,15 @@ def knn_update_tiled_plain(state: CandidateState, q: BucketedPoints,
     elif canonical_ties:
         out = CandidateState(*sort_rows_canonical(*out))
     return _with_stats(out, visits, with_stats)
+
+
+def _box_order(q: BucketedPoints, p: BucketedPoints, timers):
+    """``nearest_first_order`` of the boxes, inside the device span
+    ``box_order`` of ``timers`` (an ``obs.timers.PhaseTimers``) where
+    given."""
+    with (contextlib.nullcontext() if timers is None else
+          timers.device_span("box_order", q.lower.device)):
+        return nearest_first_order(q.lower, q.upper, p.lower, p.upper)
 
 
 def _with_stats(out: CandidateState, visits: torch.Tensor, with_stats):
@@ -690,7 +700,7 @@ def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
                           score_dtype: str = "f32",
                           canonical_ties: bool = False,
                           prepared: PreparedPoints | None = None,
-                          max_grid_y: int = MAX_GRID_Y):
+                          max_grid_y: int = MAX_GRID_Y, timers=None):
     """Fold every real point of ``p`` into ``state`` (module docstring).
     CPU tensors take ``knn_update_tiled_plain``; CUDA tensors launch a
     kernel or raise. ``prepared`` is ``prepare_points(p, score_dtype)``
@@ -707,16 +717,20 @@ def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
     bf16), as the JAX Pallas wrapper does. The kernels keep strict-<
     adoption, so at an exact equal-distance k-boundary that straddles
     buckets the kept ids follow the visit order, where the XLA twin's
-    canonical mode keeps the smallest ids."""
+    canonical mode keeps the smallest ids.
+
+    ``timers`` (an ``obs.timers.PhaseTimers``) times the box order
+    (``nearest_first_order``) as the device span ``box_order``, with no
+    synchronisation: its owner settles it."""
     if q.pts.device.type == "cpu":
         return knn_update_tiled_plain(state, q, p, skip_self=skip_self,
                                       self_group=self_group,
                                       with_stats=with_stats,
                                       score_dtype=score_dtype,
-                                      canonical_ties=canonical_ties)
+                                      canonical_ties=canonical_ties,
+                                      timers=timers)
     _check_inputs(state, q, p)
-    sorted_d2, order = nearest_first_order(q.lower, q.upper,
-                                           p.lower, p.upper)
+    sorted_d2, order = _box_order(q, p, timers)
     k = state.dist2.shape[1]
     if uses_mxu(score_dtype, q.pts.shape[-1]):
         rows = widen_rows(state, survivor_width(k, p))

@@ -362,7 +362,8 @@ def _sum_visits(parts: list) -> int:
 @contextlib.contextmanager
 def timed_stage(timers, name: str, device: torch.device):
     """``timers.phase(name)`` ended by a device synchronisation, so its time
-    covers its device work; nothing when ``timers`` is None."""
+    covers its device work, and the device spans inside it are settled;
+    nothing when ``timers`` is None."""
     if timers is None:
         yield
         return
@@ -370,6 +371,7 @@ def timed_stage(timers, name: str, device: torch.device):
         yield
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+        timers.settle()
 
 
 def _sharded_input(points_sharded, ids_sharded, num_shards: int, device):
@@ -411,12 +413,13 @@ class RingFns(NamedTuple):
 
 def _make_ring_fns(k, max_radius, engine, query_tile, point_tile,
                    bucket_size, num_shards, *, warm_start=False,
-                   point_group=1, score_dtype="f32") -> RingFns:
+                   point_group=1, score_dtype="f32", timers=None) -> RingFns:
     """The per-round pieces of the stepwise and chunked loops.
     ``warm_start`` applies to self-joins of ``pallas_tiled``, whose query
     bucket b is point bucket b // group in round 0 (the JAX package keeps
     the twin cold); chunked queries are partitioned apart and always start
-    cold."""
+    cold. ``timers`` times each ``pallas_tiled`` fold's box order
+    (``box_order``)."""
     flat = engine not in TILED_ENGINES
     warm_start = warm_start and engine == "pallas_tiled"
     if flat:
@@ -457,7 +460,8 @@ def _make_ring_fns(k, max_radius, engine, query_tile, point_tile,
                                         skip_self=skip_self,
                                         self_group=point_group,
                                         with_stats=True,
-                                        score_dtype=score_dtype)
+                                        score_dtype=score_dtype,
+                                        timers=timers)
         return rows, v.sum()
 
     def round_fn(stationary, ring, heaps, rnd):
@@ -514,9 +518,11 @@ def ring_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
     ``mesh`` the rows are ``{position: f32[Npad]}`` (and ``{position:
     CandidateState}``) for this process's positions, and the stats count
     its own folds. ``timers`` (an ``obs.timers.PhaseTimers``) times the
-    stages ``partition`` and ``warm_start`` (tiled engines and ``tree``,
-    whose shard init builds its kd-tree), ``traverse`` and ``extract``,
-    each ended by a device synchronisation.
+    stages ``upload`` (the input onto the device), ``partition`` and
+    ``warm_start`` (tiled engines and ``tree``, whose shard init builds its
+    kd-tree), ``traverse`` and ``extract``, each ended by a device
+    synchronisation, and the device span ``box_order`` of every
+    ``pallas_tiled`` fold (inside ``traverse``).
 
     The rounds are stepped from the host either way, so this is
     ``ring_knn_stepwise`` without a checkpoint: one loop, the same bits
@@ -589,8 +595,9 @@ def ring_knn_stepwise(points_sharded, ids_sharded, k: int, num_shards: int,
                          "round-level heap snapshots are single-host only)")
     mesh = _resolve_mesh(mesh, num_shards, device)
     n_mine = len(mesh.positions)
-    pts, _ids, slabs = _sharded_input(points_sharded, ids_sharded, n_mine,
-                                      mesh.device)
+    with timed_stage(timers, "upload", mesh.device):
+        pts, _ids, slabs = _sharded_input(points_sharded, ids_sharded,
+                                          n_mine, mesh.device)
     npad = pts.shape[0] // n_mine
     group = _effective_group(point_group, npad, bucket_size, engine)
     fp = None
@@ -605,7 +612,8 @@ def ring_knn_stepwise(points_sharded, ids_sharded, k: int, num_shards: int,
             data=ckpt.data_digest(points_sharded, ids_sharded))
     fns = _make_ring_fns(k, max_radius, engine, query_tile, point_tile,
                          bucket_size, num_shards, warm_start=True,
-                         point_group=group, score_dtype=score_dtype)
+                         point_group=group, score_dtype=score_dtype,
+                         timers=timers)
     # shard init partitions (tiled engines) or builds the kd-tree (tree)
     tiled_timers = (None if engine in ("pallas", "bruteforce") else
                     timers)
@@ -727,7 +735,8 @@ def ring_knn_chunked(points_sharded, ids_sharded, k: int, num_shards: int,
     are gathered): f32[R*Npad] distances, the CandidateState with
     ``return_candidates``, and stats with ``return_stats``. ``timers``
     times ``partition`` (the resident sides) and ``chunks`` (the loop and
-    its last fetch).
+    its last fetch), as well as ``upload`` and ``box_order`` as
+    ``ring_knn``'s do.
     """
     engine = resolve_engine(engine)
     _check_score_dtype(engine, score_dtype)
@@ -736,8 +745,9 @@ def ring_knn_chunked(points_sharded, ids_sharded, k: int, num_shards: int,
     grouped = mesh is not None
     mesh = _resolve_mesh(mesh, num_shards, device)
     n_mine = len(mesh.positions)
-    pts, ids, slabs = _sharded_input(points_sharded, ids_sharded, n_mine,
-                                     mesh.device)
+    with timed_stage(timers, "upload", mesh.device):
+        pts, ids, slabs = _sharded_input(points_sharded, ids_sharded,
+                                         n_mine, mesh.device)
     dev = pts.device
     npad = pts.shape[0] // n_mine
     dim = pts.shape[1]
@@ -745,7 +755,7 @@ def ring_knn_chunked(points_sharded, ids_sharded, k: int, num_shards: int,
     group = _effective_group(point_group, npad, bucket_size, engine)
     fns = _make_ring_fns(k, max_radius, engine, query_tile, point_tile,
                          bucket_size, num_shards, point_group=group,
-                         score_dtype=score_dtype)
+                         score_dtype=score_dtype, timers=timers)
     flat = engine not in TILED_ENGINES
     with timed_stage(timers, "partition", dev):
         # Copy objects: a staged copy keeps its host bytes across chunks
