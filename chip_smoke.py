@@ -120,6 +120,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    the ring kernel), byte-equal to the ``auto`` run there; stages and peak device memory of each, each
    kernel against its bounds on the pairs it scored, and the seconds of
    each step of the phase on the host's clock;
+10d. the self-join's warm start at the benchmark's shard shapes: on
+   8,388,608 seeded uniform points at k=100 (a shard of the D=3 cells)
+   and on phase 10's points (D=128, k=10), ``warm_start_self_cuda`` (one
+   visit of the traversal kernels into cold rows) against the eager
+   ``warm_start_self``, bit for bit (d2 and ids, padding rows included),
+   both timed, one launch a call on the route the shapes name (counted
+   in the warm start's counters, none in the traversal's), and the D=3
+   launch against its bounds. Phases 3, 6, 11, 11b and 21 hold the launch
+   to the eager rows at their shapes too (``checked_warm_start``);
 11. the f32 ring kernel (with its plan, and its wrapper's layout time
    apart) and the bf16 (wgmma) kernel at phase 10's shape, against both
    bounds and their share of each, and their plain versions' on 16 query
@@ -662,12 +671,10 @@ def compare_case(name, pts_np, k, *, radius=float("inf"), bucket_size=256,
         coarsen_buckets,
         partition_points,
     )
-    from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
-
     pts = torch.from_numpy(pts_np).cuda()
     q = partition_points(pts, bucket_size=bucket_size)
     pc = coarsen_buckets(q, group)
-    state = (warm_start_self(pc, k, radius) if warm else
+    state = (checked_warm_start(name, pc, k, radius) if warm else
              init_candidates(q.num_buckets * q.bucket_size, k, radius,
                              device=pts.device))
     return check_traversal(name, state, q, pc, pts, skip_self=warm,
@@ -1582,6 +1589,103 @@ def check_ring_route(label, t, stream=False) -> None:
         f"{what} route")
 
 
+def same_rows(got, want) -> bool:
+    """Two CandidateStates hold the same bits (d2 compared as bits, so
+    -0.0 / 0.0 too)."""
+    import torch
+
+    return (torch.equal(got.dist2.view(torch.int32),
+                        want.dist2.view(torch.int32))
+            and torch.equal(got.idx, want.idx))
+
+
+def checked_warm_start(label, pc, k, radius=float("inf")):
+    """The eager warm start's rows (``ops/tiled.py`` ``warm_start_self``)
+    of the resident side ``pc``; fails unless ``warm_start_self_cuda``
+    (one visit of the traversal kernels into cold rows) gives the same
+    bits, padding rows included."""
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        warm_start_self_cuda,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
+
+    want = warm_start_self(pc, k, radius)
+    if not same_rows(warm_start_self_cuda(pc, k, radius), want):
+        fail(f"{label}: warm_start_self_cuda differs from warm_start_self "
+             f"(k={k}, D={pc.pts.shape[-1]})")
+    return want
+
+
+def time_warm_start(pts, k, reps=3):
+    """The self-join's warm start at one shard's shape: ``pts`` (on the
+    card) in buckets of 256 coarsened by 2, the resident side of the ring
+    driver's ``pallas_tiled`` self-join. ``warm_start_self_cuda`` and the
+    eager ``warm_start_self`` each timed by CUDA events, the mean of
+    ``reps`` calls after an untimed one (the whole call: cold rows,
+    layouts, the launch); fails unless they give the same bits, or unless
+    each call of the first made one launch, on the route the shapes name,
+    counted in the warm start's counters and in none of the traversal's.
+    At D=3 also the launch's bounds on the pairs it scores (each bucket's
+    real rows against its real points)."""
+    import torch
+
+    from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+        d3_slots,
+        knn_update_tiled_cuda,
+        tiled_launch_plan,
+        warm_start_self_cuda,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.partition import (
+        coarsen_buckets,
+        partition_points,
+    )
+    from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
+
+    n, dim = pts.shape
+    pc = coarsen_buckets(partition_points(pts, bucket_size=256), 2)
+    bq, s = pc.ids.shape
+    plan = tiled_launch_plan(s, s, k, dim)
+    route = {"d3": "d3_wide" if d3_slots(k) == 0 else "d3"}.get(
+        plan.kernel, plan.kernel)
+    reset_counts()
+    got = warm_start_self_cuda(pc, k)
+    ms = 0.0
+    for _ in range(reps):
+        got = None
+        t, got = cuda_ms(lambda: warm_start_self_cuda(pc, k))
+        ms += t / reps
+    ws = warm_start_self_cuda
+    counted = {key: getattr(ws, key) for key in (
+        "launches", f"{plan.kernel}_launches", f"{route}_launches")}
+    if set(counted.values()) != {reps + 1} \
+            or knn_update_tiled_cuda.launches:
+        fail(f"warm start D={dim} k={k}: launches {counted} for {reps + 1} "
+             f"calls on the {route} route, "
+             f"{knn_update_tiled_cuda.launches} counted as traversals")
+    plain_ms, want = 0.0, warm_start_self(pc, k)
+    for _ in range(reps):
+        want = None
+        t, want = cuda_ms(lambda: warm_start_self(pc, k))
+        plain_ms += t / reps
+    if not same_rows(got, want):
+        fail(f"warm start D={dim} k={k}: warm_start_self_cuda differs from "
+             "warm_start_self")
+    out = {"n": n, "dim": dim, "k": k, "Bq": bq, "S": s, "route": route,
+           "pad_rows": int((pc.ids < 0).sum()), "ms": ms,
+           "plain_ms": plain_ms, "max_abs_err": 0.0, "launches": counted,
+           "plan": plan._asdict()}
+    if dim == 3:
+        real = (pc.ids >= 0).sum(1)
+        pairs = int((real * real).sum())
+        nbytes = (2 * bq * s * 16          # coords + ids: queries, lanes
+                  + 2 * bq * s * k * 8)    # candidate rows in and out
+        ops = pairs * OPS_PER_PAIR
+        out.update(pairs=pairs, ops=ops, bytes=nbytes,
+                   **bounds(ms, ops / PEAK_F32, ops / PEAK_F32_ISSUE,
+                            nbytes))
+    return out
+
+
 def time_kernel(k, pts, reps=5):
     """The main path's fold at 1M points (R=1: one launch after the warm
     start): kernel time by CUDA events over ``reps`` launches on fresh
@@ -1607,11 +1711,9 @@ def time_kernel(k, pts, reps=5):
         nearest_first_order,
         partition_points,
     )
-    from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
-
     q = partition_points(pts, bucket_size=256)
     pc = coarsen_buckets(q, 2)
-    warm = warm_start_self(pc, k)
+    warm = checked_warm_start(f"phase 6 k={k}", pc, k)
     sorted_d2, order = nearest_first_order(q.lower, q.upper,
                                            pc.lower, pc.upper)
     rows = CandidateState(warm.dist2.clone(), warm.idx.clone())
@@ -1744,16 +1846,21 @@ def flat_bounds(ms, n, k) -> dict:
 
 
 def reset_counts() -> None:
-    """Every kernel launch count of the traversal and flat wrappers to 0."""
+    """Every kernel launch count of the traversal, warm-start and flat
+    wrappers to 0."""
     from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
         knn_update_tiled_cuda,
+        warm_start_self_cuda,
     )
 
     for name in ("launches", "ring_launches", "stream_launches",
                  "d3_launches", "d3_wide_launches", "mxu_launches",
                  "wgmma_launches", "wgmma_stream_launches"):
         setattr(knn_update_tiled_cuda, name, 0)
+    for name in ("launches", "ring_launches", "stream_launches",
+                 "d3_launches", "d3_wide_launches"):
+        setattr(warm_start_self_cuda, name, 0)
     for name in ("launches", "d3_launches", "d3_wide_launches",
                  "ring_launches"):
         setattr(knn_update_bf_cuda, name, 0)
@@ -1903,13 +2010,11 @@ def time_hd_kernels(pts_np, k, reps=2):
         nearest_first_order,
         partition_points,
     )
-    from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
-
     pts = torch.from_numpy(pts_np).cuda()
     n, dim = pts.shape
     q = partition_points(pts, bucket_size=256)
     pc = coarsen_buckets(q, 2)
-    warm = warm_start_self(pc, k)
+    warm = checked_warm_start(f"phase 11 D={dim}", pc, k)
     sorted_d2, order = nearest_first_order(q.lower, q.upper,
                                            pc.lower, pc.upper)
     s, t = q.bucket_size, pc.bucket_size
@@ -2053,8 +2158,6 @@ def time_offpath_kernels(hd_np):
         nearest_first_order,
         partition_points,
     )
-    from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
-
     k = HD_K
     res = {}
     nb = PLAIN_BUCKETS
@@ -2063,7 +2166,7 @@ def time_offpath_kernels(hd_np):
         pts = torch.from_numpy(clustered_nd(n, dim, SEED + 30 + dim)).cuda()
         q = partition_points(pts, bucket_size=256)
         pc = coarsen_buckets(q, 2)
-        warm = warm_start_self(pc, k)
+        warm = checked_warm_start(f"phase 11b {name} D={dim}", pc, k)
         sorted_d2, order = nearest_first_order(q.lower, q.upper,
                                                pc.lower, pc.upper)
         s, t = q.bucket_size, pc.bucket_size
@@ -5849,12 +5952,10 @@ def time_large_kernels(pts, k):
         nearest_first_order,
         partition_points,
     )
-    from mpi_cuda_largescaleknn_torch.ops.tiled import warm_start_self
-
     torch.cuda.reset_peak_memory_stats()
     q = partition_points(pts, bucket_size=256)
     pc = coarsen_buckets(q, 2)
-    warm = warm_start_self(pc, k)
+    warm = checked_warm_start(f"phase 21 k={k}", pc, k)
     sorted_d2, order = nearest_first_order(q.lower, q.upper,
                                            pc.lower, pc.upper)
     rows = CandidateState(warm.dist2.clone(), warm.idx.clone())
@@ -6639,6 +6740,25 @@ def main() -> int:
                                           for name, sec in steps.items()))
     details["phase10c_step_seconds"] = steps
 
+    # -- phase 10d ----------------------------------------------------------
+    say(f"[phase 10d] the warm start at the benchmark's shard shapes: "
+        f"{N_WALL} uniform points at k={WALL_K}, phase 10's at D={HD_DIM}")
+    warm_timed = {}
+    for name, draw, k in (
+            ("d3", lambda: seeded_points("uniform", N_WALL, SEED + 8),
+             WALL_K),
+            ("ring", lambda: hd, HD_K)):
+        r = time_warm_start(torch.from_numpy(draw()).cuda(), k)
+        warm_timed[name] = r
+        say(f"  D={r['dim']} k={k}: Bq={r['Bq']} S={r['S']} "
+            f"({r['pad_rows']} padding rows) on the {r['route']} route: "
+            f"warm_start_self_cuda {r['ms']:.3f} ms, warm_start_self "
+            f"{r['plain_ms']:.3f} ms, bit-equal; launches {r['launches']}"
+            + (f"; {r['pairs']} pairs, {bound_txt(r)}" if "pairs" in r
+               else ""))
+        torch.cuda.empty_cache()
+    details["warm_start_timing"] = warm_timed
+
     # -- phase 11 -----------------------------------------------------------
     say(f"[phase 11] the high-D kernels' time at phase 10's shape")
     hd_timed = time_hd_kernels(hd, HD_K)
@@ -6763,13 +6883,23 @@ def main() -> int:
                timed[100]["max_abs_err"],
                details["out_of_core"]["witness_max_abs_err"], canon_err,
                served_err["d3"], slab_err, routed_err), timed[8]),
-        # knn_tiled_d3_wide_kernel (k above it), timed in phase 21
+        # the same kernel's instance for cold rows, the warm start's one
+        # visit (warm_start_self_cuda), timed in phase 10d against the
+        # eager warm start
+        entry("knn_tiled_warm_start", SOURCE, REPLACES,
+              launched("warm_start_d3_launches")
+              - launched("warm_start_d3_wide_launches"),
+              (warm_timed["d3"]["max_abs_err"],), warm_timed["d3"]),
+        # knn_tiled_d3_wide_kernel (k above it), timed in phase 21; the
+        # warm start's launches at such k too
         entry("knn_tiled_d3_wide", SOURCE, REPLACES,
-              launched("knn_tiled_d3_wide_launches"),
+              launched("knn_tiled_d3_wide_launches")
+              + launched("warm_start_d3_wide_launches"),
               (details["phase3_max_abs_err"], details["phase3e_max_abs_err"],
                large["traversal"]["max_abs_err"]), large["traversal"]),
         entry("knn_tiled_nd_ring", SOURCE, RING_REPLACES,
-              launched("knn_tiled_ring_launches"),
+              launched("knn_tiled_ring_launches")
+              + launched("warm_start_ring_launches"),
               (details["phase3c_max_abs_err"],
                hd_timed["f32"]["max_abs_err"], canon_err,
                served_err["ring"]), hd_timed["f32"]),
@@ -6794,7 +6924,8 @@ def main() -> int:
         # the ring kernel's streamed traversal and its flat fold, timed in
         # phase 11b, launched by phase 10c's main paths
         entry("knn_tiled_nd_ring_stream", SOURCE, RING_REPLACES,
-              launched("knn_tiled_stream_launches"),
+              launched("knn_tiled_stream_launches")
+              + launched("warm_start_stream_launches"),
               (details["phase3c_max_abs_err"],
                off_timed["knn_tiled_nd_ring_stream"]["max_abs_err"]),
               off_timed["knn_tiled_nd_ring_stream"]),

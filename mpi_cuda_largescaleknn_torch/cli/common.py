@@ -184,17 +184,21 @@ def launch_counts() -> dict:
     streamed; the D=3 kernels, and of those the wide fold's; the bf16
     kernel, and of those with resident query halves, with D streamed) and
     the flat fold (any route; the D=3 kernels, and of those the wide
-    fold's; the ring kernel); then the work of the engines that launch no
-    kernel of their own: the twin's chunk merges (``tiled``) and the
-    tree's folds and lockstep steps (``tree``)."""
+    fold's; the ring kernel); the self-join's warm start on the traversal
+    kernels (any route; the D=3 kernels, and of those the wide fold's; the
+    ring kernel, with D streamed); then the work of the engines that
+    launch no kernel of their own: the twin's chunk merges (``tiled``) and
+    the tree's folds and lockstep steps (``tree``)."""
     from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
     from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
         knn_update_tiled_cuda,
+        warm_start_self_cuda,
     )
     from mpi_cuda_largescaleknn_torch.ops.tiled import knn_update_tiled
     from mpi_cuda_largescaleknn_torch.ops.traverse import knn_update_tree
 
     kt, bf = knn_update_tiled_cuda, knn_update_bf_cuda
+    ws = warm_start_self_cuda
     return {"knn_tiled_launches": kt.launches,
             "knn_tiled_ring_launches": kt.ring_launches,
             "knn_tiled_stream_launches": kt.stream_launches,
@@ -207,6 +211,11 @@ def launch_counts() -> dict:
             "knn_bf_d3_launches": bf.d3_launches,
             "knn_bf_d3_wide_launches": bf.d3_wide_launches,
             "knn_bf_ring_launches": bf.ring_launches,
+            "warm_start_launches": ws.launches,
+            "warm_start_d3_launches": ws.d3_launches,
+            "warm_start_d3_wide_launches": ws.d3_wide_launches,
+            "warm_start_ring_launches": ws.ring_launches,
+            "warm_start_stream_launches": ws.stream_launches,
             "tiled_folds": knn_update_tiled.folds,
             "tree_folds": knn_update_tree.folds,
             "tree_steps": knn_update_tree.steps}

@@ -66,6 +66,16 @@ __device__ __forceinline__ float insert_sorted(float* cd2, int* cidx, int bd,
 // the fold is the sequential one, lane by lane, with no serial chain
 // through shared memory.
 //
+// The traversal kernel's instance for cold rows (fold_tile's kFlatEntry,
+// knn_tiled.cu) enters a flat row, one whose k slots all hold its k-th d2
+// (a row no lane has entered yet: the cold rows of init_candidates, into
+// which the warm start's one visit folds), without inserts: the
+// sequential fold would leave in it the chunk's lanes below that d2, the
+// smallest k by (d2, lane), followed by the row's own entries in their
+// order. One bitonic sort of the chunk's keys (d2 bits, lane) across the
+// warp gives those lanes, and the warp writes the row whole
+// (enter_flat_row_chunk): the same bits.
+//
 // Above kSlotsMaxK the kernels fold with the wide fold instead (below:
 // knn_bf_d3_wide_kernel, knn_tiled_d3_wide_kernel), which is faster there
 // (tools/torch_d3_k_sweep.py).
@@ -166,6 +176,100 @@ __device__ __forceinline__ void fold_row_chunk(const float4* chunk, float qx,
   }
 }
 
+// Sorts the warp's 32 * N keys ascending: key e of lane l holds position
+// l * N + e. A bitonic network: its exchanges across lanes take a shuffle,
+// those within a lane swap registers.
+template <int N>
+__device__ __forceinline__ void warp_sort_keys(unsigned long long (&key)[N]) {
+  static_assert(N > 0 && (N & (N - 1)) == 0, "N is a power of two");
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32 * N; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        // position i ascends with its partner i ^ stride where i & size
+        // is 0, and descends with it elsewhere
+        const bool up = ((lane * N + e) & size) == 0;
+        if (stride >= N) {
+          const int ls = stride / N;
+          const unsigned long long o = __shfl_xor_sync(kFull, key[e], ls);
+          // the lower position of the pair keeps the smaller key going up
+          const bool keep_min = ((lane & ls) == 0) == up;
+          key[e] = keep_min == (o < key[e]) ? o : key[e];
+        } else if ((e & stride) == 0) {
+          const int p = e | stride;
+          const unsigned long long a = key[e];
+          const unsigned long long b = key[p];
+          if (up == (b < a)) {
+            key[e] = b;
+            key[p] = a;
+          }
+        }
+      }
+    }
+  }
+}
+
+// The fold of the kChunkLanes lanes of `chunk` into a flat row of the warp
+// (every slot holding the k-th d2 R, which kth holds): the row becomes the
+// chunk's lanes below R, the smallest k by (d2, lane), then its own entries
+// in their order, the last of them dropping past k. That is the sequential
+// fold's result, each lane entering after every entry <= it. Returns the
+// row's new k-th d2. A call of its own: its sort's registers stay out of
+// the fold's loop.
+template <int S>
+__device__ __noinline__ float enter_flat_row_chunk(const float4* chunk,
+                                                   float qx, float qy,
+                                                   float qz, float* rd2,
+                                                   int* ridx, int k,
+                                                   int kth_at, float kth) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long key[kChunkGroups];
+  int below = 0;  // the chunk's lanes below R
+#pragma unroll
+  for (int j = 0; j < kChunkGroups; ++j) {
+    const float dd = dist2_3(qx, qy, qz, chunk[j * 32 + lane]);
+    const bool in = dd < kth;
+    below += __popc(__ballot_sync(kFull, in));
+    // d2 >= +0 (or NaN, never in), so its bits order as the floats do
+    key[j] = in ? (unsigned long long)__float_as_uint(dd) << 32 |
+                      (unsigned)(j * 32 + lane)
+                : ~0ull;
+  }
+  warp_sort_keys<kChunkGroups>(key);
+  const int took = min(below, k);
+  float od2[S];
+  int oid[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    od2[s] = rd2[s * 32 + lane];
+    oid[s] = ridx[s * 32 + lane];
+  }
+  __syncwarp();
+  // slot i = lane * S + s at [s * 32 + lane]
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int i = lane * S + s + took;
+    if (i < k) {
+      rd2[(i % S) * 32 + i / S] = od2[s];
+      ridx[(i % S) * 32 + i / S] = oid[s];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kChunkGroups; ++e) {
+    const int i = lane * kChunkGroups + e;
+    if (i < took) {
+      rd2[(i % S) * 32 + i / S] = __uint_as_float((unsigned)(key[e] >> 32));
+      ridx[(i % S) * 32 + i / S] =
+          __float_as_int(chunk[(unsigned)key[e] & 0xffffu].w);
+    }
+  }
+  __syncwarp();
+  return rd2[kth_at];
+}
+
 // The warp's query rows: coordinates and k-th d2 (-inf for a row that
 // folds nothing), the same in every lane.
 struct WarpQueries {
@@ -173,8 +277,9 @@ struct WarpQueries {
 };
 
 // Folds the `nl` staged lanes of `tile` (a multiple of kChunkLanes) into
-// the warp's rows, whose slots start at rd2 / ridx (row r at r * S * 32).
-template <int S>
+// the warp's rows, whose slots start at rd2 / ridx (row r at r * S * 32);
+// with kFlatEntry a flat row enters by enter_flat_row_chunk.
+template <int S, bool kFlatEntry = false>
 __device__ __forceinline__ void fold_tile(const float4* tile, int nl,
                                           WarpQueries& wq, float* rd2,
                                           int* ridx, int k, int kth_at) {
@@ -192,10 +297,17 @@ __device__ __forceinline__ void fold_tile(const float4* tile, int nl,
     }
 #pragma unroll
     for (int r = 0; r < kWarpRows; ++r)
-      if (__any_sync(kFull, mn[r] < wq.kth[r]))
-        fold_row_chunk<S>(tile + c0, wq.x[r], wq.y[r], wq.z[r],
-                          rd2 + r * S * 32, ridx + r * S * 32, k, kth_at,
-                          wq.kth[r]);
+      if (__any_sync(kFull, mn[r] < wq.kth[r])) {
+        // slot 0 holds the row's least d2: flat where it is the k-th's
+        if (kFlatEntry && rd2[r * S * 32] == wq.kth[r])
+          wq.kth[r] = enter_flat_row_chunk<S>(
+              tile + c0, wq.x[r], wq.y[r], wq.z[r], rd2 + r * S * 32,
+              ridx + r * S * 32, k, kth_at, wq.kth[r]);
+        else
+          fold_row_chunk<S>(tile + c0, wq.x[r], wq.y[r], wq.z[r],
+                            rd2 + r * S * 32, ridx + r * S * 32, k, kth_at,
+                            wq.kth[r]);
+      }
   }
 }
 

@@ -47,7 +47,11 @@
 //   longest shift (a few hundred adoptions a query at k=100). Here a
 //   chunk's scores are gated by one compare of their min against the row's
 //   k-th d2 (a warp-uniform register), and an adoption is one warp-parallel
-//   insert: a count, a reduction, a shuffle, no chain.
+//   insert: a count, a reduction, a shuffle, no chain. A row no lane has
+//   entered yet (the warm start's cold rows, ops/knn_tiled.py
+//   warm_start_self_cuda: each bucket's one visit of itself) takes a chunk
+//   by one sort of its keys instead of an insert a lane, in the instance
+//   the launcher takes for cold rows.
 // - There a pair cost a shared-memory load besides its 9 issues; here one
 //   float4 load feeds the warp's 4 rows.
 // - There each visited bucket was staged through registers between two
@@ -118,7 +122,11 @@
 
 namespace {
 
-template <int S>
+// kFlatEntry: the instance for cold rows (the warm start's), which enters
+// a flat row by a sort (knn_rows.cuh enter_flat_row_chunk); the traversal's
+// instance keeps the insert-only fold, whose registers the sort's call
+// would crowd into spills.
+template <int S, bool kFlatEntry>
 __global__ void __launch_bounds__(knn::kD3MaxThreads, 2) knn_tiled_d3_kernel(
     const int* __restrict__ order,     // [Bq, Bp] nearest-first bucket ids
     const float* __restrict__ boxd2,   // [Bq, Bp] ascending box d2
@@ -222,9 +230,9 @@ __global__ void __launch_bounds__(knn::kD3MaxThreads, 2) knn_tiled_d3_kernel(
     }
     if (tid == 0 && vn < num_pb) issue(vn, cn, n + 1);
     knn::mbar_wait(full + (n & 1), (n >> 1) & 1);
-    knn::fold_tile<S>(tiles + (n & 1) * tile_lanes,
-                      min(tile_lanes, t_pad - c * tile_lanes), wq, wd2, widx,
-                      k, kth_at);
+    knn::fold_tile<S, kFlatEntry>(tiles + (n & 1) * tile_lanes,
+                                  min(tile_lanes, t_pad - c * tile_lanes),
+                                  wq, wd2, widx, k, kth_at);
     if (lane == 0) atomicMax(red + (n + 1) % 3, radius_bits());
     if (cn == 0) ++nvis;
     v = vn;
@@ -890,14 +898,16 @@ int tiled_blocks_per_sm(Kernel kernel, int threads, size_t smem) {
 // stages none and reads that many lanes a step), `smem` bytes of
 // dynamic shared memory (d3_smem_bytes), over the ny blocks of rows of each
 // bucket from block y0 (a bucket of more than 65,535 blocks, the grid's y
-// limit, goes in several launches). Returns the CUDA error code of the
+// limit, goes in several launches); with `cold_rows` (rows no lane has
+// entered, the warm start's) on slots a lane the instance that enters a
+// flat row by a sort, the same bits. Returns the CUDA error code of the
 // launch (0 = ok), or cudaErrorInvalidValue for a shape it does not take.
 extern "C" int knn_tiled_launch(
     const int* order, const float* boxd2, const float* q_pts,
     const int* q_ids, const float* p4, float* d2, int* idx, int* visits,
     int num_qb, int s_q, int num_pb, int t_pad, int k, int skip_self,
-    int self_group, int slots, int threads, int tile_lanes, int smem, int y0,
-    int ny, void* stream) {
+    int self_group, int slots, int cold_rows, int threads, int tile_lanes,
+    int smem, int y0, int ny, void* stream) {
   if (threads % 32 || threads > knn::kD3MaxThreads || threads < 32 ||
       tile_lanes % knn::kChunkLanes || t_pad % knn::kChunkLanes || k < 1 ||
       (slots ? k > 32 * slots || k > knn::kSlotsMaxK
@@ -917,7 +927,8 @@ extern "C" int knn_tiled_launch(
   };
   if (slots == 0) return launch(knn_tiled_d3_wide_kernel);
   return knn::with_d3_slots(slots, (int)cudaErrorInvalidValue, [&](auto s) {
-    return launch(knn_tiled_d3_kernel<decltype(s)::value>);
+    return cold_rows ? launch(knn_tiled_d3_kernel<decltype(s)::value, true>)
+                     : launch(knn_tiled_d3_kernel<decltype(s)::value, false>);
   });
 }
 
@@ -929,7 +940,8 @@ extern "C" int knn_tiled_blocks_per_sm(int slots, int threads, int smem) {
     return tiled_blocks_per_sm(knn_tiled_d3_wide_kernel, threads,
                                (size_t)smem);
   return knn::with_d3_slots(slots, -(int)cudaErrorInvalidValue, [&](auto s) {
-    return tiled_blocks_per_sm(knn_tiled_d3_kernel<decltype(s)::value>,
-                               threads, (size_t)smem);
+    return tiled_blocks_per_sm(
+        knn_tiled_d3_kernel<decltype(s)::value, false>, threads,
+        (size_t)smem);
   });
 }

@@ -28,6 +28,10 @@ started with their own bucket, ``ops/tiled.py``).
   D streamed in K-slices above it.
 - ``knn_update_tiled_plain`` lock-steps all query buckets through their
   visit schedules and merges each visited bucket with a stable sort.
+- ``warm_start_self_cuda`` is the self-join's warm start on the same f32
+  kernels: each query bucket visits only its own bucket, once, into cold
+  rows (``ops/tiled.py`` ``warm_start_self``'s bits; that eager version on
+  CPU tensors).
 - ``prepare_points`` lays a point side out once for the kernels (the D=3
   lanes, the ring layout, or the bf16 halves and ``|p|^2``), the
   counterpart of the JAX serving engine's resident ``point_norms2``: a
@@ -70,6 +74,7 @@ import torch
 
 from mpi_cuda_largescaleknn_torch.core.types import CandidateState
 from mpi_cuda_largescaleknn_torch.ops.candidates import (
+    init_candidates,
     merge_candidates,
     sort_rows_canonical,
 )
@@ -87,7 +92,7 @@ from mpi_cuda_largescaleknn_torch.ops.partition import (
     BucketedPoints,
     nearest_first_order,
 )
-from mpi_cuda_largescaleknn_torch.ops.tiled import _worst2
+from mpi_cuda_largescaleknn_torch.ops.tiled import _worst2, warm_start_self
 from mpi_cuda_largescaleknn_torch.utils.math import round_up
 
 #: shared memory one block may opt into on sm_90 (227 KB), and an SM's
@@ -755,14 +760,57 @@ def knn_update_tiled_cuda(state: CandidateState, q: BucketedPoints,
     return _with_stats(out, visits.long(), with_stats)
 
 
+def warm_start_self_cuda(q: BucketedPoints, k: int,
+                         max_radius=float("inf")) -> CandidateState:
+    """``ops/tiled.py`` ``warm_start_self`` (each row the top k of its own
+    bucket) as one launch of the f32 traversal kernel that
+    ``tiled_launch_plan`` names for the bucket's shapes: a one-visit
+    schedule (``order[b] = [b]``, box d2 0, visited below any radius
+    above 0), ``skip_self`` off, folded in place into the cold rows of
+    ``init_candidates``. Strict-< adoption in lane order after equal
+    entries is ``merge_candidates``' stable merge with the row's entries
+    first, so the rows are ``warm_start_self``'s bits; rows of padding
+    queries (id < 0) stay cold there too (their points score +inf). At D=3
+    on slots a lane the kernel enters each cold row by one sort of a chunk
+    (``launch_f32_plan``'s ``cold_rows``). Always f32, whatever the
+    traversal after it scores in. CPU tensors take
+    ``warm_start_self``. Counts the launch in ``warm_start_self_cuda``'s
+    ``launches`` and its route's counter (``_count_f32_launch``), never in
+    the traversal's."""
+    if q.pts.device.type == "cpu":
+        return warm_start_self(q, k, max_radius)
+    num_qb, s = q.ids.shape
+    dev = q.pts.device
+    rows = init_candidates(num_qb * s, k, max_radius, device=dev)
+    _check_inputs(rows, q, q)
+    order = torch.arange(num_qb, dtype=torch.int32, device=dev)[:, None]
+    sorted_d2 = torch.zeros((num_qb, 1), dtype=torch.float32, device=dev)
+    plan = tiled_launch_plan(s, s, k, q.pts.shape[-1])
+    launch_f32_plan(plan, order, sorted_d2, q, q, rows, skip_self=False,
+                    self_group=1, cold_rows=True)
+    _count_f32_launch(warm_start_self_cuda, plan, k)
+    return rows
+
+
 def _check_schedule(order, sorted_d2, q, p, rows) -> None:
+    """The kernels' visit schedule: contiguous i32 ``order`` and f32
+    ``sorted_d2`` of [Bq, V], V positions a query bucket with 1 <= V <=
+    Bp (``nearest_first_order`` gives V = Bp; the warm start's one visit
+    V = 1), and contiguous rows."""
     for name, t in (("order", order), ("sorted_d2", sorted_d2),
                     ("rows.dist2", rows.dist2), ("rows.idx", rows.idx)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if order.shape != (q.ids.shape[0], p.ids.shape[0]) \
-            or order.dtype != torch.int32 or sorted_d2.shape != order.shape:
-        raise ValueError("the visit schedule must be i32/f32 [Bq, Bp]")
+    if order.dim() != 2 or order.shape[0] != q.ids.shape[0] \
+            or not 1 <= order.shape[1] <= p.ids.shape[0] \
+            or order.dtype != torch.int32 \
+            or sorted_d2.dtype != torch.float32 \
+            or sorted_d2.shape != order.shape:
+        raise ValueError(
+            f"the visit schedule must be i32/f32 [Bq, V] with 1 <= V <= Bp "
+            f"(Bq={q.ids.shape[0]}, Bp={p.ids.shape[0]}), got "
+            f"{order.dtype} {tuple(order.shape)} / {sorted_d2.dtype} "
+            f"{tuple(sorted_d2.shape)}")
 
 
 def grid_y_pieces(blocks: int, cap: int = MAX_GRID_Y) -> list[tuple[int, int]]:
@@ -815,14 +863,20 @@ def launch_knn_tiled(order: torch.Tensor, sorted_d2: torch.Tensor,
                              skip_self=skip_self, self_group=self_group,
                              events=knn_update_tiled_cuda.layout_events,
                              prepared=prepared, max_grid_y=max_grid_y)
-    kt = knn_update_tiled_cuda
-    kt.launches += 1
-    kt.ring_launches += int(plan.kernel == "ring")
-    kt.stream_launches += int(plan.kernel == "stream")
-    kt.d3_launches += int(plan.kernel == "d3")
-    kt.d3_wide_launches += int(plan.kernel == "d3"
-                               and d3_slots(rows.dist2.shape[1]) == 0)
+    _count_f32_launch(knn_update_tiled_cuda, plan, rows.dist2.shape[1])
     return visits
+
+
+def _count_f32_launch(counters, plan: TiledPlan, k: int) -> None:
+    """One launch of ``plan`` in ``counters`` (a function's attributes):
+    ``launches``, and by route ``ring_launches``, ``stream_launches`` or
+    ``d3_launches``, the wide fold's also in ``d3_wide_launches``."""
+    counters.launches += 1
+    counters.ring_launches += int(plan.kernel == "ring")
+    counters.stream_launches += int(plan.kernel == "stream")
+    counters.d3_launches += int(plan.kernel == "d3")
+    counters.d3_wide_launches += int(plan.kernel == "d3"
+                                     and d3_slots(k) == 0)
 
 
 def launch_f32_plan(plan: TiledPlan, order: torch.Tensor,
@@ -831,7 +885,8 @@ def launch_f32_plan(plan: TiledPlan, order: torch.Tensor,
                     skip_self: bool, self_group: int,
                     events: list | None = None,
                     prepared: PreparedPoints | None = None,
-                    max_grid_y: int = MAX_GRID_Y) -> torch.Tensor:
+                    max_grid_y: int = MAX_GRID_Y,
+                    cold_rows: bool = False) -> torch.Tensor:
     """Launch ``plan``'s kernel of ``csrc/knn_tiled.cu`` (contiguous rows
     and schedule, as ``_check_schedule`` asks); counts nothing, raises on a
     failed launch. A bucket of more than ``max_grid_y`` blocks of rows goes
@@ -841,10 +896,18 @@ def launch_f32_plan(plan: TiledPlan, order: torch.Tensor,
     kernel gets the point buckets as ``d3_lanes`` padded to whole chunks.
     With ``events`` (a list) it appends three recorded CUDA events: before
     the layouts, before the kernel and after it. The point side is
-    ``prepared`` (``prepare_points``), made here when not given. Returns
-    the per-query-bucket visit counts (i32[Bq])."""
+    ``prepared`` (``prepare_points``), made here when not given. The point
+    layout takes ``p``'s Bp buckets; the kernel walks the schedule's V
+    positions a query bucket. ``cold_rows`` says every row is cold
+    (``init_candidates``'): the D=3 kernel on slots a lane then takes its
+    instance that enters such a row by one sort of a chunk
+    (``csrc/knn_rows.cuh`` ``enter_flat_row_chunk``: the same bits; the
+    other instance, the traversal's, keeps the registers of the
+    insert-only fold). Returns the per-query-bucket visit counts
+    (i32[Bq])."""
     num_qb, s_q = q.ids.shape
     num_pb, t_p = p.ids.shape
+    n_sched = order.shape[1]
     k = rows.dist2.shape[1]
     visits = torch.zeros(num_qb, dtype=torch.int32, device=order.device)
     q_ids = q.ids.contiguous()
@@ -868,7 +931,8 @@ def launch_f32_plan(plan: TiledPlan, order: torch.Tensor,
                     order.data_ptr(), sorted_d2.data_ptr(), q_pts.data_ptr(),
                     q_ids.data_ptr(), p4.data_ptr(), rows.dist2.data_ptr(),
                     rows.idx.data_ptr(), visits.data_ptr(), num_qb, s_q,
-                    num_pb, t_pad, k, *flags, d3_slots(k), plan.threads,
+                    n_sched, t_pad, k, *flags, d3_slots(k), int(cold_rows),
+                    plan.threads,
                     plan.lanes, plan.smem, y0, ny, stream)
                 if err:
                     break
@@ -887,7 +951,7 @@ def launch_f32_plan(plan: TiledPlan, order: torch.Tensor,
                     order.data_ptr(), sorted_d2.data_ptr(), q_ring.data_ptr(),
                     q_ids.data_ptr(), p_ring.data_ptr(), p_ids.data_ptr(),
                     rows.dist2.data_ptr(), rows.idx.data_ptr(),
-                    visits.data_ptr(), num_qb, s_q, s_pad, num_pb, t_p, t_pad,
+                    visits.data_ptr(), num_qb, s_q, s_pad, n_sched, t_p, t_pad,
                     plan.dp4, k, *flags, plan.stages, int(plan.rows_in_smem),
                     plan.slice_groups, y0, ny, stream)
                 if err:
@@ -1031,8 +1095,8 @@ def launch_knn_tiled_mxu(order: torch.Tensor, sorted_d2: torch.Tensor,
                 rows.idx.data_ptr(), visits.data_ptr())
         for y0, ny in grid_y_pieces(s_pad // WGMMA_ROWS, max_grid_y):
             err = lib.knn_tiled_wgmma_launch(
-                *ptrs, num_qb, s_q, s_pad, num_pb, t_p, t_pad, dim, plan.dp,
-                w, int(bool(skip_self)), self_group, plan.stages,
+                *ptrs, num_qb, s_q, s_pad, order.shape[1], t_p, t_pad, dim,
+                plan.dp, w, int(bool(skip_self)), self_group, plan.stages,
                 int(plan.rows_in_smem), plan.slice_width, y0, ny, stream)
             if err:
                 break
@@ -1066,6 +1130,13 @@ knn_update_tiled_cuda.d3_wide_launches = 0
 knn_update_tiled_cuda.mxu_launches = 0
 knn_update_tiled_cuda.wgmma_launches = 0
 knn_update_tiled_cuda.wgmma_stream_launches = 0
+#: the warm start's launches (``warm_start_self_cuda``), counted as the f32
+#: traversal's are (``_count_f32_launch``)
+warm_start_self_cuda.launches = 0
+warm_start_self_cuda.ring_launches = 0
+warm_start_self_cuda.stream_launches = 0
+warm_start_self_cuda.d3_launches = 0
+warm_start_self_cuda.d3_wide_launches = 0
 #: None, or a list to which every bf16 launch (``mxu_events``) or f32
 #: launch (``layout_events``) appends three recorded CUDA
 #: events: before its preparation (bf16: halves, norms; ring: the layouts;
@@ -1076,7 +1147,7 @@ knn_update_tiled_cuda.layout_events = None
 
 #: per library, its launchers' arguments: p = pointer, i = int
 _SIGNATURES = {
-    "knn_tiled": {"knn_tiled_launch": 8 * "p" + 13 * "i" + "p",
+    "knn_tiled": {"knn_tiled_launch": 8 * "p" + 14 * "i" + "p",
                   "knn_tiled_blocks_per_sm": "iii",
                   "knn_tiled_nd_ring_launch": 9 * "p" + 15 * "i" + "p"},
     "knn_tiled_mxu": {"knn_tiled_wgmma_launch": 14 * "p" + 16 * "i" + "p"},

@@ -54,15 +54,15 @@ from mpi_cuda_largescaleknn_torch.ops.candidates import (
     current_worst_radius,
     init_candidates,
 )
-from mpi_cuda_largescaleknn_torch.ops.knn_tiled import knn_update_tiled_cuda
+from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+    knn_update_tiled_cuda,
+    warm_start_self_cuda,
+)
 from mpi_cuda_largescaleknn_torch.ops.partition import (
     coarsen_buckets,
     partition_points,
 )
-from mpi_cuda_largescaleknn_torch.ops.tiled import (
-    knn_update_tiled,
-    warm_start_self,
-)
+from mpi_cuda_largescaleknn_torch.ops.tiled import knn_update_tiled
 from mpi_cuda_largescaleknn_torch.parallel.mesh import Mesh, ShardRing
 from mpi_cuda_largescaleknn_torch.parallel.ring import (
     TILED_ENGINES,
@@ -179,7 +179,7 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
     def rows_fn(ctx):
         if warm_start:
             # rows come back in fine order: the coarsening is a view
-            return [warm_start_self(pc, k, max_radius)
+            return [warm_start_self_cuda(pc, k, max_radius)
                     for pc in ctx.resident]
         return [init_candidates(v.numel(), k, max_radius, device=v.device)
                 for v in ctx.heap_valid]

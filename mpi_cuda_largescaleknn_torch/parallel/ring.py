@@ -22,8 +22,10 @@ and a rotation shifts them by index; with a ``Mesh`` over a
 the copies at a process boundary cross. The fold order does not depend on
 which process holds a position, so P processes write the bytes one
 process writes. The self-join loops' round 0 folds the own shard with
-``skip_self``: each row was warm-started with its own bucket (ops/tiled.py,
-always exact f32). The engines are the JAX package's six:
+``skip_self``: each row was warm-started with its own bucket, always in
+exact f32 (``ops/knn_tiled.py`` ``warm_start_self_cuda``: one visit of the
+traversal kernels on the card, ``ops/tiled.py`` ``warm_start_self`` on the
+CPU). The engines are the JAX package's six:
 
 - ``pallas_tiled`` (what ``auto`` names): the traversal kernels
   (``ops/knn_tiled.py``), warm-started on self-joins;
@@ -72,7 +74,10 @@ from mpi_cuda_largescaleknn_torch.ops.brute_force import knn_update_bruteforce
 from mpi_cuda_largescaleknn_torch.ops.build_tree import build_tree
 from mpi_cuda_largescaleknn_torch.ops.distance import validate_score_dtype
 from mpi_cuda_largescaleknn_torch.ops.knn_bf import knn_update_bf_cuda
-from mpi_cuda_largescaleknn_torch.ops.knn_tiled import knn_update_tiled_cuda
+from mpi_cuda_largescaleknn_torch.ops.knn_tiled import (
+    knn_update_tiled_cuda,
+    warm_start_self_cuda,
+)
 from mpi_cuda_largescaleknn_torch.ops.partition import (
     BucketedPoints,
     choose_buckets,
@@ -80,10 +85,7 @@ from mpi_cuda_largescaleknn_torch.ops.partition import (
     partition_points,
     scatter_back,
 )
-from mpi_cuda_largescaleknn_torch.ops.tiled import (
-    knn_update_tiled,
-    warm_start_self,
-)
+from mpi_cuda_largescaleknn_torch.ops.tiled import knn_update_tiled
 from mpi_cuda_largescaleknn_torch.ops.traverse import knn_update_tree
 from mpi_cuda_largescaleknn_torch.parallel.mesh import (
     Copy,
@@ -440,7 +442,7 @@ def _make_ring_fns(k, max_radius, engine, query_tile, point_tile,
 
     def rows_init_fn(stationary, resident):
         if warm_start:
-            return warm_start_self(resident, k, max_radius)
+            return warm_start_self_cuda(resident, k, max_radius)
         return cold_rows(stationary)
 
     def query_init_fn(qpts, qids):

@@ -400,8 +400,8 @@ def launch(lib, case):
                 rows.dist2.data_ptr(), rows.idx.data_ptr(),
                 visits.data_ptr(), num_qb, s_q, p.ids.shape[0],
                 case["t_pad"], k, case["skip_self"], case["group"],
-                case["slots"], plan.threads, plan.lanes, plan.smem, y0, ny,
-                stream)
+                case["slots"], 0, plan.threads, plan.lanes, plan.smem, y0,
+                ny, stream)
             if err:
                 break
     marks[1].record()
