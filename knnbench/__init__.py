@@ -13,7 +13,10 @@ and metrics. Each of them is a file of its own here, found by its name:
   ``arrivals.py`` (open loop) or by the job loop of ``drivers.py``;
 - ``workloads/<cell>.json``: the cell's configuration, mix and parameters;
 - ``metrics/<metric>.py``: one per-layer metric's reader over the traced
-  run's record.
+  run's record;
+- ``pipelines/<name>.py``: the driver of a cell whose configuration says
+  ``"pipeline": "<name>"`` (``spec.pipeline``); the other cells take one
+  of ``drivers.py``'s three.
 
 Every key of those files is read by the cell's driver or only describes
 the file; ``spec.load_cell`` refuses any other.

@@ -1,5 +1,5 @@
-"""The three ways a cell drives the port, chosen by its mix and
-configuration:
+"""The ways a cell drives the port. Three are built in, chosen by the
+cell's mix and configuration:
 
 - ``jobs`` (mix ``"loop": "jobs"``, one rank): self-join jobs back to
   back, each ``UnorderedKNN(KnnConfig(k=..., <the configuration's
@@ -9,9 +9,14 @@ configuration:
   ``ranks`` processes, one card each, each process's block through
   ``ring_knn(..., mesh=)``; this process is rank 0 and starts the others
   (``python3 -m knnbench.rank``);
-- ``serve`` (mix ``"loop": "open"``): ``cli/serve_main.py``'s server on
+- ``open`` (mix ``"loop": "open"``): ``cli/serve_main.py``'s server on
   the cell's index in this process, and ``loadgen.py``'s open loop in
   another.
+
+The fourth is a driver file: a configuration with ``"pipeline": "<name>"``
+is driven by ``run`` of ``pipelines/<name>.py`` in the checkout that
+describes the cell (``spec.pipeline`` says what the file defines), so a
+cell that none of the three runs comes as new files alone.
 
 Each returns a ``Run``: the end-to-end metrics, the record the per-layer
 readers read, the device, and the numbers the check compares. The window
@@ -40,7 +45,7 @@ import numpy as np
 import torch
 
 from knnbench import arrivals, data, devtrace, reference
-from knnbench.spec import driver_of
+from knnbench.spec import driver_of, pipeline
 
 ROOT = Path(__file__).resolve().parents[1]
 #: a traced job loop profiles its jobs until this many seconds of job time
@@ -560,6 +565,9 @@ def run_ring(cell, seed: int, seconds: float, trace: bool, device,
 
 def drive(cell, seed: int, seconds: float, trace: bool, device,
           t_start: float) -> Run:
-    run = {"jobs": run_jobs, "ring": run_ring,
-           "open": run_serve}[driver_of(cell.config, cell.traffic)]
+    name = driver_of(cell.config, cell.traffic)
+    if "pipeline" in cell.config:
+        run = pipeline(name, cell.root).run
+    else:
+        run = {"jobs": run_jobs, "ring": run_ring, "open": run_serve}[name]
     return run(cell, seed, seconds, trace, device, t_start)

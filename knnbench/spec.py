@@ -4,12 +4,29 @@ A cell (``workloads/<cell>.json``) names its configuration
 (``configs/<config>.json``), its traffic mix (``traffic/<mix>.json``) and
 the parameters of both that are its own. ``BENCHMARK.json`` says which
 end-to-end and per-layer metrics the cell reports; a per-layer metric is
-read by ``metrics/<metric>.py``. Adding a cell, a configuration, a mix or a
-metric adds files and entries and edits none.
+read by ``metrics/<metric>.py``. Adding a cell, a configuration, a mix, a
+metric or a driver adds files and entries and edits none.
+
+A cell is driven by one of the built-in drivers of ``drivers.py`` (``jobs``,
+``ring``, ``open``, chosen by its mix and its ranks), or by the driver file
+its configuration names with ``"pipeline": "<name>"``:
+``pipelines/<name>.py`` in the checkout that describes the cell. That file
+defines
+
+- ``READS = (config_keys, mix_keys)``: the keys it reads, as ``READS``
+  below gives them for the built-in drivers;
+- ``run(cell, seed, seconds, trace, device, t_start) -> drivers.Run``, as
+  ``drivers.run_jobs``;
+- optionally ``check(name, config, traffic)``, which raises ValueError
+  where the sizes disagree.
+
+A configuration with ``"pipeline": "x"`` and a ``pipelines/x.py`` is all
+that a cell driven by ``x`` needs; no other file here changes.
 
 Every key of a cell's files is either read by the driver that runs it
-(``READS``) or only describes the file (``ABOUT``); ``load_cell`` refuses
-any other, so that no file states a setting the run leaves unread.
+(``READS``, or the pipeline file's) or only describes the file
+(``ABOUT``); ``load_cell`` refuses any other, so that no file states a
+setting the run leaves unread.
 """
 
 from __future__ import annotations
@@ -69,7 +86,10 @@ def _applies(metric: dict, cell: str) -> bool:
 
 
 def driver_of(config: dict, traffic: dict) -> str:
-    """``"jobs"``, ``"ring"`` or ``"open"``: the driver of a cell."""
+    """The driver of a cell: the configuration's ``pipeline``, else
+    ``"jobs"``, ``"ring"`` or ``"open"``."""
+    if "pipeline" in config:
+        return config["pipeline"]
     loop = traffic.get("loop")
     if loop == "open":
         return "open"
@@ -84,11 +104,39 @@ def _refuse_unread(where: str, keys, reads) -> None:
         raise ValueError(f"{where}: no driver reads {', '.join(unread)}")
 
 
-def check_keys(name: str, own: dict, config: dict, traffic: dict) -> None:
+def pipeline(name: str, root: Path | None = None):
+    """The module ``pipelines/<name>.py`` of the checkout ``root``. Raises
+    ValueError for a built-in driver's name, a name with no file, or a file
+    without ``READS`` and ``run``."""
+    if name in READS:
+        raise ValueError(f"pipeline {name!r} is a built-in driver's name")
+    here = HERE if root is None else Path(root) / "knnbench"
+    path = here / "pipelines" / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"pipeline {name!r}: no file {path}")
+    spec = importlib.util.spec_from_file_location(
+        f"knnbench_pipeline_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    lacks = [attr for attr in ("READS", "run") if not hasattr(module, attr)]
+    if lacks:
+        raise ValueError(f"pipelines/{name}.py defines no "
+                         f"{' and no '.join(lacks)}")
+    return module
+
+
+def check_keys(name: str, own: dict, config: dict, traffic: dict,
+               root: Path | None = None) -> None:
     """Raise ValueError for a key of the cell's files that its driver does
-    not read, or sizes that disagree."""
+    not read, or sizes that disagree. A pipeline file is looked for in the
+    checkout ``root``."""
     driver = driver_of(config, traffic)
-    config_reads, mix_reads = READS[driver]
+    module = pipeline(driver, root) if "pipeline" in config else None
+    if module is None:
+        config_reads, mix_reads = READS[driver]
+    else:
+        config_reads, mix_reads = module.READS
+        config_reads = {*config_reads, "pipeline"}
     _refuse_unread(f"workloads/{name}.json", own, CELL_KEYS)
     _refuse_unread(f"{name}'s configuration", config, config_reads)
     _refuse_unread(f"{name}'s mix", traffic, mix_reads)
@@ -99,7 +147,7 @@ def check_keys(name: str, own: dict, config: dict, traffic: dict) -> None:
         _refuse_unread(f"{name}'s request rows", traffic["rows"],
                        ROW_KEYS.get(traffic["rows"]["dist"], ()))
     ranks = int(config.get("ranks", 1))
-    if driver != "ring" and ranks != 1:
+    if module is None and driver != "ring" and ranks != 1:
         raise ValueError(f"{name}: the {driver} driver runs one rank, the "
                          f"configuration has {ranks}")
     total = config.get("points_total")
@@ -107,6 +155,9 @@ def check_keys(name: str, own: dict, config: dict, traffic: dict) -> None:
             and int(total) != int(config["points_per_rank"]) * ranks):
         raise ValueError(f"{name}: points_total {total} is not "
                          f"points_per_rank x ranks")
+    check = getattr(module, "check", None)
+    if check is not None:
+        check(name, config, traffic)
 
 
 def load_cell(name: str, root: Path | None = None,
@@ -114,7 +165,8 @@ def load_cell(name: str, root: Path | None = None,
     """The cell ``name`` as ``BENCHMARK.json`` (in ``root``, the checkout)
     and its files describe it. Raises KeyError for a cell
     ``BENCHMARK.json`` does not list, and ValueError for files that
-    disagree with it or state a key no driver reads."""
+    disagree with it, state a key no driver reads, or name a pipeline
+    with no sound file."""
     here = HERE if root is None else Path(root) / "knnbench"
     if bench is None:
         bench = _read_json(here.parent / "BENCHMARK.json")
@@ -130,7 +182,7 @@ def load_cell(name: str, root: Path | None = None,
     config.update(own.get("config_params", {}))
     traffic = _read_json(here / "traffic" / f"{entry['traffic']}.json")
     traffic.update(own.get("traffic_params", {}))
-    check_keys(name, own, config, traffic)
+    check_keys(name, own, config, traffic, here.parent)
     return Cell(name=name, root=here.parent, chips=int(entry["chips"]),
                 config=config,
                 traffic=traffic,

@@ -2,11 +2,12 @@
 knnbench/tests`` from the checkout's root).
 
 ``tiny_root`` is a temporary checkout: a ``BENCHMARK.json`` and a
-``knnbench/`` of data files copied from this one, plus small cells of each
-driver (``tiny-sj``, ``tiny-serve``, ``tiny-ring``) that a CPU runs in
-seconds; the harness's code is this checkout's. No serving cell is in
-``BENCHMARK.json``, so ``tiny-serve`` and its metrics are written out
-here: the index of ``unordered3d_k100``, the open loop's mix."""
+``knnbench/`` of data files (and pipeline files, once there are any) copied
+from this one, plus small cells of each driver (``tiny-sj``, ``tiny-serve``,
+``tiny-ring``) that a CPU runs in seconds; the harness's code is this
+checkout's. No serving cell is in ``BENCHMARK.json``, so ``tiny-serve`` and
+its metrics are written out here: the index of ``unordered3d_k100``, the
+open loop's mix."""
 
 import json
 import shutil
@@ -62,8 +63,9 @@ def make_root(dest: Path) -> Path:
     ones; returns ``dest``."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     kb = dest / "knnbench"
-    for sub in ("configs", "traffic", "workloads", "metrics"):
-        shutil.copytree(ROOT / "knnbench" / sub, kb / sub)
+    for sub in ("configs", "traffic", "workloads", "metrics", "pipelines"):
+        if (ROOT / "knnbench" / sub).is_dir():
+            shutil.copytree(ROOT / "knnbench" / sub, kb / sub)
     for group, metrics in SERVE_METRICS.items():
         bench[group] += [dict(m, workloads=["tiny-serve"]) for m in metrics]
     for name, (like, config, traffic) in TINY.items():
@@ -85,6 +87,16 @@ def make_root(dest: Path) -> Path:
         bench["workloads"].append(dict(entry, name=name))
     (dest / "BENCHMARK.json").write_text(json.dumps(bench))
     return dest
+
+
+def program_spans(root: Path, cell: str) -> set:
+    """The per-layer metrics of ``cell`` in ``root``'s ``BENCHMARK.json``
+    that a CPU run reads: those from the program's spans (a device trace
+    has nothing to read there)."""
+    from knnbench.spec import load_cell
+
+    return {m["name"] for m in load_cell(cell, root).per_layer
+            if m["source"] == "program_span"}
 
 
 @pytest.fixture

@@ -7,7 +7,7 @@ import time
 import numpy as np
 import pytest
 import torch
-from conftest import ROOT
+from conftest import ROOT, program_spans
 
 from knnbench import drivers
 from knnbench.run import execute
@@ -70,8 +70,7 @@ def test_selfjoin_cell_is_correct_and_reports_its_metrics(tiny_root):
                                                 ["value"])
     traced = run(tiny_root, "tiny-sj", trace=True)
     assert traced["correct"]
-    assert set(traced["metrics"]) == {"stage.warm_start_s.selfjoin",
-                                      "stage.traverse_s.selfjoin"}
+    assert set(traced["metrics"]) == program_spans(tiny_root, "tiny-sj")
 
 
 @pytest.mark.parametrize("fault", [_state_unchanged, _half_left_out,
