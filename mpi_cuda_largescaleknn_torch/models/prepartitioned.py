@@ -10,6 +10,14 @@ shards are virtual: all of them live on the one card. A run with
 otherwise ``demand_knn_stepwise`` runs the rounds, with a checkpoint
 between them where ``checkpoint_dir`` is set (without one it is
 ``demand_knn``).
+
+``PrePartitionedKNN.timers`` time a run's phases ``pad``, ``demand_ring``
+and ``extract``, and inside ``demand_ring`` the demand ring's stages
+(``upload``, ``partition``, ``init``, ``traverse``, ``final``), its host
+phase ``radius`` and device span ``box_order``, and its counters
+``demand_radius_reads`` and ``demand_folds_pruned``
+(``parallel/demand.py``); ``last_stats`` keeps the ring's returned stats
+alone.
 """
 
 from __future__ import annotations

@@ -36,10 +36,21 @@ loops share the per-round pieces of ``_make_demand_fns``:
 process; every round is read on the host anyway, so ``demand_knn``, JAX's
 fused loop, is it without a checkpoint) and ``demand_knn_chunked`` (the
 query side streamed in chunks, one process, as in JAX).
+
+Tracing (``timers=``, an ``obs.timers.PhaseTimers``): the stages
+``upload``, ``partition``, ``init``, ``traverse`` and ``final`` (each
+ended by a synchronisation; ``chunks`` in the chunked loop); inside the
+rounds the host phase ``radius`` (every ``.item()`` read of a shard's
+worst radius, a wait on the card) and the device span ``box_order`` (the
+``pallas_tiled`` folds' box order, settled by the stage); and the counters
+``demand_radius_reads`` (those reads) and ``demand_folds_pruned`` (the
+arrivals a shard held in a round that the box test skipped). The returned
+stats stay ``rounds``, ``kernels_run`` and ``rotations_run``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -107,7 +118,8 @@ class DemandCtx(NamedTuple):
 
 
 def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
-                     mesh: Mesh, *, warm_start=False, point_group=1):
+                     mesh: Mesh, *, warm_start=False, point_group=1,
+                     timers=None):
     """The per-round pieces of the stepwise and chunked demand loops over
     ``mesh``'s positions: (shard_init_fn, query_init_fn, rows_fn,
     round_fn, final_fn).
@@ -133,6 +145,13 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
       shard that has not arrived yet.
     - final_fn(ctx, heaps, n) -> (dists f32[len(heaps)*n],
       CandidateState) in slab-row order.
+
+    ``timers`` (an ``obs.timers.PhaseTimers``) times each host read of a
+    shard's worst radius as the phase ``radius`` and counts it in
+    ``demand_radius_reads``, times the ``pallas_tiled`` folds' box order
+    as the device span ``box_order``, and counts in
+    ``demand_folds_pruned`` the arrivals a shard held in a round that the
+    box test skipped (a direction that stopped rotating holds none).
     """
     num_shards = mesh.num_shards
     mine = torch.tensor(mesh.positions)
@@ -140,7 +159,8 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
     warm_start = warm_start and engine == "pallas_tiled"
     if use_tiled:
         tiled_update = (knn_update_tiled if engine == "tiled" else
-                        knn_update_tiled_cuda)
+                        functools.partial(knn_update_tiled_cuda,
+                                          timers=timers))
     else:
         flat_fold = flat_fold_fn(engine, query_tile, point_tile)
     total = ring_total_rounds(num_shards)
@@ -185,7 +205,12 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
                 for v in ctx.heap_valid]
 
     def radius(ctx, heap, i) -> float:
-        return current_worst_radius(heap, ctx.heap_valid[i]).item()
+        # a host wait on the card
+        if timers is None:
+            return current_worst_radius(heap, ctx.heap_valid[i]).item()
+        timers.count("demand_radius_reads")
+        with timers.phase("radius"):
+            return current_worst_radius(heap, ctx.heap_valid[i]).item()
 
     def fold(ctx, heap, j, shard, skip_self=False):
         if not use_tiled:
@@ -195,6 +220,10 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
 
     def round_fn(ctx, ring, heaps, rnd, counts):
         heaps, counts = list(heaps), [list(c) for c in counts]
+        # the copies this round holds: round 0's own shard, then each
+        # direction's arrival while it rotates
+        held_f, held_b = getattr(ring, "held", (True, True))
+        pruned = 0
         entry = [radius(ctx, heaps[j], j) for j in range(len(heaps))]
         need_f = need_b = False
         for j, i in enumerate(mesh.positions):
@@ -224,10 +253,15 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
                 rad = radius(ctx, heaps[j], j)
             counts[j][0] += int(visit_f) + int(visit_b)
             counts[j][1] += int(need_f) + int(need_b)
+            pruned += (int(held_f) + int(held_b and src_b != src_f)
+                       - int(visit_f) - int(visit_b))
             keep_going |= bool(((ctx.arrival_round[j] > rnd)
                                 & (ctx.box_dist[j] < rad)).any())
         if need_f or need_b:
             ring.rotate(need_f, need_b)
+        ring.held = (need_f, need_b)
+        if timers is not None:
+            timers.count("demand_folds_pruned", pruned)
         # the loop ends on the mesh's predicate: every process enters
         # every collective as often
         return heaps, counts, mesh.any(keep_going)[0]
@@ -240,16 +274,18 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
 
 
 def _demand_setup(points_sharded, ids_sharded, num_shards, engine,
-                  bucket_size, point_group, device, mesh=None):
+                  bucket_size, point_group, device, mesh=None, timers=None):
     """(engine, bucket size, point group, mesh, points, ids, slabs) of a
     demand loop: this process's slabs on the mesh's device (every shard
-    on ``device`` without a mesh; None = the card)."""
+    on ``device`` without a mesh; None = the card), their upload timed as
+    the stage ``upload`` of ``timers``."""
     engine = resolve_engine(engine)
     bucket_size = resolve_bucket_size(bucket_size, engine)
     mesh = _resolve_mesh(mesh, num_shards, device)
     n_mine = len(mesh.positions)
-    pts, ids, slabs = _sharded_input(points_sharded, ids_sharded, n_mine,
-                                     mesh.device)
+    with timed_stage(timers, "upload", mesh.device):
+        pts, ids, slabs = _sharded_input(points_sharded, ids_sharded,
+                                         n_mine, mesh.device)
     npad = pts.shape[0] // n_mine
     point_group = _effective_group(point_group, npad, bucket_size, engine)
     return engine, bucket_size, point_group, mesh, pts, ids, slabs
@@ -283,10 +319,15 @@ def demand_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
     ``kernels_run`` and ``rotations_run``. With ``mesh`` (a process
     group) the input is this process's block, the rows come back as
     ``{position: rows}`` and the per-shard lists are its positions'.
-    ``timers`` times the stages ``partition`` (tiled engines), ``init``
-    (bounds, schedule, warm start, the kd-trees), ``traverse`` and
-    ``final``, each ended by a device synchronisation. It is
-    ``demand_knn_stepwise`` without a checkpoint.
+    ``timers`` times the stages ``upload`` (the padded input onto the
+    device), ``partition`` (tiled engines), ``init`` (bounds, schedule,
+    warm start, the kd-trees), ``traverse`` and ``final``, each ended by a
+    device synchronisation; inside ``traverse`` the host phase ``radius``
+    (each read of a shard's worst radius, a wait on the card) and the
+    device span ``box_order`` (the ``pallas_tiled`` folds' box order);
+    and the counters ``demand_radius_reads`` and ``demand_folds_pruned``
+    (``_make_demand_fns``). It is ``demand_knn_stepwise`` without a
+    checkpoint.
     """
     return demand_knn_stepwise(
         points_sharded, ids_sharded, k, num_shards, max_radius=max_radius,
@@ -323,7 +364,7 @@ def demand_knn_stepwise(points_sharded, ids_sharded, k: int,
                          "mode")
     engine, bucket_size, point_group, mesh, pts, _ids, slabs = \
         _demand_setup(points_sharded, ids_sharded, num_shards, engine,
-                      bucket_size, point_group, device, mesh)
+                      bucket_size, point_group, device, mesh, timers)
     n_mine = len(mesh.positions)
     npad = pts.shape[0] // n_mine
     fp = None
@@ -337,7 +378,8 @@ def demand_knn_stepwise(points_sharded, ids_sharded, k: int,
             data=ckpt.data_digest(points_sharded, ids_sharded))
     shard_init_fn, query_init_fn, rows_fn, round_fn, final_fn = \
         _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
-                         mesh, warm_start=True, point_group=point_group)
+                         mesh, warm_start=True, point_group=point_group,
+                         timers=timers)
 
     with timed_stage(timers if engine in TILED_ENGINES else None,
                      "partition", pts.device):
@@ -413,10 +455,12 @@ def demand_knn_chunked(points_sharded, ids_sharded, k: int,
     ``return_candidates``) as tensors on the host, plus, with
     ``return_stats``, ``rounds`` (a list: the rounds of each chunk) and
     ``kernels_run`` and ``rotations_run`` summed over the chunks.
-    ``timers`` times ``partition`` (the resident sides) and ``chunks``."""
+    ``timers`` times ``upload``, ``partition`` (the resident sides) and
+    ``chunks``, and inside ``chunks`` what ``demand_knn``'s times inside
+    ``traverse``, with its counters."""
     engine, bucket_size, point_group, mesh, pts, ids, slabs = \
         _demand_setup(points_sharded, ids_sharded, num_shards, engine,
-                      bucket_size, point_group, device)
+                      bucket_size, point_group, device, timers=timers)
     dev = pts.device
     npad = pts.shape[0] // num_shards
     dim = pts.shape[1]
@@ -424,7 +468,7 @@ def demand_knn_chunked(points_sharded, ids_sharded, k: int,
     total = ring_total_rounds(num_shards)
     shard_init_fn, query_init_fn, rows_fn, round_fn, final_fn = \
         _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
-                         mesh, point_group=point_group)
+                         mesh, point_group=point_group, timers=timers)
     with timed_stage(timers, "partition", dev):
         resident, all_lower, all_upper = shard_init_fn(
             slabs, _partitions(engine, slabs, bucket_size))

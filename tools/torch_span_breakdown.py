@@ -2,7 +2,11 @@
 where the job's time goes, from the port's ``lsk.*`` spans.
 
 Runs a one-rank benchmark cell's jobs as ``knnbench/drivers.py`` runs them
-(``UnorderedKNN(KnnConfig(...)).run`` on host points drawn from the seed):
+(``UnorderedKNN(KnnConfig(...)).run`` on host points drawn from the seed),
+or as the cell's pipeline file does where its configuration names one
+(``model(cfg, device)``, ``host_parts(cfg, device, seed, ...)`` and the
+phases ``JOB_PHASES`` of ``knnbench/pipelines/<name>.py``, such as the
+pre-partitioned job's ``PrePartitionedKNN.run`` on its partitions):
 one warm-up job, then ``--jobs`` jobs untraced and the same jobs again
 under ``torch.profiler``, each traced job marked as
 ``knnbench/devtrace.py`` marks a window. Prints one JSON object, and
@@ -12,8 +16,8 @@ writes it to ``--out``:
 - ``job_s``, ``stages``: a traced job's wall time and each ``PhaseTimers``
   phase's seconds a job; ``covered``: the host phases (``shard_and_pad``,
   ``download``, ``trim``) and the ring's stages (``upload``,
-  ``partition``, ``warm_start``, ``traverse``, ``extract``) over the job's
-  time;
+  ``partition``, ``warm_start``, ``traverse``, ``extract``), or the
+  pipeline's ``JOB_PHASES``, over the job's time;
 - ``device_ops``: the device ops with the most time, each split by the
   path of ``lsk.*`` spans around the host call that launched it;
 - ``idle_gaps``, ``idle_lsk_share``: ``devtrace.summarize``'s labels of
@@ -129,18 +133,36 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from knnbench import data, devtrace
-    from knnbench.spec import load_cell
+    from knnbench.spec import load_cell, pipeline
     from mpi_cuda_largescaleknn_torch.core.config import KnnConfig
     from mpi_cuda_largescaleknn_torch.models.unordered import UnorderedKNN
 
     cell = load_cell(args.workload)
     cfg, spec = cell.config, cell.config["points"]
-    n = args.points or int(cfg["points_per_rank"])
     device = torch.device(args.device)
-    model = UnorderedKNN(KnnConfig(
-        k=int(cfg["k"]), device=str(device),
-        **{key: cfg[key] for key in ("engine", "score_dtype", "query_chunk",
-                                     "merge") if key in cfg}))
+    phases = JOB_PHASES
+    if "pipeline" in cfg:
+        piped = pipeline(cfg["pipeline"], cell.root)
+        ranks = int(cfg["ranks"])
+        if args.points:
+            npr = args.points // ranks
+            cfg = dict(cfg, points_per_rank=npr, points_total=npr * ranks)
+        n = int(cfg["points_per_rank"]) * ranks
+        model = piped.model(cfg, device)
+        phases = piped.JOB_PHASES
+
+        def points(*parts):
+            return piped.host_parts(cfg, device, args.seed, *parts)
+    else:
+        n = args.points or int(cfg["points_per_rank"])
+        model = UnorderedKNN(KnnConfig(
+            k=int(cfg["k"]), device=str(device),
+            **{key: cfg[key] for key in ("engine", "score_dtype",
+                                         "query_chunk", "merge")
+               if key in cfg}))
+
+        def points(*parts):
+            return data.host_points(spec, n, device, args.seed, *parts)
 
     def sync():
         if device.type == "cuda":
@@ -149,14 +171,14 @@ def main(argv=None) -> int:
     def jobs(window) -> float:
         wall = 0.0
         for j in range(args.jobs):
-            pts = data.host_points(spec, n, device, args.seed, "job", j)
+            pts = points("job", j)
             with window():
                 t0 = time.perf_counter()
                 model.run(pts)
                 wall += time.perf_counter() - t0
         return wall
 
-    model.run(data.host_points(spec, n, device, args.seed, "warmup", 0))
+    model.run(points("warmup", 0))
     sync()
     plain_s = jobs(contextlib.nullcontext)
     before = {k: r.seconds for k, r in model.timers.phases.items()}
@@ -177,7 +199,7 @@ def main(argv=None) -> int:
         "points_per_s": {"untraced": n * args.jobs / plain_s,
                          "traced": n * args.jobs / traced_s},
         "job_s": job_s, "stages": stages,
-        "covered": sum(stages.get(k, 0.0) for k in JOB_PHASES) / job_s,
+        "covered": sum(stages.get(k, 0.0) for k in phases) / job_s,
         "device_ops": top_ops(device_by_span(prof.events(), devtrace.WINDOW),
                               8, args.jobs),
         "idle_gaps": [[label, s / args.jobs] for label, s in gaps[:10]],
