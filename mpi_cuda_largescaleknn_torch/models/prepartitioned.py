@@ -14,7 +14,8 @@ between them where ``checkpoint_dir`` is set (without one it is
 ``PrePartitionedKNN.timers`` time a run's phases ``pad``, ``demand_ring``
 and ``extract``, and inside ``demand_ring`` the demand ring's stages
 (``upload``, ``partition``, ``init``, ``traverse``, ``final``), its host
-phase ``radius`` and device span ``box_order``, and its counters
+phase ``radius`` (each batched read of the shards' worst radii, one wait on
+the card) and device span ``box_order``, and its counters
 ``demand_radius_reads`` and ``demand_folds_pruned``
 (``parallel/demand.py``); ``last_stats`` keeps the ring's returned stats
 alone.

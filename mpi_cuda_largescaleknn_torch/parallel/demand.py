@@ -13,6 +13,13 @@ strictly closer than the shard's current worst k-th distance:
   (not in a duplicate round) against the radius refreshed after the
   forward fold; round 0's forward fold is the own shard, which the tiled
   engine has warm-started and folds with ``skip_self``;
+- the host reads the radii in batches, one wait on the card each: every
+  shard's forward fold is launched, then the refreshed radii of the shards
+  that folded are read at once, and so for the backward folds; a round's
+  entry radii are those the last round ended with (a rotation never
+  touches the heaps), so only a ring's first round reads them. Each shard
+  decides on its own radius alone, so the folds are those of a loop that
+  reads after every fold;
 - a direction's rotation counts as run in a round while some shard still
   needs a future delivery from it, judged on the round-entry radius (radii
   only shrink, so once off it stays off and no later visit was starved);
@@ -40,16 +47,18 @@ query side streamed in chunks, one process, as in JAX).
 Tracing (``timers=``, an ``obs.timers.PhaseTimers``): the stages
 ``upload``, ``partition``, ``init``, ``traverse`` and ``final`` (each
 ended by a synchronisation; ``chunks`` in the chunked loop); inside the
-rounds the host phase ``radius`` (every ``.item()`` read of a shard's
-worst radius, a wait on the card) and the device span ``box_order`` (the
-``pallas_tiled`` folds' box order, settled by the stage); and the counters
-``demand_radius_reads`` (those reads) and ``demand_folds_pruned`` (the
+rounds the host phase ``radius`` (each batched read of the shards' worst
+radii, one wait on the card however many shards it carries) and the device
+span ``box_order`` (the ``pallas_tiled`` folds' box order, settled by the
+stage); and the counters ``demand_radius_reads`` (those waits: at most 1 +
+2 x rounds a ring) and ``demand_folds_pruned`` (the
 arrivals a shard held in a round that the box test skipped). The returned
 stats stay ``rounds``, ``kernels_run`` and ``rotations_run``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple
 
@@ -138,16 +147,21 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
     - rows_fn(ctx) -> rows: each shard's starting rows, warm-started with
       their own bucket where ``warm_start``, else cold.
     - round_fn(ctx, ring, heaps, rnd, counts) -> (heaps, counts,
-      keep_going): folds the copies ``ring`` (a ``ShardRing``) holds,
-      then rotates each direction some shard still needs; ``counts`` is
+      keep_going): folds the copies ``ring`` (a ``ShardRing``) holds, a
+      direction's folds back to back, then rotates each direction some
+      shard still needs, and keeps the radii it ended with as
+      ``ring.radii``, the next round's entry radii; ``counts`` is
       the per-shard list of [kernels run, direction-rotations run];
       ``keep_going`` says whether any shard of the mesh still needs a
       shard that has not arrived yet.
     - final_fn(ctx, heaps, n) -> (dists f32[len(heaps)*n],
       CandidateState) in slab-row order.
 
-    ``timers`` (an ``obs.timers.PhaseTimers``) times each host read of a
-    shard's worst radius as the phase ``radius`` and counts it in
+    ``timers`` (an ``obs.timers.PhaseTimers``) times each host read of
+    the shards' worst radii (one wait on the card, however many shards it
+    carries: a ring's first round reads every shard's, then a round reads
+    those of the shards that folded forward, and those that folded
+    backward) as the phase ``radius`` and counts it in
     ``demand_radius_reads``, times the ``pallas_tiled`` folds' box order
     as the device span ``box_order``, and counts in
     ``demand_folds_pruned`` the arrivals a shard held in a round that the
@@ -204,13 +218,20 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
         return [init_candidates(v.numel(), k, max_radius, device=v.device)
                 for v in ctx.heap_valid]
 
-    def radius(ctx, heap, i) -> float:
-        # a host wait on the card
-        if timers is None:
-            return current_worst_radius(heap, ctx.heap_valid[i]).item()
-        timers.count("demand_radius_reads")
-        with timers.phase("radius"):
-            return current_worst_radius(heap, ctx.heap_valid[i]).item()
+    def read_radii(ctx, heaps, rad, js) -> None:
+        # the worst radii of the shards js into rad: one host wait on the
+        # card, however many shards it carries
+        if not js:
+            return
+        if timers is not None:
+            timers.count("demand_radius_reads")
+        with (contextlib.nullcontext() if timers is None
+              else timers.phase("radius")):
+            got = torch.stack([current_worst_radius(heaps[j],
+                                                    ctx.heap_valid[j])
+                               for j in js]).tolist()
+        for j, r in zip(js, got):
+            rad[j] = r
 
     def fold(ctx, heap, j, shard, skip_self=False):
         if not use_tiled:
@@ -220,11 +241,16 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
 
     def round_fn(ctx, ring, heaps, rnd, counts):
         heaps, counts = list(heaps), [list(c) for c in counts]
+        here = range(len(heaps))
         # the copies this round holds: round 0's own shard, then each
         # direction's arrival while it rotates
         held_f, held_b = getattr(ring, "held", (True, True))
-        pruned = 0
-        entry = [radius(ctx, heaps[j], j) for j in range(len(heaps))]
+        # the radii the last round ended with: a rotation never touches the
+        # heaps, so only a ring's first round reads them
+        entry = getattr(ring, "radii", None)
+        if entry is None:
+            entry = [0.0] * len(heaps)
+            read_radii(ctx, heaps, entry, here)
         need_f = need_b = False
         for j, i in enumerate(mesh.positions):
             near = ctx.box_dist[j] < entry[j]
@@ -235,31 +261,37 @@ def _make_demand_fns(k, max_radius, engine, query_tile, point_tile,
                             & near).any())
         # one all-reduce for both directions, on the round-entry radii
         need_f, need_b = mesh.any(need_f, need_b)
-        keep_going = False
-        for j, i in enumerate(mesh.positions):
-            # a direction that did not rotate holds a stale copy, never
-            # visited: radii only shrink, so its need stayed off
-            src_f = (i - rnd) % num_shards
-            src_b = (i + rnd) % num_shards
-            visit_f = bool(ctx.box_dist[j, src_f] < entry[j])
-            rad = entry[j]
-            if visit_f:
+        # each phase launches every shard's fold with no read between them;
+        # a direction that did not rotate holds a stale copy, never
+        # visited: radii only shrink, so its need stayed off
+        src_f = [(i - rnd) % num_shards for i in mesh.positions]
+        src_b = [(i + rnd) % num_shards for i in mesh.positions]
+        rad = list(entry)
+        visit_f = [bool(ctx.box_dist[j, src_f[j]] < entry[j]) for j in here]
+        for j in here:
+            if visit_f[j]:
                 heaps[j] = fold(ctx, heaps[j], j, ring.fwd[j].parts,
                                 skip_self=warm_start and rnd == 0)
-                rad = radius(ctx, heaps[j], j)
-            visit_b = src_b != src_f and bool(ctx.box_dist[j, src_b] < rad)
-            if visit_b:
+        read_radii(ctx, heaps, rad, [j for j in here if visit_f[j]])
+        visit_b = [src_b[j] != src_f[j]
+                   and bool(ctx.box_dist[j, src_b[j]] < rad[j]) for j in here]
+        for j in here:
+            if visit_b[j]:
                 heaps[j] = fold(ctx, heaps[j], j, ring.bwd[j].parts)
-                rad = radius(ctx, heaps[j], j)
-            counts[j][0] += int(visit_f) + int(visit_b)
+        read_radii(ctx, heaps, rad, [j for j in here if visit_b[j]])
+        pruned = 0
+        keep_going = False
+        for j in here:
+            counts[j][0] += int(visit_f[j]) + int(visit_b[j])
             counts[j][1] += int(need_f) + int(need_b)
-            pruned += (int(held_f) + int(held_b and src_b != src_f)
-                       - int(visit_f) - int(visit_b))
+            pruned += (int(held_f) + int(held_b and src_b[j] != src_f[j])
+                       - int(visit_f[j]) - int(visit_b[j]))
             keep_going |= bool(((ctx.arrival_round[j] > rnd)
-                                & (ctx.box_dist[j] < rad)).any())
+                                & (ctx.box_dist[j] < rad[j])).any())
         if need_f or need_b:
             ring.rotate(need_f, need_b)
         ring.held = (need_f, need_b)
+        ring.radii = rad
         if timers is not None:
             timers.count("demand_folds_pruned", pruned)
         # the loop ends on the mesh's predicate: every process enters
@@ -323,8 +355,8 @@ def demand_knn(points_sharded, ids_sharded, k: int, num_shards: int, *,
     device), ``partition`` (tiled engines), ``init`` (bounds, schedule,
     warm start, the kd-trees), ``traverse`` and ``final``, each ended by a
     device synchronisation; inside ``traverse`` the host phase ``radius``
-    (each read of a shard's worst radius, a wait on the card) and the
-    device span ``box_order`` (the ``pallas_tiled`` folds' box order);
+    (each batched read of the shards' worst radii, a wait on the card) and
+    the device span ``box_order`` (the ``pallas_tiled`` folds' box order);
     and the counters ``demand_radius_reads`` and ``demand_folds_pruned``
     (``_make_demand_fns``). It is ``demand_knn_stepwise`` without a
     checkpoint.

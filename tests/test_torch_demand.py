@@ -3,7 +3,10 @@ on the CPU: ``ring_knn(engine="pallas")`` at R=1 and R=4, ``demand_knn``
 through ``PrePartitionedKNN`` at R=4 and R=8 for both engine families, and
 the pre-partitioned CLI's rank files. Distances bitwise, ids equal on real
 rows, and the demand stats ``rounds``, ``kernels_run`` and
-``rotations_run`` equal. The JAX side runs its Pallas kernels in interpret
+``rotations_run`` equal. The demand rounds' order at R=4 and R=5, stepwise
+and chunked: each heap's folds those of a per-shard replay that reads the
+radius after every fold, and no radius read between two folds of one
+direction. The JAX side runs its Pallas kernels in interpret
 mode under explicit engine names (its ``auto`` means the XLA twin off a
 TPU)."""
 
@@ -132,10 +135,18 @@ def layout(name, num_shards):
                 for i, n in enumerate(sizes)], 5, math.inf
     if name == "radius":
         return separated(num_shards, 36, 5.0, 40), 30, 0.25
+    if name == "twins":
+        # shards 2m and 2m+1 share a box, pairs 0.5 apart: a shard's
+        # backward visit turns on the radius its forward fold left
+        parts = [random_points(48, seed=90 + i) for i in range(num_shards)]
+        for i, p in enumerate(parts):
+            p[:, 0] += (i // 2) * 1.5
+        return parts, 8, math.inf
     raise ValueError(name)
 
 
-LAYOUTS = ["overlapping", "disjoint", "adjacent", "uneven_empty", "radius"]
+LAYOUTS = ["overlapping", "disjoint", "adjacent", "uneven_empty", "radius",
+           "twins"]
 
 
 @pytest.mark.parametrize("engine", ["pallas_tiled", "pallas"])
@@ -159,6 +170,145 @@ def test_demand_matches_jax(name, num_shards, engine):
     np.testing.assert_allclose(np.concatenate(got_d),
                                kth_nn_dist(allp, allp, k, radius),
                                rtol=5e-7, atol=1e-37)
+
+
+class RoundSpy:
+    """Wraps the demand ring's pieces for one run: for each query side
+    (the run, or each chunk) its context, residents and starting rows,
+    and one event log in launch order of each round's start ("round", r),
+    each fold ("fold", shard, source shard, skip_self) and each shard's
+    radius read ("radius", shard)."""
+
+    def __init__(self, monkeypatch):
+        self.sides = []
+        real_make = tdemand._make_demand_fns
+        real_fold = tdemand.knn_update_tiled_cuda
+        real_radius = tdemand.current_worst_radius
+
+        def make(*args, **kwargs):
+            shard_init, query_init, rows_fn, round_fn, final_fn = \
+                real_make(*args, **kwargs)
+
+            def query_init_spy(resident, *a, **kw):
+                ctx = query_init(resident, *a, **kw)
+                self.sides.append({"ctx": ctx, "resident": resident,
+                                   "log": []})
+                return ctx
+
+            def rows_spy(ctx):
+                self.sides[-1]["rows"] = rows_fn(ctx)
+                return self.sides[-1]["rows"]
+
+            def round_spy(ctx, ring, heaps, rnd, counts):
+                self.sides[-1]["log"].append(("round", rnd))
+                return round_fn(ctx, ring, heaps, rnd, counts)
+            return shard_init, query_init_spy, rows_spy, round_spy, final_fn
+
+        def fold(state, q, p, **kw):
+            side = self.sides[-1]
+            side["log"].append(("fold", _index(side["ctx"].stationary, q),
+                                _index(side["resident"], p),
+                                kw["skip_self"]))
+            self.self_group = kw["self_group"]
+            return real_fold(state, q, p, **kw)
+
+        def radius(state, valid):
+            side = self.sides[-1]
+            side["log"].append(("radius",
+                                _index(side["ctx"].heap_valid, valid)))
+            return real_radius(state, valid)
+
+        self.fold, self.radius = real_fold, real_radius
+        monkeypatch.setattr(tdemand, "_make_demand_fns", make)
+        monkeypatch.setattr(tdemand, "knn_update_tiled_cuda", fold)
+        monkeypatch.setattr(tdemand, "current_worst_radius", radius)
+
+    def replay(self, side, warm):
+        """Each heap's folds (source shard, skip_self) as a loop over the
+        shards one at a time gives them, reading a shard's radius after
+        each of its folds, for as many rounds as the side ran."""
+        ctx, num = side["ctx"], len(side["rows"])
+        rounds = sum(e[0] == "round" for e in side["log"])
+        out = []
+        for j, heap in enumerate(side["rows"]):
+            seq = []
+
+            def visit(heap, src, skip):
+                seq.append((src, skip))
+                heap = self.fold(heap, ctx.stationary[j],
+                                 side["resident"][src], skip_self=skip,
+                                 self_group=self.self_group)
+                return heap, self.radius(heap, ctx.heap_valid[j]).item()
+            rad = self.radius(heap, ctx.heap_valid[j]).item()
+            for r in range(rounds):
+                src_f, src_b = (j - r) % num, (j + r) % num
+                if ctx.box_dist[j, src_f] < rad:
+                    heap, rad = visit(heap, src_f, warm and r == 0)
+                if src_b != src_f and ctx.box_dist[j, src_b] < rad:
+                    heap, rad = visit(heap, src_b, False)
+            out.append(seq)
+        return out
+
+
+def _index(items, item) -> int:
+    return next(i for i, x in enumerate(items) if x is item)
+
+
+def _rounds_of(log):
+    """The log cut at each round's start: [[event, ...], ...]."""
+    out = []
+    for event in log:
+        if event[0] == "round":
+            out.append([])
+        else:
+            out[-1].append(event)
+    return out
+
+
+@pytest.mark.parametrize("chunk", [0, 24], ids=["stepwise", "chunked"])
+@pytest.mark.parametrize("num_shards", [5, 4])
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_demand_folds_each_direction_back_to_back(monkeypatch, name,
+                                                  num_shards, chunk):
+    # every heap sees the folds of a loop that reads its radius after each
+    # fold, while a round reads no radius between two folds of a direction
+    parts, k, radius = layout(name, num_shards)
+    spy = RoundSpy(monkeypatch)
+    cfg = dict(k=k, max_radius=radius, engine="pallas_tiled", bucket_size=16,
+               query_chunk=chunk, **TILES)
+    tm = TPre(TConfig(num_shards=0, device="cpu", **cfg))
+    got_d, got_i = tm.run(parts, return_neighbors=True)
+    assert len(spy.sides) == len(tm.last_stats.get("rounds_per_chunk", [0]))
+    waits = 0
+    for side in spy.sides:
+        log = side["log"]
+        folds = [[] for _ in range(num_shards)]
+        for e in log:
+            if e[0] == "fold":
+                folds[e[1]].append(e[2:])
+        assert folds == spy.replay(side, warm=chunk == 0)
+        for r, events in enumerate(_rounds_of(log)):
+            kinds = ["radius" if e[0] == "radius" else
+                     "fwd" if e[2] == (e[1] - r) % num_shards else "bwd"
+                     for e in events]
+            for kind in ("fwd", "bwd"):
+                at = [i for i, x in enumerate(kinds) if x == kind]
+                assert not at or kinds[at[0]:at[-1] + 1] == [kind] * len(at)
+            # a read is a run of radius events: at most the entry radii,
+            # then one after each direction's folds
+            runs = sum(x == "radius" and (i == 0 or kinds[i - 1] != x)
+                       for i, x in enumerate(kinds))
+            assert runs <= (3 if r == 0 else 2), kinds
+            waits += runs
+    assert tm.timers.counters["demand_radius_reads"] == waits
+    jm = JPre(JConfig(**cfg), mesh=get_mesh(num_shards))
+    want_d, want_i = jm.run(parts, return_neighbors=True)
+    for g, w in zip(got_d, want_d):
+        assert_bitwise(g, np.asarray(w))
+    for g, w in zip(got_i, want_i):
+        assert_bitwise(g, np.asarray(w))
+    assert tm.last_stats == {key: jm.last_stats[key]
+                             for key in tm.last_stats}
 
 
 @pytest.mark.parametrize("engine,rotations", [("auto", 0), ("pallas", 2)])

@@ -114,7 +114,10 @@ def test_prepartitioned_run_matches_the_reference_on_every_row(k):
 def _replay(parts, k):
     """The demand ring's schedule replayed from the partitions' boxes,
     with each shard's worst radius from the reference over the shards it
-    has folded: (rounds, folds a shard, radius reads, arrivals pruned)."""
+    has folded: (rounds, folds a shard, radius reads, arrivals pruned). A
+    read is one wait on the card for a batch of shards: every shard's
+    entry radius in the first round, then in each round the radii of the
+    shards that folded forward, and of those that folded backward."""
     r_ = len(parts)
     lo = np.stack([p.min(0) for p in parts]).astype(np.float64)
     hi = np.stack([p.max(0) for p in parts]).astype(np.float64)
@@ -136,17 +139,17 @@ def _replay(parts, k):
                                        k).max()
 
     folds = np.zeros(r_, int)
-    reads = pruned = rnd = 0
+    pruned = rnd = 0
+    reads = 1
     held = (True, True)
     while True:
         entry = [worst(j) for j in range(r_)]
-        reads += r_
         need_f = any(((off[j] > rnd) & (off[j] < total)
                       & (box[j] < entry[j])).any() for j in range(r_))
         offb = (-off) % r_
         need_b = any(((offb[j] > rnd) & (offb[j] < bwd_total)
                       & (box[j] < entry[j])).any() for j in range(r_))
-        keep = False
+        keep = any_f = any_b = False
         for j in range(r_):
             src_f, src_b = (j - rnd) % r_, (j + rnd) % r_
             visit_f = box[j, src_f] < entry[j]
@@ -154,16 +157,17 @@ def _replay(parts, k):
             if visit_f:
                 seen[j].add(src_f)
                 rad = worst(j)
-                reads += 1
             visit_b = src_b != src_f and box[j, src_b] < rad
             if visit_b:
                 seen[j].add(src_b)
                 rad = worst(j)
-                reads += 1
+            any_f |= bool(visit_f)
+            any_b |= bool(visit_b)
             folds[j] += int(visit_f) + int(visit_b)
             pruned += (int(held[0]) + int(held[1] and src_b != src_f)
                        - int(visit_f) - int(visit_b))
             keep |= bool(((arrival[j] > rnd) & (box[j] < rad)).any())
+        reads += int(any_f) + int(any_b)
         held = (need_f, need_b)
         rnd += 1
         if not keep or rnd >= total:
@@ -179,8 +183,7 @@ def test_demand_counters_match_a_replay_from_the_boxes(ranks, npr, k):
     stats = model.last_stats
     assert (stats["rounds"], stats["kernels_run"]) == (rounds, folds)
     counters = model.timers.counters
-    assert counters["demand_radius_reads"] == reads == \
-        rounds * ranks + sum(folds)
+    assert counters["demand_radius_reads"] == reads <= 1 + 2 * rounds
     assert counters["demand_folds_pruned"] == pruned
     # the layout prunes and exits early at these sizes
     assert pruned > 0 and rounds < ranks // 2 + 1
